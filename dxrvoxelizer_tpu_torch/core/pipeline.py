@@ -1,0 +1,192 @@
+"""Explicit pass functions + frame pipeline.
+
+Port of ``dxrvoxelizer_tpu/core/pipeline.py`` for the static parity frame.
+The reference's per-frame loop (Content/Voxelizer.cpp:108-113) is
+``Render = voxelize() ; renderRayCast()`` against triple-buffered grids
+(FrameCount = 3, Voxelizer.h:24). Here the two passes are torch functions on
+device tensors; CUDA launches are asynchronous, and the ring of frames in
+flight holds one CUDA event per frame.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
+from dxrvoxelizer_tpu_torch.models.scene import FrameConstants
+from dxrvoxelizer_tpu_torch.ops import binning, voxelize_ref
+from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z, unpack_bits_z
+from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
+    light_sweep_host,
+    light_sweep_ref_host,
+    raymarch_shearwarp,
+)
+from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import TILE
+from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+
+FRAME_COUNT = 3  # frames in flight (reference: Voxelizer.h:24)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the CUDA build yet (ROADMAP.md, queue 1, "
+        f"{item!r})"
+    )
+
+
+@dataclass
+class VoxelGrid:
+    """One voxelization result: packed occupancy bits [N,N,N//32] int32."""
+
+    words: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return int(self.words.shape[0])
+
+    def occupancy(self) -> torch.Tensor:
+        return unpack_bits_z(self.words, self.n)
+
+    def density(self) -> torch.Tensor:
+        """Occupancy as float (the raymarcher's input)."""
+        return self.occupancy().to(torch.float32)
+
+
+def _kernel_ok(n: int, device: torch.device) -> bool:
+    """The binned CUDA kernel takes every multiple-of-32 grid on a GPU."""
+    return n % TILE == 0 and device.type == "cuda"
+
+
+def voxelize(
+    mesh: MeshBuffers,
+    n: int,
+    mode: str = "parity",
+    impl: str = "auto",
+    with_normals: bool = False,
+) -> VoxelGrid:
+    """Solid-voxelize a mesh -> :class:`VoxelGrid` on the mesh's device.
+
+    ``impl``: "auto" picks the binned CUDA kernel on a GPU (at every grid
+    size until the work-queue kernel is ported; both give the same words)
+    and the counting oracle on the CPU; "pallas" is the binned path (the
+    kernel's plain version on the CPU); "xla" is always the oracle.
+    """
+    if mode == "raystab":
+        raise _not_ported("the ray-stab inside rule (-inside raystab)",
+                          "Ray-stab, gen-6 (64³)")
+    if mode != "parity":
+        raise ValueError(f"unknown inside mode {mode!r}")
+    if with_normals:
+        raise _not_ported("the parity normal channel (-normals)",
+                          "Ray-stab, gen-7 (≥128³)")
+    if impl == "auto":
+        impl = "pallas" if _kernel_ok(n, mesh.device) else "xla"
+    if impl == "queue":
+        raise _not_ported("the work-queue voxelizer", "≥128³ voxelize")
+    if impl == "pallas":
+        words = binning.voxelize_parity_binned(mesh.positions_norm, mesh.tris, n)
+    elif impl == "xla":
+        words = pack_bits_z(
+            voxelize_ref.voxelize_parity_ref(mesh.positions_norm, mesh.tris, n=n)
+        )
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+    return VoxelGrid(words=words)
+
+
+def render(
+    grid: VoxelGrid,
+    consts: FrameConstants,
+    cfg: VoxelizerConfig,
+    impl: str = "warp",
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Ray-march a grid -> [H,W,3] float32 image on the grid's device.
+
+    ``impl``: "warp" (shear-warp, the production path). ``use_kernels=False``
+    runs the plain versions of the march and resolve kernels (the on-card
+    reference).
+    """
+    if impl in ("gather", "ref"):
+        raise _not_ported(f"the {impl!r} renderer", "Render variants")
+    if impl != "warp":
+        raise ValueError(f"unknown renderer impl {impl!r}")
+    if cfg.show_mip > 0:
+        raise _not_ported("mip rendering (-showmip)", "Render variants")
+    if cfg.point_light:
+        raise _not_ported("the point light (-pointlight)", "Render variants")
+    density = grid.density()
+    # -hq: reference-step light field; -fast: per-slab recurrence
+    sweep = light_sweep_ref_host if cfg.render_ss > 1 else light_sweep_host
+    light_volume = sweep(density, consts.local_space_light_pt, density.shape[0])
+    return raymarch_shearwarp(
+        density, light_volume, consts.screen_to_local,
+        consts.local_space_eye_pt, np.array(cfg.clear_color, np.float32),
+        cfg.width, cfg.height, m_cap=cfg.intermediate_cap, ss=cfg.render_ss,
+        use_kernels=use_kernels,
+    )
+
+
+class FramePipeline:
+    """Explicit per-frame orchestration with FRAME_COUNT frames in flight.
+
+    The reference throttles the CPU to <= 3 recorded frames via a fence ring
+    (DXRVoxelizer.cpp:496-529). Here each CUDA frame records an event, and
+    the host waits on the oldest event before a fourth frame is queued.
+    """
+
+    def __init__(self, cfg: VoxelizerConfig, mesh: MeshBuffers,
+                 vox_impl: str = "auto", render_impl: str = "warp",
+                 deforming: bool = False):
+        if deforming:
+            raise _not_ported("the deforming-mesh path (-deform)",
+                              "≥128³ voxelize")
+        if cfg.inside_mode != "parity":
+            raise _not_ported("the ray-stab inside rule (-inside raystab)",
+                              "Ray-stab, gen-6 (64³)")
+        if cfg.parity_normals:
+            raise _not_ported("the parity normal channel (-normals)",
+                              "Ray-stab, gen-7 (≥128³)")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.vox_impl = vox_impl
+        self.render_impl = render_impl
+        self._inflight: list[torch.cuda.Event] = []
+        self._static_vox = None  # build-once binned voxelizer (static mesh)
+        self._static_vox_mesh = None
+
+    def frame(self, consts: FrameConstants) -> torch.Tensor:
+        """Voxelize + render one frame (asynchronous on CUDA) -> image."""
+        n = self.cfg.grid_size
+        device = self.mesh.device
+        if self.vox_impl == "queue":
+            raise _not_ported("the work-queue voxelizer", "≥128³ voxelize")
+        if self.vox_impl in ("auto", "pallas") and _kernel_ok(n, device):
+            # STATIC parity path: bin once, per frame only launch the
+            # kernel — the reference's build-AS-once (Voxelizer.cpp:264-326)
+            # + per-frame DispatchRays-only (:351-369) split. Rebuilds only
+            # when the mesh object is swapped.
+            if self._static_vox is None or self._static_vox_mesh is not self.mesh:
+                self._static_vox = binning.StaticBinnedVoxelizer(
+                    self.mesh.positions_norm, self.mesh.tris, n
+                )
+                self._static_vox_mesh = self.mesh
+            grid = VoxelGrid(words=self._static_vox())
+        else:
+            grid = voxelize(self.mesh, n, impl=self.vox_impl)
+        img = render(grid, consts, self.cfg, impl=self.render_impl)
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            self._inflight.append(done)
+            if len(self._inflight) > FRAME_COUNT:
+                self._inflight.pop(0).synchronize()  # fence on the oldest
+        return img
+
+    def sync(self) -> None:
+        for done in self._inflight:
+            done.synchronize()
+        self._inflight.clear()

@@ -1,0 +1,4 @@
+"""Voxelize and render ops. ``*_cuda.py`` modules hold a hand-written CUDA
+kernel's wrapper and its plain torch version; kernels build on first use."""
+
+from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_parity_ref  # noqa: F401

@@ -1,0 +1,156 @@
+"""Build, load and describe the port's hand-written CUDA kernels.
+
+The sources live in ``dxrvoxelizer_tpu_torch/csrc/*.cu``, each with a plain C
+entry point. They are compiled by ``nvcc`` into one shared library for Hopper
+(``sm_90a``) at first use, keyed by a hash of the sources and flags, into
+``dxrvoxelizer_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
+``ctypes``. Nothing here runs at import time: the CPU-only test machines
+import every module but never build.
+
+Every C entry point takes raw device pointers and the CUDA stream as
+``void*``, launches on that stream, and returns ``cudaGetLastError()``;
+:func:`check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (pointers and the stream as void*)
+_SIGNATURES = {
+    # coef, words, n_tiles, k, n, k_chunk, stream
+    "dxv_parity_voxelize": (_P, _P, _I, _I, _I, _I, _P),
+    # slabs, wts, front, scale_x, off_x, scale_y, off_y, delta,
+    # transmit, scatter, kn, n, m, ss, stream
+    "dxv_march": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # scatter, transmit, gx, gy, ok, out, p, m, c0, c1, c2, stream
+    "dxv_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+}
+
+
+@dataclass
+class Kernel:
+    """A hand-written kernel: where it lives, what it replaces, and how many
+    times its wrapper launched it (reset by callers that count a run)."""
+
+    name: str
+    symbol: str  # the __global__ function (as profilers name it)
+    source: str  # repository-relative path of the .cu file
+    replaces: str  # file:line of the Pallas TPU kernel it ports
+    route: str = "cuda"
+    launches: int = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.isfile(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is required")
+    return found
+
+
+@dataclass
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str  # nvcc's output (ptxas register/shared-memory report)
+
+
+@functools.cache
+def build() -> BuildInfo:
+    """Compile ``csrc/*.cu`` into one library unless it is already built."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the CUDA kernels cannot run")
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"libdxv_kernels_{h.hexdigest()[:16]}.so"
+    if out.is_file():
+        return BuildInfo(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # build under a temporary name, then rename: concurrent builds never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)],
+            capture_output=True, text=True,
+        )
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return BuildInfo(out, time.perf_counter() - t0, res.stdout + res.stderr)
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with every signature set."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            shape: tuple[int, ...] | None = None) -> None:
+    """Validate a kernel operand: CUDA, dtype, shape, contiguity."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,509 @@
+"""Shear-warp volume renderer (port of ``dxrvoxelizer_tpu/ops/raymarch_warp.py``).
+
+1. **Factorization.** Rays are parameterized by their intersection ``g`` with
+   a fixed reference plane behind the volume (perpendicular to the view's
+   major axis). A ray hits voxel slab k at
+   ``p_xy = e_xy + s_k * (g_xy - e_xy)``, ``s_k = (z_k - e_z)/(z_ref - e_z)``
+   — for a fixed slab this is a per-axis scale+translate of the slab image.
+2. **Compositing** runs front-to-back over slabs on the intermediate grid
+   with the shader's absorption rules (PSRayCast.hlsl:134-179). Steps 1 and
+   2 are one fused CUDA kernel (ops/march_cuda.py).
+3. **Light transmittance** comes from a slab-order recurrence along the
+   light's major axis (:func:`light_sweep`, or the reference-step
+   :func:`light_sweep_ref` of the ``-hq`` default) — torch tensor ops.
+4. **Screen resolve**: each screen pixel bilinearly reads the composited
+   intermediate at one point and is composited to RGB — the second CUDA
+   kernel (ops/screen_warp_cuda.py).
+
+Host-side statics (major axis, flip, intermediate size, light-step window)
+stay numpy, as in the JAX package; the small per-slab vectors are computed
+in float32 on the CPU and copied to the device in one transfer.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dxrvoxelizer_tpu_torch.ops.march_cuda import march, march_plain, zmix_slabs
+from dxrvoxelizer_tpu_torch.ops.raymarch_ref import ABSORPTION, MAX_DIST, TEX_SCALE
+from dxrvoxelizer_tpu_torch.ops.screen_warp_cuda import resolve, resolve_plain
+from dxrvoxelizer_tpu_torch.ops.warp import interp_matrix
+
+Z_REF = 1.25  # reference plane (tex space), just past the far slab
+S_MIN = 0.05  # near clipping for slabs almost at the eye plane
+_BIG = 3.402823466e38  # FLT_MAX: "no hit yet"
+
+
+def _perm_for_axis(axis: int) -> tuple[int, ...]:
+    """Permutation moving ``axis`` last, keeping the other two in order."""
+    rest = [a for a in range(3) if a != axis]
+    return (*rest, axis)
+
+
+def _f32(x) -> torch.Tensor:
+    """Host float32 tensor (the statics are computed on the CPU)."""
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+
+
+def _tex_params(consts_eye_local: np.ndarray, screen_to_local: np.ndarray,
+                width: int, height: int):
+    """Host-side static config: major axis, flip, and intermediate-axis swap.
+
+    ``swap``: True when the first non-marching tex axis tracks screen-x more
+    than screen-y (intermediate rows then follow screen rows).
+    """
+    def ray_dir(sx, sy):
+        h = np.array([sx, sy, 0.0, 1.0], dtype=np.float32) @ screen_to_local
+        p = h[:3] / h[3]
+        w = p - consts_eye_local
+        return w / np.linalg.norm(w)
+
+    w_tex = TEX_SCALE * ray_dir(width * 0.5, height * 0.5)
+    axis = int(np.argmax(np.abs(w_tex)))
+    flip = bool(w_tex[axis] < 0)
+    rest = [a for a in range(3) if a != axis]
+    ddx = TEX_SCALE * (ray_dir(width * 0.5 + 8, height * 0.5) - ray_dir(width * 0.5, height * 0.5))
+    ddy = TEX_SCALE * (ray_dir(width * 0.5, height * 0.5 + 8) - ray_dir(width * 0.5, height * 0.5))
+    swap = bool(abs(ddx[rest[0]]) > abs(ddy[rest[0]]))
+    return axis, flip, swap
+
+
+def _to_slab_order(vol: torch.Tensor, perm, flip: bool) -> torch.Tensor:
+    """[N,N,N] volume -> [K, X, Y] view with the marching axis first."""
+    v = vol.permute(*perm)  # [X, Y, K]
+    if flip:
+        v = v.flip(-1)
+    return v.movedim(-1, 0)
+
+
+def _from_slab_order(vol: torch.Tensor, perm, flip: bool) -> torch.Tensor:
+    """Inverse of :func:`_to_slab_order`."""
+    v = vol.movedim(0, -1)
+    if flip:
+        v = v.flip(-1)
+    return v.permute(*np.argsort(perm).tolist()).contiguous()
+
+
+def light_sweep(density: torch.Tensor, light_local: np.ndarray,
+                n: int, axis: int, flip: bool) -> torch.Tensor:
+    """Directional light-transmittance volume by slab recurrence -> [N,N,N].
+
+    The ``-fast`` mode's light field. ``axis``/``flip``: the light
+    direction's major tex axis and sign (:func:`light_statics`).
+    """
+    device = density.device
+    light = _f32(light_local)
+    ld_n = light / torch.linalg.norm(light)
+    ld_t = _f32(TEX_SCALE) * ld_n
+    perm = _perm_for_axis(axis)
+    ld = ld_t[list(perm)]
+    if flip:
+        ld = ld * _f32([1.0, 1.0, -1.0])
+    dens = _to_slab_order(density, perm, flip)  # [K, X, Y]
+
+    # per-slab constant shift (texels) and normalized-space step length
+    shift_x = ld[0] / ld[2]
+    shift_y = ld[1] / ld[2]
+    delta_l = (2.0 / n) * torch.linalg.norm(ld_n) / torch.clamp(
+        torch.abs(ld[2]), min=1e-6
+    )
+
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    wx = interp_matrix(i + shift_x.item(), n)  # [n, n]
+    wy = interp_matrix(i + shift_y.item(), n)
+    wsum = wx.sum(-1)[:, None] * wy.sum(-1)[None, :]  # [n, n]
+
+    g = torch.clamp(dens * 8.0, max=16.0)
+    att = torch.clamp(1.0 - (ABSORPTION * delta_l).item() * g, 0.0, 1.0)
+
+    lvol = torch.empty((n, n, n), dtype=torch.float32, device=device)
+    carry = torch.ones((n, n), dtype=torch.float32, device=device)
+    wy_t = wy.t()
+    for k in range(n - 1, -1, -1):
+        # carry = L[k+1] * att[k+1] field; produce L[k]
+        l_k = wx @ carry @ wy_t + (1.0 - wsum)
+        lvol[k] = l_k
+        carry = l_k * att[k]
+    return _from_slab_order(lvol, perm, flip)
+
+
+def light_statics(light_local: np.ndarray) -> tuple[int, bool]:
+    """Host-side light statics: the light direction's major tex axis+sign."""
+    light_local = np.asarray(light_local)
+    ld_t = np.asarray(TEX_SCALE) * (light_local / np.linalg.norm(light_local))
+    axis = int(np.argmax(np.abs(ld_t)))
+    flip = bool(ld_t[axis] < 0)
+    return axis, flip
+
+
+def light_ref_statics(light_local: np.ndarray, n: int,
+                      n_light: int = 32) -> tuple[int, bool, int]:
+    """Host statics for :func:`light_sweep_ref`: (axis, flip, d0).
+
+    ``d0`` = whole slabs per reference light step along the major axis
+    (the recurrence's window size). d0 == 0 means the step spans less than
+    one slab (tiny grids), which needs the exact per-voxel field.
+    """
+    light_local = np.asarray(light_local)
+    ld = light_local / np.linalg.norm(light_local)
+    s_t = np.asarray(TEX_SCALE) * ld * (MAX_DIST / n_light)
+    axis = int(np.argmax(np.abs(s_t)))
+    flip = bool(s_t[axis] < 0)
+    d0 = int(np.floor(abs(s_t[axis]) * n))
+    return axis, flip, d0
+
+
+def light_sweep_ref(density: torch.Tensor, light_local: np.ndarray,
+                    n: int, axis: int, flip: bool, d0: int,
+                    n_light: int = 32) -> torch.Tensor:
+    """REFERENCE-step directional light field -> [N,N,N] transmittance.
+
+    The reference's light loop (PSRayCast.hlsl:156-173) marches ``n_light``
+    steps of constant vector ``s = dir * MAX_DIST/n_light`` toward the light;
+    its product obeys ``L(p) = att(p+s) * L(p+s)``, computed far-to-near on
+    the slab grid along the step's major tex axis: ``att(p+s)`` from the
+    trilinearly resampled density (LINEAR_CLAMP), ``L(p+s)`` from a 2-slab
+    z-mix of computed L slabs with out-of-volume reads contributing 1, and
+    L = 1 where p+s leaves the box (the loop's first-step break).
+
+    Blocked recurrence: slab k reads only slabs k+d0 and k+d0+1, so d0
+    consecutive slabs have no dependence on each other and each block is
+    resampled with two batched matmuls (the JAX package's blocked form, op
+    for op). ``d0 >= 1`` required (:func:`light_ref_statics`).
+    """
+    assert d0 >= 1, "light step spans < 1 slab; use the exact field"
+    device = density.device
+    ls = MAX_DIST / n_light
+    light = _f32(light_local)
+    ld = light / torch.linalg.norm(light)
+    s_full = _f32(TEX_SCALE) * ld * ls  # tex-space step vector
+    perm = _perm_for_axis(axis)
+    s_t = s_full[list(perm)]
+    if flip:
+        s_t = s_t * _f32([1.0, 1.0, -1.0])
+    dvol = _to_slab_order(density, perm, flip)  # [K, X, Y]
+
+    delta = s_t[2] * n  # slabs per step (> 0 by flip), d0 = floor(delta)
+    w = (delta - d0).item()  # fractional part
+    s0, s1, s2 = (v.item() for v in s_t)
+    sx = (s_t[0] * n).item()  # xy shift in texels (constant across slabs)
+    sy = (s_t[1] * n).item()
+
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    coords_x = i + sx
+    coords_y = i + sy
+    # L resample: zero-weight outside + complement (outside the volume the
+    # transmittance is 1 — nothing absorbs)
+    wx_l = interp_matrix(coords_x, n)  # [n, n]
+    wy_l = interp_matrix(coords_y, n)
+    corr_l = 1.0 - wx_l.sum(-1)[:, None] * wy_l.sum(-1)[None, :]
+    # density resample: LINEAR_CLAMP (the sampler clamps the coordinate)
+    wx_d = interp_matrix(torch.clamp(coords_x, 0.0, n - 1.0), n)
+    wy_d = interp_matrix(torch.clamp(coords_y, 0.0, n - 1.0), n)
+
+    # exact per-texel out-of-box mask for p+s (voxel centers are exactly
+    # (i+0.5)/n, the shift is constant)
+    px = (i + 0.5) / n + s0
+    py = (i + 0.5) / n + s1
+    in_xy = ((px >= 0.0) & (px <= 1.0))[:, None] & (
+        (py >= 0.0) & (py <= 1.0)
+    )[None, :]  # [X, Y]
+    in_z = (i + 0.5) / n + s2 <= 1.0  # [K] (s_z > 0: lower bound holds)
+
+    # attenuation at p+s for every slab (batched): z-mix with CLAMP
+    # indices, then the shared xy warp
+    ki = torch.arange(n, device=device)
+    z0 = torch.clamp(ki + d0, 0, n - 1)
+    z1 = torch.clamp(ki + d0 + 1, 0, n - 1)
+    dmix = dvol[z0] * (1.0 - w) + dvol[z1] * w  # [K, X, Y]
+    dres = torch.matmul(wx_d, dmix)  # [K, X', Y]
+    dres = torch.matmul(dres, wy_d.t())  # [K, X', Y']
+    g = torch.clamp(dres * 8.0, max=16.0)
+    att = torch.clamp(1.0 - ABSORPTION * ls * g, 0.0, 1.0)  # [K, X, Y]
+    mask = in_xy[None] & in_z[:, None, None]  # [K, X, Y]
+
+    # far-to-near in reversed slab space r = n-1-k: slab r reads r-d0-1
+    # (weight w) and r-d0 (weight 1-w), both strictly earlier outputs.
+    # Padding slabs at the near end are masked to 1 and sliced off.
+    attr = att.flip(0)
+    maskr = mask.flip(0)
+    nb = -(-n // d0)
+    out = torch.empty((nb * d0, n, n), dtype=torch.float32, device=device)
+    one = torch.ones((), dtype=torch.float32, device=device)
+    wy_lt = wy_l.t()
+    # carry[i] = L[(b-1)*d0 - 1 + i], i in [0, d0]
+    carry = torch.ones((d0 + 1, n, n), dtype=torch.float32, device=device)
+    for b in range(nb):
+        lo, hi = b * d0, min((b + 1) * d0, n)
+        lmix = carry[1:] * (1.0 - w) + carry[:-1] * w
+        lres = torch.matmul(torch.matmul(wx_l, lmix), wy_lt) + corr_l
+        l_b = torch.where(maskr[lo:hi], attr[lo:hi] * lres[: hi - lo], one)
+        if hi - lo < d0:  # partial last block: padding slabs are 1
+            l_b = torch.cat([l_b, one.expand(d0 - (hi - lo), n, n)])
+        out[b * d0:(b + 1) * d0] = l_b
+        carry = torch.cat([carry[-1:], l_b], dim=0)
+    lvol = out[:n].flip(0)  # [K, X, Y]
+    return _from_slab_order(lvol, perm, flip)
+
+
+def light_sweep_ref_host(density: torch.Tensor, light_local: np.ndarray,
+                         n: int, n_light: int = 32) -> torch.Tensor:
+    """Reference-step light field by the blocked recurrence (``d0 >= 1``)."""
+    axis, flip, d0 = light_ref_statics(light_local, n, n_light)
+    if d0 < 1:
+        raise NotImplementedError(
+            f"the -hq light step spans < 1 slab at {n}^3 (d0 = 0): the exact "
+            "per-voxel field (precompute_light_volume) is not ported yet "
+            "(ROADMAP.md, queue 1, 'Render variants')"
+        )
+    return light_sweep_ref(density, light_local, n, axis, flip, d0,
+                           n_light=n_light)
+
+
+def light_sweep_host(density: torch.Tensor, light_local: np.ndarray,
+                     n: int) -> torch.Tensor:
+    axis, flip = light_statics(light_local)
+    return light_sweep(density, light_local, n, axis, flip)
+
+
+@dataclass
+class MarchInputs:
+    """Operands of the fused march (ops/march_cuda.march) plus the
+    intermediate-plane geometry the screen resolve needs."""
+
+    slabs: torch.Tensor  # [2, K, N, N] (density, light), far axis first
+    wts: torch.Tensor  # [KS] z-mix weights
+    front: torch.Tensor  # [KS] near-clip mask (0/1)
+    scale_x: torch.Tensor  # [KS] x_in = scale * (i + 0.5) + off, per slab
+    off_x: torch.Tensor
+    scale_y: torch.Tensor
+    off_y: torch.Tensor
+    delta: torch.Tensor  # [M, M] per-pixel step length
+    ss: int
+    e_xy: tuple[float, float]  # eye in permuted tex space
+    c_ref: float  # reference-plane distance from the eye
+    gmin: tuple[float, float]  # intermediate footprint on the plane
+    gext: tuple[float, float]
+
+    def args(self) -> tuple:
+        return (self.slabs, self.wts, self.front, self.scale_x, self.off_x,
+                self.scale_y, self.off_y, self.delta, self.ss)
+
+
+def march_inputs(density: torch.Tensor, light_vol: torch.Tensor,
+                 eye_local: np.ndarray, n: int, m: int, axis: int, flip: bool,
+                 ss: int) -> MarchInputs:
+    """Slab stack, per-(sub-)slab warp parameters and step lengths."""
+    device = density.device
+    perm = _perm_for_axis(axis)
+    slabs = torch.stack(
+        [_to_slab_order(density, perm, flip), _to_slab_order(light_vol, perm, flip)]
+    ).contiguous()  # [2, K, X, Y]
+
+    # ``ss``: z-supersampling factor; ss > 1 marches n*ss sub-slabs whose
+    # planes are z-LERPed between adjacent voxel slabs (LINEAR_CLAMP), so
+    # every sub-slab sample is fully trilinear (PSRayCast.hlsl:103-112)
+    ks = n * ss
+    cpu = torch.device("cpu")
+    wts = zmix_slabs(n, ss, cpu)[2] if ss > 1 else torch.zeros(ks)
+
+    e_t_full = (_f32(TEX_SCALE) * _f32(eye_local) + 0.5)[list(perm)]
+    if flip:
+        e_t_full = e_t_full * _f32([1.0, 1.0, -1.0]) + _f32([0.0, 0.0, 1.0])
+    e_xy = e_t_full[:2]
+    e_z = e_t_full[2]
+    c_ref = Z_REF - e_z  # positive whenever the volume is in front
+
+    # intermediate footprint: box corners projected from the eye to the
+    # reference plane (slabs closer than S_MIN*c_ref are near-clipped)
+    corners = _f32([0.0, 1.0])
+    c_z = torch.maximum(corners - e_z, S_MIN * c_ref)  # [2]
+    scale_c = c_ref / c_z  # [2]
+    gx_c = e_xy[0] + (corners[:, None] - e_xy[0]) * scale_c[None, :]
+    gy_c = e_xy[1] + (corners[:, None] - e_xy[1]) * scale_c[None, :]
+    gmin = torch.stack([gx_c.min(), gy_c.min()])
+    gmax = torch.stack([gx_c.max(), gy_c.max()])
+    gext = gmax - gmin
+
+    # per-(sub-)slab warp parameters
+    z_k = (torch.arange(ks, dtype=torch.float32) + 0.5) / ks
+    s_k = torch.clamp((z_k - e_z) / c_ref, min=0.0)  # <=0: behind the eye
+    scale_x = s_k * gext[0] * n / m
+    off_x = n * (e_xy[0] + s_k * (gmin[0] - e_xy[0])) - 0.5
+    scale_y = s_k * gext[1] * n / m
+    off_y = n * (e_xy[1] + s_k * (gmin[1] - e_xy[1])) - 0.5
+    front = (s_k > S_MIN).to(torch.float32)  # near-clip mask per slab
+
+    # per-intermediate-pixel step length (normalized-space units; the
+    # tex -> normalized scale is uniform, so the obliquity ratio is
+    # computable in tex space directly)
+    gi = (torch.arange(m, dtype=torch.float32) + 0.5) / m
+    w_x = (gmin[0] + gi * gext[0] - e_xy[0])[:, None]
+    w_y = (gmin[1] + gi * gext[1] - e_xy[1])[None, :]
+    delta = (2.0 / ks) * torch.sqrt(w_x**2 + w_y**2 + c_ref**2) / torch.abs(c_ref)
+
+    vec = torch.stack([wts, front, scale_x, off_x, scale_y, off_y]).to(device)
+    return MarchInputs(
+        slabs, *vec.unbind(0), delta.to(device), ss,
+        e_xy=(e_xy[0].item(), e_xy[1].item()), c_ref=c_ref.item(),
+        gmin=(gmin[0].item(), gmin[1].item()),
+        gext=(gext[0].item(), gext[1].item()),
+    )
+
+
+def screen_coords(screen_to_local: np.ndarray, eye_local: np.ndarray,
+                  width: int, height: int, axis: int, flip: bool, m: int,
+                  mi: MarchInputs, device) -> tuple[torch.Tensor, ...]:
+    """Per-pixel intermediate coordinates (gi_x, gi_y) [H*W] and the hit
+    mask ``ok`` — the ray/box entry test of ComputeStartPoint
+    (PSRayCast.hlsl:71-98), planar per component."""
+    s_m = np.asarray(screen_to_local, np.float32)
+    eye = np.asarray(eye_local, np.float32)
+    sx = torch.arange(width, dtype=torch.float32, device=device) + 0.5
+    sy = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    px, py = torch.meshgrid(sx, sy, indexing="xy")  # [H, W]
+    pxf = px.reshape(-1)
+    pyf = py.reshape(-1)
+    h = [pxf * float(s_m[0, c]) + pyf * float(s_m[1, c]) + float(s_m[3, c])
+         for c in range(4)]
+    pn = [h[c] / h[3] for c in range(3)]
+    d = [pn[c] - float(eye[c]) for c in range(3)]
+    d_len = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    dn = [d[c] / d_len for c in range(3)]
+
+    inside = (
+        (torch.abs(pn[0]) <= 1.0)
+        & (torch.abs(pn[1]) <= 1.0)
+        & (torch.abs(pn[2]) <= 1.0)
+    )
+    u_best = torch.full_like(pxf, _BIG)
+    hit = torch.zeros_like(pxf, dtype=torch.bool)
+    for i in range(3):
+        j, k2 = (i + 1) % 3, (i + 2) % 3
+        di = dn[i]
+        nz = di != 0.0
+        u = torch.where(
+            nz, (-torch.sign(di) - pn[i]) / torch.where(nz, di, 1.0), _BIG
+        )
+        okc = (
+            (u >= 0.0)
+            & (torch.abs(dn[j] * u + pn[j]) <= 1.0)
+            & (torch.abs(dn[k2] * u + pn[k2]) <= 1.0)
+            & (u < u_best)
+        )
+        u_best = torch.where(okc, u, u_best)
+        hit = hit | okc
+    is_hit = inside | hit
+
+    perm = _perm_for_axis(axis)
+    d_t = [dn[perm[c]] * float(TEX_SCALE[perm[c]]) for c in range(3)]
+    if flip:
+        d_t[2] = -d_t[2]
+    dz = d_t[2]
+    valid = torch.abs(dz) > 1e-6
+    safe_dz = torch.where(valid, dz, 1.0)
+    g_px = mi.e_xy[0] + mi.c_ref * d_t[0] / safe_dz
+    g_py = mi.e_xy[1] + mi.c_ref * d_t[1] / safe_dz
+    gi_x = (g_px - mi.gmin[0]) / mi.gext[0] * m - 0.5
+    gi_y = (g_py - mi.gmin[1]) / mi.gext[1] * m - 0.5
+    return gi_x, gi_y, is_hit & valid
+
+
+def _shearwarp_core(
+    density: torch.Tensor,
+    light_vol: torch.Tensor,
+    screen_to_local: np.ndarray,
+    eye_local: np.ndarray,
+    clear_color: np.ndarray,
+    n: int,
+    m: int,
+    width: int,
+    height: int,
+    axis: int,
+    flip: bool,
+    swap: bool,
+    ss: int = 1,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """March + resolve one frame -> [H, W, 3] f32. ``use_kernels=False``
+    runs the plain versions of both kernels (on any device)."""
+    mi = march_inputs(density, light_vol, eye_local, n, m, axis, flip, ss)
+    march_fn = march if use_kernels else march_plain
+    transmit_i, scatter_i = march_fn(*mi.args())
+    gi_x, gi_y, ok = screen_coords(screen_to_local, eye_local, width, height,
+                                   axis, flip, m, mi, density.device)
+    if swap:
+        # intermediate rows then track screen rows
+        scatter_i = scatter_i.t().contiguous()
+        transmit_i = transmit_i.t().contiguous()
+        gi_x, gi_y = gi_y, gi_x
+    resolve_fn = resolve if use_kernels else resolve_plain
+    return resolve_fn(scatter_i, transmit_i, gi_x, gi_y, ok, clear_color,
+                      height, width)
+
+
+def _box_screen_px(screen_to_local: np.ndarray, width: int, height: int) -> float:
+    """Host estimate of the volume's screen-space extent in pixels."""
+    l2s = np.linalg.inv(screen_to_local.astype(np.float64))
+    corners = np.array(
+        [[x, y, z, 1.0] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)],
+        dtype=np.float64,
+    )
+    s = corners @ l2s
+    w_ok = np.abs(s[:, 3]) > 1e-9
+    if not w_ok.any():
+        return float(max(width, height))
+    p = s[w_ok, :2] / s[w_ok, 3:4]
+    ext = p.max(axis=0) - p.min(axis=0)
+    return float(np.clip(max(ext[0], ext[1]), 16.0, 4096.0))
+
+
+def shearwarp_statics(
+    screen_to_local,
+    eye_local,
+    width: int,
+    height: int,
+    m_cap: int = 128,
+) -> tuple[int, bool, bool, int]:
+    """Host-side camera statics ``(axis, flip, swap, m)``.
+
+    The intermediate size ``m`` tracks the volume's screen footprint
+    (magnification ~1) up to ``m_cap`` (at most 512).
+    """
+    s2l_np = np.asarray(screen_to_local)
+    eye_np = np.asarray(eye_local)
+    box_px = _box_screen_px(s2l_np, width, height)
+    m = int(np.clip(16 * round(0.9 * box_px / 16), 32, min(m_cap, 512)))
+    axis, flip, swap = _tex_params(eye_np, s2l_np, width, height)
+    return axis, flip, swap, m
+
+
+def raymarch_shearwarp(
+    density: torch.Tensor,
+    light_vol: torch.Tensor,
+    screen_to_local,
+    eye_local,
+    clear_color,
+    width: int,
+    height: int,
+    m_cap: int = 128,
+    ss: int = 1,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Render via the shear-warp path -> [H, W, 3] f32 on the density's
+    device. Picks the host statics, then marches and resolves.
+    ``ss``: z-supersampling factor (the ``-hq`` high-fidelity mode)."""
+    n = density.shape[0]
+    s2l_np = np.asarray(screen_to_local, np.float32)
+    eye_np = np.asarray(eye_local, np.float32)
+    axis, flip, swap, m = shearwarp_statics(
+        s2l_np, eye_np, width, height, m_cap=m_cap
+    )
+    return _shearwarp_core(
+        density, light_vol, s2l_np, eye_np,
+        np.asarray(clear_color, np.float32), n, m, width, height, axis, flip,
+        swap, ss=ss, use_kernels=use_kernels,
+    )

@@ -51,3 +51,10 @@ def reference_assets_available():
         return True
     except FileNotFoundError:
         pytest.skip("canonical OBJ assets not available")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with the CUDA toolkit (skips without one)",
+    )

@@ -1,0 +1,105 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+CUDA kernels have no interpret mode, so these tests need an NVIDIA GPU
+(sm_90a) and the CUDA toolkit; without one they skip. They import neither
+JAX nor the JAX package, so they run where JAX is not installed; there,
+skip ``tests/conftest.py`` (it imports JAX):
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from dxrvoxelizer_tpu_torch.core.pipeline import FramePipeline
+from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
+from dxrvoxelizer_tpu_torch.models.scene import Scene
+from dxrvoxelizer_tpu_torch.ops import march_cuda, screen_warp_cuda, voxelize_cuda
+from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles
+from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
+# pytest puts tests/ itself on sys.path (no __init__.py there); importing
+# ``meshes`` directly keeps an installed package named ``tests`` out of it
+from meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [32, 64, 256])
+@pytest.mark.parametrize("mesh", ["box", "icosphere"])
+def test_parity_kernel_bit_identical_to_plain(dev, mesh, n):
+    if mesh == "box":  # faces on voxel centers: every tie rule fires
+        c = [(i + 0.5) / n * 2 - 1 for i in (3, 5, 2, n - 6, n - 4, n - 9)]
+        verts, _, tris = box_mesh(c[:3], c[3:])
+    else:
+        verts, _, tris = icosphere_mesh(4)
+    coef, _ = bin_triangles(torch.from_numpy(verts).to(dev),
+                            torch.from_numpy(tris.astype(np.int64)).to(dev), n)
+    words = voxelize_cuda.voxelize_parity_tiles(coef, n)
+    assert torch.equal(words, voxelize_cuda.voxelize_parity_tiles_plain(coef, n))
+    assert words.any()
+
+
+def _march_case(n, m, ss, seed=7):
+    """Random slabs + per-slab scale/offset warps spilling past the edges."""
+    rng = np.random.default_rng(seed)
+    ks = n * ss
+    slabs = ((rng.random((2, n, n, n)) < 0.15) * rng.random((2, n, n, n))
+             ).astype(np.float32)
+    wts = march_cuda.zmix_slabs(n, ss, "cpu")[2].numpy()
+    if ss == 1:
+        wts = np.zeros(ks, np.float32)
+    front = (rng.random(ks) > 0.1).astype(np.float32)
+    scale = (0.6 + 0.5 * rng.random((2, ks))).astype(np.float32)
+    off = (rng.random((2, ks)) * 6.0 - 4.0).astype(np.float32)
+    delta = (0.02 + 0.05 * rng.random((m, m))).astype(np.float32)
+    return slabs, wts, front, scale[0], off[0], scale[1], off[1], delta
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_march_kernel_matches_plain(dev, ss):
+    args = [torch.from_numpy(a).to(dev) for a in _march_case(64, 96, ss)]
+    t_k, s_k = march_cuda.march(*args, ss)
+    t_p, s_p = march_cuda.march_plain(*args, ss)
+    assert float((t_k - t_p).abs().max()) <= 2e-6
+    assert float((s_k - s_p).abs().max()) <= 2e-6
+
+
+def test_resolve_kernel_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    m, h, w = 128, 72, 128
+    sc, tr = (torch.from_numpy(rng.random((m, m)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    gx, gy = (torch.from_numpy((rng.random(h * w) * (m + 8) - 4)
+                               .astype(np.float32)).to(dev) for _ in range(2))
+    ok = torch.from_numpy(rng.random(h * w) > 0.2).to(dev)
+    clear = np.array([0.0, 0.2, 0.4], np.float32)
+    a = screen_warp_cuda.resolve(sc, tr, gx, gy, ok, clear, h, w)
+    b = screen_warp_cuda.resolve_plain(sc, tr, gx, gy, ok, clear, h, w)
+    assert float((a - b).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_gpu_frame_matches_cpu_frame(dev, ss):
+    v, nrm, t = tetrahedron_mesh()
+    mesh = ObjMesh(positions=v, normals=nrm, indices=t.reshape(-1),
+                   aabb_min=v.min(0), aabb_max=v.max(0))
+    cfg = VoxelizerConfig(grid_size=32, width=96, height=64, render_ss=ss)
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        scene = Scene(mesh, d)
+        cam = OrbitCamera(cfg.width, cfg.height)
+        fc = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
+        imgs.append(FramePipeline(cfg, scene.buffers).frame(fc).cpu())
+    assert float((imgs[0] - imgs[1]).abs().max()) < 2e-3

@@ -1,0 +1,138 @@
+"""Guards of the CUDA build (dxrvoxelizer_tpu_torch): it never imports JAX,
+never falls back from CUDA to the CPU silently, and its kernel wrappers
+refuse what they cannot launch."""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from dxrvoxelizer_tpu_torch.ops import _cuda, march_cuda, screen_warp_cuda, voxelize_cuda
+from dxrvoxelizer_tpu_torch.utils.config import parse_args
+from dxrvoxelizer_tpu_torch.utils.device import select_device
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "dxrvoxelizer_tpu_torch"
+
+
+def _modules() -> list[str]:
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__main__":
+            continue  # running it starts the app
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_every_module_imports_without_jax_and_builds_nothing():
+    mods = _modules()
+    assert "dxrvoxelizer_tpu_torch.ops.voxelize_cuda" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('dxrvoxelizer_tpu.') or m == 'dxrvoxelizer_tpu')\n"
+        "assert not bad, bad\n"
+        "from dxrvoxelizer_tpu_torch.ops import _cuda\n"
+        "assert _cuda.build.cache_info().currsize == 0  # nothing built\n"
+        "assert _cuda.load.cache_info().currsize == 0\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        select_device()
+    with pytest.raises(ValueError):
+        select_device("tpu")
+
+
+def test_warp_selects_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flag in ("-warp", "/warp", "-cpu"):
+        cfg = parse_args(["-mesh", "x.obj", flag])
+        assert cfg.backend == "cpu"
+        assert select_device(cfg.backend) == torch.device("cpu")
+    assert parse_args(["-mesh", "x.obj"]).backend == "default"
+
+
+def test_app_without_cuda_raises(monkeypatch):
+    from dxrvoxelizer_tpu_torch.app.main import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["-mesh", "never_loaded.obj"])
+
+
+def test_kernel_build_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _cuda.build.__wrapped__()
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("kernel", ["parity_voxelize", "march", "resolve"])
+def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
+    """A tensor that is not on the CPU goes to the kernel or raises — the
+    plain version is never a silent fallback for it."""
+    launches = {k.name: k.launches for k in (
+        voxelize_cuda.KERNEL, march_cuda.KERNEL, screen_warp_cuda.KERNEL)}
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        if kernel == "parity_voxelize":
+            voxelize_cuda.voxelize_parity_tiles(_meta(1, 8, 16), 32)
+        elif kernel == "march":
+            v = _meta(32)
+            march_cuda.march(_meta(2, 32, 32, 32), v, v, v, v, v, v,
+                             _meta(16, 16), 1)
+        else:
+            p = _meta(6)
+            screen_warp_cuda.resolve(_meta(8, 8), _meta(8, 8), p, p,
+                                     _meta(6, dtype=torch.bool),
+                                     np.zeros(3, np.float32), 2, 3)
+    after = {k.name: k.launches for k in (
+        voxelize_cuda.KERNEL, march_cuda.KERNEL, screen_warp_cuda.KERNEL)}
+    assert after == launches
+
+
+def test_wrapper_on_a_box_without_cuda_raises_not_falls_back(monkeypatch):
+    """Past the operand checks, a non-CPU request goes to the kernel
+    library, whose build refuses without CUDA: the wrapper raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
+    # bypass the process-wide caches (a card's tests may have filled them)
+    monkeypatch.setattr(_cuda, "build", _cuda.build.__wrapped__)
+    monkeypatch.setattr(_cuda, "load", _cuda.load.__wrapped__)
+    before = voxelize_cuda.KERNEL.launches
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        voxelize_cuda.voxelize_parity_tiles(_meta(1, 8, 16), 32)
+    assert voxelize_cuda.KERNEL.launches == before
+
+
+def test_cuda_sources_present_with_notes():
+    for k in (voxelize_cuda.KERNEL, march_cuda.KERNEL, screen_warp_cuda.KERNEL):
+        src = (REPO / k.source).read_text()
+        assert "Replaces:" in src and "What bounds it on the card" in src
+        assert "Design:" in src
+        path, line = k.replaces.split(":")
+        text = (REPO / path).read_text().splitlines()
+        assert text[int(line) - 1].startswith("def _"), k.replaces

@@ -1,0 +1,192 @@
+"""The whole static parity frame of the CUDA build against the JAX package's
+CPU frame, the tet golden image, the Engine, the app, and the state
+helpers."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from dxrvoxelizer_tpu.core.pipeline import FramePipeline as JaxFramePipeline
+from dxrvoxelizer_tpu.models.scene import Scene as JaxScene
+from dxrvoxelizer_tpu.utils.config import VoxelizerConfig as JaxConfig
+from dxrvoxelizer_tpu.utils.objloader import ObjMesh as JaxObjMesh
+from dxrvoxelizer_tpu_torch.core.pipeline import FRAME_COUNT, FramePipeline, render
+from dxrvoxelizer_tpu_torch.ez import Engine
+from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
+from dxrvoxelizer_tpu_torch.models.scene import Scene
+from dxrvoxelizer_tpu_torch.state import (
+    MESH_FIELDS,
+    grid_from_numpy,
+    mesh_buffers_from_numpy,
+)
+from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+from dxrvoxelizer_tpu_torch.utils.image import read_png
+from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh, load_obj
+from tests.meshes import icosphere_mesh, tetrahedron_mesh
+
+torch.set_num_threads(2)
+
+GOLDENS = Path(__file__).parent / "goldens"
+W, H, N = 96, 64, 32
+
+
+def _tet_obj(cls):
+    v, nrm, t = tetrahedron_mesh()
+    return cls(positions=v, normals=nrm, indices=t.reshape(-1),
+               aabb_min=v.min(axis=0), aabb_max=v.max(axis=0))
+
+
+def _jax_frame(ss):
+    scene = JaxScene(_tet_obj(JaxObjMesh))
+    cam = OrbitCamera(W, H)
+    fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
+    cfg = JaxConfig(grid_size=N, width=W, height=H, render_ss=ss)
+    img = JaxFramePipeline(cfg, scene.buffers).frame(fc)
+    return scene, fc, np.asarray(img)
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_frame_matches_jax_cpu_frame(ss):
+    """FramePipeline.frame on identical state (the JAX mesh buffers carried
+    across as numpy) within 2e-3 (the tet-golden bound) of the JAX frame."""
+    jscene, fc, want = _jax_frame(ss)
+    mesh = mesh_buffers_from_numpy(
+        {f: np.asarray(getattr(jscene.buffers, f)) for f in MESH_FIELDS}, "cpu"
+    )
+    cfg = VoxelizerConfig(grid_size=N, width=W, height=H, render_ss=ss)
+    got = FramePipeline(cfg, mesh).frame(fc)
+    assert got.dtype == torch.float32 and got.shape == (H, W, 3)
+    assert np.abs(got.numpy() - want).max() < 2e-3
+    if ss == 1:
+        gold = np.load(GOLDENS / "tet_32_render_96x64.npy").astype(np.float32)
+        assert np.abs(got.numpy() - gold).max() < 2e-3
+
+
+def test_scene_and_frame_constants_match_jax():
+    jscene = JaxScene(_tet_obj(JaxObjMesh))
+    scene = Scene(_tet_obj(ObjMesh), "cpu")
+    for f in MESH_FIELDS:
+        np.testing.assert_array_equal(
+            getattr(scene.buffers, f).numpy(),
+            np.asarray(getattr(jscene.buffers, f)), err_msg=f,
+        )
+    cam = OrbitCamera(W, H)
+    a = jscene.update_frame(cam.eye, cam.view_proj, W, H)
+    b = scene.update_frame(cam.eye, cam.view_proj, W, H)
+    for f in ("local_space_light_pt", "local_space_eye_pt", "screen_to_local"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+
+
+def test_grid_from_numpy_renders_like_the_pipeline():
+    scene = Scene(_tet_obj(ObjMesh), "cpu")
+    cfg = VoxelizerConfig(grid_size=N, width=W, height=H)
+    cam = OrbitCamera(W, H)
+    fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
+    pipe = FramePipeline(cfg, scene.buffers)
+    img = pipe.frame(fc)
+    from dxrvoxelizer_tpu.ops.packing import pack_bits_z
+    from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref
+
+    jb = _jax_frame(2)[0].buffers
+    words = np.asarray(pack_bits_z(voxelize_parity_ref(
+        jb.positions_norm, jb.tris, n=N)))
+    grid = grid_from_numpy(words, "cpu")
+    assert torch.equal(render(grid, fc, cfg), img)
+    with pytest.raises(ValueError):
+        grid_from_numpy(words.astype(np.int64), "cpu")
+
+
+def test_engine_slots_and_ring(tmp_path):
+    scene = Scene(_tet_obj(ObjMesh), "cpu")
+    cfg = VoxelizerConfig(grid_size=N, width=W, height=H, render_ss=1)
+    eng = Engine(cfg, "cpu", scene=scene)
+    cam = OrbitCamera(W, H)
+    with pytest.raises(RuntimeError):
+        eng.render(0)
+    imgs = []
+    for frame in range(FRAME_COUNT + 1):
+        eng.update_frame(frame % FRAME_COUNT, cam.eye, cam.view_proj)
+        imgs.append(eng.render(frame % FRAME_COUNT))
+    eng.sync()
+    assert all(torch.equal(i, imgs[0]) for i in imgs)  # same camera
+    grid = eng.voxelize_only()
+    fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
+    assert torch.equal(eng.render_grid(grid, fc), imgs[0])
+
+
+def test_unported_options_raise():
+    scene = Scene(_tet_obj(ObjMesh), "cpu")
+    base = VoxelizerConfig(grid_size=N, width=W, height=H)
+    for cfg in (base.replace(inside_mode="raystab"),
+                base.replace(parity_normals=True)):
+        with pytest.raises(NotImplementedError):
+            FramePipeline(cfg, scene.buffers)
+    with pytest.raises(NotImplementedError):
+        FramePipeline(base, scene.buffers, deforming=True)
+    cam = OrbitCamera(W, H)
+    fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
+    from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
+
+    g = voxelize(scene.buffers, N)
+    for cfg, impl in ((base.replace(show_mip=1), "warp"),
+                      (base.replace(point_light=True), "warp"),
+                      (base, "gather"), (base, "ref")):
+        with pytest.raises(NotImplementedError):
+            render(g, fc, cfg, impl=impl)
+    with pytest.raises(NotImplementedError):
+        FramePipeline(base, scene.buffers, vox_impl="queue").frame(fc)
+
+
+def _write_obj(path, verts, tris):
+    lines = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in verts]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in tris]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def test_app_warp_writes_png(tmp_path, monkeypatch):
+    from dxrvoxelizer_tpu_torch.app.main import main
+
+    v, _, t = icosphere_mesh(2)
+    _write_obj(tmp_path / "ico.obj", v, t)
+    monkeypatch.chdir(tmp_path)  # the CLI reads "/..." as a flag
+    rc = main(["-mesh", "ico.obj", "-warp", "-grid", "32", "-frames", "2",
+               "-width", "96", "-height", "64", "-out", "out.png"])
+    assert rc == 0
+    img = read_png(tmp_path / "out.png")
+    assert img.shape == (64, 96, 3)
+    assert (img != np.array([0, 51, 102], np.uint8)).any()  # not all clear
+    mesh = load_obj(tmp_path / "ico.obj")
+    assert mesh.num_triangles == len(t)
+
+
+def test_python_m_app_runs(tmp_path):
+    v, _, t = icosphere_mesh(1)
+    _write_obj(tmp_path / "ico.obj", v, t)
+    res = subprocess.run(
+        [sys.executable, "-m", "dxrvoxelizer_tpu_torch.app", "-mesh", "ico.obj",
+         "-warp", "-grid", "32", "-frames", "1", "-width", "48", "-height",
+         "32", "-out", "m.png"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=120,
+        env={**os.environ,
+             "PYTHONPATH": str(Path(__file__).resolve().parents[1])},
+    )
+    assert res.returncode == 0, res.stderr
+    assert (tmp_path / "m.png").is_file() and "wrote m.png" in res.stdout
+
+
+def test_jax_and_port_load_the_same_obj(tmp_path):
+    from dxrvoxelizer_tpu.utils.objloader import load_obj as jax_load_obj
+
+    v, _, t = icosphere_mesh(2)
+    _write_obj(tmp_path / "ico.obj", v, t)
+    a = jax_load_obj(tmp_path / "ico.obj", impl="python")
+    b = load_obj(tmp_path / "ico.obj")
+    for f in ("positions", "normals", "indices", "aabb_min", "aabb_max"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)

@@ -1,0 +1,144 @@
+"""Parity voxelization in the CUDA build against the JAX package on the CPU.
+
+The same numpy meshes go through the JAX oracle / binned Pallas kernel
+(interpret mode) and the port's oracle / binned path (the parity kernel's
+plain version on the CPU); packed words must match bit for bit. The box has
+its faces on voxel centers, so every boundary tie is exercised.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dxrvoxelizer_tpu.ops.binning import bin_triangles as jax_bin_triangles
+from dxrvoxelizer_tpu.ops.binning import voxelize_parity_binned as jax_binned
+from dxrvoxelizer_tpu.ops.geom import parity_tri_setup as jax_setup
+from dxrvoxelizer_tpu.ops.packing import pack_bits_z as jax_pack
+from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref as jax_ref
+from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
+from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
+from dxrvoxelizer_tpu_torch.ops import binning, packing, voxelize_cuda
+from dxrvoxelizer_tpu_torch.ops.geom import parity_tri_setup
+from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_parity_ref
+from tests.meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
+
+torch.set_num_threads(2)
+
+
+def _box_on_centers(n):
+    c = [(i + 0.5) / n * 2.0 - 1.0 for i in (3, 5, 2, n - 6, n - 4, n - 9)]
+    return box_mesh(c[:3], c[3:])
+
+
+MESHES = {
+    "box": _box_on_centers,
+    "tet": lambda n: tetrahedron_mesh(),
+    "icosphere3": lambda n: icosphere_mesh(3),
+}
+
+
+def _torch(verts, tris):
+    return (torch.from_numpy(np.asarray(verts, np.float32)),
+            torch.from_numpy(np.asarray(tris, np.int64)))
+
+
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_words_bit_identical_to_jax(name, n):
+    verts, _, tris = MESHES[name](n)
+    jv, jt = jnp.asarray(verts), jnp.asarray(tris)
+    want_ref = np.asarray(jax_pack(jax_ref(jv, jt, n=n)))
+    want_bin = np.asarray(jax_binned(jv, jt, n=n, interpret=True))
+    np.testing.assert_array_equal(want_bin, want_ref)
+
+    tv, tt = _torch(verts, tris)
+    got_ref = packing.pack_bits_z(voxelize_parity_ref(tv, tt, n=n)).numpy()
+    got_bin = binning.voxelize_parity_binned(tv, tt, n).numpy()
+    np.testing.assert_array_equal(got_ref, want_ref)
+    np.testing.assert_array_equal(got_bin, want_ref)
+    assert got_ref.any()
+
+
+def test_parity_setup_bit_identical_to_jax():
+    verts, _, tris = icosphere_mesh(3)
+    want = jax_setup(jnp.asarray(verts), jnp.asarray(tris), 64)
+    got = parity_tri_setup(*_torch(verts, tris), 64)
+    for name, a, b in zip(got._fields, want, got):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+
+
+@pytest.mark.parametrize("max_span", [1, 3])
+def test_binned_tiles_match_jax(max_span):
+    """Same capacity, same per-tile rows in the same order (max_span=1
+    routes big triangles through the overflow list). The edge slopes and
+    0/1 flags are differences of vertex coordinates, bit-identical in any
+    order of evaluation, so they pin the rows. Inside its jitted binning
+    phase XLA:CPU contracts the multiply-adds of the edge offsets and the
+    depth plane, so those columns differ from the op-by-op ones by
+    cancellation-scale amounts (the words above agree bit for bit)."""
+    verts, _, tris = icosphere_mesh(3)
+    want, wstats = jax_bin_triangles(jnp.asarray(verts), jnp.asarray(tris), 64,
+                                     max_span=max_span)
+    got, gstats = binning.bin_triangles(*_torch(verts, tris), 64,
+                                        max_span=max_span)
+    assert gstats == binning.BinStats(**vars(wstats))
+    want = np.asarray(want)
+    got = got.numpy()
+    vc = voxelize_cuda
+    exact = [vc._EX0, vc._EY0, vc._TL0, vc._EX1, vc._EY1, vc._TL1,
+             vc._EX2, vc._EY2, vc._TL2, vc._VALID]
+    np.testing.assert_array_equal(got[..., exact], want[..., exact])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+    if max_span == 1:
+        assert gstats.overflow > 0
+
+
+def test_plain_kernel_on_bruteforce_tiles_matches_oracle():
+    """Every tile sees every triangle (no binning): same words."""
+    verts, _, tris = tetrahedron_mesh()
+    tv, tt = _torch(verts, tris)
+    coef = voxelize_cuda.pack_coeffs(parity_tri_setup(tv, tt, 64))
+    tiles = coef[None].expand(4, -1, -1).contiguous()
+    got = voxelize_cuda.voxelize_parity_tiles(tiles, 64)
+    want = packing.pack_bits_z(voxelize_parity_ref(tv, tt, n=64))
+    assert torch.equal(got, want)
+
+
+def test_empty_and_far_meshes():
+    verts, _, tris = box_mesh([4.0, 4.0, 4.0], [5.0, 5.0, 5.0])  # outside
+    words = binning.voxelize_parity_binned(*_torch(verts, tris), 32)
+    assert words.shape == (32, 32, 1) and not words.any()
+    empty = binning.voxelize_parity_binned(
+        torch.zeros((3, 3)), torch.zeros((0, 3), dtype=torch.int64), 32
+    )
+    assert not empty.any()
+
+
+def test_pack_unpack_roundtrip_and_jax_layout():
+    rng = np.random.default_rng(0)
+    occ = rng.random((32, 32, 64)) > 0.5
+    words = packing.pack_bits_z(torch.from_numpy(occ))
+    np.testing.assert_array_equal(words.numpy(), np.asarray(jax_pack(jnp.asarray(occ))))
+    back = packing.unpack_bits_z(words, 64).numpy()
+    np.testing.assert_array_equal(back, occ)
+
+
+def test_static_binned_voxelizer_and_voxelize_routes():
+    verts, nrm, tris = icosphere_mesh(3)
+    tv, tt = _torch(verts, tris)
+    mesh = MeshBuffers(positions=tv, normals=torch.from_numpy(nrm), tris=tt,
+                       positions_norm=tv)
+    sv = binning.StaticBinnedVoxelizer(tv, tt, 32)
+    want = voxelize(mesh, 32, impl="xla").words  # CPU "auto" is the oracle
+    assert torch.equal(voxelize(mesh, 32).words, want)
+    assert torch.equal(voxelize(mesh, 32, impl="pallas").words, want)
+    assert torch.equal(sv(), want)
+    for bad, exc in (({"impl": "queue"}, NotImplementedError),
+                     ({"mode": "raystab"}, NotImplementedError),
+                     ({"with_normals": True}, NotImplementedError),
+                     ({"impl": "nope"}, ValueError)):
+        with pytest.raises(exc):
+            voxelize(mesh, 32, **bad)
