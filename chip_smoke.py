@@ -19,9 +19,31 @@ the CUDA toolkit. Phases, one line each:
    against the CPU on a small input;
 5. medians of 5 runs, timed with CUDA events around 10 back-to-back calls,
    of each kernel, its plain version, and the whole frame; then a profiler
-   window of 5 frames for the device time per kernel and the idle share.
+   window of 5 frames for the device time per kernel and the idle share;
+6. the hi-res app frame: ``-grid 256``, 4 frames, on the 327,680-triangle
+   icosphere at the same footprint (the stand-in for the hi-res dragon):
+   the work-queue kernel must launch once per frame, the binned one never;
+7. the same with ``-deform``: the mesh wobbles and is re-binned on the
+   device every frame, and the work-queue kernel launches every frame;
+8. the deforming voxelizer's per-frame call under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host sync;
+9. the work-queue kernel against its plain version, bit for bit, at 128^3,
+   256^3 and 512^3 on the icosphere and on a box with faces on voxel
+   centres, and against the binned kernel's words there; against the
+   counting oracle at 128^3; on queues with span overflow; on two deformed
+   frames;
+10. the 256^3 ``-hq`` frame at 1280x720 against the plain path;
+11. times of the work-queue kernel (256^3, 512^3), its plain version, the
+    binned kernel on the same 256^3 mesh, the deforming voxelizer's call,
+    and the whole static and deforming 256^3 frames; a profiler window of
+    each 256^3 frame.
 
-Any failure raises and exits non-zero. The last line is the JSON result.
+Then one JSON line with every kernel's launches on the main paths (the
+64^3, 256^3 and 256^3 ``-deform`` app runs, each counted from zero), its
+largest difference from its plain version, its time, its plain version's
+time, its bound and, where one PyTorch call computes the same function,
+that call's time. Any failure raises and exits non-zero. The last line is
+the JSON result.
 """
 
 from __future__ import annotations
@@ -38,6 +60,7 @@ import numpy as np
 
 FRAMES = 4
 GRID = 64
+GRID_HI = 256
 # icosphere placement at the bunny's world footprint (the default camera
 # focuses on (0, 4, 0); tests/goldens/render_bunny_720p.png)
 WORLD_SCALE = np.float32(5.5)
@@ -52,6 +75,17 @@ PROFILE_FRAMES = 5
 TOL_MARCH = 2e-6
 TOL_RESOLVE = 1e-5
 TOL_FRAME = 2e-3
+# published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense rates)
+PEAK_FP32 = 67e12  # FP32 operations per second outside the tensor cores
+PEAK_BYTES = 3.35e12  # device memory bytes per second
+# FP32 operations the kernels must do, counted from their sources: per
+# (column, triangle) pair the four affine forms of the parity kernels; per
+# live (pixel, sub-slab) step of the march (taps, z-mix at ss = 2, warp,
+# compositing); per hit pixel of the resolve (taps, two bilinear samples,
+# composite)
+PARITY_OPS_PER_PAIR = 16
+MARCH_OPS_PER_STEP = {1: 39, 2: 64}
+RESOLVE_OPS_PER_HIT = 60
 
 
 def check(cond: bool, msg: str) -> None:
@@ -100,6 +134,96 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least time (ms) for the work: bytes over the memory rate or FP32
+    operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def real_rows(coef) -> int:
+    """Coefficient rows that hold a triangle (padding rows are all zero)."""
+    return int((coef != 0).any(-1).sum())
+
+
+def march_live_steps(torch, args) -> int:
+    """(pixel, sub-slab) steps csrc/march.cu must take on these inputs: the
+    steps while a pixel's transmit is >= 0.01 (its loop bound), replayed
+    with the plain version's warp and recurrence."""
+    from dxrvoxelizer_tpu_torch.ops.march_cuda import zmix_slabs
+    from dxrvoxelizer_tpu_torch.ops.raymarch_ref import ABSORPTION, ZERO_THRESHOLD
+    from dxrvoxelizer_tpu_torch.ops.warp import (
+        interp_matrix,
+        scale_offset_coords,
+        warp2d,
+    )
+
+    slabs, wts, front, sx, ox, sy, oy, delta, ss = args
+    kn, n, m = slabs.shape[1], slabs.shape[2], delta.shape[0]
+    dens = slabs[0]
+    if ss > 1:
+        i0, i1, _ = zmix_slabs(kn, ss, slabs.device)
+        dens = dens[i0] * (1.0 - wts)[:, None, None] + dens[i1] * wts[:, None, None]
+    dens_w = warp2d(dens, interp_matrix(scale_offset_coords(m, sx, ox), n),
+                    interp_matrix(scale_offset_coords(m, sy, oy), n))
+    transmit = torch.ones((m, m), device=slabs.device)
+    live = torch.zeros((), dtype=torch.int64, device=slabs.device)
+    for s in range(kn * ss):
+        alive = transmit >= ZERO_THRESHOLD
+        live += alive.sum()
+        g = torch.clamp(dens_w[s] * 8.0, max=16.0)
+        occ = (g > ZERO_THRESHOLD) & (front[s] > 0)
+        att = torch.where(occ, torch.clamp(1.0 - g * delta * ABSORPTION, 0.0, 1.0),
+                          torch.ones_like(g))
+        transmit = torch.where(alive, transmit * att, transmit)
+    return int(live)
+
+
+def app_run(torch, app_main, kernels, args, png: Path, name: str):
+    """Drive the app as a user does, with every launch count set to 0 just
+    before and read just after; check the PNG -> (launches, covered)."""
+    from dxrvoxelizer_tpu_torch.utils.image import read_png
+
+    for k in kernels:
+        k.launches = 0
+    rc = app_main([*args, "-out", str(png)])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    check(rc == 0, f"{name}: app exited {rc}")
+    check(png.is_file(), f"{name}: the app wrote no PNG")
+    img = read_png(png)
+    check(img.shape == (720, 1280, 3), f"{name}: PNG shape {img.shape}")
+    clear_u8 = np.array([0, 51, 102])
+    covered = float((np.abs(img.astype(int) - clear_u8).sum(-1) > 3).mean())
+    check(0.05 < covered < 0.9, f"{name}: volume covers {covered:.3f} of the frame")
+    return launches, covered
+
+
+def profile_frames(torch, frame_fn, sync_fn, kernels):
+    """Profiler window of PROFILE_FRAMES frames -> (device busy ms per frame,
+    device kernels and copies per frame, kernel device us per frame)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_FRAMES):
+            frame_fn()
+        sync_fn()
+    dev_events = [e for e in prof.key_averages()
+                  if str(e.device_type) == "DeviceType.CUDA"]
+    dev_us = {e.key: e.self_device_time_total for e in dev_events}
+    busy_ms = sum(dev_us.values()) / PROFILE_FRAMES / 1e3
+    per_frame = sum(e.count for e in dev_events) / PROFILE_FRAMES
+    # "::symbol" in the demangled name (the kernels live in an anonymous
+    # namespace); queue_kernel's prefix also takes its conversion pass
+    kernel_us = {
+        k.name: round(sum(us for key, us in dev_us.items()
+                          if f"::{k.symbol}" in key) / PROFILE_FRAMES, 3)
+        for k in kernels
+    }
+    return busy_ms, per_frame, kernel_us
+
+
 def main() -> int:
     import torch
 
@@ -115,6 +239,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from dxrvoxelizer_tpu_torch.app.main import wobbled
     from dxrvoxelizer_tpu_torch.app.main import main as app_main
     from dxrvoxelizer_tpu_torch.core.pipeline import FramePipeline, VoxelGrid, render
     from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
@@ -124,6 +249,8 @@ def main() -> int:
         march_cuda,
         screen_warp_cuda,
         voxelize_cuda,
+        voxelize_queue,
+        voxelize_queue_cuda,
     )
     from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles
     from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
@@ -142,7 +269,13 @@ def main() -> int:
     icosphere_mesh = meshes.icosphere_mesh
     tetrahedron_mesh = meshes.tetrahedron_mesh
 
-    kernels = [voxelize_cuda.KERNEL, march_cuda.KERNEL, screen_warp_cuda.KERNEL]
+    vq, vqc = voxelize_queue, voxelize_queue_cuda
+    kernels = [voxelize_cuda.KERNEL, vqc.KERNEL, march_cuda.KERNEL,
+               screen_warp_cuda.KERNEL]
+    path_kernels = {  # the kernels each main path must launch
+        "64": ("parity_voxelize", "march", "resolve"),
+        "256": ("parity_queue", "march", "resolve"),
+    }
     dev = torch.device("cuda", 0)
 
     # ---- 1. card and build ----------------------------------------------
@@ -158,30 +291,26 @@ def main() -> int:
     print(f"phase 1 build: {info.seconds:.2f} s, {len(regs)} kernel "
           f"variants; ptxas: {' | '.join(regs)}")
 
+    main_launches = {k.name: 0 for k in kernels}
     with tempfile.TemporaryDirectory() as td:
         obj = Path(td) / "icosphere6.obj"
         v6, _, t6 = icosphere_mesh(6)
         write_obj(obj, v6 * WORLD_SCALE + WORLD_CENTER, t6)
+        obj7 = Path(td) / "icosphere7.obj"
+        v7, _, t7 = icosphere_mesh(7)
+        write_obj(obj7, v7 * WORLD_SCALE + WORLD_CENTER, t7)
         # the CLI reads "/..." as a flag (reference-style prefixes)
-        obj_arg = os.path.relpath(obj)
+        obj_arg, obj7_arg = os.path.relpath(obj), os.path.relpath(obj7)
 
         # ---- 2. the app's default frame (the main path) -----------------
-        png = Path(td) / "frame.png"
-        for k in kernels:
-            k.launches = 0
-        rc = app_main(["-mesh", obj_arg, "-frames", str(FRAMES),
-                       "-out", str(png)])
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels}
-        check(rc == 0, f"app exited {rc}")
-        check(png.is_file(), "the app wrote no PNG")
-        img = read_png(png)
-        check(img.shape == (720, 1280, 3), f"PNG shape {img.shape}")
-        clear_u8 = np.array([0, 51, 102])
-        covered = float((np.abs(img.astype(int) - clear_u8).sum(-1) > 3).mean())
-        check(0.05 < covered < 0.9, f"volume covers {covered:.3f} of the frame")
-        for name, count in launches.items():
-            check(count > 0, f"kernel {name} never launched on the main path")
+        launches, covered = app_run(
+            torch, app_main, kernels, ["-mesh", obj_arg, "-frames", str(FRAMES)],
+            Path(td) / "frame.png", "64^3 app")
+        for name in path_kernels["64"]:
+            check(launches[name] > 0,
+                  f"kernel {name} never launched on the 64^3 main path")
+        for k, c in launches.items():
+            main_launches[k] += c
         print(f"phase 2 app frame: {len(t6)} tris {GRID}^3 1280x720 -hq, "
               f"{FRAMES} frames, launches {launches}, volume covers "
               f"{covered:.3f} of the image")
@@ -194,10 +323,39 @@ def main() -> int:
         check(rc == 0 and png_fast.is_file(), "-fast frame failed")
         print(f"phase 3 -fast frame: {read_png(png_fast).shape} written")
 
-        # the main path's state, rebuilt for the comparisons
+        # ---- 6./7. the hi-res app frames (main paths of this slice) -------
+        hi = {}
+        for name, extra in (("static", []), ("deform", ["-deform"])):
+            launches, covered = app_run(
+                torch, app_main, kernels,
+                ["-mesh", obj7_arg, "-grid", str(GRID_HI), "-frames",
+                 str(FRAMES), *extra],
+                Path(td) / f"hi_{name}.png", f"{GRID_HI}^3 {name} app")
+            check(launches["parity_queue"] == FRAMES,
+                  f"{name}: parity_queue launched {launches['parity_queue']} "
+                  f"times in {FRAMES} frames")
+            check(launches["parity_voxelize"] == 0,
+                  f"{name}: the binned kernel ran at {GRID_HI}^3")
+            for k in path_kernels["256"]:
+                check(launches[k] >= FRAMES, f"{name}: {k} launched "
+                      f"{launches[k]} times in {FRAMES} frames")
+            for k, c in launches.items():
+                main_launches[k] += c
+            hi[name] = (launches, covered)
+
+        # the main paths' state, rebuilt for the comparisons
         cfg = VoxelizerConfig(mesh=str(obj))
         scene = Scene(load_obj(obj), dev, pos_scale=cfg.pos_scale,
                       light_pt=cfg.light_pt)
+        cfg_hi = VoxelizerConfig(mesh=str(obj7), grid_size=GRID_HI)
+        scene7 = Scene(load_obj(obj7), dev, pos_scale=cfg_hi.pos_scale,
+                       light_pt=cfg_hi.light_pt)
+    for phase, name in ((6, "static"), (7, "deform")):
+        launches, covered = hi[name]
+        print(f"phase {phase} app frame {name}: {len(t7)} tris {GRID_HI}^3 "
+              f"1280x720 -hq{' -deform' if name == 'deform' else ''}, "
+              f"{FRAMES} frames, launches {launches}, volume covers "
+              f"{covered:.3f} of the image")
     cam = OrbitCamera(cfg.width, cfg.height)
     consts = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
     pipe = FramePipeline(cfg, scene.buffers)
@@ -215,10 +373,13 @@ def main() -> int:
               f"parity words differ from the plain version: {name} {n}^3")
         return stats
 
+    def box_on_centers(n):
+        c = [(i + 0.5) / n * 2 - 1 for i in (3, 5, 2, n - 6, n - 4, n - 9)]
+        return box_mesh(c[:3], c[3:])  # faces on voxel centers: ties
+
     box_lines = []
     for n in (GRID, 256):
-        c = [(i + 0.5) / n * 2 - 1 for i in (3, 5, 2, n - 6, n - 4, n - 9)]
-        vb, _, tb = box_mesh(c[:3], c[3:])  # faces on voxel centers: ties
+        vb, _, tb = box_on_centers(n)
         for name, (vv, tt) in {"icosphere6": (v6, t6),
                                "box_on_centers": (vb, tb)}.items():
             stats = parity_case(name, vv, tt, n)
@@ -330,39 +491,207 @@ def main() -> int:
     pipe.sync()
     frame_plain_ms = cuda_ms(torch, frame_plain)
 
+    # the resolve's gather as one PyTorch call (its yardstick): bilinear
+    # grid_sample of both intermediates, clamped to the edge
+    import torch.nn.functional as F
+
+    mm = s_i.shape[0]
+    src = torch.stack([s_i, t_i])[None]  # [1, 2, M(x), M(y)]
+    samp = torch.stack([gi_y, gi_x], -1).reshape(1, 1, -1, 2) / (mm - 1) * 2 - 1
+    library_ms = {
+        "resolve": cuda_ms(torch, lambda: F.grid_sample(
+            src, samp, mode="bilinear", padding_mode="border",
+            align_corners=True)),
+    }
+
     # device time by kernel over a steady window of frames (profiler): what
     # the card is busy with per frame, and how long it idles
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_FRAMES):
-            frame_kernels()
-        pipe.sync()
+    busy_ms, per_frame, kernel_us = profile_frames(torch, frame_kernels,
+                                                   pipe.sync, kernels)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    dev_events = [e for e in prof.key_averages()
-                  if str(e.device_type) == "DeviceType.CUDA"]
-    dev_us = {e.key: e.self_device_time_total for e in dev_events}
-    busy_ms = sum(dev_us.values()) / PROFILE_FRAMES / 1e3
-    launches_per_frame = sum(e.count for e in dev_events) / PROFILE_FRAMES
-    kernel_us = {
-        k.name: sum(us for key, us in dev_us.items() if k.symbol in key)
-        / PROFILE_FRAMES for k in kernels
-    }
     print(f"phase 5 frame {GRID}^3 1280x720 -hq: {frame_ms:.4f} ms with the "
           f"kernels, {frame_plain_ms:.4f} ms plain (CUDA events over "
           f"{INNER} back-to-back runs, median of {REPS}); profiled: device "
           f"busy {busy_ms:.4f} ms per frame (idle share "
-          f"{1 - busy_ms / frame_ms:.3f}), {launches_per_frame:.0f} device "
+          f"{1 - busy_ms / frame_ms:.3f}), {per_frame:.0f} device "
           f"kernels and copies per frame, kernel device us per frame "
-          f"{ {k: round(v, 3) for k, v in kernel_us.items()} }, peak device "
-          f"memory {peak_mib:.1f} MiB; {card}")
+          f"{kernel_us}, peak device memory {peak_mib:.1f} MiB; {card}")
+
+    # ---- 8. the deforming call is sync-free ------------------------------
+    mb7 = scene7.buffers
+    base_x = mb7.positions_norm[:, :1].cpu().numpy()
+    dv = vq.DeformingVoxelizer(mb7.positions_norm, mb7.tris, GRID_HI)
+    wob = [wobbled(mb7, base_x, f).positions_norm for f in (1, 2, 3)]
+    dv(wob[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        words_sync_free = dv(wob[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(words_sync_free.any()), "the deforming call voxelized nothing")
+    print(f"phase 8 DeformingVoxelizer.__call__ at {GRID_HI}^3 ran under "
+          f"set_sync_debug_mode('error') without a host sync (capacity "
+          f"{dv.num_chunks} chunks, span caps {dv.spans})")
+
+    # ---- 9. the work-queue kernel against its plain version --------------
+    def queue_case(name, verts, tris, n, oracle=False, **spans):
+        coefs, ct, cn, _, stats = vq.build_queue(verts, tris, n, **spans)
+        words = vqc.voxelize_parity_queue_chunks(coefs, ct, cn, n)
+        plain = vqc.voxelize_parity_queue_chunks_plain(coefs, ct, cn, n)
+        check(torch.equal(words, plain),
+              f"queue words differ from the plain version: {name} {n}^3")
+        coef_b, _ = bin_triangles(verts, tris, n)
+        check(torch.equal(words, voxelize_cuda.voxelize_parity_tiles(coef_b, n)),
+              f"queue words differ from the binned kernel's: {name} {n}^3")
+        if oracle:
+            ref = pack_bits_z(voxelize_parity_ref(verts, tris, n=n))
+            check(torch.equal(words, ref),
+                  f"queue words differ from the oracle: {name} {n}^3")
+        check(bool(words.any()), f"{name} {n}^3: empty grid")
+        return f"{name}@{n}^3 {stats.real_chunks} chunks {stats.pairs} pairs " \
+               f"{stats.overflow} overflow"
+
+    def dev_mesh(verts, tris):
+        return (torch.from_numpy(np.asarray(verts, np.float32)).to(dev),
+                torch.from_numpy(np.asarray(tris, np.int64)).to(dev))
+
+    q_lines = []
+    for n in (128, 256, 512):
+        q_lines.append(queue_case("icosphere7", mb7.positions_norm, mb7.tris,
+                                  n, oracle=n == 128))
+        q_lines.append(queue_case("box_on_centers", *dev_mesh(*box_on_centers(n)[::2]),
+                                  n, oracle=n == 128))
+    q_lines.append(queue_case("box_on_centers", *dev_mesh(*box_on_centers(256)[::2]),
+                              256, max_span_x=1, max_span_y=1))
+    v4, _, t4 = icosphere_mesh(4)
+    q_lines.append(queue_case("icosphere4", *dev_mesh(v4, t4), 128, oracle=True,
+                              max_span_x=1, max_span_y=1))
+    for f, w in enumerate(wob[1:], 2):
+        coefs, ct, cn, _, ok_d = dv.build(w)
+        check(bool(ok_d), f"deformed frame {f} overflowed its capacity")
+        words = vqc.voxelize_parity_queue_chunks(coefs, ct, cn, GRID_HI)
+        check(torch.equal(words, vqc.voxelize_parity_queue_chunks_plain(
+            coefs, ct, cn, GRID_HI)), f"deformed frame {f}: kernel != plain")
+        check(torch.equal(words, vq.voxelize_parity_queue(w, mb7.tris, GRID_HI)),
+              f"deformed frame {f}: device-built queue != host-built queue")
+        q_lines.append(f"deformed frame {f}@{GRID_HI}^3")
+    check(torch.equal(words_sync_free, dv(wob[1])), "deforming call not repeatable")
+    errs["parity_queue"] = 0.0
+    print("phase 9 queue words bit-identical to the plain version and to the "
+          "binned kernel (" + "; ".join(q_lines) + "), to the counting oracle "
+          "at 128^3")
+
+    # ---- 10. the 256^3 frame against the plain path ----------------------
+    cam7 = OrbitCamera(cfg_hi.width, cfg_hi.height)
+    consts7 = scene7.update_frame(cam7.eye, cam7.view_proj, cfg_hi.width,
+                                  cfg_hi.height)
+    pipe7 = FramePipeline(cfg_hi, mb7)
+    sv = vq.StaticVoxelizer(mb7.positions_norm, mb7.tris, GRID_HI)
+
+    def frame7_kernels():
+        return pipe7.frame(consts7)
+
+    def frame7_plain():
+        words = vqc.voxelize_parity_queue_chunks_plain(
+            sv.coefs, sv.chunk_tile, sv.chunk_nsub, GRID_HI)
+        return render(VoxelGrid(words=words), consts7, cfg_hi, use_kernels=False)
+
+    f7_k = frame7_kernels()
+    pipe7.sync()
+    f7_p = frame7_plain()
+    frame7_err = max_err(f7_k, f7_p)
+    check(bool(torch.isfinite(f7_k).all()) and f7_k.shape == (720, 1280, 3),
+          "256^3 frame not finite or misshapen")
+    check(frame7_err <= TOL_FRAME, f"256^3 frame differs by {frame7_err:.3g}")
+    print(f"phase 10 frame {GRID_HI}^3 1280x720 -hq max|err| kernels vs plain "
+          f"{frame7_err:.3g} (queue {sv.stats})")
+
+    # ---- 11. hi-res timings ----------------------------------------------
+    sv512 = vq.StaticVoxelizer(mb7.positions_norm, mb7.tris, 512)
+    ms["parity_queue"] = (
+        cuda_ms(torch, sv),
+        cuda_ms(torch, lambda: vqc.voxelize_parity_queue_chunks_plain(
+            sv.coefs, sv.chunk_tile, sv.chunk_nsub, GRID_HI)),
+    )
+    q512_ms = (
+        cuda_ms(torch, sv512),
+        cuda_ms(torch, lambda: vqc.voxelize_parity_queue_chunks_plain(
+            sv512.coefs, sv512.chunk_tile, sv512.chunk_nsub, 512)),
+    )
+    coef_b7, stats_b7 = bin_triangles(mb7.positions_norm, mb7.tris, GRID_HI)
+    binned256_ms = cuda_ms(
+        torch, lambda: voxelize_cuda.voxelize_parity_tiles(coef_b7, GRID_HI))
+    deform_call_ms = cuda_ms(torch, lambda: dv(wob[2]))
+    pipe7d = FramePipeline(cfg_hi, mb7, deforming=True)
+    pipe7d.mesh = wobbled(mb7, base_x, 2)
+
+    def frame7_deform():
+        return pipe7d.frame(consts7)
+
+    hi_ms = {"static": cuda_ms(torch, frame7_kernels)}
+    pipe7.sync()
+    hi_ms["deform"] = cuda_ms(torch, frame7_deform)
+    pipe7d.sync()
+    hi_ms["static plain"] = cuda_ms(torch, frame7_plain)
+    hi_prof = {}
+    for name, fn, p in (("static", frame7_kernels, pipe7),
+                        ("deform", frame7_deform, pipe7d)):
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_frames(torch, fn, p.sync, kernels)
+        hi_prof[name] = (*prof, torch.cuda.max_memory_allocated() / 2**20)
+    print(f"phase 11 work-queue kernel {GRID_HI}^3 {ms['parity_queue'][0]:.4f} "
+          f"ms (plain {ms['parity_queue'][1]:.4f} ms), 512^3 {q512_ms[0]:.4f} "
+          f"ms (plain {q512_ms[1]:.4f} ms; queue {sv512.stats}); binned "
+          f"kernel on the same {GRID_HI}^3 mesh {binned256_ms:.4f} ms "
+          f"(capacity {stats_b7.capacity}); DeformingVoxelizer.__call__ "
+          f"{GRID_HI}^3 (re-bin + kernel) {deform_call_ms:.4f} ms (CUDA events "
+          f"over {INNER} back-to-back runs, median of {REPS}); {card}")
+    for name in ("static", "deform"):
+        busy, per_frame, kus, peak = hi_prof[name]
+        print(f"phase 11 frame {GRID_HI}^3 1280x720 -hq {name}: "
+              f"{hi_ms[name]:.4f} ms with the kernels"
+              + (f", {hi_ms['static plain']:.4f} ms plain"
+                 if name == "static" else "")
+              + f"; profiled: device busy {busy:.4f} ms per frame (idle share "
+              f"{1 - busy / hi_ms[name]:.3f}), {per_frame:.0f} device kernels "
+              f"and copies per frame, kernel device us per frame {kus}, peak "
+              f"device memory {peak:.1f} MiB; {card}")
+
+    # ---- bounds: the least time for each kernel's work on this run's data
+    w64 = GRID * GRID * (GRID // 32) * 4
+    rows_b = real_rows(coef_main)
+    rows_q = real_rows(sv.coefs)
+    w256 = GRID_HI * GRID_HI * (GRID_HI // 32) * 4
+    kn, nn = mi.slabs.shape[1], mi.slabs.shape[2]
+    ks, mq = kn * mi.ss, mi.delta.shape[0]
+    p_px = cfg.width * cfg.height
+    hits = int(ok.sum())
+    bounds = {
+        "parity_voxelize": bound(rows_b * 64 + w64,
+                                 rows_b * 1024 * PARITY_OPS_PER_PAIR),
+        "parity_queue": bound(rows_q * 64 + sv.chunk_tile.numel() * 8 + w256,
+                              rows_q * 128 * PARITY_OPS_PER_PAIR),
+        "march": bound(
+            mi.slabs.numel() * 4 + 6 * ks * 4 + 3 * mq * mq * 4,
+            march_live_steps(torch, mi.args()) * MARCH_OPS_PER_STEP[mi.ss]),
+        "resolve": bound(2 * mq * mq * 4 + p_px * (4 + 4 + 1) + p_px * 3 * 4,
+                         hits * RESOLVE_OPS_PER_HIT),
+    }
+    print(f"bounds (ms, bound by): {bounds}; real rows binned {GRID}^3 "
+          f"{rows_b}, queue {GRID_HI}^3 {rows_q} (pairs {sv.stats.pairs}); "
+          f"march {kn}x{nn}^2 slabs, {ks} sub-slabs, m={mq}; resolve "
+          f"{hits} of {p_px} pixels hit")
 
     result = {"kernels": [
         {"name": k.name, "route": k.route, "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
+         "replaces": k.replaces, "launches": main_launches[k.name],
          "max_abs_err": errs[k.name], "ms": ms[k.name][0],
-         "plain_ms": ms[k.name][1]}
+         "plain_ms": ms[k.name][1], "bound_ms": bounds[k.name][0],
+         "bound_by": bounds[k.name][1],
+         "library_ms": library_ms.get(k.name)}
         for k in kernels
     ]}
     print(json.dumps(result))

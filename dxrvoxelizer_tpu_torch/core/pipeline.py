@@ -1,6 +1,7 @@
 """Explicit pass functions + frame pipeline.
 
-Port of ``dxrvoxelizer_tpu/core/pipeline.py`` for the static parity frame.
+Port of ``dxrvoxelizer_tpu/core/pipeline.py`` for the parity frame: static
+meshes at every grid size and deforming meshes (``-deform``).
 The reference's per-frame loop (Content/Voxelizer.cpp:108-113) is
 ``Render = voxelize() ; renderRayCast()`` against triple-buffered grids
 (FrameCount = 3, Voxelizer.h:24). Here the two passes are torch functions on
@@ -17,7 +18,7 @@ import torch
 
 from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
 from dxrvoxelizer_tpu_torch.models.scene import FrameConstants
-from dxrvoxelizer_tpu_torch.ops import binning, voxelize_ref
+from dxrvoxelizer_tpu_torch.ops import binning, voxelize_queue, voxelize_ref
 from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z, unpack_bits_z
 from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
     light_sweep_host,
@@ -56,7 +57,8 @@ class VoxelGrid:
 
 
 def _kernel_ok(n: int, device: torch.device) -> bool:
-    """The binned CUDA kernel takes every multiple-of-32 grid on a GPU."""
+    """The CUDA kernels take every multiple-of-32 grid on a GPU (the JAX
+    package's ``_pallas_ok``: false on the CPU, which takes the oracle)."""
     return n % TILE == 0 and device.type == "cuda"
 
 
@@ -69,10 +71,11 @@ def voxelize(
 ) -> VoxelGrid:
     """Solid-voxelize a mesh -> :class:`VoxelGrid` on the mesh's device.
 
-    ``impl``: "auto" picks the binned CUDA kernel on a GPU (at every grid
-    size until the work-queue kernel is ported; both give the same words)
-    and the counting oracle on the CPU; "pallas" is the binned path (the
-    kernel's plain version on the CPU); "xla" is always the oracle.
+    ``impl``: "auto" picks, on a GPU, the work-queue kernel at n >= 128
+    and the binned kernel below (the JAX package's routing; both give the
+    same words), and the counting oracle on the CPU; "queue" and "pallas"
+    force the work-queue and binned paths (the kernels' plain versions on
+    the CPU); "xla" is always the oracle.
     """
     if mode == "raystab":
         raise _not_ported("the ray-stab inside rule (-inside raystab)",
@@ -83,10 +86,15 @@ def voxelize(
         raise _not_ported("the parity normal channel (-normals)",
                           "Ray-stab, gen-7 (≥128³)")
     if impl == "auto":
-        impl = "pallas" if _kernel_ok(n, mesh.device) else "xla"
+        if not _kernel_ok(n, mesh.device):
+            impl = "xla"
+        else:
+            impl = "queue" if n >= 128 else "pallas"
     if impl == "queue":
-        raise _not_ported("the work-queue voxelizer", "≥128³ voxelize")
-    if impl == "pallas":
+        words = voxelize_queue.voxelize_parity_queue(
+            mesh.positions_norm, mesh.tris, n
+        )
+    elif impl == "pallas":
         words = binning.voxelize_parity_binned(mesh.positions_norm, mesh.tris, n)
     elif impl == "xla":
         words = pack_bits_z(
@@ -141,10 +149,10 @@ class FramePipeline:
     def __init__(self, cfg: VoxelizerConfig, mesh: MeshBuffers,
                  vox_impl: str = "auto", render_impl: str = "warp",
                  deforming: bool = False):
-        if deforming:
-            raise _not_ported("the deforming-mesh path (-deform)",
-                              "≥128³ voxelize")
         if cfg.inside_mode != "parity":
+            if deforming:
+                raise _not_ported("deforming ray-stab (-deform -inside "
+                                  "raystab)", "Deforming ray-stab")
             raise _not_ported("the ray-stab inside rule (-inside raystab)",
                               "Ray-stab, gen-6 (64³)")
         if cfg.parity_normals:
@@ -154,25 +162,40 @@ class FramePipeline:
         self.mesh = mesh
         self.vox_impl = vox_impl
         self.render_impl = render_impl
+        self.deforming = deforming
         self._inflight: list[torch.cuda.Event] = []
-        self._static_vox = None  # build-once binned voxelizer (static mesh)
+        self._deformer = None  # lazy DeformingVoxelizer (fixed topology)
+        self._static_vox = None  # build-once voxelizer (static mesh)
         self._static_vox_mesh = None
 
     def frame(self, consts: FrameConstants) -> torch.Tensor:
         """Voxelize + render one frame (asynchronous on CUDA) -> image."""
         n = self.cfg.grid_size
         device = self.mesh.device
-        if self.vox_impl == "queue":
-            raise _not_ported("the work-queue voxelizer", "≥128³ voxelize")
-        if self.vox_impl in ("auto", "pallas") and _kernel_ok(n, device):
+        if (self.deforming and self.vox_impl in ("auto", "queue")
+                and _kernel_ok(n, device)):
+            # fixed-topology deforming path: device-only queue rebuild, no
+            # host sync per frame (ops/voxelize_queue.py)
+            if self._deformer is None:
+                self._deformer = voxelize_queue.DeformingVoxelizer(
+                    self.mesh.positions_norm, self.mesh.tris, n
+                )
+            grid = VoxelGrid(words=self._deformer(self.mesh.positions_norm))
+        elif (not self.deforming
+              and self.vox_impl in ("auto", "queue", "pallas")
+              and _kernel_ok(n, device)):
             # STATIC parity path: bin once, per frame only launch the
             # kernel — the reference's build-AS-once (Voxelizer.cpp:264-326)
             # + per-frame DispatchRays-only (:351-369) split. Rebuilds only
             # when the mesh object is swapped.
             if self._static_vox is None or self._static_vox_mesh is not self.mesh:
-                self._static_vox = binning.StaticBinnedVoxelizer(
-                    self.mesh.positions_norm, self.mesh.tris, n
+                use_queue = self.vox_impl == "queue" or (
+                    self.vox_impl == "auto" and n >= 128
                 )
+                cls = (voxelize_queue.StaticVoxelizer if use_queue
+                       else binning.StaticBinnedVoxelizer)
+                self._static_vox = cls(self.mesh.positions_norm,
+                                       self.mesh.tris, n)
                 self._static_vox_mesh = self.mesh
             grid = VoxelGrid(words=self._static_vox())
         else:

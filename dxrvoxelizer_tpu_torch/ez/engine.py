@@ -29,12 +29,13 @@ class Engine:
 
     def __init__(self, cfg: VoxelizerConfig, device: torch.device | str,
                  scene: Scene | None = None, vox_impl: str = "auto",
-                 render_impl: str = "warp"):
+                 render_impl: str = "warp", deforming: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
         self.scene = scene if scene is not None else Scene.load(cfg, self.device)
         self.pipeline = FramePipeline(
             cfg, self.scene.buffers, vox_impl=vox_impl, render_impl=render_impl,
+            deforming=deforming,
         )
         self._consts: list[FrameConstants | None] = [None] * FRAME_COUNT
 

@@ -1,8 +1,9 @@
 """Build, load and describe the port's hand-written CUDA kernels.
 
 The sources live in ``dxrvoxelizer_tpu_torch/csrc/*.cu``, each with a plain C
-entry point. They are compiled by ``nvcc`` into one shared library for Hopper
-(``sm_90a``) at first use, keyed by a hash of the sources and flags, into
+entry point. At first use each source is compiled by its own ``nvcc`` process
+for Hopper (``sm_90a``), all started together, and the objects are linked
+into one shared library, keyed by a hash of the sources and flags, in
 ``dxrvoxelizer_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
 ``ctypes``. Nothing here runs at import time: the CPU-only test machines
 import every module but never build.
@@ -30,9 +31,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -42,6 +43,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # coef, words, n_tiles, k, n, k_chunk, stream
     "dxv_parity_voxelize": (_P, _P, _I, _I, _I, _I, _P),
+    # coefs, chunk_tile, chunk_nsub, words, num_chunks, n, k_chunk, stream
+    "dxv_parity_queue": (_P, _P, _P, _P, _I, _I, _I, _P),
     # slabs, wts, front, scale_x, off_x, scale_y, off_y, delta,
     # transmit, scatter, kn, n, m, ss, stream
     "dxv_march": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -102,24 +105,33 @@ def build() -> BuildInfo:
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build under a temporary name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
+    # one nvcc per source, all at once, then one link; build under temporary
+    # names and rename: concurrent builds never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{s.stem}.o" for s in srcs]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(srcs, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        log = "\n".join(logs)
+        failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = Path(tmpdir) / out.name
         res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)],
+            [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
             capture_output=True, text=True,
         )
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
             )
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildInfo(out, time.perf_counter() - t0, res.stdout + res.stderr)
+    return BuildInfo(out, time.perf_counter() - t0, log)
 
 
 @functools.cache

@@ -23,8 +23,12 @@ import torch
 def norm_to_index_space(p: torch.Tensor, n: int) -> torch.Tensor:
     """Map normalized-space points [-1,1]^3 -> continuous voxel-index space
     where voxel centers sit at integer coordinates (y axis flipped)."""
-    scale = torch.tensor([0.5, -0.5, 0.5], dtype=p.dtype, device=p.device) * n
-    return p * scale + (0.5 * n - 0.5)
+    # p * [n/2, -n/2, n/2] without a host-to-device copy (which would sync
+    # the host on every deforming frame): negation is exact, so negating the
+    # y product gives the same bits as multiplying by -n/2
+    g = p * (0.5 * n)
+    g[..., 1] = -g[..., 1]
+    return g + (0.5 * n - 0.5)
 
 
 def _shifts(device) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 The two packages share no objects: the JAX package's arrays, taken to the
 host as numpy, become this package's tensors here, so both compute on
-identical inputs (the tests compare them this way).
+identical inputs (the tests compare them this way): mesh buffers, packed
+occupancy grids, and work queues built by the JAX package's ``build_queue``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from dxrvoxelizer_tpu_torch.core.pipeline import VoxelGrid
 from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
+from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import NCOEF
 
 MESH_FIELDS = ("positions", "normals", "tris", "positions_norm")
 
@@ -38,3 +40,24 @@ def grid_from_numpy(words: np.ndarray, device: torch.device | str) -> VoxelGrid:
     if w.dtype != np.int32 or w.ndim != 3 or w.shape[2] * 32 != w.shape[0]:
         raise ValueError(f"expected int32 words [N, N, N//32], got {w.dtype} {w.shape}")
     return VoxelGrid(words=torch.tensor(w).to(device))
+
+
+def queue_from_numpy(coefs: np.ndarray, chunk_tile: np.ndarray,
+                     chunk_nsub: np.ndarray, chunk_last: np.ndarray, n: int,
+                     device: torch.device | str):
+    """A work queue built by the JAX package's ``build_queue`` (its arrays as
+    numpy) -> ``(coefs, chunk_tile, chunk_nsub, chunk_last)`` tensors that
+    ``ops.voxelize_queue_cuda.voxelize_parity_queue_chunks`` (the kernel, or
+    its plain version on the CPU) takes for an ``n``^3 grid."""
+    c = np.asarray(coefs, np.float32)
+    chunks = [np.asarray(a) for a in (chunk_tile, chunk_nsub, chunk_last)]
+    num_chunks = chunks[0].shape[0]
+    if n % 32 != 0 or c.ndim != 2 or c.shape[1] != NCOEF \
+            or c.shape[0] % max(num_chunks, 1) != 0:
+        raise ValueError(f"expected coefs [num_chunks * k_chunk, {NCOEF}] for "
+                         f"n % 32 == 0, got {c.shape} with {num_chunks} chunks")
+    if any(a.shape != (num_chunks,) for a in chunks):
+        raise ValueError("chunk_tile, chunk_nsub and chunk_last must be "
+                         f"[{num_chunks}]")
+    return (torch.tensor(c).to(device),
+            *(torch.tensor(a.astype(np.int32)).to(device) for a in chunks))

@@ -17,8 +17,14 @@ import torch
 from dxrvoxelizer_tpu_torch.core.pipeline import FramePipeline
 from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
 from dxrvoxelizer_tpu_torch.models.scene import Scene
-from dxrvoxelizer_tpu_torch.ops import march_cuda, screen_warp_cuda, voxelize_cuda
-from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles
+from dxrvoxelizer_tpu_torch.ops import (
+    march_cuda,
+    screen_warp_cuda,
+    voxelize_cuda,
+    voxelize_queue,
+    voxelize_queue_cuda,
+)
+from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles, voxelize_parity_binned
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
 # pytest puts tests/ itself on sys.path (no __init__.py there); importing
@@ -49,6 +55,46 @@ def test_parity_kernel_bit_identical_to_plain(dev, mesh, n):
     words = voxelize_cuda.voxelize_parity_tiles(coef, n)
     assert torch.equal(words, voxelize_cuda.voxelize_parity_tiles_plain(coef, n))
     assert words.any()
+
+
+def _mesh(name, n, dev):
+    if name == "box":  # faces on voxel centers: every tie rule fires
+        c = [(i + 0.5) / n * 2 - 1 for i in (3, 5, 2, n - 6, n - 4, n - 9)]
+        verts, _, tris = box_mesh(c[:3], c[3:])
+    else:
+        verts, _, tris = icosphere_mesh(4)
+    return (torch.from_numpy(verts).to(dev),
+            torch.from_numpy(tris.astype(np.int64)).to(dev))
+
+
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("mesh", ["box", "icosphere"])
+def test_queue_kernel_bit_identical_to_plain(dev, mesh, n):
+    verts, tris = _mesh(mesh, n, dev)
+    coefs, ct, cn, _, stats = voxelize_queue.build_queue(verts, tris, n)
+    words = voxelize_queue_cuda.voxelize_parity_queue_chunks(coefs, ct, cn, n)
+    plain = voxelize_queue_cuda.voxelize_parity_queue_chunks_plain(
+        coefs, ct, cn, n)
+    assert torch.equal(words, plain)
+    assert torch.equal(words, voxelize_parity_binned(verts, tris, n))
+    assert words.any() and stats.pairs > 0
+
+
+def test_deforming_call_is_sync_free(dev):
+    verts, nrm, tris = icosphere_mesh(4)
+    v = torch.from_numpy(verts).to(dev)
+    wob = v + 0.02 * torch.from_numpy(nrm).to(dev)
+    dv = voxelize_queue.DeformingVoxelizer(
+        v, torch.from_numpy(tris.astype(np.int64)).to(dev), 256)
+    dv(v)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        words = dv(wob)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(words, voxelize_queue.voxelize_parity_queue(
+        wob, dv.tris, 256))
 
 
 def _march_case(n, m, ss, seed=7):

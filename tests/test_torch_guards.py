@@ -12,7 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from dxrvoxelizer_tpu_torch.ops import _cuda, march_cuda, screen_warp_cuda, voxelize_cuda
+from dxrvoxelizer_tpu_torch.ops import (
+    _cuda,
+    march_cuda,
+    screen_warp_cuda,
+    voxelize_cuda,
+    voxelize_queue_cuda,
+)
 from dxrvoxelizer_tpu_torch.utils.config import parse_args
 from dxrvoxelizer_tpu_torch.utils.device import select_device
 
@@ -37,7 +43,9 @@ def _modules() -> list[str]:
 
 def test_every_module_imports_without_jax_and_builds_nothing():
     mods = _modules()
-    assert "dxrvoxelizer_tpu_torch.ops.voxelize_cuda" in mods
+    for m in ("ops.voxelize_cuda", "ops.voxelize_queue", "ops.voxelize_queue_cuda",
+              "state", "app.main"):
+        assert f"dxrvoxelizer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -91,15 +99,23 @@ def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("kernel", ["parity_voxelize", "march", "resolve"])
+KERNELS = (voxelize_cuda.KERNEL, voxelize_queue_cuda.KERNEL, march_cuda.KERNEL,
+           screen_warp_cuda.KERNEL)
+
+
+@pytest.mark.parametrize("kernel", ["parity_voxelize", "parity_queue", "march",
+                                    "resolve"])
 def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises — the
     plain version is never a silent fallback for it."""
-    launches = {k.name: k.launches for k in (
-        voxelize_cuda.KERNEL, march_cuda.KERNEL, screen_warp_cuda.KERNEL)}
+    launches = {k.name: k.launches for k in KERNELS}
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         if kernel == "parity_voxelize":
             voxelize_cuda.voxelize_parity_tiles(_meta(1, 8, 16), 32)
+        elif kernel == "parity_queue":
+            voxelize_queue_cuda.voxelize_parity_queue_chunks(
+                _meta(128 * 64, 16), _meta(128, dtype=torch.int32),
+                _meta(128, dtype=torch.int32), 32)
         elif kernel == "march":
             v = _meta(32)
             march_cuda.march(_meta(2, 32, 32, 32), v, v, v, v, v, v,
@@ -109,8 +125,7 @@ def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
             screen_warp_cuda.resolve(_meta(8, 8), _meta(8, 8), p, p,
                                      _meta(6, dtype=torch.bool),
                                      np.zeros(3, np.float32), 2, 3)
-    after = {k.name: k.launches for k in (
-        voxelize_cuda.KERNEL, march_cuda.KERNEL, screen_warp_cuda.KERNEL)}
+    after = {k.name: k.launches for k in KERNELS}
     assert after == launches
 
 
@@ -122,14 +137,18 @@ def test_wrapper_on_a_box_without_cuda_raises_not_falls_back(monkeypatch):
     # bypass the process-wide caches (a card's tests may have filled them)
     monkeypatch.setattr(_cuda, "build", _cuda.build.__wrapped__)
     monkeypatch.setattr(_cuda, "load", _cuda.load.__wrapped__)
-    before = voxelize_cuda.KERNEL.launches
+    before = {k.name: k.launches for k in KERNELS}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         voxelize_cuda.voxelize_parity_tiles(_meta(1, 8, 16), 32)
-    assert voxelize_cuda.KERNEL.launches == before
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        voxelize_queue_cuda.voxelize_parity_queue_chunks(
+            _meta(128 * 64, 16), _meta(128, dtype=torch.int32),
+            _meta(128, dtype=torch.int32), 32)
+    assert {k.name: k.launches for k in KERNELS} == before
 
 
 def test_cuda_sources_present_with_notes():
-    for k in (voxelize_cuda.KERNEL, march_cuda.KERNEL, screen_warp_cuda.KERNEL):
+    for k in KERNELS:
         src = (REPO / k.source).read_text()
         assert "Replaces:" in src and "What bounds it on the card" in src
         assert "Design:" in src

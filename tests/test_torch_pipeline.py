@@ -122,14 +122,15 @@ def test_engine_slots_and_ring(tmp_path):
 
 
 def test_unported_options_raise():
+    """Options off the ported slices raise; the queue and deforming paths,
+    ported now, run and give the oracle's frame."""
     scene = Scene(_tet_obj(ObjMesh), "cpu")
     base = VoxelizerConfig(grid_size=N, width=W, height=H)
     for cfg in (base.replace(inside_mode="raystab"),
                 base.replace(parity_normals=True)):
-        with pytest.raises(NotImplementedError):
-            FramePipeline(cfg, scene.buffers)
-    with pytest.raises(NotImplementedError):
-        FramePipeline(base, scene.buffers, deforming=True)
+        for deforming in (False, True):
+            with pytest.raises(NotImplementedError):
+                FramePipeline(cfg, scene.buffers, deforming=deforming)
     cam = OrbitCamera(W, H)
     fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
     from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
@@ -140,8 +141,11 @@ def test_unported_options_raise():
                       (base, "gather"), (base, "ref")):
         with pytest.raises(NotImplementedError):
             render(g, fc, cfg, impl=impl)
-    with pytest.raises(NotImplementedError):
-        FramePipeline(base, scene.buffers, vox_impl="queue").frame(fc)
+    want = render(voxelize(scene.buffers, N, impl="xla"), fc, base)
+    for kw in ({"vox_impl": "queue"}, {"deforming": True},
+               {"deforming": True, "vox_impl": "queue"}):
+        assert torch.equal(FramePipeline(base, scene.buffers, **kw).frame(fc),
+                           want), kw
 
 
 def _write_obj(path, verts, tris):

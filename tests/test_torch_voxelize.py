@@ -136,8 +136,9 @@ def test_static_binned_voxelizer_and_voxelize_routes():
     assert torch.equal(voxelize(mesh, 32).words, want)
     assert torch.equal(voxelize(mesh, 32, impl="pallas").words, want)
     assert torch.equal(sv(), want)
-    for bad, exc in (({"impl": "queue"}, NotImplementedError),
-                     ({"mode": "raystab"}, NotImplementedError),
+    # the work-queue path (its kernel's plain version on the CPU)
+    assert torch.equal(voxelize(mesh, 32, impl="queue").words, want)
+    for bad, exc in (({"mode": "raystab"}, NotImplementedError),
                      ({"with_normals": True}, NotImplementedError),
                      ({"impl": "nope"}, ValueError)):
         with pytest.raises(exc):
