@@ -32,17 +32,21 @@ the CUDA toolkit. Phases, one line each:
    centres, and against the binned kernel's words there; against the
    counting oracle at 128^3; on queues with span overflow; on two deformed
    frames;
-10. the 256^3 ``-hq`` frame at 1280x720 against the plain path;
+10. the 256^3 ``-hq`` frame at 1280x720 against the plain path, and the
+    march and resolve against their plain versions at that frame's inputs;
 11. times of the work-queue kernel (256^3, 512^3), its plain version, the
     binned kernel on the same 256^3 mesh, the deforming voxelizer's call,
-    and the whole static and deforming 256^3 frames; a profiler window of
-    each 256^3 frame.
+    the march and resolve at the 256^3 frame's inputs (with plain versions
+    and bounds), and the whole static and deforming 256^3 frames; a
+    profiler window of each 256^3 frame.
 
 Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3 and 256^3 ``-deform`` app runs, each counted from zero), its
-largest difference from its plain version, its time, its plain version's
-time, its bound and, where one PyTorch call computes the same function,
-that call's time. Any failure raises and exits non-zero. The last line is
+largest difference from its plain version (over every comparison above),
+and, at the inputs of the main path it belongs to (the 64^3 frame for the
+binned kernel, the march and the resolve; the 256^3 frame for the work-queue
+kernel), its time, its plain version's time, its bound and, where one
+PyTorch call computes the same function, that call's time. Any failure raises and exits non-zero. The last line is
 the JSON result.
 """
 
@@ -79,7 +83,8 @@ TOL_FRAME = 2e-3
 PEAK_FP32 = 67e12  # FP32 operations per second outside the tensor cores
 PEAK_BYTES = 3.35e12  # device memory bytes per second
 # FP32 operations the kernels must do, counted from their sources: per
-# (column, triangle) pair the four affine forms of the parity kernels; per
+# (column, triangle) pair inside the triangle's bounding box the four affine
+# forms of the parity kernels; per
 # live (pixel, sub-slab) step of the march (taps, z-mix at ss = 2, warp,
 # compositing); per hit pixel of the resolve (taps, two bilinear samples,
 # composite)
@@ -147,6 +152,35 @@ def real_rows(coef) -> int:
     return int((coef != 0).any(-1).sum())
 
 
+def bbox_pairs(torch, verts, tris, n: int) -> int:
+    """(column, triangle) tests the parity function needs on this mesh: the
+    column centres inside each valid triangle's bounding box, clipped to the
+    grid (the kernels test more: every column of a tile against its rows)."""
+    from dxrvoxelizer_tpu_torch.ops.geom import parity_tri_setup
+
+    pt = parity_tri_setup(verts, tris, n)
+
+    def span(lo, hi):
+        return torch.clamp(torch.clamp(torch.floor(hi), max=n - 1)
+                           - torch.clamp(torch.ceil(lo), min=0) + 1, min=0)
+
+    cols = span(pt.xmin, pt.xmax) * span(pt.ymin, pt.ymax) * (pt.valid > 0)
+    return int(cols.double().sum())
+
+
+def grid_sample_ms(torch, res_args) -> float:
+    """The resolve's gather as one PyTorch call (its yardstick): bilinear
+    grid_sample of both intermediates, clamped to the edge."""
+    import torch.nn.functional as F
+
+    s_i, t_i, gi_x, gi_y = res_args[:4]
+    mm = s_i.shape[0]
+    src = torch.stack([s_i, t_i])[None]  # [1, 2, M(x), M(y)]
+    samp = torch.stack([gi_y, gi_x], -1).reshape(1, 1, -1, 2) / (mm - 1) * 2 - 1
+    return cuda_ms(torch, lambda: F.grid_sample(
+        src, samp, mode="bilinear", padding_mode="border", align_corners=True))
+
+
 def march_live_steps(torch, args) -> int:
     """(pixel, sub-slab) steps csrc/march.cu must take on these inputs: the
     steps while a pixel's transmit is >= 0.01 (its loop bound), replayed
@@ -178,6 +212,23 @@ def march_live_steps(torch, args) -> int:
                           torch.ones_like(g))
         transmit = torch.where(alive, transmit * att, transmit)
     return int(live)
+
+
+def march_bound(torch, mi) -> tuple[float, str]:
+    """Bound of the march on these inputs: the slabs, per-sub-slab tables
+    and both [M, M] outputs once; the live steps' operations."""
+    ks, mq = mi.slabs.shape[1] * mi.ss, mi.delta.shape[0]
+    return bound(mi.slabs.numel() * 4 + 6 * ks * 4 + 3 * mq * mq * 4,
+                 march_live_steps(torch, mi.args()) * MARCH_OPS_PER_STEP[mi.ss])
+
+
+def resolve_bound(res_args) -> tuple[float, str]:
+    """Bound of the resolve: both intermediates, the per-pixel coordinates
+    and mask, and the image once; the hit pixels' operations."""
+    s_i, ok, h, w = res_args[0], res_args[4], res_args[6], res_args[7]
+    p_px = h * w
+    return bound(2 * s_i.numel() * 4 + p_px * (4 + 4 + 1) + p_px * 3 * 4,
+                 int(ok.sum()) * RESOLVE_OPS_PER_HIT)
 
 
 def app_run(torch, app_main, kernels, args, png: Path, name: str):
@@ -395,39 +446,46 @@ def main() -> int:
               f"({', '.join(box_lines)}) and to the counting oracle at "
               f"{GRID}^3 (main path: {stats_main})"]
 
-    grid = VoxelGrid(words=words_main)
-    density = grid.density()
-    light = light_sweep_ref_host(density, consts.local_space_light_pt, GRID)
-    axis, flip, swap, m = shearwarp_statics(
-        consts.screen_to_local, consts.local_space_eye_pt, cfg.width,
-        cfg.height, m_cap=cfg.intermediate_cap,
-    )
-    march_err = {}
-    for ss in (1, 2):
-        mi_ss = march_inputs(density, light, consts.local_space_eye_pt, GRID,
-                             m, axis, flip, ss)
-        t_k, s_k = march_cuda.march(*mi_ss.args())
-        t_p, s_p = march_cuda.march_plain(*mi_ss.args())
-        march_err[ss] = max(max_err(t_k, t_p), max_err(s_k, s_p))
-        check(march_err[ss] <= TOL_MARCH,
-              f"march ss={ss} differs by {march_err[ss]:.3g}")
+    def render_case(words, consts_, cfg_, n, ss_list):
+        """March and resolve against their plain versions at the inputs
+        the frame gives them -> (march inputs, resolve args, march error
+        per ss, resolve error, m, swap)."""
+        density = VoxelGrid(words=words).density()
+        light = light_sweep_ref_host(density, consts_.local_space_light_pt, n)
+        axis, flip, swap, m = shearwarp_statics(
+            consts_.screen_to_local, consts_.local_space_eye_pt, cfg_.width,
+            cfg_.height, m_cap=cfg_.intermediate_cap,
+        )
+        m_err = {}
+        for ss in ss_list:
+            mi_ss = march_inputs(density, light, consts_.local_space_eye_pt,
+                                 n, m, axis, flip, ss)
+            t_k, s_k = march_cuda.march(*mi_ss.args())
+            t_p, s_p = march_cuda.march_plain(*mi_ss.args())
+            m_err[ss] = max(max_err(t_k, t_p), max_err(s_k, s_p))
+            check(m_err[ss] <= TOL_MARCH,
+                  f"march {n}^3 ss={ss} differs by {m_err[ss]:.3g}")
+        mi_ = march_inputs(density, light, consts_.local_space_eye_pt, n, m,
+                           axis, flip, cfg_.render_ss)
+        t_i, s_i = march_cuda.march(*mi_.args())
+        gi_x, gi_y, ok_ = screen_coords(consts_.screen_to_local,
+                                        consts_.local_space_eye_pt,
+                                        cfg_.width, cfg_.height, axis, flip,
+                                        m, mi_, dev)
+        if swap:
+            t_i, s_i = t_i.t().contiguous(), s_i.t().contiguous()
+            gi_x, gi_y = gi_y, gi_x
+        clear = np.asarray(cfg_.clear_color, np.float32)
+        args = (s_i, t_i, gi_x, gi_y, ok_, clear, cfg_.height, cfg_.width)
+        r_err = max_err(screen_warp_cuda.resolve(*args),
+                        screen_warp_cuda.resolve_plain(*args))
+        check(r_err <= TOL_RESOLVE, f"resolve {n}^3 differs by {r_err:.3g}")
+        return mi_, args, m_err, r_err, m, swap
+
+    mi, res_args, march_err, res_err, m, swap = render_case(
+        words_main, consts, cfg, GRID, (1, 2))
     errs["march"] = march_err[cfg.render_ss]
-    mi = march_inputs(density, light, consts.local_space_eye_pt, GRID, m,
-                      axis, flip, cfg.render_ss)
-    t_i, s_i = march_cuda.march(*mi.args())
-    gi_x, gi_y, ok = screen_coords(consts.screen_to_local,
-                                   consts.local_space_eye_pt, cfg.width,
-                                   cfg.height, axis, flip, m, mi, dev)
-    if swap:
-        t_i, s_i = t_i.t().contiguous(), s_i.t().contiguous()
-        gi_x, gi_y = gi_y, gi_x
-    clear = np.asarray(cfg.clear_color, np.float32)
-    res_args = (s_i, t_i, gi_x, gi_y, ok, clear, cfg.height, cfg.width)
-    img_k = screen_warp_cuda.resolve(*res_args)
-    img_p = screen_warp_cuda.resolve_plain(*res_args)
-    errs["resolve"] = max_err(img_k, img_p)
-    check(errs["resolve"] <= TOL_RESOLVE,
-          f"resolve differs by {errs['resolve']:.3g}")
+    errs["resolve"] = res_err
     phase4.append(f"march max|err| ss=1 {march_err[1]:.3g} ss=2 "
                   f"{march_err[2]:.3g} (m={m}, swap={swap}); resolve max|err| "
                   f"{errs['resolve']:.3g}")
@@ -491,18 +549,7 @@ def main() -> int:
     pipe.sync()
     frame_plain_ms = cuda_ms(torch, frame_plain)
 
-    # the resolve's gather as one PyTorch call (its yardstick): bilinear
-    # grid_sample of both intermediates, clamped to the edge
-    import torch.nn.functional as F
-
-    mm = s_i.shape[0]
-    src = torch.stack([s_i, t_i])[None]  # [1, 2, M(x), M(y)]
-    samp = torch.stack([gi_y, gi_x], -1).reshape(1, 1, -1, 2) / (mm - 1) * 2 - 1
-    library_ms = {
-        "resolve": cuda_ms(torch, lambda: F.grid_sample(
-            src, samp, mode="bilinear", padding_mode="border",
-            align_corners=True)),
-    }
+    library_ms = {"resolve": grid_sample_ms(torch, res_args)}
 
     # device time by kernel over a steady window of frames (profiler): what
     # the card is busy with per frame, and how long it idles
@@ -606,8 +653,15 @@ def main() -> int:
     check(bool(torch.isfinite(f7_k).all()) and f7_k.shape == (720, 1280, 3),
           "256^3 frame not finite or misshapen")
     check(frame7_err <= TOL_FRAME, f"256^3 frame differs by {frame7_err:.3g}")
+    mi7, res_args7, march_err7, res_err7, m7, swap7 = render_case(
+        sv(), consts7, cfg_hi, GRID_HI, (cfg_hi.render_ss,))
+    errs["march"] = max(errs["march"], march_err7[cfg_hi.render_ss])
+    errs["resolve"] = max(errs["resolve"], res_err7)
     print(f"phase 10 frame {GRID_HI}^3 1280x720 -hq max|err| kernels vs plain "
-          f"{frame7_err:.3g} (queue {sv.stats})")
+          f"{frame7_err:.3g} (queue {sv.stats}); at its own inputs march "
+          f"max|err| ss={cfg_hi.render_ss} "
+          f"{march_err7[cfg_hi.render_ss]:.3g} (m={m7}, swap={swap7}), "
+          f"resolve max|err| {res_err7:.3g}")
 
     # ---- 11. hi-res timings ----------------------------------------------
     sv512 = vq.StaticVoxelizer(mb7.positions_norm, mb7.tris, 512)
@@ -631,6 +685,16 @@ def main() -> int:
     def frame7_deform():
         return pipe7d.frame(consts7)
 
+    render7 = {  # kernel ms, plain ms, bound at the 256^3 frame's inputs
+        "march": (cuda_ms(torch, lambda: march_cuda.march(*mi7.args())),
+                  cuda_ms(torch, lambda: march_cuda.march_plain(*mi7.args())),
+                  march_bound(torch, mi7)),
+        "resolve": (cuda_ms(torch, lambda: screen_warp_cuda.resolve(*res_args7)),
+                    cuda_ms(torch,
+                            lambda: screen_warp_cuda.resolve_plain(*res_args7)),
+                    resolve_bound(res_args7)),
+    }
+    grid_sample7_ms = grid_sample_ms(torch, res_args7)
     hi_ms = {"static": cuda_ms(torch, frame7_kernels)}
     pipe7.sync()
     hi_ms["deform"] = cuda_ms(torch, frame7_deform)
@@ -649,6 +713,13 @@ def main() -> int:
           f"(capacity {stats_b7.capacity}); DeformingVoxelizer.__call__ "
           f"{GRID_HI}^3 (re-bin + kernel) {deform_call_ms:.4f} ms (CUDA events "
           f"over {INNER} back-to-back runs, median of {REPS}); {card}")
+    print(f"phase 11 at the {GRID_HI}^3 frame's inputs (m={m7}, "
+          f"{mi7.slabs.shape[1] * mi7.ss} sub-slabs): march "
+          f"{render7['march'][0]:.4f} ms (plain {render7['march'][1]:.4f} ms, "
+          f"bound {render7['march'][2]}), resolve {render7['resolve'][0]:.4f} "
+          f"ms (plain {render7['resolve'][1]:.4f} ms, bound "
+          f"{render7['resolve'][2]}, grid_sample {grid_sample7_ms:.4f} ms); "
+          f"{card}")
     for name in ("static", "deform"):
         busy, per_frame, kus, peak = hi_prof[name]
         print(f"phase 11 frame {GRID_HI}^3 1280x720 -hq {name}: "
@@ -662,28 +733,24 @@ def main() -> int:
 
     # ---- bounds: the least time for each kernel's work on this run's data
     w64 = GRID * GRID * (GRID // 32) * 4
-    rows_b = real_rows(coef_main)
-    rows_q = real_rows(sv.coefs)
     w256 = GRID_HI * GRID_HI * (GRID_HI // 32) * 4
-    kn, nn = mi.slabs.shape[1], mi.slabs.shape[2]
-    ks, mq = kn * mi.ss, mi.delta.shape[0]
-    p_px = cfg.width * cfg.height
-    hits = int(ok.sum())
+    rows_b, rows_q = real_rows(coef_main), real_rows(sv.coefs)
+    pairs_b = bbox_pairs(torch, mb.positions_norm, mb.tris, GRID)
+    pairs_q = bbox_pairs(torch, mb7.positions_norm, mb7.tris, GRID_HI)
     bounds = {
         "parity_voxelize": bound(rows_b * 64 + w64,
-                                 rows_b * 1024 * PARITY_OPS_PER_PAIR),
+                                 pairs_b * PARITY_OPS_PER_PAIR),
         "parity_queue": bound(rows_q * 64 + sv.chunk_tile.numel() * 8 + w256,
-                              rows_q * 128 * PARITY_OPS_PER_PAIR),
-        "march": bound(
-            mi.slabs.numel() * 4 + 6 * ks * 4 + 3 * mq * mq * 4,
-            march_live_steps(torch, mi.args()) * MARCH_OPS_PER_STEP[mi.ss]),
-        "resolve": bound(2 * mq * mq * 4 + p_px * (4 + 4 + 1) + p_px * 3 * 4,
-                         hits * RESOLVE_OPS_PER_HIT),
+                              pairs_q * PARITY_OPS_PER_PAIR),
+        "march": march_bound(torch, mi),
+        "resolve": resolve_bound(res_args),
     }
-    print(f"bounds (ms, bound by): {bounds}; real rows binned {GRID}^3 "
-          f"{rows_b}, queue {GRID_HI}^3 {rows_q} (pairs {sv.stats.pairs}); "
-          f"march {kn}x{nn}^2 slabs, {ks} sub-slabs, m={mq}; resolve "
-          f"{hits} of {p_px} pixels hit")
+    print(f"bounds (ms, bound by): {bounds}; binned {GRID}^3 {rows_b} real "
+          f"rows, {pairs_b} (column, triangle) pairs in bounding boxes; "
+          f"queue {GRID_HI}^3 {rows_q} real rows, {pairs_q} pairs; march "
+          f"{tuple(mi.slabs.shape)} slabs, {mi.slabs.shape[1] * mi.ss} "
+          f"sub-slabs, m={m}; resolve {int(res_args[4].sum())} of "
+          f"{cfg.width * cfg.height} pixels hit")
 
     result = {"kernels": [
         {"name": k.name, "route": k.route, "source": k.source,

@@ -62,6 +62,14 @@ def _kernel_ok(n: int, device: torch.device) -> bool:
     return n % TILE == 0 and device.type == "cuda"
 
 
+def _auto_impl(n: int, device: torch.device) -> str:
+    """What ``impl="auto"`` runs: the work-queue kernel at n >= 128 and the
+    binned kernel below on a GPU, the counting oracle elsewhere."""
+    if not _kernel_ok(n, device):
+        return "xla"
+    return "queue" if n >= 128 else "pallas"
+
+
 def voxelize(
     mesh: MeshBuffers,
     n: int,
@@ -86,10 +94,7 @@ def voxelize(
         raise _not_ported("the parity normal channel (-normals)",
                           "Ray-stab, gen-7 (≥128³)")
     if impl == "auto":
-        if not _kernel_ok(n, mesh.device):
-            impl = "xla"
-        else:
-            impl = "queue" if n >= 128 else "pallas"
+        impl = _auto_impl(n, mesh.device)
     if impl == "queue":
         words = voxelize_queue.voxelize_parity_queue(
             mesh.positions_norm, mesh.tris, n
@@ -189,10 +194,9 @@ class FramePipeline:
             # + per-frame DispatchRays-only (:351-369) split. Rebuilds only
             # when the mesh object is swapped.
             if self._static_vox is None or self._static_vox_mesh is not self.mesh:
-                use_queue = self.vox_impl == "queue" or (
-                    self.vox_impl == "auto" and n >= 128
-                )
-                cls = (voxelize_queue.StaticVoxelizer if use_queue
+                impl = (_auto_impl(n, device) if self.vox_impl == "auto"
+                        else self.vox_impl)
+                cls = (voxelize_queue.StaticVoxelizer if impl == "queue"
                        else binning.StaticBinnedVoxelizer)
                 self._static_vox = cls(self.mesh.positions_norm,
                                        self.mesh.tris, n)

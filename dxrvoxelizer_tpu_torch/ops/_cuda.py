@@ -31,9 +31,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -123,7 +123,7 @@ def build() -> BuildInfo:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         tmp = Path(tmpdir) / out.name
         res = subprocess.run(
-            [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
             capture_output=True, text=True,
         )
         if res.returncode != 0:

@@ -10,8 +10,8 @@ of 8 rows (``chunk_nsub``) and whether it is the tile's last chunk
 packed occupancy words, bit-identical to the binned path and the oracle.
 
 - :func:`build_queue`: device phase A (setup, candidate pairs, one sort into
-  per-tile runs), ONE host sync for the per-tile counts, host layout of the
-  chunk arrays, device phase B (the coefficient gather).
+  per-tile runs), ONE host sync for the per-tile counts that size the
+  queue, then the device build's window assembly and coefficient gather.
 - :class:`StaticVoxelizer`: build once, per frame only the kernel.
 - :class:`DeformingVoxelizer`: per frame, the whole queue is rebuilt on the
   device at a fixed capacity with no host sync (``check=True`` asks for one).
@@ -50,6 +50,7 @@ from dxrvoxelizer_tpu_torch.ops.voxelize_queue_cuda import (
 
 OV_CAP_DEVICE = 512  # static overflow-list capacity of the device build
 HEADROOM = 1.5  # deforming capacity: the rest pose's chunks x HEADROOM
+SPAN_CAP = (4, 8)  # tile-span caps (x, y); wider triangles go to overflow
 
 
 @dataclass
@@ -152,78 +153,30 @@ def _gather_coefs(coef, sorted_tris, ov_ids, rows):
 
 
 def build_queue(verts_norm: torch.Tensor, tris: torch.Tensor, n: int,
-                max_span_x: int = 4, max_span_y: int = 8):
+                max_span_x: int = SPAN_CAP[0], max_span_y: int = SPAN_CAP[1]):
     """Build the flat work queue -> (coefs, chunk_tile, chunk_nsub,
     chunk_last, stats).
 
-    One host sync (the per-tile counts) between the two device phases; the
-    queue layout itself is small host numpy work. The chunk count is
-    bucketed to multiples of 128.
+    One host sync (the per-tile counts) sizes the queue: the chunk count,
+    bucketed to multiples of 128, and the stats. The layout itself is the
+    device build's (:func:`_assemble_window`) at that exact capacity.
     """
-    k_chunk = K_CHUNK
-    device = verts_norm.device
-    nty = n // TILE_Y
-    n_tiles = (n // TILE_X) * nty
-    coef, sorted_tris, starts, counts, ov_ids, n_ov_d = _queue_phase_a(
-        verts_norm, tris, n, max_span_x, max_span_y
-    )
-    host = torch.cat([counts, starts[:-1], n_ov_d.reshape(1)]).cpu().numpy()
-    counts_h = host[:n_tiles].astype(np.int64)  # the host sync
-    starts_h = host[n_tiles:2 * n_tiles].astype(np.int64)
-    n_ov = int(host[-1])
-    s_total = int(sorted_tris.shape[0])
-
+    pa = _queue_phase_a(verts_norm, tris, n, max_span_x, max_span_y)
+    counts, n_ov_d = pa[3], pa[5]
+    host = torch.cat([counts, n_ov_d.reshape(1)]).cpu().numpy()  # the sync
+    counts_h, n_ov = host[:-1].astype(np.int64), int(host[-1])
     # overflow triangles may cover any column, so with any overflow present
     # every tile gets a run; otherwise empty tiles get no chunks at all
     per_tile = np.where((counts_h > 0) | (n_ov > 0), counts_h + n_ov, 0)
-    chunks_per_tile = (per_tile + k_chunk - 1) // k_chunk
-    real_chunks = int(chunks_per_tile.sum())
+    real_chunks = int(((per_tile + K_CHUNK - 1) // K_CHUNK).sum())
     num_chunks = max(-(-real_chunks // 128) * 128, 128)
-
-    # padding chunks: last tile, zero sub-blocks (no work)
-    chunk_tile = np.full(num_chunks, n_tiles - 1, dtype=np.int32)
-    chunk_nsub = np.zeros(num_chunks, dtype=np.int32)
-    chunk_last = np.zeros(num_chunks, dtype=np.int32)
-
-    tile_ids = np.repeat(np.arange(n_tiles, dtype=np.int32), chunks_per_tile)
-    chunk_tile[:real_chunks] = tile_ids
-    first_pos = np.zeros(n_tiles, dtype=np.int64)
-    first_pos[1:] = np.cumsum(chunks_per_tile)[:-1]
-    within = np.arange(real_chunks, dtype=np.int64) - first_pos[tile_ids]
-    remaining = per_tile[tile_ids] - within * k_chunk
-    chunk_nsub[:real_chunks] = (np.minimum(remaining, k_chunk) + SUB - 1) // SUB
-    has_run = chunks_per_tile > 0
-    chunk_last[(first_pos + chunks_per_tile - 1)[has_run]] = 1
-
-    # rows of the virtual [sorted_tris | ov_ids | sentinel] concatenation
-    slot = np.arange(num_chunks * k_chunk, dtype=np.int64)
-    chunk_of_slot = slot // k_chunk
-    tile_of_slot = chunk_tile[chunk_of_slot]
-    within_tile = slot - first_pos[tile_of_slot] * k_chunk
-    real_slot = chunk_of_slot < real_chunks
-    t_idx = np.where(real_slot, within_tile, -1)
-    cnt = counts_h[tile_of_slot]
-    in_run = real_slot & (t_idx >= 0) & (t_idx < cnt)
-    in_ov = real_slot & (t_idx >= cnt) & (t_idx < cnt + n_ov)
-    rows = np.where(
-        in_run,
-        starts_h[tile_of_slot] + t_idx,
-        np.where(in_ov, s_total + (t_idx - cnt), -1),
-    )
-
-    coefs = _gather_coefs(coef, sorted_tris, ov_ids,
-                          torch.from_numpy(rows).to(device))
+    coefs, chunk_tile, chunk_nsub, chunk_last, _ = _assemble_window(
+        pa, n, num_chunks)
     stats = QueueStats(
-        n_tiles=n_tiles, num_chunks=num_chunks, real_chunks=real_chunks,
-        pairs=int(per_tile.sum()), overflow=n_ov,
+        n_tiles=counts_h.shape[0], num_chunks=num_chunks,
+        real_chunks=real_chunks, pairs=int(per_tile.sum()), overflow=n_ov,
     )
-    return (
-        coefs,
-        torch.from_numpy(chunk_tile).to(device),
-        torch.from_numpy(chunk_nsub).to(device),
-        torch.from_numpy(chunk_last).to(device),
-        stats,
-    )
+    return coefs, chunk_tile, chunk_nsub, chunk_last, stats
 
 
 class StaticVoxelizer:
@@ -320,10 +273,10 @@ def _build_queue_device(verts_norm, tris, n: int, num_chunks: int,
     return _assemble_window(pa, n, num_chunks)
 
 
-def rest_mesh_spans(verts_norm: torch.Tensor, tris: torch.Tensor, n: int,
-                    cap: tuple = (4, 8)) -> tuple:
+def rest_mesh_spans(verts_norm: torch.Tensor, tris: torch.Tensor,
+                    n: int) -> tuple:
     """Tile-span caps (span_x, span_y) covering every triangle of the REST
-    mesh, clamped to ``cap`` (larger rest spans route through overflow).
+    mesh, clamped to ``SPAN_CAP`` (larger rest spans route through overflow).
 
     The device build's sort scales with span_x * span_y * T candidate rows,
     and real meshes at hi-res grids span 1-2 tiles per axis. Deformed
@@ -346,7 +299,7 @@ def rest_mesh_spans(verts_norm: torch.Tensor, tris: torch.Tensor, n: int,
     ty1 = np.clip(y1, 0, n - 1).astype(np.int64) // TILE_Y
     sx = int((tx1 - tx0 + 1)[ne].max())
     sy = int((ty1 - ty0 + 1)[ne].max())
-    return (min(sx, cap[0]), min(sy, cap[1]))
+    return (min(sx, SPAN_CAP[0]), min(sy, SPAN_CAP[1]))
 
 
 class DeformingVoxelizer:

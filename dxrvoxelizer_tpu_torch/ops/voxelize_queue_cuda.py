@@ -34,6 +34,7 @@ TILE_Y = 8  # tile extent in grid-y columns (16*8 = 128 columns per tile)
 LANES = TILE_X * TILE_Y
 SUB = 8  # rows per sub-block: chunk_nsub counts these
 K_CHUNK = 64  # coefficient rows per queue chunk
+PLAIN_BATCH = 512  # chunks per step of the plain version (bounds its memory)
 
 KERNEL = _cuda.Kernel(
     name="parity_queue",
@@ -71,8 +72,8 @@ def _check_queue(coefs, chunk_tile, chunk_nsub, n: int) -> tuple[int, int]:
 
 def voxelize_parity_queue_chunks_plain(coefs: torch.Tensor,
                                        chunk_tile: torch.Tensor,
-                                       chunk_nsub: torch.Tensor, n: int,
-                                       batch: int = 512) -> torch.Tensor:
+                                       chunk_nsub: torch.Tensor,
+                                       n: int) -> torch.Tensor:
     """Plain torch version of the queue kernel -> words [N, N, N//32]."""
     num_chunks, k_chunk = _check_queue(coefs, chunk_tile, chunk_nsub, n)
     dev = coefs.device
@@ -83,13 +84,14 @@ def voxelize_parity_queue_chunks_plain(coefs: torch.Tensor,
     rows = coefs.reshape(num_chunks, k_chunk, NCOEF)
     # hist[t, l, m]: covered crossings of column l of tile t with cutoff m
     hist = torch.zeros(n_tiles * LANES * (n + 1), dtype=torch.int32, device=dev)
-    for s in range(0, num_chunks, batch):
-        tile = chunk_tile[s:s + batch].to(torch.int64)
-        live = slot[None, :] < (chunk_nsub[s:s + batch, None] * SUB)  # [b, k]
+    for s in range(0, num_chunks, PLAIN_BATCH):
+        b = slice(s, s + PLAIN_BATCH)
+        tile = chunk_tile[b].to(torch.int64)
+        live = slot[None, :] < (chunk_nsub[b, None] * SUB)  # [b, k]
         px = ((tile // nty)[:, None] * TILE_X + lane // TILE_Y)[:, :, None]
         py = ((tile % nty)[:, None] * TILE_Y + lane % TILE_Y)[:, :, None]
         px, py = px.to(torch.float32), py.to(torch.float32)  # [b, 128, 1]
-        c = rows[s:s + batch, None, :, :]  # [b, 1, k, 16]
+        c = rows[b, None, :, :]  # [b, 1, k, 16]
 
         def col(r):
             return c[..., r]  # [b, 1, k]
