@@ -38,14 +38,32 @@ the CUDA toolkit. Phases, one line each:
     binned kernel on the same 256^3 mesh, the deforming voxelizer's call,
     the march and resolve at the 256^3 frame's inputs (with plain versions
     and bounds), and the whole static and deforming 256^3 frames; a
-    profiler window of each 256^3 frame.
+    profiler window of each 256^3 frame;
+12. the app's ``-inside raystab`` frame (the reference's own inside rule,
+    the gen-6 accel) at 64^3, ``-hq``, 1280x720, 4 frames, on the 81,920-
+    triangle icosphere: the fold + extraction kernel must launch every frame
+    and the parity kernels never;
+13. the app's ``-normals`` frame at the same settings: the binned parity
+    kernel and the fold + extraction kernel (rule "hit") every frame;
+14. the fold + extraction kernel against its plain version bit for bit on
+    (t, id, ns), both rules, on the 64^3 icosphere, the box with faces on
+    voxel centres and a near-origin soup (the shared stream and its merge);
+    the fold-only kernel against the plain fold; the whole query against
+    the radial oracle at 64^3 on a 5,120-triangle icosphere; the ray-stab
+    and ``-normals`` frames against the plain path;
+15. times of both ray-stab kernels at the 64^3 frame's tables (plain
+    versions and bounds), the host build of the accel, the first-frame
+    latency, the whole parity, ray-stab and ``-normals`` 64^3 frames timed
+    in turns, and a profiler window of each ray-stab frame.
 
 Then one JSON line with every kernel's launches on the main paths (the
-64^3, 256^3 and 256^3 ``-deform`` app runs, each counted from zero), its
+64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
+``-normals`` app runs, each counted from zero; the fold-only kernel is on
+no main path, as in the JAX package, and shows 0), its
 largest difference from its plain version (over every comparison above),
 and, at the inputs of the main path it belongs to (the 64^3 frame for the
 binned kernel, the march and the resolve; the 256^3 frame for the work-queue
-kernel), its time, its plain version's time, its bound and, where one
+kernel; the 64^3 ray-stab frame's tables for the ray-stab kernels), its time, its plain version's time, its bound and, where one
 PyTorch call computes the same function, that call's time. Any failure raises and exits non-zero. The last line is
 the JSON result.
 """
@@ -58,6 +76,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -91,6 +110,10 @@ PEAK_BYTES = 3.35e12  # device memory bytes per second
 PARITY_OPS_PER_PAIR = 16
 MARCH_OPS_PER_STEP = {1: 39, 2: 64}
 RESOLVE_OPS_PER_HIT = 60
+# per real (ray, candidate) pair of the ray-stab kernels: radial_hit's three
+# dot products (9 mul, 6 add), den (2 add), the division and the subtraction
+# (compares and selects not counted, as for the parity kernels)
+RAYSTAB_OPS_PER_PAIR = 19
 
 
 def check(cond: bool, msg: str) -> None:
@@ -231,6 +254,24 @@ def resolve_bound(res_args) -> tuple[float, str]:
                  int(ok.sum()) * RESOLVE_OPS_PER_HIT)
 
 
+def strip_pairs(tb) -> int:
+    """Real (ray, candidate) pairs of a strip stream: each strip's rays that
+    are not padding lanes times its candidates."""
+    r = tb.rays
+    real = ~((r[:, 0] == 0) & (r[:, 1] == 0) & (r[:, 2] == 0))
+    return int((real.sum(1).to(r.device) * tb.cand_cnt).double().sum())
+
+
+def raystab_bound(tb, extract: bool) -> tuple[float, str]:
+    """Bound of a ray-stab kernel on a strip stream: candidate rows, rays,
+    offsets, counts and bounds read once, the per-slot outputs written once;
+    the real pairs' operations."""
+    n_in = (tb.rows.numel() + tb.rays.numel() + 2 * tb.strips
+            + (0 if tb.bounds is None else tb.bounds.numel())) * 4
+    n_out = tb.strips * 128 * (4 + 4 + (16 if extract else 0))
+    return bound(n_in + n_out, strip_pairs(tb) * RAYSTAB_OPS_PER_PAIR)
+
+
 def app_run(torch, app_main, kernels, args, png: Path, name: str):
     """Drive the app as a user does, with every launch count set to 0 just
     before and read just after; check the PNG -> (launches, covered)."""
@@ -298,20 +339,29 @@ def main() -> int:
     from dxrvoxelizer_tpu_torch.ops import (
         _cuda,
         march_cuda,
+        raystab_cuda,
+        raystab_fast,
         screen_warp_cuda,
         voxelize_cuda,
         voxelize_queue,
         voxelize_queue_cuda,
     )
     from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles
-    from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
+    from dxrvoxelizer_tpu_torch.ops.packing import (
+        pack_bits_z,
+        quantize_r10g10b10a2,
+        unpack_bits_z,
+    )
     from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
         light_sweep_ref_host,
         march_inputs,
         screen_coords,
         shearwarp_statics,
     )
-    from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_parity_ref
+    from dxrvoxelizer_tpu_torch.ops.voxelize_ref import (
+        voxelize_parity_ref,
+        voxelize_raystab_radial_ref,
+    )
     from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
     from dxrvoxelizer_tpu_torch.utils.image import read_png
     from dxrvoxelizer_tpu_torch.utils.objloader import load_obj
@@ -321,11 +371,15 @@ def main() -> int:
     tetrahedron_mesh = meshes.tetrahedron_mesh
 
     vq, vqc = voxelize_queue, voxelize_queue_cuda
+    rsf, rsc = raystab_fast, raystab_cuda
     kernels = [voxelize_cuda.KERNEL, vqc.KERNEL, march_cuda.KERNEL,
-               screen_warp_cuda.KERNEL]
+               screen_warp_cuda.KERNEL, rsc.FOLD_EXTRACT, rsc.FOLD]
     path_kernels = {  # the kernels each main path must launch
         "64": ("parity_voxelize", "march", "resolve"),
         "256": ("parity_queue", "march", "resolve"),
+        "raystab": ("raystab_fold_extract", "march", "resolve"),
+        "normals": ("parity_voxelize", "raystab_fold_extract", "march",
+                    "resolve"),
     }
     dev = torch.device("cuda", 0)
 
@@ -394,6 +448,25 @@ def main() -> int:
                 main_launches[k] += c
             hi[name] = (launches, covered)
 
+        # ---- 12./13. -inside raystab and -normals at 64^3 (main paths) ----
+        stab_runs = {}
+        for name, extra in (("raystab", ["-inside", "raystab"]),
+                            ("normals", ["-normals"])):
+            launches, covered = app_run(
+                torch, app_main, kernels,
+                ["-mesh", obj_arg, "-frames", str(FRAMES), *extra],
+                Path(td) / f"{name}.png", f"{GRID}^3 {name} app")
+            for k in path_kernels[name]:
+                check(launches[k] >= FRAMES, f"{name}: {k} launched "
+                      f"{launches[k]} times in {FRAMES} frames")
+            if name == "raystab":
+                check(launches["parity_voxelize"] == 0
+                      and launches["parity_queue"] == 0,
+                      f"raystab: a parity kernel ran: {launches}")
+            for k, c in launches.items():
+                main_launches[k] += c
+            stab_runs[name] = (launches, covered)
+
         # the main paths' state, rebuilt for the comparisons
         cfg = VoxelizerConfig(mesh=str(obj))
         scene = Scene(load_obj(obj), dev, pos_scale=cfg.pos_scale,
@@ -405,6 +478,12 @@ def main() -> int:
         launches, covered = hi[name]
         print(f"phase {phase} app frame {name}: {len(t7)} tris {GRID_HI}^3 "
               f"1280x720 -hq{' -deform' if name == 'deform' else ''}, "
+              f"{FRAMES} frames, launches {launches}, volume covers "
+              f"{covered:.3f} of the image")
+    for phase, name in ((12, "raystab"), (13, "normals")):
+        launches, covered = stab_runs[name]
+        print(f"phase {phase} app frame {name}: {len(t6)} tris {GRID}^3 "
+              f"1280x720 -hq {'-inside raystab' if name == 'raystab' else '-normals'}, "
               f"{FRAMES} frames, launches {launches}, volume covers "
               f"{covered:.3f} of the image")
     cam = OrbitCamera(cfg.width, cfg.height)
@@ -731,6 +810,184 @@ def main() -> int:
               f"and copies per frame, kernel device us per frame {kus}, peak "
               f"device memory {peak:.1f} MiB; {card}")
 
+    # ---- 14. the ray-stab kernels against their plain versions ----------
+    thr = rsf.INSIDE_THRESHOLD
+    rs_lines = []
+
+    def stab_case(name, verts, nrm, tris):
+        accel = rsf.build_raystab_accel2(verts, tris, nrm, n=GRID)
+        tc = int(tris.shape[0])
+        streams = [(s_, tb) for s_, tb in (("main", accel.main),
+                                           ("near-origin", accel.ov))
+                   if tb is not None]
+        check(bool(streams), f"{name}: empty accel")
+        for s_, tb in streams:
+            for rule in ("backface", "hit"):
+                got = rsc.fold_extract(tb, tc, thr, rule)
+                want = rsc.fold_extract_plain(tb, tc, thr, rule)
+                for what, a, b in zip(("t", "id", "ns"), got, want):
+                    check(torch.equal(a, b), f"fold_extract {what} differs "
+                          f"from the plain version: {name} {s_} {rule}")
+            for what, a, b in zip(("t", "id"), rsc.fold(tb), want[:2]):
+                check(torch.equal(a, b), f"fold-only {what} differs from the "
+                      f"plain fold: {name} {s_}")
+        for rule in ("backface", "hit"):
+            q_k = rsf.raystab_query2(verts, nrm, tris, accel, rule=rule)
+            q_p = rsf.raystab_query2(verts, nrm, tris, accel, rule=rule,
+                                     use_kernels=False)
+            check(torch.equal(q_k[0], q_p[0]) and torch.equal(q_k[1], q_p[1]),
+                  f"{name}: query {rule} differs from the plain query")
+        check(bool(q_k[0].any()), f"{name}: empty grid")
+        return accel, (f"{name} {tc} tris: " + ", ".join(
+            f"{s_} {tb.strips} strips {tb.rows.shape[0]} rows"
+            for s_, tb in streams))
+
+    def dev_mesh3(verts, nrm, tris):
+        v_, t_ = dev_mesh(verts, tris)
+        return v_, torch.from_numpy(np.asarray(nrm, np.float32)).to(dev), t_
+
+    rs_lines.append(stab_case("icosphere6", mb.positions_norm, mb.normals,
+                              mb.tris)[1])
+    rs_lines.append(stab_case("box_on_centers",
+                              *dev_mesh3(*box_on_centers(GRID)))[1])
+    rng = np.random.default_rng(11)
+    tv = (rng.standard_normal((300, 1, 3)) * 0.02
+          + rng.standard_normal((300, 3, 3)) * 0.3).astype(np.float32)
+    fn_ = np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])
+    fn_ /= np.linalg.norm(fn_, axis=-1, keepdims=True)
+    near = (tv.reshape(-1, 3), np.repeat(fn_, 3, axis=0).astype(np.float32),
+            np.arange(900, dtype=np.int32).reshape(300, 3))
+    accel_near, line = stab_case("near_origin", *dev_mesh3(*near))
+    check(accel_near.ov is not None, "near-origin soup built no shared stream")
+    rs_lines.append(line)
+    # the whole query against the radial oracle (a mesh of ~5k triangles)
+    v4_, n4_, t4_ = icosphere_mesh(4)
+    v4d, n4d, t4d = dev_mesh3(v4_, n4_, t4_)
+    accel4 = rsf.build_raystab_accel2(v4d, t4d, n4d, n=GRID)
+    for rule in ("backface", "hit"):
+        q = rsf.raystab_query2(v4d, n4d, t4d, accel4, rule=rule)
+        r = voxelize_raystab_radial_ref(v4d, n4d, t4d, n=GRID, rule=rule)
+        check(torch.equal(q[0], r[0]) and torch.equal(q[1], r[1]),
+              f"query differs from the radial oracle at {GRID}^3 ({rule})")
+    errs["raystab_fold_extract"] = errs["raystab_fold"] = 0.0
+
+    # the ray-stab and -normals frames against the plain path
+    cfg_rs = cfg.replace(inside_mode="raystab")
+    cfg_nm = cfg.replace(parity_normals=True)
+    t0 = time.perf_counter()
+    pipe_rs = FramePipeline(cfg_rs, mb)
+    f_rs = pipe_rs.frame(consts)
+    pipe_rs.sync()
+    first_frame_s = time.perf_counter() - t0
+    pipe_nm = FramePipeline(cfg_nm, mb)
+    f_nm = pipe_nm.frame(consts)
+    pipe_nm.sync()
+    accel_rs = pipe_rs._stab_accel
+
+    def frame_rs():
+        return pipe_rs.frame(consts)
+
+    def frame_nm():
+        return pipe_nm.frame(consts)
+
+    def frame_rs_plain():
+        occ, rgba = rsf.raystab_query2(mb.positions_norm, mb.normals, mb.tris,
+                                       accel_rs, use_kernels=False)
+        grid = VoxelGrid(words=pack_bits_z(occ), rgba=quantize_r10g10b10a2(rgba))
+        return render(grid, consts, cfg_rs, use_kernels=False)
+
+    def frame_nm_plain():
+        words = voxelize_cuda.voxelize_parity_tiles_plain(coef_main, GRID)
+        _, rgba = rsf.raystab_query2(mb.positions_norm, mb.normals, mb.tris,
+                                     pipe_nm._stab_accel, rule="hit",
+                                     use_kernels=False)
+        occ_f = unpack_bits_z(words, GRID).to(torch.float32)[..., None]
+        rgba = quantize_r10g10b10a2(torch.cat([rgba[..., :3] * occ_f, occ_f], -1))
+        return render(VoxelGrid(words=words, rgba=rgba), consts, cfg_nm,
+                      use_kernels=False)
+
+    stab_frame_err = {}
+    for name, f_k, plain in (("raystab", f_rs, frame_rs_plain),
+                             ("normals", f_nm, frame_nm_plain)):
+        check(bool(torch.isfinite(f_k).all()) and f_k.shape == (720, 1280, 3),
+              f"{name} frame not finite or misshapen")
+        stab_frame_err[name] = max_err(f_k, plain())
+        check(stab_frame_err[name] <= TOL_FRAME,
+              f"{name} frame differs by {stab_frame_err[name]:.3g}")
+    print("phase 14 ray-stab kernels bit-identical to their plain versions on "
+          "(t, id, ns), rules backface and hit, fold-only on (t, id) ("
+          + "; ".join(rs_lines) + f"); query bit-identical to the radial "
+          f"oracle at {GRID}^3 on a {len(t4_)}-triangle icosphere, both rules; "
+          f"frames max|err| kernels vs plain: raystab "
+          f"{stab_frame_err['raystab']:.3g}, -normals "
+          f"{stab_frame_err['normals']:.3g}")
+
+    # ---- 15. ray-stab timings ---------------------------------------------
+    tb_rs = accel_rs.main
+    tc6 = int(mb.tris.shape[0])
+    ms["raystab_fold_extract"] = (
+        cuda_ms(torch, lambda: rsc.fold_extract(tb_rs, tc6, thr)),
+        cuda_ms(torch, lambda: rsc.fold_extract_plain(tb_rs, tc6, thr)),
+    )
+    ms["raystab_fold"] = (
+        cuda_ms(torch, lambda: rsc.fold(tb_rs)),
+        cuda_ms(torch, lambda: rsc.fold_plain(tb_rs)),
+    )
+    builds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compact = rsf.build_raystab_compact2(mb.positions_norm, mb.tris, GRID)
+        t1 = time.perf_counter()
+        rsf.assemble_raystab_accel2(compact, mb.positions_norm, mb.tris,
+                                    mb.normals)
+        torch.cuda.synchronize()
+        builds.append((t1 - t0, time.perf_counter() - t1))
+    host_s, asm_s = (statistics.median(b[i] for b in builds) for i in (0, 1))
+    # the three 64^3 frames timed in turns (parity, raystab, normals, then
+    # back): host time drifts within a run, so compare medians of turns
+    turns = {"parity": [], "raystab": [], "normals": []}
+    fns = {"parity": (frame_kernels, pipe), "raystab": (frame_rs, pipe_rs),
+           "normals": (frame_nm, pipe_nm)}
+    for name in ("parity", "raystab", "normals", "normals", "raystab",
+                 "parity"):
+        fn, p = fns[name]
+        turns[name].append(cuda_ms(torch, fn))
+        p.sync()
+    stab_ms = {k: statistics.median(v) for k, v in turns.items()}
+    stab_ms["raystab plain"] = cuda_ms(torch, frame_rs_plain)
+    stab_ms["normals plain"] = cuda_ms(torch, frame_nm_plain)
+    stab_prof = {}
+    for name, fn, p in (("raystab", frame_rs, pipe_rs),
+                        ("normals", frame_nm, pipe_nm)):
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_frames(torch, fn, p.sync, kernels)
+        stab_prof[name] = (*prof, torch.cuda.max_memory_allocated() / 2**20)
+    print(f"phase 15 ray-stab kernels at the {GRID}^3 frame's tables "
+          f"({tb_rs.strips} strips, {tb_rs.rows.shape[0]} candidate rows, "
+          f"{strip_pairs(tb_rs)} real pairs, classes "
+          f"{[c[1].shape for c in compact.classes]}): fold+extract "
+          f"{ms['raystab_fold_extract'][0]:.4f} ms (plain "
+          f"{ms['raystab_fold_extract'][1]:.4f} ms), fold-only "
+          f"{ms['raystab_fold'][0]:.4f} ms (plain {ms['raystab_fold'][1]:.4f} "
+          f"ms); accel build: host {host_s:.4f} s, device assembly "
+          f"{asm_s:.4f} s (median of 3); first ray-stab frame (build + "
+          f"frame) {first_frame_s:.4f} s; {card}")
+    print(f"phase 15 frames {GRID}^3 1280x720 -hq timed in turns (parity, "
+          f"raystab, normals, normals, raystab, parity; each a median of "
+          f"{REPS} runs of {INNER}): "
+          + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in turns.items())
+          + f"; {card}")
+    for name in ("raystab", "normals"):
+        busy, per_frame, kus, peak = stab_prof[name]
+        print(f"phase 15 frame {GRID}^3 1280x720 -hq {name}: "
+              f"{stab_ms[name]:.4f} ms with the kernels (median of the turns), "
+              f"{stab_ms[name + ' plain']:.4f} ms plain; profiled: device "
+              f"busy {busy:.4f} ms per frame (idle share "
+              f"{1 - busy / stab_ms[name]:.3f}), {per_frame:.0f} device "
+              f"kernels and copies per frame, kernel device us per frame "
+              f"{kus}, peak device memory {peak:.1f} MiB; {card}")
+
     # ---- bounds: the least time for each kernel's work on this run's data
     w64 = GRID * GRID * (GRID // 32) * 4
     w256 = GRID_HI * GRID_HI * (GRID_HI // 32) * 4
@@ -744,6 +1001,8 @@ def main() -> int:
                               pairs_q * PARITY_OPS_PER_PAIR),
         "march": march_bound(torch, mi),
         "resolve": resolve_bound(res_args),
+        "raystab_fold_extract": raystab_bound(tb_rs, True),
+        "raystab_fold": raystab_bound(tb_rs, False),
     }
     print(f"bounds (ms, bound by): {bounds}; binned {GRID}^3 {rows_b} real "
           f"rows, {pairs_b} (column, triangle) pairs in bounding boxes; "

@@ -1,15 +1,17 @@
 """Application shell: CLI, frame loop, FPS stats, PNG capture.
 
 Port of ``dxrvoxelizer_tpu/app/main.py`` for the flags of the parity
-frame: the reference's ``-mesh <file> [x y z scale]`` and ``-warp`` (here:
-the CPU device), plus ``-grid -width -height -frames -out -hq -fast
--quality -noorbit -voximpl -deform``. A frame loop orbits the camera (the
+frame: the reference's ``-mesh <file> [x y z scale]``, ``-warp`` (here:
+the CPU device) and ``-inside raystab`` (the reference's own inside rule),
+plus ``-normals -grid -width -height -frames -out -hq -fast -quality
+-noorbit -voximpl -deform``. A frame loop orbits the camera (the
 mouse-drag analog), prints FPS at 1 Hz, and writes the last frame as a PNG.
 ``-deform`` wobbles the vertices along their normals every frame, so every
 frame re-bins and re-voxelizes the mesh (the deforming configuration).
 
     python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -frames 8 -out f.png
     python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -grid 256 -deform
+    python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -inside raystab
 """
 
 from __future__ import annotations
@@ -78,8 +80,9 @@ def main(argv: list[str] | None = None) -> int:
     print(
         f"dxrvoxelizer_tpu_torch: {cfg.mesh} "
         f"({engine.scene.buffers.num_triangles} tris) grid={cfg.grid_size}^3 "
-        f"{cfg.width}x{cfg.height} ss={cfg.render_ss} "
-        f"vox={extras['vox_impl']} deform={extras['deform']} device={device}"
+        f"{cfg.width}x{cfg.height} ss={cfg.render_ss} mode={cfg.inside_mode} "
+        f"normals={cfg.parity_normals} vox={extras['vox_impl']} "
+        f"deform={extras['deform']} device={device}"
     )
     base_mesh = engine.pipeline.mesh
     if extras["deform"]:

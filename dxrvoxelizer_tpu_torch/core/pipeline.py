@@ -1,7 +1,9 @@
 """Explicit pass functions + frame pipeline.
 
-Port of ``dxrvoxelizer_tpu/core/pipeline.py`` for the parity frame: static
-meshes at every grid size and deforming meshes (``-deform``).
+Port of ``dxrvoxelizer_tpu/core/pipeline.py``: the parity frame for static
+meshes at every grid size and deforming meshes (``-deform``), and the
+reference's ray-stab inside rule (``-inside raystab``) and the parity grid's
+normal channel (``-normals``) through the gen-6 accel at n < 128.
 The reference's per-frame loop (Content/Voxelizer.cpp:108-113) is
 ``Render = voxelize() ; renderRayCast()`` against triple-buffered grids
 (FrameCount = 3, Voxelizer.h:24). Here the two passes are torch functions on
@@ -18,8 +20,17 @@ import torch
 
 from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
 from dxrvoxelizer_tpu_torch.models.scene import FrameConstants
-from dxrvoxelizer_tpu_torch.ops import binning, voxelize_queue, voxelize_ref
-from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z, unpack_bits_z
+from dxrvoxelizer_tpu_torch.ops import (
+    binning,
+    raystab_fast,
+    voxelize_queue,
+    voxelize_ref,
+)
+from dxrvoxelizer_tpu_torch.ops.packing import (
+    pack_bits_z,
+    quantize_r10g10b10a2,
+    unpack_bits_z,
+)
 from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
     light_sweep_host,
     light_sweep_ref_host,
@@ -29,6 +40,7 @@ from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import TILE
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 
 FRAME_COUNT = 3  # frames in flight (reference: Voxelizer.h:24)
+GEN7_MIN_N = 128  # the JAX package runs ray-stab through gen-7 from here
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -38,11 +50,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+def _require_gen6(n: int, what: str) -> None:
+    """Ray-stab accels at n >= 128 are gen-7 in the JAX package (not ported)."""
+    if n >= GEN7_MIN_N:
+        raise _not_ported(f"{what} at {n}^3 (the gen-7 accel)",
+                          "Ray-stab, gen-7 (≥128³)")
+
+
 @dataclass
 class VoxelGrid:
-    """One voxelization result: packed occupancy bits [N,N,N//32] int32."""
+    """One voxelization result: packed occupancy bits [N,N,N//32] int32 and,
+    in ray-stab mode or with ``-normals``, the [N,N,N,4] float32 normal +
+    alpha grid (the reference's R10G10B10A2 texture analog)."""
 
     words: torch.Tensor
+    rgba: torch.Tensor | None = None
 
     @property
     def n(self) -> int:
@@ -52,7 +74,9 @@ class VoxelGrid:
         return unpack_bits_z(self.words, self.n)
 
     def density(self) -> torch.Tensor:
-        """Occupancy as float (the raymarcher's input)."""
+        """The alpha channel as float (the raymarcher's input)."""
+        if self.rgba is not None:
+            return self.rgba[..., 3]
         return self.occupancy().to(torch.float32)
 
 
@@ -75,24 +99,46 @@ def voxelize(
     n: int,
     mode: str = "parity",
     impl: str = "auto",
+    quantize: bool = True,
+    accel: raystab_fast.RaystabAccel2 | None = None,
     with_normals: bool = False,
 ) -> VoxelGrid:
     """Solid-voxelize a mesh -> :class:`VoxelGrid` on the mesh's device.
 
-    ``impl``: "auto" picks, on a GPU, the work-queue kernel at n >= 128
-    and the binned kernel below (the JAX package's routing; both give the
-    same words), and the counting oracle on the CPU; "queue" and "pallas"
-    force the work-queue and binned paths (the kernels' plain versions on
-    the CPU); "xla" is always the oracle.
+    ``mode``: "parity" or "raystab" (the reference's radial back-face rule,
+    DXRVoxelizer.hlsl:132-140). Parity ``impl``: "auto" picks, on a GPU, the
+    work-queue kernel at n >= 128 and the binned kernel below (the JAX
+    package's routing; both give the same words), and the counting oracle on
+    the CPU; "queue" and "pallas" force the work-queue and binned paths (the
+    kernels' plain versions on the CPU); "xla" is always the oracle.
+    Ray-stab ``impl``: "auto" runs the gen-6 accel (its kernel on a GPU, the
+    kernel's plain version on the CPU; ``accel`` reuses a built one); "xla"
+    the Moller-Trumbore oracle; "xla-radial" the radial oracle, the gen-6
+    query's bit-exact ground truth. ``quantize`` rounds rgba through
+    R10G10B10A2. ``with_normals`` adds the parity grid's normal channel.
     """
     if mode == "raystab":
-        raise _not_ported("the ray-stab inside rule (-inside raystab)",
-                          "Ray-stab, gen-6 (64³)")
+        if impl in ("auto", "fast", "queue", "pallas"):
+            _require_gen6(n, "the ray-stab inside rule (-inside raystab)")
+            if accel is None:  # stateless: build the accel for this call
+                occ, rgba = raystab_fast.voxelize_raystab_fast(
+                    mesh.positions_norm, mesh.normals, mesh.tris, n=n)
+            else:
+                occ, rgba = raystab_fast.raystab_query2(
+                    mesh.positions_norm, mesh.normals, mesh.tris, accel)
+        elif impl == "xla":
+            occ, rgba = voxelize_ref.voxelize_raystab_ref(
+                mesh.positions_norm, mesh.normals, mesh.tris, n=n)
+        elif impl == "xla-radial":
+            occ, rgba = voxelize_ref.voxelize_raystab_radial_ref(
+                mesh.positions_norm, mesh.normals, mesh.tris, n=n)
+        else:
+            raise ValueError(f"unknown raystab impl {impl!r}")
+        if quantize:
+            rgba = quantize_r10g10b10a2(rgba)
+        return VoxelGrid(words=pack_bits_z(occ), rgba=rgba)
     if mode != "parity":
         raise ValueError(f"unknown inside mode {mode!r}")
-    if with_normals:
-        raise _not_ported("the parity normal channel (-normals)",
-                          "Ray-stab, gen-7 (≥128³)")
     if impl == "auto":
         impl = _auto_impl(n, mesh.device)
     if impl == "queue":
@@ -107,7 +153,29 @@ def voxelize(
         )
     else:
         raise ValueError(f"unknown impl {impl!r}")
-    return VoxelGrid(words=words)
+    if not with_normals:
+        return VoxelGrid(words=words)
+    return VoxelGrid(words=words, rgba=_parity_rgba(mesh, words, n, accel=accel,
+                                                    quantize=quantize))
+
+
+def _parity_rgba(mesh: MeshBuffers, words: torch.Tensor, n: int, accel=None,
+                 quantize: bool = True) -> torch.Tensor:
+    """Normal channel for a parity grid: the reference's grid always stores
+    float4(Normal, 1.0) (DXRVoxelizer.hlsl:83-84). The normal is the radial
+    first-hit normal from the gen-6 query under rule "hit" (no back-face
+    test), gated by the parity occupancy bit."""
+    _require_gen6(n, "the parity normal channel (-normals)")
+    if accel is None:
+        accel = raystab_fast.build_raystab_accel2(
+            mesh.positions_norm, mesh.tris, mesh.normals, n=n)
+    _, rgba_hit = raystab_fast.raystab_query2(
+        mesh.positions_norm, mesh.normals, mesh.tris, accel, rule="hit")
+    occ_f = unpack_bits_z(words, n).to(torch.float32)[..., None]
+    rgba = torch.cat([rgba_hit[..., :3] * occ_f, occ_f], dim=-1)
+    if quantize:
+        rgba = quantize_r10g10b10a2(rgba)
+    return rgba
 
 
 def render(
@@ -154,15 +222,14 @@ class FramePipeline:
     def __init__(self, cfg: VoxelizerConfig, mesh: MeshBuffers,
                  vox_impl: str = "auto", render_impl: str = "warp",
                  deforming: bool = False):
-        if cfg.inside_mode != "parity":
-            if deforming:
-                raise _not_ported("deforming ray-stab (-deform -inside "
-                                  "raystab)", "Deforming ray-stab")
-            raise _not_ported("the ray-stab inside rule (-inside raystab)",
-                              "Ray-stab, gen-6 (64³)")
-        if cfg.parity_normals:
-            raise _not_ported("the parity normal channel (-normals)",
-                              "Ray-stab, gen-7 (≥128³)")
+        raystab = cfg.inside_mode == "raystab"
+        normals = cfg.inside_mode == "parity" and cfg.parity_normals
+        if deforming and (raystab or normals):
+            raise _not_ported("deforming ray-stab (-deform with -inside "
+                              "raystab or -normals)", "Deforming ray-stab")
+        if normals or (raystab and vox_impl not in ("xla", "xla-radial")):
+            _require_gen6(cfg.grid_size, "-normals" if normals
+                          else "the ray-stab inside rule (-inside raystab)")
         self.cfg = cfg
         self.mesh = mesh
         self.vox_impl = vox_impl
@@ -172,12 +239,30 @@ class FramePipeline:
         self._deformer = None  # lazy DeformingVoxelizer (fixed topology)
         self._static_vox = None  # build-once voxelizer (static mesh)
         self._static_vox_mesh = None
+        self._stab_accel = None  # build-once ray-stab accel (static mesh)
+        self._stab_mesh = None
+
+    def _raystab_accel(self) -> raystab_fast.RaystabAccel2:
+        """Build-once direction-space accel; rebuilt when ``self.mesh`` is
+        replaced (the reference's build-AS-once, Voxelizer.cpp:264-326)."""
+        if self._stab_accel is None or self._stab_mesh is not self.mesh:
+            m = self.mesh
+            self._stab_accel = raystab_fast.build_raystab_accel2(
+                m.positions_norm, m.tris, m.normals, n=self.cfg.grid_size)
+            self._stab_mesh = self.mesh
+        return self._stab_accel
 
     def frame(self, consts: FrameConstants) -> torch.Tensor:
         """Voxelize + render one frame (asynchronous on CUDA) -> image."""
         n = self.cfg.grid_size
         device = self.mesh.device
-        if (self.deforming and self.vox_impl in ("auto", "queue")
+        raystab = self.cfg.inside_mode == "raystab"
+        want_normals = not raystab and self.cfg.parity_normals
+        quantize = not self.cfg.use_mutex
+        accel = None
+        if (raystab and self.vox_impl not in ("xla", "xla-radial")) or want_normals:
+            accel = self._raystab_accel()
+        if (not raystab and self.deforming and self.vox_impl in ("auto", "queue")
                 and _kernel_ok(n, device)):
             # fixed-topology deforming path: device-only queue rebuild, no
             # host sync per frame (ops/voxelize_queue.py)
@@ -186,7 +271,7 @@ class FramePipeline:
                     self.mesh.positions_norm, self.mesh.tris, n
                 )
             grid = VoxelGrid(words=self._deformer(self.mesh.positions_norm))
-        elif (not self.deforming
+        elif (not raystab and not self.deforming
               and self.vox_impl in ("auto", "queue", "pallas")
               and _kernel_ok(n, device)):
             # STATIC parity path: bin once, per frame only launch the
@@ -201,9 +286,16 @@ class FramePipeline:
                 self._static_vox = cls(self.mesh.positions_norm,
                                        self.mesh.tris, n)
                 self._static_vox_mesh = self.mesh
-            grid = VoxelGrid(words=self._static_vox())
+            words = self._static_vox()
+            rgba = None
+            if want_normals:
+                rgba = _parity_rgba(self.mesh, words, n, accel=accel,
+                                    quantize=quantize)
+            grid = VoxelGrid(words=words, rgba=rgba)
         else:
-            grid = voxelize(self.mesh, n, impl=self.vox_impl)
+            grid = voxelize(self.mesh, n, mode=self.cfg.inside_mode,
+                            impl=self.vox_impl, quantize=quantize, accel=accel,
+                            with_normals=want_normals)
         img = render(grid, consts, self.cfg, impl=self.render_impl)
         if device.type == "cuda":
             done = torch.cuda.Event()

@@ -50,6 +50,12 @@ _SIGNATURES = {
     "dxv_march": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # scatter, transmit, gx, gy, ok, out, p, m, c0, c1, c2, stream
     "dxv_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # rays, cand_off, cand_cnt, rows, bounds, n_bounds, t, id, ns, strips,
+    # t_count, threshold, rule_hit, stream
+    "dxv_raystab_fold_extract": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                 _F, _I, _P),
+    # rays, cand_off, cand_cnt, rows, bounds, n_bounds, t, id, strips, stream
+    "dxv_raystab_fold": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P),
 }
 
 

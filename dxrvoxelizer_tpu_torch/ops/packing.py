@@ -17,7 +17,14 @@ Packed occupancy: one bit per voxel packed along z into int32 words:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def voxel_centers_norm(n: int):
+    """Normalized-space voxel center coordinate arrays (cx[i], cy[j], cz[k])."""
+    t = (np.arange(n, dtype=np.float32) + 0.5) / n * 2.0 - 1.0
+    return t, (-t).astype(np.float32), t
 
 
 def norm_to_index_space(p: torch.Tensor, n: int) -> torch.Tensor:

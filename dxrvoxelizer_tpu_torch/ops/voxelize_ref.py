@@ -1,18 +1,117 @@
-"""Trusted parity-voxelization oracle in plain torch.
+"""Trusted reference (oracle) voxelizers in plain torch.
 
-Port of ``dxrvoxelizer_tpu/ops/voxelize_ref.py::voxelize_parity_ref``: axis-
-aligned column rays with intersection-parity counting. This oracle *counts*
-crossings per voxel; the CUDA kernel (ops/voxelize_cuda.py) folds XOR masks
-and its plain version histograms cutoffs — independent reductions over the
-identical per-triangle tests. The ray-stab oracles wait for the ray-stab
-slice of the port.
+Port of ``dxrvoxelizer_tpu/ops/voxelize_ref.py``, two inside rules:
+
+- :func:`voxelize_raystab_ref` — the reference's exact algorithm: one radial
+  ray per voxel from the voxel centre outward, closest hit (Moller-Trumbore),
+  voxel inside iff the interpolated normal faces away: ``dot(n, dir) > 0.12``
+  (DXRVoxelizer.hlsl:44-53, 132-140); also the ``float4(Normal, 1.0)`` grid
+  (DXRVoxelizer.hlsl:83-84). :func:`voxelize_raystab_radial_ref` picks the
+  winner with the radial form instead: the bit-exact ground truth of the
+  gen-6 query (ops/raystab_fast.py).
+- :func:`voxelize_parity_ref` — axis-aligned column rays with
+  intersection-parity counting. It *counts* crossings per voxel; the CUDA
+  kernel (ops/voxelize_cuda.py) folds XOR masks and its plain version
+  histograms cutoffs — independent reductions over identical tests.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dxrvoxelizer_tpu_torch.ops import intersect
 from dxrvoxelizer_tpu_torch.ops.geom import column_crossing, parity_tri_setup
+from dxrvoxelizer_tpu_torch.ops.raystab_fast import INSIDE_THRESHOLD, voxel_rays
+
+
+def _mt_normals(n0, n1, n2, u, v):
+    """Barycentric normal interpolation (DXRVoxelizer.hlsl:110-116),
+    normalized; norm and dot spelled ((x + y) + z)."""
+    nrm = n0 + u[:, None] * (n1 - n0) + v[:, None] * (n2 - n0)
+    x, y, z = nrm[:, 0], nrm[:, 1], nrm[:, 2]
+    ln = torch.clamp(intersect.sqrt_rn((x * x + y * y) + z * z), min=1e-20)
+    return nrm / ln[:, None]
+
+
+def _dot3(a, b):
+    return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
+
+
+def _rgba(inside, nx, ny, nz):
+    zero = torch.zeros_like(nx)
+    return torch.stack([torch.where(inside, nx, zero),
+                        torch.where(inside, ny, zero),
+                        torch.where(inside, nz, zero),
+                        torch.where(inside, torch.ones_like(nx), zero)], dim=-1)
+
+
+def voxelize_raystab_ref(verts_norm: torch.Tensor, normals: torch.Tensor,
+                         tris: torch.Tensor, n: int = 64,
+                         threshold: float = INSIDE_THRESHOLD,
+                         ray_chunk: int = 4096, tri_chunk: int = 2048,
+                         rule: str = "backface"):
+    """Reference-rule solid voxelization (Moller-Trumbore) ->
+    ``(occupancy [n,n,n] bool, rgba [n,n,n,4] f32)``, rgba the unquantized
+    ``float4(Normal, 1.0)`` write (zeros outside). ``rule`` "hit" marks every
+    voxel whose ray hits anything (the parity-mode normal-channel source)."""
+    pos, dirs = voxel_rays(n, verts_norm.device)
+    v0, e1, e2 = intersect.triangle_soup(verts_norm, tris)
+    n0, n1, n2 = (normals[tris[:, k]] for k in range(3))
+    occ, rgba = [], []
+    for s in range(0, pos.shape[0], ray_chunk):
+        o, d = pos[s:s + ray_chunk], dirs[s:s + ray_chunk]
+        t, u, v, idx = intersect.closest_hit(o, d, v0, e1, e2, tri_chunk)
+        hit = torch.isfinite(t)
+        idx = idx.to(torch.int64)
+        nrm = _mt_normals(n0[idx], n1[idx], n2[idx], u, v)
+        inside = hit if rule == "hit" else hit & (_dot3(nrm, d) > threshold)
+        occ.append(inside)
+        rgba.append(_rgba(inside, nrm[:, 0], nrm[:, 1], nrm[:, 2]))
+    return torch.cat(occ).reshape(n, n, n), torch.cat(rgba).reshape(n, n, n, 4)
+
+
+def voxelize_raystab_radial_ref(verts_norm: torch.Tensor, normals: torch.Tensor,
+                                tris: torch.Tensor, n: int = 64,
+                                threshold: float = INSIDE_THRESHOLD,
+                                ray_chunk: int = 4096, tri_chunk: int = 2048,
+                                rule: str = "backface",
+                                normal_impl: str = "radial"):
+    """Reference-rule voxelization via the radial-form intersection: the
+    same rays and inside rule as :func:`voxelize_raystab_ref`, the winner
+    picked by ``intersect.radial_hit`` (origin = s0 * dir,
+    DXRVoxelizer.hlsl:44-53).
+
+    ``normal_impl``: "radial" (the gen-6 query's contract, bit for bit):
+    barycentrics from the radial signed volumes, ``nrm = normalize((w0 n0 +
+    w1 n1 + w2 n2) / den)`` (``intersect.radial_finalize``); "mt": the
+    Moller-Trumbore (u, v) interpolation of the winner, as the MT oracle.
+    """
+    pos, dirs = voxel_rays(n, verts_norm.device)
+    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    s0_all = intersect.sqrt_rn((x * x + y * y) + z * z)
+    g0, g1, g2, c = intersect.radial_setup(verts_norm, tris)
+    v0, e1, e2 = intersect.triangle_soup(verts_norm, tris)
+    n0, n1, n2 = (normals[tris[:, k]] for k in range(3))
+    t_count = tris.shape[0]
+    occ, rgba = [], []
+    for s in range(0, pos.shape[0], ray_chunk):
+        o, d, s0 = pos[s:s + ray_chunk], dirs[s:s + ray_chunk], s0_all[s:s + ray_chunk]
+        t, idx = intersect.radial_closest_hit(d, s0, g0, g1, g2, c, tri_chunk)
+        hit = torch.isfinite(t) & (idx < t_count)
+        idx = torch.where(hit, idx, torch.zeros_like(idx)).to(torch.int64)
+        if normal_impl == "radial":
+            gg = [g[idx, k] for g in (g0, g1, g2) for k in range(3)]
+            nv = [nn[idx, k] for nn in (n0, n1, n2) for k in range(3)]
+            inside, nx, ny, nz = intersect.radial_finalize(
+                d[:, 0], d[:, 1], d[:, 2], gg, nv, hit, threshold, rule)
+        else:
+            _, u, v, _ = intersect.mt_hit(o, d, v0[idx], e1[idx], e2[idx])
+            nrm = _mt_normals(n0[idx], n1[idx], n2[idx], u, v)
+            inside = hit if rule == "hit" else hit & (_dot3(nrm, d) > threshold)
+            nx, ny, nz = nrm[:, 0], nrm[:, 1], nrm[:, 2]
+        occ.append(inside)
+        rgba.append(_rgba(inside, nx, ny, nz))
+    return torch.cat(occ).reshape(n, n, n), torch.cat(rgba).reshape(n, n, n, 4)
 
 
 def voxelize_parity_ref(verts_norm: torch.Tensor, tris: torch.Tensor,

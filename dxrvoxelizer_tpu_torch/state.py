@@ -3,7 +3,8 @@
 The two packages share no objects: the JAX package's arrays, taken to the
 host as numpy, become this package's tensors here, so both compute on
 identical inputs (the tests compare them this way): mesh buffers, packed
-occupancy grids, and work queues built by the JAX package's ``build_queue``.
+occupancy grids, work queues built by the JAX package's ``build_queue``, and
+compact ray-stab accels built by its ``build_raystab_compact2``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from dxrvoxelizer_tpu_torch.core.pipeline import VoxelGrid
 from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
+from dxrvoxelizer_tpu_torch.ops.raystab_fast import Raystab2Stats, RaystabCompact2
 from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import NCOEF
 
 MESH_FIELDS = ("positions", "normals", "tris", "positions_norm")
@@ -61,3 +63,32 @@ def queue_from_numpy(coefs: np.ndarray, chunk_tile: np.ndarray,
                          f"[{num_chunks}]")
     return (torch.tensor(c).to(device),
             *(torch.tensor(a.astype(np.int32)).to(device) for a in chunks))
+
+
+def raystab_compact_from_numpy(n: int, classes, ov_ids, levels: tuple = (),
+                               near_origin: int | None = None) -> RaystabCompact2:
+    """A compact ray-stab accel built by the JAX package's
+    ``build_raystab_compact2`` (``classes`` of (rt128, tab, bounds-or-None)
+    and ``ov_ids``, as numpy) -> the port's :class:`RaystabCompact2`, which
+    ``ops.raystab_fast.assemble_raystab_accel2`` expands on the port's device
+    from the same geometry. The TPU's row padding (strips without a ray) and
+    the -1 padding of ``ov_ids`` are dropped."""
+    out = []
+    for rt128, tab, bounds in classes:
+        rt = np.asarray(rt128, np.int32)
+        tb = np.asarray(tab, np.int32)
+        if rt.ndim != 2 or rt.shape[1] != 128 or tb.shape[0] != rt.shape[0]:
+            raise ValueError(f"expected rt128 [VC, 128] and tab [VC, K], got "
+                             f"{rt.shape} and {tb.shape}")
+        keep = (rt >= 0).any(axis=1)
+        b = None if bounds is None else np.asarray(bounds, np.float32)[keep]
+        out.append((rt[keep], tb[keep], b))
+    ov = None
+    if ov_ids is not None:
+        o = np.asarray(ov_ids, np.int32)
+        ov = o[o >= 0] if (o >= 0).any() else None
+    if near_origin is None:
+        near_origin = 0 if ov is None else int(ov.size)
+    return RaystabCompact2(n=n, classes=tuple(out), ov_ids=ov,
+                           stats=Raystab2Stats(levels=tuple(levels),
+                                               near_origin=near_origin))

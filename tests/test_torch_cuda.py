@@ -19,11 +19,14 @@ from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
 from dxrvoxelizer_tpu_torch.models.scene import Scene
 from dxrvoxelizer_tpu_torch.ops import (
     march_cuda,
+    raystab_cuda,
+    raystab_fast,
     screen_warp_cuda,
     voxelize_cuda,
     voxelize_queue,
     voxelize_queue_cuda,
 )
+from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_raystab_radial_ref
 from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles, voxelize_parity_binned
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
@@ -142,6 +145,69 @@ def test_gpu_frame_matches_cpu_frame(dev, ss):
     mesh = ObjMesh(positions=v, normals=nrm, indices=t.reshape(-1),
                    aabb_min=v.min(0), aabb_max=v.max(0))
     cfg = VoxelizerConfig(grid_size=32, width=96, height=64, render_ss=ss)
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        scene = Scene(mesh, d)
+        cam = OrbitCamera(cfg.width, cfg.height)
+        fc = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
+        imgs.append(FramePipeline(cfg, scene.buffers).frame(fc).cpu())
+    assert float((imgs[0] - imgs[1]).abs().max()) < 2e-3
+
+
+def _raystab_mesh(name, n, dev):
+    if name == "box":  # faces on voxel centers: every tie rule fires
+        c = [(i + 0.5) / n * 2 - 1 for i in (3, 5, 2, n - 6, n - 4, n - 9)]
+        verts, nrm, tris = box_mesh(c[:3], c[3:])
+    elif name == "near_origin":  # 300 triangles around the origin
+        rng = np.random.default_rng(11)
+        tv = (rng.standard_normal((300, 1, 3)) * 0.02
+              + rng.standard_normal((300, 3, 3)) * 0.3).astype(np.float32)
+        fn = np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])
+        fn /= np.linalg.norm(fn, axis=-1, keepdims=True)
+        verts, nrm = tv.reshape(-1, 3), np.repeat(fn, 3, axis=0).astype(np.float32)
+        tris = np.arange(900, dtype=np.int32).reshape(300, 3)
+    elif name == "dense_cone":  # a multi-chunk class with skip bounds
+        verts, nrm, tris = icosphere_mesh(3, radius=0.08, center=(0.5, 0.3, -0.4))
+    else:
+        verts, nrm, tris = icosphere_mesh(4)
+    return (torch.from_numpy(verts).to(dev), torch.from_numpy(nrm).to(dev),
+            torch.from_numpy(tris.astype(np.int64)).to(dev))
+
+
+@pytest.mark.parametrize("rule", ["backface", "hit"])
+@pytest.mark.parametrize("mesh", ["icosphere", "box", "near_origin", "dense_cone"])
+def test_raystab_kernels_bit_identical_to_plain(dev, mesh, rule):
+    v, nr, t = _raystab_mesh(mesh, 64, dev)
+    accel = raystab_fast.build_raystab_accel2(v, t, nr, n=64)
+    streams = [tb for tb in (accel.main, accel.ov) if tb is not None]
+    assert streams
+    for tb in streams:
+        got = raystab_cuda.fold_extract(tb, t.shape[0], 0.12, rule)
+        want = raystab_cuda.fold_extract_plain(tb, t.shape[0], 0.12, rule)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for a, b in zip(raystab_cuda.fold(tb), want[:2]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mesh", ["icosphere", "box"])
+def test_raystab_query_bit_identical_to_radial_oracle(dev, mesh):
+    v, nr, t = _raystab_mesh(mesh, 64, dev)
+    accel = raystab_fast.build_raystab_accel2(v, t, nr, n=64)
+    occ, rgba = raystab_fast.raystab_query2(v, nr, t, accel)
+    occ_r, rgba_r = voxelize_raystab_radial_ref(v, nr, t, n=64)
+    assert torch.equal(occ, occ_r) and torch.equal(rgba, rgba_r)
+    assert bool(occ.any())
+
+
+@pytest.mark.parametrize("mode", ["raystab", "normals"])
+def test_gpu_raystab_frame_matches_cpu_frame(dev, mode):
+    v, nrm, t = tetrahedron_mesh()
+    mesh = ObjMesh(positions=v, normals=nrm, indices=t.reshape(-1),
+                   aabb_min=v.min(0), aabb_max=v.max(0))
+    cfg = VoxelizerConfig(grid_size=32, width=96, height=64,
+                          inside_mode="raystab" if mode == "raystab" else "parity",
+                          parity_normals=mode == "normals")
     imgs = []
     for d in (dev, torch.device("cpu")):
         scene = Scene(mesh, d)

@@ -15,6 +15,7 @@ import torch
 from dxrvoxelizer_tpu_torch.ops import (
     _cuda,
     march_cuda,
+    raystab_cuda,
     screen_warp_cuda,
     voxelize_cuda,
     voxelize_queue_cuda,
@@ -44,6 +45,7 @@ def _modules() -> list[str]:
 def test_every_module_imports_without_jax_and_builds_nothing():
     mods = _modules()
     for m in ("ops.voxelize_cuda", "ops.voxelize_queue", "ops.voxelize_queue_cuda",
+              "ops.intersect", "ops.raystab_fast", "ops.raystab_cuda",
               "state", "app.main"):
         assert f"dxrvoxelizer_tpu_torch.{m}" in mods, m
     code = (
@@ -100,11 +102,19 @@ def _meta(*shape, dtype=torch.float32):
 
 
 KERNELS = (voxelize_cuda.KERNEL, voxelize_queue_cuda.KERNEL, march_cuda.KERNEL,
-           screen_warp_cuda.KERNEL)
+           screen_warp_cuda.KERNEL, raystab_cuda.FOLD_EXTRACT, raystab_cuda.FOLD)
+
+
+def _meta_strips(s=2, p=300, bounds=True):
+    return raystab_cuda.StripTables(
+        rays=_meta(s, 4, 128), cand_off=_meta(s, dtype=torch.int32),
+        cand_cnt=_meta(s, dtype=torch.int32), rows=_meta(p, 24),
+        bounds=_meta(s, 2) if bounds else None)
 
 
 @pytest.mark.parametrize("kernel", ["parity_voxelize", "parity_queue", "march",
-                                    "resolve"])
+                                    "resolve", "raystab_fold_extract",
+                                    "raystab_fold"])
 def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises — the
     plain version is never a silent fallback for it."""
@@ -116,6 +126,10 @@ def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
             voxelize_queue_cuda.voxelize_parity_queue_chunks(
                 _meta(128 * 64, 16), _meta(128, dtype=torch.int32),
                 _meta(128, dtype=torch.int32), 32)
+        elif kernel == "raystab_fold_extract":
+            raystab_cuda.fold_extract(_meta_strips(), 1000, 0.12)
+        elif kernel == "raystab_fold":
+            raystab_cuda.fold(_meta_strips(bounds=False))
         elif kernel == "march":
             v = _meta(32)
             march_cuda.march(_meta(2, 32, 32, 32), v, v, v, v, v, v,
@@ -144,6 +158,11 @@ def test_wrapper_on_a_box_without_cuda_raises_not_falls_back(monkeypatch):
         voxelize_queue_cuda.voxelize_parity_queue_chunks(
             _meta(128 * 64, 16), _meta(128, dtype=torch.int32),
             _meta(128, dtype=torch.int32), 32)
+    for rule in ("backface", "hit"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            raystab_cuda.fold_extract(_meta_strips(), 1000, 0.12, rule)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        raystab_cuda.fold(_meta_strips())
     assert {k.name: k.launches for k in KERNELS} == before
 
 

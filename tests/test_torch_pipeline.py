@@ -122,19 +122,27 @@ def test_engine_slots_and_ring(tmp_path):
 
 
 def test_unported_options_raise():
-    """Options off the ported slices raise; the queue and deforming paths,
-    ported now, run and give the oracle's frame."""
+    """Options off the ported slices raise; the queue, deforming, ray-stab
+    and -normals paths, ported now, run (ray-stab and -normals at n < 128,
+    static meshes)."""
     scene = Scene(_tet_obj(ObjMesh), "cpu")
     base = VoxelizerConfig(grid_size=N, width=W, height=H)
-    for cfg in (base.replace(inside_mode="raystab"),
-                base.replace(parity_normals=True)):
-        for deforming in (False, True):
-            with pytest.raises(NotImplementedError):
-                FramePipeline(cfg, scene.buffers, deforming=deforming)
     cam = OrbitCamera(W, H)
     fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
+    for cfg in (base.replace(inside_mode="raystab"),
+                base.replace(parity_normals=True)):
+        with pytest.raises(NotImplementedError, match="Deforming ray-stab"):
+            FramePipeline(cfg, scene.buffers, deforming=True)
+        with pytest.raises(NotImplementedError, match="gen-7"):
+            FramePipeline(cfg.replace(grid_size=128), scene.buffers)
+        img = FramePipeline(cfg, scene.buffers).frame(fc)
+        assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
     from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
 
+    with pytest.raises(NotImplementedError, match="gen-7"):
+        voxelize(scene.buffers, 128, mode="raystab")
+    with pytest.raises(NotImplementedError, match="gen-7"):
+        voxelize(scene.buffers, 128, with_normals=True)
     g = voxelize(scene.buffers, N)
     for cfg, impl in ((base.replace(show_mip=1), "warp"),
                       (base.replace(point_light=True), "warp"),
