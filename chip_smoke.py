@@ -14,6 +14,11 @@ the CUDA toolkit. Phases, one line each:
    centred at the camera's focus); every kernel of that path must have
    launched;
 3. one ``-fast`` frame (no z-supersampling);
+3b. before any other heavy phase: the first ``-inside raystab`` frame
+    (accel build + frame) from a cold voxel->cell ray table, then the first
+    ``-normals`` frame, and the 64^3 parity, ray-stab and ``-normals``
+    frames timed in turns (each a median as in phase 5): the frame times
+    reported for these three paths;
 4. each kernel against its plain torch version on the card, at the shapes
    the main path gives it, and the whole frame against the plain path and
    against the CPU on a small input;
@@ -52,9 +57,10 @@ the CUDA toolkit. Phases, one line each:
     the radial oracle at 64^3 on a 5,120-triangle icosphere; the ray-stab
     and ``-normals`` frames against the plain path;
 15. times of both ray-stab kernels at the 64^3 frame's tables (plain
-    versions and bounds), the host build of the accel, the first-frame
-    latency, the whole parity, ray-stab and ``-normals`` 64^3 frames timed
-    in turns, and a profiler window of each ray-stab frame.
+    versions and bounds), the accel build (from a cold ray table, then
+    warm), the three 64^3 frames in turns again late in the run (how far
+    host time drifted since phase 3b), the plain ray-stab and ``-normals``
+    frames, and a profiler window of each ray-stab frame.
 
 Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
@@ -254,22 +260,53 @@ def resolve_bound(res_args) -> tuple[float, str]:
                  int(ok.sum()) * RESOLVE_OPS_PER_HIT)
 
 
-def strip_pairs(tb) -> int:
-    """Real (ray, candidate) pairs of a strip stream: each strip's rays that
-    are not padding lanes times its candidates."""
-    r = tb.rays
-    real = ~((r[:, 0] == 0) & (r[:, 1] == 0) & (r[:, 2] == 0))
-    return int((real.sum(1).to(r.device) * tb.cand_cnt).double().sum())
+def raystab_work(torch, rsc, tb) -> tuple[int, int, int]:
+    """What a ray-stab kernel must do on the main strip stream (each strip
+    has its own candidate rows): its real rays (not padding lanes) and the
+    candidates of the chunks it tests. A chunk is skipped when every lane's
+    best t over the chunks before it is below the chunk's bound; the best t
+    is replayed with the plain fold. -> (real rays, candidate rows tested,
+    real (ray, candidate) pairs tested)."""
+    import dataclasses
+
+    r, kb = tb.rays, rsc.K_BLOCK
+    real = (~((r[:, 0] == 0) & (r[:, 1] == 0) & (r[:, 2] == 0))).sum(1)
+    cnt = tb.cand_cnt.long()
+    tested = torch.clamp(cnt, max=kb)
+    for j in range(1, 0 if tb.bounds is None else tb.bounds.shape[1]):
+        head = dataclasses.replace(tb, cand_cnt=torch.clamp(tb.cand_cnt,
+                                                            max=j * kb))
+        best_t, _ = rsc.fold_plain(head)
+        runs = (best_t >= tb.bounds[:, j, None]).any(1)
+        tested += torch.where(runs, torch.clamp(cnt - j * kb, 0, kb), 0)
+    tested = tested * (real > 0)
+    return (int(real.sum()), int(tested.sum()),
+            int((real.long() * tested).sum()))
 
 
-def raystab_bound(tb, extract: bool) -> tuple[float, str]:
-    """Bound of a ray-stab kernel on a strip stream: candidate rows, rays,
-    offsets, counts and bounds read once, the per-slot outputs written once;
-    the real pairs' operations."""
-    n_in = (tb.rows.numel() + tb.rays.numel() + 2 * tb.strips
+def raystab_bound(tb, work, extract: bool) -> tuple[float, str]:
+    """Bound of a ray-stab kernel: the tested candidates' rows (20 floats
+    with extraction: g0 g1 g2 c id n0 n1 n2; 11 for the fold alone), each
+    real ray's 4 floats and its outputs (t, id, and the 4 channels with
+    extraction), the offsets, counts and bounds, each once; the tested real
+    pairs' operations."""
+    real, tested, pairs = work
+    n_in = (tested * (20 if extract else 11) + real * 4 + 2 * tb.strips
             + (0 if tb.bounds is None else tb.bounds.numel())) * 4
-    n_out = tb.strips * 128 * (4 + 4 + (16 if extract else 0))
-    return bound(n_in + n_out, strip_pairs(tb) * RAYSTAB_OPS_PER_PAIR)
+    n_out = real * (4 + 4 + (16 if extract else 0))
+    return bound(n_in + n_out, pairs * RAYSTAB_OPS_PER_PAIR)
+
+
+def frames_in_turns(torch, fns) -> dict:
+    """Time each frame function with cuda_ms in turns, in order and then
+    back (a, b, c, c, b, a) -> {name: [ms, ms]}. Host time drifts within a
+    run, so only frames timed in turns compare."""
+    turns = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        fn, p = fns[name]
+        turns[name].append(cuda_ms(torch, fn))
+        p.sync()
+    return turns
 
 
 def app_run(torch, app_main, kernels, args, png: Path, name: str):
@@ -428,6 +465,54 @@ def main() -> int:
         check(rc == 0 and png_fast.is_file(), "-fast frame failed")
         print(f"phase 3 -fast frame: {read_png(png_fast).shape} written")
 
+        # ---- 3b. the three 64^3 frames, timed before any other heavy phase
+        cfg = VoxelizerConfig(mesh=str(obj))
+        scene = Scene(load_obj(obj), dev, pos_scale=cfg.pos_scale,
+                      light_pt=cfg.light_pt)
+        mb = scene.buffers
+        cam = OrbitCamera(cfg.width, cfg.height)
+        consts = scene.update_frame(cam.eye, cam.view_proj, cfg.width,
+                                    cfg.height)
+        pipe = FramePipeline(cfg, mb)
+        cfg_rs = cfg.replace(inside_mode="raystab")
+        cfg_nm = cfg.replace(parity_normals=True)
+        # first-frame latency (accel build + frame) as the process's first
+        # ray-stab mesh pays it: the voxel->cell ray table is cached per
+        # grid size, so it starts cold here and is warm for -normals
+        rsf._ray_table_filled.cache_clear()
+        first_s = {}
+        for name, cfg_ in (("raystab", cfg_rs), ("normals", cfg_nm)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_ = FramePipeline(cfg_, mb)
+            f_ = p_.frame(consts)
+            p_.sync()
+            first_s[name] = (time.perf_counter() - t0, p_, f_)
+        pipe_rs, f_rs = first_s["raystab"][1:]
+        pipe_nm, f_nm = first_s["normals"][1:]
+
+        def frame_kernels():
+            return pipe.frame(consts)
+
+        def frame_rs():
+            return pipe_rs.frame(consts)
+
+        def frame_nm():
+            return pipe_nm.frame(consts)
+
+        frames64 = {"parity": (frame_kernels, pipe),
+                    "raystab": (frame_rs, pipe_rs),
+                    "normals": (frame_nm, pipe_nm)}
+        early = frames_in_turns(torch, frames64)
+        print(f"phase 3b frames {GRID}^3 1280x720 -hq timed in turns first "
+              f"(parity, raystab, normals, normals, raystab, parity; each a "
+              f"median of {REPS} runs of {INNER}): "
+              + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
+                          for k, v in early.items())
+              + f"; first frame from a cold ray table (build + frame): "
+              f"raystab {first_s['raystab'][0]:.4f} s, then -normals (warm "
+              f"table) {first_s['normals'][0]:.4f} s; {card}")
+
         # ---- 6./7. the hi-res app frames (main paths of this slice) -------
         hi = {}
         for name, extra in (("static", []), ("deform", ["-deform"])):
@@ -467,10 +552,7 @@ def main() -> int:
                 main_launches[k] += c
             stab_runs[name] = (launches, covered)
 
-        # the main paths' state, rebuilt for the comparisons
-        cfg = VoxelizerConfig(mesh=str(obj))
-        scene = Scene(load_obj(obj), dev, pos_scale=cfg.pos_scale,
-                      light_pt=cfg.light_pt)
+        # the hi-res path's state, rebuilt for the comparisons
         cfg_hi = VoxelizerConfig(mesh=str(obj7), grid_size=GRID_HI)
         scene7 = Scene(load_obj(obj7), dev, pos_scale=cfg_hi.pos_scale,
                        light_pt=cfg_hi.light_pt)
@@ -486,9 +568,6 @@ def main() -> int:
               f"1280x720 -hq {'-inside raystab' if name == 'raystab' else '-normals'}, "
               f"{FRAMES} frames, launches {launches}, volume covers "
               f"{covered:.3f} of the image")
-    cam = OrbitCamera(cfg.width, cfg.height)
-    consts = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
-    pipe = FramePipeline(cfg, scene.buffers)
 
     # ---- 4. kernels against their plain versions ------------------------
     errs = {}
@@ -515,7 +594,6 @@ def main() -> int:
             stats = parity_case(name, vv, tt, n)
             box_lines.append(f"{name}@{n}^3 cap {stats.capacity}")
     # and the kernel against the independent counting oracle at 64^3
-    mb = scene.buffers
     oracle = pack_bits_z(voxelize_parity_ref(mb.positions_norm, mb.tris, n=GRID))
     coef_main, stats_main = bin_triangles(mb.positions_norm, mb.tris, GRID)
     words_main = voxelize_cuda.voxelize_parity_tiles(coef_main, GRID)
@@ -568,9 +646,6 @@ def main() -> int:
     phase4.append(f"march max|err| ss=1 {march_err[1]:.3g} ss=2 "
                   f"{march_err[2]:.3g} (m={m}, swap={swap}); resolve max|err| "
                   f"{errs['resolve']:.3g}")
-
-    def frame_kernels():
-        return pipe.frame(consts)
 
     def frame_plain():
         words = voxelize_cuda.voxelize_parity_tiles_plain(coef_main, GRID)
@@ -832,9 +907,8 @@ def main() -> int:
                 check(torch.equal(a, b), f"fold-only {what} differs from the "
                       f"plain fold: {name} {s_}")
         for rule in ("backface", "hit"):
-            q_k = rsf.raystab_query2(verts, nrm, tris, accel, rule=rule)
-            q_p = rsf.raystab_query2(verts, nrm, tris, accel, rule=rule,
-                                     use_kernels=False)
+            q_k = rsf.raystab_query2(accel, rule=rule)
+            q_p = rsf.raystab_query2(accel, rule=rule, use_kernels=False)
             check(torch.equal(q_k[0], q_p[0]) and torch.equal(q_k[1], q_p[1]),
                   f"{name}: query {rule} differs from the plain query")
         check(bool(q_k[0].any()), f"{name}: empty grid")
@@ -865,41 +939,24 @@ def main() -> int:
     v4d, n4d, t4d = dev_mesh3(v4_, n4_, t4_)
     accel4 = rsf.build_raystab_accel2(v4d, t4d, n4d, n=GRID)
     for rule in ("backface", "hit"):
-        q = rsf.raystab_query2(v4d, n4d, t4d, accel4, rule=rule)
+        q = rsf.raystab_query2(accel4, rule=rule)
         r = voxelize_raystab_radial_ref(v4d, n4d, t4d, n=GRID, rule=rule)
         check(torch.equal(q[0], r[0]) and torch.equal(q[1], r[1]),
               f"query differs from the radial oracle at {GRID}^3 ({rule})")
     errs["raystab_fold_extract"] = errs["raystab_fold"] = 0.0
 
-    # the ray-stab and -normals frames against the plain path
-    cfg_rs = cfg.replace(inside_mode="raystab")
-    cfg_nm = cfg.replace(parity_normals=True)
-    t0 = time.perf_counter()
-    pipe_rs = FramePipeline(cfg_rs, mb)
-    f_rs = pipe_rs.frame(consts)
-    pipe_rs.sync()
-    first_frame_s = time.perf_counter() - t0
-    pipe_nm = FramePipeline(cfg_nm, mb)
-    f_nm = pipe_nm.frame(consts)
-    pipe_nm.sync()
+    # the ray-stab and -normals frames (phase 3b's first frames) against the
+    # plain path
     accel_rs = pipe_rs._stab_accel
 
-    def frame_rs():
-        return pipe_rs.frame(consts)
-
-    def frame_nm():
-        return pipe_nm.frame(consts)
-
     def frame_rs_plain():
-        occ, rgba = rsf.raystab_query2(mb.positions_norm, mb.normals, mb.tris,
-                                       accel_rs, use_kernels=False)
+        occ, rgba = rsf.raystab_query2(accel_rs, use_kernels=False)
         grid = VoxelGrid(words=pack_bits_z(occ), rgba=quantize_r10g10b10a2(rgba))
         return render(grid, consts, cfg_rs, use_kernels=False)
 
     def frame_nm_plain():
         words = voxelize_cuda.voxelize_parity_tiles_plain(coef_main, GRID)
-        _, rgba = rsf.raystab_query2(mb.positions_norm, mb.normals, mb.tris,
-                                     pipe_nm._stab_accel, rule="hit",
+        _, rgba = rsf.raystab_query2(pipe_nm._stab_accel, rule="hit",
                                      use_kernels=False)
         occ_f = unpack_bits_z(words, GRID).to(torch.float32)[..., None]
         rgba = quantize_r10g10b10a2(torch.cat([rgba[..., :3] * occ_f, occ_f], -1))
@@ -933,8 +990,10 @@ def main() -> int:
         cuda_ms(torch, lambda: rsc.fold(tb_rs)),
         cuda_ms(torch, lambda: rsc.fold_plain(tb_rs)),
     )
+    # the accel build: the first from a cold ray table, then 3 warm ones
+    rsf._ray_table_filled.cache_clear()
     builds = []
-    for _ in range(3):
+    for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         compact = rsf.build_raystab_compact2(mb.positions_norm, mb.tris, GRID)
@@ -943,18 +1002,11 @@ def main() -> int:
                                     mb.normals)
         torch.cuda.synchronize()
         builds.append((t1 - t0, time.perf_counter() - t1))
-    host_s, asm_s = (statistics.median(b[i] for b in builds) for i in (0, 1))
-    # the three 64^3 frames timed in turns (parity, raystab, normals, then
-    # back): host time drifts within a run, so compare medians of turns
-    turns = {"parity": [], "raystab": [], "normals": []}
-    fns = {"parity": (frame_kernels, pipe), "raystab": (frame_rs, pipe_rs),
-           "normals": (frame_nm, pipe_nm)}
-    for name in ("parity", "raystab", "normals", "normals", "raystab",
-                 "parity"):
-        fn, p = fns[name]
-        turns[name].append(cuda_ms(torch, fn))
-        p.sync()
-    stab_ms = {k: statistics.median(v) for k, v in turns.items()}
+    host_s, asm_s = (statistics.median(b[i] for b in builds[1:]) for i in (0, 1))
+    # the three 64^3 frames in turns again, late in the run (phase 3b timed
+    # them first): how far host time drifted
+    turns = frames_in_turns(torch, frames64)
+    stab_ms = {k: statistics.median(v) for k, v in early.items()}
     stab_ms["raystab plain"] = cuda_ms(torch, frame_rs_plain)
     stab_ms["normals plain"] = cuda_ms(torch, frame_nm_plain)
     stab_prof = {}
@@ -963,25 +1015,28 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         prof = profile_frames(torch, fn, p.sync, kernels)
         stab_prof[name] = (*prof, torch.cuda.max_memory_allocated() / 2**20)
+    work_rs = raystab_work(torch, rsc, tb_rs)
     print(f"phase 15 ray-stab kernels at the {GRID}^3 frame's tables "
           f"({tb_rs.strips} strips, {tb_rs.rows.shape[0]} candidate rows, "
-          f"{strip_pairs(tb_rs)} real pairs, classes "
+          f"{work_rs[0]} real rays; in the chunks not skipped "
+          f"{work_rs[1]} candidate rows and {work_rs[2]} real pairs; classes "
           f"{[c[1].shape for c in compact.classes]}): fold+extract "
           f"{ms['raystab_fold_extract'][0]:.4f} ms (plain "
           f"{ms['raystab_fold_extract'][1]:.4f} ms), fold-only "
           f"{ms['raystab_fold'][0]:.4f} ms (plain {ms['raystab_fold'][1]:.4f} "
-          f"ms); accel build: host {host_s:.4f} s, device assembly "
-          f"{asm_s:.4f} s (median of 3); first ray-stab frame (build + "
-          f"frame) {first_frame_s:.4f} s; {card}")
-    print(f"phase 15 frames {GRID}^3 1280x720 -hq timed in turns (parity, "
-          f"raystab, normals, normals, raystab, parity; each a median of "
-          f"{REPS} runs of {INNER}): "
+          f"ms); accel build from a cold ray table: host {builds[0][0]:.4f} s, "
+          f"device assembly {builds[0][1]:.4f} s; warm (median of 3): host "
+          f"{host_s:.4f} s, device assembly {asm_s:.4f} s; {card}")
+    print(f"phase 15 frames {GRID}^3 1280x720 -hq timed in turns late in the "
+          f"run (parity, raystab, normals, normals, raystab, parity; each a "
+          f"median of {REPS} runs of {INNER}): "
           + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in turns.items())
           + f"; {card}")
     for name in ("raystab", "normals"):
         busy, per_frame, kus, peak = stab_prof[name]
         print(f"phase 15 frame {GRID}^3 1280x720 -hq {name}: "
-              f"{stab_ms[name]:.4f} ms with the kernels (median of the turns), "
+              f"{stab_ms[name]:.4f} ms with the kernels (median of phase "
+              f"3b's turns), "
               f"{stab_ms[name + ' plain']:.4f} ms plain; profiled: device "
               f"busy {busy:.4f} ms per frame (idle share "
               f"{1 - busy / stab_ms[name]:.3f}), {per_frame:.0f} device "
@@ -1001,8 +1056,8 @@ def main() -> int:
                               pairs_q * PARITY_OPS_PER_PAIR),
         "march": march_bound(torch, mi),
         "resolve": resolve_bound(res_args),
-        "raystab_fold_extract": raystab_bound(tb_rs, True),
-        "raystab_fold": raystab_bound(tb_rs, False),
+        "raystab_fold_extract": raystab_bound(tb_rs, work_rs, True),
+        "raystab_fold": raystab_bound(tb_rs, work_rs, False),
     }
     print(f"bounds (ms, bound by): {bounds}; binned {GRID}^3 {rows_b} real "
           f"rows, {pairs_b} (column, triangle) pairs in bounding boxes; "

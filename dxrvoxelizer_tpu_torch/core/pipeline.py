@@ -118,14 +118,13 @@ def voxelize(
     R10G10B10A2. ``with_normals`` adds the parity grid's normal channel.
     """
     if mode == "raystab":
-        if impl in ("auto", "fast", "queue", "pallas"):
+        if impl == "auto":
             _require_gen6(n, "the ray-stab inside rule (-inside raystab)")
             if accel is None:  # stateless: build the accel for this call
                 occ, rgba = raystab_fast.voxelize_raystab_fast(
                     mesh.positions_norm, mesh.normals, mesh.tris, n=n)
             else:
-                occ, rgba = raystab_fast.raystab_query2(
-                    mesh.positions_norm, mesh.normals, mesh.tris, accel)
+                occ, rgba = raystab_fast.raystab_query2(accel)
         elif impl == "xla":
             occ, rgba = voxelize_ref.voxelize_raystab_ref(
                 mesh.positions_norm, mesh.normals, mesh.tris, n=n)
@@ -169,8 +168,7 @@ def _parity_rgba(mesh: MeshBuffers, words: torch.Tensor, n: int, accel=None,
     if accel is None:
         accel = raystab_fast.build_raystab_accel2(
             mesh.positions_norm, mesh.tris, mesh.normals, n=n)
-    _, rgba_hit = raystab_fast.raystab_query2(
-        mesh.positions_norm, mesh.normals, mesh.tris, accel, rule="hit")
+    _, rgba_hit = raystab_fast.raystab_query2(accel, rule="hit")
     occ_f = unpack_bits_z(words, n).to(torch.float32)[..., None]
     rgba = torch.cat([rgba_hit[..., :3] * occ_f, occ_f], dim=-1)
     if quantize:
@@ -227,7 +225,12 @@ class FramePipeline:
         if deforming and (raystab or normals):
             raise _not_ported("deforming ray-stab (-deform with -inside "
                               "raystab or -normals)", "Deforming ray-stab")
-        if normals or (raystab and vox_impl not in ("xla", "xla-radial")):
+        # what voxelize() takes in this inside mode: ray-stab has "auto"
+        # (the gen-6 accel) and the two oracles, so the parity kernels' names
+        # (-voximpl queue / pallas) select its accel
+        self.grid_impl = ("auto" if raystab and vox_impl in ("queue", "pallas")
+                          else vox_impl)
+        if normals or (raystab and self.grid_impl == "auto"):
             _require_gen6(cfg.grid_size, "-normals" if normals
                           else "the ray-stab inside rule (-inside raystab)")
         self.cfg = cfg
@@ -260,7 +263,7 @@ class FramePipeline:
         want_normals = not raystab and self.cfg.parity_normals
         quantize = not self.cfg.use_mutex
         accel = None
-        if (raystab and self.vox_impl not in ("xla", "xla-radial")) or want_normals:
+        if (raystab and self.grid_impl == "auto") or want_normals:
             accel = self._raystab_accel()
         if (not raystab and self.deforming and self.vox_impl in ("auto", "queue")
                 and _kernel_ok(n, device)):
@@ -294,7 +297,7 @@ class FramePipeline:
             grid = VoxelGrid(words=words, rgba=rgba)
         else:
             grid = voxelize(self.mesh, n, mode=self.cfg.inside_mode,
-                            impl=self.vox_impl, quantize=quantize, accel=accel,
+                            impl=self.grid_impl, quantize=quantize, accel=accel,
                             with_normals=want_normals)
         img = render(grid, consts, self.cfg, impl=self.render_impl)
         if device.type == "cuda":

@@ -628,9 +628,11 @@ class RaystabAccel2:
     None when no triangle was binned; ``slot_ray`` [S*128] int64: the ray of
     each of its output slots (V for padding slots, a dump row). ``ov``: the
     near-origin stream (every ray in natural order, strips of 128 against the
-    shared near-origin rows), or None. ``device``: where the tables live."""
+    shared near-origin rows), or None. ``device``: where the tables live.
+    ``t_count``: the mesh's triangle count (ids at or above it are misses)."""
 
     n: int
+    t_count: int
     device: torch.device
     main: StripTables | None
     slot_ray: torch.Tensor | None
@@ -706,8 +708,9 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
             rows=fused[torch.from_numpy(compact.ov_ids.astype(np.int64)).to(dev)],
             bounds=None,
         )
-    return RaystabAccel2(n=n, device=dev, main=main, slot_ray=slot_ray,
-                         ov=ov, stats=compact.stats)
+    return RaystabAccel2(n=n, t_count=int(tris.shape[0]), device=dev,
+                         main=main, slot_ray=slot_ray, ov=ov,
+                         stats=compact.stats)
 
 
 def build_raystab_accel2(verts_norm, tris, normals, n: int = 64,
@@ -719,8 +722,8 @@ def build_raystab_accel2(verts_norm, tris, normals, n: int = 64,
     return assemble_raystab_accel2(compact, verts_norm, tris, normals)
 
 
-def _merge_winners2(accel: RaystabAccel2, t_count: int, threshold: float,
-                    rule: str, use_kernels: bool = True):
+def _merge_winners2(accel: RaystabAccel2, threshold: float, rule: str,
+                    use_kernels: bool = True):
     """Stream kernel(s) -> per-ray finished (nx, ny, nz, a) channels [V, 4].
 
     The main stream's slots go to ray order through ``slot_ray`` (a scatter:
@@ -729,7 +732,7 @@ def _merge_winners2(accel: RaystabAccel2, t_count: int, threshold: float,
     ray order and merges by the same (t, lowest id) rule."""
     fold = (raystab_cuda.fold_extract if use_kernels
             else raystab_cuda.fold_extract_plain)
-    v = accel.n ** 3
+    v, t_count = accel.n ** 3, accel.t_count
     dev = accel.device
     ns = torch.zeros((v + 1, 4), dtype=torch.float32, device=dev)
     if accel.main is not None:
@@ -748,19 +751,15 @@ def _merge_winners2(accel: RaystabAccel2, t_count: int, threshold: float,
     return torch.where(closer[:, None], ns_o, ns[:v])
 
 
-def raystab_query2(verts_norm, normals, tris, accel: RaystabAccel2,
-                   threshold: float = INSIDE_THRESHOLD, rule: str = "backface",
-                   use_kernels: bool = True):
+def raystab_query2(accel: RaystabAccel2, threshold: float = INSIDE_THRESHOLD,
+                   rule: str = "backface", use_kernels: bool = True):
     """Per-frame trace -> (occupancy [n,n,n] bool, rgba [n,n,n,4] f32).
 
-    ``verts_norm``/``normals`` must be the geometry the accel was built from
-    (baked into its rows; kept for API parity). ``use_kernels=False`` runs
+    The geometry is baked into the accel's rows. ``use_kernels=False`` runs
     the kernel's plain version (the on-card reference). Ground truth is the
     radial oracle (ops/voxelize_ref.voxelize_raystab_radial_ref)."""
-    del verts_norm, normals
     n = accel.n
-    rgba = _merge_winners2(accel, int(tris.shape[0]), threshold, rule,
-                           use_kernels)
+    rgba = _merge_winners2(accel, threshold, rule, use_kernels)
     return (rgba[:, 3] != 0.0).reshape(n, n, n), rgba.reshape(n, n, n, 4)
 
 
@@ -774,4 +773,4 @@ def voxelize_raystab_fast(verts_norm, normals, tris, n: int = 64,
         return (torch.zeros((n, n, n), dtype=torch.bool, device=dev),
                 torch.zeros((n, n, n, 4), dtype=torch.float32, device=dev))
     accel = build_raystab_accel2(verts_norm, tris, normals, n=n)
-    return raystab_query2(verts_norm, normals, tris, accel, threshold)
+    return raystab_query2(accel, threshold)

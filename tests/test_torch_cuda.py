@@ -194,7 +194,7 @@ def test_raystab_kernels_bit_identical_to_plain(dev, mesh, rule):
 def test_raystab_query_bit_identical_to_radial_oracle(dev, mesh):
     v, nr, t = _raystab_mesh(mesh, 64, dev)
     accel = raystab_fast.build_raystab_accel2(v, t, nr, n=64)
-    occ, rgba = raystab_fast.raystab_query2(v, nr, t, accel)
+    occ, rgba = raystab_fast.raystab_query2(accel)
     occ_r, rgba_r = voxelize_raystab_radial_ref(v, nr, t, n=64)
     assert torch.equal(occ, occ_r) and torch.equal(rgba, rgba_r)
     assert bool(occ.any())

@@ -447,7 +447,7 @@ def test_query_bit_identical_to_radial_oracle(name):
     v, nr, t = _port(name)
     _, n, gs = CASES[name]
     accel = rf.build_raystab_accel2(v, t, nr, n=n, gs=gs)
-    occ, rgba = rf.raystab_query2(v, nr, t, accel)
+    occ, rgba = rf.raystab_query2(accel)
     want = _jax_radial_oracle(name)
     assert _same(occ.numpy(), want[0]) and _same(rgba.numpy(), want[1])
     if name == "multistrip32":
@@ -461,7 +461,7 @@ def test_query_bit_identical_to_radial_oracle(name):
 def test_query_rule_hit_bit_identical_to_radial_oracle():
     v, nr, t = _port("icosphere2_32")
     accel = rf.build_raystab_accel2(v, t, nr, n=32)
-    occ, rgba = rf.raystab_query2(v, nr, t, accel, rule="hit")
+    occ, rgba = rf.raystab_query2(accel, rule="hit")
     want = _jax_radial_oracle("icosphere2_32", "hit")
     assert _same(occ.numpy(), want[0]) and _same(rgba.numpy(), want[1])
 
@@ -491,7 +491,7 @@ def test_query_against_jax_interpret_query(monkeypatch, name):
     v, nr, t = _port(name)
     accel = rf.assemble_raystab_accel2(
         raystab_compact_from_numpy(n, jc.classes, jc.ov_ids), v, t, nr)
-    occ, rgba = rf.raystab_query2(v, nr, t, accel)
+    occ, rgba = rf.raystab_query2(accel)
     eager = _jax_radial_oracle(name)
     assert _same(occ.numpy(), eager[0]) and _same(rgba.numpy(), eager[1])
     assert _diff(occ.numpy(), j_occ) == _diff(eager[0], jit_occ)
@@ -590,8 +590,31 @@ def test_voxelize_raystab_impls_and_grid():
     assert _same(q.rgba.numpy(), want)
     parity = voxelize(mesh, 32, with_normals=True)
     assert torch.equal(parity.rgba[..., 3], parity.occupancy().to(torch.float32))
-    with pytest.raises(ValueError):
-        voxelize(mesh, 32, mode="raystab", impl="pallas_bruteforce")
+    for impl in ("pallas_bruteforce", "queue", "pallas", "fast"):
+        with pytest.raises(ValueError):
+            voxelize(mesh, 32, mode="raystab", impl=impl)
+
+
+@pytest.mark.parametrize("vox_impl", ["queue", "pallas"])
+def test_parity_impl_names_select_the_raystab_accel(vox_impl):
+    """-voximpl queue / pallas name parity kernels: under -inside raystab
+    the pipeline maps them to the gen-6 accel, and the frame equals the
+    "auto" pipeline's."""
+    from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
+    from dxrvoxelizer_tpu_torch.models.scene import Scene
+
+    scene = Scene(_tet_obj(ObjMesh), "cpu")
+    cam = OrbitCamera(W, H)
+    fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
+    cfg = VoxelizerConfig(grid_size=N, width=W, height=H, inside_mode="raystab")
+    pipe = FramePipeline(cfg, scene.buffers, vox_impl=vox_impl)
+    assert pipe.grid_impl == "auto"
+    got = pipe.frame(fc)
+    assert pipe._stab_accel is not None
+    assert torch.equal(got, FramePipeline(cfg, scene.buffers).frame(fc))
+    parity = FramePipeline(cfg.replace(inside_mode="parity"), scene.buffers,
+                           vox_impl=vox_impl)
+    assert parity.grid_impl == vox_impl
 
 
 def _write_obj(path, verts, tris):
