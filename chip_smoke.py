@@ -60,18 +60,34 @@ the CUDA toolkit. Phases, one line each:
     versions and bounds), the accel build (from a cold ray table, then
     warm), the three 64^3 frames in turns again late in the run (how far
     host time drifted since phase 3b), the plain ray-stab and ``-normals``
-    frames, and a profiler window of each ray-stab frame.
+    frames, and a profiler window of each ray-stab frame;
+16. the core-tier gen-1 ray-stab path (``build_raystab_accel`` +
+    ``voxelize(mode="raystab", accel=...)`` + ``render``, the README's
+    persistent-accel API) on the 64^3 icosphere buffers: the build's host
+    and device halves (from a cold ray table, then warm), 4 orbiting frames
+    at 1280x720 ``-hq`` in which the Moller-Trumbore kernel must launch once
+    per query (twice with overflow triangles) and the parity and gen-6
+    kernels never; the kernel against its plain version bit for bit on
+    (t, id) on that icosphere, the box with faces on voxel centres and the
+    near-origin soup (the overflow stream over its 300 rows); the
+    query against the Moller-Trumbore oracle at 64^3 on a 5,120-triangle
+    icosphere, and the frame against the plain path; times of the kernel,
+    its plain version and the frame, and a profiler window of the frame;
+    the real (ray, candidate) pairs that reach each of the kernel's tests,
+    which its bound counts.
 
 Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
-``-normals`` app runs, each counted from zero; the fold-only kernel is on
-no main path, as in the JAX package, and shows 0), its
-largest difference from its plain version (over every comparison above),
-and, at the inputs of the main path it belongs to (the 64^3 frame for the
-binned kernel, the march and the resolve; the 256^3 frame for the work-queue
-kernel; the 64^3 ray-stab frame's tables for the ray-stab kernels), its time, its plain version's time, its bound and, where one
-PyTorch call computes the same function, that call's time. Any failure raises and exits non-zero. The last line is
-the JSON result.
+``-normals`` app runs and the core-tier gen-1 frames, each counted from
+zero; the fold-only kernel is on no main path, as in the JAX package, and
+shows 0), its largest difference from its plain version (over every
+comparison above), and, at the inputs of the main path it belongs to (the
+64^3 frame for the binned kernel, the march and the resolve; the 256^3
+frame for the work-queue kernel; the 64^3 ray-stab frame's tables for the
+gen-6 ray-stab kernels; the gen-1 accel's slices for the Moller-Trumbore
+kernel), its time, its plain version's time, its bound and, where one
+PyTorch call computes the same function, that call's time. Any failure
+raises and exits non-zero. The last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -106,6 +122,7 @@ TOL_RESOLVE = 1e-5
 TOL_FRAME = 2e-3
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense rates)
 PEAK_FP32 = 67e12  # FP32 operations per second outside the tensor cores
+# (an FMA counts as two: kernels whose chains cannot fuse run at half this)
 PEAK_BYTES = 3.35e12  # device memory bytes per second
 # FP32 operations the kernels must do, counted from their sources: per
 # (column, triangle) pair inside the triangle's bounding box the four affine
@@ -120,6 +137,15 @@ RESOLVE_OPS_PER_HIT = 60
 # dot products (9 mul, 6 add), den (2 add), the division and the subtraction
 # (compares and selects not counted, as for the parity kernels)
 RAYSTAB_OPS_PER_PAIR = 19
+# per real (ray, candidate) pair of the Moller-Trumbore kernel, by the test
+# at which it leaves (csrc/raystab_mt.cu): every pair computes p = d x e2
+# (6 mul, 3 sub), det = e1 . p (5) and |det| > eps (2); past that test,
+# 1 / det, the origin's 3 subtractions, u = (tv . p) * inv (6) and u >= 0;
+# past it, q = tv x e1 (9), v = (d . q) * inv (6) and v >= 0; past it,
+# u + v and its compare; past it, t = (e2 . q) * inv (6) and t's two
+# compares; a hit, the two compares of the (t, id) minimum. A hit costs 55.
+# Compares are counted here, unlike for the parity and radial kernels.
+MT_OPS_BY_STAGE = (16, 11, 16, 2, 8, 2)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -297,6 +323,46 @@ def raystab_bound(tb, work, extract: bool) -> tuple[float, str]:
     return bound(n_in + n_out, pairs * RAYSTAB_OPS_PER_PAIR)
 
 
+def mt_stage_pairs(torch, tb) -> list[int]:
+    """Real (ray, candidate) pairs of a Moller-Trumbore slice stream that
+    reach each stage of MT_OPS_BY_STAGE: all of them, then those past
+    |det| > eps, u >= 0, v >= 0 and u + v <= 1, and the hits. Replayed with
+    the plain ``mt_hit`` a batch of slices at a time."""
+    from dxrvoxelizer_tpu_torch.ops.intersect import EPS_DET, mt_hit
+    from dxrvoxelizer_tpu_torch.ops.raystab_mt_cuda import LANES
+
+    counts = [0] * len(MT_OPS_BY_STAGE)
+    if tb.slices == 0 or tb.rows.shape[0] == 0:
+        return counts
+    dev = tb.pos.device
+    kmax = int(tb.cand_cnt.max())
+    step = max(1, (1 << 23) // (LANES * max(1, kmax)))
+    lanes = torch.arange(LANES, device=dev)
+    ks = torch.arange(kmax, device=dev)
+    for b0 in range(0, tb.slices, step):
+        roff, rcnt, coff, ccnt = (x[b0:b0 + step].long() for x in (
+            tb.ray_off, tb.ray_cnt, tb.cand_off, tb.cand_cnt))
+        rlive = lanes[None, :] < rcnt[:, None]  # [B, L]
+        clive = ks[None, :] < ccnt[:, None]  # [B, K]
+        rid = tb.ray_ids.long()[torch.where(rlive, roff[:, None] + lanes, 0)]
+        o, d = tb.pos[rid][:, :, None, :], tb.dirs[rid][:, :, None, :]
+        q = tb.rows[torch.where(clive, coff[:, None] + ks, 0)][:, None]
+        e1, e2 = q[..., 3:6], q[..., 6:9]
+        px = d[..., 1] * e2[..., 2] - d[..., 2] * e2[..., 1]
+        py = d[..., 2] * e2[..., 0] - d[..., 0] * e2[..., 2]
+        pz = d[..., 0] * e2[..., 1] - d[..., 1] * e2[..., 0]
+        det = e1[..., 0] * px + e1[..., 1] * py + e1[..., 2] * pz
+        _, u, v, hit = mt_hit(o, d, q[..., 0:3], e1, e2)
+        m = rlive[:, :, None] & clive[:, None, :]
+        stages = [m]
+        for past in (det.abs() > EPS_DET, u >= 0.0, v >= 0.0, u + v <= 1.0, hit):
+            m = m & past
+            stages.append(m)
+        for j, s in enumerate(stages):
+            counts[j] += int(s.sum())
+    return counts
+
+
 def frames_in_turns(torch, fns) -> dict:
     """Time each frame function with cuda_ms in turns, in order and then
     back (a, b, c, c, b, a) -> {name: [ms, ms]}. Host time drifts within a
@@ -370,7 +436,12 @@ def main() -> int:
 
     from dxrvoxelizer_tpu_torch.app.main import wobbled
     from dxrvoxelizer_tpu_torch.app.main import main as app_main
-    from dxrvoxelizer_tpu_torch.core.pipeline import FramePipeline, VoxelGrid, render
+    from dxrvoxelizer_tpu_torch.core.pipeline import (
+        FramePipeline,
+        VoxelGrid,
+        render,
+        voxelize,
+    )
     from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
     from dxrvoxelizer_tpu_torch.models.scene import Scene
     from dxrvoxelizer_tpu_torch.ops import (
@@ -378,6 +449,7 @@ def main() -> int:
         march_cuda,
         raystab_cuda,
         raystab_fast,
+        raystab_mt_cuda,
         screen_warp_cuda,
         voxelize_cuda,
         voxelize_queue,
@@ -398,6 +470,7 @@ def main() -> int:
     from dxrvoxelizer_tpu_torch.ops.voxelize_ref import (
         voxelize_parity_ref,
         voxelize_raystab_radial_ref,
+        voxelize_raystab_ref,
     )
     from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
     from dxrvoxelizer_tpu_torch.utils.image import read_png
@@ -408,15 +481,16 @@ def main() -> int:
     tetrahedron_mesh = meshes.tetrahedron_mesh
 
     vq, vqc = voxelize_queue, voxelize_queue_cuda
-    rsf, rsc = raystab_fast, raystab_cuda
+    rsf, rsc, rmt = raystab_fast, raystab_cuda, raystab_mt_cuda
     kernels = [voxelize_cuda.KERNEL, vqc.KERNEL, march_cuda.KERNEL,
-               screen_warp_cuda.KERNEL, rsc.FOLD_EXTRACT, rsc.FOLD]
+               screen_warp_cuda.KERNEL, rsc.FOLD_EXTRACT, rsc.FOLD, rmt.KERNEL]
     path_kernels = {  # the kernels each main path must launch
         "64": ("parity_voxelize", "march", "resolve"),
         "256": ("parity_queue", "march", "resolve"),
         "raystab": ("raystab_fold_extract", "march", "resolve"),
         "normals": ("parity_voxelize", "raystab_fold_extract", "march",
                     "resolve"),
+        "gen1": ("raystab_mt", "march", "resolve"),
     }
     dev = torch.device("cuda", 0)
 
@@ -1043,6 +1117,159 @@ def main() -> int:
               f"kernels and copies per frame, kernel device us per frame "
               f"{kus}, peak device memory {peak:.1f} MiB; {card}")
 
+    # ---- 16. the core-tier gen-1 path and kernel 2.8 ------------------------
+    # build_raystab_accel's two halves: host binning + voxel->cell ray table,
+    # then the device slice stream; the first from a cold ray table, then 3
+    # warm ones
+    rsf.ray_tables.cache_clear()
+    rsf._ray_table_filled.cache_clear()
+    builds1 = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cand_ids, cand_off, ov_ids, stats1 = rsf.bin_triangles_radial(
+            mb.positions_norm, mb.tris)
+        ray_ids, ray_off = rsf.ray_tables(GRID, 32)
+        t1 = time.perf_counter()
+        acc1 = rsf.assemble_raystab_accel(
+            mb.positions_norm, mb.tris, GRID, 32,
+            (ray_ids, ray_off, cand_ids, cand_off), ov_ids, stats1)
+        torch.cuda.synchronize()
+        builds1.append((t1 - t0, time.perf_counter() - t1))
+    host1_s, asm1_s = (statistics.median(b[i] for b in builds1[1:]) for i in (0, 1))
+    per_query = 1 + (acc1.ov is not None)
+
+    def gen1_frame(consts_):
+        grid = voxelize(mb, GRID, mode="raystab", accel=acc1)
+        return render(grid, consts_, cfg_rs)
+
+    # 4 orbiting frames, every launch count set to 0 just before
+    cam1 = OrbitCamera(cfg.width, cfg.height)
+    for k in kernels:
+        k.launches = 0
+    for f in range(FRAMES):
+        if f:
+            cam1.orbit(12.0, 0.0)
+        img1 = gen1_frame(scene.update_frame(cam1.eye, cam1.view_proj,
+                                             cfg.width, cfg.height))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    check(launches["raystab_mt"] == FRAMES * per_query,
+          f"gen-1: raystab_mt launched {launches['raystab_mt']} times in "
+          f"{FRAMES} queries")
+    for k in ("parity_voxelize", "parity_queue", "raystab_fold_extract"):
+        check(launches[k] == 0, f"gen-1: {k} ran: {launches}")
+    for k in path_kernels["gen1"]:
+        check(launches[k] >= FRAMES, f"gen-1: {k} launched {launches[k]} "
+              f"times in {FRAMES} frames")
+    for k, c in launches.items():
+        main_launches[k] += c
+    check(bool(torch.isfinite(img1).all()) and img1.shape == (720, 1280, 3),
+          "gen-1 frame not finite or misshapen")
+    clear = torch.tensor(cfg.clear_color, dtype=torch.float32, device=dev)
+    covered1 = float(((img1 - clear).abs().sum(-1) > 3 / 255).float().mean())
+    check(0.05 < covered1 < 0.9, f"gen-1: volume covers {covered1:.3f}")
+
+    # kernel 2.8 against its plain version, bit for bit on (t, id)
+    mt_lines = []
+
+    def mt_case(name, accel):
+        for s_, tb in (("cells", accel.main), ("overflow", accel.ov)):
+            if tb is None:
+                continue
+            got, want = rmt.closest_hit(tb), rmt.closest_hit_plain(tb)
+            for what, a, b in zip(("t", "id"), got, want):
+                check(torch.equal(a, b), f"raystab_mt {what} differs from the "
+                      f"plain version: {name} {s_}")
+            mt_lines.append(f"{name} {s_} {tb.slices} slices {tb.rows.shape[0]} "
+                            f"rows {int(torch.isfinite(got[0]).sum())} hits")
+
+    mt_case("icosphere6", acc1)
+    vb_, nb_, tb_ = dev_mesh3(*box_on_centers(GRID))
+    mt_case("box_on_centers", rsf.build_raystab_accel(vb_, tb_, n=GRID))
+    vn_, nn_, tn_ = dev_mesh3(*near)
+    acc_near = rsf.build_raystab_accel(vn_, tn_, n=GRID)
+    check(acc_near.ov is not None and acc_near.ov.rows.shape[0] == 300,
+          "near-origin soup: expected 300 overflow rows")
+    mt_case("near_origin", acc_near)
+    # the query against the Moller-Trumbore oracle and the plain query
+    acc4 = rsf.build_raystab_accel(v4d, t4d, n=GRID)
+    q = rsf.raystab_query(v4d, n4d, t4d, acc4)
+    r = voxelize_raystab_ref(v4d, n4d, t4d, n=GRID)
+    check(torch.equal(q[0], r[0]) and torch.equal(q[1], r[1]),
+          f"gen-1 query differs from the Moller-Trumbore oracle at {GRID}^3")
+    q1 = rsf.raystab_query(mb.positions_norm, mb.normals, mb.tris, acc1)
+    q1p = rsf.raystab_query(mb.positions_norm, mb.normals, mb.tris, acc1,
+                            use_kernels=False)
+    check(torch.equal(q1[0], q1p[0]) and torch.equal(q1[1], q1p[1]),
+          "gen-1 query differs from the plain query on the icosphere")
+    # against the gen-6 (radial) grid of the same mesh: the two inside rules
+    # differ only at floating-point near-ties
+    occ6, _ = rsf.raystab_query2(accel_rs)
+    rule_diff = int((q1[0] != occ6).sum())
+    check(rule_diff <= 0.01 * int(occ6.sum()),
+          f"gen-1 and gen-6 grids differ in {rule_diff} voxels")
+    errs["raystab_mt"] = 0.0
+
+    def gen1_frame_plain():
+        occ, rgba = rsf.raystab_query(mb.positions_norm, mb.normals, mb.tris,
+                                      acc1, use_kernels=False)
+        grid = VoxelGrid(words=pack_bits_z(occ), rgba=quantize_r10g10b10a2(rgba))
+        return render(grid, consts, cfg_rs, use_kernels=False)
+
+    gen1_err = max_err(gen1_frame(consts), gen1_frame_plain())
+    check(gen1_err <= TOL_FRAME, f"gen-1 frame differs by {gen1_err:.3g}")
+
+    ms["raystab_mt"] = (cuda_ms(torch, lambda: rmt.closest_hit(acc1.main)),
+                        cuda_ms(torch, lambda: rmt.closest_hit_plain(acc1.main)))
+    gen1_ms = cuda_ms(torch, lambda: gen1_frame(consts))
+    torch.cuda.reset_peak_memory_stats()
+    busy1, per_frame1, kus1 = profile_frames(
+        torch, lambda: gen1_frame(consts), torch.cuda.synchronize, kernels)
+    peak1 = torch.cuda.max_memory_allocated() / 2**20
+    # the work the function needs: each cell's candidate rows once (40 of
+    # their 48 bytes), each ray's origin and direction in and (t, id) out,
+    # the real (ray, candidate) pairs of the slices (and every ray against
+    # every overflow row), each counted up to the test where it leaves
+    main1 = acc1.main
+    streams1 = [tb for tb in (main1, acc1.ov) if tb is not None]
+    stages1 = [sum(c) for c in zip(*(mt_stage_pairs(torch, tb) for tb in streams1))]
+    pairs1 = stages1[0]
+    ops1 = sum(c * k for c, k in zip(stages1, MT_OPS_BY_STAGE))
+    rows1 = sum(tb.rows.shape[0] for tb in streams1)
+    v1 = GRID ** 3
+    bytes1 = rows1 * 40 + v1 * (24 + 8)
+    cell_rays = np.diff(ray_off)
+    print(f"phase 16 gen-1 accel on the {len(t6)}-triangle icosphere at "
+          f"{GRID}^3: {stats1}, {main1.slices} slices, {main1.rows.shape[0]} "
+          f"candidate rows, at most {int(cell_rays.max())} rays per direction "
+          f"cell, {pairs1} real (ray, candidate) pairs, of which "
+          f"{stages1[1:]} pass |det| > eps, u >= 0, v >= 0, u + v <= 1 and "
+          f"hit: {ops1} operations ({ops1 / max(1, pairs1):.2f} per pair; "
+          f"{ops1 / PEAK_FP32 * 1e3:.6f} ms at {PEAK_FP32 / 1e12:g} TFLOP/s, "
+          f"which counts an FMA as 2, {2 * ops1 / PEAK_FP32 * 1e3:.6f} ms at "
+          f"the unfused rate of its _rn chains), {bytes1} bytes "
+          f"({bytes1 / PEAK_BYTES * 1e3:.6f} ms); build from a cold ray "
+          f"table: host {builds1[0][0]:.4f} s, device {builds1[0][1]:.4f} s; "
+          f"warm (median of 3): host {host1_s:.4f} s, device {asm1_s:.4f} s; "
+          f"{card}")
+    print(f"phase 16 core-tier frames (voxelize mode=raystab accel=gen-1 + "
+          f"render, {GRID}^3 1280x720 -hq, {FRAMES} orbiting): launches "
+          f"{launches}, volume covers {covered1:.3f} of the image; kernel "
+          f"bit-identical to its plain version on (t, id) ("
+          + "; ".join(mt_lines) + f"); query bit-identical to the "
+          f"Moller-Trumbore oracle at {GRID}^3 on a {len(t4_)}-triangle "
+          f"icosphere and to the plain query; gen-1 vs gen-6 grid "
+          f"{rule_diff} of {int(occ6.sum())} voxels differ; frame max|err| "
+          f"kernels vs plain {gen1_err:.3g}")
+    print(f"phase 16 kernel {ms['raystab_mt'][0]:.4f} ms (plain "
+          f"{ms['raystab_mt'][1]:.4f} ms); core-tier frame {gen1_ms:.4f} ms "
+          f"(CUDA events over {INNER} back-to-back runs, median of {REPS}); "
+          f"profiled: device busy {busy1:.4f} ms per frame (idle share "
+          f"{1 - busy1 / gen1_ms:.3f}), {per_frame1:.0f} device kernels and "
+          f"copies per frame, kernel device us per frame {kus1}, peak device "
+          f"memory {peak1:.1f} MiB; {card}")
+
     # ---- bounds: the least time for each kernel's work on this run's data
     w64 = GRID * GRID * (GRID // 32) * 4
     w256 = GRID_HI * GRID_HI * (GRID_HI // 32) * 4
@@ -1058,6 +1285,7 @@ def main() -> int:
         "resolve": resolve_bound(res_args),
         "raystab_fold_extract": raystab_bound(tb_rs, work_rs, True),
         "raystab_fold": raystab_bound(tb_rs, work_rs, False),
+        "raystab_mt": bound(bytes1, ops1),
     }
     print(f"bounds (ms, bound by): {bounds}; binned {GRID}^3 {rows_b} real "
           f"rows, {pairs_b} (column, triangle) pairs in bounding boxes; "

@@ -3,7 +3,10 @@
 Port of ``dxrvoxelizer_tpu/core/pipeline.py``: the parity frame for static
 meshes at every grid size and deforming meshes (``-deform``), and the
 reference's ray-stab inside rule (``-inside raystab``) and the parity grid's
-normal channel (``-normals``) through the gen-6 accel at n < 128.
+normal channel (``-normals``), routed as the JAX package routes them: on a
+GPU through the gen-6 accel at n < 128; on the CPU, at every n, through the
+gen-1 accel (``-inside raystab``) and the Moller-Trumbore oracle under rule
+"hit" (``-normals``).
 The reference's per-frame loop (Content/Voxelizer.cpp:108-113) is
 ``Render = voxelize() ; renderRayCast()`` against triple-buffered grids
 (FrameCount = 3, Voxelizer.h:24). Here the two passes are torch functions on
@@ -40,7 +43,6 @@ from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import TILE
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 
 FRAME_COUNT = 3  # frames in flight (reference: Voxelizer.h:24)
-GEN7_MIN_N = 128  # the JAX package runs ray-stab through gen-7 from here
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -50,9 +52,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def _require_gen6(n: int, what: str) -> None:
-    """Ray-stab accels at n >= 128 are gen-7 in the JAX package (not ported)."""
-    if n >= GEN7_MIN_N:
+def _require_gen6(n: int, what: str, device: torch.device) -> None:
+    """On a GPU, ray-stab accels at n >= 128 are gen-7 in the JAX package
+    (not ported); the CPU runs gen-1 at every n."""
+    if device.type == "cuda" and n >= raystab_fast.GEN7_MIN_N:
         raise _not_ported(f"{what} at {n}^3 (the gen-7 accel)",
                           "Ray-stab, gen-7 (≥128³)")
 
@@ -100,7 +103,7 @@ def voxelize(
     mode: str = "parity",
     impl: str = "auto",
     quantize: bool = True,
-    accel: raystab_fast.RaystabAccel2 | None = None,
+    accel: raystab_fast.RaystabAccel | raystab_fast.RaystabAccel2 | None = None,
     with_normals: bool = False,
 ) -> VoxelGrid:
     """Solid-voxelize a mesh -> :class:`VoxelGrid` on the mesh's device.
@@ -111,20 +114,26 @@ def voxelize(
     package's routing; both give the same words), and the counting oracle on
     the CPU; "queue" and "pallas" force the work-queue and binned paths (the
     kernels' plain versions on the CPU); "xla" is always the oracle.
-    Ray-stab ``impl``: "auto" runs the gen-6 accel (its kernel on a GPU, the
-    kernel's plain version on the CPU; ``accel`` reuses a built one); "xla"
-    the Moller-Trumbore oracle; "xla-radial" the radial oracle, the gen-6
-    query's bit-exact ground truth. ``quantize`` rounds rgba through
-    R10G10B10A2. ``with_normals`` adds the parity grid's normal channel.
+    Ray-stab ``impl``: "auto" runs a direction-space accel: ``accel`` if
+    given (a gen-1 :class:`~raystab_fast.RaystabAccel`, queried with the
+    mesh's buffers, or a gen-6 ``RaystabAccel2``), else one built for this
+    call as the JAX package routes it (gen-1 on the CPU at every n, gen-6 on
+    a GPU at n < 128), each through its kernel on a GPU and the kernel's
+    plain version on the CPU; "xla" the Moller-Trumbore oracle, gen-1's
+    ground truth; "xla-radial" the radial oracle, gen-6's. ``quantize``
+    rounds rgba through R10G10B10A2. ``with_normals`` adds the parity grid's
+    normal channel.
     """
     if mode == "raystab":
         if impl == "auto":
-            _require_gen6(n, "the ray-stab inside rule (-inside raystab)")
             if accel is None:  # stateless: build the accel for this call
+                _require_gen6(n, "the ray-stab inside rule (-inside raystab)",
+                              mesh.device)
                 occ, rgba = raystab_fast.voxelize_raystab_fast(
                     mesh.positions_norm, mesh.normals, mesh.tris, n=n)
             else:
-                occ, rgba = raystab_fast.raystab_query2(accel)
+                occ, rgba = raystab_fast.raystab_query(
+                    mesh.positions_norm, mesh.normals, mesh.tris, accel)
         elif impl == "xla":
             occ, rgba = voxelize_ref.voxelize_raystab_ref(
                 mesh.positions_norm, mesh.normals, mesh.tris, n=n)
@@ -161,14 +170,20 @@ def voxelize(
 def _parity_rgba(mesh: MeshBuffers, words: torch.Tensor, n: int, accel=None,
                  quantize: bool = True) -> torch.Tensor:
     """Normal channel for a parity grid: the reference's grid always stores
-    float4(Normal, 1.0) (DXRVoxelizer.hlsl:83-84). The normal is the radial
-    first-hit normal from the gen-6 query under rule "hit" (no back-face
-    test), gated by the parity occupancy bit."""
-    _require_gen6(n, "the parity normal channel (-normals)")
-    if accel is None:
-        accel = raystab_fast.build_raystab_accel2(
-            mesh.positions_norm, mesh.tris, mesh.normals, n=n)
-    _, rgba_hit = raystab_fast.raystab_query2(accel, rule="hit")
+    float4(Normal, 1.0) (DXRVoxelizer.hlsl:83-84). The normal is the
+    first-hit normal under rule "hit" (no back-face test), gated by the
+    parity occupancy bit: on a GPU the radial one from the gen-6 query
+    (``accel``, or one built here), on the CPU the Moller-Trumbore oracle's,
+    as the JAX package does (``accel`` is then unused)."""
+    if mesh.device.type == "cuda":
+        _require_gen6(n, "the parity normal channel (-normals)", mesh.device)
+        if accel is None:
+            accel = raystab_fast.build_raystab_accel2(
+                mesh.positions_norm, mesh.tris, mesh.normals, n=n)
+        _, rgba_hit = raystab_fast.raystab_query2(accel, rule="hit")
+    else:
+        _, rgba_hit = voxelize_ref.voxelize_raystab_ref(
+            mesh.positions_norm, mesh.normals, mesh.tris, n=n, rule="hit")
     occ_f = unpack_bits_z(words, n).to(torch.float32)[..., None]
     rgba = torch.cat([rgba_hit[..., :3] * occ_f, occ_f], dim=-1)
     if quantize:
@@ -226,13 +241,14 @@ class FramePipeline:
             raise _not_ported("deforming ray-stab (-deform with -inside "
                               "raystab or -normals)", "Deforming ray-stab")
         # what voxelize() takes in this inside mode: ray-stab has "auto"
-        # (the gen-6 accel) and the two oracles, so the parity kernels' names
-        # (-voximpl queue / pallas) select its accel
+        # (the direction-space accel) and the two oracles, so the parity
+        # kernels' names (-voximpl queue / pallas) select its accel
         self.grid_impl = ("auto" if raystab and vox_impl in ("queue", "pallas")
                           else vox_impl)
         if normals or (raystab and self.grid_impl == "auto"):
             _require_gen6(cfg.grid_size, "-normals" if normals
-                          else "the ray-stab inside rule (-inside raystab)")
+                          else "the ray-stab inside rule (-inside raystab)",
+                          mesh.device)
         self.cfg = cfg
         self.mesh = mesh
         self.vox_impl = vox_impl
@@ -245,13 +261,18 @@ class FramePipeline:
         self._stab_accel = None  # build-once ray-stab accel (static mesh)
         self._stab_mesh = None
 
-    def _raystab_accel(self) -> raystab_fast.RaystabAccel2:
-        """Build-once direction-space accel; rebuilt when ``self.mesh`` is
+    def _raystab_accel(self):
+        """Build-once direction-space accel, gen-6 on a GPU and gen-1 on the
+        CPU (the JAX package's CPU route); rebuilt when ``self.mesh`` is
         replaced (the reference's build-AS-once, Voxelizer.cpp:264-326)."""
         if self._stab_accel is None or self._stab_mesh is not self.mesh:
             m = self.mesh
-            self._stab_accel = raystab_fast.build_raystab_accel2(
-                m.positions_norm, m.tris, m.normals, n=self.cfg.grid_size)
+            if m.device.type == "cuda":
+                self._stab_accel = raystab_fast.build_raystab_accel2(
+                    m.positions_norm, m.tris, m.normals, n=self.cfg.grid_size)
+            else:
+                self._stab_accel = raystab_fast.build_raystab_accel(
+                    m.positions_norm, m.tris, n=self.cfg.grid_size)
             self._stab_mesh = self.mesh
         return self._stab_accel
 
@@ -263,7 +284,9 @@ class FramePipeline:
         want_normals = not raystab and self.cfg.parity_normals
         quantize = not self.cfg.use_mutex
         accel = None
-        if (raystab and self.grid_impl == "auto") or want_normals:
+        # the CPU's -normals takes the Moller-Trumbore oracle, no accel
+        if ((raystab and self.grid_impl == "auto")
+                or (want_normals and device.type == "cuda")):
             accel = self._raystab_accel()
         if (not raystab and self.deforming and self.vox_impl in ("auto", "queue")
                 and _kernel_ok(n, device)):

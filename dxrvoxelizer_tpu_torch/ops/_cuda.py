@@ -56,6 +56,9 @@ _SIGNATURES = {
                                  _F, _I, _P),
     # rays, cand_off, cand_cnt, rows, bounds, n_bounds, t, id, strips, stream
     "dxv_raystab_fold": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P),
+    # pos, dirs, ray_ids, ray_off, ray_cnt, cand_off, cand_cnt, rows, t, id,
+    # slices, stream
+    "dxv_raystab_mt": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 

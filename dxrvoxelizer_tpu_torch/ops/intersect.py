@@ -75,6 +75,37 @@ def mt_hit(o, d, v0, e1, e2):
     return t, u, v, hit
 
 
+def mt_finalize(d, n0, n1, n2, u, v, hit, threshold: float, rule: str):
+    """The winner's finished rgba channels from its Moller-Trumbore (u, v).
+
+    ``d`` [R,3] the ray directions, ``n0``..``n2`` [R,3] the winner's vertex
+    normals. The normal is the barycentric interpolation
+    (DXRVoxelizer.hlsl:110-116), normalized, its norm and dot spelled
+    ((x + y) + z); inside = hit & (nrm . d > threshold), or just hit under
+    rule "hit". Returns (inside, nx, ny, nz).
+    """
+    nrm = n0 + u[:, None] * (n1 - n0) + v[:, None] * (n2 - n0)
+    x, y, z = nrm[:, 0], nrm[:, 1], nrm[:, 2]
+    ln = torch.clamp(sqrt_rn((x * x + y * y) + z * z), min=1e-20)
+    nrm = nrm / ln[:, None]
+    nx, ny, nz = nrm[:, 0], nrm[:, 1], nrm[:, 2]
+    if rule == "hit":
+        inside = hit
+    else:
+        inside = hit & (((nx * d[:, 0] + ny * d[:, 1]) + nz * d[:, 2]) > threshold)
+    return inside, nx, ny, nz
+
+
+def rgba_channels(inside, nx, ny, nz):
+    """The reference's ``float4(Normal, 1.0)`` write where inside, zeros
+    elsewhere -> [R,4] (DXRVoxelizer.hlsl:83-84)."""
+    zero = torch.zeros_like(nx)
+    return torch.stack([torch.where(inside, nx, zero),
+                        torch.where(inside, ny, zero),
+                        torch.where(inside, nz, zero),
+                        torch.where(inside, torch.ones_like(nx), zero)], dim=-1)
+
+
 def _cross(a, b):
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]

@@ -1,14 +1,28 @@
-"""Ray-stab voxelizer accelerated by direction-space binning (gen-6, n < 128).
+"""Ray-stab voxelizer accelerated by direction-space binning (gen-1, gen-6).
 
-Port of the gen-6 path of ``dxrvoxelizer_tpu/ops/raystab_fast.py``. The
-reference launches one ray per voxel from the voxel centre radially outward
-and marks the voxel inside iff the first hit is back-facing
+Port of the gen-1 and gen-6 paths of ``dxrvoxelizer_tpu/ops/raystab_fast.py``.
+The reference launches one ray per voxel from the voxel centre radially
+outward and marks the voxel inside iff the first hit is back-facing
 (DXRVoxelizer.hlsl:44-53, 132-140). Every ray lies on a line through the
 grid origin, so a triangle can only be hit by rays whose direction falls in
-the cone it subtends from the origin: triangles are binned into a ladder of
-cubemaps over direction space (the TLAS analog), voxel rays are grouped by
-direction cell into strips of 128, and each strip is tested against the
-union of its cells' candidates.
+the cone it subtends from the origin: triangles are binned into cubemaps
+over direction space (the TLAS analog) and each voxel ray is tested against
+its direction cell's candidates.
+
+Gen-1 (:func:`build_raystab_accel`, :func:`raystab_query`): one cubemap
+level; triangles whose cone spans more than ``span`` cells, or whose
+bounding ball nears the origin, overflow to a list every ray is tested
+against. Each direction cell's rays are tested with the Moller-Trumbore rule
+(ops/raystab_mt_cuda.py), then the winner's normal is finished; ground truth
+is the Moller-Trumbore oracle. The JAX package runs it for every ray-stab
+call on the CPU, and so does the port, at every grid size. The TPU's
+capacity classes, 128-lane ray blocks and cell padding are not carried
+over: the accel is a list of slices of at most 128 rays of one cell, each
+with its cell's range of candidate rows.
+
+Gen-6 (n < 128 on a GPU), a ladder of cubemap levels, voxel rays grouped by
+direction cell into strips of 128, each strip tested against the union of
+its cells' candidates with the radial rule:
 
 - Host half (numpy, copied from the JAX package): the static voxel->cell ray
   table, the cone binning (``_cone_keys_np``, static meshes: no deformation
@@ -28,6 +42,9 @@ union of its cells' candidates.
 The TPU's layout machinery is not carried over: no lane-aligned second
 table layout, no strips-per-step row padding, no on-disk ray-table cache.
 Ground truth is the radial oracle (ops/voxelize_ref.py).
+
+:func:`voxelize_raystab_fast` routes as the JAX package does: gen-1 on the
+CPU, gen-6 on a GPU below 128^3 (gen-7, above, is not ported).
 """
 
 from __future__ import annotations
@@ -38,9 +55,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dxrvoxelizer_tpu_torch.ops import intersect, raystab_cuda
+from dxrvoxelizer_tpu_torch.ops import intersect, raystab_cuda, raystab_mt_cuda
 from dxrvoxelizer_tpu_torch.ops.packing import voxel_centers_norm
 from dxrvoxelizer_tpu_torch.ops.raystab_cuda import K_BLOCK, StripTables
+from dxrvoxelizer_tpu_torch.ops.raystab_mt_cuda import LANES, MTTables
 
 INSIDE_THRESHOLD = 0.12  # DXRVoxelizer.hlsl:5
 
@@ -54,6 +72,7 @@ CLASS_CAPS2 = (
     2048, 3072, 4096, 6144, 8192,
 )
 LEVELS2 = (32, 8)  # cubemap sizes, fine -> coarse
+GEN7_MIN_N = 128  # an accelerator runs ray-stab through gen-7 from here (JAX)
 SPAN = 8  # cells per axis a triangle's rectangle may span at its level
 
 
@@ -763,14 +782,225 @@ def raystab_query2(accel: RaystabAccel2, threshold: float = INSIDE_THRESHOLD,
     return (rgba[:, 3] != 0.0).reshape(n, n, n), rgba.reshape(n, n, n, 4)
 
 
+# ---- gen-1: one cubemap level, Moller-Trumbore closest hit ----------------
+
+@dataclass
+class RadialBinStats:
+    n_cells: int
+    capacity: int  # per-cell candidate capacity: a power of two >= max_bin
+    max_bin: int
+    overflow: int  # triangles tested against every ray
+
+
+def _cell_table_host(sorted_tris, starts, counts, cap: int) -> np.ndarray:
+    """Padded per-cell candidate id table [C, cap] (-1 = empty slot): the JAX
+    package's layout of the bins."""
+    j = np.arange(cap, dtype=np.int64)[None, :]
+    in_run = j < counts[:, None]
+    if sorted_tris.size == 0:
+        return np.full((counts.shape[0], cap), -1, np.int32)
+    run_idx = np.clip(starts[:-1][:, None] + j, 0, sorted_tris.shape[0] - 1)
+    return np.where(in_run, sorted_tris[run_idx], -1).astype(np.int32)
+
+
+def bin_triangles_radial(verts_norm, tris, g: int = 32, span: int = 8):
+    """Direction-space binning at one cubemap level (host) -> (cand_ids [P]
+    int32, cand_off [C+1] int64, ov_ids [O] int32, stats).
+
+    Cell c's candidates are ``cand_ids[cand_off[c] : cand_off[c+1]]`` in
+    (du, dv, tri) order (the JAX package pads them into a [C, capacity]
+    table, :func:`_cell_table_host`); ``ov_ids``, ascending, overflow."""
+    verts_h = np.asarray(torch.as_tensor(verts_norm).cpu().numpy(), np.float32)
+    tris_h = np.asarray(torch.as_tensor(tris).cpu().numpy())
+    rects_h, over_h = _cone_keys_np(verts_h, tris_h, g, span)
+    sorted_tris, starts, counts, ov_ids = _cone_bins_host(rects_h, over_h, g, span)
+    max_bin = int(counts.max()) if counts.size else 0
+    stats = RadialBinStats(n_cells=6 * g * g, capacity=_pow2cap(max_bin),
+                           max_bin=max_bin, overflow=int(ov_ids.size))
+    return sorted_tris, starts, ov_ids, stats
+
+
+@functools.lru_cache(maxsize=8)
+def ray_tables(n: int, g: int):
+    """Static voxel->cell grouping as CSR: (ray_ids [V] int32 voxel ids cell
+    by cell, ray_off [C+1] int64); cell c's rays are
+    ``ray_ids[ray_off[c] : ray_off[c+1]]``."""
+    rt, rc = _ray_table_filled(n, g)
+    ray_off = np.zeros((rc.shape[0] + 1,), np.int64)
+    np.cumsum(rc, out=ray_off[1:])
+    return rt[rt >= 0], ray_off
+
+
+def _mt_rows(verts_norm, tris) -> torch.Tensor:
+    """Moller-Trumbore candidate rows [T, 12]: v0 e1 e2, the triangle id as
+    f32 (exact below 2^24), pad(2) -- the JAX package's ``_dense_coefs`` row."""
+    t_count = int(tris.shape[0])
+    assert t_count < 2**24, (
+        f"{t_count} triangles exceed the 2^24 id range of the f32 id channel"
+    )
+    v0, e1, e2 = intersect.triangle_soup(verts_norm, tris)
+    idf = torch.arange(t_count, device=v0.device, dtype=torch.float32)[:, None]
+    pad = torch.zeros((t_count, 2), dtype=torch.float32, device=v0.device)
+    return torch.cat([v0, e1, e2, idf, pad], dim=-1).to(torch.float32).contiguous()
+
+
+@dataclass
+class RaystabAccel:
+    """The gen-1 accel on the device (the TLAS analog).
+
+    ``main``: every ray, in slices of at most 128 rays of one direction cell,
+    each with its cell's candidate rows; ``ov``: every ray against the
+    overflow rows (strips of all rays in voxel order), or None. ``t_count``: the mesh's
+    triangle count."""
+
+    n: int
+    g: int
+    t_count: int
+    device: torch.device
+    main: MTTables
+    ov: MTTables | None
+    stats: RadialBinStats
+
+
+def _i32(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+
+def assemble_raystab_accel(verts_norm, tris, n: int, g: int, groups, ov_ids,
+                           stats: RadialBinStats) -> RaystabAccel:
+    """Device half of the gen-1 build: lay the groups out as one slice stream.
+
+    ``groups`` = (ray_ids, ray_off [G+1], cand_ids, cand_off [G+1]) (numpy):
+    group i (a direction cell) tests its rays against its candidates. A group
+    of more than 128 rays becomes several slices over the same candidate
+    rows; rays no group holds form groups without candidates (they miss).
+    Slices are ordered widest candidate list first. ``verts_norm``/``tris``
+    must be the geometry the groups were built from."""
+    dev = verts_norm.device
+    v = n * n * n
+    ray_ids, ray_off, cand_ids, cand_off = (np.asarray(a) for a in groups)
+    r_start, nray = ray_off[:-1], np.diff(ray_off)
+    c_start, ncand = cand_off[:-1], np.diff(cand_off)
+    covered = np.zeros((v,), bool)
+    covered[ray_ids] = True
+    rest = np.flatnonzero(~covered).astype(np.int32)
+    if rest.size:
+        r_start = np.append(r_start, ray_ids.size)
+        nray = np.append(nray, rest.size)
+        c_start = np.append(c_start, 0)
+        ncand = np.append(ncand, 0)
+        ray_ids = np.concatenate([ray_ids, rest])
+    per = -(-nray // LANES)
+    grp = np.repeat(np.arange(nray.size), per)
+    within = (np.arange(grp.size) - np.repeat(np.cumsum(per) - per, per)) * LANES
+    s_ray_off = r_start[grp] + within
+    s_ray_cnt = np.minimum(LANES, nray[grp] - within)
+    order = np.argsort(-ncand[grp], kind="stable")
+    pos, dirs = voxel_rays(n, dev)
+    rows = _mt_rows(verts_norm, tris)
+    main = MTTables(
+        pos=pos, dirs=dirs, ray_ids=_i32(ray_ids, dev),
+        ray_off=_i32(s_ray_off[order], dev), ray_cnt=_i32(s_ray_cnt[order], dev),
+        cand_off=_i32(c_start[grp][order], dev),
+        cand_cnt=_i32(ncand[grp][order], dev),
+        rows=rows[torch.from_numpy(np.asarray(cand_ids, np.int64)).to(dev)],
+    )
+    ov = None
+    if ov_ids.size:
+        strips = -(-v // LANES)
+        off = np.arange(strips) * LANES
+        ov = MTTables(
+            pos=pos, dirs=dirs, ray_ids=_i32(np.arange(v), dev),
+            ray_off=_i32(off, dev),
+            ray_cnt=_i32(np.minimum(LANES, v - off), dev),
+            cand_off=_i32(np.zeros(strips), dev),
+            cand_cnt=_i32(np.full(strips, ov_ids.size), dev),
+            rows=rows[torch.from_numpy(np.asarray(ov_ids, np.int64)).to(dev)],
+        )
+    return RaystabAccel(n=n, g=g, t_count=int(tris.shape[0]), device=dev,
+                        main=main, ov=ov, stats=stats)
+
+
+def build_raystab_accel(verts_norm, tris, n: int = 64, g: int = 32,
+                        span: int = 8) -> RaystabAccel:
+    """Build the gen-1 accel: host binning at one cubemap level of ``g`` x
+    ``g`` cells per face, then the device slice stream. Like the reference's
+    AS it is built once per geometry (Voxelizer.cpp:264-326); the normals
+    enter at query time."""
+    cand_ids, cand_off, ov_ids, stats = bin_triangles_radial(verts_norm, tris,
+                                                             g, span)
+    ray_ids, ray_off = ray_tables(n, g)
+    return assemble_raystab_accel(verts_norm, tris, n, g,
+                                  (ray_ids, ray_off, cand_ids, cand_off),
+                                  ov_ids, stats)
+
+
+def _finalize(verts_norm, normals, tris, pos, dirs, best_t, best_i, n: int,
+              threshold: float):
+    """Recompute (u, v) at each ray's winning triangle; normals and rgba
+    (the JAX package's ``_finalize``, in its expression order)."""
+    hit = torch.isfinite(best_t) & (best_i < tris.shape[0])
+    idx = torch.where(hit, best_i, 0).to(torch.int64)
+    v0, e1, e2 = intersect.triangle_soup(verts_norm, tris)
+    _, u, v, _ = intersect.mt_hit(pos, dirs, v0[idx], e1[idx], e2[idx])
+    n0, n1, n2 = (normals[tris[idx, k]] for k in range(3))
+    inside, nx, ny, nz = intersect.mt_finalize(dirs, n0, n1, n2, u, v, hit,
+                                               threshold, "backface")
+    rgba = intersect.rgba_channels(inside, nx, ny, nz)
+    return inside.reshape(n, n, n), rgba.reshape(n, n, n, 4)
+
+
+def raystab_query(verts_norm, normals, tris, accel,
+                  threshold: float = INSIDE_THRESHOLD, impl: str = "auto",
+                  use_kernels: bool = True):
+    """Per-frame trace against a built accel -> (occupancy [n,n,n] bool,
+    rgba [n,n,n,4] f32).
+
+    Gen-1: the closest-hit kernel on CUDA tensors and its plain version on
+    CPU tensors; ``impl="xla"`` or ``use_kernels=False`` asks for the plain
+    version ("auto" and "pallas" are the kernel). Then the overflow merge by
+    (t, lowest id) and the finalize. ``verts_norm``/``tris`` must be the
+    geometry the accel was built from. A :class:`RaystabAccel2` goes to
+    :func:`raystab_query2` (its geometry is baked in)."""
+    if isinstance(accel, RaystabAccel2):
+        return raystab_query2(accel, threshold)
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown raystab query impl {impl!r}")
+    if int(tris.shape[0]) != accel.t_count:
+        raise ValueError(f"the accel was built for {accel.t_count} triangles, "
+                         f"got {int(tris.shape[0])}")
+    n = accel.n
+    if accel.t_count == 0:
+        return (torch.zeros((n, n, n), dtype=torch.bool, device=accel.device),
+                torch.zeros((n, n, n, 4), dtype=torch.float32, device=accel.device))
+    hit_fn = (raystab_mt_cuda.closest_hit if use_kernels and impl != "xla"
+              else raystab_mt_cuda.closest_hit_plain)
+    best_t, best_i = hit_fn(accel.main)
+    if accel.ov is not None:
+        t_ov, i_ov = hit_fn(accel.ov)
+        closer = (t_ov < best_t) | ((t_ov == best_t) & (i_ov < best_i))
+        best_t = torch.where(closer, t_ov, best_t)
+        best_i = torch.where(closer, i_ov, best_i)
+    return _finalize(verts_norm, normals, tris, accel.main.pos, accel.main.dirs,
+                     best_t, best_i, n, threshold)
+
+
 def voxelize_raystab_fast(verts_norm, normals, tris, n: int = 64,
                           threshold: float = INSIDE_THRESHOLD):
     """Binned reference-rule solid voxelization -> (occupancy, rgba): build
-    the accel and query it once. Build-once/trace-per-frame callers use
-    :func:`build_raystab_accel2` + :func:`raystab_query2` directly."""
+    the accel and query it once, routed as the JAX package routes: gen-1 on
+    the CPU at every grid size, gen-6 on a GPU below 128^3. Build-once,
+    trace-per-frame callers build an accel and query it directly."""
     dev = verts_norm.device
     if tris.shape[0] == 0:
         return (torch.zeros((n, n, n), dtype=torch.bool, device=dev),
                 torch.zeros((n, n, n, 4), dtype=torch.float32, device=dev))
+    if dev.type == "cpu":
+        accel = build_raystab_accel(verts_norm, tris, n=n)
+        return raystab_query(verts_norm, normals, tris, accel, threshold)
+    if n >= GEN7_MIN_N:
+        raise NotImplementedError(
+            f"ray-stab at {n}^3 on a GPU (the gen-7 accel) is not ported to "
+            "the CUDA build yet (ROADMAP.md, queue 1, 'Ray-stab, gen-7 (≥128³)')")
     accel = build_raystab_accel2(verts_norm, tris, normals, n=n)
     return raystab_query2(accel, threshold)

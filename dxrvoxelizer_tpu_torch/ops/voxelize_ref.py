@@ -6,9 +6,10 @@ Port of ``dxrvoxelizer_tpu/ops/voxelize_ref.py``, two inside rules:
   ray per voxel from the voxel centre outward, closest hit (Moller-Trumbore),
   voxel inside iff the interpolated normal faces away: ``dot(n, dir) > 0.12``
   (DXRVoxelizer.hlsl:44-53, 132-140); also the ``float4(Normal, 1.0)`` grid
-  (DXRVoxelizer.hlsl:83-84). :func:`voxelize_raystab_radial_ref` picks the
+  (DXRVoxelizer.hlsl:83-84); the bit-exact ground truth of the gen-1 query
+  (ops/raystab_fast.py). :func:`voxelize_raystab_radial_ref` picks the
   winner with the radial form instead: the bit-exact ground truth of the
-  gen-6 query (ops/raystab_fast.py).
+  gen-6 query.
 - :func:`voxelize_parity_ref` — axis-aligned column rays with
   intersection-parity counting. It *counts* crossings per voxel; the CUDA
   kernel (ops/voxelize_cuda.py) folds XOR masks and its plain version
@@ -22,27 +23,6 @@ import torch
 from dxrvoxelizer_tpu_torch.ops import intersect
 from dxrvoxelizer_tpu_torch.ops.geom import column_crossing, parity_tri_setup
 from dxrvoxelizer_tpu_torch.ops.raystab_fast import INSIDE_THRESHOLD, voxel_rays
-
-
-def _mt_normals(n0, n1, n2, u, v):
-    """Barycentric normal interpolation (DXRVoxelizer.hlsl:110-116),
-    normalized; norm and dot spelled ((x + y) + z)."""
-    nrm = n0 + u[:, None] * (n1 - n0) + v[:, None] * (n2 - n0)
-    x, y, z = nrm[:, 0], nrm[:, 1], nrm[:, 2]
-    ln = torch.clamp(intersect.sqrt_rn((x * x + y * y) + z * z), min=1e-20)
-    return nrm / ln[:, None]
-
-
-def _dot3(a, b):
-    return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
-
-
-def _rgba(inside, nx, ny, nz):
-    zero = torch.zeros_like(nx)
-    return torch.stack([torch.where(inside, nx, zero),
-                        torch.where(inside, ny, zero),
-                        torch.where(inside, nz, zero),
-                        torch.where(inside, torch.ones_like(nx), zero)], dim=-1)
 
 
 def voxelize_raystab_ref(verts_norm: torch.Tensor, normals: torch.Tensor,
@@ -61,12 +41,11 @@ def voxelize_raystab_ref(verts_norm: torch.Tensor, normals: torch.Tensor,
     for s in range(0, pos.shape[0], ray_chunk):
         o, d = pos[s:s + ray_chunk], dirs[s:s + ray_chunk]
         t, u, v, idx = intersect.closest_hit(o, d, v0, e1, e2, tri_chunk)
-        hit = torch.isfinite(t)
         idx = idx.to(torch.int64)
-        nrm = _mt_normals(n0[idx], n1[idx], n2[idx], u, v)
-        inside = hit if rule == "hit" else hit & (_dot3(nrm, d) > threshold)
+        inside, nx, ny, nz = intersect.mt_finalize(
+            d, n0[idx], n1[idx], n2[idx], u, v, torch.isfinite(t), threshold, rule)
         occ.append(inside)
-        rgba.append(_rgba(inside, nrm[:, 0], nrm[:, 1], nrm[:, 2]))
+        rgba.append(intersect.rgba_channels(inside, nx, ny, nz))
     return torch.cat(occ).reshape(n, n, n), torch.cat(rgba).reshape(n, n, n, 4)
 
 
@@ -106,11 +85,10 @@ def voxelize_raystab_radial_ref(verts_norm: torch.Tensor, normals: torch.Tensor,
                 d[:, 0], d[:, 1], d[:, 2], gg, nv, hit, threshold, rule)
         else:
             _, u, v, _ = intersect.mt_hit(o, d, v0[idx], e1[idx], e2[idx])
-            nrm = _mt_normals(n0[idx], n1[idx], n2[idx], u, v)
-            inside = hit if rule == "hit" else hit & (_dot3(nrm, d) > threshold)
-            nx, ny, nz = nrm[:, 0], nrm[:, 1], nrm[:, 2]
+            inside, nx, ny, nz = intersect.mt_finalize(
+                d, n0[idx], n1[idx], n2[idx], u, v, hit, threshold, rule)
         occ.append(inside)
-        rgba.append(_rgba(inside, nx, ny, nz))
+        rgba.append(intersect.rgba_channels(inside, nx, ny, nz))
     return torch.cat(occ).reshape(n, n, n), torch.cat(rgba).reshape(n, n, n, 4)
 
 

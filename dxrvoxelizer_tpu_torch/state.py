@@ -3,8 +3,9 @@
 The two packages share no objects: the JAX package's arrays, taken to the
 host as numpy, become this package's tensors here, so both compute on
 identical inputs (the tests compare them this way): mesh buffers, packed
-occupancy grids, work queues built by the JAX package's ``build_queue``, and
-compact ray-stab accels built by its ``build_raystab_compact2``.
+occupancy grids, work queues built by the JAX package's ``build_queue``,
+compact ray-stab accels built by its ``build_raystab_compact2``, and gen-1
+ray-stab accels built by its ``build_raystab_accel``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,13 @@ import torch
 
 from dxrvoxelizer_tpu_torch.core.pipeline import VoxelGrid
 from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
-from dxrvoxelizer_tpu_torch.ops.raystab_fast import Raystab2Stats, RaystabCompact2
+from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
+    RadialBinStats,
+    Raystab2Stats,
+    RaystabAccel,
+    RaystabCompact2,
+    assemble_raystab_accel,
+)
 from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import NCOEF
 
 MESH_FIELDS = ("positions", "normals", "tris", "positions_norm")
@@ -92,3 +99,39 @@ def raystab_compact_from_numpy(n: int, classes, ov_ids, levels: tuple = (),
     return RaystabCompact2(n=n, classes=tuple(out), ov_ids=ov,
                            stats=Raystab2Stats(levels=tuple(levels),
                                                near_origin=near_origin))
+
+
+def raystab_accel_from_numpy(verts_norm: torch.Tensor, tris: torch.Tensor,
+                             n: int, g: int, classes, ov_ids,
+                             stats: Mapping[str, int]) -> RaystabAccel:
+    """A gen-1 accel built by the JAX package's ``build_raystab_accel`` -> the
+    port's :class:`RaystabAccel` on ``verts_norm``'s device, from the same
+    geometry. ``classes``: its capacity classes as numpy, each (cell_table
+    [Cc, K], ray_table [Cc, R], ...); a row is one direction cell, its
+    candidate ids and ray ids padded with -1. ``ov_ids``: its overflow ids
+    (-1 padded); ``stats``: its stats' fields. The padding, the cell-chunk
+    rows without rays and the class split are dropped; rays of cells outside
+    every class test no candidate, as there."""
+    rays, ray_n, cands, cand_n = [], [], [], []
+    for cell_table, ray_table, *_ in classes:
+        ct, rt = np.asarray(cell_table), np.asarray(ray_table)
+        if ct.shape[0] != rt.shape[0]:
+            raise ValueError(f"cell and ray tables disagree: {ct.shape} {rt.shape}")
+        rays.append(rt[rt >= 0])
+        ray_n.append((rt >= 0).sum(axis=1))
+        cands.append(ct[ct >= 0])
+        cand_n.append((ct >= 0).sum(axis=1))
+
+    def csr(parts, counts):
+        off = np.zeros((sum(c.size for c in counts) + 1,), np.int64)
+        if counts:
+            np.cumsum(np.concatenate(counts), out=off[1:])
+        data = np.concatenate(parts) if parts else np.zeros((0,), np.int32)
+        return data.astype(np.int32), off
+
+    ray_ids, ray_off = csr(rays, ray_n)
+    cand_ids, cand_off = csr(cands, cand_n)
+    ov = np.asarray(ov_ids, np.int32)
+    return assemble_raystab_accel(verts_norm, tris, n, g,
+                                  (ray_ids, ray_off, cand_ids, cand_off),
+                                  ov[ov >= 0], RadialBinStats(**stats))

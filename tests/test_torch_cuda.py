@@ -21,12 +21,16 @@ from dxrvoxelizer_tpu_torch.ops import (
     march_cuda,
     raystab_cuda,
     raystab_fast,
+    raystab_mt_cuda,
     screen_warp_cuda,
     voxelize_cuda,
     voxelize_queue,
     voxelize_queue_cuda,
 )
-from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_raystab_radial_ref
+from dxrvoxelizer_tpu_torch.ops.voxelize_ref import (
+    voxelize_raystab_radial_ref,
+    voxelize_raystab_ref,
+)
 from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles, voxelize_parity_binned
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
@@ -215,3 +219,34 @@ def test_gpu_raystab_frame_matches_cpu_frame(dev, mode):
         fc = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
         imgs.append(FramePipeline(cfg, scene.buffers).frame(fc).cpu())
     assert float((imgs[0] - imgs[1]).abs().max()) < 2e-3
+
+
+@pytest.mark.parametrize("mesh,n", [("icosphere", 64), ("box", 64),
+                                    ("near_origin", 16)])
+def test_raystab_mt_kernel_bit_identical_to_plain(dev, mesh, n):
+    """Kernel 2.8 against its plain version on the gen-1 accel's streams:
+    per-cell slices, and the overflow stream, every ray against the overflow
+    rows (the near-origin soup at 16^3: 300 rows, which JAX pads to O = 320)."""
+    v, nr, t = _raystab_mesh(mesh, n, dev)
+    accel = raystab_fast.build_raystab_accel(v, t, n=n)
+    streams = [tb for tb in (accel.main, accel.ov) if tb is not None]
+    if mesh == "near_origin":
+        assert accel.ov is not None and accel.ov.rows.shape[0] == 300
+    for tb in streams:
+        got = raystab_mt_cuda.closest_hit(tb)
+        want = raystab_mt_cuda.closest_hit_plain(tb)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    occ, rgba = raystab_fast.raystab_query(v, nr, t, accel)
+    occ_p, rgba_p = raystab_fast.raystab_query(v, nr, t, accel, use_kernels=False)
+    assert torch.equal(occ, occ_p) and torch.equal(rgba, rgba_p)
+
+
+@pytest.mark.parametrize("mesh", ["icosphere", "box"])
+def test_raystab_gen1_query_bit_identical_to_mt_oracle(dev, mesh):
+    v, nr, t = _raystab_mesh(mesh, 64, dev)
+    accel = raystab_fast.build_raystab_accel(v, t, n=64)
+    occ, rgba = raystab_fast.raystab_query(v, nr, t, accel)
+    occ_r, rgba_r = voxelize_raystab_ref(v, nr, t, n=64)
+    assert torch.equal(occ, occ_r) and torch.equal(rgba, rgba_r)
+    assert bool(occ.any())

@@ -16,6 +16,7 @@ from dxrvoxelizer_tpu_torch.ops import (
     _cuda,
     march_cuda,
     raystab_cuda,
+    raystab_mt_cuda,
     screen_warp_cuda,
     voxelize_cuda,
     voxelize_queue_cuda,
@@ -46,7 +47,7 @@ def test_every_module_imports_without_jax_and_builds_nothing():
     mods = _modules()
     for m in ("ops.voxelize_cuda", "ops.voxelize_queue", "ops.voxelize_queue_cuda",
               "ops.intersect", "ops.raystab_fast", "ops.raystab_cuda",
-              "state", "app.main"):
+              "ops.raystab_mt_cuda", "state", "app.main"):
         assert f"dxrvoxelizer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -102,7 +103,8 @@ def _meta(*shape, dtype=torch.float32):
 
 
 KERNELS = (voxelize_cuda.KERNEL, voxelize_queue_cuda.KERNEL, march_cuda.KERNEL,
-           screen_warp_cuda.KERNEL, raystab_cuda.FOLD_EXTRACT, raystab_cuda.FOLD)
+           screen_warp_cuda.KERNEL, raystab_cuda.FOLD_EXTRACT, raystab_cuda.FOLD,
+           raystab_mt_cuda.KERNEL)
 
 
 def _meta_strips(s=2, p=300, bounds=True):
@@ -112,9 +114,19 @@ def _meta_strips(s=2, p=300, bounds=True):
         bounds=_meta(s, 2) if bounds else None)
 
 
+def _meta_mt(s=2, v=300, p=40):
+    i32 = torch.int32
+    return raystab_mt_cuda.MTTables(
+        pos=_meta(v, 3), dirs=_meta(v, 3), ray_ids=_meta(v, dtype=i32),
+        ray_off=_meta(s, dtype=i32), ray_cnt=_meta(s, dtype=i32),
+        cand_off=_meta(s, dtype=i32), cand_cnt=_meta(s, dtype=i32),
+        rows=_meta(p, 12))
+
+
 @pytest.mark.parametrize("kernel", ["parity_voxelize", "parity_queue", "march",
                                     "resolve", "raystab_fold_extract",
-                                    "raystab_fold"])
+                                    "raystab_fold", "raystab_mt",
+                                    "raystab_mt_shared"])
 def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises — the
     plain version is never a silent fallback for it."""
@@ -130,6 +142,10 @@ def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
             raystab_cuda.fold_extract(_meta_strips(), 1000, 0.12)
         elif kernel == "raystab_fold":
             raystab_cuda.fold(_meta_strips(bounds=False))
+        elif kernel.startswith("raystab_mt"):
+            # the overflow stream: strips of all rays against 320 rows
+            raystab_mt_cuda.closest_hit(_meta_mt(s=3, p=320) if kernel.endswith(
+                "shared") else _meta_mt())
         elif kernel == "march":
             v = _meta(32)
             march_cuda.march(_meta(2, 32, 32, 32), v, v, v, v, v, v,
@@ -163,6 +179,9 @@ def test_wrapper_on_a_box_without_cuda_raises_not_falls_back(monkeypatch):
             raystab_cuda.fold_extract(_meta_strips(), 1000, 0.12, rule)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         raystab_cuda.fold(_meta_strips())
+    for tb in (_meta_mt(), _meta_mt(s=3, p=320)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            raystab_mt_cuda.closest_hit(tb)
     assert {k.name: k.launches for k in KERNELS} == before
 
 

@@ -121,10 +121,11 @@ def test_engine_slots_and_ring(tmp_path):
     assert torch.equal(eng.render_grid(grid, fc), imgs[0])
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     """Options off the ported slices raise; the queue, deforming, ray-stab
-    and -normals paths, ported now, run (ray-stab and -normals at n < 128,
-    static meshes)."""
+    and -normals paths, ported now, run (static meshes; ray-stab and
+    -normals at n >= 128 only on the CPU, as in the JAX package, since a
+    GPU runs gen-7 there)."""
     scene = Scene(_tet_obj(ObjMesh), "cpu")
     base = VoxelizerConfig(grid_size=N, width=W, height=H)
     cam = OrbitCamera(W, H)
@@ -133,16 +134,30 @@ def test_unported_options_raise():
                 base.replace(parity_normals=True)):
         with pytest.raises(NotImplementedError, match="Deforming ray-stab"):
             FramePipeline(cfg, scene.buffers, deforming=True)
-        with pytest.raises(NotImplementedError, match="gen-7"):
-            FramePipeline(cfg.replace(grid_size=128), scene.buffers)
+        FramePipeline(cfg.replace(grid_size=128), scene.buffers)  # the CPU: gen-1
         img = FramePipeline(cfg, scene.buffers).frame(fc)
         assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
     from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
+    from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
+    from dxrvoxelizer_tpu_torch.ops import raystab_fast
 
+    # a mesh on the card (the check reads only its device): gen-7 raises
+    monkeypatch.setattr(MeshBuffers, "device",
+                        property(lambda self: torch.device("cuda")))
+    for cfg in (base.replace(inside_mode="raystab"),
+                base.replace(parity_normals=True)):
+        with pytest.raises(NotImplementedError, match="gen-7"):
+            FramePipeline(cfg.replace(grid_size=128), scene.buffers)
     with pytest.raises(NotImplementedError, match="gen-7"):
         voxelize(scene.buffers, 128, mode="raystab")
     with pytest.raises(NotImplementedError, match="gen-7"):
-        voxelize(scene.buffers, 128, with_normals=True)
+        voxelize(scene.buffers, 128, with_normals=True, impl="xla")
+    monkeypatch.undo()
+    mb = scene.buffers
+    with pytest.raises(NotImplementedError, match="gen-7"):
+        raystab_fast.voxelize_raystab_fast(mb.positions_norm.to("meta"),
+                                           mb.normals.to("meta"),
+                                           mb.tris.to("meta"), n=128)
     g = voxelize(scene.buffers, N)
     for cfg, impl in ((base.replace(show_mip=1), "warp"),
                       (base.replace(point_light=True), "warp"),

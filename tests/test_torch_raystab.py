@@ -4,7 +4,8 @@ the JAX package on the CPU.
 The same numpy meshes go through both packages: the intersection primitives,
 both oracles, the compact accel build, the candidate rows, the fold +
 extraction kernel's plain version (against the Pallas kernels in interpret
-mode), the whole query and the frame. The box has its faces on voxel centres
+mode), the whole query and the frame (which on the CPU runs gen-1, as the
+JAX package's CPU frame does; gen-1 itself: tests/test_torch_raystab1.py). The box has its faces on voxel centres
 (ties on every boundary); the near-origin soup fills the shared stream past
 one 256-candidate chunk; the dense cone gives a multi-chunk class with skip
 bounds; gs=(4,) gives cells of several strips; (16, 8, 4) a three-level
@@ -537,23 +538,27 @@ def _tet_obj(cls):
 def test_frame_matches_jax_frame(monkeypatch, mode):
     """FramePipeline.frame with -inside raystab / -normals on the JAX mesh
     buffers within 2e-3 (the tet-golden bound) of the JAX renderer's frame
-    of the JAX grid from JAX's gen-6 accel (its interpret query)."""
+    of the grid JAX's own CPU frame voxelizes, run op by op: the gen-1
+    accel's XLA query (-inside raystab), or the Moller-Trumbore oracle under
+    rule "hit" on the parity oracle's words (-normals)."""
     monkeypatch.setenv("DXRVOX_RAYTAB_CACHE", "off")
     jscene = JaxScene(_tet_obj(JaxObjMesh))
     jb = jscene.buffers
     cam = OrbitCamera(W, H)
     fc = jscene.update_frame(cam.eye, cam.view_proj, W, H)
     jcfg = JaxConfig(grid_size=N, width=W, height=H)
-    jaccel = jrf.build_raystab_accel2(jb.positions_norm, jb.tris, jb.normals, n=N)
-    occ, rgba = jrf.raystab_query2(jb.positions_norm, jb.normals, jb.tris, jaccel,
-                                   interpret=True,
-                                   rule="backface" if mode == "raystab" else "hit")
     if mode == "raystab":
+        jaccel = jrf.build_raystab_accel(jb.positions_norm, jb.tris, N)
+        with jax.disable_jit():
+            occ, rgba = jrf.raystab_query(jb.positions_norm, jb.normals, jb.tris,
+                                          jaccel, impl="xla")
         words = jax_pack_bits_z(occ)
     else:
         with jax.disable_jit():
             words = jax_pack_bits_z(jvr.voxelize_parity_ref(
                 jb.positions_norm, jb.tris, n=N))
+            _, rgba = jvr.voxelize_raystab_ref(jb.positions_norm, jb.normals,
+                                               jb.tris, n=N, rule="hit")
         from dxrvoxelizer_tpu.ops.packing import unpack_bits_z
 
         occ_f = unpack_bits_z(words, N).astype(jnp.float32)[..., None]
@@ -571,6 +576,9 @@ def test_frame_matches_jax_frame(monkeypatch, mode):
     assert np.abs(got.numpy() - want).max() < 2e-3
     accel = pipe._stab_accel
     assert torch.equal(pipe.frame(fc), got) and pipe._stab_accel is accel  # built once
+    # the CPU routes as JAX's: the gen-1 accel, or the oracle and no accel
+    assert (isinstance(accel, rf.RaystabAccel) if mode == "raystab"
+            else accel is None)
 
 
 def test_voxelize_raystab_impls_and_grid():
@@ -581,8 +589,16 @@ def test_voxelize_raystab_impls_and_grid():
     auto = voxelize(mesh, 32, mode="raystab", quantize=False)
     radial = voxelize(mesh, 32, mode="raystab", impl="xla-radial", quantize=False)
     mt = voxelize(mesh, 32, mode="raystab", impl="xla", quantize=False)
-    assert torch.equal(auto.words, radial.words) and torch.equal(auto.rgba, radial.rgba)
-    assert torch.equal(auto.words, mt.words)  # no near-ties on the icosphere
+    # on the CPU "auto" is the gen-1 accel: the Moller-Trumbore rule
+    assert torch.equal(auto.words, mt.words) and torch.equal(auto.rgba, mt.rgba)
+    assert torch.equal(auto.words, radial.words)  # no near-ties on the icosphere
+    # the radial normals differ in the last bits: 5,803 of 6,191 voxels
+    assert int(auto.occupancy().sum()) == 6191
+    assert int((auto.rgba != radial.rgba).any(-1).sum()) == 5803
+    # a gen-6 accel passed in still runs the radial query
+    accel2 = rf.build_raystab_accel2(v, t, nr, n=32)
+    g6 = voxelize(mesh, 32, mode="raystab", quantize=False, accel=accel2)
+    assert torch.equal(g6.words, radial.words) and torch.equal(g6.rgba, radial.rgba)
     assert torch.equal(auto.density(), auto.rgba[..., 3])
     assert torch.equal(auto.occupancy(), auto.rgba[..., 3] != 0)
     q = voxelize(mesh, 32, mode="raystab")

@@ -126,7 +126,7 @@ def test_pack_unpack_roundtrip_and_jax_layout():
     np.testing.assert_array_equal(back, occ)
 
 
-def test_static_binned_voxelizer_and_voxelize_routes():
+def test_static_binned_voxelizer_and_voxelize_routes(monkeypatch):
     verts, nrm, tris = icosphere_mesh(3)
     tv, tt = _torch(verts, tris)
     mesh = MeshBuffers(positions=tv, normals=torch.from_numpy(nrm), tris=tt,
@@ -138,12 +138,18 @@ def test_static_binned_voxelizer_and_voxelize_routes():
     assert torch.equal(sv(), want)
     # the work-queue path (its kernel's plain version on the CPU)
     assert torch.equal(voxelize(mesh, 32, impl="queue").words, want)
-    # ray-stab and -normals run at n < 128 (the gen-6 accel) and raise at
-    # n >= 128, where the JAX package runs gen-7 (not ported yet)
+    # ray-stab and -normals run on the CPU at every n (the JAX package's CPU
+    # route, gen-1 and the MT oracle); on a GPU they raise at n >= 128, where
+    # the JAX package runs gen-7 (not ported yet)
     assert torch.equal(voxelize(mesh, 32, with_normals=True).words, want)
     assert voxelize(mesh, 32, mode="raystab").rgba.shape == (32, 32, 32, 4)
-    for bad, exc, n in (({"mode": "raystab"}, NotImplementedError, 128),
-                        ({"with_normals": True}, NotImplementedError, 128),
-                        ({"impl": "nope"}, ValueError, 32)):
-        with pytest.raises(exc):
-            voxelize(mesh, n, **bad)
+    with pytest.raises(ValueError):
+        voxelize(mesh, 32, impl="nope")
+    tv4, tt4 = _torch(*tetrahedron_mesh()[::2])
+    tet = MeshBuffers(positions=tv4, normals=tv4, tris=tt4, positions_norm=tv4)
+    # a mesh on the card (the check reads only its device)
+    monkeypatch.setattr(MeshBuffers, "device",
+                        property(lambda self: torch.device("cuda")))
+    for bad in ({"mode": "raystab"}, {"with_normals": True, "impl": "xla"}):
+        with pytest.raises(NotImplementedError, match="gen-7"):
+            voxelize(tet, 128, **bad)
