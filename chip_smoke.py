@@ -20,11 +20,17 @@ the CUDA toolkit. Phases, one line each:
     frames timed in turns (each a median as in phase 5): the frame times
     reported for these three paths;
 4. each kernel against its plain torch version on the card, at the shapes
-   the main path gives it, and the whole frame against the plain path and
-   against the CPU on a small input;
+   the main path gives it (the march at ss = 1 and 2; the fused screen
+   resolve's coordinates and hit mask bit for bit against ``screen_coords``
+   and its image against ``resolve_plain``, on 4 orbit cameras that set
+   swap and flip on and off), and the whole frame against the plain path
+   and against the CPU on a small input;
 5. medians of 5 runs, timed with CUDA events around 10 back-to-back calls,
-   of each kernel, its plain version, and the whole frame; then a profiler
-   window of 5 frames for the device time per kernel and the idle share;
+   of each kernel, its plain version, and the whole frame; the device time
+   per call (profiler) of the march, the resolve and its yardstick
+   ``grid_sample``; the resolve wrapper's host time per call beside one
+   elementwise torch op's; then a profiler window of 5 frames for the
+   device time per kernel and the idle share;
 6. the hi-res app frame: ``-grid 256``, 4 frames, on the 327,680-triangle
    icosphere at the same footprint (the stand-in for the hi-res dragon):
    the work-queue kernel must launch once per frame, the binned one never;
@@ -38,7 +44,8 @@ the CUDA toolkit. Phases, one line each:
    counting oracle at 128^3; on queues with span overflow; on two deformed
    frames;
 10. the 256^3 ``-hq`` frame at 1280x720 against the plain path, and the
-    march and resolve against their plain versions at that frame's inputs;
+    march and resolve against their plain versions at that frame's inputs
+    (the resolve on the 4 orbit cameras again);
 11. times of the work-queue kernel (256^3, 512^3), its plain version, the
     binned kernel on the same 256^3 mesh, the deforming voxelizer's call,
     the march and resolve at the 256^3 frame's inputs (with plain versions
@@ -120,6 +127,10 @@ PROFILE_FRAMES = 5
 TOL_MARCH = 2e-6
 TOL_RESOLVE = 1e-5
 TOL_FRAME = 2e-3
+# orbit yaws (pixels dragged at 1280 wide: a quarter turn each) of the
+# resolve checks; on the default camera they set (flip, swap) = (F, T),
+# (T, F), (T, T), (F, F)
+ORBIT_YAWS = (0.0, 320.0, 640.0, 960.0)
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense rates)
 PEAK_FP32 = 67e12  # FP32 operations per second outside the tensor cores
 # (an FMA counts as two: kernels whose chains cannot fuse run at half this)
@@ -129,10 +140,17 @@ PEAK_BYTES = 3.35e12  # device memory bytes per second
 # forms of the parity kernels; per
 # live (pixel, sub-slab) step of the march (taps, z-mix at ss = 2, warp,
 # compositing); per hit pixel of the resolve (taps, two bilinear samples,
-# composite)
+# composite); per pixel of the resolve, the screen mapping it now computes
+# itself (csrc/screen_warp.cu; adds, subtractions, multiplications,
+# divisions and the square root; compares, abs, min/max and selects not
+# counted): the pixel centre 2, the homogeneous transform 16, the
+# perspective divide 3, the direction 3, its length 6 and normalisation 3,
+# the three slab tests 18, the tex-space direction 3, the reference-plane
+# point 6, the two reciprocals 2 and the intermediate coordinates 8 = 70
 PARITY_OPS_PER_PAIR = 16
 MARCH_OPS_PER_STEP = {1: 39, 2: 64}
 RESOLVE_OPS_PER_HIT = 60
+SCREEN_MAP_OPS_PER_PIXEL = 70
 # per real (ray, candidate) pair of the ray-stab kernels: radial_hit's three
 # dot products (9 mul, 6 add), den (2 add), the division and the subtraction
 # (compares and selects not counted, as for the parity kernels)
@@ -223,17 +241,59 @@ def bbox_pairs(torch, verts, tris, n: int) -> int:
     return int(cols.double().sum())
 
 
-def grid_sample_ms(torch, res_args) -> float:
+def device_us(torch, fn, calls: int = 10) -> float:
+    """Device time per call of ``fn`` (profiler: every device kernel and
+    copy it runs), after one warm-up call. A window in which the profiler
+    saw no device activity (it happens) is taken again, up to 3 times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if str(e.device_type) == "DeviceType.CUDA") / calls
+        if us > 0:
+            break
+    return us
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time per call of ``fn`` (what the caller's thread spends to
+    enqueue it), median of 5 runs of ``calls`` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def grid_sample_call(torch, res_args):
     """The resolve's gather as one PyTorch call (its yardstick): bilinear
-    grid_sample of both intermediates, clamped to the edge."""
+    grid_sample of both intermediates, clamped to the edge, at the
+    coordinates the resolve computes (``screen_coords``'s)."""
     import torch.nn.functional as F
 
-    s_i, t_i, gi_x, gi_y = res_args[:4]
+    from dxrvoxelizer_tpu_torch.ops.screen_warp_cuda import resolve_screen_plain
+
+    s_i, t_i = res_args[:2]
+    _, gi_x, gi_y, _ = resolve_screen_plain(*res_args)
+    if res_args[9]:  # swap
+        s_i, t_i, gi_x, gi_y = s_i.t(), t_i.t(), gi_y, gi_x
     mm = s_i.shape[0]
     src = torch.stack([s_i, t_i])[None]  # [1, 2, M(x), M(y)]
     samp = torch.stack([gi_y, gi_x], -1).reshape(1, 1, -1, 2) / (mm - 1) * 2 - 1
-    return cuda_ms(torch, lambda: F.grid_sample(
-        src, samp, mode="bilinear", padding_mode="border", align_corners=True))
+    return lambda: F.grid_sample(
+        src, samp, mode="bilinear", padding_mode="border", align_corners=True)
 
 
 def march_live_steps(torch, args) -> int:
@@ -277,13 +337,21 @@ def march_bound(torch, mi) -> tuple[float, str]:
                  march_live_steps(torch, mi.args()) * MARCH_OPS_PER_STEP[mi.ss])
 
 
+def resolve_hits(res_args) -> int:
+    from dxrvoxelizer_tpu_torch.ops.screen_warp_cuda import resolve_screen_plain
+
+    return int(resolve_screen_plain(*res_args)[3].sum())
+
+
 def resolve_bound(res_args) -> tuple[float, str]:
-    """Bound of the resolve: both intermediates, the per-pixel coordinates
-    and mask, and the image once; the hit pixels' operations."""
-    s_i, ok, h, w = res_args[0], res_args[4], res_args[6], res_args[7]
+    """Bound of the fused resolve: both intermediates read once and the
+    image written once; the screen mapping's operations for every pixel and
+    the taps', samples' and composite's for the hit pixels."""
+    s_i, w, h = res_args[0], res_args[5], res_args[6]
     p_px = h * w
-    return bound(2 * s_i.numel() * 4 + p_px * (4 + 4 + 1) + p_px * 3 * 4,
-                 int(ok.sum()) * RESOLVE_OPS_PER_HIT)
+    return bound(2 * s_i.numel() * 4 + p_px * 3 * 4,
+                 p_px * SCREEN_MAP_OPS_PER_PIXEL
+                 + resolve_hits(res_args) * RESOLVE_OPS_PER_HIT)
 
 
 def raystab_work(torch, rsc, tb) -> tuple[int, int, int]:
@@ -464,7 +532,6 @@ def main() -> int:
     from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
         light_sweep_ref_host,
         march_inputs,
-        screen_coords,
         shearwarp_statics,
     )
     from dxrvoxelizer_tpu_torch.ops.voxelize_ref import (
@@ -493,6 +560,11 @@ def main() -> int:
         "gen1": ("raystab_mt", "march", "resolve"),
     }
     dev = torch.device("cuda", 0)
+
+    def once_per_frame(launches, name):
+        for k in ("march", "resolve"):
+            check(launches[k] == FRAMES, f"{name}: {k} launched "
+                  f"{launches[k]} times in {FRAMES} frames, not once per frame")
 
     # ---- 1. card and build ----------------------------------------------
     card = subprocess.run(
@@ -525,6 +597,7 @@ def main() -> int:
         for name in path_kernels["64"]:
             check(launches[name] > 0,
                   f"kernel {name} never launched on the 64^3 main path")
+        once_per_frame(launches, "64^3 app")
         for k, c in launches.items():
             main_launches[k] += c
         print(f"phase 2 app frame: {len(t6)} tris {GRID}^3 1280x720 -hq, "
@@ -603,6 +676,7 @@ def main() -> int:
             for k in path_kernels["256"]:
                 check(launches[k] >= FRAMES, f"{name}: {k} launched "
                       f"{launches[k]} times in {FRAMES} frames")
+            once_per_frame(launches, f"{GRID_HI}^3 {name} app")
             for k, c in launches.items():
                 main_launches[k] += c
             hi[name] = (launches, covered)
@@ -618,6 +692,7 @@ def main() -> int:
             for k in path_kernels[name]:
                 check(launches[k] >= FRAMES, f"{name}: {k} launched "
                       f"{launches[k]} times in {FRAMES} frames")
+            once_per_frame(launches, f"{GRID}^3 {name} app")
             if name == "raystab":
                 check(launches["parity_voxelize"] == 0
                       and launches["parity_queue"] == 0,
@@ -677,10 +752,29 @@ def main() -> int:
               f"({', '.join(box_lines)}) and to the counting oracle at "
               f"{GRID}^3 (main path: {stats_main})"]
 
-    def render_case(words, consts_, cfg_, n, ss_list):
+    def resolve_case(s_i, t_i, consts_, cfg_, statics, mi_):
+        """The fused resolve against screen_coords + resolve_plain: the
+        coordinates and hit mask bit for bit, the image within TOL_RESOLVE
+        -> (resolve args, image error)."""
+        axis, flip, swap = statics
+        args = (s_i, t_i, consts_.screen_to_local, consts_.local_space_eye_pt,
+                np.asarray(cfg_.clear_color, np.float32), cfg_.width,
+                cfg_.height, axis, flip, swap, mi_)
+        got = screen_warp_cuda.resolve_screen(*args, coords=True)
+        want = screen_warp_cuda.resolve_screen_plain(*args)
+        for what, a, b in zip(("gi_x", "gi_y", "ok"), got[1:], want[1:]):
+            check(torch.equal(a, b), f"resolve {what} differs from "
+                  f"screen_coords (flip={flip}, swap={swap})")
+        err = max_err(got[0], want[0])
+        check(err <= TOL_RESOLVE, f"resolve differs by {err:.3g} (flip="
+              f"{flip}, swap={swap})")
+        return args, err
+
+    def render_case(words, consts_, cfg_, n, ss_list, scene_):
         """March and resolve against their plain versions at the inputs
-        the frame gives them -> (march inputs, resolve args, march error
-        per ss, resolve error, m, swap)."""
+        the frame gives them, the resolve also on the ORBIT_YAWS cameras ->
+        (march inputs, resolve args, march error per ss, resolve error, m,
+        swap, the (flip, swap) the cameras set)."""
         density = VoxelGrid(words=words).density()
         light = light_sweep_ref_host(density, consts_.local_space_light_pt, n)
         axis, flip, swap, m = shearwarp_statics(
@@ -691,35 +785,47 @@ def main() -> int:
         for ss in ss_list:
             mi_ss = march_inputs(density, light, consts_.local_space_eye_pt,
                                  n, m, axis, flip, ss)
-            t_k, s_k = march_cuda.march(*mi_ss.args())
+            t_k, s_k = march_cuda.march(*mi_ss.args(),
+                                        ring=mi_ss.ring)
             t_p, s_p = march_cuda.march_plain(*mi_ss.args())
             m_err[ss] = max(max_err(t_k, t_p), max_err(s_k, s_p))
             check(m_err[ss] <= TOL_MARCH,
                   f"march {n}^3 ss={ss} differs by {m_err[ss]:.3g}")
         mi_ = march_inputs(density, light, consts_.local_space_eye_pt, n, m,
                            axis, flip, cfg_.render_ss)
-        t_i, s_i = march_cuda.march(*mi_.args())
-        gi_x, gi_y, ok_ = screen_coords(consts_.screen_to_local,
-                                        consts_.local_space_eye_pt,
-                                        cfg_.width, cfg_.height, axis, flip,
-                                        m, mi_, dev)
-        if swap:
-            t_i, s_i = t_i.t().contiguous(), s_i.t().contiguous()
-            gi_x, gi_y = gi_y, gi_x
-        clear = np.asarray(cfg_.clear_color, np.float32)
-        args = (s_i, t_i, gi_x, gi_y, ok_, clear, cfg_.height, cfg_.width)
-        r_err = max_err(screen_warp_cuda.resolve(*args),
-                        screen_warp_cuda.resolve_plain(*args))
-        check(r_err <= TOL_RESOLVE, f"resolve {n}^3 differs by {r_err:.3g}")
-        return mi_, args, m_err, r_err, m, swap
+        t_i, s_i = march_cuda.march(*mi_.args(), ring=mi_.ring)
+        args, r_err = resolve_case(s_i, t_i, consts_, cfg_,
+                                   (axis, flip, swap), mi_)
+        seen = set()
+        for yaw in ORBIT_YAWS:
+            cam_o = OrbitCamera(cfg_.width, cfg_.height)
+            if yaw:
+                cam_o.orbit(yaw, 0.0)
+            c_o = scene_.update_frame(cam_o.eye, cam_o.view_proj, cfg_.width,
+                                      cfg_.height)
+            a_o, f_o, sw_o, m_o = shearwarp_statics(
+                c_o.screen_to_local, c_o.local_space_eye_pt, cfg_.width,
+                cfg_.height, m_cap=cfg_.intermediate_cap)
+            mi_o = march_inputs(density, light, c_o.local_space_eye_pt, n,
+                                m_o, a_o, f_o, cfg_.render_ss)
+            t_o, s_o = march_cuda.march(*mi_o.args(), ring=mi_o.ring)
+            r_err = max(r_err, resolve_case(s_o, t_o, c_o, cfg_,
+                                            (a_o, f_o, sw_o), mi_o)[1])
+            seen.add((f_o, sw_o))
+        check(any(f for f, _ in seen) and any(w for _, w in seen),
+              f"the orbit cameras set no flip or no swap: {seen}")
+        return mi_, args, m_err, r_err, m, swap, sorted(seen)
 
-    mi, res_args, march_err, res_err, m, swap = render_case(
-        words_main, consts, cfg, GRID, (1, 2))
-    errs["march"] = march_err[cfg.render_ss]
+    mi, res_args, march_err, res_err, m, swap, seen = render_case(
+        words_main, consts, cfg, GRID, (1, 2), scene)
+    errs["march"] = max(march_err.values())
     errs["resolve"] = res_err
     phase4.append(f"march max|err| ss=1 {march_err[1]:.3g} ss=2 "
-                  f"{march_err[2]:.3g} (m={m}, swap={swap}); resolve max|err| "
-                  f"{errs['resolve']:.3g}")
+                  f"{march_err[2]:.3g} (m={m}, swap={swap}, ring "
+                  f"{mi.ring}); resolve gi_x/gi_y/ok bit-identical to "
+                  f"screen_coords and image max|err| {errs['resolve']:.3g} on "
+                  f"the frame's camera and {len(ORBIT_YAWS)} orbit cameras "
+                  f"(flip, swap) {seen}")
 
     def frame_plain():
         words = voxelize_cuda.voxelize_parity_tiles_plain(coef_main, GRID)
@@ -765,19 +871,35 @@ def main() -> int:
             cuda_ms(torch, lambda: voxelize_cuda.voxelize_parity_tiles_plain(coef_main, GRID)),
         ),
         "march": (
-            cuda_ms(torch, lambda: march_cuda.march(*mi.args())),
+            cuda_ms(torch, lambda: march_cuda.march(*mi.args(),
+                                                    ring=mi.ring)),
             cuda_ms(torch, lambda: march_cuda.march_plain(*mi.args())),
         ),
         "resolve": (
-            cuda_ms(torch, lambda: screen_warp_cuda.resolve(*res_args)),
-            cuda_ms(torch, lambda: screen_warp_cuda.resolve_plain(*res_args)),
+            cuda_ms(torch, lambda: screen_warp_cuda.resolve_screen(*res_args)),
+            cuda_ms(torch,
+                    lambda: screen_warp_cuda.resolve_screen_plain(*res_args)),
         ),
     }
+    gs = grid_sample_call(torch, res_args)
+    dev_us = {  # device time per call (profiler)
+        "march": device_us(torch, lambda: march_cuda.march(
+            *mi.args(), ring=mi.ring)),
+        "resolve": device_us(torch,
+                             lambda: screen_warp_cuda.resolve_screen(*res_args)),
+        "grid_sample": device_us(torch, gs),
+    }
+    # the resolve wrapper's host time per call beside one elementwise torch
+    # op's (a multiplication by a CPU scalar, as in screen_coords)
+    wrap_host_us = host_us(torch, lambda: screen_warp_cuda.resolve_screen(*res_args))
+    op_host_us = host_us(torch, lambda: torch.mul(res_args[0], 0.8))
+    empty_host_us = host_us(torch, lambda: torch.empty(
+        (cfg.height, cfg.width, 3), dtype=torch.float32, device=dev))
     frame_ms = cuda_ms(torch, frame_kernels)
     pipe.sync()
     frame_plain_ms = cuda_ms(torch, frame_plain)
 
-    library_ms = {"resolve": grid_sample_ms(torch, res_args)}
+    library_ms = {"resolve": cuda_ms(torch, gs)}
 
     # device time by kernel over a steady window of frames (profiler): what
     # the card is busy with per frame, and how long it idles
@@ -792,6 +914,15 @@ def main() -> int:
           f"{1 - busy_ms / frame_ms:.3f}), {per_frame:.0f} device "
           f"kernels and copies per frame, kernel device us per frame "
           f"{kernel_us}, peak device memory {peak_mib:.1f} MiB; {card}")
+    print(f"phase 5 at the {GRID}^3 frame's inputs (m={m}, "
+          f"{mi.slabs.shape[1] * mi.ss} sub-slabs): march "
+          f"{ms['march'][0]:.4f} ms, {dev_us['march']:.2f} us device per "
+          f"call; resolve {ms['resolve'][0]:.4f} ms, {dev_us['resolve']:.2f} "
+          f"us device per call; grid_sample {library_ms['resolve']:.4f} ms, "
+          f"{dev_us['grid_sample']:.2f} us device per call; resolve wrapper "
+          f"host {wrap_host_us:.2f} us per call, one torch.mul "
+          f"{op_host_us:.2f} us, one torch.empty of the image "
+          f"{empty_host_us:.2f} us; {card}")
 
     # ---- 8. the deforming call is sync-free ------------------------------
     mb7 = scene7.buffers
@@ -881,15 +1012,17 @@ def main() -> int:
     check(bool(torch.isfinite(f7_k).all()) and f7_k.shape == (720, 1280, 3),
           "256^3 frame not finite or misshapen")
     check(frame7_err <= TOL_FRAME, f"256^3 frame differs by {frame7_err:.3g}")
-    mi7, res_args7, march_err7, res_err7, m7, swap7 = render_case(
-        sv(), consts7, cfg_hi, GRID_HI, (cfg_hi.render_ss,))
+    mi7, res_args7, march_err7, res_err7, m7, swap7, seen7 = render_case(
+        sv(), consts7, cfg_hi, GRID_HI, (cfg_hi.render_ss,), scene7)
     errs["march"] = max(errs["march"], march_err7[cfg_hi.render_ss])
     errs["resolve"] = max(errs["resolve"], res_err7)
     print(f"phase 10 frame {GRID_HI}^3 1280x720 -hq max|err| kernels vs plain "
           f"{frame7_err:.3g} (queue {sv.stats}); at its own inputs march "
           f"max|err| ss={cfg_hi.render_ss} "
-          f"{march_err7[cfg_hi.render_ss]:.3g} (m={m7}, swap={swap7}), "
-          f"resolve max|err| {res_err7:.3g}")
+          f"{march_err7[cfg_hi.render_ss]:.3g} (m={m7}, swap={swap7}, ring "
+          f"(chunk slabs, rows, columns) {mi7.ring}), resolve gi_x/gi_y/ok bit-identical to "
+          f"screen_coords and image max|err| {res_err7:.3g} on the frame's "
+          f"camera and the orbit cameras (flip, swap) {seen7}")
 
     # ---- 11. hi-res timings ----------------------------------------------
     sv512 = vq.StaticVoxelizer(mb7.positions_norm, mb7.tris, 512)
@@ -914,15 +1047,25 @@ def main() -> int:
         return pipe7d.frame(consts7)
 
     render7 = {  # kernel ms, plain ms, bound at the 256^3 frame's inputs
-        "march": (cuda_ms(torch, lambda: march_cuda.march(*mi7.args())),
+        "march": (cuda_ms(torch, lambda: march_cuda.march(
+            *mi7.args(), ring=mi7.ring)),
                   cuda_ms(torch, lambda: march_cuda.march_plain(*mi7.args())),
                   march_bound(torch, mi7)),
-        "resolve": (cuda_ms(torch, lambda: screen_warp_cuda.resolve(*res_args7)),
-                    cuda_ms(torch,
-                            lambda: screen_warp_cuda.resolve_plain(*res_args7)),
+        "resolve": (cuda_ms(torch,
+                            lambda: screen_warp_cuda.resolve_screen(*res_args7)),
+                    cuda_ms(torch, lambda: screen_warp_cuda.resolve_screen_plain(
+                        *res_args7)),
                     resolve_bound(res_args7)),
     }
-    grid_sample7_ms = grid_sample_ms(torch, res_args7)
+    gs7 = grid_sample_call(torch, res_args7)
+    grid_sample7_ms = cuda_ms(torch, gs7)
+    dev_us7 = {
+        "march": device_us(torch, lambda: march_cuda.march(
+            *mi7.args(), ring=mi7.ring)),
+        "resolve": device_us(
+            torch, lambda: screen_warp_cuda.resolve_screen(*res_args7)),
+        "grid_sample": device_us(torch, gs7),
+    }
     hi_ms = {"static": cuda_ms(torch, frame7_kernels)}
     pipe7.sync()
     hi_ms["deform"] = cuda_ms(torch, frame7_deform)
@@ -942,12 +1085,15 @@ def main() -> int:
           f"{GRID_HI}^3 (re-bin + kernel) {deform_call_ms:.4f} ms (CUDA events "
           f"over {INNER} back-to-back runs, median of {REPS}); {card}")
     print(f"phase 11 at the {GRID_HI}^3 frame's inputs (m={m7}, "
-          f"{mi7.slabs.shape[1] * mi7.ss} sub-slabs): march "
-          f"{render7['march'][0]:.4f} ms (plain {render7['march'][1]:.4f} ms, "
-          f"bound {render7['march'][2]}), resolve {render7['resolve'][0]:.4f} "
-          f"ms (plain {render7['resolve'][1]:.4f} ms, bound "
-          f"{render7['resolve'][2]}, grid_sample {grid_sample7_ms:.4f} ms); "
-          f"{card}")
+          f"{mi7.slabs.shape[1] * mi7.ss} sub-slabs, ring (chunk slabs, rows, columns) "
+          f"{mi7.ring}): march {render7['march'][0]:.4f} ms, "
+          f"{dev_us7['march']:.2f} us device per call (plain "
+          f"{render7['march'][1]:.4f} ms, bound {render7['march'][2]}), "
+          f"resolve {render7['resolve'][0]:.4f} ms, {dev_us7['resolve']:.2f} "
+          f"us device per call (plain {render7['resolve'][1]:.4f} ms, bound "
+          f"{render7['resolve'][2]}, {resolve_hits(res_args7)} hit pixels), "
+          f"grid_sample {grid_sample7_ms:.4f} ms, "
+          f"{dev_us7['grid_sample']:.2f} us device per call; {card}")
     for name in ("static", "deform"):
         busy, per_frame, kus, peak = hi_prof[name]
         print(f"phase 11 frame {GRID_HI}^3 1280x720 -hq {name}: "
@@ -1162,6 +1308,7 @@ def main() -> int:
     for k in path_kernels["gen1"]:
         check(launches[k] >= FRAMES, f"gen-1: {k} launched {launches[k]} "
               f"times in {FRAMES} frames")
+    once_per_frame(launches, "gen-1 frames")
     for k, c in launches.items():
         main_launches[k] += c
     check(bool(torch.isfinite(img1).all()) and img1.shape == (720, 1280, 3),
@@ -1291,8 +1438,9 @@ def main() -> int:
           f"rows, {pairs_b} (column, triangle) pairs in bounding boxes; "
           f"queue {GRID_HI}^3 {rows_q} real rows, {pairs_q} pairs; march "
           f"{tuple(mi.slabs.shape)} slabs, {mi.slabs.shape[1] * mi.ss} "
-          f"sub-slabs, m={m}; resolve {int(res_args[4].sum())} of "
-          f"{cfg.width * cfg.height} pixels hit")
+          f"sub-slabs, m={m}; resolve {resolve_hits(res_args)} of "
+          f"{cfg.width * cfg.height} pixels hit, {SCREEN_MAP_OPS_PER_PIXEL} "
+          f"mapping operations per pixel")
 
     result = {"kernels": [
         {"name": k.name, "route": k.route, "source": k.source,

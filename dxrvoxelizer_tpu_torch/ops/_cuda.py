@@ -9,8 +9,10 @@ into one shared library, keyed by a hash of the sources and flags, in
 import every module but never build.
 
 Every C entry point takes raw device pointers and the CUDA stream as
-``void*``, launches on that stream, and returns ``cudaGetLastError()``;
-:func:`check` turns a non-zero code into an exception.
+``void*`` (the screen resolve, called once per frame on the host's critical
+path, takes them packed with its constants in one host buffer), launches on
+that stream, and returns ``cudaGetLastError()``; :func:`check` turns a
+non-zero code into an exception.
 """
 
 from __future__ import annotations
@@ -46,10 +48,11 @@ _SIGNATURES = {
     # coefs, chunk_tile, chunk_nsub, words, num_chunks, n, k_chunk, stream
     "dxv_parity_queue": (_P, _P, _P, _P, _I, _I, _I, _P),
     # slabs, wts, front, scale_x, off_x, scale_y, off_y, delta,
-    # transmit, scatter, kn, n, m, ss, stream
-    "dxv_march": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # scatter, transmit, gx, gy, ok, out, p, m, c0, c1, c2, stream
-    "dxv_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # transmit, scatter, kn, n, m, ss, cz, fx, fy4, stream
+    "dxv_march": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _I, _I, _P),
+    # one host buffer: the pointers, the stream and the per-frame constants
+    "dxv_resolve_screen": (ctypes.c_char_p,),
     # rays, cand_off, cand_cnt, rows, bounds, n_bounds, t, id, ns, strips,
     # t_count, threshold, rule_hit, stream
     "dxv_raystab_fold_extract": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
@@ -161,7 +164,9 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The device's current CUDA stream as an integer (the raw handle, with
+    no Stream object built on the way: the wrappers call this per launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

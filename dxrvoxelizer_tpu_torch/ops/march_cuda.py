@@ -9,7 +9,9 @@ rules (PSRayCast.hlsl:134-179).
 The warp is given as each sub-slab's scale and offset (x_in = scale *
 (i + 0.5) + offset per axis, ops/warp.py) instead of the dense [KS, M, N]
 interpolation matrices of the TPU kernel: the CUDA kernel rebuilds the two
-non-zero weights per pixel, the plain version builds the matrices.
+non-zero weights per pixel, the plain version builds the matrices. The
+kernel stages each 8x8 pixel tile's texel box of a few source slabs at a
+time in shared memory; :func:`march_ring` sizes that ring on the host.
 
 - :func:`march` is the wrapper: a CUDA tensor launches ``csrc/march.cu``; a
   CPU tensor takes the plain version.
@@ -20,6 +22,7 @@ non-zero weights per pixel, the plain version builds the matrices.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dxrvoxelizer_tpu_torch.ops import _cuda
@@ -32,6 +35,75 @@ KERNEL = _cuda.Kernel(
     source="dxrvoxelizer_tpu_torch/csrc/march.cu",
     replaces="dxrvoxelizer_tpu/ops/march_pallas.py:44",
 )
+
+
+TILE = 8  # pixels per side of a block's tile (csrc/march.cu kTile)
+CHUNK_SLABS = 4  # source slabs per chunk of the kernel's shared-memory ring
+# shared memory per block that leaves room for two blocks per SM (of 228 KB)
+RING_BUDGET = 110 * 1024
+
+
+def chunk_starts(kn: int, ss: int, cz: int = CHUNK_SLABS) -> list[int]:
+    """First sub-slab of each chunk: the sub-slabs whose first z-mix slab
+    (:func:`zmix_slabs` ``i0``) lies in source slabs [c*cz, (c+1)*cz)
+    (csrc/march.cu sub_begin)."""
+    ks = kn * ss
+    return [0 if z == 0 else min(ks, ss * z + ss // 2)
+            for z in range(0, kn, cz)]
+
+
+def march_footprint(scale_x, off_x, scale_y, off_y, m: int, n: int, ss: int,
+                    cz: int = CHUNK_SLABS) -> tuple[int, int]:
+    """The largest texel box that one TILE x TILE tile's taps read in any
+    chunk of ``cz`` source slabs -> (rows, columns), the columns from a
+    multiple of 4 and rounded up to one (16-byte TMA rows).
+
+    Per sub-slab and axis the box runs from the floor of the tile's first
+    pixel's coordinate to the floor of its last pixel's plus one, clamped
+    to the grid, with the kernel's float32 arithmetic; a chunk's box is the
+    union over its sub-slabs. ``scale_*``/``off_*`` [K*ss] on the host
+    (numpy or CPU tensors).
+    """
+    first = np.arange(0, m, TILE, dtype=np.int64)
+    last = np.minimum(first + TILE, m) - 1
+    starts = chunk_starts(len(scale_x) // ss, ss, cz)
+
+    def span(scale, off):
+        s = np.asarray(scale, np.float32)[:, None]
+        o = np.asarray(off, np.float32)[:, None]
+
+        def fl(p):  # floor(scale * (p + 0.5) + off), as the kernel rounds it
+            c = s * (p.astype(np.float32) + np.float32(0.5))[None, :] + o
+            return np.clip(np.floor(c), -2.0**30, 2.0**30).astype(np.int64)
+
+        fa, fb = fl(first), fl(last)
+        lo = np.clip(np.minimum(fa, fb), 0, n - 1)
+        hi = np.clip(np.maximum(fa, fb) + 1, 0, n - 1)
+        return (np.minimum.reduceat(lo, starts, axis=0),
+                np.maximum.reduceat(hi, starts, axis=0))
+
+    xl, xh = span(scale_x, off_x)
+    yl, yh = span(scale_y, off_y)
+    y0 = yl & ~3
+    rows = int((xh - xl + 1).max(initial=0))
+    cols = int((((yh + 1 - y0) + 3) // 4 * 4).max(initial=0))
+    return rows, cols
+
+
+def march_ring(scale_x, off_x, scale_y, off_y, m: int, n: int,
+               ss: int) -> tuple[int, int, int]:
+    """The kernel's shared-memory ring -> (source slabs per chunk, box rows,
+    box columns): CHUNK_SLABS slabs, or fewer where two stages of the
+    largest box (density and light, one slab more when z-mixing) and the
+    per-sub-slab tables would leave no room for two blocks per SM."""
+    ks = len(scale_x)
+    for cz in range(CHUNK_SLABS, 0, -1):
+        rows, cols = march_footprint(scale_x, off_x, scale_y, off_y, m, n, ss,
+                                     cz)
+        ring = 2 * 2 * (cz + (ss > 1)) * rows * cols * 4
+        if ring + ks * 24 + 4096 <= RING_BUDGET:
+            break
+    return cz, rows, cols
 
 
 def zmix_slabs(kn: int, ss: int, device) -> tuple[torch.Tensor, torch.Tensor,
@@ -88,12 +160,17 @@ def march_plain(slabs, wts, front, scale_x, off_x, scale_y, off_y, delta,
     return transmit, scatter
 
 
-def march(slabs, wts, front, scale_x, off_x, scale_y, off_y, delta, ss: int):
+def march(slabs, wts, front, scale_x, off_x, scale_y, off_y, delta, ss: int,
+          ring: tuple[int, int, int] | None = None):
     """Fused march -> (transmit [M, M], scatter [M, M]).
 
-    ``slabs`` [2, K, N, N] f32 (density, light; far axis first); ``wts``,
-    ``front``, ``scale_*``, ``off_*`` [K*ss] f32; ``delta`` [M, M] f32
-    per-pixel step lengths. A CPU tensor takes the plain version.
+    ``slabs`` [2, K, N, N] f32 (density, light; far axis first; N a
+    multiple of 4 for the kernel); ``wts``, ``front``, ``scale_*``,
+    ``off_*`` [K*ss] f32; ``delta`` [M, M] f32 per-pixel step lengths.
+    ``ring``: the kernel's shared-memory ring, (source slabs per chunk, box
+    rows, box columns) (:func:`march_ring`; the frame passes
+    ``MarchInputs.ring``); when None it is computed from ``scale_*``/
+    ``off_*``, copied to the host. A CPU tensor takes the plain version.
     """
     if slabs.device.type == "cpu":
         return march_plain(slabs, wts, front, scale_x, off_x, scale_y, off_y,
@@ -102,10 +179,17 @@ def march(slabs, wts, front, scale_x, off_x, scale_y, off_y, delta, ss: int):
     ks = kn * ss
     m = delta.shape[0]
     _cuda.require(slabs, "slabs", torch.float32, (2, kn, n, n))
+    if n % 4 or slabs.data_ptr() % 16:
+        raise ValueError(f"slabs: the kernel copies 16-byte rows: N = {n} "
+                         "must be a multiple of 4 and the data 16-byte aligned")
     for name, t in (("wts", wts), ("front", front), ("scale_x", scale_x),
                     ("off_x", off_x), ("scale_y", scale_y), ("off_y", off_y)):
         _cuda.require(t, name, torch.float32, (ks,))
     _cuda.require(delta, "delta", torch.float32, (m, m))
+    if ring is None:
+        ring = march_ring(scale_x.cpu(), off_x.cpu(), scale_y.cpu(),
+                          off_y.cpu(), m, n, ss)
+    cz, fx, fy4 = ring
     lib = _cuda.load()
     transmit = torch.empty((m, m), dtype=torch.float32, device=slabs.device)
     scatter = torch.empty((m, m), dtype=torch.float32, device=slabs.device)
@@ -113,7 +197,8 @@ def march(slabs, wts, front, scale_x, off_x, scale_y, off_y, delta, ss: int):
         slabs.data_ptr(), wts.data_ptr(), front.data_ptr(),
         scale_x.data_ptr(), off_x.data_ptr(), scale_y.data_ptr(),
         off_y.data_ptr(), delta.data_ptr(), transmit.data_ptr(),
-        scatter.data_ptr(), kn, n, m, ss, _cuda.stream_ptr(slabs.device),
+        scatter.data_ptr(), kn, n, m, ss, cz, fx, fy4,
+        _cuda.stream_ptr(slabs.device),
     )
     _cuda.check(code, KERNEL.name)
     KERNEL.launches += 1

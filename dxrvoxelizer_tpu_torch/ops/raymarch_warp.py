@@ -11,9 +11,10 @@
 3. **Light transmittance** comes from a slab-order recurrence along the
    light's major axis (:func:`light_sweep`, or the reference-step
    :func:`light_sweep_ref` of the ``-hq`` default) — torch tensor ops.
-4. **Screen resolve**: each screen pixel bilinearly reads the composited
-   intermediate at one point and is composited to RGB — the second CUDA
-   kernel (ops/screen_warp_cuda.py).
+4. **Screen resolve**: each screen pixel finds where its ray meets the
+   intermediate plane and whether it hits the volume, bilinearly reads the
+   composited intermediate there and is composited to RGB — the second
+   CUDA kernel, one launch per frame (ops/screen_warp_cuda.py).
 
 Host-side statics (major axis, flip, intermediate size, light-step window)
 stay numpy, as in the JAX package; the small per-slab vectors are computed
@@ -27,20 +28,21 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dxrvoxelizer_tpu_torch.ops.march_cuda import march, march_plain, zmix_slabs
+from dxrvoxelizer_tpu_torch.ops.march_cuda import (
+    march,
+    march_plain,
+    march_ring,
+    zmix_slabs,
+)
 from dxrvoxelizer_tpu_torch.ops.raymarch_ref import ABSORPTION, MAX_DIST, TEX_SCALE
-from dxrvoxelizer_tpu_torch.ops.screen_warp_cuda import resolve, resolve_plain
-from dxrvoxelizer_tpu_torch.ops.warp import interp_matrix
+from dxrvoxelizer_tpu_torch.ops.screen_warp_cuda import (
+    resolve_screen,
+    resolve_screen_plain,
+)
+from dxrvoxelizer_tpu_torch.ops.warp import interp_matrix, perm_for_axis
 
 Z_REF = 1.25  # reference plane (tex space), just past the far slab
 S_MIN = 0.05  # near clipping for slabs almost at the eye plane
-_BIG = 3.402823466e38  # FLT_MAX: "no hit yet"
-
-
-def _perm_for_axis(axis: int) -> tuple[int, ...]:
-    """Permutation moving ``axis`` last, keeping the other two in order."""
-    rest = [a for a in range(3) if a != axis]
-    return (*rest, axis)
 
 
 def _f32(x) -> torch.Tensor:
@@ -98,7 +100,7 @@ def light_sweep(density: torch.Tensor, light_local: np.ndarray,
     light = _f32(light_local)
     ld_n = light / torch.linalg.norm(light)
     ld_t = _f32(TEX_SCALE) * ld_n
-    perm = _perm_for_axis(axis)
+    perm = perm_for_axis(axis)
     ld = ld_t[list(perm)]
     if flip:
         ld = ld * _f32([1.0, 1.0, -1.0])
@@ -180,7 +182,7 @@ def light_sweep_ref(density: torch.Tensor, light_local: np.ndarray,
     light = _f32(light_local)
     ld = light / torch.linalg.norm(light)
     s_full = _f32(TEX_SCALE) * ld * ls  # tex-space step vector
-    perm = _perm_for_axis(axis)
+    perm = perm_for_axis(axis)
     s_t = s_full[list(perm)]
     if flip:
         s_t = s_t * _f32([1.0, 1.0, -1.0])
@@ -287,6 +289,7 @@ class MarchInputs:
     c_ref: float  # reference-plane distance from the eye
     gmin: tuple[float, float]  # intermediate footprint on the plane
     gext: tuple[float, float]
+    ring: tuple[int, int, int]  # the march kernel's ring (march_cuda.march_ring)
 
     def args(self) -> tuple:
         return (self.slabs, self.wts, self.front, self.scale_x, self.off_x,
@@ -298,7 +301,7 @@ def march_inputs(density: torch.Tensor, light_vol: torch.Tensor,
                  ss: int) -> MarchInputs:
     """Slab stack, per-(sub-)slab warp parameters and step lengths."""
     device = density.device
-    perm = _perm_for_axis(axis)
+    perm = perm_for_axis(axis)
     slabs = torch.stack(
         [_to_slab_order(density, perm, flip), _to_slab_order(light_vol, perm, flip)]
     ).contiguous()  # [2, K, X, Y]
@@ -351,65 +354,8 @@ def march_inputs(density: torch.Tensor, light_vol: torch.Tensor,
         e_xy=(e_xy[0].item(), e_xy[1].item()), c_ref=c_ref.item(),
         gmin=(gmin[0].item(), gmin[1].item()),
         gext=(gext[0].item(), gext[1].item()),
+        ring=march_ring(scale_x, off_x, scale_y, off_y, m, n, ss),
     )
-
-
-def screen_coords(screen_to_local: np.ndarray, eye_local: np.ndarray,
-                  width: int, height: int, axis: int, flip: bool, m: int,
-                  mi: MarchInputs, device) -> tuple[torch.Tensor, ...]:
-    """Per-pixel intermediate coordinates (gi_x, gi_y) [H*W] and the hit
-    mask ``ok`` — the ray/box entry test of ComputeStartPoint
-    (PSRayCast.hlsl:71-98), planar per component."""
-    s_m = np.asarray(screen_to_local, np.float32)
-    eye = np.asarray(eye_local, np.float32)
-    sx = torch.arange(width, dtype=torch.float32, device=device) + 0.5
-    sy = torch.arange(height, dtype=torch.float32, device=device) + 0.5
-    px, py = torch.meshgrid(sx, sy, indexing="xy")  # [H, W]
-    pxf = px.reshape(-1)
-    pyf = py.reshape(-1)
-    h = [pxf * float(s_m[0, c]) + pyf * float(s_m[1, c]) + float(s_m[3, c])
-         for c in range(4)]
-    pn = [h[c] / h[3] for c in range(3)]
-    d = [pn[c] - float(eye[c]) for c in range(3)]
-    d_len = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    dn = [d[c] / d_len for c in range(3)]
-
-    inside = (
-        (torch.abs(pn[0]) <= 1.0)
-        & (torch.abs(pn[1]) <= 1.0)
-        & (torch.abs(pn[2]) <= 1.0)
-    )
-    u_best = torch.full_like(pxf, _BIG)
-    hit = torch.zeros_like(pxf, dtype=torch.bool)
-    for i in range(3):
-        j, k2 = (i + 1) % 3, (i + 2) % 3
-        di = dn[i]
-        nz = di != 0.0
-        u = torch.where(
-            nz, (-torch.sign(di) - pn[i]) / torch.where(nz, di, 1.0), _BIG
-        )
-        okc = (
-            (u >= 0.0)
-            & (torch.abs(dn[j] * u + pn[j]) <= 1.0)
-            & (torch.abs(dn[k2] * u + pn[k2]) <= 1.0)
-            & (u < u_best)
-        )
-        u_best = torch.where(okc, u, u_best)
-        hit = hit | okc
-    is_hit = inside | hit
-
-    perm = _perm_for_axis(axis)
-    d_t = [dn[perm[c]] * float(TEX_SCALE[perm[c]]) for c in range(3)]
-    if flip:
-        d_t[2] = -d_t[2]
-    dz = d_t[2]
-    valid = torch.abs(dz) > 1e-6
-    safe_dz = torch.where(valid, dz, 1.0)
-    g_px = mi.e_xy[0] + mi.c_ref * d_t[0] / safe_dz
-    g_py = mi.e_xy[1] + mi.c_ref * d_t[1] / safe_dz
-    gi_x = (g_px - mi.gmin[0]) / mi.gext[0] * m - 0.5
-    gi_y = (g_py - mi.gmin[1]) / mi.gext[1] * m - 0.5
-    return gi_x, gi_y, is_hit & valid
 
 
 def _shearwarp_core(
@@ -431,18 +377,13 @@ def _shearwarp_core(
     """March + resolve one frame -> [H, W, 3] f32. ``use_kernels=False``
     runs the plain versions of both kernels (on any device)."""
     mi = march_inputs(density, light_vol, eye_local, n, m, axis, flip, ss)
-    march_fn = march if use_kernels else march_plain
-    transmit_i, scatter_i = march_fn(*mi.args())
-    gi_x, gi_y, ok = screen_coords(screen_to_local, eye_local, width, height,
-                                   axis, flip, m, mi, density.device)
-    if swap:
-        # intermediate rows then track screen rows
-        scatter_i = scatter_i.t().contiguous()
-        transmit_i = transmit_i.t().contiguous()
-        gi_x, gi_y = gi_y, gi_x
-    resolve_fn = resolve if use_kernels else resolve_plain
-    return resolve_fn(scatter_i, transmit_i, gi_x, gi_y, ok, clear_color,
-                      height, width)
+    statics = (screen_to_local, eye_local, clear_color, width, height, axis,
+               flip, swap, mi)
+    if use_kernels:
+        transmit_i, scatter_i = march(*mi.args(), ring=mi.ring)
+        return resolve_screen(scatter_i, transmit_i, *statics)
+    transmit_i, scatter_i = march_plain(*mi.args())
+    return resolve_screen_plain(scatter_i, transmit_i, *statics)[0]
 
 
 def _box_screen_px(screen_to_local: np.ndarray, width: int, height: int) -> float:

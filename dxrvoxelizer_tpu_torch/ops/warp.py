@@ -14,6 +14,12 @@ from __future__ import annotations
 import torch
 
 
+def perm_for_axis(axis: int) -> tuple[int, ...]:
+    """Permutation moving ``axis`` last, keeping the other two in order."""
+    rest = [a for a in range(3) if a != axis]
+    return (*rest, axis)
+
+
 def interp_matrix(coords: torch.Tensor, n_in: int) -> torch.Tensor:
     """Rows of 2-tap linear-interpolation weights.
 

@@ -104,43 +104,158 @@ def test_deforming_call_is_sync_free(dev):
         wob, dv.tris, 256))
 
 
-def _march_case(n, m, ss, seed=7):
+def _march_case(n, m, ss, seed=7, scale=(0.6, 1.1), p_occ=0.15):
     """Random slabs + per-slab scale/offset warps spilling past the edges."""
     rng = np.random.default_rng(seed)
     ks = n * ss
-    slabs = ((rng.random((2, n, n, n)) < 0.15) * rng.random((2, n, n, n))
+    slabs = ((rng.random((2, n, n, n)) < p_occ) * rng.random((2, n, n, n))
              ).astype(np.float32)
     wts = march_cuda.zmix_slabs(n, ss, "cpu")[2].numpy()
     if ss == 1:
         wts = np.zeros(ks, np.float32)
     front = (rng.random(ks) > 0.1).astype(np.float32)
-    scale = (0.6 + 0.5 * rng.random((2, ks))).astype(np.float32)
+    sc = (scale[0] + (scale[1] - scale[0]) * rng.random((2, ks))).astype(np.float32)
     off = (rng.random((2, ks)) * 6.0 - 4.0).astype(np.float32)
     delta = (0.02 + 0.05 * rng.random((m, m))).astype(np.float32)
-    return slabs, wts, front, scale[0], off[0], scale[1], off[1], delta
+    return slabs, wts, front, sc[0], off[0], sc[1], off[1], delta
+
+
+def _march_vs_plain(dev, case, ss, ring=None):
+    args = [torch.from_numpy(a).to(dev) for a in case]
+    t_k, s_k = march_cuda.march(*args, ss, ring=ring)
+    t_p, s_p = march_cuda.march_plain(*args, ss)
+    assert float((t_k - t_p).abs().max()) <= 2e-6
+    assert float((s_k - s_p).abs().max()) <= 2e-6
+    return t_p, s_p
 
 
 @pytest.mark.parametrize("ss", [1, 2])
 def test_march_kernel_matches_plain(dev, ss):
-    args = [torch.from_numpy(a).to(dev) for a in _march_case(64, 96, ss)]
-    t_k, s_k = march_cuda.march(*args, ss)
-    t_p, s_p = march_cuda.march_plain(*args, ss)
-    assert float((t_k - t_p).abs().max()) <= 2e-6
-    assert float((s_k - s_p).abs().max()) <= 2e-6
+    _march_vs_plain(dev, _march_case(64, 96, ss), ss)
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+@pytest.mark.parametrize("case", ["wide", "dies_early", "ragged", "m512",
+                                  "from_global"])
+def test_redesigned_march_kernel_matches_plain(dev, case, ss):
+    """The tiled march against its plain version within 2e-6: texel boxes
+    wider than a tile (scales above 2), tiles whose every pixel dies within
+    a few sub-slabs (the block-wide exit), M not a multiple of the 8-pixel
+    tile, M = 512, and a ring too small for any box (every sub-slab read
+    from global memory) or for some of them."""
+    if case == "wide":
+        c = _march_case(64, 48, ss, scale=(2.2, 3.5))
+        assert march_cuda.march_footprint(*c[3:7], 48, 64, ss)[0] > march_cuda.TILE
+        _march_vs_plain(dev, c, ss)
+    elif case == "dies_early":
+        c = _march_case(32, 32, ss)  # every pixel inside every slab
+        sc, off = np.full_like(c[3], 0.95), np.zeros_like(c[4])
+        c = (np.ones_like(c[0]), c[1], np.ones_like(c[2]), sc, off, sc, off,
+             np.full_like(c[7], 0.3))
+        t_p, _ = _march_vs_plain(dev, c, ss)
+        assert float(t_p.max()) < 0.01
+    elif case == "ragged":
+        _march_vs_plain(dev, _march_case(64, 45, ss, seed=3), ss)
+    elif case == "m512":
+        _march_vs_plain(dev, _march_case(64, 512, ss, seed=5), ss)
+    else:
+        c = _march_case(32, 40, ss, seed=9, scale=(1.5, 3.0))
+        _march_vs_plain(dev, c, ss, ring=(4, 0, 0))
+        _march_vs_plain(dev, c, ss, ring=(4, 12, 16))
+        _march_vs_plain(dev, c, ss, ring=(1, *march_cuda.march_footprint(
+            *c[3:7], 40, 32, ss, 1)))
+
+
+def test_march_kernel_at_frame_inputs_and_m_cap(dev):
+    """march_inputs' tables at 64^3 for M = 32 and 512 (m_cap's range)."""
+    from dxrvoxelizer_tpu_torch.ops.raymarch_warp import march_inputs
+
+    rng = np.random.default_rng(2)
+    dens = torch.from_numpy((rng.random((64,) * 3) < 0.2).astype(np.float32)).to(dev)
+    light = torch.from_numpy(rng.random((64,) * 3).astype(np.float32)).to(dev)
+    s2l, eye = _orbit_consts(0.0)
+    for m in (32, 512):
+        for ss in (1, 2):
+            mi = march_inputs(dens, light, eye, 64, m, 2, False, ss)
+            t_k, s_k = march_cuda.march(*mi.args(), ring=mi.ring)
+            t_p, s_p = march_cuda.march_plain(*mi.args())
+            assert float((t_k - t_p).abs().max()) <= 2e-6
+            assert float((s_k - s_p).abs().max()) <= 2e-6
 
 
 def test_resolve_kernel_matches_plain(dev):
-    rng = np.random.default_rng(4)
-    m, h, w = 128, 72, 128
-    sc, tr = (torch.from_numpy(rng.random((m, m)).astype(np.float32)).to(dev)
-              for _ in range(2))
-    gx, gy = (torch.from_numpy((rng.random(h * w) * (m + 8) - 4)
+    """The fused resolve on random intermediates: image, coordinates and
+    mask against screen_coords + resolve_plain on the default camera."""
+    _resolve_vs_plain(dev, 0.0, 128)
+
+
+def _orbit_consts(yaw, dy=0.0, w=1280, h=720):
+    from dxrvoxelizer_tpu_torch.utils import dxmath as dxm
+
+    cam = OrbitCamera(w, h)
+    if yaw or dy:
+        cam.orbit(yaw * w, dy)
+    world = dxm.world_matrix(np.array([0.0, 4.0, 0.0, 2.0], np.float32),
+                             np.array([0, 0, 0, 1], np.float32))
+    s2l = dxm.screen_to_local(world, cam.view_proj, w, h).astype(np.float32)
+    eye = dxm.transform_coord(cam.eye, dxm.inverse(world)).astype(np.float32)
+    return s2l, eye
+
+
+def _resolve_vs_plain(dev, yaw, m, dy=0.0, w=1280, h=720):
+    from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
+        march_inputs,
+        shearwarp_statics,
+    )
+
+    s2l, eye = _orbit_consts(yaw, dy, w, h)
+    axis, flip, swap, _ = shearwarp_statics(s2l, eye, w, h)
+    zero = torch.zeros((64,) * 3, device=dev)
+    mi = march_inputs(zero, zero, eye, 64, m, axis, flip, 2)
+    rng = np.random.default_rng(m)
+    sc, tr = (torch.from_numpy((rng.random((m, m)) * 1.2 - 0.1)
                                .astype(np.float32)).to(dev) for _ in range(2))
-    ok = torch.from_numpy(rng.random(h * w) > 0.2).to(dev)
     clear = np.array([0.0, 0.2, 0.4], np.float32)
-    a = screen_warp_cuda.resolve(sc, tr, gx, gy, ok, clear, h, w)
-    b = screen_warp_cuda.resolve_plain(sc, tr, gx, gy, ok, clear, h, w)
-    assert float((a - b).abs().max()) <= 1e-6
+    got = screen_warp_cuda.resolve_screen(sc, tr, s2l, eye, clear, w, h, axis,
+                                          flip, swap, mi, coords=True)
+    want = screen_warp_cuda.resolve_screen_plain(sc, tr, s2l, eye, clear, w,
+                                                 h, axis, flip, swap, mi)
+    for a, b in zip(got[1:], want[1:]):  # gi_x, gi_y, ok: bit for bit
+        assert torch.equal(a, b)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5
+    ok = want[3].reshape(h, w)
+    edge = (ok[:, 1:] != ok[:, :-1]).sum() + (ok[1:] != ok[:-1]).sum()
+    assert 0 < int(ok.sum()) < w * h and int(edge) > 0  # a silhouette
+    return flip, swap
+
+
+@pytest.mark.parametrize("m", [32, 128, 512])
+def test_fused_resolve_bit_identical_mapping(dev, m):
+    """gi_x, gi_y and ok equal screen_coords' bit for bit and the image is
+    within 1e-5 of the plain path, on cameras with swap and flip on and off
+    (orbits by a quarter turn, and two pitched ones)."""
+    seen = set()
+    for yaw, dy in ((0.0, 0.0), (0.25, 0.0), (0.5, 0.0), (0.75, 0.0),
+                    (0.0, -150.0), (0.0, 200.0)):
+        seen.add(_resolve_vs_plain(dev, yaw, m, dy))
+    assert seen == {(False, False), (False, True), (True, False), (True, True)}
+
+
+def test_fused_resolve_grazing_silhouette(dev):
+    """Odd frame sizes at other yaws put pixel centres at other distances
+    from the box's silhouette: the mask stays bit for bit there too."""
+    for yaw in (0.1, 0.35, 0.6):
+        _resolve_vs_plain(dev, yaw, 64, w=333, h=211)
+
+
+def test_torch_cuda_division_by_a_scalar_is_a_reciprocal_multiply(dev):
+    """csrc/screen_warp.cu reproduces PyTorch's CUDA true division by a CPU
+    scalar as a multiplication by the scalar's float32 reciprocal."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.random(1 << 16) * 200 - 100).astype(np.float32)).to(dev)
+    for s in (1.7182818, 0.3, 3.1415927, 1.3371):
+        inv = np.float32(1.0) / np.float32(s)
+        assert torch.equal(x / s, x * float(inv))
 
 
 @pytest.mark.parametrize("ss", [1, 2])

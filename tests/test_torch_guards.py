@@ -7,6 +7,7 @@ from __future__ import annotations
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -123,6 +124,12 @@ def _meta_mt(s=2, v=300, p=40):
         rows=_meta(p, 12))
 
 
+def _meta_map():
+    """The reference-plane geometry resolve_screen reads from MarchInputs."""
+    return SimpleNamespace(e_xy=(0.5, 0.5), c_ref=1.0, gmin=(0.0, 0.0),
+                           gext=(1.0, 1.0))
+
+
 @pytest.mark.parametrize("kernel", ["parity_voxelize", "parity_queue", "march",
                                     "resolve", "raystab_fold_extract",
                                     "raystab_fold", "raystab_mt",
@@ -149,12 +156,12 @@ def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
         elif kernel == "march":
             v = _meta(32)
             march_cuda.march(_meta(2, 32, 32, 32), v, v, v, v, v, v,
-                             _meta(16, 16), 1)
+                             _meta(16, 16), 1, ring=(4, 4, 8))
         else:
-            p = _meta(6)
-            screen_warp_cuda.resolve(_meta(8, 8), _meta(8, 8), p, p,
-                                     _meta(6, dtype=torch.bool),
-                                     np.zeros(3, np.float32), 2, 3)
+            screen_warp_cuda.resolve_screen(
+                _meta(8, 8), _meta(8, 8), np.eye(4, dtype=np.float32),
+                np.zeros(3, np.float32), np.zeros(3, np.float32), 3, 2, 2,
+                False, True, _meta_map())
     after = {k.name: k.launches for k in KERNELS}
     assert after == launches
 
@@ -182,6 +189,15 @@ def test_wrapper_on_a_box_without_cuda_raises_not_falls_back(monkeypatch):
     for tb in (_meta_mt(), _meta_mt(s=3, p=320)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             raystab_mt_cuda.closest_hit(tb)
+    v = _meta(32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        march_cuda.march(_meta(2, 32, 32, 32), v, v, v, v, v, v,
+                         _meta(16, 16), 1, ring=(4, 4, 8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        screen_warp_cuda.resolve_screen(
+            _meta(8, 8), _meta(8, 8), np.eye(4, dtype=np.float32),
+            np.zeros(3, np.float32), np.zeros(3, np.float32), 3, 2, 2, False,
+            True, _meta_map(), coords=True)
     assert {k.name: k.launches for k in KERNELS} == before
 
 

@@ -178,8 +178,8 @@ def test_plain_resolve_composite_matches_jax():
                   cc[c])
         for c in range(3)
     ], axis=-1).reshape(h, w, 3)
-    got = screen_warp_cuda.resolve(_t(sc), _t(tr), _t(gx), _t(gy), _t(ok),
-                                   CLEAR, h, w)
+    got = screen_warp_cuda.resolve_plain(_t(sc), _t(tr), _t(gx), _t(gy),
+                                         _t(ok), CLEAR, h, w)
     assert got.shape == (h, w, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
 
