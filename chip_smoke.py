@@ -29,8 +29,12 @@ the CUDA toolkit. Phases, one line each:
    of each kernel, its plain version, and the whole frame; the device time
    per call (profiler) of the march, the resolve and its yardstick
    ``grid_sample``; the resolve wrapper's host time per call beside one
-   elementwise torch op's; then a profiler window of 5 frames for the
-   device time per kernel and the idle share;
+   elementwise torch op's; the march set-up's host time per frame and its
+   ring sizing's; then a profiler window of 5 frames for the device time
+   per kernel and the idle share;
+5b. the march at the 64^3 frame's inputs across intermediate sizes M = 64,
+    128, 256 and sub-slab counts KS = 64, 128 (ss = 1, 2): CUDA-event ms
+    and profiler device us per call;
 6. the hi-res app frame: ``-grid 256``, 4 frames, on the 327,680-triangle
    icosphere at the same footprint (the stand-in for the hi-res dragon):
    the work-queue kernel must launch once per frame, the binned one never;
@@ -774,7 +778,7 @@ def main() -> int:
         """March and resolve against their plain versions at the inputs
         the frame gives them, the resolve also on the ORBIT_YAWS cameras ->
         (march inputs, resolve args, march error per ss, resolve error, m,
-        swap, the (flip, swap) the cameras set)."""
+        swap, the (flip, swap) the cameras set, (density, light))."""
         density = VoxelGrid(words=words).density()
         light = light_sweep_ref_host(density, consts_.local_space_light_pt, n)
         axis, flip, swap, m = shearwarp_statics(
@@ -814,9 +818,9 @@ def main() -> int:
             seen.add((f_o, sw_o))
         check(any(f for f, _ in seen) and any(w for _, w in seen),
               f"the orbit cameras set no flip or no swap: {seen}")
-        return mi_, args, m_err, r_err, m, swap, sorted(seen)
+        return mi_, args, m_err, r_err, m, swap, sorted(seen), (density, light)
 
-    mi, res_args, march_err, res_err, m, swap, seen = render_case(
+    mi, res_args, march_err, res_err, m, swap, seen, vols = render_case(
         words_main, consts, cfg, GRID, (1, 2), scene)
     errs["march"] = max(march_err.values())
     errs["resolve"] = res_err
@@ -895,6 +899,17 @@ def main() -> int:
     op_host_us = host_us(torch, lambda: torch.mul(res_args[0], 0.8))
     empty_host_us = host_us(torch, lambda: torch.empty(
         (cfg.height, cfg.width, 3), dtype=torch.float32, device=dev))
+    # the march set-up's host time per frame (march_inputs as the frame
+    # calls it) and that of the ring sizing inside it (march_ring on the CPU
+    # tensors march_inputs hands it), the host cost of the kernel's
+    # shared-memory ring
+    axis, flip = res_args[7], res_args[8]
+    eye = consts.local_space_eye_pt
+    mi_host_us = host_us(torch, lambda: march_inputs(
+        *vols, eye, GRID, m, axis, flip, cfg.render_ss), calls=50)
+    ring_in = [t.cpu() for t in (mi.scale_x, mi.off_x, mi.scale_y, mi.off_y)]
+    ring_host_us = host_us(torch, lambda: march_cuda.march_ring(
+        *ring_in, m, GRID, cfg.render_ss))
     frame_ms = cuda_ms(torch, frame_kernels)
     pipe.sync()
     frame_plain_ms = cuda_ms(torch, frame_plain)
@@ -922,7 +937,27 @@ def main() -> int:
           f"{dev_us['grid_sample']:.2f} us device per call; resolve wrapper "
           f"host {wrap_host_us:.2f} us per call, one torch.mul "
           f"{op_host_us:.2f} us, one torch.empty of the image "
-          f"{empty_host_us:.2f} us; {card}")
+          f"{empty_host_us:.2f} us; march set-up (march_inputs) host "
+          f"{mi_host_us:.2f} us per frame, of which the ring sizing "
+          f"(march_ring) {ring_host_us:.2f} us; {card}")
+
+    # ---- 5b. the march across intermediate sizes and sub-slab counts -----
+    # at the 64^3 frame's inputs, M = 64, 128, 256 and ss = 1, 2 (KS = 64,
+    # 128): a latency chain per step shows as time that follows KS and stays
+    # flat in M while M^2 threads underfill the card
+    sweep = []
+    for ss in (1, 2):
+        for m_s in (64, 128, 256):
+            mi_s = march_inputs(*vols, eye, GRID, m_s, axis, flip, ss)
+
+            def march_s(mi_s=mi_s):
+                return march_cuda.march(*mi_s.args(), ring=mi_s.ring)
+
+            sweep.append(f"M={m_s} KS={GRID * ss} ring {mi_s.ring} "
+                         f"{cuda_ms(torch, march_s):.4f} ms "
+                         f"{device_us(torch, march_s):.2f} us")
+    print(f"phase 5b march at the {GRID}^3 frame's inputs (CUDA-event ms and "
+          f"profiler device us per call): " + "; ".join(sweep) + f"; {card}")
 
     # ---- 8. the deforming call is sync-free ------------------------------
     mb7 = scene7.buffers
@@ -1012,7 +1047,7 @@ def main() -> int:
     check(bool(torch.isfinite(f7_k).all()) and f7_k.shape == (720, 1280, 3),
           "256^3 frame not finite or misshapen")
     check(frame7_err <= TOL_FRAME, f"256^3 frame differs by {frame7_err:.3g}")
-    mi7, res_args7, march_err7, res_err7, m7, swap7, seen7 = render_case(
+    mi7, res_args7, march_err7, res_err7, m7, swap7, seen7, _ = render_case(
         sv(), consts7, cfg_hi, GRID_HI, (cfg_hi.render_ss,), scene7)
     errs["march"] = max(errs["march"], march_err7[cfg_hi.render_ss])
     errs["resolve"] = max(errs["resolve"], res_err7)

@@ -52,42 +52,48 @@ def chunk_starts(kn: int, ss: int, cz: int = CHUNK_SLABS) -> list[int]:
             for z in range(0, kn, cz)]
 
 
+def _tile_boxes(scale_x, off_x, scale_y, off_y, m: int):
+    """Per sub-slab and TILE x TILE tile, the texel box its taps read ->
+    (lo, hi), [2 axes (x, y), K*ss, tiles] each, not yet clamped to the
+    grid (integral float32).
+
+    Per axis the box runs from the floor of the tile's first pixel's
+    coordinate to the floor of its last pixel's plus one, with the kernel's
+    float32 arithmetic."""
+    first = np.arange(0, m, TILE)
+    ends = np.concatenate([first, np.minimum(first + TILE, m) - 1])
+    so = np.stack([np.asarray(a, np.float32)
+                   for a in (scale_x, scale_y, off_x, off_y)])[..., None]
+    # floor(scale * (p + 0.5) + off), as the kernel rounds it;
+    # [axis, sub-slab, first/last pixel, tile]
+    f = np.floor(so[:2] * (ends.astype(np.float32) + np.float32(0.5))
+                 + so[2:]).reshape(2, -1, 2, len(first))
+    a, b = f[:, :, 0], f[:, :, 1]
+    return np.minimum(a, b), np.maximum(a, b) + 1
+
+
+def _chunk_box(boxes, starts: list[int], n: int) -> tuple[int, int]:
+    """The largest union of :func:`_tile_boxes` over a chunk's sub-slabs
+    (chunks begin at ``starts``), clamped to the grid -> (rows, columns
+    from a multiple of 4). Clamping commutes with the union."""
+    lo = np.minimum.reduceat(boxes[0], starts, axis=1).clip(0, n - 1)
+    hi = np.maximum.reduceat(boxes[1], starts, axis=1).clip(0, n - 1)
+    rows = int((hi[0] - lo[0] + 1).max(initial=0))
+    y0 = lo[1] // 4 * 4
+    cols = int(((hi[1] + 1 - y0 + 3) // 4 * 4).max(initial=0))
+    return rows, cols
+
+
 def march_footprint(scale_x, off_x, scale_y, off_y, m: int, n: int, ss: int,
                     cz: int = CHUNK_SLABS) -> tuple[int, int]:
     """The largest texel box that one TILE x TILE tile's taps read in any
     chunk of ``cz`` source slabs -> (rows, columns), the columns from a
-    multiple of 4 and rounded up to one (16-byte TMA rows).
-
-    Per sub-slab and axis the box runs from the floor of the tile's first
-    pixel's coordinate to the floor of its last pixel's plus one, clamped
-    to the grid, with the kernel's float32 arithmetic; a chunk's box is the
-    union over its sub-slabs. ``scale_*``/``off_*`` [K*ss] on the host
-    (numpy or CPU tensors).
+    multiple of 4 and rounded up to one (16-byte TMA rows); a chunk's box is
+    the union of its sub-slabs' boxes (:func:`_tile_boxes`).
+    ``scale_*``/``off_*`` [K*ss] on the host (numpy or CPU tensors).
     """
-    first = np.arange(0, m, TILE, dtype=np.int64)
-    last = np.minimum(first + TILE, m) - 1
-    starts = chunk_starts(len(scale_x) // ss, ss, cz)
-
-    def span(scale, off):
-        s = np.asarray(scale, np.float32)[:, None]
-        o = np.asarray(off, np.float32)[:, None]
-
-        def fl(p):  # floor(scale * (p + 0.5) + off), as the kernel rounds it
-            c = s * (p.astype(np.float32) + np.float32(0.5))[None, :] + o
-            return np.clip(np.floor(c), -2.0**30, 2.0**30).astype(np.int64)
-
-        fa, fb = fl(first), fl(last)
-        lo = np.clip(np.minimum(fa, fb), 0, n - 1)
-        hi = np.clip(np.maximum(fa, fb) + 1, 0, n - 1)
-        return (np.minimum.reduceat(lo, starts, axis=0),
-                np.maximum.reduceat(hi, starts, axis=0))
-
-    xl, xh = span(scale_x, off_x)
-    yl, yh = span(scale_y, off_y)
-    y0 = yl & ~3
-    rows = int((xh - xl + 1).max(initial=0))
-    cols = int((((yh + 1 - y0) + 3) // 4 * 4).max(initial=0))
-    return rows, cols
+    return _chunk_box(_tile_boxes(scale_x, off_x, scale_y, off_y, m),
+                      chunk_starts(len(scale_x) // ss, ss, cz), n)
 
 
 def march_ring(scale_x, off_x, scale_y, off_y, m: int, n: int,
@@ -95,11 +101,12 @@ def march_ring(scale_x, off_x, scale_y, off_y, m: int, n: int,
     """The kernel's shared-memory ring -> (source slabs per chunk, box rows,
     box columns): CHUNK_SLABS slabs, or fewer where two stages of the
     largest box (density and light, one slab more when z-mixing) and the
-    per-sub-slab tables would leave no room for two blocks per SM."""
+    per-sub-slab tables would leave no room for two blocks per SM. The
+    per-sub-slab boxes are computed once; each chunk size only unites them."""
     ks = len(scale_x)
+    boxes = _tile_boxes(scale_x, off_x, scale_y, off_y, m)
     for cz in range(CHUNK_SLABS, 0, -1):
-        rows, cols = march_footprint(scale_x, off_x, scale_y, off_y, m, n, ss,
-                                     cz)
+        rows, cols = _chunk_box(boxes, chunk_starts(ks // ss, ss, cz), n)
         ring = 2 * 2 * (cz + (ss > 1)) * rows * cols * 4
         if ring + ks * 24 + 4096 <= RING_BUDGET:
             break
@@ -161,16 +168,15 @@ def march_plain(slabs, wts, front, scale_x, off_x, scale_y, off_y, delta,
 
 
 def march(slabs, wts, front, scale_x, off_x, scale_y, off_y, delta, ss: int,
-          ring: tuple[int, int, int] | None = None):
+          *, ring: tuple[int, int, int]):
     """Fused march -> (transmit [M, M], scatter [M, M]).
 
     ``slabs`` [2, K, N, N] f32 (density, light; far axis first; N a
     multiple of 4 for the kernel); ``wts``, ``front``, ``scale_*``,
     ``off_*`` [K*ss] f32; ``delta`` [M, M] f32 per-pixel step lengths.
     ``ring``: the kernel's shared-memory ring, (source slabs per chunk, box
-    rows, box columns) (:func:`march_ring`; the frame passes
-    ``MarchInputs.ring``); when None it is computed from ``scale_*``/
-    ``off_*``, copied to the host. A CPU tensor takes the plain version.
+    rows, box columns), sized on the host by :func:`march_ring` (the frame
+    passes ``MarchInputs.ring``). A CPU tensor takes the plain version.
     """
     if slabs.device.type == "cpu":
         return march_plain(slabs, wts, front, scale_x, off_x, scale_y, off_y,
@@ -186,9 +192,6 @@ def march(slabs, wts, front, scale_x, off_x, scale_y, off_y, delta, ss: int,
                     ("off_x", off_x), ("scale_y", scale_y), ("off_y", off_y)):
         _cuda.require(t, name, torch.float32, (ks,))
     _cuda.require(delta, "delta", torch.float32, (m, m))
-    if ring is None:
-        ring = march_ring(scale_x.cpu(), off_x.cpu(), scale_y.cpu(),
-                          off_y.cpu(), m, n, ss)
     cz, fx, fy4 = ring
     lib = _cuda.load()
     transmit = torch.empty((m, m), dtype=torch.float32, device=slabs.device)

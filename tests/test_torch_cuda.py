@@ -121,6 +121,9 @@ def _march_case(n, m, ss, seed=7, scale=(0.6, 1.1), p_occ=0.15):
 
 
 def _march_vs_plain(dev, case, ss, ring=None):
+    if ring is None:  # as march_inputs sizes it
+        m, n = case[7].shape[0], case[0].shape[2]
+        ring = march_cuda.march_ring(*case[3:7], m, n, ss)
     args = [torch.from_numpy(a).to(dev) for a in case]
     t_k, s_k = march_cuda.march(*args, ss, ring=ring)
     t_p, s_p = march_cuda.march_plain(*args, ss)
@@ -184,9 +187,14 @@ def test_march_kernel_at_frame_inputs_and_m_cap(dev):
 
 
 def test_resolve_kernel_matches_plain(dev):
-    """The fused resolve on random intermediates: image, coordinates and
-    mask against screen_coords + resolve_plain on the default camera."""
-    _resolve_vs_plain(dev, 0.0, 128)
+    """The fused resolve on random intermediates, clamped to the edge
+    everywhere: with the frame's intermediate footprint shrunk to its middle
+    half, hit pixels map up to M/2 texels past both edges of the [M, M]
+    intermediates, on both axes, on cameras with swap and flip on and off.
+    Image within 1e-6, coordinates and mask bit for bit."""
+    seen = {_resolve_vs_plain(dev, yaw, 128, shrink=0.5)
+            for yaw in (0.0, 0.25, 0.5, 0.75)}
+    assert seen == {(False, False), (False, True), (True, False), (True, True)}
 
 
 def _orbit_consts(yaw, dy=0.0, w=1280, h=720):
@@ -202,7 +210,13 @@ def _orbit_consts(yaw, dy=0.0, w=1280, h=720):
     return s2l, eye
 
 
-def _resolve_vs_plain(dev, yaw, m, dy=0.0, w=1280, h=720):
+def _resolve_vs_plain(dev, yaw, m, dy=0.0, w=1280, h=720, shrink=None):
+    """The fused resolve against screen_coords + resolve_plain on one orbit
+    camera -> (flip, swap). ``shrink``: the intermediate footprint is cut to
+    that share of its extent, about its centre, so that hit pixels map past
+    both edges of the intermediates (clamp to edge); checked to happen."""
+    import dataclasses
+
     from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
         march_inputs,
         shearwarp_statics,
@@ -212,6 +226,11 @@ def _resolve_vs_plain(dev, yaw, m, dy=0.0, w=1280, h=720):
     axis, flip, swap, _ = shearwarp_statics(s2l, eye, w, h)
     zero = torch.zeros((64,) * 3, device=dev)
     mi = march_inputs(zero, zero, eye, 64, m, axis, flip, 2)
+    if shrink is not None:
+        mi = dataclasses.replace(
+            mi, gmin=tuple(g + e * (1 - shrink) / 2
+                           for g, e in zip(mi.gmin, mi.gext)),
+            gext=tuple(e * shrink for e in mi.gext))
     rng = np.random.default_rng(m)
     sc, tr = (torch.from_numpy((rng.random((m, m)) * 1.2 - 0.1)
                                .astype(np.float32)).to(dev) for _ in range(2))
@@ -222,7 +241,11 @@ def _resolve_vs_plain(dev, yaw, m, dy=0.0, w=1280, h=720):
                                                  h, axis, flip, swap, mi)
     for a, b in zip(got[1:], want[1:]):  # gi_x, gi_y, ok: bit for bit
         assert torch.equal(a, b)
-    assert float((got[0] - want[0]).abs().max()) <= 1e-5
+    assert float((got[0] - want[0]).abs().max()) <= 1e-6
+    if shrink is not None:
+        for gi in want[1:3]:
+            fl = torch.floor(gi[want[3]])
+            assert bool((fl < 0).any()) and bool((fl > m - 1).any())
     ok = want[3].reshape(h, w)
     edge = (ok[:, 1:] != ok[:, :-1]).sum() + (ok[1:] != ok[:-1]).sum()
     assert 0 < int(ok.sum()) < w * h and int(edge) > 0  # a silhouette
@@ -232,7 +255,7 @@ def _resolve_vs_plain(dev, yaw, m, dy=0.0, w=1280, h=720):
 @pytest.mark.parametrize("m", [32, 128, 512])
 def test_fused_resolve_bit_identical_mapping(dev, m):
     """gi_x, gi_y and ok equal screen_coords' bit for bit and the image is
-    within 1e-5 of the plain path, on cameras with swap and flip on and off
+    within 1e-6 of the plain path, on cameras with swap and flip on and off
     (orbits by a quarter turn, and two pitched ones)."""
     seen = set()
     for yaw, dy in ((0.0, 0.0), (0.25, 0.0), (0.5, 0.0), (0.75, 0.0),

@@ -109,7 +109,8 @@ def test_plain_march_matches_pallas_kernel(ss):
         jnp.asarray(delta), ss, interpret=True,
     )
     args = [_t(a) for a in (slabs, wts, front, sx, ox, sy, oy, delta)]
-    t_got, s_got = march_cuda.march(*args, ss)  # CPU tensors: plain version
+    ring = march_cuda.march_ring(sx, ox, sy, oy, m, n, ss)
+    t_got, s_got = march_cuda.march(*args, ss, ring=ring)  # CPU: plain version
     np.testing.assert_allclose(t_got.numpy(), np.asarray(t_want), rtol=0, atol=2e-6)
     np.testing.assert_allclose(s_got.numpy(), np.asarray(s_want), rtol=0, atol=2e-6)
     assert float(s_got.max()) > 0.0 and float(t_got.min()) < 1.0
