@@ -45,8 +45,9 @@ the CUDA toolkit. Phases, one line each:
 9. the work-queue kernel against its plain version, bit for bit, at 128^3,
    256^3 and 512^3 on the icosphere and on a box with faces on voxel
    centres, and against the binned kernel's words there; against the
-   counting oracle at 128^3; on queues with span overflow; on two deformed
-   frames;
+   counting oracle at 128^3; on queues with span overflow (at 256^3, 128^3,
+   and 512^3 with a box's faces appended to every tile); on two deformed
+   frames; every layout and block size of its sweep (phase 11b) on each;
 10. the 256^3 ``-hq`` frame at 1280x720 against the plain path, and the
     march and resolve against their plain versions at that frame's inputs
     (the resolve on the 4 orbit cameras again);
@@ -54,7 +55,16 @@ the CUDA toolkit. Phases, one line each:
     binned kernel on the same 256^3 mesh, the deforming voxelizer's call,
     the march and resolve at the 256^3 frame's inputs (with plain versions
     and bounds), and the whole static and deforming 256^3 frames; a
-    profiler window of each 256^3 frame;
+    profiler window of each 256^3 frame; the work-queue kernel's device time
+    per call and its (column, row) pairs tested against those the function
+    needs (the column centres in each triangle's bounding box);
+11b. the work-queue kernel's sweep at 256^3 and 512^3: one block per tile
+    run in warp slices or in block rounds, one block per window of 8 chunks
+    in warp slices, at 128, 256 and 512 threads, one block per chunk with
+    atomics at 128 and 256, and the main layout without spans (every row
+    against its whole tile) and with empty spans (no pair tested: a timing
+    probe): CUDA-event ms and profiler device us per call, and the main
+    layout's device us per call with the L2 cache flushed before each call;
 12. the app's ``-inside raystab`` frame (the reference's own inside rule,
     the gen-6 accel) at 64^3, ``-hq``, 1280x720, 4 frames, on the 81,920-
     triangle icosphere: the fold + extraction kernel must launch every frame
@@ -67,11 +77,25 @@ the CUDA toolkit. Phases, one line each:
     the fold-only kernel against the plain fold; the whole query against
     the radial oracle at 64^3 on a 5,120-triangle icosphere; the ray-stab
     and ``-normals`` frames against the plain path;
+14b. the fold + extraction kernel, at every setting of its sweep, and the
+    fold alone against the plain fold on synthetic strips
+    (``tests/torch_cases.py``): equal t under different ids across chunk and
+    sub-chunk boundaries (the lowest id must win), a strip of 9 chunks of
+    which some are skipped and some not, and all-padding strips; both rules;
 15. times of both ray-stab kernels at the 64^3 frame's tables (plain
     versions and bounds), the accel build (from a cold ray table, then
     warm), the three 64^3 frames in turns again late in the run (how far
     host time drifted since phase 3b), the plain ray-stab and ``-normals``
-    frames, and a profiler window of each ray-stab frame;
+    frames, and a profiler window of each ray-stab frame; the fold +
+    extraction kernel's device time per call, and its (ray, candidate) pairs:
+    tested, those past the sign test of the three dot products (the only ones
+    that divide), and the (warp, candidate) steps holding one;
+15b. the fold + extraction kernel's sweep at the 64^3 frame's tables: 1, 2
+    and 4 groups of 128 threads per strip, 1, 2 and 3 ring stages, with and
+    without the deferred division: CUDA-event ms and profiler device us per
+    call; and, with the L2 cache flushed before each call (as in a frame,
+    where the march evicts the accel's tables), the main settings, each ring
+    depth and the fold alone;
 16. the core-tier gen-1 ray-stab path (``build_raystab_accel`` +
     ``voxelize(mode="raystab", accel=...)`` + ``render``, the README's
     persistent-accel API) on the 64^3 icosphere buffers: the build's host
@@ -168,6 +192,15 @@ RAYSTAB_OPS_PER_PAIR = 19
 # compares; a hit, the two compares of the (t, id) minimum. A hit costs 55.
 # Compares are counted here, unlike for the parity and radial kernels.
 MT_OPS_BY_STAGE = (16, 11, 16, 2, 8, 2)
+# the timing sweeps of the redesigned kernels: the fold + extraction kernel's
+# (groups of 128 threads per strip, ring stages, deferred division) and the
+# work-queue kernel's (layout: 2 a block per tile run in warp slices, 3 a
+# block per window of 8 chunks folding the runs that start in it, 1 a block
+# per tile run in block rounds, 0 a block per chunk with atomics; threads)
+FOLD_VARIANTS = [(g, st, d) for g in (1, 2, 4) for st in (1, 2, 3)
+                 for d in (False, True)]
+QUEUE_VARIANTS = [(2, 128), (2, 256), (2, 512), (3, 128), (3, 256), (3, 512),
+                  (1, 128), (1, 256), (1, 512), (0, 128), (0, 256)]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -199,15 +232,16 @@ def cuda_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
-def _load_test_meshes(root: Path):
-    """``tests/meshes.py`` (numpy only) by path: an installed package named
-    ``tests`` would shadow the repository's directory of that name."""
+def _load_test_module(root: Path, name: str):
+    """``tests/<name>.py`` by path: an installed package named ``tests``
+    would shadow the repository's directory of that name."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "dxv_test_meshes", root / "tests" / "meshes.py"
+        f"dxv_test_{name}", root / "tests" / f"{name}.py"
     )
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -395,6 +429,66 @@ def raystab_bound(tb, work, extract: bool) -> tuple[float, str]:
     return bound(n_in + n_out, pairs * RAYSTAB_OPS_PER_PAIR)
 
 
+def queue_tested_pairs(torch, vqc, coefs, spans, chunk_tile, chunk_nsub,
+                       n) -> tuple[int, int]:
+    """(column, row) pairs the work-queue kernel tests on a queue: each live
+    row of a valid triangle against the columns it picks in its tile (its
+    span widened by one column, or the whole tile for a sliver); and what
+    the parent kernel tested, all 128 columns of each such row."""
+    k = coefs.shape[0] // chunk_tile.shape[0]
+    slot = torch.arange(coefs.shape[0], device=coefs.device) % k
+    live = slot < (chunk_nsub.long() * 8).repeat_interleave(k)
+    valid = live & (coefs[:, 15] > 0)
+    ts = vqc.row_columns(coefs, spans, chunk_tile, n)
+    cols = ((ts[:, 1] - ts[:, 0] + 1).clamp(min=0)
+            * (ts[:, 3] - ts[:, 2] + 1).clamp(min=0))
+    return int((cols * valid).sum()), int(valid.sum()) * 128
+
+
+def raystab_pass_pairs(torch, rsc, tb) -> tuple[int, int, int, int]:
+    """Over every real (ray, candidate) pair of a strip stream: the pairs,
+    those past the sign test of the three dot products and |den| > eps
+    (where csrc/raystab_fold.cu divides), the (warp, candidate) steps (32
+    lanes against one candidate) with a real lane, and those holding at
+    least one such pair. Replayed with the plain arithmetic a batch of
+    strips at a time."""
+    out = [0, 0, 0, 0]
+    kmax = int(tb.cand_cnt.max()) if tb.strips else 0
+    ks = torch.arange(kmax, device=tb.rays.device)
+    for b0 in range(0, tb.strips, 256):
+        r = tb.rays[b0:b0 + 256]
+        off, cnt = (x[b0:b0 + 256].long() for x in (tb.cand_off, tb.cand_cnt))
+        live = ks[None] < cnt[:, None]
+        q = tb.rows[torch.where(live, off[:, None] + ks, 0)][:, None]  # [B,1,K,24]
+        d = [r[:, i, :, None] for i in range(4)]  # [B,128,1]
+        real = ~((d[0] == 0) & (d[1] == 0) & (d[2] == 0))
+        w = [d[0] * q[..., 3 * i] + d[1] * q[..., 3 * i + 1]
+             + d[2] * q[..., 3 * i + 2] for i in range(3)]
+        den = w[0] + w[1] + w[2]
+        wmin = torch.minimum(w[0], torch.minimum(w[1], w[2]))
+        wmax = torch.maximum(w[0], torch.maximum(w[1], w[2]))
+        pair = real & live[:, None, :]
+        passed = pair & ((wmin >= 0) | (wmax <= 0)) & (den.abs() > 1e-10)
+        out[0] += int(pair.sum())
+        out[1] += int(passed.sum())
+        nb = r.shape[0]
+        out[2] += int(pair.reshape(nb, 4, 32, -1).any(2).sum())
+        out[3] += int(passed.reshape(nb, 4, 32, -1).any(2).sum())
+    return tuple(out)
+
+
+def cold_device_us(torch, fn, flush) -> float:
+    """Device time per call of ``fn`` with the L2 cache flushed before each
+    call: the profiler's time of flush + call, less the flush's alone."""
+    return (device_us(torch, lambda: (flush.zero_(), fn()))
+            - device_us(torch, flush.zero_))
+
+
+def time_sweep(torch, fns: dict) -> dict:
+    """CUDA-event ms and profiler device us per call of each function."""
+    return {k: (cuda_ms(torch, fn), device_us(torch, fn)) for k, fn in fns.items()}
+
+
 def mt_stage_pairs(torch, tb) -> list[int]:
     """Real (ray, candidate) pairs of a Moller-Trumbore slice stream that
     reach each stage of MT_OPS_BY_STAGE: all of them, then those past
@@ -546,7 +640,8 @@ def main() -> int:
     from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
     from dxrvoxelizer_tpu_torch.utils.image import read_png
     from dxrvoxelizer_tpu_torch.utils.objloader import load_obj
-    meshes = _load_test_meshes(root)
+    meshes = _load_test_module(root, "meshes")
+    cases = _load_test_module(root, "torch_cases")
     box_mesh = meshes.box_mesh
     icosphere_mesh = meshes.icosphere_mesh
     tetrahedron_mesh = meshes.tetrahedron_mesh
@@ -978,12 +1073,23 @@ def main() -> int:
           f"{dv.num_chunks} chunks, span caps {dv.spans})")
 
     # ---- 9. the work-queue kernel against its plain version --------------
+    def queue_variants(name, coefs, sp, ct, cn, n, want):
+        """Every layout and block size of the sweep, with the spans and
+        without (every row against its whole tile), against ``want``."""
+        for variant in QUEUE_VARIANTS:
+            for sp_ in (sp, None):
+                got = vqc.voxelize_parity_queue_chunks(coefs, ct, cn, n,
+                                                       spans=sp_, variant=variant)
+                check(torch.equal(got, want), f"queue variant {variant} (spans "
+                      f"{sp_ is not None}) differs from plain: {name} {n}^3")
+
     def queue_case(name, verts, tris, n, oracle=False, **spans):
-        coefs, ct, cn, _, stats = vq.build_queue(verts, tris, n, **spans)
-        words = vqc.voxelize_parity_queue_chunks(coefs, ct, cn, n)
+        coefs, sp, ct, cn, _, stats = vq.build_queue(verts, tris, n, **spans)
+        words = vqc.voxelize_parity_queue_chunks(coefs, ct, cn, n, spans=sp)
         plain = vqc.voxelize_parity_queue_chunks_plain(coefs, ct, cn, n)
         check(torch.equal(words, plain),
               f"queue words differ from the plain version: {name} {n}^3")
+        queue_variants(name, coefs, sp, ct, cn, n, plain)
         coef_b, _ = bin_triangles(verts, tris, n)
         check(torch.equal(words, voxelize_cuda.voxelize_parity_tiles(coef_b, n)),
               f"queue words differ from the binned kernel's: {name} {n}^3")
@@ -1010,12 +1116,25 @@ def main() -> int:
     v4, _, t4 = icosphere_mesh(4)
     q_lines.append(queue_case("icosphere4", *dev_mesh(v4, t4), 128, oracle=True,
                               max_span_x=1, max_span_y=1))
+    # 512^3 with overflow rows: the box's two z faces (4 triangles; the
+    # others project to lines) span more tiles than the caps and are appended
+    # to every tile
+    vb5, _, tb5 = box_on_centers(512)
+    q_lines.append(queue_case(
+        "icosphere7+box_on_centers",
+        torch.cat([mb7.positions_norm, dev_mesh(vb5, tb5)[0]]),
+        torch.cat([mb7.tris, dev_mesh(vb5, tb5)[1] + mb7.positions_norm.shape[0]]),
+        512))
+    check(q_lines[-1].endswith(" 4 overflow"), f"expected 4 overflow "
+          f"triangles: {q_lines[-1]}")
     for f, w in enumerate(wob[1:], 2):
-        coefs, ct, cn, _, ok_d = dv.build(w)
+        coefs, sp, ct, cn, _, ok_d = dv.build(w)
         check(bool(ok_d), f"deformed frame {f} overflowed its capacity")
-        words = vqc.voxelize_parity_queue_chunks(coefs, ct, cn, GRID_HI)
-        check(torch.equal(words, vqc.voxelize_parity_queue_chunks_plain(
-            coefs, ct, cn, GRID_HI)), f"deformed frame {f}: kernel != plain")
+        words = vqc.voxelize_parity_queue_chunks(coefs, ct, cn, GRID_HI,
+                                                 spans=sp)
+        plain = vqc.voxelize_parity_queue_chunks_plain(coefs, ct, cn, GRID_HI)
+        check(torch.equal(words, plain), f"deformed frame {f}: kernel != plain")
+        queue_variants(f"deformed frame {f}", coefs, sp, ct, cn, GRID_HI, plain)
         check(torch.equal(words, vq.voxelize_parity_queue(w, mb7.tris, GRID_HI)),
               f"deformed frame {f}: device-built queue != host-built queue")
         q_lines.append(f"deformed frame {f}@{GRID_HI}^3")
@@ -1023,7 +1142,9 @@ def main() -> int:
     errs["parity_queue"] = 0.0
     print("phase 9 queue words bit-identical to the plain version and to the "
           "binned kernel (" + "; ".join(q_lines) + "), to the counting oracle "
-          "at 128^3")
+          f"at 128^3; every layout and block size of the sweep "
+          f"{QUEUE_VARIANTS}, with and without column spans, bit-identical "
+          "to the plain version on each")
 
     # ---- 10. the 256^3 frame against the plain path ----------------------
     cam7 = OrbitCamera(cfg_hi.width, cfg_hi.height)
@@ -1071,6 +1192,12 @@ def main() -> int:
         cuda_ms(torch, lambda: vqc.voxelize_parity_queue_chunks_plain(
             sv512.coefs, sv512.chunk_tile, sv512.chunk_nsub, 512)),
     )
+    q_dev_us = {GRID_HI: device_us(torch, sv), 512: device_us(torch, sv512)}
+    q_pairs = {n_: queue_tested_pairs(torch, vqc, v_.coefs, v_.spans,
+                                      v_.chunk_tile, v_.chunk_nsub, n_)
+               for n_, v_ in ((GRID_HI, sv), (512, sv512))}
+    q_needed = {n_: bbox_pairs(torch, mb7.positions_norm, mb7.tris, n_)
+                for n_ in (GRID_HI, 512)}
     coef_b7, stats_b7 = bin_triangles(mb7.positions_norm, mb7.tris, GRID_HI)
     binned256_ms = cuda_ms(
         torch, lambda: voxelize_cuda.voxelize_parity_tiles(coef_b7, GRID_HI))
@@ -1129,6 +1256,42 @@ def main() -> int:
           f"{render7['resolve'][2]}, {resolve_hits(res_args7)} hit pixels), "
           f"grid_sample {grid_sample7_ms:.4f} ms, "
           f"{dev_us7['grid_sample']:.2f} us device per call; {card}")
+    print("phase 11 work-queue kernel device us per call (profiler): "
+          + ", ".join(f"{n_}^3 {q_dev_us[n_]:.2f}" for n_ in q_dev_us)
+          + "; (column, row) pairs tested (parent kernel: every column of each "
+          "live row) against needed (column centres in the bounding boxes): "
+          + ", ".join(f"{n_}^3 {q_pairs[n_][0]} (parent {q_pairs[n_][1]}) / "
+                      f"{q_needed[n_]}" for n_ in q_pairs) + f"; {card}")
+    # ---- 11b. the work-queue kernel's sweep ---------------------------------
+    q_sweep = {}
+    for n_, v_ in ((GRID_HI, sv), (512, sv512)):
+        fns = {variant: (lambda v_=v_, variant=variant:
+                         vqc.voxelize_parity_queue_chunks(
+                             v_.coefs, v_.chunk_tile, v_.chunk_nsub, v_.n,
+                             spans=v_.spans, variant=variant))
+               for variant in QUEUE_VARIANTS}
+        # the main layout without spans: every row against its whole tile;
+        # and with spans empty in every tile (n, -1, n, -1): each row loaded
+        # and its columns picked, no pair tested (a timing probe only)
+        fns["main, no spans"] = lambda v_=v_: vqc.voxelize_parity_queue_chunks(
+            v_.coefs, v_.chunk_tile, v_.chunk_nsub, v_.n)
+        empty = torch.tensor([n_, -1, n_, -1], dtype=torch.int16, device=dev)
+        empty = empty.expand(v_.spans.shape[0], 4).contiguous()
+        fns["main, empty spans"] = (
+            lambda v_=v_, e_=empty: vqc.voxelize_parity_queue_chunks(
+                v_.coefs, v_.chunk_tile, v_.chunk_nsub, v_.n, spans=e_))
+        q_sweep[n_] = time_sweep(torch, fns)
+    flush = torch.empty(1 << 24, dtype=torch.float32, device=dev)  # 64 MiB > L2
+    q_cold_us = {n_: cold_device_us(torch, v_, flush)
+                 for n_, v_ in ((GRID_HI, sv), (512, sv512))}
+    print("phase 11b work-queue kernel sweep ((layout, threads): CUDA-event "
+          "ms, profiler device us per call): "
+          + "; ".join(f"{n_}^3 " + ", ".join(
+              f"{v} {t[0]:.4f} ms {t[1]:.2f} us" for v, t in q_sweep[n_].items())
+              for n_ in q_sweep) + "; the main layout with the L2 flushed "
+          "before each call: " + ", ".join(f"{n_}^3 {us:.2f} us"
+                                           for n_, us in q_cold_us.items())
+          + f"; {card}")
     for name in ("static", "deform"):
         busy, per_frame, kus, peak = hi_prof[name]
         print(f"phase 11 frame {GRID_HI}^3 1280x720 -hq {name}: "
@@ -1234,6 +1397,37 @@ def main() -> int:
           f"{stab_frame_err['raystab']:.3g}, -normals "
           f"{stab_frame_err['normals']:.3g}")
 
+    # ---- 14b. the fold kernel's synthetic stress strips -------------------
+    sc = cases.stab_stress(dev)
+    many = sc.strips["many_chunks"][0]
+    runs = cases.chunks_run(sc.tables, many)
+    check(len(runs) == sc.many_chunks > 8 and runs[0] and not all(runs),
+          f"the many-chunk strip runs chunks {runs}")
+    for rule in ("backface", "hit"):
+        want = rsc.fold_extract_plain(sc.tables, sc.t_count, thr, rule)
+        ties = sc.strips["ties"]
+        low = sc.lowest[ties]
+        check(torch.equal(torch.where(low >= 0, want[1][ties], -1), low),
+              "stress: the plain fold did not pick the lowest id")
+        for variant in [None, *FOLD_VARIANTS]:
+            got = rsc.fold_extract(sc.tables, sc.t_count, thr, rule,
+                                   variant=variant)
+            for what, a_, b_ in zip(("t", "id", "ns"), got, want):
+                check(torch.equal(a_, b_), f"stress: fold_extract {what} "
+                      f"differs from the plain version ({variant}, {rule})")
+    for what, a_, b_ in zip(("t", "id"), rsc.fold(sc.tables),
+                            rsc.fold_plain(sc.tables)):
+        check(torch.equal(a_, b_), f"stress: fold-only {what} differs")
+    print(f"phase 14b fold + extraction at the main path's settings and every "
+          f"setting of the sweep {FOLD_VARIANTS} (groups, stages, deferred "
+          f"division), and the fold alone, bit-identical to the plain "
+          f"versions on (t, id, ns), both rules, on synthetic strips: "
+          f"{len(sc.strips['ties'])} equal-t strips, lowest id winning on "
+          f"{int((sc.lowest >= 0).sum())} lanes across chunk and sub-chunk "
+          f"boundaries; a {sc.tables.cand_cnt[many].item()}-row strip of "
+          f"{sc.many_chunks} chunks, run/skipped {runs}; "
+          f"{len(sc.strips['padding'])} all-padding strips")
+
     # ---- 15. ray-stab timings ---------------------------------------------
     tb_rs = accel_rs.main
     tc6 = int(mb.tris.shape[0])
@@ -1271,6 +1465,22 @@ def main() -> int:
         prof = profile_frames(torch, fn, p.sync, kernels)
         stab_prof[name] = (*prof, torch.cuda.max_memory_allocated() / 2**20)
     work_rs = raystab_work(torch, rsc, tb_rs)
+    pass_rs = raystab_pass_pairs(torch, rsc, tb_rs)
+    rs_dev_us = {
+        "raystab_fold_extract": device_us(
+            torch, lambda: rsc.fold_extract(tb_rs, tc6, thr)),
+        "raystab_fold": device_us(torch, lambda: rsc.fold(tb_rs)),
+    }
+    # ---- 15b. the fold + extraction kernel's sweep --------------------------
+    rs_sweep = time_sweep(torch, {
+        variant: (lambda variant=variant: rsc.fold_extract(
+            tb_rs, tc6, thr, variant=variant))
+        for variant in FOLD_VARIANTS})
+    rs_cold_us = {v: cold_device_us(torch, lambda v=v: rsc.fold_extract(
+        tb_rs, tc6, thr, variant=v), flush)
+        for v in (None, (1, 1, True), (1, 2, True), (1, 3, True), (2, 2, True))}
+    rs_cold_us["fold-only"] = cold_device_us(torch, lambda: rsc.fold(tb_rs),
+                                             flush)
     print(f"phase 15 ray-stab kernels at the {GRID}^3 frame's tables "
           f"({tb_rs.strips} strips, {tb_rs.rows.shape[0]} candidate rows, "
           f"{work_rs[0]} real rays; in the chunks not skipped "
@@ -1282,6 +1492,19 @@ def main() -> int:
           f"ms); accel build from a cold ray table: host {builds[0][0]:.4f} s, "
           f"device assembly {builds[0][1]:.4f} s; warm (median of 3): host "
           f"{host_s:.4f} s, device assembly {asm_s:.4f} s; {card}")
+    print(f"phase 15 fold + extraction {rs_dev_us['raystab_fold_extract']:.2f} "
+          f"us device per call, fold-only {rs_dev_us['raystab_fold']:.2f} us "
+          f"(profiler); of {pass_rs[0]} real (ray, candidate) pairs, "
+          f"{pass_rs[1]} pass the sign test and |den| > eps (the divisions); of "
+          f"{pass_rs[2]} (warp, candidate) steps, {pass_rs[3]} hold such a "
+          f"pair; {card}")
+    print("phase 15b fold + extraction sweep at the 64^3 frame's tables "
+          "((groups, stages, deferred division): CUDA-event ms, profiler "
+          "device us per call): " + ", ".join(
+              f"{v} {t[0]:.4f} ms {t[1]:.2f} us" for v, t in rs_sweep.items())
+          + "; with the L2 flushed before each call (device us): " + ", ".join(
+              f"{'main' if v is None else v} {us:.2f}"
+              for v, us in rs_cold_us.items()) + f"; {card}")
     print(f"phase 15 frames {GRID}^3 1280x720 -hq timed in turns late in the "
           f"run (parity, raystab, normals, normals, raystab, parity; each a "
           f"median of {REPS} runs of {INNER}): "
@@ -1469,6 +1692,11 @@ def main() -> int:
         "raystab_fold": raystab_bound(tb_rs, work_rs, False),
         "raystab_mt": bound(bytes1, ops1),
     }
+    dev_call_us = {"parity_queue": q_dev_us[GRID_HI], **rs_dev_us}
+    print("share of the bound (bound ms over ms per call, by device time and "
+          "by CUDA events): " + ", ".join(
+              f"{k} {bounds[k][0] / (us / 1e3):.4f} / "
+              f"{bounds[k][0] / ms[k][0]:.4f}" for k, us in dev_call_us.items()))
     print(f"bounds (ms, bound by): {bounds}; binned {GRID}^3 {rows_b} real "
           f"rows, {pairs_b} (column, triangle) pairs in bounding boxes; "
           f"queue {GRID_HI}^3 {rows_q} real rows, {pairs_q} pairs; march "

@@ -39,10 +39,16 @@ from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
     light_sweep_ref_host,
     raymarch_shearwarp,
 )
-from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import TILE
+from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import (
+    TILE,
+    voxelize_parity_bruteforce,
+)
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 
 FRAME_COUNT = 3  # frames in flight (reference: Voxelizer.h:24)
+# ray-stab impl names that run the direction-space accel, as in the JAX
+# package (the parity kernels' names select it too)
+RAYSTAB_ACCEL_IMPLS = ("auto", "fast", "queue", "pallas")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -113,8 +119,10 @@ def voxelize(
     work-queue kernel at n >= 128 and the binned kernel below (the JAX
     package's routing; both give the same words), and the counting oracle on
     the CPU; "queue" and "pallas" force the work-queue and binned paths (the
-    kernels' plain versions on the CPU); "xla" is always the oracle.
-    Ray-stab ``impl``: "auto" runs a direction-space accel: ``accel`` if
+    kernels' plain versions on the CPU); "pallas_bruteforce" runs the binned
+    kernel with every triangle in every tile (no binning); "xla" is always
+    the oracle. Ray-stab ``impl``: "auto" (or "fast", "queue", "pallas", as
+    in the JAX package) runs a direction-space accel: ``accel`` if
     given (a gen-1 :class:`~raystab_fast.RaystabAccel`, queried with the
     mesh's buffers, or a gen-6 ``RaystabAccel2``), else one built for this
     call as the JAX package routes it (gen-1 on the CPU at every n, gen-6 on
@@ -125,7 +133,7 @@ def voxelize(
     normal channel.
     """
     if mode == "raystab":
-        if impl == "auto":
+        if impl in RAYSTAB_ACCEL_IMPLS:
             if accel is None:  # stateless: build the accel for this call
                 _require_gen6(n, "the ray-stab inside rule (-inside raystab)",
                               mesh.device)
@@ -155,6 +163,8 @@ def voxelize(
         )
     elif impl == "pallas":
         words = binning.voxelize_parity_binned(mesh.positions_norm, mesh.tris, n)
+    elif impl == "pallas_bruteforce":
+        words = voxelize_parity_bruteforce(mesh.positions_norm, mesh.tris, n)
     elif impl == "xla":
         words = pack_bits_z(
             voxelize_ref.voxelize_parity_ref(mesh.positions_norm, mesh.tris, n=n)
@@ -196,26 +206,33 @@ def render(
     consts: FrameConstants,
     cfg: VoxelizerConfig,
     impl: str = "warp",
+    light_volume: torch.Tensor | None = None,
     use_kernels: bool = True,
 ) -> torch.Tensor:
     """Ray-march a grid -> [H,W,3] float32 image on the grid's device.
 
-    ``impl``: "warp" (shear-warp, the production path). ``use_kernels=False``
-    runs the plain versions of the march and resolve kernels (the on-card
-    reference).
+    ``impl``: "warp" (shear-warp, the production path; "fast" is its alias,
+    as in the JAX package). ``light_volume`` [N,N,N]: a light field to march
+    with instead of the sweep's. ``use_kernels=False`` runs the plain
+    versions of the march and resolve kernels (the on-card reference).
     """
     if impl in ("gather", "ref"):
         raise _not_ported(f"the {impl!r} renderer", "Render variants")
-    if impl != "warp":
+    if impl not in ("warp", "fast"):
         raise ValueError(f"unknown renderer impl {impl!r}")
     if cfg.show_mip > 0:
         raise _not_ported("mip rendering (-showmip)", "Render variants")
     if cfg.point_light:
         raise _not_ported("the point light (-pointlight)", "Render variants")
     density = grid.density()
-    # -hq: reference-step light field; -fast: per-slab recurrence
-    sweep = light_sweep_ref_host if cfg.render_ss > 1 else light_sweep_host
-    light_volume = sweep(density, consts.local_space_light_pt, density.shape[0])
+    if light_volume is None:
+        # -hq: reference-step light field; -fast: per-slab recurrence
+        sweep = light_sweep_ref_host if cfg.render_ss > 1 else light_sweep_host
+        light_volume = sweep(density, consts.local_space_light_pt,
+                             density.shape[0])
+    elif tuple(light_volume.shape) != tuple(density.shape):
+        raise ValueError(f"light_volume: expected {tuple(density.shape)}, "
+                         f"got {tuple(light_volume.shape)}")
     return raymarch_shearwarp(
         density, light_volume, consts.screen_to_local,
         consts.local_space_eye_pt, np.array(cfg.clear_color, np.float32),
@@ -240,12 +257,7 @@ class FramePipeline:
         if deforming and (raystab or normals):
             raise _not_ported("deforming ray-stab (-deform with -inside "
                               "raystab or -normals)", "Deforming ray-stab")
-        # what voxelize() takes in this inside mode: ray-stab has "auto"
-        # (the direction-space accel) and the two oracles, so the parity
-        # kernels' names (-voximpl queue / pallas) select its accel
-        self.grid_impl = ("auto" if raystab and vox_impl in ("queue", "pallas")
-                          else vox_impl)
-        if normals or (raystab and self.grid_impl == "auto"):
+        if normals or (raystab and vox_impl in RAYSTAB_ACCEL_IMPLS):
             _require_gen6(cfg.grid_size, "-normals" if normals
                           else "the ray-stab inside rule (-inside raystab)",
                           mesh.device)
@@ -285,7 +297,7 @@ class FramePipeline:
         quantize = not self.cfg.use_mutex
         accel = None
         # the CPU's -normals takes the Moller-Trumbore oracle, no accel
-        if ((raystab and self.grid_impl == "auto")
+        if ((raystab and self.vox_impl in RAYSTAB_ACCEL_IMPLS)
                 or (want_normals and device.type == "cuda")):
             accel = self._raystab_accel()
         if (not raystab and self.deforming and self.vox_impl in ("auto", "queue")
@@ -320,7 +332,7 @@ class FramePipeline:
             grid = VoxelGrid(words=words, rgba=rgba)
         else:
             grid = voxelize(self.mesh, n, mode=self.cfg.inside_mode,
-                            impl=self.grid_impl, quantize=quantize, accel=accel,
+                            impl=self.vox_impl, quantize=quantize, accel=accel,
                             with_normals=want_normals)
         img = render(grid, consts, self.cfg, impl=self.render_impl)
         if device.type == "cuda":

@@ -13,28 +13,47 @@
 // k is inside iff an odd number of bits >= k are set. The words are
 // bit-identical to kernel 2.1 (csrc/parity_voxelize.cu) and to the oracle.
 //
-// What bounds it on the card: arithmetic per (column, live row) pair — four
-// affine forms (16 FP32 operations) and a handful of compares — plus the
-// queue's coefficient rows, each read from device memory once (64 bytes per
-// row) and then broadcast from shared memory to the tile's 128 columns. The
-// words are written once by atomics and once more by the conversion pass.
+// What bounds it on the card: arithmetic per tested (column, row) pair -- four
+// affine forms (16 FP32 operations) and a handful of compares -- and, once
+// the pairs are few, the queue's coefficient rows (64 bytes each, read once)
+// and the words (written once).
 //
-// Design: one block per queue chunk, 128 threads (one per column of the
-// chunk's tile), the chunk's live rows staged in shared memory and read as
-// broadcasts, the N/32 field words in registers. A crossing's bit goes to
-// its word through an unrolled `if (pw == w)` select, not a dynamic index,
-// so the array stays in registers. The TPU kernel keeps the whole output
-// resident in VMEM over a sequential grid and converts a tile on its last
-// chunk; blocks on the card run in no order and share nothing, so each
-// block XORs its words into a zeroed field in device memory with atomicXor
-// (XOR is order-free: the result is bit-exact whatever the order), and a
-// second kernel launched from the same entry point turns every column's
-// field into occupancy by suffix parity. The second pass was chosen over a
-// per-tile completion counter with __threadfence: it needs no counter
-// array, no fence protocol and no reading of chunk_last, and at 512^3 it
-// touches 16 MiB once. The edge and depth expressions use __fmul_rn /
-// __fadd_rn in the JAX order, ((a*px) + (b*py)) + c, so no FMA contraction
-// moves a boundary decision (the box with faces on voxel centres pins it).
+// Design: the queue carries each row's column span, the bounding box the
+// binning uses, [ceil xmin, floor xmax] x [ceil ymin, floor ymax]
+// (spans[row] = x_lo x_hi y_lo y_hi, int16, grid columns clipped to
+// [-1, N]). The kernel widens it by one column each side and clips it to the
+// chunk's tile; float32 rounding of the edge functions cannot cover a column
+// outside that, except for a sliver: a row whose sin(smallest angle) is
+// below 2^-17 R (R bounds the vertices' coordinates), or whose span the clip
+// may have cut, tests its whole tile (the bound is derived in
+// ops/voxelize_queue_cuda.py::sliver_rows, which computes the same test in
+// the same order). With no span array every row tests its whole tile.
+// Threads take (row, column) pairs, not the tile's 128 columns: a group of
+// rows is staged in shared memory with its pair counts scanned, each thread
+// takes pairs p, p + stride, ..., finds p's row by binary search in the
+// scan, and XORs the crossing bit into the tile's field in shared memory (128
+// columns x N/32 words, by atomicXor on shared memory). Three layouts:
+// - 2 (the main path): one block per tile. The block whose chunk starts a
+//   run of equal chunk_tile (the queue lays a tile's chunks out back to back,
+//   chunk_tile non-decreasing) walks the whole run; each warp folds its own
+//   slices of 32 rows (a scan by shuffles, a 5-step search, the next slice
+//   loaded while this one's pairs run) with no block-wide barrier between
+//   slices; then the block turns the field into occupancy by suffix parity
+//   and stores the tile's words once. It also stores zeros for the tiles
+//   with no chunks between its tile and the previous run's (and, for the
+//   last run, after it). One launch, no memset, no device-memory atomics.
+//   Other blocks exit at once.
+// - 1: the same block per tile run, folding NT rows per round with a
+//   block-wide scan.
+// - 0: one block per chunk, NT rows per round; the field's non-zero words
+//   go to a zeroed output by atomicXor (XOR is order-free: bit-exact in any
+//   order), then a second kernel, launched from the same entry point, turns
+//   every column's field into occupancy.
+// chip_smoke.py (phase 11b) times the layouts and the block size NT at 256^3
+// and 512^3; dxv_parity_queue runs the layout and NT chosen there. The edge and
+// depth expressions use __fmul_rn / __fadd_rn in the JAX order,
+// ((a*px) + (b*py)) + c, so no FMA contraction moves a boundary decision (the
+// box with faces on voxel centres pins it).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +70,11 @@ constexpr int EX0 = 0, EY0 = 1, EO0 = 2, TL0 = 3;
 constexpr int EX1 = 4, EY1 = 5, EO1 = 6, TL1 = 7;
 constexpr int EX2 = 8, EY2 = 9, EO2 = 10, TL2 = 11;
 constexpr int ZX = 12, ZY = 13, ZO = 14, VALID = 15;
+// the main path's layout and block size (chip_smoke.py phase 11b)
+constexpr int kMainLayout = 2;
+constexpr int kMainThreads = 256;
+constexpr double kSliverK = 1.0 / 131072.0;  // 2^-17
+constexpr int kWindow = 8;  // chunks per block of layout 3
 
 __device__ __forceinline__ float affine(float a, float b, float c, float px,
                                         float py) {
@@ -61,63 +85,374 @@ __device__ __forceinline__ bool inside_edge(float e, float tl) {
   return (e > 0.0f) || ((e == 0.0f) && (tl > 0.0f));
 }
 
-// MAXW: compile-time bound on the words per column (N/32 <= MAXW), so the
-// field stays in registers
-template <int MAXW>
-__global__ void __launch_bounds__(kLanes)
-queue_kernel(const float* __restrict__ coefs,
-             const int* __restrict__ chunk_tile,
-             const int* __restrict__ chunk_nsub,
-             unsigned int* __restrict__ words, int n, int k_chunk) {
-  extern __shared__ float rows[];  // [k_chunk, kCoef]
-  const int c = blockIdx.x;
-  const int n_rows = min(max(chunk_nsub[c], 0) * kSub, k_chunk);
-  const int tile = chunk_tile[c];
-  const int nty = n / kTileY;
-  const int n_tiles = (n / kTileX) * nty;
-  if (n_rows == 0 || tile < 0 || tile >= n_tiles) return;  // padding chunk
-  const int tx = tile / nty;
-  const int ty = tile - tx * nty;
-  const int l = threadIdx.x;  // column l: x_local = l / 8, y_local = l % 8
-  const int x = tx * kTileX + l / kTileY;
-  const int y = ty * kTileY + l % kTileY;
-  const float px = static_cast<float>(x);
-  const float py = static_cast<float>(y);
-  const int w_words = n >> 5;
+// voxelize_queue_cuda.sliver_rows, operation for operation in float64: the
+// row tests its whole tile
+__device__ bool sliver(float4 r0, float4 r1, float4 r2, short4 b, int n) {
+  if (b.x <= -1 || b.y >= n || b.z <= -1 || b.w >= n) return true;  // cut
+  const double ex[3] = {r0.x, r1.x, r2.x}, ey[3] = {r0.y, r1.y, r2.y};
+  double sq[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    sq[i] = __dadd_rn(__dmul_rn(ex[i], ex[i]), __dmul_rn(ey[i], ey[i]));
+  const double longest2 = fmax(fmax(__dmul_rn(sq[0], sq[2]),
+                                    __dmul_rn(sq[1], sq[0])),
+                               __dmul_rn(sq[2], sq[1]));
+  const double area =
+      __dsub_rn(__dmul_rn(ex[0], ey[1]), __dmul_rn(ey[0], ex[1]));
+  const int r = max(max(abs(b.x - 1), abs(b.y + 1)),
+                    max(abs(b.z - 1), abs(b.w + 1))) + 1;
+  const double bound = static_cast<double>(r) * kSliverK;
+  return !(__dmul_rn(area, area) >=
+           __dmul_rn(__dmul_rn(bound, bound), longest2));
+}
 
-  const float* src = coefs + static_cast<size_t>(c) * k_chunk * kCoef;
-  for (int i = l; i < n_rows * kCoef; i += kLanes) rows[i] = src[i];
+// shared memory of one block: rows, pair scan, spans, field, warp sums
+template <int NT>
+struct Smem {
+  static constexpr size_t rows = 0;  // [NT] float4 x 4
+  static constexpr size_t pre = rows + NT * kCoef * sizeof(float);  // [NT] int
+  static constexpr size_t span = pre + NT * sizeof(int);  // [NT] int
+  static constexpr size_t warp = span + NT * sizeof(int);  // [32] int
+  static constexpr size_t field = warp + 32 * sizeof(int);  // [W][128] uint
+  static size_t bytes(int w_words) {
+    return field + static_cast<size_t>(w_words) * kLanes * sizeof(unsigned);
+  }
+};
+
+// exclusive block scan of one int per thread -> (exclusive prefix, total)
+template <int NT>
+__device__ __forceinline__ int block_scan(int v, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[wid] = x;
   __syncthreads();
-
-  unsigned int acc[MAXW];
+  if (wid == 0) {
+    int w = lane < NT / 32 ? warp_sums[lane] : 0;
 #pragma unroll
-  for (int w = 0; w < MAXW; ++w) acc[w] = 0u;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < NT / 32) warp_sums[lane] = w;  // inclusive warp prefix
+  }
+  __syncthreads();
+  total = warp_sums[NT / 32 - 1];
+  return x - v + (wid > 0 ? warp_sums[wid - 1] : 0);
+}
 
-  const float fn = static_cast<float>(n);
-  for (int t = 0; t < n_rows; ++t) {
-    const float* r = rows + t * kCoef;
-    if (!(r[VALID] > 0.0f)) continue;  // zero row / degenerate triangle
-    const float e0 = affine(r[EX0], r[EY0], r[EO0], px, py);
-    const float e1 = affine(r[EX1], r[EY1], r[EO1], px, py);
-    const float e2 = affine(r[EX2], r[EY2], r[EO2], px, py);
-    if (!(inside_edge(e0, r[TL0]) && inside_edge(e1, r[TL1]) &&
-          inside_edge(e2, r[TL2])))
-      continue;
-    const float z = affine(r[ZX], r[ZY], r[ZO], px, py);
-    const int ci = static_cast<int>(fminf(fmaxf(ceilf(z), 0.0f), fn)) - 1;
-    if (ci < 0) continue;  // cutoff 0: the crossing flips no voxel
-    const int pw = ci >> 5;
-    const unsigned int bit = 1u << (ci & 31);
-#pragma unroll
-    for (int w = 0; w < MAXW; ++w) {
-      if (pw == w) acc[w] ^= bit;
+// zero the packed words of tiles [t0, t1)
+__device__ void zero_tiles(unsigned* __restrict__ words, int t0, int t1,
+                           int n, int nty, int nthreads) {
+  const int w_words = n >> 5;
+  const int per_x = kTileY * w_words;  // contiguous words per tile row of x
+  const int per_tile = kTileX * per_x;
+  for (int t = t0; t < t1; ++t) {
+    const int tx = t / nty, ty = t - (t / nty) * nty;
+    for (int i = threadIdx.x; i < per_tile; i += nthreads) {
+      const int xl = i / per_x, rem = i - xl * per_x;
+      const size_t base =
+          (static_cast<size_t>(tx * kTileX + xl) * n + ty * kTileY) * w_words;
+      words[base + rem] = 0u;
     }
   }
+}
 
-  unsigned int* out = words + (static_cast<size_t>(x) * n + y) * w_words;
+// One queue row, for the thread that prepares it: its coefficients (r),
+// its packed columns (span: hmul | h << 17 | x0 << 21 | y0 << 25, the span
+// widened by one column and clipped to the tile, or the whole tile) and its
+// (row, column) pair count -- 0 for a slot past the run, a dead row, a
+// degenerate triangle or an empty span.
+__device__ __forceinline__ int load_row(const float* __restrict__ coefs,
+                                        const short4* __restrict__ spans,
+                                        const int* __restrict__ chunk_nsub,
+                                        int c, int f, int slots, int k_chunk,
+                                        int ox, int oy, int n, float4 (&r)[4],
+                                        int& span) {
+  span = 0;
+  if (f >= slots) return 0;
+  const int ch = c + f / k_chunk;
+  const int k = f - (f / k_chunk) * k_chunk;
+  // the chunk's live count, the row and its span: three loads in flight at
+  // once (every slot of a chunk has a row and a span, live or not)
+  const int nsub = chunk_nsub[ch];
+  const size_t row = static_cast<size_t>(ch) * k_chunk + k;
+  const float4* src = reinterpret_cast<const float4*>(coefs) + row * 4;
 #pragma unroll
-  for (int w = 0; w < MAXW; ++w) {
-    if (w < w_words && acc[w] != 0u) atomicXor(out + w, acc[w]);
+  for (int i = 0; i < 4; ++i) r[i] = src[i];
+  const short4 sp = spans != nullptr ? spans[row] : make_short4(0, 0, 0, 0);
+  if (k >= min(max(nsub, 0) * kSub, k_chunk)) return 0;  // a dead row
+  if (!(r[3].w > 0.0f)) return 0;  // zero row / degenerate triangle
+  int x0 = 0, x1 = kTileX - 1, y0 = 0, y1 = kTileY - 1;
+  if (spans != nullptr) {
+    if (!sliver(r[0], r[1], r[2], sp, n)) {  // widened by one, in the tile
+      x0 = max(sp.x - 1 - ox, 0);
+      x1 = min(sp.y + 1 - ox, kTileX - 1);
+      y0 = max(sp.z - 1 - oy, 0);
+      y1 = min(sp.w + 1 - oy, kTileY - 1);
+    }
+  }
+  const int w = x1 - x0 + 1, h = y1 - y0 + 1;
+  if (w <= 0 || h <= 0) return 0;
+  // exact i / h for i < 128 and h <= 8 as (i * hmul) >> 16
+  span = ((65536 + h - 1) / h) | (h << 17) | (x0 << 21) | (y0 << 25);
+  return w * h;
+}
+
+// pair i of a row (its coefficients at q): the column's crossing bit, XORed
+// into the tile's field
+__device__ __forceinline__ void test_pair(const float4* q, int sp, int i,
+                                          int ox, int oy, float fn,
+                                          unsigned* field) {
+  const int h = (sp >> 17) & 15;
+  const int dxl = (i * (sp & 0x1ffff)) >> 16;
+  const int xl = ((sp >> 21) & 15) + dxl;
+  const int yl = ((sp >> 25) & 7) + (i - dxl * h);
+  const float px = static_cast<float>(ox + xl);
+  const float py = static_cast<float>(oy + yl);
+  const float4 a = q[0], b = q[1], d = q[2], z = q[3];
+  const float e0 = affine(a.x, a.y, a.z, px, py);
+  const float e1 = affine(b.x, b.y, b.z, px, py);
+  const float e2 = affine(d.x, d.y, d.z, px, py);
+  if (!(inside_edge(e0, a.w) && inside_edge(e1, b.w) && inside_edge(e2, d.w)))
+    return;
+  const float zz = affine(z.x, z.y, z.z, px, py);
+  const int ci = static_cast<int>(fminf(fmaxf(ceilf(zz), 0.0f), fn)) - 1;
+  if (ci < 0) return;  // cutoff 0: the crossing flips no voxel
+  atomicXor(field + (ci >> 5) * kLanes + xl * kTileY + yl, 1u << (ci & 31));
+}
+
+// The run layouts: the end of the run that starts at chunk c (chunk c - 1
+// holds tile `prev`, or c = 0); the block folds chunks [c, end). It also
+// stores zeros for the tiles with no chunks between `prev` and the run's
+// tile (and, for the last run, after it).
+template <int NT>
+__device__ int run_end(const int* __restrict__ chunk_tile,
+                       unsigned* __restrict__ words, int c, int tile, int prev,
+                       int num_chunks, int n) {
+  const int nty = n / kTileY;
+  const int n_tiles = (n / kTileX) * nty;
+  // chunk_tile is non-decreasing: the chunks equal to `tile` come first
+  int end = c + 1;
+  for (;;) {
+    const int i = end + static_cast<int>(threadIdx.x);
+    const int same = __syncthreads_count(i < num_chunks && chunk_tile[i] == tile);
+    end += same;
+    if (same < NT) break;
+  }
+  zero_tiles(words, max(prev + 1, 0), min(tile, n_tiles), n, nty, NT);
+  if (end == num_chunks)
+    zero_tiles(words, max(tile + 1, 0), n_tiles, n, nty, NT);
+  return end;
+}
+
+// crossing bits -> occupancy (suffix parity), one thread per column, the
+// tile's words stored once
+template <int NT>
+__device__ void store_tile(const unsigned* field, unsigned* __restrict__ words,
+                           int ox, int oy, int n) {
+  const int w_words = n >> 5;
+  for (int l = threadIdx.x; l < kLanes; l += NT) {
+    unsigned* out = words + (static_cast<size_t>(ox + l / kTileY) * n + oy +
+                             l % kTileY) * w_words;
+    unsigned carry = 0u;
+    for (int w = w_words - 1; w >= 0; --w) {
+      unsigned s = field[w * kLanes + l];
+      s ^= s >> 1;
+      s ^= s >> 2;
+      s ^= s >> 4;
+      s ^= s >> 8;
+      s ^= s >> 16;
+      out[w] = s ^ (0u - carry);
+      carry ^= s & 1u;
+    }
+  }
+}
+
+// Layouts 0 (one block per chunk) and 1 (one block per tile run): per round
+// each thread prepares one row and a block scan lays the round's pairs out.
+template <bool kRun, int NT>
+__global__ void __launch_bounds__(NT)
+queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
+             const int* __restrict__ chunk_tile,
+             const int* __restrict__ chunk_nsub, unsigned* __restrict__ words,
+             int num_chunks, int n, int k_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* s_rows = reinterpret_cast<float4*>(smem + Smem<NT>::rows);
+  int* s_pre = reinterpret_cast<int*>(smem + Smem<NT>::pre);
+  int* s_span = reinterpret_cast<int*>(smem + Smem<NT>::span);
+  int* s_warp = reinterpret_cast<int*>(smem + Smem<NT>::warp);
+  unsigned* field = reinterpret_cast<unsigned*>(smem + Smem<NT>::field);
+
+  const int c = blockIdx.x;
+  const int nty = n / kTileY;
+  const int tile = chunk_tile[c];
+  int c_end = c + 1;  // the chunks this block folds: [c, c_end)
+  if (kRun) {
+    const int prev = c > 0 ? chunk_tile[c - 1] : -1;
+    if (c > 0 && prev == tile) return;  // not the head of its run
+    c_end = run_end<NT>(chunk_tile, words, c, tile, prev, num_chunks, n);
+  }
+  if (tile < 0 || tile >= (n / kTileX) * nty) return;  // padding chunk
+  const int ox = (tile / nty) * kTileX, oy = (tile % nty) * kTileY;
+  const float fn = static_cast<float>(n);
+  for (int i = threadIdx.x; i < (n >> 5) * kLanes; i += NT) field[i] = 0u;
+
+  const int slots = (c_end - c) * k_chunk;
+  for (int f0 = 0; f0 < slots; f0 += NT) {
+    float4 r[4];
+    int span;
+    const int pairs = load_row(coefs, spans, chunk_nsub, c,
+                               f0 + static_cast<int>(threadIdx.x), slots,
+                               k_chunk, ox, oy, n, r, span);
+    if (pairs > 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s_rows[threadIdx.x * 4 + i] = r[i];
+    }
+    s_span[threadIdx.x] = span;
+    int total;
+    s_pre[threadIdx.x] = block_scan<NT>(pairs, s_warp, total);
+    __syncthreads();
+    for (int p = threadIdx.x; p < total; p += NT) {
+      int q = 0;  // the last row whose first pair is <= p
+#pragma unroll
+      for (int step = NT / 2; step > 0; step >>= 1)
+        if (s_pre[q + step] <= p) q += step;
+      test_pair(s_rows + q * 4, s_span[q], p - s_pre[q], ox, oy, fn, field);
+    }
+    __syncthreads();  // the next round overwrites rows, spans and scan
+  }
+
+  if (kRun) {
+    store_tile<NT>(field, words, ox, oy, n);
+  } else {  // the non-zero words into the zeroed field in device memory
+    const int w_words = n >> 5;
+    for (int i = threadIdx.x; i < w_words * kLanes; i += NT) {
+      const unsigned v = field[i];
+      if (v == 0u) continue;
+      const int w = i / kLanes, l = i - w * kLanes;
+      atomicXor(words + (static_cast<size_t>(ox + l / kTileY) * n + oy +
+                         l % kTileY) * w_words + w, v);
+    }
+  }
+}
+
+// Fold chunks [c, c_end) of one tile into its words, in warp slices: each
+// warp folds its own slices of 32 rows -- a warp scan by shuffles, a 5-step
+// search, and the next slice's rows loaded while this one's pairs run --
+// with no block-wide barrier between slices; then the block stores the tile.
+template <int NT>
+__device__ void fold_run_warps(const float* __restrict__ coefs,
+                               const short4* __restrict__ spans,
+                               const int* __restrict__ chunk_nsub,
+                               unsigned* __restrict__ words, int c, int c_end,
+                               int tile, int n, int k_chunk,
+                               unsigned char* smem) {
+  float4* s_rows = reinterpret_cast<float4*>(smem + Smem<NT>::rows);
+  int* s_pre = reinterpret_cast<int*>(smem + Smem<NT>::pre);
+  int* s_span = reinterpret_cast<int*>(smem + Smem<NT>::span);
+  unsigned* field = reinterpret_cast<unsigned*>(smem + Smem<NT>::field);
+  const int nty = n / kTileY;
+  const int ox = (tile / nty) * kTileX, oy = (tile % nty) * kTileY;
+  const float fn = static_cast<float>(n);
+  for (int i = threadIdx.x; i < (n >> 5) * kLanes; i += NT) field[i] = 0u;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  float4* w_rows = s_rows + wid * 32 * 4;
+  int* w_pre = s_pre + wid * 32;
+  int* w_span = s_span + wid * 32;
+  const int slots = (c_end - c) * k_chunk;
+  float4 r[4];
+  int span;
+  int pairs = load_row(coefs, spans, chunk_nsub, c, wid * 32 + lane, slots,
+                       k_chunk, ox, oy, n, r, span);
+  for (int f0 = wid * 32; f0 < slots; f0 += NT) {
+    if (pairs > 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w_rows[lane * 4 + i] = r[i];
+    }
+    w_span[lane] = span;
+    int x = pairs;  // inclusive warp scan
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    w_pre[lane] = x - pairs;
+    const int total = __shfl_sync(0xffffffffu, x, 31);
+    __syncwarp();
+    // the warp's next slice, loaded while this one's pairs run
+    pairs = load_row(coefs, spans, chunk_nsub, c, f0 + NT + lane, slots,
+                     k_chunk, ox, oy, n, r, span);
+#pragma unroll 2
+    for (int p = lane; p < total; p += 32) {
+      int q = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (w_pre[q + step] <= p) q += step;
+      test_pair(w_rows + q * 4, w_span[q], p - w_pre[q], ox, oy, fn, field);
+    }
+    __syncwarp();  // the next slice overwrites the warp's rows
+  }
+  __syncthreads();
+  store_tile<NT>(field, words, ox, oy, n);
+}
+
+// Layout 2 (one block per tile run, warp slices): block c folds the run that
+// starts at chunk c; the other blocks exit at once.
+template <int NT>
+__global__ void __launch_bounds__(NT)
+queue_kernel_warps(const float* __restrict__ coefs,
+                   const short4* __restrict__ spans,
+                   const int* __restrict__ chunk_tile,
+                   const int* __restrict__ chunk_nsub,
+                   unsigned* __restrict__ words, int num_chunks, int n,
+                   int k_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int c = blockIdx.x;
+  const int tile = chunk_tile[c];
+  const int prev = c > 0 ? chunk_tile[c - 1] : -1;
+  if (c > 0 && prev == tile) return;  // not the head of its run
+  const int c_end = run_end<NT>(chunk_tile, words, c, tile, prev, num_chunks, n);
+  if (tile < 0 || tile >= (n / kTileX) * (n / kTileY)) return;  // padding
+  fold_run_warps<NT>(coefs, spans, chunk_nsub, words, c, c_end, tile, n,
+                     k_chunk, smem);
+}
+
+// Layout 3 (a block per window of kWindow chunks, warp slices): the block
+// folds, one after another, the runs that start in its window.
+template <int NT>
+__global__ void __launch_bounds__(NT)
+queue_kernel_window(const float* __restrict__ coefs,
+                    const short4* __restrict__ spans,
+                    const int* __restrict__ chunk_tile,
+                    const int* __restrict__ chunk_nsub,
+                    unsigned* __restrict__ words, int num_chunks, int n,
+                    int k_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_tile = reinterpret_cast<int*>(smem + Smem<NT>::warp);  // [kWindow + 1]
+  const int c0 = blockIdx.x * kWindow;
+  for (int i = threadIdx.x; i <= kWindow; i += NT) {
+    const int c = c0 - 1 + i;
+    s_tile[i] = c < 0 ? -1 : c < num_chunks ? chunk_tile[c] : INT32_MAX;
+  }
+  __syncthreads();
+  const int n_tiles = (n / kTileX) * (n / kTileY);
+  for (int i = 1; i <= kWindow; ++i) {
+    const int c = c0 - 1 + i, tile = s_tile[i], prev = s_tile[i - 1];
+    if (c >= num_chunks) break;
+    if (c > 0 && prev == tile) continue;  // not the head of a run
+    const int c_end = run_end<NT>(chunk_tile, words, c, tile, prev,
+                                  num_chunks, n);
+    if (tile < 0 || tile >= n_tiles) continue;  // padding
+    fold_run_warps<NT>(coefs, spans, chunk_nsub, words, c, c_end, tile, n,
+                       k_chunk, smem);
+    __syncthreads();  // the next run zeroes the field again
   }
 }
 
@@ -143,48 +478,90 @@ __global__ void queue_kernel_suffix_parity(unsigned int* __restrict__ words,
   }
 }
 
-template <int MAXW>
-void launch(const float* coefs, const int* chunk_tile, const int* chunk_nsub,
-            unsigned int* words, int num_chunks, int n, int k_chunk,
-            cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(k_chunk) * kCoef * sizeof(float);
-  queue_kernel<MAXW><<<num_chunks, kLanes, smem, stream>>>(
-      coefs, chunk_tile, chunk_nsub, words, n, k_chunk);
+template <int kLayout, int NT>
+int launch(const float* coefs, const short4* spans, const int* chunk_tile,
+           const int* chunk_nsub, unsigned* words, int num_chunks, int n,
+           int k_chunk, cudaStream_t stream) {
+  const int w_words = n / 32;
+  const size_t smem = Smem<NT>::bytes(w_words);
+  const size_t bytes = static_cast<size_t>(n) * n * w_words * sizeof(unsigned);
+  auto kernel = kLayout == 3   ? queue_kernel_window<NT>
+                : kLayout == 2 ? queue_kernel_warps<NT>
+                               : queue_kernel<kLayout == 1, NT>;
+  const int blocks =
+      kLayout == 3 ? (num_chunks + kWindow - 1) / kWindow : num_chunks;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (kLayout == 0 || num_chunks == 0)  // a zeroed field, or no chunk at all
+    cudaMemsetAsync(words, 0, bytes, stream);
+  if (num_chunks > 0)
+    kernel<<<blocks, NT, smem, stream>>>(coefs, spans, chunk_tile, chunk_nsub,
+                                         words, num_chunks, n, k_chunk);
+  if (kLayout == 0) {
+    const int columns = n * n;
+    constexpr int kBlock = 256;
+    queue_kernel_suffix_parity<<<(columns + kBlock - 1) / kBlock, kBlock, 0,
+                                 stream>>>(words, columns, w_words);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int check_args(int num_chunks, int n, int k_chunk) {
+  if (n % 32 != 0 || n < 32 || n > 1024 || num_chunks < 0 || k_chunk < kSub ||
+      k_chunk % kSub != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace
 
-// coefs: [num_chunks * k_chunk, 16] f32; chunk_tile, chunk_nsub:
-// [num_chunks] int32; words: [n, n, n/32] int32, zeroed here, XOR-filled
-// with crossing bits, then converted to occupancy in place.
-extern "C" int dxv_parity_queue(const float* coefs, const int* chunk_tile,
-                                const int* chunk_nsub, int* words,
-                                int num_chunks, int n, int k_chunk,
+// coefs: [num_chunks * k_chunk, 16] f32; spans: [num_chunks * k_chunk, 4]
+// int16 (x_lo, x_hi, y_lo, y_hi: the bounding box's grid columns, clipped to
+// [-1, n]) or null (every row tests its whole tile); chunk_tile (non-decreasing), chunk_nsub: [num_chunks] int32;
+// words: [n, n, n/32] int32, written whole.
+extern "C" int dxv_parity_queue(const float* coefs, const short* spans,
+                                const int* chunk_tile, const int* chunk_nsub,
+                                int* words, int num_chunks, int n, int k_chunk,
                                 void* stream) {
+  if (const int e = check_args(num_chunks, n, k_chunk)) return e;
+  return launch<kMainLayout, kMainThreads>(
+      coefs, reinterpret_cast<const short4*>(spans), chunk_tile, chunk_nsub,
+      reinterpret_cast<unsigned*>(words), num_chunks, n, k_chunk,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same with the layout (0: a block per chunk, device-memory atomics and
+// a second pass; 1: a block per tile run, block rounds; 2: a block per tile
+// run, warp slices) and the block size (128, 256, 512) chosen by the caller:
+// the timing sweep.
+extern "C" int dxv_parity_queue_variant(const float* coefs, const short* spans,
+                                        const int* chunk_tile,
+                                        const int* chunk_nsub, int* words,
+                                        int num_chunks, int n, int k_chunk,
+                                        int layout, int threads, void* stream) {
+  if (const int e = check_args(num_chunks, n, k_chunk)) return e;
+  const short4* sp = reinterpret_cast<const short4*>(spans);
+  unsigned* w = reinterpret_cast<unsigned*>(words);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w_words = n / 32;
-  if (n % 32 != 0 || n < 32 || num_chunks < 0 || k_chunk < kSub ||
-      k_chunk % kSub != 0 || k_chunk * kCoef * sizeof(float) > 48 * 1024 ||
-      w_words > 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaMemsetAsync(words, 0,
-                  static_cast<size_t>(n) * n * w_words * sizeof(int), s);
-  unsigned int* w = reinterpret_cast<unsigned int*>(words);
-  if (num_chunks > 0) {
-    if (w_words <= 2)
-      launch<2>(coefs, chunk_tile, chunk_nsub, w, num_chunks, n, k_chunk, s);
-    else if (w_words <= 4)
-      launch<4>(coefs, chunk_tile, chunk_nsub, w, num_chunks, n, k_chunk, s);
-    else if (w_words <= 8)
-      launch<8>(coefs, chunk_tile, chunk_nsub, w, num_chunks, n, k_chunk, s);
-    else if (w_words <= 16)
-      launch<16>(coefs, chunk_tile, chunk_nsub, w, num_chunks, n, k_chunk, s);
-    else
-      launch<32>(coefs, chunk_tile, chunk_nsub, w, num_chunks, n, k_chunk, s);
-  }
-  const int columns = n * n;
-  constexpr int kBlock = 256;
-  const int blocks = (columns + kBlock - 1) / kBlock;
-  queue_kernel_suffix_parity<<<blocks, kBlock, 0, s>>>(w, columns, w_words);
-  return static_cast<int>(cudaGetLastError());
+#define DXV_QUEUE_CASE(L, T)                                                 \
+  if (layout == L && threads == T)                                           \
+    return launch<L, T>(coefs, sp, chunk_tile, chunk_nsub, w, num_chunks, n, \
+                        k_chunk, s);
+  DXV_QUEUE_CASE(0, 128)
+  DXV_QUEUE_CASE(0, 256)
+  DXV_QUEUE_CASE(1, 128)
+  DXV_QUEUE_CASE(1, 256)
+  DXV_QUEUE_CASE(1, 512)
+  DXV_QUEUE_CASE(2, 128)
+  DXV_QUEUE_CASE(2, 256)
+  DXV_QUEUE_CASE(2, 512)
+  DXV_QUEUE_CASE(3, 128)
+  DXV_QUEUE_CASE(3, 256)
+  DXV_QUEUE_CASE(3, 512)
+#undef DXV_QUEUE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

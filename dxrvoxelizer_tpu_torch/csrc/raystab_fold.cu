@@ -16,30 +16,39 @@
 // Candidates come in chunks of 256; bounds[s, j] is a strict lower bound on t
 // of any hit in chunk j, so a chunk that no lane's best t reaches is skipped.
 //
-// What bounds it on the card: FP32 arithmetic per (ray, candidate) pair --
-// three 3-term dot products, two adds, a division and a subtraction (19
-// operations) plus the compares and the fold's selects. Candidate rows (96
-// bytes) are read from device memory once per strip and broadcast from
-// shared memory to the strip's 128 lanes, so bytes are ~0.75 per pair.
+// What bounds it on the card: issued instructions per (ray, candidate) pair.
+// The function's floor is 19 FP32 operations per pair (three 3-term dot
+// products, two adds, a division and a subtraction); candidate rows are read
+// once per strip and broadcast from shared memory to its 128 lanes, so bytes
+// are under one per pair. On the main path's tables (64^3) only about 1.3 %
+// of the pairs pass the sign test of the three dot products, and about a fifth
+// of the (warp, candidate) steps hold one such pair.
 //
-// Design: one block per strip, one thread per ray lane; the strip's
-// candidates are staged through shared memory 256 rows at a time (24 KiB);
-// each thread keeps its running (t, id) and, after each chunk, copies the
-// 18 floats of the chunk's winner row (if the winner changed in it) into
-// registers -- the TPU kernel's one-hot matmul at Precision.HIGHEST is such a
-// copy, and here it is a plain select with no MMA; the finalize runs in the
-// thread. The chunk skip is block-wide: __syncthreads_or(best_t >= bound),
-// the TPU's `bound <= max over lanes of best t`. Padding lanes start at
-// t = -inf so they never hold a strip back from skipping; miss lanes keep id
-// 2^30; a hit is isfinite(t) & id < t_count. Every chain uses
-// __fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn in the JAX order, so nothing
-// contracts into an FMA and results are bit-identical to the plain version and
-// the radial oracle. The (t, lowest id) order is total on real candidates, so
-// the in-thread sequential fold picks the TPU's tree fold's winner. One
+// Design: one block per strip, of G groups of 128 threads (one thread per ray
+// lane in each group). The strip's candidates are cut into sub-chunks of 64
+// rows; in round r, group g folds sub-chunk r * G + g, so a round of G = 4
+// covers one 256-row chunk. Only the first 12 floats of each row (g0..g8, c,
+// id) are staged, by 16-byte cp.async copies, into an NST-stage ring of
+// shared memory, issued NST - 1 rounds ahead of their use. Per pair the three
+// dot products and the sign test run first; den, |den| > eps and the
+// correctly rounded division run only for the pairs that pass (kDefer), with
+// the same __f*_rn chains, so t is bit for bit the one the undeferred chain
+// gives. Each thread keeps (t, id) and the winning row's index, not its
+// floats. At a chunk start the block takes every lane's best t over all groups
+// (a shared-memory minimum) and skips the chunk unless some lane reaches its
+// bound -- the plain version's decision exactly. After the last round the
+// groups' winners merge by (t, id, row), a total order, so the order of the
+// merge does not matter; the first group reads each lane's winning row once
+// from device memory and finishes it. Padding lanes start at t = -inf so they
+// never hold a strip back from skipping; miss lanes keep id 2^30; a hit is
+// isfinite(t) & id < t_count. Every chain uses __fmul_rn/__fadd_rn/
+// __fdiv_rn/__fsqrt_rn in the JAX order, so nothing contracts into an FMA and
+// results are bit-identical to the plain version and the radial oracle. One
 // launch covers every capacity class of the accel (per-strip offset and
 // count); blocks run in reverse strip order, so the widest classes (built
-// last) start first. The near-origin stream is a second launch of the same
-// instance with every strip's offset 0.
+// last) start first. The near-origin stream is a second launch with every
+// strip's offset 0. dxv_raystab_fold_extract_variant runs the other G, NST
+// and kDefer settings (the timing sweep of chip_smoke.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,12 +57,17 @@
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kChunk = 256;
-constexpr int kRow = 24;
-constexpr int kCCol = 9, kIdCol = 10, kNCol = 12;
+constexpr int kChunk = 256;  // rows per chunk-skip bound
+constexpr int kSub = 64;     // rows per staged sub-chunk
+constexpr int kSubPerChunk = kChunk / kSub;
+constexpr int kRow = 24;     // floats per candidate row
+constexpr int kStaged = 3;   // float4s staged per row: g0..g8 c id pad
 constexpr float kBigId = 1073741824.0f;  // 2^30
 constexpr float kEpsDet = 1e-10f;
 constexpr float kTMax = 1e4f;
+// the main path's settings (chip_smoke.py phase 15b sweeps the others)
+constexpr int kGroups = 1;
+constexpr int kStages = 2;
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                                       float by, float bz) {
@@ -61,79 +75,185 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                    __fmul_rn(az, bz));
 }
 
-// intersect.radial_hit: t on a hit, +inf on a miss
-__device__ __forceinline__ float radial_hit(float dx, float dy, float dz,
-                                            float s0, const float* q) {
-  const float w0 = dot3(dx, dy, dz, q[0], q[1], q[2]);
-  const float w1 = dot3(dx, dy, dz, q[3], q[4], q[5]);
-  const float w2 = dot3(dx, dy, dz, q[6], q[7], q[8]);
-  const float den = __fadd_rn(__fadd_rn(w0, w1), w2);
-  const float wmin = fminf(w0, fminf(w1, w2));
-  const float wmax = fmaxf(w0, fmaxf(w1, w2));
-  const float t = __fsub_rn(__fdiv_rn(q[kCCol], den), s0);
-  const bool hit = fabsf(den) > kEpsDet && (wmin >= 0.0f || wmax <= 0.0f) &&
-                   t >= 0.0f && t <= kTMax;
-  return hit ? t : INFINITY;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
 }
 
-template <bool kExtract>
-__global__ void __launch_bounds__(kLanes)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// (t, id, row) lexicographic: is (t2, i2, k2) before (t, i, k)?
+__device__ __forceinline__ bool before(float t2, float i2, int k2, float t,
+                                       float i, int k) {
+  return t2 < t || (t2 == t && (i2 < i || (i2 == i && k2 < k)));
+}
+
+template <bool kExtract, int G, int NST, bool kDefer>
+__global__ void __launch_bounds__(G * kLanes)
 stab_kernel(const float* __restrict__ rays, const int* __restrict__ cand_off,
             const int* __restrict__ cand_cnt, const float* __restrict__ rows,
             const float* __restrict__ bounds, int n_bounds,
             float* __restrict__ t_out, int* __restrict__ i_out,
             float4* __restrict__ ns_out, int strips, int t_count,
             float threshold, int rule_hit) {
-  __shared__ float cand[kChunk * kRow];
+  constexpr int kThreads = G * kLanes;
+  constexpr int kStageF4 = G * kSub * kStaged;  // float4s per ring stage
+  extern __shared__ float4 smem[];
+  float4* ring = smem;  // [NST][G * kSub][kStaged]
+  float* sbt = reinterpret_cast<float*>(ring + NST * kStageF4);  // [G][128]
+  float* sbi = sbt + kThreads;
+  int* sbk = reinterpret_cast<int*>(sbi + kThreads);
+
   const int s = strips - 1 - static_cast<int>(blockIdx.x);
-  const int l = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int g = tid / kLanes;
+  const int l = tid - g * kLanes;
   const float* r = rays + static_cast<size_t>(s) * 4 * kLanes;
   const float dx = r[l], dy = r[kLanes + l], dz = r[2 * kLanes + l];
   const float s0 = r[3 * kLanes + l];
   const bool pad = dx == 0.0f && dy == 0.0f && dz == 0.0f;
   float bt = pad ? -INFINITY : INFINITY;
   float bi = kBigId;
-  float win[18];
-#pragma unroll
-  for (int c = 0; c < 18; ++c) win[c] = 0.0f;
+  int bk = -1;  // the winner's row in the strip
 
   const int cnt = cand_cnt[s];
   const float* src = rows + static_cast<size_t>(cand_off[s]) * kRow;
-  for (int c0 = 0, j = 0; c0 < cnt; c0 += kChunk, ++j) {
-    const float bound = (bounds != nullptr && j < n_bounds)
-                            ? bounds[static_cast<size_t>(s) * n_bounds + j]
-                            : -INFINITY;
-    if (!__syncthreads_or(bt >= bound)) continue;  // every lane beats it
-    const int m = min(kChunk, cnt - c0);
-    const float* chunk = src + static_cast<size_t>(c0) * kRow;
-    for (int i = l; i < m * kRow; i += kLanes) cand[i] = chunk[i];
-    __syncthreads();
-    int wk = -1;  // where this chunk's winner row sits, if it won here
-    for (int k = 0; k < m; ++k) {
-      const float* q = cand + k * kRow;
-      const float tt = radial_hit(dx, dy, dz, s0, q);
-      const float ii = tt != INFINITY ? q[kIdCol] : kBigId;
-      if (tt < bt || (tt == bt && ii < bi)) {
-        bt = tt;
-        bi = ii;
-        wk = k;
+  const int rounds = (cnt + G * kSub - 1) / (G * kSub);
+
+  // round q's rows -> ring stage q % NST (an empty commit group past the end
+  // keeps the wait counts uniform)
+  auto issue = [&](int q) {
+    if (q < rounds) {
+      const int row0 = q * G * kSub;
+      const int n4 = min(G * kSub, cnt - row0) * kStaged;
+      float4* dst = ring + (q % NST) * kStageF4;
+      const float* base = src + static_cast<size_t>(row0) * kRow;
+      for (int i = tid; i < n4; i += kThreads) {
+        const int row = i / kStaged;
+        cp_async16(dst + i, base + row * kRow + (i - row * kStaged) * 4);
       }
     }
-    if (kExtract && wk >= 0) {
-      const float* q = cand + wk * kRow;
+    cp_async_commit();
+  };
 #pragma unroll
-      for (int c = 0; c < 9; ++c) {
-        win[c] = q[c];
-        win[9 + c] = q[kNCol + c];
+  for (int q = 0; q < NST - 1; ++q) issue(q);
+
+  bool run = true;
+  for (int q = 0; q < rounds; ++q) {
+    issue(q + NST - 1);
+    cp_async_wait<NST - 1>();
+    __syncthreads();  // round q's rows have landed for every thread
+    if ((q * G) % kSubPerChunk == 0) {  // a chunk starts: skip it?
+      const int j = q * G / kSubPerChunk;
+      const float bound = (bounds != nullptr && j < n_bounds)
+                              ? bounds[static_cast<size_t>(s) * n_bounds + j]
+                              : -INFINITY;
+      if (bound == -INFINITY) {  // no bound (best t is never NaN)
+        run = true;
+      } else {
+        float m = bt;  // this lane's best t over every group
+        if (G > 1) {
+          sbt[tid] = bt;
+          __syncthreads();
+#pragma unroll
+          for (int h = 0; h < G; ++h) m = fminf(m, sbt[h * kLanes + l]);
+        }
+        run = __syncthreads_or(m >= bound);
       }
     }
-    __syncthreads();  // the next chunk overwrites the staged rows
+    const int k0 = (q * G + g) * kSub;
+    const int m = run ? min(kSub, cnt - k0) : 0;
+    const float4* qr = ring + (q % NST) * kStageF4 + g * kSub * kStaged;
+#pragma unroll 4
+    for (int k = 0; k < m; ++k) {
+      const float4 a = qr[k * kStaged];
+      const float4 b = qr[k * kStaged + 1];
+      const float4 c = qr[k * kStaged + 2];  // g8 c id pad
+      const float w0 = dot3(dx, dy, dz, a.x, a.y, a.z);
+      const float w1 = dot3(dx, dy, dz, a.w, b.x, b.y);
+      const float w2 = dot3(dx, dy, dz, b.z, b.w, c.x);
+      const float wmin = fminf(w0, fminf(w1, w2));
+      const float wmax = fmaxf(w0, fmaxf(w1, w2));
+      if (kDefer) {
+        if (wmin >= 0.0f || wmax <= 0.0f) {
+          const float den = __fadd_rn(__fadd_rn(w0, w1), w2);
+          if (fabsf(den) > kEpsDet) {
+            const float t = __fsub_rn(__fdiv_rn(c.y, den), s0);
+            if (t >= 0.0f && t <= kTMax &&
+                (t < bt || (t == bt && c.z < bi))) {
+              bt = t;
+              bi = c.z;
+              bk = k0 + k;
+            }
+          }
+        }
+      } else {
+        const float den = __fadd_rn(__fadd_rn(w0, w1), w2);
+        const float tt = __fsub_rn(__fdiv_rn(c.y, den), s0);
+        const bool hit = fabsf(den) > kEpsDet &&
+                         (wmin >= 0.0f || wmax <= 0.0f) && tt >= 0.0f &&
+                         tt <= kTMax;
+        const float t = hit ? tt : INFINITY;
+        const float ii = hit ? c.z : kBigId;
+        if (t < bt || (t == bt && ii < bi)) {
+          bt = t;
+          bi = ii;
+          bk = k0 + k;
+        }
+      }
+    }
+    __syncthreads();  // round q + NST - 1 overwrites this stage
+  }
+  cp_async_wait<0>();
+
+  if (G > 1) {  // merge the groups' winners in the first group
+    sbt[tid] = bt;
+    sbi[tid] = bi;
+    sbk[tid] = bk;
+    __syncthreads();
+    if (g != 0) return;
+#pragma unroll
+    for (int h = 1; h < G; ++h) {
+      const float t2 = sbt[h * kLanes + l], i2 = sbi[h * kLanes + l];
+      const int k2 = sbk[h * kLanes + l];
+      if (before(t2, i2, k2, bt, bi, bk)) {
+        bt = t2;
+        bi = i2;
+        bk = k2;
+      }
+    }
   }
 
   const size_t slot = static_cast<size_t>(s) * kLanes + l;
   t_out[slot] = bt;
   i_out[slot] = static_cast<int>(bi);
   if (!kExtract) return;
+  // the winner's 9 coefficient and 9 normal floats, read once
+  float win[18];
+#pragma unroll
+  for (int c = 0; c < 18; ++c) win[c] = 0.0f;
+  if (bk >= 0) {
+    const float4* w4 =
+        reinterpret_cast<const float4*>(src + static_cast<size_t>(bk) * kRow);
+    const float4 a = w4[0], b = w4[1], c = w4[2];
+    const float4 na = w4[3], nb = w4[4], nc = w4[5];
+    const float gv[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+    const float nv[9] = {na.x, na.y, na.z, na.w, nb.x, nb.y, nb.z, nb.w, nc.x};
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      win[i] = gv[i];
+      win[9 + i] = nv[i];
+    }
+  }
   // finalize (raystab_pallas.py:705-731 chains, radial oracle's convention)
   const float w0 = dot3(dx, dy, dz, win[0], win[1], win[2]);
   const float w1 = dot3(dx, dy, dz, win[3], win[4], win[5]);
@@ -157,7 +277,7 @@ stab_kernel(const float* __restrict__ rays, const int* __restrict__ cand_off,
                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-template <bool kExtract>
+template <bool kExtract, int G, int NST, bool kDefer>
 int launch(const float* rays, const int* cand_off, const int* cand_cnt,
            const float* rows, const float* bounds, int n_bounds, float* t_out,
            int* i_out, float* ns_out, int strips, int t_count, float threshold,
@@ -165,28 +285,97 @@ int launch(const float* rays, const int* cand_off, const int* cand_cnt,
   if (strips < 0 || n_bounds < 0 || t_count < 0 || t_count >= (1 << 24))
     return static_cast<int>(cudaErrorInvalidValue);
   if (strips > 0) {
-    stab_kernel<kExtract><<<strips, kLanes, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out, i_out,
-        reinterpret_cast<float4*>(ns_out), strips, t_count, threshold,
-        rule_hit);
+    const size_t smem = static_cast<size_t>(NST) * G * kSub * kStaged *
+                            sizeof(float4) +
+                        (G > 1 ? static_cast<size_t>(G) * kLanes * 12 : 0);
+    stab_kernel<kExtract, G, NST, kDefer>
+        <<<strips, G * kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+            rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out, i_out,
+            reinterpret_cast<float4*>(ns_out), strips, t_count, threshold,
+            rule_hit);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int G, int NST>
+int launch_defer(int defer, const float* rays, const int* cand_off,
+                 const int* cand_cnt, const float* rows, const float* bounds,
+                 int n_bounds, float* t_out, int* i_out, float* ns_out,
+                 int strips, int t_count, float threshold, int rule_hit,
+                 void* stream) {
+  return defer ? launch<true, G, NST, true>(
+                     rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out,
+                     i_out, ns_out, strips, t_count, threshold, rule_hit,
+                     stream)
+               : launch<true, G, NST, false>(
+                     rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out,
+                     i_out, ns_out, strips, t_count, threshold, rule_hit,
+                     stream);
+}
+
+template <int G>
+int launch_stages(int stages, int defer, const float* rays,
+                  const int* cand_off, const int* cand_cnt, const float* rows,
+                  const float* bounds, int n_bounds, float* t_out, int* i_out,
+                  float* ns_out, int strips, int t_count, float threshold,
+                  int rule_hit, void* stream) {
+  switch (stages) {
+    case 1:
+      return launch_defer<G, 1>(defer, rays, cand_off, cand_cnt, rows, bounds,
+                                n_bounds, t_out, i_out, ns_out, strips,
+                                t_count, threshold, rule_hit, stream);
+    case 2:
+      return launch_defer<G, 2>(defer, rays, cand_off, cand_cnt, rows, bounds,
+                                n_bounds, t_out, i_out, ns_out, strips,
+                                t_count, threshold, rule_hit, stream);
+    case 3:
+      return launch_defer<G, 3>(defer, rays, cand_off, cand_cnt, rows, bounds,
+                                n_bounds, t_out, i_out, ns_out, strips,
+                                t_count, threshold, rule_hit, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // rays [strips, 4, 128] f32; cand_off, cand_cnt [strips] int32; rows [P, 24]
-// f32; bounds [strips, n_bounds] f32 or null; t_out [strips, 128] f32;
-// i_out [strips, 128] int32; ns_out [strips, 128, 4] f32.
+// f32 (16-byte aligned); bounds [strips, n_bounds] f32 or null;
+// t_out [strips, 128] f32; i_out [strips, 128] int32; ns_out [strips, 128, 4]
+// f32.
 extern "C" int dxv_raystab_fold_extract(
     const float* rays, const int* cand_off, const int* cand_cnt,
     const float* rows, const float* bounds, int n_bounds, float* t_out,
     int* i_out, float* ns_out, int strips, int t_count, float threshold,
     int rule_hit, void* stream) {
-  return launch<true>(rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out,
-                      i_out, ns_out, strips, t_count, threshold, rule_hit,
-                      stream);
+  return launch<true, kGroups, kStages, true>(
+      rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out, i_out, ns_out,
+      strips, t_count, threshold, rule_hit, stream);
+}
+
+// The same with groups per strip (1, 2, 4), ring stages (1, 2, 3) and the
+// deferred division (0, 1) chosen by the caller: the timing sweep.
+extern "C" int dxv_raystab_fold_extract_variant(
+    const float* rays, const int* cand_off, const int* cand_cnt,
+    const float* rows, const float* bounds, int n_bounds, float* t_out,
+    int* i_out, float* ns_out, int strips, int t_count, float threshold,
+    int rule_hit, int groups, int stages, int defer, void* stream) {
+  switch (groups) {
+    case 1:
+      return launch_stages<1>(stages, defer, rays, cand_off, cand_cnt, rows,
+                              bounds, n_bounds, t_out, i_out, ns_out, strips,
+                              t_count, threshold, rule_hit, stream);
+    case 2:
+      return launch_stages<2>(stages, defer, rays, cand_off, cand_cnt, rows,
+                              bounds, n_bounds, t_out, i_out, ns_out, strips,
+                              t_count, threshold, rule_hit, stream);
+    case 4:
+      return launch_stages<4>(stages, defer, rays, cand_off, cand_cnt, rows,
+                              bounds, n_bounds, t_out, i_out, ns_out, strips,
+                              t_count, threshold, rule_hit, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The fold alone: t_out, i_out as above.
@@ -195,6 +384,7 @@ extern "C" int dxv_raystab_fold(const float* rays, const int* cand_off,
                                 const float* bounds, int n_bounds,
                                 float* t_out, int* i_out, int strips,
                                 void* stream) {
-  return launch<false>(rays, cand_off, cand_cnt, rows, bounds, n_bounds,
-                       t_out, i_out, nullptr, strips, 0, 0.0f, 0, stream);
+  return launch<false, kGroups, kStages, true>(
+      rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out, i_out, nullptr,
+      strips, 0, 0.0f, 0, stream);
 }

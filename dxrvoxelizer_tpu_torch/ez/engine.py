@@ -60,7 +60,7 @@ class Engine:
     def voxelize_only(self) -> VoxelGrid:
         return voxelize(
             self.scene.buffers, self.cfg.grid_size, mode=self.cfg.inside_mode,
-            impl=self.pipeline.grid_impl,
+            impl=self.pipeline.vox_impl,
         )
 
     def render_grid(self, grid: VoxelGrid, consts: FrameConstants) -> torch.Tensor:

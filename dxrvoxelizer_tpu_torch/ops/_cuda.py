@@ -45,8 +45,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # coef, words, n_tiles, k, n, k_chunk, stream
     "dxv_parity_voxelize": (_P, _P, _I, _I, _I, _I, _P),
-    # coefs, chunk_tile, chunk_nsub, words, num_chunks, n, k_chunk, stream
-    "dxv_parity_queue": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # coefs, spans, chunk_tile, chunk_nsub, words, num_chunks, n, k_chunk,
+    # stream
+    "dxv_parity_queue": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # the same, then layout, threads, stream
+    "dxv_parity_queue_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # slabs, wts, front, scale_x, off_x, scale_y, off_y, delta,
     # transmit, scatter, kn, n, m, ss, cz, fx, fy4, stream
     "dxv_march": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -57,6 +60,9 @@ _SIGNATURES = {
     # t_count, threshold, rule_hit, stream
     "dxv_raystab_fold_extract": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                                  _F, _I, _P),
+    # the same, then groups, stages, defer, stream
+    "dxv_raystab_fold_extract_variant": (_P, _P, _P, _P, _P, _I, _P, _P, _P,
+                                         _I, _I, _F, _I, _I, _I, _I, _P),
     # rays, cand_off, cand_cnt, rows, bounds, n_bounds, t, id, strips, stream
     "dxv_raystab_fold": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P),
     # pos, dirs, ray_ids, ray_off, ray_cnt, cand_off, cand_cnt, rows, t, id,
@@ -71,7 +77,7 @@ class Kernel:
     times its wrapper launched it (reset by callers that count a run)."""
 
     name: str
-    symbol: str  # the __global__ function (as profilers name it)
+    symbol: str  # the __global__ function (a prefix of its profiler name)
     source: str  # repository-relative path of the .cu file
     replaces: str  # file:line of the Pallas TPU kernel it ports
     route: str = "cuda"

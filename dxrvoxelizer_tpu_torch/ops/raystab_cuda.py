@@ -41,13 +41,13 @@ PLAIN_BATCH = 128  # strips per step of the plain version (bounds its memory)
 
 FOLD_EXTRACT = _cuda.Kernel(
     name="raystab_fold_extract",
-    symbol="stab_kernel<true>",
+    symbol="stab_kernel<true,",  # <true, groups, stages, defer>
     source="dxrvoxelizer_tpu_torch/csrc/raystab_fold.cu",
     replaces="dxrvoxelizer_tpu/ops/raystab_pallas.py:603",
 )
 FOLD = _cuda.Kernel(
     name="raystab_fold",
-    symbol="stab_kernel<false>",
+    symbol="stab_kernel<false,",
     source="dxrvoxelizer_tpu_torch/csrc/raystab_fold.cu",
     replaces="dxrvoxelizer_tpu/ops/raystab_pallas.py:185",
 )
@@ -168,7 +168,7 @@ def fold_plain(tb: StripTables):
 
 
 def _launch(tb: StripTables, t_count: int, threshold: float, rule: str,
-            extract: bool):
+            extract: bool, variant: tuple[int, int, bool] | None = None):
     _check(tb, t_count)
     _cuda.require(tb.rays, "rays", torch.float32)
     _cuda.require(tb.cand_off, "cand_off", torch.int32)
@@ -178,6 +178,9 @@ def _launch(tb: StripTables, t_count: int, threshold: float, rule: str,
         _cuda.require(tb.bounds, "bounds", torch.float32)
     dev = tb.rays.device
     lib = _cuda.load()
+    if tb.rows.data_ptr() % 16:
+        raise ValueError("rows: the kernel copies 16-byte pieces of them; "
+                         "expected a 16-byte aligned tensor")
     s = tb.strips
     t = torch.empty((s, LANES), dtype=torch.float32, device=dev)
     i = torch.empty((s, LANES), dtype=torch.int32, device=dev)
@@ -185,12 +188,15 @@ def _launch(tb: StripTables, t_count: int, threshold: float, rule: str,
     n_bnd = 0 if tb.bounds is None else int(tb.bounds.shape[1])
     if extract:
         ns = torch.empty((s, LANES, 4), dtype=torch.float32, device=dev)
-        code = lib.dxv_raystab_fold_extract(
-            tb.rays.data_ptr(), tb.cand_off.data_ptr(), tb.cand_cnt.data_ptr(),
-            tb.rows.data_ptr(), bnd_ptr, n_bnd, t.data_ptr(), i.data_ptr(),
-            ns.data_ptr(), s, t_count, threshold, int(rule == "hit"),
-            _cuda.stream_ptr(dev),
-        )
+        args = (tb.rays.data_ptr(), tb.cand_off.data_ptr(),
+                tb.cand_cnt.data_ptr(), tb.rows.data_ptr(), bnd_ptr, n_bnd,
+                t.data_ptr(), i.data_ptr(), ns.data_ptr(), s, t_count,
+                threshold, int(rule == "hit"))
+        if variant is None:
+            code = lib.dxv_raystab_fold_extract(*args, _cuda.stream_ptr(dev))
+        else:
+            code = lib.dxv_raystab_fold_extract_variant(
+                *args, *(int(v) for v in variant), _cuda.stream_ptr(dev))
         _cuda.check(code, FOLD_EXTRACT.name)
         FOLD_EXTRACT.launches += 1
         return t, i, ns
@@ -205,14 +211,17 @@ def _launch(tb: StripTables, t_count: int, threshold: float, rule: str,
 
 
 def fold_extract(tb: StripTables, t_count: int, threshold: float,
-                 rule: str = "backface"):
+                 rule: str = "backface",
+                 variant: tuple[int, int, bool] | None = None):
     """Run the fold + extraction kernel -> (t, id, ns). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel."""
+    plain version; a CUDA tensor launches the kernel. ``variant`` = (groups
+    per strip, ring stages, deferred division) picks settings of the kernel
+    other than the main path's (csrc/raystab_fold.cu; the timing sweep)."""
     if rule not in ("backface", "hit"):
         raise ValueError(f"unknown rule {rule!r}")
     if tb.rays.device.type == "cpu":
         return fold_extract_plain(tb, t_count, threshold, rule)
-    return _launch(tb, t_count, threshold, rule, extract=True)
+    return _launch(tb, t_count, threshold, rule, extract=True, variant=variant)
 
 
 def fold(tb: StripTables):

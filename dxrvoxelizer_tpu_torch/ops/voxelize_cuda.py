@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from dxrvoxelizer_tpu_torch.ops import _cuda
-from dxrvoxelizer_tpu_torch.ops.geom import ParityTris
+from dxrvoxelizer_tpu_torch.ops.geom import ParityTris, parity_tri_setup
 from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
 
 TILE = 32  # columns per tile side
@@ -127,3 +127,26 @@ def voxelize_parity_tiles(coef_tiles: torch.Tensor, n: int) -> torch.Tensor:
     _cuda.check(code, KERNEL.name)
     KERNEL.launches += 1
     return words
+
+
+def voxelize_parity_bruteforce(verts_norm: torch.Tensor, tris: torch.Tensor,
+                               n: int, k_chunk: int = 512) -> torch.Tensor:
+    """Every tile sees every triangle (no binning) -> words [N, N, N//32].
+
+    Port of ``voxelize_pallas.voxelize_parity_bruteforce``: the triangles'
+    rows, zero-padded to a multiple of ``k_chunk``, repeated for every tile
+    and run through :func:`voxelize_parity_tiles` (the kernel on a GPU, its
+    plain version on the CPU). Correct at any size; the binned path is the
+    fast one."""
+    if n % TILE != 0:
+        raise ValueError(f"grid size must be a multiple of {TILE}, got {n}")
+    if tris.shape[0] == 0:
+        return torch.zeros((n, n, n // 32), dtype=torch.int32,
+                           device=verts_norm.device)
+    coef = pack_coeffs(parity_tri_setup(verts_norm, tris, n))
+    pad = (-coef.shape[0]) % k_chunk
+    coef = torch.cat([coef, coef.new_zeros((pad, NCOEF))])
+    tiles = coef[None].expand((n // TILE) ** 2, -1, -1)
+    if tiles.device.type != "cpu":
+        tiles = tiles.contiguous()
+    return voxelize_parity_tiles(tiles, n)

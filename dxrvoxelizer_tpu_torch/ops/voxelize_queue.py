@@ -5,7 +5,13 @@ Port of ``dxrvoxelizer_tpu/ops/voxelize_queue.py``. Triangles are binned to
 chunks of ``k_chunk`` packed coefficient rows in one flat queue; three
 per-chunk arrays name the chunk's tile (``chunk_tile``), its live sub-blocks
 of 8 rows (``chunk_nsub``) and whether it is the tile's last chunk
-(``chunk_last``). Empty tiles get no chunks. The kernel
+(``chunk_last``). Empty tiles get no chunks. Beside the rows, ``spans``
+[rows, 4] int16 holds each row's column span, the bounding box the binning
+uses (``[ceil xmin, floor xmax] x [ceil ymin, floor ymax]``, clipped to
+[-1, N]; padding rows get (-1, -1, -1, -1)); the kernel widens it by one
+column each side and clips it to the tile, or tests the whole tile for a
+sliver (ops/voxelize_queue_cuda.py, ``row_columns``): the kernel tests only those columns of the tile (not in the
+JAX package, whose TPU kernel tests all 128 lanes of a row at once). The kernel
 (ops/voxelize_queue_cuda.py, ``csrc/parity_queue.cu``) turns the queue into
 packed occupancy words, bit-identical to the binned path and the oracle.
 
@@ -84,7 +90,9 @@ def _queue_phase_a(verts_norm, tris, n: int, max_span_x: int,
     """Device phase A: setup, (tile, tri) pairs, sort -> per-tile runs.
 
     Sync-free. ``ov_cap`` bounds the size of the overflow id list (None ->
-    T, always enough); ids past the true overflow count are -1.
+    T, always enough); ids past the true overflow count are -1. The last
+    output is every triangle's column span [T, 4] int16 (x_lo, x_hi, y_lo,
+    y_hi): the columns it is binned by, clipped to [-1, n].
     """
     device = verts_norm.device
     pt = parity_tri_setup(verts_norm, tris, n)
@@ -133,28 +141,35 @@ def _queue_phase_a(verts_norm, tris, n: int, max_span_x: int,
     ov_order = torch.sort((~overflow_mask).to(torch.uint8), stable=True)[1]
     ov_order = ov_order[:o_cap]
     ov_ids = torch.where(overflow_mask.index_select(0, ov_order), ov_order, -1)
-    return coef, sorted_tris, starts, counts, ov_ids, overflow_mask.sum()
+    spans = torch.clamp(torch.stack([x0, x1, y0, y1], dim=1), -1, n).to(torch.int16)
+    return (coef, sorted_tris, starts, counts, ov_ids, overflow_mask.sum(),
+            spans)
 
 
-def _gather_coefs(coef, sorted_tris, ov_ids, rows):
-    """Coefficient rows of the virtual [sorted_tris | ov_ids | sentinel]
-    concatenation at ``rows`` (-1 -> a zero row)."""
+def _gather_coefs(coef, spans, sorted_tris, ov_ids, rows):
+    """Coefficient rows and column spans of the virtual [sorted_tris | ov_ids
+    | sentinel] concatenation at ``rows`` (-1 -> a zero row, an empty
+    span)."""
     t_count = coef.shape[0]
     combined = torch.cat([
         sorted_tris, ov_ids.to(sorted_tris.dtype),
         torch.full((1,), -1, dtype=sorted_tris.dtype, device=coef.device),
     ])
     tri_id = combined.index_select(0, torch.clamp(rows, 0, combined.shape[0] - 1))
-    tri_id = torch.where(rows < 0, -1, tri_id)
+    tri_id = torch.where(rows < 0, t_count, tri_id)
     coef_padded = torch.cat(
         [coef, torch.zeros((1, NCOEF), dtype=coef.dtype, device=coef.device)]
     )
-    return coef_padded.index_select(0, torch.where(tri_id < 0, t_count, tri_id))
+    # (-1, -1, -1, -1) on padding rows (their zero rows test nothing)
+    spans_padded = torch.cat([spans, torch.full(
+        (1, 4), -1, dtype=spans.dtype, device=coef.device)])
+    return (coef_padded.index_select(0, tri_id),
+            spans_padded.index_select(0, tri_id))
 
 
 def build_queue(verts_norm: torch.Tensor, tris: torch.Tensor, n: int,
                 max_span_x: int = SPAN_CAP[0], max_span_y: int = SPAN_CAP[1]):
-    """Build the flat work queue -> (coefs, chunk_tile, chunk_nsub,
+    """Build the flat work queue -> (coefs, spans, chunk_tile, chunk_nsub,
     chunk_last, stats).
 
     One host sync (the per-tile counts) sizes the queue: the chunk count,
@@ -170,13 +185,12 @@ def build_queue(verts_norm: torch.Tensor, tris: torch.Tensor, n: int,
     per_tile = np.where((counts_h > 0) | (n_ov > 0), counts_h + n_ov, 0)
     real_chunks = int(((per_tile + K_CHUNK - 1) // K_CHUNK).sum())
     num_chunks = max(-(-real_chunks // 128) * 128, 128)
-    coefs, chunk_tile, chunk_nsub, chunk_last, _ = _assemble_window(
-        pa, n, num_chunks)
+    *queue, _ = _assemble_window(pa, n, num_chunks)
     stats = QueueStats(
         n_tiles=counts_h.shape[0], num_chunks=num_chunks,
         real_chunks=real_chunks, pairs=int(per_tile.sum()), overflow=n_ov,
     )
-    return coefs, chunk_tile, chunk_nsub, chunk_last, stats
+    return (*queue, stats)
 
 
 class StaticVoxelizer:
@@ -190,14 +204,14 @@ class StaticVoxelizer:
 
     def __init__(self, verts_norm: torch.Tensor, tris: torch.Tensor, n: int):
         self.n = n
-        (self.coefs, self.chunk_tile, self.chunk_nsub, self.chunk_last,
-         self.stats) = build_queue(verts_norm, tris, n)
+        (self.coefs, self.spans, self.chunk_tile, self.chunk_nsub,
+         self.chunk_last, self.stats) = build_queue(verts_norm, tris, n)
 
     def __call__(self) -> torch.Tensor:
         """-> packed occupancy words [N, N, N//32] (asynchronous on CUDA)."""
         return voxelize_parity_queue_chunks(
-            self.coefs, self.chunk_tile, self.chunk_nsub, self.n
-        )
+            self.coefs, self.chunk_tile, self.chunk_nsub, self.n,
+            spans=self.spans)
 
 
 def voxelize_parity_queue(verts_norm: torch.Tensor, tris: torch.Tensor,
@@ -216,15 +230,15 @@ def voxelize_parity_queue(verts_norm: torch.Tensor, tris: torch.Tensor,
 def _assemble_window(phase_a_out, n: int, num_chunks: int):
     """Assemble the queue from phase-A results at a fixed capacity.
 
-    Sync-free: returns (coefs, chunk_tile, chunk_nsub, chunk_last, ok) as
-    device tensors. ``ok`` is False when the queue needs more than
+    Sync-free: returns (coefs, spans, chunk_tile, chunk_nsub, chunk_last,
+    ok) as device tensors. ``ok`` is False when the queue needs more than
     ``num_chunks`` chunks or the overflow count exceeds phase A's ov_ids
     capacity (either way the queue is truncated; grow and retry).
     """
     k_chunk = K_CHUNK
     nty = n // TILE_Y
     n_tiles = (n // TILE_X) * nty
-    coef, sorted_tris, starts, counts, ov_ids, n_ov = phase_a_out
+    coef, sorted_tris, starts, counts, ov_ids, n_ov, spans = phase_a_out
     device = coef.device
 
     per_tile = torch.where((counts > 0) | (n_ov > 0), counts + n_ov, 0)
@@ -261,8 +275,8 @@ def _assemble_window(phase_a_out, n: int, num_chunks: int):
         in_run, chunk_start + t_idx,
         torch.where(in_ov, s_total + (t_idx - cnt), -1),
     ).reshape(-1)
-    coefs = _gather_coefs(coef, sorted_tris, ov_ids, rows)
-    return coefs, tile_of.to(torch.int32), nsub, last, ok
+    coefs, row_spans = _gather_coefs(coef, spans, sorted_tris, ov_ids, rows)
+    return coefs, row_spans, tile_of.to(torch.int32), nsub, last, ok
 
 
 def _build_queue_device(verts_norm, tris, n: int, num_chunks: int,
@@ -323,7 +337,7 @@ class DeformingVoxelizer:
         self.tris = tris
 
     def build(self, verts_norm: torch.Tensor):
-        """Deformed vertices -> the device queue (coefs, chunk_tile,
+        """Deformed vertices -> the device queue (coefs, spans, chunk_tile,
         chunk_nsub, chunk_last, ok), with no host sync."""
         return _build_queue_device(verts_norm, self.tris, self.n,
                                    self.num_chunks, *self.spans)
@@ -331,10 +345,11 @@ class DeformingVoxelizer:
     def __call__(self, verts_norm: torch.Tensor,
                  check: bool = False) -> torch.Tensor:
         """Deformed vertices -> packed occupancy words [N, N, N//32]."""
-        coefs, tile_of, nsub, _, ok = self.build(verts_norm)
+        coefs, spans, tile_of, nsub, _, ok = self.build(verts_norm)
         if check and not bool(ok):  # host sync only when asked
             raise RuntimeError(
                 "deforming queue overflowed its capacity; rebuild with more "
                 "headroom"
             )
-        return voxelize_parity_queue_chunks(coefs, tile_of, nsub, self.n)
+        return voxelize_parity_queue_chunks(coefs, tile_of, nsub, self.n,
+                                            spans=spans)

@@ -9,13 +9,22 @@ belongs to tile ``chunk_tile[c]`` and holds ``chunk_nsub[c] * SUB`` live
 rows (the rest are zero rows, valid = 0). Tile t = tx * (N / TILE_Y) + ty;
 its lane l covers column (tx * TILE_X + l // TILE_Y, ty * TILE_Y + l % TILE_Y).
 The output is packed occupancy words [N, N, N//32] int32 (ops/packing.py).
+Each row may carry its column span (``spans`` [rows, 4] int16: x_lo, x_hi,
+y_lo, y_hi in grid columns, the bounding box the binning uses); the kernel
+tests only the span's columns widened by one each side and clipped to the
+tile, or the whole tile for a sliver (:func:`row_columns`).
 
 - :func:`voxelize_parity_queue_chunks` is the wrapper: a CUDA tensor
   launches ``csrc/parity_queue.cu``; a CPU tensor takes the plain version.
 - :func:`voxelize_parity_queue_chunks_plain` is the plain torch version: the
-  same coverage and cutoff per (column, live row), then a per-column
-  histogram of cutoffs and a reverse cumulative sum taken mod 2 — a counting
-  reduction independent of the kernel's single-bit XOR and suffix parity.
+  same coverage and cutoff per (column, live row) on all 128 columns of the
+  tile (it never reads a span), then a per-column histogram of cutoffs and a
+  reverse cumulative sum taken mod 2 — a counting reduction independent of
+  the kernel's single-bit XOR and suffix parity. Bit-identity between the two
+  is the proof that the span restriction is exact.
+- :func:`queue_crossings` is the plain version's per-(row, column) coverage
+  and cutoff, and :func:`row_columns` the columns the kernel tests per row:
+  the CPU tests hold the one inside the other.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ LANES = TILE_X * TILE_Y
 SUB = 8  # rows per sub-block: chunk_nsub counts these
 K_CHUNK = 64  # coefficient rows per queue chunk
 PLAIN_BATCH = 512  # chunks per step of the plain version (bounds its memory)
+SLIVER_K = 2.0 ** -17  # 128 u: the least sin(alpha_min) / R of a narrowed row
 
 KERNEL = _cuda.Kernel(
     name="parity_queue",
@@ -70,41 +80,106 @@ def _check_queue(coefs, chunk_tile, chunk_nsub, n: int) -> tuple[int, int]:
     return num_chunks, k_chunk
 
 
+def queue_crossings(coefs: torch.Tensor, chunk_tile: torch.Tensor,
+                    chunk_nsub: torch.Tensor, n: int, chunks: slice):
+    """The plain version's test of every column of each chunk's tile against
+    every live row, for the chunks ``chunks`` -> (covered [b, 128, k] bool,
+    cutoff m [b, 128, k] int64 in [0, N]); lane l of tile t is column
+    (tx * TILE_X + l // TILE_Y, ty * TILE_Y + l % TILE_Y)."""
+    num_chunks, k_chunk = _check_queue(coefs, chunk_tile, chunk_nsub, n)
+    dev = coefs.device
+    nty = n // TILE_Y
+    lane = torch.arange(LANES, device=dev)
+    slot = torch.arange(k_chunk, device=dev)
+    c = coefs.reshape(num_chunks, k_chunk, NCOEF)[chunks, None, :, :]  # [b,1,k,16]
+    tile = chunk_tile[chunks].to(torch.int64)
+    live = slot[None, :] < (chunk_nsub[chunks, None] * SUB)  # [b, k]
+    px = ((tile // nty)[:, None] * TILE_X + lane // TILE_Y)[:, :, None]
+    py = ((tile % nty)[:, None] * TILE_Y + lane % TILE_Y)[:, :, None]
+    px, py = px.to(torch.float32), py.to(torch.float32)  # [b, 128, 1]
+
+    def col(r):
+        return c[..., r]  # [b, 1, k]
+
+    e0 = col(_EX0) * px + col(_EY0) * py + col(_EO0)
+    e1 = col(_EX1) * px + col(_EY1) * py + col(_EO1)
+    e2 = col(_EX2) * px + col(_EY2) * py + col(_EO2)
+    in0 = (e0 > 0) | ((e0 == 0) & (col(_TL0) > 0))
+    in1 = (e1 > 0) | ((e1 == 0) & (col(_TL1) > 0))
+    in2 = (e2 > 0) | ((e2 == 0) & (col(_TL2) > 0))
+    covered = in0 & in1 & in2 & (col(_VALID) > 0) & live[:, None, :]
+    z = col(_ZX) * px + col(_ZY) * py + col(_ZO)
+    m = torch.clamp(torch.ceil(z), 0.0, float(n)).to(torch.int64)
+    return covered, m
+
+
+def sliver_rows(coefs: torch.Tensor, spans: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """[rows] bool: the rows whose columns the kernel takes as the whole
+    tile, not the span widened by one column.
+
+    A covered column satisfies every edge function as computed in float32:
+    the rounding of the evaluation and of the coefficients (ops/geom.py
+    ``_edge``) moves each edge line by at most about 11 u R columns (u =
+    2^-24; R bounds the vertices' index-space |x| and |y|; the errors scale
+    with |edge| R, the edge function with |edge|). Pushing the three edges
+    out by rho moves each vertex out by rho / sin(alpha / 2), alpha its
+    interior angle, so the covered columns lie within the bounding box grown
+    by 16 u R / sin(alpha_min / 2). A row keeps the box widened by one column
+    when sin(alpha_min) = area / (product of the two longest edges) >=
+    SLIVER_K R (the growth is then under a quarter column), with R =
+    max(|x_lo - 1|, |x_hi + 1|, |y_lo - 1|, |y_hi + 1|) + 1; a sliver below
+    it (a needle, or a face seen edge-on), and a row whose span the clip to
+    [-1, N] may have cut (an end at -1 or N: R unknown), take the whole
+    tile. Float64 from the row's float32 edge vectors, each operation
+    rounded once, in the kernel's order."""
+    c = coefs.to(torch.float64)
+    ex, ey = c[:, [_EX0, _EX1, _EX2]], c[:, [_EY0, _EY1, _EY2]]
+    sq = ex * ex + ey * ey  # squared edge lengths
+    longest2 = (sq * sq.roll(1, dims=1)).amax(dim=1)  # (two longest)^2
+    area = ex[:, 0] * ey[:, 1] - ey[:, 0] * ex[:, 1]  # cross(e0, e1)
+    s = spans.to(torch.int64)
+    wide = s + torch.tensor([-1, 1, -1, 1], device=s.device)
+    bound = (wide.abs().amax(dim=1) + 1).to(torch.float64) * SLIVER_K
+    cut = (s[:, 0] <= -1) | (s[:, 1] >= n) | (s[:, 2] <= -1) | (s[:, 3] >= n)
+    return cut | ~(area * area >= bound * bound * longest2)
+
+
+def row_columns(coefs: torch.Tensor, spans: torch.Tensor,
+                chunk_tile: torch.Tensor, n: int) -> torch.Tensor:
+    """The columns the kernel tests for each row, as it picks them: the span
+    widened by one column each side, or the whole tile for a sliver
+    (:func:`sliver_rows`), clipped to the row's tile -> [rows, 4] int64
+    (x_lo, x_hi, y_lo, y_hi) in tile-local columns; empty when x_lo > x_hi
+    or y_lo > y_hi."""
+    nty = n // TILE_Y
+    k_chunk = spans.shape[0] // max(chunk_tile.shape[0], 1)
+    tile = chunk_tile.to(torch.int64).repeat_interleave(k_chunk)
+    ox, oy = (tile // nty) * TILE_X, (tile % nty) * TILE_Y
+    s = spans.to(torch.int64)
+    cols = torch.stack([torch.clamp(s[:, 0] - 1 - ox, min=0),
+                        torch.clamp(s[:, 1] + 1 - ox, max=TILE_X - 1),
+                        torch.clamp(s[:, 2] - 1 - oy, min=0),
+                        torch.clamp(s[:, 3] + 1 - oy, max=TILE_Y - 1)], dim=1)
+    whole = torch.tensor([0, TILE_X - 1, 0, TILE_Y - 1], device=s.device)
+    return torch.where(sliver_rows(coefs, spans, n)[:, None], whole, cols)
+
+
 def voxelize_parity_queue_chunks_plain(coefs: torch.Tensor,
                                        chunk_tile: torch.Tensor,
                                        chunk_nsub: torch.Tensor,
                                        n: int) -> torch.Tensor:
     """Plain torch version of the queue kernel -> words [N, N, N//32]."""
-    num_chunks, k_chunk = _check_queue(coefs, chunk_tile, chunk_nsub, n)
+    num_chunks, _ = _check_queue(coefs, chunk_tile, chunk_nsub, n)
     dev = coefs.device
-    nty = n // TILE_Y
-    n_tiles = (n // TILE_X) * nty
+    n_tiles = (n // TILE_X) * (n // TILE_Y)
     lane = torch.arange(LANES, device=dev)
-    slot = torch.arange(k_chunk, device=dev)
-    rows = coefs.reshape(num_chunks, k_chunk, NCOEF)
     # hist[t, l, m]: covered crossings of column l of tile t with cutoff m
     hist = torch.zeros(n_tiles * LANES * (n + 1), dtype=torch.int32, device=dev)
     for s in range(0, num_chunks, PLAIN_BATCH):
         b = slice(s, s + PLAIN_BATCH)
+        covered, m = queue_crossings(coefs, chunk_tile, chunk_nsub, n, b)
         tile = chunk_tile[b].to(torch.int64)
-        live = slot[None, :] < (chunk_nsub[b, None] * SUB)  # [b, k]
-        px = ((tile // nty)[:, None] * TILE_X + lane // TILE_Y)[:, :, None]
-        py = ((tile % nty)[:, None] * TILE_Y + lane % TILE_Y)[:, :, None]
-        px, py = px.to(torch.float32), py.to(torch.float32)  # [b, 128, 1]
-        c = rows[b, None, :, :]  # [b, 1, k, 16]
-
-        def col(r):
-            return c[..., r]  # [b, 1, k]
-
-        e0 = col(_EX0) * px + col(_EY0) * py + col(_EO0)
-        e1 = col(_EX1) * px + col(_EY1) * py + col(_EO1)
-        e2 = col(_EX2) * px + col(_EY2) * py + col(_EO2)
-        in0 = (e0 > 0) | ((e0 == 0) & (col(_TL0) > 0))
-        in1 = (e1 > 0) | ((e1 == 0) & (col(_TL1) > 0))
-        in2 = (e2 > 0) | ((e2 == 0) & (col(_TL2) > 0))
-        covered = in0 & in1 & in2 & (col(_VALID) > 0) & live[:, None, :]
-        z = col(_ZX) * px + col(_ZY) * py + col(_ZO)
-        m = torch.clamp(torch.ceil(z), 0.0, float(n)).to(torch.int64)
         idx = (tile[:, None, None] * LANES + lane[None, :, None]) * (n + 1) + m
         hist.scatter_add_(0, idx.reshape(-1), covered.to(torch.int32).reshape(-1))
     # voxel k flips once per crossing with cutoff m > k
@@ -115,29 +190,45 @@ def voxelize_parity_queue_chunks_plain(coefs: torch.Tensor,
 
 
 def voxelize_parity_queue_chunks(coefs: torch.Tensor, chunk_tile: torch.Tensor,
-                                 chunk_nsub: torch.Tensor,
-                                 n: int) -> torch.Tensor:
+                                 chunk_nsub: torch.Tensor, n: int,
+                                 spans: torch.Tensor | None = None,
+                                 variant: tuple[int, int] | None = None
+                                 ) -> torch.Tensor:
     """Run the queue kernel -> packed occupancy words [N, N, N//32].
 
     ``coefs`` [num_chunks * k_chunk, NCOEF] f32 (``k_chunk`` rows per chunk,
     a multiple of 8; the queue build uses K_CHUNK); ``chunk_tile`` and
-    ``chunk_nsub`` [num_chunks] int32. A CPU tensor takes the plain version;
+    ``chunk_nsub`` [num_chunks] int32, ``chunk_tile`` non-decreasing (the
+    queue build's layout: a tile's chunks back to back); ``spans``
+    [num_chunks * k_chunk, 4] int16 column spans or None (every row spans
+    its tile). ``variant`` = (layout, threads) picks a layout (0, 1, 2) and
+    block size of the kernel other than the main path's
+    (csrc/parity_queue.cu; the timing sweep). A CPU tensor takes the plain version, which tests every column;
     a CUDA tensor launches the kernel.
     """
     num_chunks, k_chunk = _check_queue(coefs, chunk_tile, chunk_nsub, n)
+    if spans is not None and tuple(spans.shape) != (coefs.shape[0], 4):
+        raise ValueError(f"spans: expected [{coefs.shape[0]}, 4], "
+                         f"got {tuple(spans.shape)}")
     if coefs.device.type == "cpu":
         return voxelize_parity_queue_chunks_plain(coefs, chunk_tile,
                                                   chunk_nsub, n)
     _cuda.require(coefs, "coefs", torch.float32)
     _cuda.require(chunk_tile, "chunk_tile", torch.int32)
     _cuda.require(chunk_nsub, "chunk_nsub", torch.int32)
+    if spans is not None:
+        _cuda.require(spans, "spans", torch.int16)
     lib = _cuda.load()
     words = torch.empty((n, n, n // 32), dtype=torch.int32, device=coefs.device)
-    code = lib.dxv_parity_queue(
-        coefs.data_ptr(), chunk_tile.data_ptr(), chunk_nsub.data_ptr(),
-        words.data_ptr(), num_chunks, n, k_chunk,
-        _cuda.stream_ptr(coefs.device),
-    )
+    args = (coefs.data_ptr(), 0 if spans is None else spans.data_ptr(),
+            chunk_tile.data_ptr(), chunk_nsub.data_ptr(), words.data_ptr(),
+            num_chunks, n, k_chunk)
+    if variant is None:
+        code = lib.dxv_parity_queue(*args, _cuda.stream_ptr(coefs.device))
+    else:
+        code = lib.dxv_parity_queue_variant(
+            *args, int(variant[0]), int(variant[1]),
+            _cuda.stream_ptr(coefs.device))
     _cuda.check(code, KERNEL.name)
     KERNEL.launches += 1
     return words

@@ -57,7 +57,8 @@ def queue_from_numpy(coefs: np.ndarray, chunk_tile: np.ndarray,
     """A work queue built by the JAX package's ``build_queue`` (its arrays as
     numpy) -> ``(coefs, chunk_tile, chunk_nsub, chunk_last)`` tensors that
     ``ops.voxelize_queue_cuda.voxelize_parity_queue_chunks`` (the kernel, or
-    its plain version on the CPU) takes for an ``n``^3 grid."""
+    its plain version on the CPU) takes for an ``n``^3 grid, without column
+    spans (the kernel then tests every column of each row's tile)."""
     c = np.asarray(coefs, np.float32)
     chunks = [np.asarray(a) for a in (chunk_tile, chunk_nsub, chunk_last)]
     num_chunks = chunks[0].shape[0]
@@ -68,6 +69,9 @@ def queue_from_numpy(coefs: np.ndarray, chunk_tile: np.ndarray,
     if any(a.shape != (num_chunks,) for a in chunks):
         raise ValueError("chunk_tile, chunk_nsub and chunk_last must be "
                          f"[{num_chunks}]")
+    if (np.diff(chunks[0].astype(np.int64)) < 0).any():
+        raise ValueError("chunk_tile must be non-decreasing (each tile's "
+                         "chunks back to back, as build_queue lays them out)")
     return (torch.tensor(c).to(device),
             *(torch.tensor(a.astype(np.int32)).to(device) for a in chunks))
 

@@ -37,6 +37,17 @@ from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
 # pytest puts tests/ itself on sys.path (no __init__.py there); importing
 # ``meshes`` directly keeps an installed package named ``tests`` out of it
 from meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
+from torch_cases import chunks_run, stab_stress
+
+# settings of the fold kernel's timing sweep: (groups, ring stages, deferred
+# division); and of the queue kernel's: (layout, threads), layout 2 a block
+# per tile run in warp slices, 3 a block per window of 8 chunks folding the
+# runs that start in it, 1 a block per tile run in block rounds, 0 a block
+# per chunk with atomics
+FOLD_VARIANTS = [(g, st, d) for g in (1, 2, 4) for st in (1, 2, 3)
+                 for d in (False, True)]
+QUEUE_VARIANTS = [(2, 128), (2, 256), (2, 512), (3, 128), (3, 256), (3, 512),
+                  (1, 128), (1, 256), (1, 512), (0, 128), (0, 256)]
 
 pytestmark = pytest.mark.cuda
 
@@ -78,13 +89,71 @@ def _mesh(name, n, dev):
 @pytest.mark.parametrize("mesh", ["box", "icosphere"])
 def test_queue_kernel_bit_identical_to_plain(dev, mesh, n):
     verts, tris = _mesh(mesh, n, dev)
-    coefs, ct, cn, _, stats = voxelize_queue.build_queue(verts, tris, n)
-    words = voxelize_queue_cuda.voxelize_parity_queue_chunks(coefs, ct, cn, n)
+    coefs, spans, ct, cn, _, stats = voxelize_queue.build_queue(verts, tris, n)
+    words = voxelize_queue_cuda.voxelize_parity_queue_chunks(
+        coefs, ct, cn, n, spans=spans)
     plain = voxelize_queue_cuda.voxelize_parity_queue_chunks_plain(
         coefs, ct, cn, n)
     assert torch.equal(words, plain)
     assert torch.equal(words, voxelize_parity_binned(verts, tris, n))
     assert words.any() and stats.pairs > 0
+
+
+@pytest.mark.parametrize("variant", QUEUE_VARIANTS)
+@pytest.mark.parametrize("mesh", ["box", "icosphere"])
+def test_queue_kernel_variants_bit_identical_to_plain(dev, mesh, variant):
+    """Every layout of the redesigned kernel (a block per tile run in warp
+    slices or block rounds, a block per window of chunks, or a block per
+    chunk with atomics) at every block size of the sweep, with and without
+    column spans, at 256^3."""
+    verts, tris = _mesh(mesh, 256, dev)
+    coefs, spans, ct, cn, _, _ = voxelize_queue.build_queue(verts, tris, 256)
+    plain = voxelize_queue_cuda.voxelize_parity_queue_chunks_plain(
+        coefs, ct, cn, 256)
+    for sp in (spans, None):
+        words = voxelize_queue_cuda.voxelize_parity_queue_chunks(
+            coefs, ct, cn, 256, spans=sp, variant=variant)
+        assert torch.equal(words, plain)
+
+
+def test_queue_kernel_512_with_overflow_rows(dev):
+    """At 512^3, an icosphere plus a box with faces on voxel centres: the
+    box's two z faces (4 triangles; the others project to lines) span more
+    tiles than the caps and go to the overflow list, appended to every tile
+    (most of whose columns they miss)."""
+    n = 512
+    vi, _, ti = icosphere_mesh(4)
+    c = [(i + 0.5) / n * 2 - 1 for i in (3, 5, 2, n - 6, n - 4, n - 9)]
+    vb, _, tb = box_mesh(c[:3], c[3:])
+    verts = torch.from_numpy(np.concatenate([vi, vb])).to(dev)
+    tris = torch.from_numpy(np.concatenate([ti, tb + len(vi)]).astype(np.int64)).to(dev)
+    coefs, spans, ct, cn, _, stats = voxelize_queue.build_queue(verts, tris, n)
+    assert stats.overflow == 4
+    words = voxelize_queue_cuda.voxelize_parity_queue_chunks(
+        coefs, ct, cn, n, spans=spans)
+    plain = voxelize_queue_cuda.voxelize_parity_queue_chunks_plain(coefs, ct, cn, n)
+    assert torch.equal(words, plain)
+    assert torch.equal(words, voxelize_parity_binned(verts, tris, n))
+    assert words.any()
+
+
+def test_deformed_queue_bit_identical_to_plain(dev):
+    """The device-built queue of two wobbled poses (its spans gathered on
+    the device too) against the plain version and the host-built queue."""
+    verts, nrm, tris = icosphere_mesh(4)
+    v = torch.from_numpy(verts).to(dev)
+    t = torch.from_numpy(tris.astype(np.int64)).to(dev)
+    dv = voxelize_queue.DeformingVoxelizer(v, t, 256)
+    for amp in (0.02, -0.03):
+        w = v + amp * torch.from_numpy(nrm).to(dev)
+        coefs, spans, ct, cn, _, ok = dv.build(w)
+        assert bool(ok)
+        words = voxelize_queue_cuda.voxelize_parity_queue_chunks(
+            coefs, ct, cn, 256, spans=spans)
+        assert torch.equal(words, voxelize_queue_cuda.voxelize_parity_queue_chunks_plain(
+            coefs, ct, cn, 256))
+        assert torch.equal(words, dv(w))
+        assert torch.equal(words, voxelize_queue.voxelize_parity_queue(w, t, 256))
 
 
 def test_deforming_call_is_sync_free(dev):
@@ -330,6 +399,45 @@ def test_raystab_kernels_bit_identical_to_plain(dev, mesh, rule):
             assert torch.equal(a, b)
         for a, b in zip(raystab_cuda.fold(tb), want[:2]):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["ties", "many_chunks", "padding"])
+def test_fold_kernel_stress_cases_bit_identical_to_plain(dev, case):
+    """Kernels 2.5-2.7 on the synthetic strips of tests/torch_cases.py, at
+    every setting of the sweep and both rules: equal t under different ids
+    across chunk and sub-chunk boundaries (the lowest id wins), a strip of
+    9 chunks some of which are skipped, and all-padding strips."""
+    sc = stab_stress(dev)
+    tb, sel = sc.tables, sc.strips[case]
+    if case == "many_chunks":
+        runs = chunks_run(tb, sel[0])
+        assert len(runs) > 8 and runs[0] and not all(runs)
+    for rule in ("backface", "hit"):
+        want = raystab_cuda.fold_extract_plain(tb, sc.t_count, 0.12, rule)
+        for variant in [None, *FOLD_VARIANTS]:
+            got = raystab_cuda.fold_extract(tb, sc.t_count, 0.12, rule,
+                                            variant=variant)
+            for a, b in zip(got, want):
+                assert torch.equal(a[sel], b[sel]), (variant, rule)
+        if case == "ties":
+            low = sc.lowest[sel]
+            assert torch.equal(torch.where(low >= 0, want[1][sel], -1), low)
+    for a, b in zip(raystab_cuda.fold(tb), raystab_cuda.fold_plain(tb)):
+        assert torch.equal(a[sel], b[sel])
+
+
+@pytest.mark.parametrize("mesh", ["icosphere", "box", "near_origin", "dense_cone"])
+def test_fold_kernel_variants_bit_identical_to_plain(dev, mesh):
+    """Every setting of the fold kernel's sweep on real accels' streams."""
+    v, nr, t = _raystab_mesh(mesh, 64, dev)
+    accel = raystab_fast.build_raystab_accel2(v, t, nr, n=64)
+    for tb in (x for x in (accel.main, accel.ov) if x is not None):
+        want = raystab_cuda.fold_extract_plain(tb, t.shape[0], 0.12)
+        for variant in FOLD_VARIANTS:
+            got = raystab_cuda.fold_extract(tb, t.shape[0], 0.12,
+                                            variant=variant)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), variant
 
 
 @pytest.mark.parametrize("mesh", ["icosphere", "box"])

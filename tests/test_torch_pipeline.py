@@ -69,6 +69,35 @@ def test_frame_matches_jax_cpu_frame(ss):
         assert np.abs(got.numpy() - gold).max() < 2e-3
 
 
+def test_render_fast_alias_and_light_volume_match_jax():
+    """render takes "fast" as an alias of "warp" and a caller's light_volume
+    in place of the sweep's, as the JAX package's render does; the images
+    are within 2e-3 (the tet-golden bound) of JAX's on the same grid."""
+    import jax.numpy as jnp
+
+    from dxrvoxelizer_tpu.core.pipeline import VoxelGrid as JaxVoxelGrid
+    from dxrvoxelizer_tpu.core.pipeline import render as jax_render
+    from dxrvoxelizer_tpu.core.pipeline import voxelize as jax_voxelize
+
+    jscene, fc, _ = _jax_frame(1)
+    jgrid = jax_voxelize(jscene.buffers, N, impl="xla")
+    grid = grid_from_numpy(np.asarray(jgrid.words), "cpu")
+    cfg = VoxelizerConfig(grid_size=N, width=W, height=H, render_ss=1)
+    jcfg = JaxConfig(grid_size=N, width=W, height=H, render_ss=1)
+    warp = render(grid, fc, cfg)
+    assert torch.equal(render(grid, fc, cfg, impl="fast"), warp)
+    # a light field of the caller's: half the light everywhere
+    rng = np.random.default_rng(4)
+    lv = (rng.random((N, N, N)) * 0.5).astype(np.float32)
+    got = render(grid, fc, cfg, impl="fast", light_volume=torch.from_numpy(lv))
+    want = np.asarray(jax_render(JaxVoxelGrid(words=jgrid.words), fc, jcfg,
+                                 impl="fast", light_volume=jnp.asarray(lv)))
+    assert np.abs(got.numpy() - want).max() < 2e-3
+    assert np.abs(got.numpy() - warp.numpy()).max() > 0.05  # it was used
+    with pytest.raises(ValueError):
+        render(grid, fc, cfg, light_volume=torch.zeros((N, N, N // 2)))
+
+
 def test_scene_and_frame_constants_match_jax():
     jscene = JaxScene(_tet_obj(JaxObjMesh))
     scene = Scene(_tet_obj(ObjMesh), "cpu")

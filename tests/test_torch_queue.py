@@ -21,8 +21,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from dxrvoxelizer_tpu.core.pipeline import voxelize as jax_voxelize
+from dxrvoxelizer_tpu.ops.geom import parity_tri_setup as jax_tri_setup
 from dxrvoxelizer_tpu.models.mesh import MeshBuffers as JaxMeshBuffers
 from dxrvoxelizer_tpu.ops import voxelize_queue as jvq
 from dxrvoxelizer_tpu_torch.app.main import wobbled
@@ -117,7 +120,7 @@ def test_build_queue_matches_jax(max_span):
     verts, _, tris = icosphere_mesh(3)
     n = 64
     spans = {"max_span_x": max_span[0], "max_span_y": max_span[1]}
-    c, ct, cn, cl, stats = vq.build_queue(*_torch(verts, tris), n, **spans)
+    c, _, ct, cn, cl, stats = vq.build_queue(*_torch(verts, tris), n, **spans)
     eager = _jax_queue(verts, tris, n, **spans)
     jitted = jvq.build_queue(*_jax(verts, tris), n, **spans)
     vc = voxelize_cuda
@@ -143,8 +146,8 @@ def test_overflow_path_bit_identical_to_jax():
     jq = _jax_queue(verts, tris, n, max_span_x=1, max_span_y=1)
     assert jq[-1].overflow > 0
     want = _jax_words(jq, n)
-    c, ct, cn, _, stats = vq.build_queue(*_torch(verts, tris), n,
-                                         max_span_x=1, max_span_y=1)
+    c, _, ct, cn, _, stats = vq.build_queue(*_torch(verts, tris), n,
+                                            max_span_x=1, max_span_y=1)
     assert stats.overflow == jq[-1].overflow
     got = vqc.voxelize_parity_queue_chunks(c, ct, cn, n)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -220,7 +223,8 @@ def test_deforming_voxelizer_bit_identical_to_jax():
             *jq[:4], jnp.zeros((1,), jnp.int32), n, 64, jdv.n_tiles,
             static_trip=True, interpret=True), n))
         q = dv.build(torch.from_numpy(v))
-        for a, b in zip(q, jq):  # coefficient rows, chunk arrays, ok word
+        # coefficient rows, chunk arrays, ok word (JAX carries no spans)
+        for a, b in zip((q[0], *q[2:]), jq, strict=True):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         got = dv(torch.from_numpy(v), check=True)
         np.testing.assert_array_equal(got.numpy(), want)
@@ -276,3 +280,118 @@ def _consts(cfg):
                           aabb_min=v.min(0), aabb_max=v.max(0)), "cpu")
     cam = OrbitCamera(cfg.width, cfg.height)
     return scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
+
+
+# ---- the column spans the kernel restricts each row to -----------------------
+
+def _jax_row_tris(verts, tris, n, num_chunks, **spans):
+    """The triangle of each row of JAX's queue (-1: a padding row), by JAX's
+    own layout: its device build with each coefficient row replaced by its
+    triangle's id + 1 (integers only: jitted, nothing contracts)."""
+    @jax.jit
+    def rows(v, t):
+        coef, *rest = jvq._queue_phase_a(v, t, n, spans.get("max_span_x", 4),
+                                         spans.get("max_span_y", 8))
+        ids = jnp.zeros_like(coef).at[:, 0].set(
+            jnp.arange(coef.shape[0], dtype=jnp.float32) + 1.0)
+        return jvq._assemble_window((ids, *rest), n, num_chunks, vq.K_CHUNK,
+                                    0, None)[0]
+    return np.asarray(rows(*_jax(verts, tris)))[:, 0].astype(np.int64) - 1
+
+
+@pytest.mark.parametrize("max_span", [(4, 8), (1, 1)])
+@pytest.mark.parametrize("name,n", [("box", 64), ("icosphere3", 128),
+                                    ("soup", 64)])
+def test_queue_spans_equal_jax_binning_spans(name, n, max_span):
+    """Each row's span is the column range JAX's _queue_phase_a bins its
+    triangle by ([ceil xmin, floor xmax] x [ceil ymin, floor ymax], from
+    JAX's own setup), clipped to [-1, N]; padding rows get (-1, -1, -1, -1).
+    (1, 1) routes most triangles through the overflow list, appended to
+    every tile."""
+    verts, tris = (_soup(np.random.default_rng(5), n, 16) if name == "soup"
+                   else MESHES[name](n)[::2])
+    kw = {"max_span_x": max_span[0], "max_span_y": max_span[1]}
+    c, spans, ct, cn, _, stats = vq.build_queue(*_torch(verts, tris), n, **kw)
+    assert spans.dtype == torch.int16 and spans.shape == (c.shape[0], 4)
+    row_tri = _jax_row_tris(verts, tris, n, stats.num_chunks, **kw)
+    # the bounds are single roundings and the ceil/floor exact: jitted is exact
+    pt = jax.jit(jax_tri_setup, static_argnums=2)(*_jax(verts, tris), n)
+    box = np.stack([np.ceil(pt.xmin), np.floor(pt.xmax),
+                    np.ceil(pt.ymin), np.floor(pt.ymax)], axis=1)
+    want = np.where(row_tri[:, None] >= 0,
+                    np.clip(box, -1, n)[np.maximum(row_tri, 0)], -1)
+    np.testing.assert_array_equal(spans.numpy(), want)
+    # the rows are those of the port's queue, in JAX's layout
+    live = row_tri >= 0
+    assert live.sum() == stats.pairs
+    assert (c.numpy()[~live] == 0).all() and (c.numpy()[live, 15] > 0).all()
+    if max_span == (1, 1):
+        assert stats.overflow > 0
+
+
+def _assert_crossings_inside_spans(verts, tris, n, **kw):
+    """Every (row, column) crossing the plain version finds lies in the
+    row's span clipped to its tile -> the number of crossings."""
+    c, spans, ct, cn, _, stats = vq.build_queue(*_torch(verts, tris), n, **kw)
+    covered, _ = vqc.queue_crossings(c, ct, cn, n, slice(None))  # [ch, 128, k]
+    sp = vqc.row_columns(c, spans, ct, n).reshape(ct.shape[0], 1, -1, 4)
+    lane = torch.arange(vqc.LANES)[None, :, None]
+    xl, yl = lane // vqc.TILE_Y, lane % vqc.TILE_Y
+    inside = ((sp[..., 0] <= xl) & (xl <= sp[..., 1])
+              & (sp[..., 2] <= yl) & (yl <= sp[..., 3]))
+    outside = covered & ~inside
+    assert not bool(outside.any()), (
+        f"{int(outside.sum())} crossings outside their row's span")
+    slivers = vqc.sliver_rows(c, spans, n) & (c[:, 15] > 0)
+    return int(covered.sum()), int(slivers.sum())
+
+
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("name", ["box", "icosphere2"])
+def test_plain_crossings_lie_inside_row_spans(name, n):
+    """The box's faces lie on voxel centres (every edge tie fires on the
+    span's boundary); an icosphere covers every orientation. No row of
+    either is a sliver: each tests its span widened by one column."""
+    verts, _, tris = (_box_on_centers(n) if name == "box"
+                      else icosphere_mesh(2))
+    for kw in ({}, {"max_span_x": 1, "max_span_y": 1}):
+        crossings, slivers = _assert_crossings_inside_spans(verts, tris, n, **kw)
+        assert crossings > 0 and slivers == 0
+
+
+def _soup(rng, n, t):
+    """Triangles that stress a bounding box: random ones; ones with every
+    vertex on a voxel centre (edge and vertex ties); slivers, a vertex a hair
+    off the opposite edge; collinear ones in x-y (zero projected area); and
+    needles spanning the grid."""
+    def centre(i):
+        return (i + 0.5) / n * 2.0 - 1.0
+
+    rand = rng.uniform(-0.9, 0.9, (t, 1, 3)) + rng.normal(0, 0.08, (t, 3, 3))
+    on_c = centre(rng.integers(0, n, (t, 3, 3)).astype(np.float64))
+    a, b = on_c[:, 0], on_c[:, 1]
+    u = rng.uniform(0, 1, (t, 1))
+    perp = np.stack([-(b - a)[:, 1], (b - a)[:, 0], np.zeros(t)], 1)
+    eps = 10.0 ** rng.uniform(-7, -2, (t, 1))
+    sliver = np.stack([a, b, a + u * (b - a) + eps * perp], 1)
+    line = np.stack([a, b, a + u * (b - a)], 1)
+    line[:, 2, 2] += rng.uniform(-0.5, 0.5, t)
+    needle = np.stack([a, -a + eps * perp, a + eps], 1)
+    v = np.concatenate([rand, on_c, sliver, line, needle]).astype(np.float32)
+    v = np.clip(v, -1.0, 1.0).reshape(-1, 3)
+    return v, np.arange(v.shape[0], dtype=np.int32).reshape(-1, 3)
+
+
+@settings(max_examples=12, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2**32 - 1), n=st.sampled_from([32, 64]),
+       overflow=st.booleans())
+def test_soup_crossings_lie_inside_row_spans(seed, n, overflow):
+    """Hypothesis soups of slivers and near-degenerate triangles (with
+    span caps of 1 x 1 tiles, most of them go through the overflow list).
+    Without the sliver rule a needle's float32 coverage escapes its box
+    widened by one column: seed 1219099752 at 64^3 covers a column four
+    columns past it."""
+    verts, tris = _soup(np.random.default_rng(seed), n, 24)
+    kw = {"max_span_x": 1, "max_span_y": 1} if overflow else {}
+    crossings, slivers = _assert_crossings_inside_spans(verts, tris, n, **kw)
+    assert slivers > 0

@@ -606,16 +606,19 @@ def test_voxelize_raystab_impls_and_grid():
     assert _same(q.rgba.numpy(), want)
     parity = voxelize(mesh, 32, with_normals=True)
     assert torch.equal(parity.rgba[..., 3], parity.occupancy().to(torch.float32))
-    for impl in ("pallas_bruteforce", "queue", "pallas", "fast"):
-        with pytest.raises(ValueError):
-            voxelize(mesh, 32, mode="raystab", impl=impl)
+    # the JAX package's accel names: the same grid as "auto"
+    for impl in ("queue", "pallas", "fast"):
+        g = voxelize(mesh, 32, mode="raystab", impl=impl, quantize=False)
+        assert torch.equal(g.words, auto.words) and torch.equal(g.rgba, auto.rgba)
+    with pytest.raises(ValueError):
+        voxelize(mesh, 32, mode="raystab", impl="pallas_bruteforce")
 
 
 @pytest.mark.parametrize("vox_impl", ["queue", "pallas"])
 def test_parity_impl_names_select_the_raystab_accel(vox_impl):
     """-voximpl queue / pallas name parity kernels: under -inside raystab
-    the pipeline maps them to the gen-6 accel, and the frame equals the
-    "auto" pipeline's."""
+    they select the direction-space accel, as in the JAX package, and the
+    frame equals the "auto" pipeline's."""
     from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
     from dxrvoxelizer_tpu_torch.models.scene import Scene
 
@@ -624,13 +627,14 @@ def test_parity_impl_names_select_the_raystab_accel(vox_impl):
     fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
     cfg = VoxelizerConfig(grid_size=N, width=W, height=H, inside_mode="raystab")
     pipe = FramePipeline(cfg, scene.buffers, vox_impl=vox_impl)
-    assert pipe.grid_impl == "auto"
     got = pipe.frame(fc)
     assert pipe._stab_accel is not None
     assert torch.equal(got, FramePipeline(cfg, scene.buffers).frame(fc))
     parity = FramePipeline(cfg.replace(inside_mode="parity"), scene.buffers,
                            vox_impl=vox_impl)
-    assert parity.grid_impl == vox_impl
+    assert parity._stab_accel is None and torch.equal(
+        parity.frame(fc), FramePipeline(cfg.replace(inside_mode="parity"),
+                                        scene.buffers).frame(fc))
 
 
 def _write_obj(path, verts, tris):
@@ -655,3 +659,37 @@ def test_app_runs_raystab_and_normals_on_cpu(tmp_path, flags):
     assert "wrote m.png" in res.stdout
     mode = "raystab" if "-inside" in flags else "parity"
     assert f"mode={mode}" in res.stdout
+
+
+def test_stress_tables_exercise_the_fold_boundaries():
+    """The synthetic strips the card tests hold kernels 2.5-2.7 to
+    (tests/torch_cases.py), through the plain fold on the CPU: at equal t
+    the lowest id wins across chunk and sub-chunk boundaries; the many-chunk
+    strip skips some chunks and runs others, and its skips change nothing;
+    padding strips stay -inf / 2^30 / zeros."""
+    import dataclasses
+
+    from dxrvoxelizer_tpu_torch.ops import raystab_cuda as rsc
+    from tests.torch_cases import chunks_run, stab_stress
+
+    case = stab_stress("cpu")
+    tb = case.tables
+    for rule in ("backface", "hit"):
+        t_, i_, ns = rsc.fold_extract(tb, case.t_count, 0.12, rule)
+        ties = case.strips["ties"]
+        low = case.lowest[ties]
+        assert bool((low >= 0).any())
+        assert torch.equal(torch.where(low >= 0, i_[ties], -1), low)
+        assert all(torch.equal(t_[s], t_[ties[0]]) for s in ties)
+        pads = case.strips["padding"]
+        assert bool((t_[pads] == float("-inf")).all())
+        assert bool((i_[pads] == 2**30).all()) and not bool(ns[pads].any())
+    many = case.strips["many_chunks"][0]
+    runs = chunks_run(tb, many)
+    assert case.many_chunks > 8 and len(runs) == case.many_chunks
+    assert runs[0] and all(runs[j] for j in (3, 7))
+    assert not all(runs) and sum(runs) >= 3
+    unbounded = dataclasses.replace(tb, bounds=None)
+    for a, b in zip(rsc.fold_plain(tb), rsc.fold_plain(unbounded)):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(rsc.fold_plain(tb)[0][many]).any())

@@ -402,6 +402,40 @@ def test_cpu_frame_grid_bit_identical_to_jax_pipeline(monkeypatch, jax_python_pa
     assert int(mt[0].sum()) == 12672 and int((radial[0] != mt[0]).sum()) == 527
 
 
+@pytest.mark.parametrize("impl", ["fast", "queue", "pallas"])
+def test_accel_impl_names_route_as_jax(monkeypatch, jax_python_path, impl):
+    """voxelize(mode="raystab") takes the JAX package's accel names ("fast",
+    "queue", "pallas") as "auto": with a gen-1 accel both packages run its
+    query, and the grids are JAX's (JAX's query, op by op, is the one the
+    query test above holds the port to); "pallas_bruteforce" raises in both."""
+    name = "icosphere2_32"  # JAX packs the words: n a multiple of 32
+    n = CASES[name][1]
+    want = _jax_query(name)
+    ran = []
+
+    def query(*a, **kw):  # JAX's routing, with its op-by-op query's result
+        ran.append(kw)
+        return jnp.asarray(want[0]), jnp.asarray(want[1])
+
+    monkeypatch.setattr(jrf, "raystab_query", query)
+    jv, jn, jt = _jax(name)
+    jmesh = JaxMeshBuffers(positions=jv, normals=jn, tris=jt, positions_norm=jv)
+    jgrid = jpl.voxelize(jmesh, n, mode="raystab", impl=impl, quantize=False,
+                         accel=_jax_accel(name))
+    assert len(ran) == 1
+    v, nr, t = _port(name)
+    mesh = MeshBuffers(positions=v, normals=nr, tris=t, positions_norm=v)
+    accel = rf.build_raystab_accel(v, t, n=n)
+    got = voxelize(mesh, n, mode="raystab", impl=impl, quantize=False,
+                   accel=accel)
+    assert _same(got.words.numpy(), jgrid.words)
+    assert _same(got.rgba.numpy(), jgrid.rgba)
+    for vox in (jpl.voxelize, voxelize):
+        with pytest.raises(ValueError):
+            vox(jmesh if vox is jpl.voxelize else mesh, n, mode="raystab",
+                impl="pallas_bruteforce")
+
+
 def test_cpu_raystab_at_128_runs_and_matches_jax():
     """A stateless CPU ray-stab call at 128^3 (gen-7 on a GPU, not ported)
     runs gen-1, as the JAX package's CPU call does, and equals it: the grid

@@ -17,6 +17,9 @@ from dxrvoxelizer_tpu.ops.binning import bin_triangles as jax_bin_triangles
 from dxrvoxelizer_tpu.ops.binning import voxelize_parity_binned as jax_binned
 from dxrvoxelizer_tpu.ops.geom import parity_tri_setup as jax_setup
 from dxrvoxelizer_tpu.ops.packing import pack_bits_z as jax_pack
+from dxrvoxelizer_tpu.ops.voxelize_pallas import (
+    voxelize_parity_bruteforce as jax_bruteforce,
+)
 from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref as jax_ref
 from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
 from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
@@ -105,6 +108,26 @@ def test_plain_kernel_on_bruteforce_tiles_matches_oracle():
     got = voxelize_cuda.voxelize_parity_tiles(tiles, 64)
     want = packing.pack_bits_z(voxelize_parity_ref(tv, tt, n=64))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,n", [("tet", 32), ("box", 64)])
+def test_bruteforce_impl_matches_jax(name, n):
+    """voxelize(impl="pallas_bruteforce"): every tile tests every triangle,
+    as JAX's voxelize_parity_bruteforce does (its Pallas kernel in interpret
+    mode here); the port's route takes the binned kernel's plain version on
+    the CPU."""
+    verts, nrm, tris = MESHES[name](n)
+    want = np.asarray(jax_bruteforce(jnp.asarray(verts), jnp.asarray(tris), n,
+                                     interpret=True))
+    tv, tt = _torch(verts, tris)
+    mesh = MeshBuffers(positions=tv, normals=torch.from_numpy(nrm), tris=tt,
+                       positions_norm=tv)
+    got = voxelize(mesh, n, impl="pallas_bruteforce").words
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
+    empty = voxelize_cuda.voxelize_parity_bruteforce(
+        tv, torch.zeros((0, 3), dtype=torch.int64), n)
+    assert empty.shape == (n, n, n // 32) and not empty.any()
 
 
 def test_empty_and_far_meshes():
