@@ -59,12 +59,12 @@ the CUDA toolkit. Phases, one line each:
     per call and its (column, row) pairs tested against those the function
     needs (the column centres in each triangle's bounding box);
 11b. the work-queue kernel's sweep at 256^3 and 512^3: one block per tile
-    run in warp slices or in block rounds, one block per window of 8 chunks
-    in warp slices, at 128, 256 and 512 threads, one block per chunk with
-    atomics at 128 and 256, and the main layout without spans (every row
-    against its whole tile) and with empty spans (no pair tested: a timing
-    probe): CUDA-event ms and profiler device us per call, and the main
-    layout's device us per call with the L2 cache flushed before each call;
+    run (the main path) at 128, 256 and 512 threads, one block per chunk
+    with atomics at 128 and 256, and the main layout without spans (every
+    row against its whole tile) and with empty spans (no pair tested: a
+    timing probe): CUDA-event ms and profiler device us per call, and the
+    main layout's device us per call with the L2 cache flushed before each
+    call;
 12. the app's ``-inside raystab`` frame (the reference's own inside rule,
     the gen-6 accel) at 64^3, ``-hq``, 1280x720, 4 frames, on the 81,920-
     triangle icosphere: the fold + extraction kernel must launch every frame
@@ -192,15 +192,6 @@ RAYSTAB_OPS_PER_PAIR = 19
 # compares; a hit, the two compares of the (t, id) minimum. A hit costs 55.
 # Compares are counted here, unlike for the parity and radial kernels.
 MT_OPS_BY_STAGE = (16, 11, 16, 2, 8, 2)
-# the timing sweeps of the redesigned kernels: the fold + extraction kernel's
-# (groups of 128 threads per strip, ring stages, deferred division) and the
-# work-queue kernel's (layout: 2 a block per tile run in warp slices, 3 a
-# block per window of 8 chunks folding the runs that start in it, 1 a block
-# per tile run in block rounds, 0 a block per chunk with atomics; threads)
-FOLD_VARIANTS = [(g, st, d) for g in (1, 2, 4) for st in (1, 2, 3)
-                 for d in (False, True)]
-QUEUE_VARIANTS = [(2, 128), (2, 256), (2, 512), (3, 128), (3, 256), (3, 512),
-                  (1, 128), (1, 256), (1, 512), (0, 128), (0, 256)]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1076,7 +1067,7 @@ def main() -> int:
     def queue_variants(name, coefs, sp, ct, cn, n, want):
         """Every layout and block size of the sweep, with the spans and
         without (every row against its whole tile), against ``want``."""
-        for variant in QUEUE_VARIANTS:
+        for variant in cases.QUEUE_VARIANTS:
             for sp_ in (sp, None):
                 got = vqc.voxelize_parity_queue_chunks(coefs, ct, cn, n,
                                                        spans=sp_, variant=variant)
@@ -1143,7 +1134,7 @@ def main() -> int:
     print("phase 9 queue words bit-identical to the plain version and to the "
           "binned kernel (" + "; ".join(q_lines) + "), to the counting oracle "
           f"at 128^3; every layout and block size of the sweep "
-          f"{QUEUE_VARIANTS}, with and without column spans, bit-identical "
+          f"{cases.QUEUE_VARIANTS}, with and without column spans, bit-identical "
           "to the plain version on each")
 
     # ---- 10. the 256^3 frame against the plain path ----------------------
@@ -1269,7 +1260,7 @@ def main() -> int:
                          vqc.voxelize_parity_queue_chunks(
                              v_.coefs, v_.chunk_tile, v_.chunk_nsub, v_.n,
                              spans=v_.spans, variant=variant))
-               for variant in QUEUE_VARIANTS}
+               for variant in cases.QUEUE_VARIANTS}
         # the main layout without spans: every row against its whole tile;
         # and with spans empty in every tile (n, -1, n, -1): each row loaded
         # and its columns picked, no pair tested (a timing probe only)
@@ -1284,8 +1275,8 @@ def main() -> int:
     flush = torch.empty(1 << 24, dtype=torch.float32, device=dev)  # 64 MiB > L2
     q_cold_us = {n_: cold_device_us(torch, v_, flush)
                  for n_, v_ in ((GRID_HI, sv), (512, sv512))}
-    print("phase 11b work-queue kernel sweep ((layout, threads): CUDA-event "
-          "ms, profiler device us per call): "
+    print("phase 11b work-queue kernel sweep ((one block per tile run, "
+          "threads): CUDA-event ms, profiler device us per call): "
           + "; ".join(f"{n_}^3 " + ", ".join(
               f"{v} {t[0]:.4f} ms {t[1]:.2f} us" for v, t in q_sweep[n_].items())
               for n_ in q_sweep) + "; the main layout with the L2 flushed "
@@ -1409,7 +1400,7 @@ def main() -> int:
         low = sc.lowest[ties]
         check(torch.equal(torch.where(low >= 0, want[1][ties], -1), low),
               "stress: the plain fold did not pick the lowest id")
-        for variant in [None, *FOLD_VARIANTS]:
+        for variant in [None, *cases.FOLD_VARIANTS]:
             got = rsc.fold_extract(sc.tables, sc.t_count, thr, rule,
                                    variant=variant)
             for what, a_, b_ in zip(("t", "id", "ns"), got, want):
@@ -1419,7 +1410,7 @@ def main() -> int:
                             rsc.fold_plain(sc.tables)):
         check(torch.equal(a_, b_), f"stress: fold-only {what} differs")
     print(f"phase 14b fold + extraction at the main path's settings and every "
-          f"setting of the sweep {FOLD_VARIANTS} (groups, stages, deferred "
+          f"setting of the sweep {cases.FOLD_VARIANTS} (groups, stages, deferred "
           f"division), and the fold alone, bit-identical to the plain "
           f"versions on (t, id, ns), both rules, on synthetic strips: "
           f"{len(sc.strips['ties'])} equal-t strips, lowest id winning on "
@@ -1475,10 +1466,10 @@ def main() -> int:
     rs_sweep = time_sweep(torch, {
         variant: (lambda variant=variant: rsc.fold_extract(
             tb_rs, tc6, thr, variant=variant))
-        for variant in FOLD_VARIANTS})
+        for variant in cases.FOLD_VARIANTS})
     rs_cold_us = {v: cold_device_us(torch, lambda v=v: rsc.fold_extract(
         tb_rs, tc6, thr, variant=v), flush)
-        for v in (None, (1, 1, True), (1, 2, True), (1, 3, True), (2, 2, True))}
+        for v in (None, (1, 1, True), (1, 2, True), (1, 3, True), (2, 3, True))}
     rs_cold_us["fold-only"] = cold_device_us(torch, lambda: rsc.fold(tb_rs),
                                              flush)
     print(f"phase 15 ray-stab kernels at the {GRID}^3 frame's tables "

@@ -32,25 +32,22 @@
 // rows is staged in shared memory with its pair counts scanned, each thread
 // takes pairs p, p + stride, ..., finds p's row by binary search in the
 // scan, and XORs the crossing bit into the tile's field in shared memory (128
-// columns x N/32 words, by atomicXor on shared memory). Three layouts:
-// - 2 (the main path): one block per tile. The block whose chunk starts a
-//   run of equal chunk_tile (the queue lays a tile's chunks out back to back,
-//   chunk_tile non-decreasing) walks the whole run; each warp folds its own
-//   slices of 32 rows (a scan by shuffles, a 5-step search, the next slice
-//   loaded while this one's pairs run) with no block-wide barrier between
-//   slices; then the block turns the field into occupancy by suffix parity
-//   and stores the tile's words once. It also stores zeros for the tiles
-//   with no chunks between its tile and the previous run's (and, for the
-//   last run, after it). One launch, no memset, no device-memory atomics.
-//   Other blocks exit at once.
-// - 1: the same block per tile run, folding NT rows per round with a
-//   block-wide scan.
-// - 0: one block per chunk, NT rows per round; the field's non-zero words
-//   go to a zeroed output by atomicXor (XOR is order-free: bit-exact in any
-//   order), then a second kernel, launched from the same entry point, turns
-//   every column's field into occupancy.
-// chip_smoke.py (phase 11b) times the layouts and the block size NT at 256^3
-// and 512^3; dxv_parity_queue runs the layout and NT chosen there. The edge and
+// columns x N/32 words, by atomicXor on shared memory). Two layouts:
+// - run (the main path): one block per tile. It finds its tile's run of
+//   chunks (the queue lays a tile's chunks out back to back, chunk_tile
+//   non-decreasing, a tile's padding chunks after its real ones) by a search
+//   in which every thread tests one sample, walks the run's chunks with live
+//   rows in warp slices of 32 rows (see queue_kernel), turns the
+//   field into occupancy by suffix parity in shared memory and stores the
+//   tile's words once, neighbouring threads on neighbouring words; a tile
+//   with no chunk stores zeros. One launch, no memset, no device-memory
+//   atomics.
+// - chunk: one block per chunk; the field's non-zero words go to a zeroed
+//   output by atomicXor (XOR is order-free: bit-exact in any order), then a
+//   second kernel, launched from the same entry point, turns every column's
+//   field into occupancy.
+// chip_smoke.py (phase 11b) times both and the block size NT at 256^3 and
+// 512^3; dxv_parity_queue runs the layout and NT chosen there. The edge and
 // depth expressions use __fmul_rn / __fadd_rn in the JAX order,
 // ((a*px) + (b*py)) + c, so no FMA contraction moves a boundary decision (the
 // box with faces on voxel centres pins it).
@@ -71,10 +68,9 @@ constexpr int EX1 = 4, EY1 = 5, EO1 = 6, TL1 = 7;
 constexpr int EX2 = 8, EY2 = 9, EO2 = 10, TL2 = 11;
 constexpr int ZX = 12, ZY = 13, ZO = 14, VALID = 15;
 // the main path's layout and block size (chip_smoke.py phase 11b)
-constexpr int kMainLayout = 2;
+constexpr bool kMainRun = true;
 constexpr int kMainThreads = 256;
 constexpr double kSliverK = 1.0 / 131072.0;  // 2^-17
-constexpr int kWindow = 8;  // chunks per block of layout 3
 
 __device__ __forceinline__ float affine(float a, float b, float c, float px,
                                         float py) {
@@ -145,62 +141,65 @@ __device__ __forceinline__ int block_scan(int v, int* warp_sums, int& total) {
   return x - v + (wid > 0 ? warp_sums[wid - 1] : 0);
 }
 
-// zero the packed words of tiles [t0, t1)
-__device__ void zero_tiles(unsigned* __restrict__ words, int t0, int t1,
-                           int n, int nty, int nthreads) {
-  const int w_words = n >> 5;
-  const int per_x = kTileY * w_words;  // contiguous words per tile row of x
-  const int per_tile = kTileX * per_x;
-  for (int t = t0; t < t1; ++t) {
-    const int tx = t / nty, ty = t - (t / nty) * nty;
-    for (int i = threadIdx.x; i < per_tile; i += nthreads) {
-      const int xl = i / per_x, rem = i - xl * per_x;
-      const size_t base =
-          (static_cast<size_t>(tx * kTileX + xl) * n + ty * kTileY) * w_words;
-      words[base + rem] = 0u;
-    }
+// the first chunk whose tile is >= t (chunk_tile non-decreasing), by a
+// search that narrows the range NT-fold per step, every thread testing one
+// sample
+template <int NT>
+__device__ int first_chunk(const int* __restrict__ chunk_tile, int num_chunks,
+                           int t) {
+  int lo = 0, hi = num_chunks;  // the chunk lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + NT - 1) / NT;
+    const int j = lo + static_cast<int>(threadIdx.x) * step;
+    const int below = __syncthreads_count(j < hi && chunk_tile[j] < t);
+    const int next_hi = min(lo + below * step, hi);
+    lo = below > 0 ? lo + (below - 1) * step + 1 : lo;
+    hi = next_hi;
+  }
+  return lo;
+}
+
+// zero the packed words of tile t, neighbouring threads on neighbouring words
+template <int NT>
+__device__ void zero_tile(unsigned* __restrict__ words, int t, int n) {
+  const int w_words = n >> 5, nty = n / kTileY;
+  const int ox = (t / nty) * kTileX, oy = (t % nty) * kTileY;
+  const int per_x = kTileY * w_words;  // contiguous words per x of the tile
+  for (int i = threadIdx.x; i < kTileX * per_x; i += NT) {
+    const int xl = i / per_x;
+    words[(static_cast<size_t>(ox + xl) * n + oy) * w_words + i - xl * per_x] =
+        0u;
   }
 }
 
-// One queue row, for the thread that prepares it: its coefficients (r),
-// its packed columns (span: hmul | h << 17 | x0 << 21 | y0 << 25, the span
-// widened by one column and clipped to the tile, or the whole tile) and its
-// (row, column) pair count -- 0 for a slot past the run, a dead row, a
+// One live queue row: its pair count and packed columns (span: hmul | h << 17
+// | x0 << 21 | y0 << 25, its span widened by one column and clipped to the
+// tile, or the whole tile for a sliver or with no span array) -- 0 for a
 // degenerate triangle or an empty span.
-__device__ __forceinline__ int load_row(const float* __restrict__ coefs,
-                                        const short4* __restrict__ spans,
-                                        const int* __restrict__ chunk_nsub,
-                                        int c, int f, int slots, int k_chunk,
-                                        int ox, int oy, int n, float4 (&r)[4],
-                                        int& span) {
+__device__ __forceinline__ int row_pairs(const float4 (&r)[4], short4 sp,
+                                         bool has_span, int ox, int oy, int n,
+                                         int& span) {
   span = 0;
-  if (f >= slots) return 0;
-  const int ch = c + f / k_chunk;
-  const int k = f - (f / k_chunk) * k_chunk;
-  // the chunk's live count, the row and its span: three loads in flight at
-  // once (every slot of a chunk has a row and a span, live or not)
-  const int nsub = chunk_nsub[ch];
-  const size_t row = static_cast<size_t>(ch) * k_chunk + k;
-  const float4* src = reinterpret_cast<const float4*>(coefs) + row * 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r[i] = src[i];
-  const short4 sp = spans != nullptr ? spans[row] : make_short4(0, 0, 0, 0);
-  if (k >= min(max(nsub, 0) * kSub, k_chunk)) return 0;  // a dead row
   if (!(r[3].w > 0.0f)) return 0;  // zero row / degenerate triangle
   int x0 = 0, x1 = kTileX - 1, y0 = 0, y1 = kTileY - 1;
-  if (spans != nullptr) {
-    if (!sliver(r[0], r[1], r[2], sp, n)) {  // widened by one, in the tile
-      x0 = max(sp.x - 1 - ox, 0);
-      x1 = min(sp.y + 1 - ox, kTileX - 1);
-      y0 = max(sp.z - 1 - oy, 0);
-      y1 = min(sp.w + 1 - oy, kTileY - 1);
-    }
+  if (has_span && !sliver(r[0], r[1], r[2], sp, n)) {  // widened, in the tile
+    x0 = max(sp.x - 1 - ox, 0);
+    x1 = min(sp.y + 1 - ox, kTileX - 1);
+    y0 = max(sp.z - 1 - oy, 0);
+    y1 = min(sp.w + 1 - oy, kTileY - 1);
   }
   const int w = x1 - x0 + 1, h = y1 - y0 + 1;
   if (w <= 0 || h <= 0) return 0;
   // exact i / h for i < 128 and h <= 8 as (i * hmul) >> 16
   span = ((65536 + h - 1) / h) | (h << 17) | (x0 << 21) | (y0 << 25);
   return w * h;
+}
+
+// whether slot f of chunks [c, ...) holds a live row (f < slots)
+__device__ __forceinline__ bool live_slot(const int* __restrict__ chunk_nsub,
+                                          int c, int f, int k_chunk) {
+  const int k = f % k_chunk;
+  return k < min(max(chunk_nsub[c + f / k_chunk], 0) * kSub, k_chunk);
 }
 
 // pair i of a row (its coefficients at q): the column's crossing bit, XORed
@@ -226,39 +225,14 @@ __device__ __forceinline__ void test_pair(const float4* q, int sp, int i,
   atomicXor(field + (ci >> 5) * kLanes + xl * kTileY + yl, 1u << (ci & 31));
 }
 
-// The run layouts: the end of the run that starts at chunk c (chunk c - 1
-// holds tile `prev`, or c = 0); the block folds chunks [c, end). It also
-// stores zeros for the tiles with no chunks between `prev` and the run's
-// tile (and, for the last run, after it).
+// crossing bits -> occupancy (suffix parity) in shared memory, one thread per
+// column; then the tile's words stored once, as its 16 runs (one per x) of
+// 8 * N/32 contiguous words, neighbouring threads on neighbouring words
 template <int NT>
-__device__ int run_end(const int* __restrict__ chunk_tile,
-                       unsigned* __restrict__ words, int c, int tile, int prev,
-                       int num_chunks, int n) {
-  const int nty = n / kTileY;
-  const int n_tiles = (n / kTileX) * nty;
-  // chunk_tile is non-decreasing: the chunks equal to `tile` come first
-  int end = c + 1;
-  for (;;) {
-    const int i = end + static_cast<int>(threadIdx.x);
-    const int same = __syncthreads_count(i < num_chunks && chunk_tile[i] == tile);
-    end += same;
-    if (same < NT) break;
-  }
-  zero_tiles(words, max(prev + 1, 0), min(tile, n_tiles), n, nty, NT);
-  if (end == num_chunks)
-    zero_tiles(words, max(tile + 1, 0), n_tiles, n, nty, NT);
-  return end;
-}
-
-// crossing bits -> occupancy (suffix parity), one thread per column, the
-// tile's words stored once
-template <int NT>
-__device__ void store_tile(const unsigned* field, unsigned* __restrict__ words,
+__device__ void store_tile(unsigned* field, unsigned* __restrict__ words,
                            int ox, int oy, int n) {
   const int w_words = n >> 5;
   for (int l = threadIdx.x; l < kLanes; l += NT) {
-    unsigned* out = words + (static_cast<size_t>(ox + l / kTileY) * n + oy +
-                             l % kTileY) * w_words;
     unsigned carry = 0u;
     for (int w = w_words - 1; w >= 0; --w) {
       unsigned s = field[w * kLanes + l];
@@ -267,14 +241,30 @@ __device__ void store_tile(const unsigned* field, unsigned* __restrict__ words,
       s ^= s >> 4;
       s ^= s >> 8;
       s ^= s >> 16;
-      out[w] = s ^ (0u - carry);
+      field[w * kLanes + l] = s ^ (0u - carry);
       carry ^= s & 1u;
     }
   }
+  __syncthreads();
+  const int per_x = kTileY * w_words;
+  for (int i = threadIdx.x; i < kTileX * per_x; i += NT) {
+    const int xl = i / per_x, rem = i - xl * per_x;
+    const int yl = rem / w_words, w = rem - yl * w_words;
+    words[(static_cast<size_t>(ox + xl) * n + oy) * w_words + rem] =
+        field[w * kLanes + xl * kTileY + yl];
+  }
 }
 
-// Layouts 0 (one block per chunk) and 1 (one block per tile run): per round
-// each thread prepares one row and a block scan lays the round's pairs out.
+// kRun (the main path): block t folds tile t's run of chunks, in warp
+// slices: each warp stages its own slices of 32 rows (the slice's
+// 2 KiB copied by the warp with neighbouring lanes on neighbouring 16 bytes,
+// the next slice's copy in flight while this one's pairs run), scans their
+// pair counts by shuffles, and folds the pairs with a 5-step search, with no
+// block-wide barrier between slices; then it stores the tile's words. A tile
+// with no chunk stores zeros.
+// !kRun: block c folds chunk c alone, NT rows per round (one per thread, a
+// block scan of the pair counts), and XORs the field's non-zero words into
+// the zeroed output.
 template <bool kRun, int NT>
 __global__ void __launch_bounds__(NT)
 queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
@@ -288,171 +278,127 @@ queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
   int* s_warp = reinterpret_cast<int*>(smem + Smem<NT>::warp);
   unsigned* field = reinterpret_cast<unsigned*>(smem + Smem<NT>::field);
 
-  const int c = blockIdx.x;
   const int nty = n / kTileY;
-  const int tile = chunk_tile[c];
-  int c_end = c + 1;  // the chunks this block folds: [c, c_end)
+  const int n_tiles = (n / kTileX) * nty;
+  const int w_words = n >> 5;
+  // kRun: block b folds tile b's run of chunks [c, c_end), or zeroes the
+  // tile if it has none; else block b folds chunk b
+  int c = blockIdx.x, c_end = c + 1;
+  const int tile = kRun ? c : chunk_tile[c];
   if (kRun) {
-    const int prev = c > 0 ? chunk_tile[c - 1] : -1;
-    if (c > 0 && prev == tile) return;  // not the head of its run
-    c_end = run_end<NT>(chunk_tile, words, c, tile, prev, num_chunks, n);
+    // the tile's chunks with live rows: chunk_tile is non-decreasing, and a
+    // tile's padding chunks (no live row; a queue built at a fixed capacity
+    // has many, on its last tile) follow its real ones
+    c = first_chunk<NT>(chunk_tile, num_chunks, tile);
+    for (c_end = c;;) {
+      const int i = c_end + static_cast<int>(threadIdx.x);
+      const int live = __syncthreads_count(
+          i < num_chunks && chunk_tile[i] == tile && chunk_nsub[i] > 0);
+      c_end += live;
+      if (live < NT) break;
+    }
+    if (c_end == c) {  // no live row: the tile is empty
+      zero_tile<NT>(words, tile, n);
+      return;
+    }
   }
-  if (tile < 0 || tile >= (n / kTileX) * nty) return;  // padding chunk
+  if (tile < 0 || tile >= n_tiles) return;  // padding chunk
   const int ox = (tile / nty) * kTileX, oy = (tile % nty) * kTileY;
   const float fn = static_cast<float>(n);
-  for (int i = threadIdx.x; i < (n >> 5) * kLanes; i += NT) field[i] = 0u;
+  const bool has_span = spans != nullptr;
+  for (int i = threadIdx.x; i < w_words * kLanes; i += NT) field[i] = 0u;
+  __syncthreads();
+  const int slots = (c_end - c) * k_chunk;  // slot f is row c * k_chunk + f
+  const float4* rows4 =
+      reinterpret_cast<const float4*>(coefs) + static_cast<size_t>(c) * k_chunk * 4;
+  const short4* rspan = spans + static_cast<size_t>(c) * k_chunk;
 
-  const int slots = (c_end - c) * k_chunk;
-  for (int f0 = 0; f0 < slots; f0 += NT) {
-    float4 r[4];
-    int span;
-    const int pairs = load_row(coefs, spans, chunk_nsub, c,
-                               f0 + static_cast<int>(threadIdx.x), slots,
-                               k_chunk, ox, oy, n, r, span);
-    if (pairs > 0) {
+  if (kRun) {
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    float4* w_rows = s_rows + wid * 32 * 4;  // [32 rows][4]
+    int* w_pre = s_pre + wid * 32;
+    int* w_span = s_span + wid * 32;
+    float4 q[4];  // this lane's 4 float4 of the slice, as laid out in memory
+    auto copy = [&](int f0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s_rows[threadIdx.x * 4 + i] = r[i];
+      for (int j = 0; j < 4; ++j) {
+        const int e = lane + 32 * j;
+        q[j] = f0 + e / 4 < slots ? rows4[static_cast<size_t>(f0) * 4 + e]
+                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    };
+    copy(wid * 32);
+    for (int f0 = wid * 32; f0 < slots; f0 += NT) {
+      const int f = f0 + lane;
+      const bool live = f < slots && live_slot(chunk_nsub, c, f, k_chunk);
+      const short4 sp = live && has_span ? rspan[f] : make_short4(0, 0, 0, 0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w_rows[lane + 32 * j] = q[j];
+      __syncwarp();
+      float4 r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = w_rows[lane * 4 + i];
+      int span = 0;
+      const int pairs = live ? row_pairs(r, sp, has_span, ox, oy, n, span) : 0;
+      w_span[lane] = span;
+      int x = pairs;  // inclusive warp scan
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      w_pre[lane] = x - pairs;
+      const int total = __shfl_sync(0xffffffffu, x, 31);
+      __syncwarp();
+      copy(f0 + NT);  // the warp's next slice, in flight during the pairs
+#pragma unroll 2
+      for (int p = lane; p < total; p += 32) {
+        int k = 0;  // the last row whose first pair is <= p
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1)
+          if (w_pre[k + step] <= p) k += step;
+        test_pair(w_rows + k * 4, w_span[k], p - w_pre[k], ox, oy, fn, field);
+      }
+      __syncwarp();  // the next slice overwrites the warp's rows
+    }
+    __syncthreads();
+    store_tile<NT>(field, words, ox, oy, n);
+    return;
+  }
+
+  for (int f0 = 0; f0 < slots; f0 += NT) {
+    const int f = f0 + static_cast<int>(threadIdx.x);
+    int pairs = 0, span = 0;
+    if (f < slots && live_slot(chunk_nsub, c, f, k_chunk)) {
+      float4 r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = rows4[static_cast<size_t>(f) * 4 + i];
+      const short4 sp = has_span ? rspan[f] : make_short4(0, 0, 0, 0);
+      pairs = row_pairs(r, sp, has_span, ox, oy, n, span);
+      if (pairs > 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s_rows[threadIdx.x * 4 + i] = r[i];
+      }
     }
     s_span[threadIdx.x] = span;
     int total;
     s_pre[threadIdx.x] = block_scan<NT>(pairs, s_warp, total);
     __syncthreads();
     for (int p = threadIdx.x; p < total; p += NT) {
-      int q = 0;  // the last row whose first pair is <= p
+      int k = 0;  // the last row whose first pair is <= p
 #pragma unroll
       for (int step = NT / 2; step > 0; step >>= 1)
-        if (s_pre[q + step] <= p) q += step;
-      test_pair(s_rows + q * 4, s_span[q], p - s_pre[q], ox, oy, fn, field);
+        if (s_pre[k + step] <= p) k += step;
+      test_pair(s_rows + k * 4, s_span[k], p - s_pre[k], ox, oy, fn, field);
     }
     __syncthreads();  // the next round overwrites rows, spans and scan
   }
-
-  if (kRun) {
-    store_tile<NT>(field, words, ox, oy, n);
-  } else {  // the non-zero words into the zeroed field in device memory
-    const int w_words = n >> 5;
-    for (int i = threadIdx.x; i < w_words * kLanes; i += NT) {
-      const unsigned v = field[i];
-      if (v == 0u) continue;
-      const int w = i / kLanes, l = i - w * kLanes;
-      atomicXor(words + (static_cast<size_t>(ox + l / kTileY) * n + oy +
-                         l % kTileY) * w_words + w, v);
-    }
-  }
-}
-
-// Fold chunks [c, c_end) of one tile into its words, in warp slices: each
-// warp folds its own slices of 32 rows -- a warp scan by shuffles, a 5-step
-// search, and the next slice's rows loaded while this one's pairs run --
-// with no block-wide barrier between slices; then the block stores the tile.
-template <int NT>
-__device__ void fold_run_warps(const float* __restrict__ coefs,
-                               const short4* __restrict__ spans,
-                               const int* __restrict__ chunk_nsub,
-                               unsigned* __restrict__ words, int c, int c_end,
-                               int tile, int n, int k_chunk,
-                               unsigned char* smem) {
-  float4* s_rows = reinterpret_cast<float4*>(smem + Smem<NT>::rows);
-  int* s_pre = reinterpret_cast<int*>(smem + Smem<NT>::pre);
-  int* s_span = reinterpret_cast<int*>(smem + Smem<NT>::span);
-  unsigned* field = reinterpret_cast<unsigned*>(smem + Smem<NT>::field);
-  const int nty = n / kTileY;
-  const int ox = (tile / nty) * kTileX, oy = (tile % nty) * kTileY;
-  const float fn = static_cast<float>(n);
-  for (int i = threadIdx.x; i < (n >> 5) * kLanes; i += NT) field[i] = 0u;
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  float4* w_rows = s_rows + wid * 32 * 4;
-  int* w_pre = s_pre + wid * 32;
-  int* w_span = s_span + wid * 32;
-  const int slots = (c_end - c) * k_chunk;
-  float4 r[4];
-  int span;
-  int pairs = load_row(coefs, spans, chunk_nsub, c, wid * 32 + lane, slots,
-                       k_chunk, ox, oy, n, r, span);
-  for (int f0 = wid * 32; f0 < slots; f0 += NT) {
-    if (pairs > 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w_rows[lane * 4 + i] = r[i];
-    }
-    w_span[lane] = span;
-    int x = pairs;  // inclusive warp scan
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    w_pre[lane] = x - pairs;
-    const int total = __shfl_sync(0xffffffffu, x, 31);
-    __syncwarp();
-    // the warp's next slice, loaded while this one's pairs run
-    pairs = load_row(coefs, spans, chunk_nsub, c, f0 + NT + lane, slots,
-                     k_chunk, ox, oy, n, r, span);
-#pragma unroll 2
-    for (int p = lane; p < total; p += 32) {
-      int q = 0;
-#pragma unroll
-      for (int step = 16; step > 0; step >>= 1)
-        if (w_pre[q + step] <= p) q += step;
-      test_pair(w_rows + q * 4, w_span[q], p - w_pre[q], ox, oy, fn, field);
-    }
-    __syncwarp();  // the next slice overwrites the warp's rows
-  }
-  __syncthreads();
-  store_tile<NT>(field, words, ox, oy, n);
-}
-
-// Layout 2 (one block per tile run, warp slices): block c folds the run that
-// starts at chunk c; the other blocks exit at once.
-template <int NT>
-__global__ void __launch_bounds__(NT)
-queue_kernel_warps(const float* __restrict__ coefs,
-                   const short4* __restrict__ spans,
-                   const int* __restrict__ chunk_tile,
-                   const int* __restrict__ chunk_nsub,
-                   unsigned* __restrict__ words, int num_chunks, int n,
-                   int k_chunk) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int c = blockIdx.x;
-  const int tile = chunk_tile[c];
-  const int prev = c > 0 ? chunk_tile[c - 1] : -1;
-  if (c > 0 && prev == tile) return;  // not the head of its run
-  const int c_end = run_end<NT>(chunk_tile, words, c, tile, prev, num_chunks, n);
-  if (tile < 0 || tile >= (n / kTileX) * (n / kTileY)) return;  // padding
-  fold_run_warps<NT>(coefs, spans, chunk_nsub, words, c, c_end, tile, n,
-                     k_chunk, smem);
-}
-
-// Layout 3 (a block per window of kWindow chunks, warp slices): the block
-// folds, one after another, the runs that start in its window.
-template <int NT>
-__global__ void __launch_bounds__(NT)
-queue_kernel_window(const float* __restrict__ coefs,
-                    const short4* __restrict__ spans,
-                    const int* __restrict__ chunk_tile,
-                    const int* __restrict__ chunk_nsub,
-                    unsigned* __restrict__ words, int num_chunks, int n,
-                    int k_chunk) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* s_tile = reinterpret_cast<int*>(smem + Smem<NT>::warp);  // [kWindow + 1]
-  const int c0 = blockIdx.x * kWindow;
-  for (int i = threadIdx.x; i <= kWindow; i += NT) {
-    const int c = c0 - 1 + i;
-    s_tile[i] = c < 0 ? -1 : c < num_chunks ? chunk_tile[c] : INT32_MAX;
-  }
-  __syncthreads();
-  const int n_tiles = (n / kTileX) * (n / kTileY);
-  for (int i = 1; i <= kWindow; ++i) {
-    const int c = c0 - 1 + i, tile = s_tile[i], prev = s_tile[i - 1];
-    if (c >= num_chunks) break;
-    if (c > 0 && prev == tile) continue;  // not the head of a run
-    const int c_end = run_end<NT>(chunk_tile, words, c, tile, prev,
-                                  num_chunks, n);
-    if (tile < 0 || tile >= n_tiles) continue;  // padding
-    fold_run_warps<NT>(coefs, spans, chunk_nsub, words, c, c_end, tile, n,
-                       k_chunk, smem);
-    __syncthreads();  // the next run zeroes the field again
+  for (int i = threadIdx.x; i < w_words * kLanes; i += NT) {
+    const unsigned v = field[i];
+    if (v == 0u) continue;
+    const int w = i / kLanes, l = i - w * kLanes;
+    atomicXor(words + (static_cast<size_t>(ox + l / kTileY) * n + oy +
+                       l % kTileY) * w_words + w, v);
   }
 }
 
@@ -478,30 +424,26 @@ __global__ void queue_kernel_suffix_parity(unsigned int* __restrict__ words,
   }
 }
 
-template <int kLayout, int NT>
+template <bool kRun, int NT>
 int launch(const float* coefs, const short4* spans, const int* chunk_tile,
            const int* chunk_nsub, unsigned* words, int num_chunks, int n,
            int k_chunk, cudaStream_t stream) {
   const int w_words = n / 32;
   const size_t smem = Smem<NT>::bytes(w_words);
   const size_t bytes = static_cast<size_t>(n) * n * w_words * sizeof(unsigned);
-  auto kernel = kLayout == 3   ? queue_kernel_window<NT>
-                : kLayout == 2 ? queue_kernel_warps<NT>
-                               : queue_kernel<kLayout == 1, NT>;
-  const int blocks =
-      kLayout == 3 ? (num_chunks + kWindow - 1) / kWindow : num_chunks;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        queue_kernel<kRun, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (kLayout == 0 || num_chunks == 0)  // a zeroed field, or no chunk at all
-    cudaMemsetAsync(words, 0, bytes, stream);
-  if (num_chunks > 0)
-    kernel<<<blocks, NT, smem, stream>>>(coefs, spans, chunk_tile, chunk_nsub,
-                                         words, num_chunks, n, k_chunk);
-  if (kLayout == 0) {
+  if (!kRun) cudaMemsetAsync(words, 0, bytes, stream);  // a zeroed field
+  // kRun: a block per tile; else a block per chunk
+  const int blocks = kRun ? (n / kTileX) * (n / kTileY) : num_chunks;
+  if (blocks > 0)
+    queue_kernel<kRun, NT><<<blocks, NT, smem, stream>>>(
+        coefs, spans, chunk_tile, chunk_nsub, words, num_chunks, n, k_chunk);
+  if (!kRun) {
     const int columns = n * n;
     constexpr int kBlock = 256;
     queue_kernel_suffix_parity<<<(columns + kBlock - 1) / kBlock, kBlock, 0,
@@ -521,47 +463,41 @@ int check_args(int num_chunks, int n, int k_chunk) {
 
 // coefs: [num_chunks * k_chunk, 16] f32; spans: [num_chunks * k_chunk, 4]
 // int16 (x_lo, x_hi, y_lo, y_hi: the bounding box's grid columns, clipped to
-// [-1, n]) or null (every row tests its whole tile); chunk_tile (non-decreasing), chunk_nsub: [num_chunks] int32;
-// words: [n, n, n/32] int32, written whole.
+// [-1, n]) or null (every row tests its whole tile); chunk_tile
+// (non-decreasing), chunk_nsub: [num_chunks] int32; words: [n, n, n/32]
+// int32, written whole.
 extern "C" int dxv_parity_queue(const float* coefs, const short* spans,
                                 const int* chunk_tile, const int* chunk_nsub,
                                 int* words, int num_chunks, int n, int k_chunk,
                                 void* stream) {
   if (const int e = check_args(num_chunks, n, k_chunk)) return e;
-  return launch<kMainLayout, kMainThreads>(
+  return launch<kMainRun, kMainThreads>(
       coefs, reinterpret_cast<const short4*>(spans), chunk_tile, chunk_nsub,
       reinterpret_cast<unsigned*>(words), num_chunks, n, k_chunk,
       static_cast<cudaStream_t>(stream));
 }
 
-// The same with the layout (0: a block per chunk, device-memory atomics and
-// a second pass; 1: a block per tile run, block rounds; 2: a block per tile
-// run, warp slices) and the block size (128, 256, 512) chosen by the caller:
-// the timing sweep.
+// The same with the layout (run = 1: a block per tile run; 0: a block per
+// chunk, device-memory atomics and a second pass) and the block size (128,
+// 256, 512) chosen by the caller: the timing sweep.
 extern "C" int dxv_parity_queue_variant(const float* coefs, const short* spans,
                                         const int* chunk_tile,
                                         const int* chunk_nsub, int* words,
                                         int num_chunks, int n, int k_chunk,
-                                        int layout, int threads, void* stream) {
+                                        int run, int threads, void* stream) {
   if (const int e = check_args(num_chunks, n, k_chunk)) return e;
   const short4* sp = reinterpret_cast<const short4*>(spans);
   unsigned* w = reinterpret_cast<unsigned*>(words);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DXV_QUEUE_CASE(L, T)                                                 \
-  if (layout == L && threads == T)                                           \
-    return launch<L, T>(coefs, sp, chunk_tile, chunk_nsub, w, num_chunks, n, \
+#define DXV_QUEUE_CASE(R, T)                                                 \
+  if ((run != 0) == R && threads == T)                                       \
+    return launch<R, T>(coefs, sp, chunk_tile, chunk_nsub, w, num_chunks, n, \
                         k_chunk, s);
-  DXV_QUEUE_CASE(0, 128)
-  DXV_QUEUE_CASE(0, 256)
-  DXV_QUEUE_CASE(1, 128)
-  DXV_QUEUE_CASE(1, 256)
-  DXV_QUEUE_CASE(1, 512)
-  DXV_QUEUE_CASE(2, 128)
-  DXV_QUEUE_CASE(2, 256)
-  DXV_QUEUE_CASE(2, 512)
-  DXV_QUEUE_CASE(3, 128)
-  DXV_QUEUE_CASE(3, 256)
-  DXV_QUEUE_CASE(3, 512)
+  DXV_QUEUE_CASE(true, 128)
+  DXV_QUEUE_CASE(true, 256)
+  DXV_QUEUE_CASE(true, 512)
+  DXV_QUEUE_CASE(false, 128)
+  DXV_QUEUE_CASE(false, 256)
 #undef DXV_QUEUE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

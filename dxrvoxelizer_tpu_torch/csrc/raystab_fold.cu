@@ -67,7 +67,7 @@ constexpr float kEpsDet = 1e-10f;
 constexpr float kTMax = 1e4f;
 // the main path's settings (chip_smoke.py phase 15b sweeps the others)
 constexpr int kGroups = 1;
-constexpr int kStages = 2;
+constexpr int kStages = 3;
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                                       float by, float bz) {

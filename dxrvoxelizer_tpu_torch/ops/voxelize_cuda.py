@@ -147,6 +147,6 @@ def voxelize_parity_bruteforce(verts_norm: torch.Tensor, tris: torch.Tensor,
     pad = (-coef.shape[0]) % k_chunk
     coef = torch.cat([coef, coef.new_zeros((pad, NCOEF))])
     tiles = coef[None].expand((n // TILE) ** 2, -1, -1)
-    if tiles.device.type != "cpu":
+    if tiles.device.type != "cpu":  # the plain version takes the view
         tiles = tiles.contiguous()
     return voxelize_parity_tiles(tiles, n)

@@ -8,12 +8,12 @@ of 8 rows (``chunk_nsub``) and whether it is the tile's last chunk
 (``chunk_last``). Empty tiles get no chunks. Beside the rows, ``spans``
 [rows, 4] int16 holds each row's column span, the bounding box the binning
 uses (``[ceil xmin, floor xmax] x [ceil ymin, floor ymax]``, clipped to
-[-1, N]; padding rows get (-1, -1, -1, -1)); the kernel widens it by one
-column each side and clips it to the tile, or tests the whole tile for a
-sliver (ops/voxelize_queue_cuda.py, ``row_columns``): the kernel tests only those columns of the tile (not in the
-JAX package, whose TPU kernel tests all 128 lanes of a row at once). The kernel
+[-1, N]; padding rows get (-1, -1, -1, -1)); not in the JAX package, whose
+TPU kernel tests all 128 columns of a tile at once. The kernel
 (ops/voxelize_queue_cuda.py, ``csrc/parity_queue.cu``) turns the queue into
-packed occupancy words, bit-identical to the binned path and the oracle.
+packed occupancy words, bit-identical to the binned path and the oracle,
+testing each row only on its span widened by one column (the whole tile for
+a sliver; ``voxelize_queue_cuda.row_columns``).
 
 - :func:`build_queue`: device phase A (setup, candidate pairs, one sort into
   per-tile runs), ONE host sync for the per-tile counts that size the

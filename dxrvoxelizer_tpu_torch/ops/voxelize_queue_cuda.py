@@ -192,18 +192,19 @@ def voxelize_parity_queue_chunks_plain(coefs: torch.Tensor,
 def voxelize_parity_queue_chunks(coefs: torch.Tensor, chunk_tile: torch.Tensor,
                                  chunk_nsub: torch.Tensor, n: int,
                                  spans: torch.Tensor | None = None,
-                                 variant: tuple[int, int] | None = None
+                                 variant: tuple[bool, int] | None = None
                                  ) -> torch.Tensor:
     """Run the queue kernel -> packed occupancy words [N, N, N//32].
 
     ``coefs`` [num_chunks * k_chunk, NCOEF] f32 (``k_chunk`` rows per chunk,
     a multiple of 8; the queue build uses K_CHUNK); ``chunk_tile`` and
-    ``chunk_nsub`` [num_chunks] int32, ``chunk_tile`` non-decreasing (the
-    queue build's layout: a tile's chunks back to back); ``spans``
+    ``chunk_nsub`` [num_chunks] int32, ``chunk_tile`` non-decreasing and a
+    tile's chunks with no live row after its others (the queue build's
+    layout: a tile's chunks back to back, padding chunks last); ``spans``
     [num_chunks * k_chunk, 4] int16 column spans or None (every row spans
-    its tile). ``variant`` = (layout, threads) picks a layout (0, 1, 2) and
-    block size of the kernel other than the main path's
-    (csrc/parity_queue.cu; the timing sweep). A CPU tensor takes the plain version, which tests every column;
+    its tile). ``variant`` = (one block per tile run, else one per chunk;
+    threads) picks a layout and block size of the kernel other than the
+    main path's (csrc/parity_queue.cu; the timing sweep). A CPU tensor takes the plain version, which tests every column;
     a CUDA tensor launches the kernel.
     """
     num_chunks, k_chunk = _check_queue(coefs, chunk_tile, chunk_nsub, n)

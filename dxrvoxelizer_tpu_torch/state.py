@@ -69,9 +69,12 @@ def queue_from_numpy(coefs: np.ndarray, chunk_tile: np.ndarray,
     if any(a.shape != (num_chunks,) for a in chunks):
         raise ValueError("chunk_tile, chunk_nsub and chunk_last must be "
                          f"[{num_chunks}]")
-    if (np.diff(chunks[0].astype(np.int64)) < 0).any():
-        raise ValueError("chunk_tile must be non-decreasing (each tile's "
-                         "chunks back to back, as build_queue lays them out)")
+    tile, nsub = (chunks[i].astype(np.int64) for i in (0, 1))
+    if (np.diff(tile) < 0).any() or (
+            (tile[1:] == tile[:-1]) & (nsub[:-1] <= 0) & (nsub[1:] > 0)).any():
+        raise ValueError("chunk_tile must be non-decreasing, and a tile's "
+                         "chunks with no live row must follow its others (as "
+                         "build_queue lays them out)")
     return (torch.tensor(c).to(device),
             *(torch.tensor(a.astype(np.int32)).to(device) for a in chunks))
 

@@ -37,17 +37,7 @@ from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
 # pytest puts tests/ itself on sys.path (no __init__.py there); importing
 # ``meshes`` directly keeps an installed package named ``tests`` out of it
 from meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
-from torch_cases import chunks_run, stab_stress
-
-# settings of the fold kernel's timing sweep: (groups, ring stages, deferred
-# division); and of the queue kernel's: (layout, threads), layout 2 a block
-# per tile run in warp slices, 3 a block per window of 8 chunks folding the
-# runs that start in it, 1 a block per tile run in block rounds, 0 a block
-# per chunk with atomics
-FOLD_VARIANTS = [(g, st, d) for g in (1, 2, 4) for st in (1, 2, 3)
-                 for d in (False, True)]
-QUEUE_VARIANTS = [(2, 128), (2, 256), (2, 512), (3, 128), (3, 256), (3, 512),
-                  (1, 128), (1, 256), (1, 512), (0, 128), (0, 256)]
+from torch_cases import FOLD_VARIANTS, QUEUE_VARIANTS, chunks_run, stab_stress
 
 pytestmark = pytest.mark.cuda
 
@@ -102,10 +92,9 @@ def test_queue_kernel_bit_identical_to_plain(dev, mesh, n):
 @pytest.mark.parametrize("variant", QUEUE_VARIANTS)
 @pytest.mark.parametrize("mesh", ["box", "icosphere"])
 def test_queue_kernel_variants_bit_identical_to_plain(dev, mesh, variant):
-    """Every layout of the redesigned kernel (a block per tile run in warp
-    slices or block rounds, a block per window of chunks, or a block per
-    chunk with atomics) at every block size of the sweep, with and without
-    column spans, at 256^3."""
+    """Both layouts of the redesigned kernel (a block per tile run, or a
+    block per chunk with atomics) at every block size of the sweep, with and
+    without column spans, at 256^3."""
     verts, tris = _mesh(mesh, 256, dev)
     coefs, spans, ct, cn, _, _ = voxelize_queue.build_queue(verts, tris, 256)
     plain = voxelize_queue_cuda.voxelize_parity_queue_chunks_plain(

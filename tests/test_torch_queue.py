@@ -169,6 +169,10 @@ def test_plain_kernel_on_jax_queue_gives_jax_words():
     with pytest.raises(ValueError):
         queue_from_numpy(np.asarray(jc)[:, :8], np.asarray(jct),
                          np.asarray(jcn), np.asarray(jcl), n, "cpu")
+    # the kernel walks each tile's chunks back to back, padding chunks last
+    with pytest.raises(ValueError, match="non-decreasing"):
+        queue_from_numpy(np.asarray(jc), np.asarray(jct)[::-1].copy(),
+                         np.asarray(jcn), np.asarray(jcl), n, "cpu")
 
 
 def test_empty_mesh():

@@ -1,5 +1,6 @@
 """Synthetic strip tables that stress the ray-stab fold kernel
-(csrc/raystab_fold.cu) at its boundaries, built from a real gen-6 accel.
+(csrc/raystab_fold.cu) at its boundaries, built from a real gen-6 accel; and
+the settings of the redesigned kernels' timing sweeps.
 
 Shared by ``tests/test_torch_cuda.py``, ``tests/test_torch_raystab.py`` (the
 plain fold, on the CPU) and ``chip_smoke.py`` (which loads this file by
@@ -27,6 +28,14 @@ N = 64  # grid of the base accel
 TIE_AT = 300  # first duplicate row: past a chunk (256), across a sub-chunk (320)
 SHELL0, SHELL_STEP = 0.3, 0.05  # radii of the concentric shells
 FORCED = (3, 7)  # chunks of the many-chunk strip bounded by 0: never skipped
+# the timing sweeps' settings, each held bit for bit to the plain version:
+# the fold kernel's (groups of 128 lanes per strip, ring stages, deferred
+# division) and the queue kernel's (a block per tile run, else a block per
+# chunk with atomics; threads)
+FOLD_VARIANTS = [(g, st, d) for g in (1, 2, 4) for st in (1, 2, 3)
+                 for d in (False, True)]
+QUEUE_VARIANTS = [(True, 128), (True, 256), (True, 512), (False, 128),
+                  (False, 256)]
 
 
 @dataclass
