@@ -20,11 +20,15 @@ the CUDA toolkit. Phases, one line each:
     frames timed in turns (each a median as in phase 5): the frame times
     reported for these three paths;
 4. each kernel against its plain torch version on the card, at the shapes
-   the main path gives it (the march at ss = 1 and 2; the fused screen
-   resolve's coordinates and hit mask bit for bit against ``screen_coords``
-   and its image against ``resolve_plain``, on 4 orbit cameras that set
-   swap and flip on and off), and the whole frame against the plain path
-   and against the CPU on a small input;
+   the main path gives it (the binned parity kernel bit for bit at the main
+   path's settings and every layout of its sweep, on the 64^3 frame's bins,
+   the icosphere at 256^3, a box with faces on voxel centres at 32, 64 and
+   256^3, two needle soups at 64^3 and the brute-force path at 64^3; the
+   march at ss = 1 and 2; the fused screen resolve's coordinates and hit
+   mask bit for bit against ``screen_coords`` and its image against
+   ``resolve_plain``, on 4 orbit cameras that set swap and flip on and
+   off), and the whole frame against the plain path and against the CPU on
+   a small input;
 5. medians of 5 runs, timed with CUDA events around 10 back-to-back calls,
    of each kernel, its plain version, and the whole frame; the device time
    per call (profiler) of the march, the resolve and its yardstick
@@ -32,6 +36,14 @@ the CUDA toolkit. Phases, one line each:
    elementwise torch op's; the march set-up's host time per frame and its
    ring sizing's; then a profiler window of 5 frames for the device time
    per kernel and the idle share;
+5c. the binned parity kernel at the 64^3 frame's bins: the rows it walks
+    and the (column, row) pairs it tests against those the function needs
+    and those the parent kernel tested; every layout of its sweep (a
+    cluster of 1 to 16 blocks per tile, blocks per tile with device-memory
+    atomics, at 256 or 512 threads; the parent's every-column layout, and
+    the parent's work, every row of the capacity): CUDA-event ms
+    and profiler device us per call, and with the L2 cache flushed before
+    each call;
 5b. the march at the 64^3 frame's inputs across intermediate sizes M = 64,
     128, 256 and sub-slab counts KS = 64, 128 (ss = 1, 2): CUDA-event ms
     and profiler device us per call;
@@ -103,13 +115,22 @@ the CUDA toolkit. Phases, one line each:
     at 1280x720 ``-hq`` in which the Moller-Trumbore kernel must launch once
     per query (twice with overflow triangles) and the parity and gen-6
     kernels never; the kernel against its plain version bit for bit on
-    (t, id) on that icosphere, the box with faces on voxel centres and the
-    near-origin soup (the overflow stream over its 300 rows); the
-    query against the Moller-Trumbore oracle at 64^3 on a 5,120-triangle
+    (t, id), at the main path's settings and every setting of its sweep, on
+    that icosphere, the box with faces on voxel centres, the near-origin
+    soup (the overflow stream over its 300 rows) and the stress stream of
+    ``tests/torch_cases.py`` at every slice width (det near 1e-10, u and v
+    underflowing to -0.0, u + v within a few ulp of 1, t ties and bounds);
+    the query against the Moller-Trumbore oracle at 64^3 on a 5,120-triangle
     icosphere, and the frame against the plain path; times of the kernel,
     its plain version and the frame, and a profiler window of the frame;
     the real (ray, candidate) pairs that reach each of the kernel's tests,
-    which its bound counts.
+    which its bound counts;
+16b. the Moller-Trumbore kernel's sweep on the 64^3 gen-1 accel sliced at
+    32, 64 and 128 lanes: 128 and 256 threads per block, with and without
+    the deferred division, rows read from device memory or staged through
+    shared memory, each bit for bit against the plain version: CUDA-event ms
+    and profiler device us per call, the main settings with the L2 flushed,
+    and each width's slices and lane slots.
 
 Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
@@ -270,15 +291,17 @@ def bbox_pairs(torch, verts, tris, n: int) -> int:
     return int(cols.double().sum())
 
 
-def device_us(torch, fn, calls: int = 10) -> float:
+def device_us(torch, fn, calls: int = 10, windows: int = 3) -> float:
     """Device time per call of ``fn`` (profiler: every device kernel and
-    copy it runs), after one warm-up call. A window in which the profiler
-    saw no device activity (it happens) is taken again, up to 3 times."""
+    copy it runs), after one warm-up call: the median of ``windows``
+    profiler windows of ``calls`` calls (a window can miss or double some
+    device records; one that saw no device activity is dropped)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    per_call = []
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -287,8 +310,8 @@ def device_us(torch, fn, calls: int = 10) -> float:
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if str(e.device_type) == "DeviceType.CUDA") / calls
         if us > 0:
-            break
-    return us
+            per_call.append(us)
+    return statistics.median(per_call) if per_call else 0.0
 
 
 def host_us(torch, fn, calls: int = 200) -> float:
@@ -436,6 +459,19 @@ def queue_tested_pairs(torch, vqc, coefs, spans, chunk_tile, chunk_nsub,
     return int((cols * valid).sum()), int(valid.sum()) * 128
 
 
+def binned_tested_pairs(torch, vc, coef, spans, counts, n) -> tuple[int, int]:
+    """(column, row) pairs kernel 2.1 tests on binned tiles: each real row of
+    a valid triangle against the columns it picks in its tile (its span
+    widened by one column, or the whole tile for a sliver) -> (rows walked,
+    pairs tested)."""
+    cols = vc.row_columns(coef, spans, n)  # [n_tiles, K, 4]
+    real = torch.arange(coef.shape[1], device=coef.device)[None] < counts[:, None]
+    valid = real & (coef[..., 15] > 0)
+    tested = ((cols[..., 1] - cols[..., 0] + 1).clamp(min=0)
+              * (cols[..., 3] - cols[..., 2] + 1).clamp(min=0))
+    return int(counts.sum()), int((tested * valid).sum())
+
+
 def raystab_pass_pairs(torch, rsc, tb) -> tuple[int, int, int, int]:
     """Over every real (ray, candidate) pair of a strip stream: the pairs,
     those past the sign test of the three dot products and |den| > eps
@@ -486,15 +522,14 @@ def mt_stage_pairs(torch, tb) -> list[int]:
     |det| > eps, u >= 0, v >= 0 and u + v <= 1, and the hits. Replayed with
     the plain ``mt_hit`` a batch of slices at a time."""
     from dxrvoxelizer_tpu_torch.ops.intersect import EPS_DET, mt_hit
-    from dxrvoxelizer_tpu_torch.ops.raystab_mt_cuda import LANES
 
     counts = [0] * len(MT_OPS_BY_STAGE)
     if tb.slices == 0 or tb.rows.shape[0] == 0:
         return counts
     dev = tb.pos.device
     kmax = int(tb.cand_cnt.max())
-    step = max(1, (1 << 23) // (LANES * max(1, kmax)))
-    lanes = torch.arange(LANES, device=dev)
+    step = max(1, (1 << 23) // (tb.lanes * max(1, kmax)))
+    lanes = torch.arange(tb.lanes, device=dev)
     ks = torch.arange(kmax, device=dev)
     for b0 in range(0, tb.slices, step):
         roff, rcnt, coff, ccnt = (x[b0:b0 + step].long() for x in (
@@ -612,7 +647,10 @@ def main() -> int:
         voxelize_queue,
         voxelize_queue_cuda,
     )
-    from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles
+    from dxrvoxelizer_tpu_torch.ops.binning import (
+        StaticBinnedVoxelizer,
+        bin_triangles_spans,
+    )
     from dxrvoxelizer_tpu_torch.ops.packing import (
         pack_bits_z,
         quantize_r10g10b10a2,
@@ -811,14 +849,27 @@ def main() -> int:
     # ---- 4. kernels against their plain versions ------------------------
     errs = {}
 
-    def parity_case(name, verts, tris, n):
-        mb = torch.from_numpy(np.asarray(verts, np.float32)).to(dev)
-        tr = torch.from_numpy(np.asarray(tris, np.int64)).to(dev)
-        coef, stats = bin_triangles(mb, tr, n)
-        words = voxelize_cuda.voxelize_parity_tiles(coef, n)
+    def dev_mesh(verts, tris):
+        return (torch.from_numpy(np.asarray(verts, np.float32)).to(dev),
+                torch.from_numpy(np.asarray(tris, np.int64)).to(dev))
+
+    def parity_tiles_case(name, coef, spans, counts, n):
+        """Kernel 2.1 on one set of tiles against its plain version (every
+        column of every row): the main path and every layout of the sweep."""
         plain = voxelize_cuda.voxelize_parity_tiles_plain(coef, n)
-        check(torch.equal(words, plain),
-              f"parity words differ from the plain version: {name} {n}^3")
+        for variant in [None, *cases.PARITY_VARIANTS]:
+            sp = None if variant and variant[0] == "column" else spans
+            words = voxelize_cuda.voxelize_parity_tiles(
+                coef, n, spans=sp, counts=counts, variant=variant)
+            check(torch.equal(words, plain), f"parity words ({variant}) "
+                  f"differ from the plain version: {name} {n}^3")
+        check(bool(plain.any()), f"{name} {n}^3: empty grid")
+
+    def parity_case(name, verts, tris, n):
+        mb_ = torch.from_numpy(np.asarray(verts, np.float32)).to(dev)
+        tr = torch.from_numpy(np.asarray(tris, np.int64)).to(dev)
+        coef, spans, counts, stats = bin_triangles_spans(mb_, tr, n)
+        parity_tiles_case(name, coef, spans, counts, n)
         return stats
 
     def box_on_centers(n):
@@ -826,21 +877,35 @@ def main() -> int:
         return box_mesh(c[:3], c[3:])  # faces on voxel centers: ties
 
     box_lines = []
-    for n in (GRID, 256):
-        vb, _, tb = box_on_centers(n)
-        for name, (vv, tt) in {"icosphere6": (v6, t6),
-                               "box_on_centers": (vb, tb)}.items():
-            stats = parity_case(name, vv, tt, n)
-            box_lines.append(f"{name}@{n}^3 cap {stats.capacity}")
-    # and the kernel against the independent counting oracle at 64^3
+    parity_meshes = [("icosphere6", GRID, v6, t6), ("icosphere6", 256, v6, t6)]
+    parity_meshes += [("box_on_centers", n, *box_on_centers(n)[::2])
+                      for n in (32, GRID, 256)]
+    parity_meshes += [(f"needle_soup{seed}", GRID, *cases.needle_soup(
+        np.random.default_rng(seed), GRID, cases.SOUP_TRIS))
+        for seed in cases.SOUP_SEEDS]
+    for name, n, vv, tt in parity_meshes:
+        stats = parity_case(name, vv, tt, n)
+        box_lines.append(f"{name}@{n}^3 cap {stats.capacity}")
+    # the brute-force path: every triangle in every tile
+    for name, (vv, tt) in (("icosphere6", (mb.positions_norm, mb.tris)),
+                           ("box_on_centers", dev_mesh(*box_on_centers(GRID)[::2]))):
+        tiles_bf, spans_bf = voxelize_cuda.bruteforce_tiles(vv, tt, GRID)
+        parity_tiles_case(f"bruteforce {name}", tiles_bf, spans_bf, None, GRID)
+        check(torch.equal(voxelize_cuda.voxelize_parity_bruteforce(vv, tt, GRID),
+                          voxelize_cuda.voxelize_parity_tiles_plain(tiles_bf, GRID)),
+              f"bruteforce {name}: the path differs from the plain version")
+        box_lines.append(f"bruteforce {name}@{GRID}^3 {tiles_bf.shape[1]} rows")
+    # and the main path's kernel against the independent counting oracle
     oracle = pack_bits_z(voxelize_parity_ref(mb.positions_norm, mb.tris, n=GRID))
-    coef_main, stats_main = bin_triangles(mb.positions_norm, mb.tris, GRID)
-    words_main = voxelize_cuda.voxelize_parity_tiles(coef_main, GRID)
+    sb_main = StaticBinnedVoxelizer(mb.positions_norm, mb.tris, GRID)
+    coef_main, stats_main = sb_main.coef_tiles, sb_main.stats
+    words_main = sb_main()
     check(torch.equal(words_main, oracle), "kernel words differ from the oracle")
     errs["parity_voxelize"] = 0.0
-    phase4 = [f"parity words bit-identical to the plain version "
-              f"({', '.join(box_lines)}) and to the counting oracle at "
-              f"{GRID}^3 (main path: {stats_main})"]
+    phase4 = [f"parity words bit-identical to the plain version at the main "
+              f"path's settings and every layout of the sweep "
+              f"{cases.PARITY_VARIANTS} ({', '.join(box_lines)}) and to the "
+              f"counting oracle at {GRID}^3 (main path: {stats_main})"]
 
     def resolve_case(s_i, t_i, consts_, cfg_, statics, mi_):
         """The fused resolve against screen_coords + resolve_plain: the
@@ -957,7 +1022,7 @@ def main() -> int:
     # ---- 5. timings ------------------------------------------------------
     ms = {
         "parity_voxelize": (
-            cuda_ms(torch, lambda: voxelize_cuda.voxelize_parity_tiles(coef_main, GRID)),
+            cuda_ms(torch, sb_main),
             cuda_ms(torch, lambda: voxelize_cuda.voxelize_parity_tiles_plain(coef_main, GRID)),
         ),
         "march": (
@@ -1027,6 +1092,36 @@ def main() -> int:
           f"{mi_host_us:.2f} us per frame, of which the ring sizing "
           f"(march_ring) {ring_host_us:.2f} us; {card}")
 
+    # ---- 5c. kernel 2.1's layouts at the 64^3 frame's bins ---------------
+    flush = torch.empty(1 << 24, dtype=torch.float32, device=dev)  # 64 MiB > L2
+    sp_main, ct_main = sb_main.spans, sb_main.counts
+    p_fns = {variant: (lambda variant=variant: voxelize_cuda.voxelize_parity_tiles(
+        coef_main, GRID, spans=None if variant[0] == "column" else sp_main,
+        counts=ct_main, variant=variant)) for variant in cases.PARITY_VARIANTS}
+    # the parent's work: every column of every row, padding included
+    p_fns["parent (column, no counts)"] = (
+        lambda: voxelize_cuda.voxelize_parity_tiles(coef_main, GRID))
+    p_sweep = time_sweep(torch, p_fns)
+    p_dev_us = device_us(torch, sb_main)
+    p_cold_us = {k: cold_device_us(torch, fn, flush)
+                 for k, fn in [("main", sb_main), *p_fns.items()]}
+    p_rows, p_pairs = binned_tested_pairs(torch, voxelize_cuda, coef_main,
+                                          sp_main, ct_main, GRID)
+    p_host_us = host_us(torch, sb_main)  # the wrapper's host time per call
+    pairs_b = bbox_pairs(torch, mb.positions_norm, mb.tris, GRID)
+    print(f"phase 5c binned parity kernel at the {GRID}^3 frame's bins "
+          f"({tuple(coef_main.shape)}, {stats_main}): main path "
+          f"{ms['parity_voxelize'][0]:.4f} ms, {p_dev_us:.2f} us device per "
+          f"call, wrapper host {p_host_us:.2f} us per call; rows walked "
+          f"{p_rows} of {coef_main.shape[0] * coef_main.shape[1]}, (column, "
+          f"row) pairs tested {p_pairs} (parent: every column of every row, "
+          f"{coef_main.shape[0] * coef_main.shape[1] * 1024}), needed "
+          f"{pairs_b}; layouts ((layout, blocks per tile, threads): CUDA-event ms, "
+          f"profiler device us per call): " + ", ".join(
+              f"{v} {t[0]:.4f} ms {t[1]:.2f} us" for v, t in p_sweep.items())
+          + "; with the L2 flushed before each call (device us): " + ", ".join(
+              f"{v} {us:.2f}" for v, us in p_cold_us.items()) + f"; {card}")
+
     # ---- 5b. the march across intermediate sizes and sub-slab counts -----
     # at the 64^3 frame's inputs, M = 64, 128, 256 and ss = 1, 2 (KS = 64,
     # 128): a latency chain per step shows as time that follows KS and stays
@@ -1081,8 +1176,7 @@ def main() -> int:
         check(torch.equal(words, plain),
               f"queue words differ from the plain version: {name} {n}^3")
         queue_variants(name, coefs, sp, ct, cn, n, plain)
-        coef_b, _ = bin_triangles(verts, tris, n)
-        check(torch.equal(words, voxelize_cuda.voxelize_parity_tiles(coef_b, n)),
+        check(torch.equal(words, StaticBinnedVoxelizer(verts, tris, n)()),
               f"queue words differ from the binned kernel's: {name} {n}^3")
         if oracle:
             ref = pack_bits_z(voxelize_parity_ref(verts, tris, n=n))
@@ -1091,10 +1185,6 @@ def main() -> int:
         check(bool(words.any()), f"{name} {n}^3: empty grid")
         return f"{name}@{n}^3 {stats.real_chunks} chunks {stats.pairs} pairs " \
                f"{stats.overflow} overflow"
-
-    def dev_mesh(verts, tris):
-        return (torch.from_numpy(np.asarray(verts, np.float32)).to(dev),
-                torch.from_numpy(np.asarray(tris, np.int64)).to(dev))
 
     q_lines = []
     for n in (128, 256, 512):
@@ -1189,9 +1279,9 @@ def main() -> int:
                for n_, v_ in ((GRID_HI, sv), (512, sv512))}
     q_needed = {n_: bbox_pairs(torch, mb7.positions_norm, mb7.tris, n_)
                 for n_ in (GRID_HI, 512)}
-    coef_b7, stats_b7 = bin_triangles(mb7.positions_norm, mb7.tris, GRID_HI)
-    binned256_ms = cuda_ms(
-        torch, lambda: voxelize_cuda.voxelize_parity_tiles(coef_b7, GRID_HI))
+    sb7 = StaticBinnedVoxelizer(mb7.positions_norm, mb7.tris, GRID_HI)
+    stats_b7 = sb7.stats
+    binned256_ms = cuda_ms(torch, sb7)
     deform_call_ms = cuda_ms(torch, lambda: dv(wob[2]))
     pipe7d = FramePipeline(cfg_hi, mb7, deforming=True)
     pipe7d.mesh = wobbled(mb7, base_x, 2)
@@ -1272,7 +1362,6 @@ def main() -> int:
             lambda v_=v_, e_=empty: vqc.voxelize_parity_queue_chunks(
                 v_.coefs, v_.chunk_tile, v_.chunk_nsub, v_.n, spans=e_))
         q_sweep[n_] = time_sweep(torch, fns)
-    flush = torch.empty(1 << 24, dtype=torch.float32, device=dev)  # 64 MiB > L2
     q_cold_us = {n_: cold_device_us(torch, v_, flush)
                  for n_, v_ in ((GRID_HI, sv), (512, sv512))}
     print("phase 11b work-queue kernel sweep ((one block per tile run, "
@@ -1569,16 +1658,24 @@ def main() -> int:
     # kernel 2.8 against its plain version, bit for bit on (t, id)
     mt_lines = []
 
+    def mt_stream_case(name, tb):
+        """Kernel 2.8 on one slice stream against its plain version on
+        (t, id): the main path's settings and every setting of the sweep."""
+        want = rmt.closest_hit_plain(tb)
+        for variant in [None, *cases.MT_VARIANTS]:
+            got = rmt.closest_hit(tb, variant=variant)
+            for what, a, b in zip(("t", "id"), got, want):
+                check(torch.equal(a, b), f"raystab_mt {what} ({variant}) "
+                      f"differs from the plain version: {name}")
+        mt_lines.append(f"{name} {tb.slices} slices of {tb.lanes} lanes "
+                        f"{tb.rows.shape[0]} rows "
+                        f"{int(torch.isfinite(want[0]).sum())} hits")
+        return want
+
     def mt_case(name, accel):
         for s_, tb in (("cells", accel.main), ("overflow", accel.ov)):
-            if tb is None:
-                continue
-            got, want = rmt.closest_hit(tb), rmt.closest_hit_plain(tb)
-            for what, a, b in zip(("t", "id"), got, want):
-                check(torch.equal(a, b), f"raystab_mt {what} differs from the "
-                      f"plain version: {name} {s_}")
-            mt_lines.append(f"{name} {s_} {tb.slices} slices {tb.rows.shape[0]} "
-                            f"rows {int(torch.isfinite(got[0]).sum())} hits")
+            if tb is not None:
+                mt_stream_case(f"{name} {s_}", tb)
 
     mt_case("icosphere6", acc1)
     vb_, nb_, tb_ = dev_mesh3(*box_on_centers(GRID))
@@ -1588,6 +1685,8 @@ def main() -> int:
     check(acc_near.ov is not None and acc_near.ov.rows.shape[0] == 300,
           "near-origin soup: expected 300 overflow rows")
     mt_case("near_origin", acc_near)
+    for lanes in rmt.SLICE_LANES:  # the stress stream at every slice width
+        mt_stream_case("stress", cases.mt_stress(dev, lanes))
     # the query against the Moller-Trumbore oracle and the plain query
     acc4 = rsf.build_raystab_accel(v4d, t4d, n=GRID)
     q = rsf.raystab_query(v4d, n4d, t4d, acc4)
@@ -1618,6 +1717,31 @@ def main() -> int:
 
     ms["raystab_mt"] = (cuda_ms(torch, lambda: rmt.closest_hit(acc1.main)),
                         cuda_ms(torch, lambda: rmt.closest_hit_plain(acc1.main)))
+    mt_dev_us = device_us(torch, lambda: rmt.closest_hit(acc1.main))
+    mt_host_us = host_us(torch, lambda: rmt.closest_hit(acc1.main))
+    # ---- 16b. kernel 2.8's sweep: slice widths x settings -------------------
+    want1 = rmt.closest_hit_plain(acc1.main)
+    mt_sweep, mt_cold_us, mt_slots = {}, {}, {}
+    for lanes in rmt.SLICE_LANES:
+        acc_l = rsf.assemble_raystab_accel(
+            mb.positions_norm, mb.tris, GRID, 32,
+            (ray_ids, ray_off, cand_ids, cand_off), ov_ids, stats1, lanes=lanes)
+        tb_l = acc_l.main
+        fns = {}
+        for variant in cases.MT_VARIANTS:
+            got = rmt.closest_hit(tb_l, variant=variant)
+            for what, a, b in zip(("t", "id"), got, want1):
+                check(torch.equal(a, b), f"raystab_mt {what} ({lanes} lanes, "
+                      f"{variant}) differs from the plain version")
+            fns[(lanes, *variant)] = lambda tb_l=tb_l, variant=variant: (
+                rmt.closest_hit(tb_l, variant=variant))
+        mt_sweep.update(time_sweep(torch, fns))
+        mt_cold_us[lanes] = cold_device_us(
+            torch, lambda tb_l=tb_l: rmt.closest_hit(tb_l), flush)
+        cnt, cc = tb_l.ray_cnt.long(), tb_l.cand_cnt.long()
+        mt_slots[lanes] = (tb_l.slices, int((cc * lanes).sum()),
+                           int(((cnt + 31) // 32 * 32 * cc).sum()),
+                           int((cnt * cc).sum()))
     gen1_ms = cuda_ms(torch, lambda: gen1_frame(consts))
     torch.cuda.reset_peak_memory_stats()
     busy1, per_frame1, kus1 = profile_frames(
@@ -1658,7 +1782,19 @@ def main() -> int:
           f"icosphere and to the plain query; gen-1 vs gen-6 grid "
           f"{rule_diff} of {int(occ6.sum())} voxels differ; frame max|err| "
           f"kernels vs plain {gen1_err:.3g}")
-    print(f"phase 16 kernel {ms['raystab_mt'][0]:.4f} ms (plain "
+    print(f"phase 16b Moller-Trumbore kernel sweep at the {GRID}^3 gen-1 "
+          f"accel ((lanes per slice, threads per block, deferred division, "
+          f"staged rows): CUDA-event ms, profiler device us per call; every "
+          f"setting bit-identical to the plain version): " + ", ".join(
+              f"{v} {t[0]:.4f} ms {t[1]:.2f} us" for v, t in mt_sweep.items())
+          + "; main settings with the L2 flushed before each call (device "
+          "us): " + ", ".join(f"{k} lanes {us:.2f}" for k, us in mt_cold_us.items())
+          + "; (slices, (lane, candidate) slots, those of the warps holding "
+          "a ray, real pairs): "
+          + ", ".join(f"{k} lanes {v}" for k, v in mt_slots.items())
+          + f"; main path {rmt.LANES} lanes; {card}")
+    print(f"phase 16 kernel {ms['raystab_mt'][0]:.4f} ms, {mt_dev_us:.2f} us "
+          f"device per call, wrapper host {mt_host_us:.2f} us per call (plain "
           f"{ms['raystab_mt'][1]:.4f} ms); core-tier frame {gen1_ms:.4f} ms "
           f"(CUDA events over {INNER} back-to-back runs, median of {REPS}); "
           f"profiled: device busy {busy1:.4f} ms per frame (idle share "
@@ -1670,7 +1806,6 @@ def main() -> int:
     w64 = GRID * GRID * (GRID // 32) * 4
     w256 = GRID_HI * GRID_HI * (GRID_HI // 32) * 4
     rows_b, rows_q = real_rows(coef_main), real_rows(sv.coefs)
-    pairs_b = bbox_pairs(torch, mb.positions_norm, mb.tris, GRID)
     pairs_q = bbox_pairs(torch, mb7.positions_norm, mb7.tris, GRID_HI)
     bounds = {
         "parity_voxelize": bound(rows_b * 64 + w64,
@@ -1683,7 +1818,8 @@ def main() -> int:
         "raystab_fold": raystab_bound(tb_rs, work_rs, False),
         "raystab_mt": bound(bytes1, ops1),
     }
-    dev_call_us = {"parity_queue": q_dev_us[GRID_HI], **rs_dev_us}
+    dev_call_us = {"parity_voxelize": p_dev_us, "parity_queue": q_dev_us[GRID_HI],
+                   **rs_dev_us, "raystab_mt": mt_dev_us}
     print("share of the bound (bound ms over ms per call, by device time and "
           "by CUDA events): " + ", ".join(
               f"{k} {bounds[k][0] / (us / 1e3):.4f} / "

@@ -18,16 +18,12 @@
 // the pairs are few, the queue's coefficient rows (64 bytes each, read once)
 // and the words (written once).
 //
-// Design: the queue carries each row's column span, the bounding box the
-// binning uses, [ceil xmin, floor xmax] x [ceil ymin, floor ymax]
-// (spans[row] = x_lo x_hi y_lo y_hi, int16, grid columns clipped to
-// [-1, N]). The kernel widens it by one column each side and clips it to the
-// chunk's tile; float32 rounding of the edge functions cannot cover a column
-// outside that, except for a sliver: a row whose sin(smallest angle) is
-// below 2^-17 R (R bounds the vertices' coordinates), or whose span the clip
-// may have cut, tests its whole tile (the bound is derived in
-// ops/voxelize_queue_cuda.py::sliver_rows, which computes the same test in
-// the same order). With no span array every row tests its whole tile.
+// Design: the queue carries each row's column span (spans[row] = x_lo x_hi
+// y_lo y_hi, int16); the kernel tests a row only on the columns the span
+// rule of csrc/parity_common.cuh picks (the span widened by one column and
+// clipped to the chunk's tile, or the whole tile for a sliver), the rule and
+// the pair test it shares with kernel 2.1. With no span array every row tests
+// its whole tile.
 // Threads take (row, column) pairs, not the tile's 128 columns: a group of
 // rows is staged in shared memory with its pair counts scanned, each thread
 // takes pairs p, p + stride, ..., finds p's row by binary search in the
@@ -47,60 +43,24 @@
 //   second kernel, launched from the same entry point, turns every column's
 //   field into occupancy.
 // chip_smoke.py (phase 11b) times both and the block size NT at 256^3 and
-// 512^3; dxv_parity_queue runs the layout and NT chosen there. The edge and
-// depth expressions use __fmul_rn / __fadd_rn in the JAX order,
-// ((a*px) + (b*py)) + c, so no FMA contraction moves a boundary decision (the
-// box with faces on voxel centres pins it).
+// 512^3; dxv_parity_queue runs the layout and NT chosen there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "parity_common.cuh"
+
 namespace {
+
+using namespace dxv_parity;
 
 constexpr int kTileX = 16;
 constexpr int kTileY = 8;
 constexpr int kLanes = kTileX * kTileY;
 constexpr int kSub = 8;
-constexpr int kCoef = 16;
-// coefficient columns of a packed row (voxelize_pallas.pack_coeffs order)
-constexpr int EX0 = 0, EY0 = 1, EO0 = 2, TL0 = 3;
-constexpr int EX1 = 4, EY1 = 5, EO1 = 6, TL1 = 7;
-constexpr int EX2 = 8, EY2 = 9, EO2 = 10, TL2 = 11;
-constexpr int ZX = 12, ZY = 13, ZO = 14, VALID = 15;
 // the main path's layout and block size (chip_smoke.py phase 11b)
 constexpr bool kMainRun = true;
 constexpr int kMainThreads = 256;
-constexpr double kSliverK = 1.0 / 131072.0;  // 2^-17
-
-__device__ __forceinline__ float affine(float a, float b, float c, float px,
-                                        float py) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
-}
-
-__device__ __forceinline__ bool inside_edge(float e, float tl) {
-  return (e > 0.0f) || ((e == 0.0f) && (tl > 0.0f));
-}
-
-// voxelize_queue_cuda.sliver_rows, operation for operation in float64: the
-// row tests its whole tile
-__device__ bool sliver(float4 r0, float4 r1, float4 r2, short4 b, int n) {
-  if (b.x <= -1 || b.y >= n || b.z <= -1 || b.w >= n) return true;  // cut
-  const double ex[3] = {r0.x, r1.x, r2.x}, ey[3] = {r0.y, r1.y, r2.y};
-  double sq[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    sq[i] = __dadd_rn(__dmul_rn(ex[i], ex[i]), __dmul_rn(ey[i], ey[i]));
-  const double longest2 = fmax(fmax(__dmul_rn(sq[0], sq[2]),
-                                    __dmul_rn(sq[1], sq[0])),
-                               __dmul_rn(sq[2], sq[1]));
-  const double area =
-      __dsub_rn(__dmul_rn(ex[0], ey[1]), __dmul_rn(ey[0], ex[1]));
-  const int r = max(max(abs(b.x - 1), abs(b.y + 1)),
-                    max(abs(b.z - 1), abs(b.w + 1))) + 1;
-  const double bound = static_cast<double>(r) * kSliverK;
-  return !(__dmul_rn(area, area) >=
-           __dmul_rn(__dmul_rn(bound, bound), longest2));
-}
 
 // shared memory of one block: rows, pair scan, spans, field, warp sums
 template <int NT>
@@ -172,57 +132,11 @@ __device__ void zero_tile(unsigned* __restrict__ words, int t, int n) {
   }
 }
 
-// One live queue row: its pair count and packed columns (span: hmul | h << 17
-// | x0 << 21 | y0 << 25, its span widened by one column and clipped to the
-// tile, or the whole tile for a sliver or with no span array) -- 0 for a
-// degenerate triangle or an empty span.
-__device__ __forceinline__ int row_pairs(const float4 (&r)[4], short4 sp,
-                                         bool has_span, int ox, int oy, int n,
-                                         int& span) {
-  span = 0;
-  if (!(r[3].w > 0.0f)) return 0;  // zero row / degenerate triangle
-  int x0 = 0, x1 = kTileX - 1, y0 = 0, y1 = kTileY - 1;
-  if (has_span && !sliver(r[0], r[1], r[2], sp, n)) {  // widened, in the tile
-    x0 = max(sp.x - 1 - ox, 0);
-    x1 = min(sp.y + 1 - ox, kTileX - 1);
-    y0 = max(sp.z - 1 - oy, 0);
-    y1 = min(sp.w + 1 - oy, kTileY - 1);
-  }
-  const int w = x1 - x0 + 1, h = y1 - y0 + 1;
-  if (w <= 0 || h <= 0) return 0;
-  // exact i / h for i < 128 and h <= 8 as (i * hmul) >> 16
-  span = ((65536 + h - 1) / h) | (h << 17) | (x0 << 21) | (y0 << 25);
-  return w * h;
-}
-
 // whether slot f of chunks [c, ...) holds a live row (f < slots)
 __device__ __forceinline__ bool live_slot(const int* __restrict__ chunk_nsub,
                                           int c, int f, int k_chunk) {
   const int k = f % k_chunk;
   return k < min(max(chunk_nsub[c + f / k_chunk], 0) * kSub, k_chunk);
-}
-
-// pair i of a row (its coefficients at q): the column's crossing bit, XORed
-// into the tile's field
-__device__ __forceinline__ void test_pair(const float4* q, int sp, int i,
-                                          int ox, int oy, float fn,
-                                          unsigned* field) {
-  const int h = (sp >> 17) & 15;
-  const int dxl = (i * (sp & 0x1ffff)) >> 16;
-  const int xl = ((sp >> 21) & 15) + dxl;
-  const int yl = ((sp >> 25) & 7) + (i - dxl * h);
-  const float px = static_cast<float>(ox + xl);
-  const float py = static_cast<float>(oy + yl);
-  const float4 a = q[0], b = q[1], d = q[2], z = q[3];
-  const float e0 = affine(a.x, a.y, a.z, px, py);
-  const float e1 = affine(b.x, b.y, b.z, px, py);
-  const float e2 = affine(d.x, d.y, d.z, px, py);
-  if (!(inside_edge(e0, a.w) && inside_edge(e1, b.w) && inside_edge(e2, d.w)))
-    return;
-  const float zz = affine(z.x, z.y, z.z, px, py);
-  const int ci = static_cast<int>(fminf(fmaxf(ceilf(zz), 0.0f), fn)) - 1;
-  if (ci < 0) return;  // cutoff 0: the crossing flips no voxel
-  atomicXor(field + (ci >> 5) * kLanes + xl * kTileY + yl, 1u << (ci & 31));
 }
 
 // crossing bits -> occupancy (suffix parity) in shared memory, one thread per
@@ -235,14 +149,9 @@ __device__ void store_tile(unsigned* field, unsigned* __restrict__ words,
   for (int l = threadIdx.x; l < kLanes; l += NT) {
     unsigned carry = 0u;
     for (int w = w_words - 1; w >= 0; --w) {
-      unsigned s = field[w * kLanes + l];
-      s ^= s >> 1;
-      s ^= s >> 2;
-      s ^= s >> 4;
-      s ^= s >> 8;
-      s ^= s >> 16;
-      field[w * kLanes + l] = s ^ (0u - carry);
-      carry ^= s & 1u;
+      const unsigned p = suffix_parity(field[w * kLanes + l]);
+      field[w * kLanes + l] = p ^ (0u - carry);
+      carry ^= p & 1u;
     }
   }
   __syncthreads();
@@ -339,14 +248,11 @@ queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
 #pragma unroll
       for (int i = 0; i < 4; ++i) r[i] = w_rows[lane * 4 + i];
       int span = 0;
-      const int pairs = live ? row_pairs(r, sp, has_span, ox, oy, n, span) : 0;
+      const int pairs =
+          live ? row_pairs<kTileX, kTileY>(r, sp, has_span, ox, oy, n, span)
+               : 0;
       w_span[lane] = span;
-      int x = pairs;  // inclusive warp scan
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-      }
+      const int x = warp_inclusive_scan(pairs);
       w_pre[lane] = x - pairs;
       const int total = __shfl_sync(0xffffffffu, x, 31);
       __syncwarp();
@@ -357,7 +263,9 @@ queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
 #pragma unroll
         for (int step = 16; step > 0; step >>= 1)
           if (w_pre[k + step] <= p) k += step;
-        test_pair(w_rows + k * 4, w_span[k], p - w_pre[k], ox, oy, fn, field);
+        const float4* q = w_rows + k * 4;
+        test_pair<kTileX, kTileY>(q[0], q[1], q[2], q[3], w_span[k],
+                                  p - w_pre[k], ox, oy, fn, field);
       }
       __syncwarp();  // the next slice overwrites the warp's rows
     }
@@ -374,7 +282,7 @@ queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
 #pragma unroll
       for (int i = 0; i < 4; ++i) r[i] = rows4[static_cast<size_t>(f) * 4 + i];
       const short4 sp = has_span ? rspan[f] : make_short4(0, 0, 0, 0);
-      pairs = row_pairs(r, sp, has_span, ox, oy, n, span);
+      pairs = row_pairs<kTileX, kTileY>(r, sp, has_span, ox, oy, n, span);
       if (pairs > 0) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) s_rows[threadIdx.x * 4 + i] = r[i];
@@ -389,7 +297,9 @@ queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
 #pragma unroll
       for (int step = NT / 2; step > 0; step >>= 1)
         if (s_pre[k + step] <= p) k += step;
-      test_pair(s_rows + k * 4, s_span[k], p - s_pre[k], ox, oy, fn, field);
+      const float4* q = s_rows + k * 4;
+      test_pair<kTileX, kTileY>(q[0], q[1], q[2], q[3], s_span[k],
+                                p - s_pre[k], ox, oy, fn, field);
     }
     __syncthreads();  // the next round overwrites rows, spans and scan
   }
@@ -413,14 +323,9 @@ __global__ void queue_kernel_suffix_parity(unsigned int* __restrict__ words,
   unsigned int* w = words + static_cast<size_t>(col) * w_words;
   unsigned int carry = 0u;
   for (int i = w_words - 1; i >= 0; --i) {
-    unsigned int s = w[i];
-    s ^= s >> 1;
-    s ^= s >> 2;
-    s ^= s >> 4;
-    s ^= s >> 8;
-    s ^= s >> 16;
-    w[i] = s ^ (0u - carry);
-    carry ^= s & 1u;
+    const unsigned int p = suffix_parity(w[i]);
+    w[i] = p ^ (0u - carry);
+    carry ^= p & 1u;
   }
 }
 

@@ -43,8 +43,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (pointers and the stream as void*)
 _SIGNATURES = {
-    # coef, words, n_tiles, k, n, k_chunk, stream
-    "dxv_parity_voxelize": (_P, _P, _I, _I, _I, _I, _P),
+    # coef, spans, counts, words, n_tiles, k, n, stream
+    "dxv_parity_voxelize": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # the same, then layout, splits, threads, stream
+    "dxv_parity_voxelize_variant": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _P),
     # coefs, spans, chunk_tile, chunk_nsub, words, num_chunks, n, k_chunk,
     # stream
     "dxv_parity_queue": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -66,8 +69,11 @@ _SIGNATURES = {
     # rays, cand_off, cand_cnt, rows, bounds, n_bounds, t, id, strips, stream
     "dxv_raystab_fold": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P),
     # pos, dirs, ray_ids, ray_off, ray_cnt, cand_off, cand_cnt, rows, t, id,
-    # slices, stream
-    "dxv_raystab_mt": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # slices, lanes, stream
+    "dxv_raystab_mt": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # the same, then threads, defer, stage, stream
+    "dxv_raystab_mt_variant": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _P),
 }
 
 
@@ -115,7 +121,7 @@ def build() -> BuildInfo:
         raise RuntimeError("CUDA is not available: the CUDA kernels cannot run")
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(CSRC_DIR.glob("*.cuh"))]:  # sources and headers
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / f"libdxv_kernels_{h.hexdigest()[:16]}.so"

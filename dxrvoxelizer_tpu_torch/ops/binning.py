@@ -14,6 +14,13 @@ stable sort — no atomics, no variable-length buckets on the device:
 4. per-tile runs are padded to a shared power-of-two capacity and the packed
    coefficients gathered into a dense [n_tiles, K, NCOEF] block for the
    parity kernel (ops/voxelize_cuda.py).
+
+Beside the block the port gathers what the JAX package's TPU kernel has no
+use for (it tests every column of a tile at once): each row's column span
+[n_tiles, K, 4] int16 (the bounding box the triangle is binned by) and each
+tile's count of real rows [n_tiles] int32 (its run plus the overflow rows),
+on the device with no further host sync (:func:`bin_triangles_spans`). The
+kernel walks only the real rows and tests each only on its span's columns.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import (
     NCOEF,
     TILE,
     pack_coeffs,
+    tri_spans,
     voxelize_parity_tiles,
 )
 
@@ -93,13 +101,15 @@ def _bin_phase_a(verts_norm, tris, n: int, max_span: int):
     ov_ids = torch.where(overflow_mask[ov_order], ov_order, -1)
     return (
         coef, sorted_tris, starts, counts, ov_ids,
-        counts.max(), overflow_mask.sum(),
+        counts.max(), overflow_mask.sum(), tri_spans(pt, n),
     )
 
 
 def _bin_phase_b(coef, sorted_tris, starts, counts, ov_ids, n_overflow: int,
-                 cap: int):
-    """Phase B: padded per-tile index matrix + coefficient gather."""
+                 cap: int, spans):
+    """Phase B: padded per-tile index matrix + coefficient and span gather
+    -> (coef_tiles [n_tiles, cap, NCOEF], spans [n_tiles, cap, 4] int16,
+    real rows per tile [n_tiles] int32)."""
     t_count = coef.shape[0]
     j = torch.arange(cap, device=coef.device)[None, :]
     in_run = j < counts[:, None]
@@ -115,7 +125,42 @@ def _bin_phase_b(coef, sorted_tris, starts, counts, ov_ids, n_overflow: int,
     coef_padded = torch.cat(
         [coef, torch.zeros((1, NCOEF), dtype=coef.dtype, device=coef.device)]
     )
-    return coef_padded[torch.where(idx < 0, t_count, idx)]
+    # (-1, -1, -1, -1) on padding rows, as in the work queue
+    spans_padded = torch.cat([spans, spans.new_full((1, 4), -1)])
+    gather = torch.where(idx < 0, t_count, idx)
+    return (coef_padded[gather], spans_padded[gather],
+            (counts + n_overflow).to(torch.int32))
+
+
+def bin_triangles_spans(
+    verts_norm: torch.Tensor,
+    tris: torch.Tensor,
+    n: int,
+    max_span: int = 3,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, BinStats]:
+    """:func:`bin_triangles` with each row's column span and each tile's real
+    rows -> (coef_tiles [n_tiles, K, NCOEF], spans [n_tiles, K, 4] int16,
+    counts [n_tiles] int32, stats); the kernel's inputs."""
+    nt = n // TILE
+    n_tiles = nt * nt
+    (coef, sorted_tris, starts, counts, ov_ids, max_bin_d, n_ov_d,
+     spans) = _bin_phase_a(verts_norm, tris, n, max_span)
+    max_bin, n_overflow = (int(v) for v in torch.stack([max_bin_d, n_ov_d]).tolist())
+
+    cap_small = max(_round_up(max_bin, 8), 8)
+    cap = cap_small + _round_up(max(n_overflow, 0), 8)
+    cap_b = 8
+    while cap_b < cap:
+        cap_b *= 2
+    cap = cap_b
+
+    coef_tiles, span_tiles, row_counts = _bin_phase_b(
+        coef, sorted_tris, starts, counts, ov_ids, n_overflow, cap, spans
+    )
+    stats = BinStats(
+        n_tiles=n_tiles, capacity=cap, max_bin=max_bin, overflow=n_overflow
+    )
+    return coef_tiles, span_tiles, row_counts, stats
 
 
 def bin_triangles(
@@ -130,26 +175,7 @@ def bin_triangles(
     data-dependent). Capacity is bucketed to powers of two so the kernel
     shape is stable across frames of a deforming mesh.
     """
-    nt = n // TILE
-    n_tiles = nt * nt
-    coef, sorted_tris, starts, counts, ov_ids, max_bin_d, n_ov_d = _bin_phase_a(
-        verts_norm, tris, n, max_span
-    )
-    max_bin, n_overflow = (int(v) for v in torch.stack([max_bin_d, n_ov_d]).tolist())
-
-    cap_small = max(_round_up(max_bin, 8), 8)
-    cap = cap_small + _round_up(max(n_overflow, 0), 8)
-    cap_b = 8
-    while cap_b < cap:
-        cap_b *= 2
-    cap = cap_b
-
-    coef_tiles = _bin_phase_b(
-        coef, sorted_tris, starts, counts, ov_ids, n_overflow, cap
-    )
-    stats = BinStats(
-        n_tiles=n_tiles, capacity=cap, max_bin=max_bin, overflow=n_overflow
-    )
+    coef_tiles, _, _, stats = bin_triangles_spans(verts_norm, tris, n, max_span)
     return coef_tiles, stats
 
 
@@ -163,11 +189,13 @@ class StaticBinnedVoxelizer:
 
     def __init__(self, verts_norm: torch.Tensor, tris: torch.Tensor, n: int):
         self.n = n
-        self.coef_tiles, self.stats = bin_triangles(verts_norm, tris, n)
+        (self.coef_tiles, self.spans, self.counts,
+         self.stats) = bin_triangles_spans(verts_norm, tris, n)
 
     def __call__(self) -> torch.Tensor:
         """-> packed occupancy words [N, N, N//32] (asynchronous on CUDA)."""
-        return voxelize_parity_tiles(self.coef_tiles, self.n)
+        return voxelize_parity_tiles(self.coef_tiles, self.n, spans=self.spans,
+                                     counts=self.counts)
 
 
 def voxelize_parity_binned(verts_norm: torch.Tensor, tris: torch.Tensor,
@@ -176,5 +204,4 @@ def voxelize_parity_binned(verts_norm: torch.Tensor, tris: torch.Tensor,
     if tris.shape[0] == 0:
         return torch.zeros((n, n, n // 32), dtype=torch.int32,
                            device=verts_norm.device)
-    coef_tiles, _ = bin_triangles(verts_norm, tris, n)
-    return voxelize_parity_tiles(coef_tiles, n)
+    return StaticBinnedVoxelizer(verts_norm, tris, n)()

@@ -12,7 +12,8 @@ The output is packed occupancy words [N, N, N//32] int32 (ops/packing.py).
 Each row may carry its column span (``spans`` [rows, 4] int16: x_lo, x_hi,
 y_lo, y_hi in grid columns, the bounding box the binning uses); the kernel
 tests only the span's columns widened by one each side and clipped to the
-tile, or the whole tile for a sliver (:func:`row_columns`).
+tile, or the whole tile for a sliver (:func:`row_columns`; the rule it
+shares with kernel 2.1, csrc/parity_common.cuh).
 
 - :func:`voxelize_parity_queue_chunks` is the wrapper: a CUDA tensor
   launches ``csrc/parity_queue.cu``; a CPU tensor takes the plain version.
@@ -33,9 +34,9 @@ import torch
 
 from dxrvoxelizer_tpu_torch.ops import _cuda
 from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
-from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import (
+from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import (  # noqa: F401 (re-exported)
     _EO0, _EO1, _EO2, _EX0, _EX1, _EX2, _EY0, _EY1, _EY2,
-    _TL0, _TL1, _TL2, _VALID, _ZO, _ZX, _ZY, NCOEF,
+    _TL0, _TL1, _TL2, _VALID, _ZO, _ZX, _ZY, NCOEF, sliver_rows, span_columns,
 )
 
 TILE_X = 16  # tile extent in grid-x columns
@@ -44,7 +45,6 @@ LANES = TILE_X * TILE_Y
 SUB = 8  # rows per sub-block: chunk_nsub counts these
 K_CHUNK = 64  # coefficient rows per queue chunk
 PLAIN_BATCH = 512  # chunks per step of the plain version (bounds its memory)
-SLIVER_K = 2.0 ** -17  # 128 u: the least sin(alpha_min) / R of a narrowed row
 
 KERNEL = _cuda.Kernel(
     name="parity_queue",
@@ -113,56 +113,16 @@ def queue_crossings(coefs: torch.Tensor, chunk_tile: torch.Tensor,
     return covered, m
 
 
-def sliver_rows(coefs: torch.Tensor, spans: torch.Tensor,
-                n: int) -> torch.Tensor:
-    """[rows] bool: the rows whose columns the kernel takes as the whole
-    tile, not the span widened by one column.
-
-    A covered column satisfies every edge function as computed in float32:
-    the rounding of the evaluation and of the coefficients (ops/geom.py
-    ``_edge``) moves each edge line by at most about 11 u R columns (u =
-    2^-24; R bounds the vertices' index-space |x| and |y|; the errors scale
-    with |edge| R, the edge function with |edge|). Pushing the three edges
-    out by rho moves each vertex out by rho / sin(alpha / 2), alpha its
-    interior angle, so the covered columns lie within the bounding box grown
-    by 16 u R / sin(alpha_min / 2). A row keeps the box widened by one column
-    when sin(alpha_min) = area / (product of the two longest edges) >=
-    SLIVER_K R (the growth is then under a quarter column), with R =
-    max(|x_lo - 1|, |x_hi + 1|, |y_lo - 1|, |y_hi + 1|) + 1; a sliver below
-    it (a needle, or a face seen edge-on), and a row whose span the clip to
-    [-1, N] may have cut (an end at -1 or N: R unknown), take the whole
-    tile. Float64 from the row's float32 edge vectors, each operation
-    rounded once, in the kernel's order."""
-    c = coefs.to(torch.float64)
-    ex, ey = c[:, [_EX0, _EX1, _EX2]], c[:, [_EY0, _EY1, _EY2]]
-    sq = ex * ex + ey * ey  # squared edge lengths
-    longest2 = (sq * sq.roll(1, dims=1)).amax(dim=1)  # (two longest)^2
-    area = ex[:, 0] * ey[:, 1] - ey[:, 0] * ex[:, 1]  # cross(e0, e1)
-    s = spans.to(torch.int64)
-    wide = s + torch.tensor([-1, 1, -1, 1], device=s.device)
-    bound = (wide.abs().amax(dim=1) + 1).to(torch.float64) * SLIVER_K
-    cut = (s[:, 0] <= -1) | (s[:, 1] >= n) | (s[:, 2] <= -1) | (s[:, 3] >= n)
-    return cut | ~(area * area >= bound * bound * longest2)
-
-
 def row_columns(coefs: torch.Tensor, spans: torch.Tensor,
                 chunk_tile: torch.Tensor, n: int) -> torch.Tensor:
-    """The columns the kernel tests for each row, as it picks them: the span
-    widened by one column each side, or the whole tile for a sliver
-    (:func:`sliver_rows`), clipped to the row's tile -> [rows, 4] int64
-    (x_lo, x_hi, y_lo, y_hi) in tile-local columns; empty when x_lo > x_hi
-    or y_lo > y_hi."""
+    """The columns the kernel tests for each row, as it picks them
+    (:func:`voxelize_cuda.span_columns` in the row's tile) -> [rows, 4]
+    int64 (x_lo, x_hi, y_lo, y_hi) in tile-local columns."""
     nty = n // TILE_Y
     k_chunk = spans.shape[0] // max(chunk_tile.shape[0], 1)
     tile = chunk_tile.to(torch.int64).repeat_interleave(k_chunk)
-    ox, oy = (tile // nty) * TILE_X, (tile % nty) * TILE_Y
-    s = spans.to(torch.int64)
-    cols = torch.stack([torch.clamp(s[:, 0] - 1 - ox, min=0),
-                        torch.clamp(s[:, 1] + 1 - ox, max=TILE_X - 1),
-                        torch.clamp(s[:, 2] - 1 - oy, min=0),
-                        torch.clamp(s[:, 3] + 1 - oy, max=TILE_Y - 1)], dim=1)
-    whole = torch.tensor([0, TILE_X - 1, 0, TILE_Y - 1], device=s.device)
-    return torch.where(sliver_rows(coefs, spans, n)[:, None], whole, cols)
+    return span_columns(coefs, spans, (tile // nty) * TILE_X,
+                        (tile % nty) * TILE_Y, TILE_X, TILE_Y, n)
 
 
 def voxelize_parity_queue_chunks_plain(coefs: torch.Tensor,

@@ -31,13 +31,26 @@ from dxrvoxelizer_tpu_torch.ops.voxelize_ref import (
     voxelize_raystab_radial_ref,
     voxelize_raystab_ref,
 )
-from dxrvoxelizer_tpu_torch.ops.binning import bin_triangles, voxelize_parity_binned
+from dxrvoxelizer_tpu_torch.ops.binning import (
+    bin_triangles_spans,
+    voxelize_parity_binned,
+)
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
 # pytest puts tests/ itself on sys.path (no __init__.py there); importing
 # ``meshes`` directly keeps an installed package named ``tests`` out of it
 from meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
-from torch_cases import FOLD_VARIANTS, QUEUE_VARIANTS, chunks_run, stab_stress
+from torch_cases import (
+    FOLD_VARIANTS,
+    MT_VARIANTS,
+    PARITY_VARIANTS,
+    QUEUE_VARIANTS,
+    SOUP_TRIS,
+    chunks_run,
+    mt_stress,
+    needle_soup,
+    stab_stress,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -51,18 +64,50 @@ def dev():
 
 
 @pytest.mark.parametrize("n", [32, 64, 256])
-@pytest.mark.parametrize("mesh", ["box", "icosphere"])
+@pytest.mark.parametrize("mesh", ["box", "icosphere", "soup287", "soup289"])
 def test_parity_kernel_bit_identical_to_plain(dev, mesh, n):
+    """Kernel 2.1 on its binned tiles: the main path (spans and counts),
+    without counts, without spans (the every-column layout) and at every
+    layout of the sweep, against the plain version, which tests every
+    column. The needle soups need the sliver rule."""
     if mesh == "box":  # faces on voxel centers: every tie rule fires
         c = [(i + 0.5) / n * 2 - 1 for i in (3, 5, 2, n - 6, n - 4, n - 9)]
         verts, _, tris = box_mesh(c[:3], c[3:])
-    else:
+    elif mesh == "icosphere":
         verts, _, tris = icosphere_mesh(4)
-    coef, _ = bin_triangles(torch.from_numpy(verts).to(dev),
-                            torch.from_numpy(tris.astype(np.int64)).to(dev), n)
-    words = voxelize_cuda.voxelize_parity_tiles(coef, n)
-    assert torch.equal(words, voxelize_cuda.voxelize_parity_tiles_plain(coef, n))
-    assert words.any()
+    else:
+        verts, tris = needle_soup(np.random.default_rng(int(mesh[4:])), n,
+                                  SOUP_TRIS)
+    coef, spans, counts, _ = bin_triangles_spans(
+        torch.from_numpy(verts).to(dev),
+        torch.from_numpy(tris.astype(np.int64)).to(dev), n)
+    plain = voxelize_cuda.voxelize_parity_tiles_plain(coef, n)
+    for sp, ct in ((spans, counts), (spans, None), (None, counts), (None, None)):
+        words = voxelize_cuda.voxelize_parity_tiles(coef, n, spans=sp, counts=ct)
+        assert torch.equal(words, plain), (sp is None, ct is None)
+    for variant in PARITY_VARIANTS:
+        sp = None if variant[0] == "column" else spans
+        words = voxelize_cuda.voxelize_parity_tiles(coef, n, spans=sp,
+                                                    counts=counts, variant=variant)
+        assert torch.equal(words, plain), variant
+    assert plain.any()
+
+
+@pytest.mark.parametrize("mesh", ["box", "icosphere"])
+def test_bruteforce_kernel_bit_identical_to_plain(dev, mesh):
+    """Every triangle in every tile, each row tested on its span's columns,
+    against the plain version and the oracle at 64^3."""
+    from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
+    from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_parity_ref
+
+    verts, tris = _mesh(mesh, 64, dev)
+    tiles, spans = voxelize_cuda.bruteforce_tiles(verts, tris, 64)
+    words = voxelize_cuda.voxelize_parity_bruteforce(verts, tris, 64)
+    assert torch.equal(words, voxelize_cuda.voxelize_parity_tiles_plain(tiles, 64))
+    assert torch.equal(words, pack_bits_z(voxelize_parity_ref(verts, tris, n=64)))
+    for variant in PARITY_VARIANTS[:-1]:
+        assert torch.equal(words, voxelize_cuda.voxelize_parity_tiles(
+            tiles, 64, spans=spans, variant=variant)), variant
 
 
 def _mesh(name, n, dev):
@@ -475,6 +520,31 @@ def test_raystab_mt_kernel_bit_identical_to_plain(dev, mesh, n):
     occ, rgba = raystab_fast.raystab_query(v, nr, t, accel)
     occ_p, rgba_p = raystab_fast.raystab_query(v, nr, t, accel, use_kernels=False)
     assert torch.equal(occ, occ_p) and torch.equal(rgba, rgba_p)
+
+
+@pytest.mark.parametrize("lanes", raystab_mt_cuda.SLICE_LANES)
+def test_raystab_mt_kernel_stress_and_lanes_bit_identical_to_plain(dev, lanes):
+    """Kernel 2.8 at every slice width and every setting of its sweep
+    (threads per block, deferred division, staged rows) against its plain
+    version on (t, id): the stress stream of tests/torch_cases.py (det near
+    1e-10, u and v underflowing to -0.0, u + v within a few ulp of 1, t ties
+    and bounds) and gen-1 streams sliced at that width (the icosphere, and
+    the near-origin soup's 300 overflow rows)."""
+    streams = [mt_stress(dev, lanes)]
+    for mesh, n in (("icosphere", 64), ("near_origin", 16)):
+        v, _, t = _raystab_mesh(mesh, n, dev)
+        accel = raystab_fast.build_raystab_accel(v, t, n=n, lanes=lanes)
+        assert accel.main.lanes == lanes
+        streams += [tb for tb in (accel.main, accel.ov) if tb is not None]
+    hits = 0
+    for tb in streams:
+        want = raystab_mt_cuda.closest_hit_plain(tb)
+        hits += int(torch.isfinite(want[0]).sum())
+        for variant in [None, *MT_VARIANTS]:
+            got = raystab_mt_cuda.closest_hit(tb, variant=variant)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), variant
+    assert hits > 0
 
 
 @pytest.mark.parametrize("mesh", ["icosphere", "box"])

@@ -39,6 +39,7 @@ from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_parity_ref
 from dxrvoxelizer_tpu_torch.state import grid_from_numpy, queue_from_numpy
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 from tests.meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
+from tests.torch_cases import needle_soup as _soup
 
 torch.set_num_threads(2)
 
@@ -361,29 +362,6 @@ def test_plain_crossings_lie_inside_row_spans(name, n):
     for kw in ({}, {"max_span_x": 1, "max_span_y": 1}):
         crossings, slivers = _assert_crossings_inside_spans(verts, tris, n, **kw)
         assert crossings > 0 and slivers == 0
-
-
-def _soup(rng, n, t):
-    """Triangles that stress a bounding box: random ones; ones with every
-    vertex on a voxel centre (edge and vertex ties); slivers, a vertex a hair
-    off the opposite edge; collinear ones in x-y (zero projected area); and
-    needles spanning the grid."""
-    def centre(i):
-        return (i + 0.5) / n * 2.0 - 1.0
-
-    rand = rng.uniform(-0.9, 0.9, (t, 1, 3)) + rng.normal(0, 0.08, (t, 3, 3))
-    on_c = centre(rng.integers(0, n, (t, 3, 3)).astype(np.float64))
-    a, b = on_c[:, 0], on_c[:, 1]
-    u = rng.uniform(0, 1, (t, 1))
-    perp = np.stack([-(b - a)[:, 1], (b - a)[:, 0], np.zeros(t)], 1)
-    eps = 10.0 ** rng.uniform(-7, -2, (t, 1))
-    sliver = np.stack([a, b, a + u * (b - a) + eps * perp], 1)
-    line = np.stack([a, b, a + u * (b - a)], 1)
-    line[:, 2, 2] += rng.uniform(-0.5, 0.5, t)
-    needle = np.stack([a, -a + eps * perp, a + eps], 1)
-    v = np.concatenate([rand, on_c, sliver, line, needle]).astype(np.float32)
-    v = np.clip(v, -1.0, 1.0).reshape(-1, 3)
-    return v, np.arange(v.shape[0], dtype=np.int32).reshape(-1, 3)
 
 
 @settings(max_examples=12, deadline=None, derandomize=True, database=None)

@@ -44,6 +44,7 @@ from dxrvoxelizer_tpu_torch.ops import voxelize_ref as vr
 from dxrvoxelizer_tpu_torch.state import raystab_accel_from_numpy
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 from tests.meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
+from tests.torch_cases import mt_stress_groups
 
 torch.set_num_threads(2)
 
@@ -301,6 +302,47 @@ def test_kernel_wrapper_takes_the_plain_version_on_cpu():
     for a, b in zip(rmt.closest_hit(flipped), rmt.closest_hit(ov)):
         assert torch.equal(a, b)
     assert rmt.KERNEL.launches == before
+
+
+def _rejects_and_hits(o, d, rows):
+    """(pairs rejected before the division, hits, both, hits whose u is
+    -0.0) of rays o, d [R, 3] against rows [K, >= 9]."""
+    o, d, q = o[:, None], d[:, None], rows[None]
+    _, u, _, hit = intersect.mt_hit(o, d, q[..., 0:3], q[..., 3:6], q[..., 6:9])
+    rej = rmt.mt_rejects(o, d, q[..., 0:3], q[..., 3:6], q[..., 6:9])
+    neg0 = hit & (u == 0) & torch.signbit(u)
+    return (int(rej.sum()), int(hit.sum()), int((rej & hit).sum()),
+            int(neg0.sum()))
+
+
+def test_mt_rejects_never_reject_a_hit():
+    """The Moller-Trumbore kernel's rejects that need no division
+    (``mt_rejects``, its plain replica) never reject a pair ``mt_hit``
+    accepts: on the stress stream's groups (det near 1e-10, u and v that
+    underflow to -0.0, u + v within a few ulp of 1, t ties and t at its
+    bounds) and on every real (ray, candidate) pair of a gen-1 accel at
+    32^3; there they reject most pairs."""
+    totals = np.zeros(4, np.int64)
+    for o, d, rows in mt_stress_groups().values():
+        if len(rows):
+            totals += _rejects_and_hits(torch.from_numpy(o), torch.from_numpy(d),
+                                        torch.from_numpy(rows))
+    assert totals[2] == 0 and totals[1] > 0 and totals[0] > 0
+    assert totals[3] > 0  # a hit whose u rounds to -0.0 is not rejected
+    v, _, t = icosphere_mesh(4)
+    tb = rf.build_raystab_accel(torch.from_numpy(v),
+                                torch.from_numpy(t.astype(np.int64)), n=32).main
+    totals = np.zeros(4, np.int64)
+    for s in range(tb.slices):
+        r0, rc, c0, cc = (int(x[s]) for x in (tb.ray_off, tb.ray_cnt,
+                                               tb.cand_off, tb.cand_cnt))
+        if rc and cc:
+            rid = tb.ray_ids[r0:r0 + rc].long()
+            totals += _rejects_and_hits(tb.pos[rid], tb.dirs[rid],
+                                        tb.rows[c0:c0 + cc])
+    pairs = int((tb.ray_cnt.long() * tb.cand_cnt.long()).sum())
+    assert totals[2] == 0 and totals[1] > 0
+    assert totals[0] > 0.8 * pairs  # most pairs leave before dividing (88 %)
 
 
 # ---- the query ------------------------------------------------------------------

@@ -27,6 +27,7 @@ from dxrvoxelizer_tpu_torch.ops import binning, packing, voxelize_cuda
 from dxrvoxelizer_tpu_torch.ops.geom import parity_tri_setup
 from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_parity_ref
 from tests.meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
+from tests.torch_cases import SOUP_TRIS, needle_soup
 
 torch.set_num_threads(2)
 
@@ -176,3 +177,53 @@ def test_static_binned_voxelizer_and_voxelize_routes(monkeypatch):
     for bad in ({"mode": "raystab"}, {"with_normals": True, "impl": "xla"}):
         with pytest.raises(NotImplementedError, match="gen-7"):
             voxelize(tet, 128, **bad)
+
+
+def _assert_binned_crossings_inside_columns(verts, tris, n, max_span=3):
+    """Every (column, row) crossing the plain version finds on the binned
+    tiles lies in a real row (one before its tile's count) and among the
+    columns the kernel tests for that row -> (crossings, sliver rows)."""
+    coef, spans, counts, stats = binning.bin_triangles_spans(
+        *_torch(verts, tris), n, max_span)
+    want, _ = binning.bin_triangles(*_torch(verts, tris), n, max_span)
+    assert torch.equal(coef, want)  # the JAX-shaped block is unchanged
+    assert spans.dtype == torch.int16 and counts.dtype == torch.int32
+    covered, _ = voxelize_cuda.tile_crossings(coef, n, slice(None))  # [t, l, k]
+    cols = voxelize_cuda.row_columns(coef, spans, n)[:, None]  # [t, 1, k, 4]
+    lane = torch.arange(voxelize_cuda.TILE ** 2)[None, :, None]
+    xl, yl = lane // voxelize_cuda.TILE, lane % voxelize_cuda.TILE
+    inside = ((cols[..., 0] <= xl) & (xl <= cols[..., 1])
+              & (cols[..., 2] <= yl) & (yl <= cols[..., 3]))
+    real = torch.arange(coef.shape[1])[None, :] < counts[:, None]
+    assert not bool((coef[~real] != 0).any())  # past the count: padding only
+    outside = covered & ~(inside & real[:, None, :])
+    assert not bool(outside.any()), (
+        f"{int(outside.sum())} crossings outside their row's columns")
+    slivers = (voxelize_cuda.sliver_rows(coef.reshape(-1, 16),
+                                         spans.reshape(-1, 4), n)
+               & (coef.reshape(-1, 16)[:, 15] > 0))
+    return int(covered.sum()), int(slivers.sum())
+
+
+@pytest.mark.parametrize("max_span", [3, 1])
+@pytest.mark.parametrize("name,n", [("box", 32), ("box", 64),
+                                    ("icosphere3", 32), ("icosphere2", 64),
+                                    ("soup287", 64), ("soup289", 64)])
+def test_binned_crossings_lie_inside_row_columns(name, n, max_span):
+    """The binned kernel's span rule on the binned rows: the box's faces lie
+    on voxel centres (every edge tie fires on a span's boundary), the
+    icospheres cover every orientation, and the needle soups (whose stray
+    crossings fall outside the binning box) need the sliver rule; max_span
+    1 sends most triangles through the overflow rows, appended to every
+    tile."""
+    if name.startswith("soup"):
+        verts, tris = needle_soup(np.random.default_rng(int(name[4:])), n,
+                                  SOUP_TRIS)
+    elif name == "icosphere2":
+        verts, _, tris = icosphere_mesh(2)
+    else:
+        verts, _, tris = MESHES[name](n)
+    crossings, slivers = _assert_binned_crossings_inside_columns(
+        verts, tris, n, max_span)
+    assert crossings > 0
+    assert (slivers > 0) == name.startswith("soup")

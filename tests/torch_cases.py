@@ -1,6 +1,9 @@
 """Synthetic strip tables that stress the ray-stab fold kernel
-(csrc/raystab_fold.cu) at its boundaries, built from a real gen-6 accel; and
-the settings of the redesigned kernels' timing sweeps.
+(csrc/raystab_fold.cu) at its boundaries, built from a real gen-6 accel; a
+slice stream that stresses the Moller-Trumbore kernel's rejects
+(csrc/raystab_mt.cu); triangle soups that stress a bounding box (the parity
+kernels' spans); and the settings of the redesigned kernels' timing
+sweeps.
 
 Shared by ``tests/test_torch_cuda.py``, ``tests/test_torch_raystab.py`` (the
 plain fold, on the CPU) and ``chip_smoke.py`` (which loads this file by
@@ -18,6 +21,7 @@ import torch
 
 from dxrvoxelizer_tpu_torch.ops import raystab_cuda as rsc
 from dxrvoxelizer_tpu_torch.ops import raystab_fast as rsf
+from dxrvoxelizer_tpu_torch.ops import raystab_mt_cuda as rmt
 
 _spec = importlib.util.spec_from_file_location(
     "dxv_test_meshes", Path(__file__).resolve().parent / "meshes.py")
@@ -36,6 +40,16 @@ FOLD_VARIANTS = [(g, st, d) for g in (1, 2, 4) for st in (1, 2, 3)
                  for d in (False, True)]
 QUEUE_VARIANTS = [(True, 128), (True, 256), (True, 512), (False, 128),
                   (False, 256)]
+# the binned parity kernel's (layout, blocks per tile, threads per block): a
+# cluster per tile, blocks with device-memory atomics, the parent's
+# every-column layout (one thread per column)
+PARITY_VARIANTS = [("tile", 1, 256), ("tile", 4, 256), ("tile", 8, 256),
+                   ("tile", 16, 256), ("tile", 8, 512), ("tile", 16, 512),
+                   ("split", 16, 256), ("split", 64, 256), ("column", 1, 1024)]
+# the Moller-Trumbore kernel's (threads per block, deferred division, rows
+# staged through shared memory), run on slice streams of each width
+MT_VARIANTS = [(th, d, st) for th in (128, 256) for d in (False, True)
+               for st in (False, True)]
 
 
 @dataclass
@@ -169,3 +183,127 @@ def chunks_run(tb: rsc.StripTables, strip: int) -> list[bool]:
         bound = one.bounds[0, j] if j < one.bounds.shape[1] else float("-inf")
         runs.append(bool((best >= bound).any()))
     return runs
+
+
+def needle_soup(rng, n, t):
+    """Triangles that stress a bounding box: random ones; ones with every
+    vertex on a voxel centre (edge and vertex ties); slivers, a vertex a hair
+    off the opposite edge; collinear ones in x-y (zero projected area); and
+    needles spanning the grid."""
+    def centre(i):
+        return (i + 0.5) / n * 2.0 - 1.0
+
+    rand = rng.uniform(-0.9, 0.9, (t, 1, 3)) + rng.normal(0, 0.08, (t, 3, 3))
+    on_c = centre(rng.integers(0, n, (t, 3, 3)).astype(np.float64))
+    a, b = on_c[:, 0], on_c[:, 1]
+    u = rng.uniform(0, 1, (t, 1))
+    perp = np.stack([-(b - a)[:, 1], (b - a)[:, 0], np.zeros(t)], 1)
+    eps = 10.0 ** rng.uniform(-7, -2, (t, 1))
+    sliver = np.stack([a, b, a + u * (b - a) + eps * perp], 1)
+    line = np.stack([a, b, a + u * (b - a)], 1)
+    line[:, 2, 2] += rng.uniform(-0.5, 0.5, t)
+    needle = np.stack([a, -a + eps * perp, a + eps], 1)
+    v = np.concatenate([rand, on_c, sliver, line, needle]).astype(np.float32)
+    v = np.clip(v, -1.0, 1.0).reshape(-1, 3)
+    return v, np.arange(v.shape[0], dtype=np.int32).reshape(-1, 3)
+
+
+# the needle soups whose stray crossings fall outside both packages' binning
+# at 64^3 (ROADMAP, "Differences that are not faults"): needle_soup seeds
+SOUP_SEEDS = (287, 289)
+SOUP_TRIS = 24
+
+# ---- the Moller-Trumbore kernel's stress stream ------------------------------
+
+TINY = 2.0 ** -149  # the least float32 subnormal
+
+
+def _right(a, b, dz, origins, v0=(0.0, 0.0, 0.0)):
+    """Rays (origins, direction (0, 0, dz)) against the right triangle v0,
+    e1 = (a, 0, 0), e2 = (0, b, 0): det = -a b dz, u = tv_x / a, v = tv_y / b
+    and t = -tv_z / dz, each the Moller-Trumbore expression's rounding of
+    them -> (o [R, 3], d [R, 3], rows [1, 9])."""
+    o = np.asarray(origins, np.float32).reshape(-1, 3)
+    d = np.tile(np.float32([0.0, 0.0, dz]), (o.shape[0], 1))
+    row = np.float32([*v0, a, 0.0, 0.0, 0.0, b, 0.0])[None]
+    return o, d, row
+
+
+def mt_stress_groups() -> dict:
+    """Groups of rays against rows (numpy f32: o [R, 3], d [R, 3], rows
+    [K, 9] v0 e1 e2) at the hazards of the deferred division, by name:
+    det near +-1e-10; u_num and v_num at +-0 and at magnitudes whose product
+    with 1/det underflows to -0.0 (which passes u >= 0) or not; u + v within
+    a few ulp of 1, with det 1 and 9; equal t on distinct ids (one geometry
+    twice, and two triangles sharing an edge), higher ids first; t at +-0,
+    at 1e4 and one ulp past it; every group also with its axes permuted
+    cyclically and with e1 and e2 swapped (det's sign flipped, u and v
+    trading places); a random soup of 150 rows (more
+    than a staged round) against 200 rays (several slices), and rays with
+    no row."""
+    g = {}
+    # |det| = a b around 1e-10 (float32(1e-10) is the threshold)
+    a = np.float32(1e-5) * (1.0 + np.arange(-6, 7) * 2.0 ** -22)
+    rows = np.float32([[0.0, 0.0, 0.0, x, 0.0, 0.0, 0.0, 1e-5, 0.0] for x in a])
+    o = np.float32([[u * 1e-5, v * 1e-5, 0.5] for u in (0.0, 0.25, 0.5)
+                    for v in (0.0, 0.25, 0.5)])
+    g["det"] = (o, np.tile(np.float32([0.0, 0.0, -1.0]), (len(o), 1)), rows)
+    # u underflows with det 4 (u = rn(u_num / 4)), v with b = 4
+    k = np.arange(-4, 5) * TINY
+    g["u_underflow"] = _right(4.0, 1.0, -1.0, [[x, 0.25, 0.5] for x in k])
+    g["v_underflow"] = _right(1.0, 4.0, -1.0, [[0.25, y, 0.5] for y in k])
+    g["zeros"] = _right(1.0, 1.0, -1.0, [[x, y, 0.5] for x in (0.0, -0.0, TINY)
+                                         for y in (0.0, -0.0, -TINY)])
+    # u + v around 1: det 1 (u = ox, v = oy exactly) and det 9
+    ulp = np.arange(-3, 4)
+    g["sum_det1"] = _right(1.0, 1.0, -1.0, [
+        [0.5 + i * 2.0 ** -24, 0.5 + j * 2.0 ** -25, 0.5] for i in ulp for j in ulp])
+    g["sum_det9"] = _right(3.0, 3.0, -1.0, [
+        [1.5 + i * 2.0 ** -22, 1.5 + j * 2.0 ** -22, 0.5] for i in ulp for j in ulp])
+    # t at +-0, 1e4, past 1e4 and just below 0
+    big = np.float32(1e4)
+    g["t_bounds"] = _right(1.0, 1.0, -1.0, [
+        [0.25, 0.25, z] for z in (0.0, -0.0, TINY, -TINY, big,
+                                  np.nextafter(big, np.float32(np.inf)))])
+    # equal t: one geometry twice; two triangles sharing the diagonal of a
+    # unit square, the ray through a point of it
+    o, d, r = _right(1.0, 1.0, -1.0, [[0.25, 0.5, 0.5], [0.5, 0.5, 0.5]])
+    other = np.float32([[1.0, 1.0, 0.0, -1.0, 0.0, 0.0, 0.0, -1.0, 0.0]])
+    g["ties"] = (o, d, np.concatenate([r, r, other, r]))
+    for name in list(g):  # cyclic axis permutation, and det's sign flipped
+        o, d, r = g[name]
+        perm = [1, 2, 0]
+        g[name + "_yzx"] = (o[:, perm], d[:, perm], r.reshape(-1, 3, 3)[:, :, perm]
+                            .reshape(-1, 9))
+        g[name + "_flip"] = (o, d, r[:, [0, 1, 2, 6, 7, 8, 3, 4, 5]])  # e1 <-> e2
+    rng = np.random.default_rng(7)
+    v = rng.uniform(-1, 1, (150, 1, 3)) + rng.normal(0, 0.3, (150, 3, 3))
+    soup = np.concatenate([v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], 1)
+    o = rng.uniform(-0.5, 0.5, (200, 3))
+    d = rng.normal(0, 1, (200, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    g["soup"] = (o.astype(np.float32), d.astype(np.float32),
+                 soup.astype(np.float32))
+    g["no_rows"] = (o[:40].astype(np.float32), d[:40].astype(np.float32),
+                    np.zeros((0, 9), np.float32))
+    return g
+
+
+def mt_stress(device, lanes: int = rmt.LANES) -> rmt.MTTables:
+    """The groups of :func:`mt_stress_groups` as one slice stream of
+    ``lanes``-wide slices; each row's id is distinct, and within a group the
+    ids fall (row k of a group of K rows: id base + K - 1 - k), so an equal
+    t is won by a later row."""
+    groups = list(mt_stress_groups().values())
+    nray = np.array([len(o) for o, _, _ in groups])
+    ncand = np.array([len(r) for _, _, r in groups])
+    rows = np.zeros((ncand.sum(), rmt.NROW), np.float32)
+    rows[:, :9] = np.concatenate([r for _, _, r in groups])
+    c_start = np.cumsum(ncand) - ncand
+    rows[:, rmt.ID_COL] = (np.repeat(c_start + ncand - 1, ncand)
+                           - (np.arange(ncand.sum()) - np.repeat(c_start, ncand)))
+    pos = torch.from_numpy(np.concatenate([o for o, _, _ in groups])).to(device)
+    dirs = torch.from_numpy(np.concatenate([d for _, d, _ in groups])).to(device)
+    return rmt.slice_stream(pos, dirs, torch.from_numpy(rows).to(device),
+                            np.arange(nray.sum()), np.cumsum(nray) - nray, nray,
+                            c_start, ncand, lanes)
