@@ -148,13 +148,17 @@ raises and exits non-zero. The last line is the JSON result.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -420,11 +424,16 @@ def raystab_work(torch, rsc, tb) -> tuple[int, int, int]:
     cnt = tb.cand_cnt.long()
     tested = torch.clamp(cnt, max=kb)
     for j in range(1, 0 if tb.bounds is None else tb.bounds.shape[1]):
-        head = dataclasses.replace(tb, cand_cnt=torch.clamp(tb.cand_cnt,
-                                                            max=j * kb))
+        sel = torch.nonzero(cnt > j * kb).reshape(-1)  # strips with chunk j
+        if not sel.numel():
+            break
+        head = dataclasses.replace(
+            tb, rays=tb.rays[sel], cand_off=tb.cand_off[sel],
+            cand_cnt=torch.clamp(tb.cand_cnt[sel], max=j * kb),
+            bounds=tb.bounds[sel])
         best_t, _ = rsc.fold_plain(head)
-        runs = (best_t >= tb.bounds[:, j, None]).any(1)
-        tested += torch.where(runs, torch.clamp(cnt - j * kb, 0, kb), 0)
+        runs = (best_t >= tb.bounds[sel, j, None]).any(1)
+        tested[sel] += torch.where(runs, torch.clamp(cnt[sel] - j * kb, 0, kb), 0)
     tested = tested * (real > 0)
     return (int(real.sum()), int(tested.sum()),
             int((real.long() * tested).sum()))
@@ -623,6 +632,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
+    # ray-stab accels are built through the on-disk accel cache (the app's
+    # default): an empty one of this run's own, so every first build misses
+    accel_cache_dir = tempfile.mkdtemp(prefix="dxv_accel_cache_")
+    atexit.register(shutil.rmtree, accel_cache_dir, True)
+    os.environ["DXRVOX_ACCEL_CACHE"] = accel_cache_dir
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -642,6 +656,8 @@ def main() -> int:
         raystab_cuda,
         raystab_fast,
         raystab_mt_cuda,
+        raystab_refit,
+        raystab_tiled,
         screen_warp_cuda,
         voxelize_cuda,
         voxelize_queue,
@@ -666,6 +682,7 @@ def main() -> int:
         voxelize_raystab_radial_ref,
         voxelize_raystab_ref,
     )
+    from dxrvoxelizer_tpu_torch.utils import accel_cache
     from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
     from dxrvoxelizer_tpu_torch.utils.image import read_png
     from dxrvoxelizer_tpu_torch.utils.objloader import load_obj
@@ -829,6 +846,34 @@ def main() -> int:
                 main_launches[k] += c
             stab_runs[name] = (launches, covered)
 
+        # ---- 17. the reference's inside rule at 256^3 (gen-7) and on
+        # deforming meshes (the refitters), through the app (main paths)
+        new_runs = {}
+        for name, grid, extra in (
+                ("raystab 256", GRID_HI, ["-inside", "raystab"]),
+                ("normals 256", GRID_HI, ["-normals"]),
+                ("raystab 256 -deform", GRID_HI, ["-inside", "raystab", "-deform"]),
+                ("normals 256 -deform", GRID_HI, ["-normals", "-deform"]),
+                ("raystab 64 -deform", GRID, ["-inside", "raystab", "-deform"]),
+                ("normals 64 -deform", GRID, ["-normals", "-deform"])):
+            t0 = time.perf_counter()
+            launches, covered = app_run(
+                torch, app_main, kernels,
+                ["-mesh", obj7_arg, "-grid", str(grid), "-frames", str(FRAMES),
+                 *extra], Path(td) / f"{name.replace(' ', '_')}.png", name)
+            secs = time.perf_counter() - t0
+            parity = name.startswith("normals")
+            want = {"raystab_fold_extract": FRAMES,
+                    "parity_queue": FRAMES if parity and grid == GRID_HI else 0,
+                    "parity_voxelize": FRAMES if parity and grid == GRID else 0}
+            for k, c in want.items():
+                check(launches[k] == c, f"{name}: {k} launched {launches[k]} "
+                      f"times in {FRAMES} frames, expected {c}")
+            once_per_frame(launches, name)
+            for k, c in launches.items():
+                main_launches[k] += c
+            new_runs[name] = (launches, covered, secs)
+
         # the hi-res path's state, rebuilt for the comparisons
         cfg_hi = VoxelizerConfig(mesh=str(obj7), grid_size=GRID_HI)
         scene7 = Scene(load_obj(obj7), dev, pos_scale=cfg_hi.pos_scale,
@@ -845,6 +890,11 @@ def main() -> int:
               f"1280x720 -hq {'-inside raystab' if name == 'raystab' else '-normals'}, "
               f"{FRAMES} frames, launches {launches}, volume covers "
               f"{covered:.3f} of the image")
+    for name, (launches, covered, secs) in new_runs.items():
+        print(f"phase 17 app frame {name}: {len(t7)} tris 1280x720 -hq, "
+              f"{FRAMES} frames, {secs:.2f} s for the whole app run (load, "
+              f"accel build or refitter, frames), launches {launches}, volume "
+              f"covers {covered:.3f} of the image")
 
     # ---- 4. kernels against their plain versions ------------------------
     errs = {}
@@ -1802,6 +1852,291 @@ def main() -> int:
           f"copies per frame, kernel device us per frame {kus1}, peak device "
           f"memory {peak1:.1f} MiB; {card}")
 
+    # ---- 18. gen-7 (n >= 128): its build, the query against its plain
+    # version, the radial oracle and gen-6; the refitters -------------------
+    rst, rrf = raystab_tiled, raystab_refit
+    tc7 = int(mb7.tris.shape[0])
+    rules = ("backface", "hit")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def stream_bytes(tb):
+        return sum(x.numel() * x.element_size() for x in
+                   (tb.rays, tb.cand_off, tb.cand_cnt, tb.rows,
+                    *(() if tb.bounds is None else (tb.bounds,))))
+
+    def stab_query(acc, rule="backface"):
+        q_ = (rst.raystab_query7 if isinstance(acc, rst.RaystabAccel7)
+              else rsf.raystab_query2)
+        return q_(acc, rule=rule)
+
+    def same_query(a, b, what):
+        for rule in rules:
+            qa, qb = stab_query(a, rule), stab_query(b, rule)
+            check(torch.equal(qa[0], qb[0]) and torch.equal(qa[1], qb[1]),
+                  f"{what} ({rule}) differ")
+
+    # the build at 256^3 by stage: the grid's voxel->cell pairs and tile
+    # radii alone; the compact (host binning + device tile union) and its
+    # assembly, cold (the grid's tables computed first) and warm (cached,
+    # median of 3); through the on-disk cache: the miss (build + save), then
+    # loads (median of 3)
+    g7 = rsf.default_gs(GRID_HI)[0]
+    rst._tile_statics.cache_clear()
+    _, statics_s = timed(lambda: rst._tile_statics(GRID_HI, g7, str(dev)))
+    rst._tile_statics.cache_clear()
+    b7 = []
+    for _ in range(4):
+        compact7, c_s = timed(lambda: rst.build_raystab_compact7(
+            mb7.positions_norm, mb7.tris, GRID_HI))
+        accel7, a_s = timed(lambda: rst.assemble_raystab_accel7(
+            compact7, mb7.positions_norm, mb7.tris, mb7.normals))
+        b7.append((c_s, a_s))
+    warm7 = tuple(statistics.median(b[i] for b in b7[1:]) for i in (0, 1))
+    cdir = os.path.join(accel_cache_dir, "phase18")
+    _, miss7_s = timed(lambda: accel_cache.cached_compact7(
+        mb7.positions_norm, mb7.tris, GRID_HI, cache_dir=cdir))
+    loads7 = []
+    for _ in range(3):
+        c_l, l_s = timed(lambda: accel_cache.cached_compact7(
+            mb7.positions_norm, mb7.tris, GRID_HI, cache_dir=cdir))
+        a_l, al_s = timed(lambda: rst.assemble_raystab_accel7(
+            c_l, mb7.positions_norm, mb7.tris, mb7.normals))
+        loads7.append((l_s, al_s))
+    check(all(torch.equal(getattr(c_l, k), getattr(compact7, k))
+              for k in ("tids", "offs", "ids"))
+          and (c_l.bounds is None) == (compact7.bounds is None)
+          and (c_l.bounds is None or torch.equal(c_l.bounds, compact7.bounds)),
+          "the cached gen-7 compact differs from the built one")
+    load7 = tuple(statistics.median(b[i] for b in loads7) for i in (0, 1))
+    cache7_mb = sum(f.stat().st_size for f in Path(cdir).iterdir()) / 2**20
+    del c_l, a_l
+    tb7 = accel7.main
+    bytes7 = stream_bytes(tb7) + accel7.tids.numel() * 8
+    cnt7 = tb7.cand_cnt.long()
+
+    # the kernel against its plain version at 256^3, bit for bit
+    for rule in rules:
+        got = rsc.fold_extract(tb7, tc7, thr, rule)
+        want = rsc.fold_extract_plain(tb7, tc7, thr, rule)
+        for what, a_, b_ in zip(("t", "id", "ns"), got, want):
+            check(torch.equal(a_, b_), f"gen-7 {GRID_HI}^3: fold_extract "
+                  f"{what} differs from the plain version ({rule})")
+    del got, want
+    # the stateless core-tier call routes to gen-7 and equals the accel's
+    for k in kernels:
+        k.launches = 0
+    g_sl = voxelize(mb7, GRID_HI, mode="raystab", quantize=False)
+    check(rsc.FOLD_EXTRACT.launches == 1, "voxelize(mode=raystab, n=256) "
+          f"launched the fold {rsc.FOLD_EXTRACT.launches} times")
+    q7 = rst.raystab_query7(accel7)
+    check(torch.equal(g_sl.occupancy(), q7[0]) and torch.equal(g_sl.rgba, q7[1]),
+          f"voxelize(mode=raystab, n={GRID_HI}) differs from the gen-7 query")
+    occ7_count = int(q7[0].sum())
+    del g_sl, q7
+    # gen-6 against gen-7 on the same mesh at 128^3 and 256^3: equal grids
+    compact6, c6_s = timed(lambda: rsf.build_raystab_compact2(
+        mb7.positions_norm, mb7.tris, GRID_HI))
+    accel6, a6_s = timed(lambda: rsf.assemble_raystab_accel2(
+        compact6, mb7.positions_norm, mb7.tris, mb7.normals))
+    same_query(accel6, accel7, f"gen-6 and gen-7 grids at {GRID_HI}^3")
+    accel7_128, c7_128_s = timed(lambda: rst.build_raystab_accel7(
+        mb7.positions_norm, mb7.tris, mb7.normals, n=128))
+    accel6_128, c6_128_s = timed(lambda: rsf.build_raystab_accel2(
+        mb7.positions_norm, mb7.tris, mb7.normals, n=128))
+    same_query(accel6_128, accel7_128, "gen-6 and gen-7 grids at 128^3")
+    # the radial oracle at 128^3: a 5,120-triangle icosphere and the box
+    # with faces on voxel centres
+    oracle7 = []
+    for name, (v_, n_, t_) in (("icosphere4", (v4d, n4d, t4d)),
+                               ("box_on_centers", dev_mesh3(*box_on_centers(128)))):
+        a_ = rst.build_raystab_accel7(v_, t_, n_, n=128)
+        for rule in rules:
+            q_ = rst.raystab_query7(a_, rule=rule)
+            r_ = voxelize_raystab_radial_ref(v_, n_, t_, n=128, rule=rule)
+            check(torch.equal(q_[0], r_[0]) and torch.equal(q_[1], r_[1]),
+                  f"gen-7 differs from the radial oracle at 128^3: {name} {rule}")
+        oracle7.append(f"{name} {int(t_.shape[0])} tris {a_.stats.live_tiles} "
+                       f"live tiles {int(q_[0].sum())} voxels hit")
+    # the refitters against fresh builds of two wobbled frames (the app's
+    # -deform); the first refit checks the contract
+    rf7, rf7_s = timed(lambda: rst.RaystabTiledRefitter(
+        mb7.positions_norm, mb7.tris, mb7.normals, GRID_HI,
+        pad=cfg_hi.deform_pad, pad_dirs=mb7.normals))
+    rf6, rf6_s = timed(lambda: rrf.RaystabRefitter(
+        mb7.positions_norm, mb7.tris, mb7.normals, GRID,
+        pad=cfg_hi.deform_pad, pad_dirs=mb7.normals))
+    for name, rf_, n_, fresh in (
+            ("gen-7", rf7, GRID_HI, rst.build_raystab_accel7),
+            ("gen-6", rf6, GRID, rsf.build_raystab_accel2)):
+        for f in (1, 7):
+            wm = wobbled(mb7, base_x, f)
+            same_query(rf_.refit(wm.positions_norm, check=f == 1),
+                       fresh(wm.positions_norm, mb7.tris, mb7.normals, n=n_),
+                       f"{name} refit and fresh build at {n_}^3, frame {f}")
+    wob7 = wobbled(mb7, base_x, 5).positions_norm
+    refit_t = {name: time_sweep(torch, {"refit": lambda rf_=rf_: rf_.refit(wob7)})["refit"]
+               for name, rf_ in (("gen-7", rf7), ("gen-6", rf6))}
+    # the refit's row gather (index_select, as the refitter runs it) beside a
+    # device copy of the same bytes, the memory system's yardstick
+    fused7 = rsf._fused_coef_matrix(wob7, mb7.tris, mb7.normals)
+    ids7 = rf7._ids["main"]
+    rows7 = torch.index_select(fused7, 0, ids7)
+    check(torch.equal(rows7, fused7[ids7]), "index_select gathered other rows")
+    rows7b = torch.empty_like(rows7)
+    gather_t = time_sweep(torch, {
+        "index_select": lambda: torch.index_select(fused7, 0, ids7),
+        "copy_ of as many bytes": lambda: rows7b.copy_(rows7)})
+    del fused7, rows7, rows7b
+    # a deforming frame after its first: refit + query + packing under
+    # set_sync_debug_mode("error"); and the host syncs of a whole frame
+    # (render included) counted under "warn"
+    sync_lines = []
+    for n_ in (GRID_HI, GRID):
+        p_ = FramePipeline(cfg_hi.replace(inside_mode="raystab", grid_size=n_),
+                           mb7, deforming=True)
+        p_.mesh = wobbled(mb7, base_x, 1)
+        p_.frame(consts7)  # the first refit frame: the contract check
+        p_.sync()
+        wm = wobbled(mb7, base_x, 2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p_.mesh = wm
+            g_ = voxelize(wm, n_, mode="raystab", accel=p_._raystab_accel())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(bool(g_.words.any()), f"the deforming {n_}^3 frame is empty")
+        sites = []  # the repository's innermost frame at each sync
+
+        def record_sync(*args, **kwargs):
+            sites.append(next((f"{Path(fs.filename).name}:{fs.lineno} "
+                               f"{fs.name}" for fs in
+                               reversed(traceback.extract_stack()[:-1])
+                               if str(root) in fs.filename
+                               and not fs.filename.endswith("chip_smoke.py")),
+                              "outside the package"))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record_sync
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                p_.mesh = wobbled(mb7, base_x, 3)
+                p_.frame(consts7)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        p_.sync()
+        sync_lines.append(f"{n_}^3 refit {type(p_._refitter).__name__}: "
+                          f"{len(sites)} host syncs in a whole frame, at {sites}")
+        del p_, g_
+    # gen-6 against gen-7 timings (query: kernel + scatter; the fold alone)
+    stab_cmp = {}
+    for n_, a6, a7 in ((128, accel6_128, accel7_128), (GRID_HI, accel6, accel7)):
+        stab_cmp[n_] = time_sweep(torch, {
+            "gen-6 query": lambda a6=a6: rsf.raystab_query2(a6),
+            "gen-7 query": lambda a7=a7: rst.raystab_query7(a7),
+            "gen-6 fold": lambda a6=a6: rsc.fold_extract(a6.main, tc7, thr),
+            "gen-7 fold": lambda a7=a7: rsc.fold_extract(a7.main, tc7, thr),
+        })
+        stab_cmp[n_]["shape"] = (
+            f"gen-6 {a6.main.strips} strips {a6.main.rows.shape[0]} rows"
+            f"{'' if a6.ov is None else f' + {a6.ov.rows.shape[0]} near-origin'}"
+            f", gen-7 {a7.main.strips} live tiles {a7.main.rows.shape[0]} rows")
+    fold7_cold_us = cold_device_us(
+        torch, lambda: rsc.fold_extract(tb7, tc7, thr), flush)
+    work7 = raystab_work(torch, rsc, tb7)
+    work6 = raystab_work(torch, rsc, accel6.main)
+    bound7 = raystab_bound(tb7, work7, True)
+    fold7_ms = stab_cmp[GRID_HI]["gen-7 fold"]
+    print(f"phase 18 gen-7 build at {GRID_HI}^3 on the {tc7}-triangle "
+          f"icosphere ({compact7.stats}): the grid's cell pairs and tile radii "
+          f"alone {statics_s:.4f} s; cold: compact {b7[0][0]:.4f} s, assembly "
+          f"{b7[0][1]:.4f} s; warm (median of 3): compact {warm7[0]:.4f} s, "
+          f"assembly {warm7[1]:.4f} s; the accel cache: miss (build + save) "
+          f"{miss7_s:.4f} s, load {load7[0]:.4f} s + assembly {load7[1]:.4f} s "
+          f"(median of 3), entry {cache7_mb:.1f} MiB; accel {bytes7 / 2**20:.1f} "
+          f"MiB, at most {int(cnt7.max())} candidates per tile; gen-6 at "
+          f"{GRID_HI}^3: compact {c6_s:.4f} s, assembly {a6_s:.4f} s, "
+          f"{stream_bytes(accel6.main) / 2**20:.1f} MiB; at 128^3 gen-7 build "
+          f"{c7_128_s:.4f} s, gen-6 {c6_128_s:.4f} s; {card}")
+    print(f"phase 18 gen-7 at {GRID_HI}^3: fold + extraction bit-identical to "
+          f"its plain version on (t, id, ns), both rules; voxelize(mode="
+          f"raystab, n={GRID_HI}) routes to gen-7 (one fold launch) and equals "
+          f"the accel's query ({occ7_count} voxels inside); gen-7 grids "
+          f"bit-identical to gen-6 at 128^3 and {GRID_HI}^3, both rules; to "
+          f"the radial oracle at 128^3 ({'; '.join(oracle7)}), both rules; "
+          f"refitted accels (gen-7 at {GRID_HI}^3 built in {rf7_s:.4f} s, "
+          f"{rf7.rest_accel.main.rows.shape[0]} rows; gen-6 at {GRID}^3 in "
+          f"{rf6_s:.4f} s, {rf6.rest_accel.main.rows.shape[0]} rows; pad "
+          f"{cfg_hi.deform_pad} along the normals) bit-identical to fresh "
+          f"builds of two wobbled frames; refit per frame (CUDA-event ms, "
+          f"profiler device us): " + ", ".join(
+              f"{k} {v[0]:.4f} ms {v[1]:.2f} us" for k, v in refit_t.items())
+          + f"; the gen-7 refit's row gather alone ({ids7.numel()} rows of 96 B): " + ", ".join(
+              f"{k} {v[0]:.4f} ms {v[1]:.2f} us" for k, v in gather_t.items())
+          + "; under set_sync_debug_mode('error') the refit + query ran "
+          "without a host sync; " + "; ".join(sync_lines))
+    print("phase 18 gen-6 against gen-7 on the same mesh (CUDA-event ms, "
+          "profiler device us per call): " + "; ".join(
+              f"{n_}^3 ({v['shape']}): " + ", ".join(
+                  f"{k} {t[0]:.4f} ms {t[1]:.2f} us" for k, t in v.items()
+                  if k != "shape") for n_, v in stab_cmp.items())
+          + f"; {GRID_HI}^3 real (ray, candidate) pairs tested (the chunks not "
+          f"skipped): gen-7 {work7[2]}, gen-6 {work6[2]}; {card}")
+    print(f"phase 18 fold + extraction at {GRID_HI}^3 (gen-7 tables): "
+          f"{fold7_ms[0]:.4f} ms, {fold7_ms[1]:.2f} us device per call, "
+          f"{fold7_cold_us:.2f} us with the L2 flushed; bound {bound7[0]:.6f} "
+          f"ms ({bound7[1]}; {work7[0]} real rays, {work7[1]} candidate rows "
+          f"and {work7[2]} real pairs in the chunks not skipped), "
+          f"{bound7[0] / fold7_ms[0]:.4f} of it by CUDA events; {card}")
+
+    # ---- 19. the new frames: 256^3 ray-stab and -normals (gen-7), and the
+    # deforming ray-stab frames (refits) at 256^3 and 64^3 ----------------
+    new_frames = {}
+    for name, c_, deforming in (
+            ("raystab 256", cfg_hi.replace(inside_mode="raystab"), False),
+            ("normals 256", cfg_hi.replace(parity_normals=True), False),
+            ("raystab 256 -deform", cfg_hi.replace(inside_mode="raystab"), True),
+            ("raystab 64 -deform", cfg_hi.replace(inside_mode="raystab",
+                                                  grid_size=GRID), True)):
+        p_ = FramePipeline(c_, mb7, deforming=deforming)
+        if deforming:
+            p_.mesh = wobbled(mb7, base_x, 3)
+        img_, first_s = timed(lambda p_=p_: p_.frame(consts7))
+        check(bool(torch.isfinite(img_).all()) and img_.shape == (720, 1280, 3),
+              f"{name} frame not finite or misshapen")
+        err_ = None
+        if name == "raystab 256":
+            occ_, rgba_ = rst.raystab_query7(p_._stab_accel, use_kernels=False)
+            grid_ = VoxelGrid(words=pack_bits_z(occ_),
+                              rgba=quantize_r10g10b10a2(rgba_))
+            err_ = max_err(img_, render(grid_, consts7, c_, use_kernels=False))
+            check(err_ <= TOL_FRAME, f"{name} frame differs by {err_:.3g}")
+        fn_ = lambda p_=p_: p_.frame(consts7)  # noqa: E731
+        ms_ = cuda_ms(torch, fn_)
+        p_.sync()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_frames(torch, fn_, p_.sync, kernels)
+        new_frames[name] = (ms_, *prof, torch.cuda.max_memory_allocated() / 2**20,
+                            first_s, err_)
+        del p_
+    for name, (ms_, busy, per_frame, kus, peak, first_s, err_) in new_frames.items():
+        print(f"phase 19 frame {name} 1280x720 -hq ({tc7} tris): {ms_:.4f} ms "
+              f"with the kernels (CUDA events over {INNER} back-to-back runs, "
+              f"median of {REPS}); first frame (accel from the cache filled by "
+              f"phase 17, or the refitter built) {first_s:.4f} s"
+              + ("" if err_ is None else f"; max|err| kernels vs plain {err_:.3g}")
+              + f"; profiled: device busy {busy:.4f} ms per frame (idle share "
+              f"{1 - busy / ms_:.3f}), {per_frame:.0f} device kernels and "
+              f"copies per frame, kernel device us per frame {kus}, peak device "
+              f"memory {peak:.1f} MiB; {card}")
+
     # ---- bounds: the least time for each kernel's work on this run's data
     w64 = GRID * GRID * (GRID // 32) * 4
     w256 = GRID_HI * GRID_HI * (GRID_HI // 32) * 4
@@ -1821,9 +2156,10 @@ def main() -> int:
     dev_call_us = {"parity_voxelize": p_dev_us, "parity_queue": q_dev_us[GRID_HI],
                    **rs_dev_us, "raystab_mt": mt_dev_us}
     print("share of the bound (bound ms over ms per call, by device time and "
-          "by CUDA events): " + ", ".join(
-              f"{k} {bounds[k][0] / (us / 1e3):.4f} / "
-              f"{bounds[k][0] / ms[k][0]:.4f}" for k, us in dev_call_us.items()))
+          "by CUDA events; the profiler's device time 'not measured' where its "
+          "windows recorded none): " + ", ".join(
+              f"{k} {f'{bounds[k][0] / (us / 1e3):.4f}' if us > 0 else 'not measured'}"
+              f" / {bounds[k][0] / ms[k][0]:.4f}" for k, us in dev_call_us.items()))
     print(f"bounds (ms, bound by): {bounds}; binned {GRID}^3 {rows_b} real "
           f"rows, {pairs_b} (column, triangle) pairs in bounding boxes; "
           f"queue {GRID_HI}^3 {rows_q} real rows, {pairs_q} pairs; march "

@@ -25,9 +25,10 @@ direction cell into strips of 128, each strip tested against the union of
 its cells' candidates with the radial rule:
 
 - Host half (numpy, copied from the JAX package): the static voxel->cell ray
-  table, the cone binning (``_cone_keys_np``, static meshes: no deformation
-  pad), the ladder fold, the greedy strip packing and the capacity classes
-  with their per-256-candidate chunk-skip bounds -> :class:`RaystabCompact2`.
+  table, the cone binning (``_cone_keys_np``, with the deformation pad of
+  the refitter, ops/raystab_refit.py), the ladder fold, the greedy strip
+  packing and the capacity classes with their per-256-candidate chunk-skip
+  bounds -> :class:`RaystabCompact2`.
 - Device half (torch gathers): :func:`assemble_raystab_accel2` lays every
   class's strips out as ONE strip stream (rays, per-strip candidate offset
   and count, the candidates' coefficient + normal rows, chunk bounds), so
@@ -44,7 +45,7 @@ table layout, no strips-per-step row padding, no on-disk ray-table cache.
 Ground truth is the radial oracle (ops/voxelize_ref.py).
 
 :func:`voxelize_raystab_fast` routes as the JAX package does: gen-1 on the
-CPU, gen-6 on a GPU below 128^3 (gen-7, above, is not ported).
+CPU, gen-6 on a GPU below 128^3 and gen-7 (ops/raystab_tiled.py) above.
 """
 
 from __future__ import annotations
@@ -72,7 +73,6 @@ CLASS_CAPS2 = (
     2048, 3072, 4096, 6144, 8192,
 )
 LEVELS2 = (32, 8)  # cubemap sizes, fine -> coarse
-GEN7_MIN_N = 128  # an accelerator runs ray-stab through gen-7 from here (JAX)
 SPAN = 8  # cells per axis a triangle's rectangle may span at its level
 
 
@@ -84,6 +84,15 @@ def default_gs(n: int) -> tuple:
     if n >= 128:
         return (64, 16, 8)
     return LEVELS2
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (any device) or array as a host numpy array."""
+    return np.asarray(torch.as_tensor(x).cpu().numpy())
+
+
+def _host_f32(x) -> np.ndarray:
+    return np.asarray(_host(x), np.float32)
 
 
 def _pow2cap(max_bin: int) -> int:
@@ -190,15 +199,87 @@ def _ray_params(n: int, device: torch.device | str = "cpu"):
     return dirs, _norm3(pos)
 
 
+def _capsule_params(verts_h, tris_h, pad: float, pad_dirs):
+    """Per-triangle capsule endpoints and extra radius for a directional
+    deformation bound.
+
+    Contract: every frame's vertices are v'_i = v_i + s_i * d_i with
+    |s_i| <= pad and d_i = pad_dirs[i]. With the triangle's mean direction
+    a = (d_0 + d_1 + d_2)/3, v_i + s_i d_i = (v_i + s_i a) + s_i (d_i - a),
+    so every deformed point lies in the hull of two balls at c +- pad*a of
+    radius r + pad * max_i |d_i - a|. Returns (offs [T,3] f32 = pad*a,
+    r_extra [T] f32 = pad*maxdev)."""
+    d0 = pad_dirs[tris_h[:, 0]].astype(np.float32)
+    d1 = pad_dirs[tris_h[:, 1]].astype(np.float32)
+    d2 = pad_dirs[tris_h[:, 2]].astype(np.float32)
+    a = (d0 + d1 + d2) / np.float32(3.0)
+    maxdev = np.sqrt(
+        np.maximum(
+            ((d0 - a) ** 2).sum(-1),
+            np.maximum(((d1 - a) ** 2).sum(-1), ((d2 - a) ** 2).sum(-1)),
+        )
+    )
+    return np.float32(pad) * a, np.float32(pad) * maxdev
+
+
+def _seg_origin_dist(p, q):
+    """Distance from the origin to segment(p, q), vectorized f32."""
+    d = q - p
+    dd = (d * d).sum(-1)
+    t = np.clip(
+        -(p * d).sum(-1) / np.maximum(dd, np.float32(1e-30)), 0.0, 1.0
+    )
+    x = p + t[:, None] * d
+    return np.linalg.norm(x, axis=-1).astype(np.float32)
+
+
+def _tri_minr(verts_norm, tris_h, pad: float, pad_dirs) -> np.ndarray:
+    """Conservative per-triangle lower bound on any hit's distance from the
+    origin (f64): bounding ball |c| - r, grown by ``pad`` (a ball) or, with
+    ``pad_dirs``, by the capsule of :func:`_capsule_params`; a 1e-3 relative
+    and 1e-6 absolute margin covers the f32 kernel's rounding. The chunk-skip
+    bounds of both accels are built from it."""
+    verts_h = np.asarray(verts_norm, np.float32)
+    tris_h = np.asarray(tris_h)
+    tv = np.asarray(verts_norm, np.float64)[tris_h]
+    cc = tv.mean(axis=1)
+    rr = np.sqrt(((tv - cc[:, None, :]) ** 2).sum(-1)).max(axis=1)
+    if pad and pad_dirs is not None:
+        offs, r_extra = _capsule_params(
+            verts_h, tris_h, pad, np.asarray(pad_dirs, np.float32)
+        )
+        cdist = _seg_origin_dist(
+            (cc - offs).astype(np.float32), (cc + offs).astype(np.float32),
+        ).astype(np.float64)
+        rr = rr + r_extra.astype(np.float64)
+        cdist = cdist * (1.0 - 3e-7)  # the f32 distance can round above exact
+    else:
+        if pad:  # deformed hits stay inside the padded ball
+            rr = rr + float(pad)
+        cdist = np.linalg.norm(cc, axis=-1)
+    tb = np.maximum(cdist - rr, 0.0)
+    return np.maximum(tb * (1.0 - 1e-3) - 1e-6, 0.0)
+
+
 def _cone_keys_np(verts_h: np.ndarray, tris_h: np.ndarray, g: int,
-                  span: int):
+                  span: int, pad: float = 0.0, pad_dirs=None):
     """Per-triangle direction cones -> cubemap cell rectangles + overflow.
 
     Returns (rects [6, 5, T] int32 rows (iu0, iu1, iv0, iv1, fits),
     over [T] bool). A triangle's bounding ball (centroid c, radius r) gives
     the cone (axis c/|c|, half-angle asin(r/|c|)); per cube face, the cone's
     azimuthal extents give a conservative u/v interval. Balls near the
-    origin, and rectangles wider than ``span`` cells, overflow."""
+    origin, and rectangles wider than ``span`` cells, overflow.
+
+    ``pad`` > 0 pads for deformation: any displacement of at most ``pad``
+    (the ball grows by ``pad``), or, with ``pad_dirs`` [V,3], any
+    displacement v' = v + s * pad_dirs[v] with |s| <= pad. Then every
+    deformed point lies in the hull of the six corners v_i +- pad*d_i: on a
+    face where all six have a positive dominant coordinate the rectangle is
+    the corners' direction extrema (the mediant inequality), elsewhere the
+    capsule bound of :func:`_capsule_params`; the near-origin, relevance and
+    empty flags come from the capsule. Degenerate triangles stay in the
+    overflow when padded (a deformation can give them area)."""
     verts_h = np.asarray(verts_h, np.float32)
     tris_h = np.asarray(tris_h)
     v0 = verts_h[tris_h[:, 0]]
@@ -206,27 +287,52 @@ def _cone_keys_np(verts_h: np.ndarray, tris_h: np.ndarray, g: int,
     v2 = verts_h[tris_h[:, 2]]
 
     c = (v0 + v1 + v2) / np.float32(3.0)
+    pad = np.float32(pad)
     r = np.sqrt(
         np.maximum(
             ((v0 - c) ** 2).sum(-1),
             np.maximum(((v1 - c) ** 2).sum(-1), ((v2 - c) ** 2).sum(-1)),
         )
     )
-    cn = np.linalg.norm(c, axis=-1).astype(np.float32)
-    near_origin = cn <= np.float32(1.5) * r + np.float32(1e-7)
+    corners = None
+    if pad_dirs is not None and pad > 0.0:
+        offs, r_extra = _capsule_params(verts_h, tris_h, pad, pad_dirs)
+        centers = (c - offs, c + offs)
+        r = r + r_extra
+        d_origin = _seg_origin_dist(c - offs, c + offs)
+        # the six deformed-hull corners v_i +- pad*d_i, [6, T, 3]
+        dirs = np.asarray(pad_dirs, np.float32)
+        d0 = np.float32(pad) * dirs[tris_h[:, 0]]
+        d1 = np.float32(pad) * dirs[tris_h[:, 1]]
+        d2 = np.float32(pad) * dirs[tris_h[:, 2]]
+        corners = np.stack([
+            v0 - d0, v0 + d0, v1 - d1, v1 + d1, v2 - d2, v2 + d2,
+        ])
+    else:
+        centers = (c,)
+        r = r + pad
+        d_origin = np.linalg.norm(c, axis=-1).astype(np.float32)
+
+    near_origin = d_origin <= np.float32(1.5) * r + np.float32(1e-7)
 
     guard = np.float32(1e-4)
     max_face_angle = np.float32(np.arccos(1.0 / np.sqrt(3.0)) + 1e-3)
 
-    safe_cn = np.maximum(cn, np.float32(1e-20))
-    chat = c / safe_cn[:, None]
-    sin_a = np.minimum(
-        r / safe_cn * np.float32(1.0 + 1e-5) + np.float32(1e-6),
-        np.float32(1.0),
-    )
-    alpha = np.arcsin(np.clip(sin_a, 0.0, 1.0)).astype(np.float32)
+    def ball_face_terms(cc):
+        """Per endpoint ball: (chat, sin_a, alpha) of the interval math."""
+        cn = np.linalg.norm(cc, axis=-1).astype(np.float32)
+        safe_cn = np.maximum(cn, np.float32(1e-20))
+        chat = cc / safe_cn[:, None]
+        sin_a = np.minimum(
+            r / safe_cn * np.float32(1.0 + 1e-5) + np.float32(1e-6),
+            np.float32(1.0),
+        )
+        alpha = np.arcsin(np.clip(sin_a, 0.0, 1.0)).astype(np.float32)
+        return chat, sin_a, alpha
 
-    def face_interval(ca, cb):
+    terms = [ball_face_terms(cc) for cc in centers]
+
+    def face_interval(sin_a, ca, cb):
         rho = np.sqrt(ca * ca + cb * cb)
         full = (sin_a >= rho - np.float32(1e-6)) | (
             sin_a >= np.float32(1.0 - 1e-6)
@@ -257,13 +363,48 @@ def _cone_keys_np(verts_h: np.ndarray, tris_h: np.ndarray, g: int,
         a = f >> 1
         s = np.float32(1.0 if f % 2 == 0 else -1.0)
         b, cax = int(_OTHERS[a, 0]), int(_OTHERS[a, 1])
-        ca = s * chat[:, a]
-        relevant = (
-            np.arccos(np.clip(ca, -1.0, 1.0)).astype(np.float32)
-            - alpha <= max_face_angle
-        )
-        u_lo, u_hi, empty_u = face_interval(ca, chat[:, b])
-        v_lo, v_hi, empty_v = face_interval(ca, chat[:, cax])
+        # union over the capsule's endpoints (one for the ball)
+        u_lo = v_lo = None
+        relevant = empty_u = empty_v = None
+        for chat, sin_a, alpha in terms:
+            ca = s * chat[:, a]
+            rel = (
+                np.arccos(np.clip(ca, -1.0, 1.0)).astype(np.float32)
+                - alpha <= max_face_angle
+            )
+            ul, uh, eu = face_interval(sin_a, ca, chat[:, b])
+            vl, vh, ev = face_interval(sin_a, ca, chat[:, cax])
+            if u_lo is None:
+                u_lo, u_hi, v_lo, v_hi = ul, uh, vl, vh
+                relevant, empty_u, empty_v = rel, eu, ev
+            else:
+                u_lo = np.minimum(u_lo, ul)
+                u_hi = np.maximum(u_hi, uh)
+                v_lo = np.minimum(v_lo, vl)
+                v_hi = np.maximum(v_hi, vh)
+                relevant = relevant | rel
+                empty_u = empty_u & eu
+                empty_v = empty_v & ev
+        if corners is not None:
+            # where every corner's dominant coordinate is safely positive,
+            # the corner extrema bound all hull directions; mixed-sign faces
+            # keep the capsule interval
+            pa = s * corners[..., a]
+            pb = corners[..., b]
+            pc = corners[..., cax]
+            all_pos = (pa > np.float32(1e-12)).all(axis=0)
+            safe_pa = np.maximum(pa, np.float32(1e-30))
+            uc = pb / safe_pa
+            vc_ = pc / safe_pa
+            hg = np.float32(2e-4)  # fp guard in u (cells are >= 2/g wide)
+
+            def hull(lo_or_hi, vals, cur):
+                ext = vals.min(axis=0) - hg if lo_or_hi else vals.max(axis=0) + hg
+                return np.where(all_pos,
+                                np.clip(ext, -1.0, 1.0).astype(np.float32), cur)
+
+            u_lo, u_hi = hull(True, uc, u_lo), hull(False, uc, u_hi)
+            v_lo, v_hi = hull(True, vc_, v_lo), hull(False, vc_, v_hi)
         face_ok = relevant & (~empty_u) & (~empty_v) & (~near_origin)
         iu0 = np.clip(((u_lo + 1.0) * half_g).astype(np.int32), 0, g - 1)
         iu1 = np.clip(((u_hi + 1.0) * half_g).astype(np.int32), 0, g - 1)
@@ -279,8 +420,11 @@ def _cone_keys_np(verts_h: np.ndarray, tris_h: np.ndarray, g: int,
     over = near_origin
     for face_ok, fits in spans:
         over = over | (face_ok & ~fits)
-    # degenerate triangles never hit: keep them out of the overflow stream
-    valid_tri = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1) > 0.0
+    # degenerate triangles never hit: keep them out of the overflow stream,
+    # unless padded (a deformation can give them area)
+    valid_tri = (
+        np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1) > 0.0
+    ) | (pad > 0.0)
     over = over & valid_tri
     return np.stack(rects, axis=0), over
 
@@ -534,20 +678,29 @@ class RaystabCompact2:
 
 
 def build_raystab_compact2(verts_norm, tris, n: int = 64,
-                           gs: tuple | None = None) -> RaystabCompact2:
+                           gs: tuple | None = None, pad: float = 0.0,
+                           pad_dirs=None) -> RaystabCompact2:
     """Binning + packing half of the accel build (host): bin each triangle
     at the finest cubemap level whose ``SPAN``-cell rectangle covers its
     direction cone; only cones containing the origin fall through to the
     near-origin list. ``gs``: the cubemap ladder, fine -> coarse
-    (default by grid size, :func:`default_gs`)."""
+    (default by grid size, :func:`default_gs`).
+
+    ``pad`` > 0 builds a deformation-padded compact (``_cone_keys_np``,
+    ``_tri_minr``): its candidate sets and chunk bounds stay conservative
+    for every frame within the pad, so one compact serves a deforming mesh
+    and only the candidate rows are regathered per frame
+    (ops/raystab_refit.py). ``pad_dirs`` [V,3] declares the deformation
+    directional (v' = v + s * pad_dirs[v], |s| <= pad)."""
     gs = default_gs(n) if gs is None else gs
-    tris_h = np.asarray(torch.as_tensor(tris).cpu().numpy())
-    verts_h = np.asarray(torch.as_tensor(verts_norm).cpu().numpy(), np.float32)
+    tris_h = _host(tris)
+    verts_h = _host_f32(verts_norm)
     t_count = int(tris_h.shape[0])
     assert t_count < 2**24, (
         f"{t_count} triangles exceed the 2^24 id range of the f32 id "
         "channel (reduce -subdiv or decimate the mesh)"
     )
+    dirs_h = None if pad_dirs is None else _host_f32(pad_dirs)
     sub_ids = np.arange(t_count, dtype=np.int32)
     stat_levels = []
 
@@ -562,7 +715,8 @@ def build_raystab_compact2(verts_norm, tris, n: int = 64,
     for g in gs:
         if sub_ids.size == 0:
             break
-        rects_h, over_h = _cone_keys_np(verts_h, tris_h[sub_ids], g, SPAN)
+        rects_h, over_h = _cone_keys_np(verts_h, tris_h[sub_ids], g, SPAN,
+                                        pad, dirs_h)
         sorted_tris, starts, counts_h, ov_np = _cone_bins_host(
             rects_h, over_h, g, SPAN
         )
@@ -578,14 +732,7 @@ def build_raystab_compact2(verts_norm, tris, n: int = 64,
     m_counts = cell_offs[1:] - cell_offs[:-1]
     compact_classes, total_vc = [], 0
     if m_counts.size and m_counts.max() > 0:
-        # per-triangle strict lower bound on hit distance from the origin
-        # (bounding ball |c| - r, f64, with a margin for f32 rounding)
-        tv = verts_h.astype(np.float64)[tris_h]
-        cc = tv.mean(axis=1)
-        rr = np.sqrt(((tv - cc[:, None, :]) ** 2).sum(-1)).max(axis=1)
-        cdist = np.linalg.norm(cc, axis=-1)
-        tb = np.maximum(cdist - rr, 0.0)
-        tri_bounds = np.maximum(tb * (1.0 - 1e-3) - 1e-6, 0.0)
+        tri_bounds = _tri_minr(verts_h, tris_h, pad, dirs_h)
         ray_table, rc = _ray_table_filled(n, g_fine)
         compact_classes, total_vc = _pack_classes2(
             (cell_offs, cell_data), ray_table, rc, s0_p, tri_bounds
@@ -615,9 +762,10 @@ def _radial_coef_matrix(verts_norm, tris):
     g0, g1, g2, c = intersect.radial_setup(verts_norm, tris)
     idf = torch.arange(t_count, device=c.device, dtype=torch.float32)[:, None]
     cf = torch.cat([g0, g1, g2, c[:, None], idf, torch.zeros_like(idf)], dim=-1)
-    pad_row = torch.zeros((1, 12), dtype=torch.float32, device=c.device)
-    pad_row[0, 10] = float(intersect.BIG_ID)
-    return torch.cat([cf.to(torch.float32), pad_row])
+    # built on the device (no host copy: the refit's rows must not sync)
+    col = torch.arange(12, device=c.device)
+    pad_row = torch.where(col == 10, float(intersect.BIG_ID), 0.0)[None]
+    return torch.cat([cf.to(torch.float32), pad_row.to(torch.float32)])
 
 
 def _normal_rows_matrix(normals, tris):
@@ -669,6 +817,19 @@ def _strip_rays(rt128: torch.Tensor, dirs_p: torch.Tensor,
                      dim=1).contiguous()
 
 
+def stream_ids2(compact: RaystabCompact2, device) -> dict:
+    """The triangle id of every candidate row of each strip stream ("main",
+    "ov") an accel assembled from ``compact`` has, as int64 tensors on
+    ``device``: its rows are ``fused[ids]`` (the refitter regathers them)."""
+    out = {}
+    if compact.classes:
+        out["main"] = np.concatenate([c[1][c[1] >= 0] for c in compact.classes])
+    if compact.ov_ids is not None:
+        out["ov"] = compact.ov_ids
+    return {k: torch.from_numpy(v.astype(np.int64)).to(device)
+            for k, v in out.items()}
+
+
 def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
                             normals) -> RaystabAccel2:
     """Device half of the accel build: expand a compact product into the
@@ -685,11 +846,11 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
     dirs_p = torch.cat([dirs, torch.zeros((1, 3), dtype=dirs.dtype, device=dev)])
     s0_p = torch.cat([s0, torch.zeros((1,), dtype=s0.dtype, device=dev)])
 
+    ids = stream_ids2(compact, dev)
     main = slot_ray = None
     if compact.classes:
         rt = np.concatenate([c[0] for c in compact.classes])
         counts = np.concatenate([(c[1] >= 0).sum(axis=1) for c in compact.classes])
-        ids = np.concatenate([c[1][c[1] >= 0] for c in compact.classes])
         offs = np.zeros_like(counts)
         offs[1:] = np.cumsum(counts)[:-1]
         n_bnd = max((c[2].shape[1] for c in compact.classes if c[2] is not None),
@@ -709,7 +870,7 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
             rays=_strip_rays(rt_d, dirs_p, s0_p),
             cand_off=torch.from_numpy(offs.astype(np.int32)).to(dev),
             cand_cnt=torch.from_numpy(counts.astype(np.int32)).to(dev),
-            rows=fused[torch.from_numpy(ids.astype(np.int64)).to(dev)],
+            rows=torch.index_select(fused, 0, ids["main"]),
             bounds=bounds,
         )
         slot_ray = torch.where(rt_d >= 0, rt_d, v).reshape(-1)
@@ -724,7 +885,7 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
             rays=_strip_rays(rt_ov.reshape(strips, 128), dirs_p, s0_p),
             cand_off=torch.zeros((strips,), dtype=torch.int32, device=dev),
             cand_cnt=torch.full((strips,), o, dtype=torch.int32, device=dev),
-            rows=fused[torch.from_numpy(compact.ov_ids.astype(np.int64)).to(dev)],
+            rows=torch.index_select(fused, 0, ids["ov"]),
             bounds=None,
         )
     return RaystabAccel2(n=n, t_count=int(tris.shape[0]), device=dev,
@@ -810,8 +971,7 @@ def bin_triangles_radial(verts_norm, tris, g: int = 32, span: int = 8):
     Cell c's candidates are ``cand_ids[cand_off[c] : cand_off[c+1]]`` in
     (du, dv, tri) order (the JAX package pads them into a [C, capacity]
     table, :func:`_cell_table_host`); ``ov_ids``, ascending, overflow."""
-    verts_h = np.asarray(torch.as_tensor(verts_norm).cpu().numpy(), np.float32)
-    tris_h = np.asarray(torch.as_tensor(tris).cpu().numpy())
+    verts_h, tris_h = _host_f32(verts_norm), _host(tris)
     rects_h, over_h = _cone_keys_np(verts_h, tris_h, g, span)
     sorted_tris, starts, counts, ov_ids = _cone_bins_host(rects_h, over_h, g, span)
     max_bin = int(counts.max()) if counts.size else 0
@@ -941,9 +1101,14 @@ def raystab_query(verts_norm, normals, tris, accel,
     version ("auto" and "pallas" are the kernel). Then the overflow merge by
     (t, lowest id) and the finalize. ``verts_norm``/``tris`` must be the
     geometry the accel was built from. A :class:`RaystabAccel2` goes to
-    :func:`raystab_query2` (its geometry is baked in)."""
+    :func:`raystab_query2` and a gen-7 accel to
+    ``raystab_tiled.raystab_query7`` (their geometry is baked in)."""
     if isinstance(accel, RaystabAccel2):
         return raystab_query2(accel, threshold)
+    from dxrvoxelizer_tpu_torch.ops import raystab_tiled
+
+    if isinstance(accel, raystab_tiled.RaystabAccel7):
+        return raystab_tiled.raystab_query7(accel, threshold)
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown raystab query impl {impl!r}")
     if int(tris.shape[0]) != accel.t_count:
@@ -969,8 +1134,10 @@ def voxelize_raystab_fast(verts_norm, normals, tris, n: int = 64,
                           threshold: float = INSIDE_THRESHOLD):
     """Binned reference-rule solid voxelization -> (occupancy, rgba): build
     the accel and query it once, routed as the JAX package routes: gen-1 on
-    the CPU at every grid size, gen-6 on a GPU below 128^3. Build-once,
-    trace-per-frame callers build an accel and query it directly."""
+    the CPU at every grid size; on a GPU gen-7 where
+    ``raystab_tiled.use_tiled_raystab`` says so (n >= 128), else gen-6.
+    Build-once, trace-per-frame callers build an accel and query it
+    directly."""
     dev = verts_norm.device
     if tris.shape[0] == 0:
         return (torch.zeros((n, n, n), dtype=torch.bool, device=dev),
@@ -978,9 +1145,10 @@ def voxelize_raystab_fast(verts_norm, normals, tris, n: int = 64,
     if dev.type == "cpu":
         accel = build_raystab_accel(verts_norm, tris, n=n)
         return raystab_query(verts_norm, normals, tris, accel, threshold)
-    if n >= GEN7_MIN_N:
-        raise NotImplementedError(
-            f"ray-stab at {n}^3 on a GPU (the gen-7 accel) is not ported to "
-            "the CUDA build yet (ROADMAP.md, queue 1, 'Ray-stab, gen-7 (≥128³)')")
+    from dxrvoxelizer_tpu_torch.ops import raystab_tiled
+
+    if raystab_tiled.use_tiled_raystab(n):
+        accel7 = raystab_tiled.build_raystab_accel7(verts_norm, tris, normals, n=n)
+        return raystab_tiled.raystab_query7(accel7, threshold)
     accel = build_raystab_accel2(verts_norm, tris, normals, n=n)
     return raystab_query2(accel, threshold)

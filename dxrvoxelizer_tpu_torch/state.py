@@ -4,8 +4,9 @@ The two packages share no objects: the JAX package's arrays, taken to the
 host as numpy, become this package's tensors here, so both compute on
 identical inputs (the tests compare them this way): mesh buffers, packed
 occupancy grids, work queues built by the JAX package's ``build_queue``,
-compact ray-stab accels built by its ``build_raystab_compact2``, and gen-1
-ray-stab accels built by its ``build_raystab_accel``.
+compact ray-stab accels built by its ``build_raystab_compact2`` (gen-6) and
+``build_raystab_compact7`` (gen-7), and gen-1 ray-stab accels built by its
+``build_raystab_accel``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
     RaystabAccel,
     RaystabCompact2,
     assemble_raystab_accel,
+)
+from dxrvoxelizer_tpu_torch.ops.raystab_cuda import K_BLOCK
+from dxrvoxelizer_tpu_torch.ops.raystab_tiled import (
+    Raystab7Stats,
+    RaystabCompact7,
 )
 from dxrvoxelizer_tpu_torch.ops.voxelize_cuda import NCOEF
 
@@ -106,6 +112,54 @@ def raystab_compact_from_numpy(n: int, classes, ov_ids, levels: tuple = (),
     return RaystabCompact2(n=n, classes=tuple(out), ov_ids=ov,
                            stats=Raystab2Stats(levels=tuple(levels),
                                                near_origin=near_origin))
+
+
+def raystab_compact7_from_numpy(n: int, classes, g_fine: int = 0,
+                                near_origin: int = 0,
+                                device: torch.device | str = "cpu"
+                                ) -> RaystabCompact7:
+    """A gen-7 compact built by the JAX package's ``build_raystab_compact7``
+    (``classes`` of (tids [VC], tab [VC, K], bounds [VC, K/256] or None), as
+    numpy) -> the port's :class:`RaystabCompact7` on ``device``, which
+    ``ops.raystab_tiled.assemble_raystab_accel7`` expands from the same
+    geometry. The class split and the padding (tiles -1, ids -1) are dropped:
+    the live tiles in ascending order, each with its candidates in the
+    class table's order and the bounds of its own chunks (-inf elsewhere)."""
+    rows = []  # (tile id, candidate ids, chunk bounds or None)
+    for tids, tab, bounds in classes:
+        tids, tab = np.asarray(tids, np.int64), np.asarray(tab, np.int64)
+        if tab.ndim != 2 or tab.shape[0] != tids.shape[0]:
+            raise ValueError(f"expected tids [VC] and tab [VC, K], got "
+                             f"{tids.shape} and {tab.shape}")
+        for r in np.flatnonzero(tids >= 0):
+            ids = tab[r][tab[r] >= 0]
+            b = None
+            if bounds is not None:
+                b = np.asarray(bounds, np.float32)[r, :-(-ids.size // K_BLOCK)]
+            rows.append((int(tids[r]), ids, b))
+    rows.sort(key=lambda x: x[0])
+    sizes = np.array([x[1].size for x in rows], np.int64)
+    offs = np.zeros((len(rows) + 1,), np.int64)
+    np.cumsum(sizes, out=offs[1:])
+    bounds = None
+    if any(x[2] is not None for x in rows):
+        bounds = np.full((len(rows), max(x[2].size for x in rows if x[2] is not None)),
+                         -np.inf, np.float32)
+        for i, (_, _, b) in enumerate(rows):
+            if b is not None:
+                bounds[i, :b.size] = b
+    nt = n * n * n // 128
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return RaystabCompact7(
+        n=n, tids=dev(np.array([x[0] for x in rows], np.int64)),
+        offs=dev(offs),
+        ids=dev(np.concatenate([x[1] for x in rows] or [np.zeros(0, np.int64)])),
+        bounds=None if bounds is None else dev(bounds),
+        stats=Raystab7Stats(g_fine, len(rows), nt - len(rows), int(offs[-1]),
+                            near_origin))
 
 
 def raystab_accel_from_numpy(verts_norm: torch.Tensor, tris: torch.Tensor,

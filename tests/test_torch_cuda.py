@@ -22,6 +22,8 @@ from dxrvoxelizer_tpu_torch.ops import (
     raystab_cuda,
     raystab_fast,
     raystab_mt_cuda,
+    raystab_refit,
+    raystab_tiled,
     screen_warp_cuda,
     voxelize_cuda,
     voxelize_queue,
@@ -482,6 +484,52 @@ def test_raystab_query_bit_identical_to_radial_oracle(dev, mesh):
     occ_r, rgba_r = voxelize_raystab_radial_ref(v, nr, t, n=64)
     assert torch.equal(occ, occ_r) and torch.equal(rgba, rgba_r)
     assert bool(occ.any())
+
+
+@pytest.mark.parametrize("mesh", ["icosphere", "box", "near_origin"])
+def test_gen7_query_bit_identical_to_plain_gen6_and_oracle(dev, mesh):
+    """Gen-7 at 128^3: the fold kernel on its tile stream against its plain
+    version (t, id, ns), and the query against gen-6's and the radial
+    oracle's, both rules."""
+    v, nr, t = _raystab_mesh(mesh, 128, dev)
+    accel = raystab_tiled.build_raystab_accel7(v, t, nr, n=128)
+    accel6 = raystab_fast.build_raystab_accel2(v, t, nr, n=128)
+    for rule in ("backface", "hit"):
+        got = raystab_cuda.fold_extract(accel.main, t.shape[0], 0.12, rule)
+        want = raystab_cuda.fold_extract_plain(accel.main, t.shape[0], 0.12, rule)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), rule
+        q7 = raystab_tiled.raystab_query7(accel, rule=rule)
+        for q in (raystab_fast.raystab_query2(accel6, rule=rule),
+                  voxelize_raystab_radial_ref(v, nr, t, n=128, rule=rule)):
+            assert torch.equal(q7[0], q[0]) and torch.equal(q7[1], q[1]), rule
+        assert bool(q7[0].any())
+
+
+@pytest.mark.parametrize("gen,n", [("gen-6", 64), ("gen-7", 128)])
+def test_refit_bit_identical_to_fresh_build_and_sync_free(dev, gen, n):
+    """A refitted accel's query equals a fresh build's on two wobbled frames
+    (the app's -deform, along the normals); the refit and its query run
+    under set_sync_debug_mode("error")."""
+    v, nr, t = _raystab_mesh("icosphere", n, dev)
+    cls, build, query = (
+        (raystab_refit.RaystabRefitter, raystab_fast.build_raystab_accel2,
+         raystab_fast.raystab_query2) if gen == "gen-6" else
+        (raystab_tiled.RaystabTiledRefitter, raystab_tiled.build_raystab_accel7,
+         raystab_tiled.raystab_query7))
+    rf = cls(v, t, nr, n, pad=0.035, pad_dirs=nr)
+    for frame, check in ((2, True), (9, False)):
+        amp = 0.03 * torch.sin(2 * np.pi * frame / 15.0 + v[:, :1] * 5.0)
+        vd = v + amp * nr
+        torch.cuda.synchronize()
+        if not check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = query(rf.refit(vd, check=check))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = query(build(vd, t, nr, n=n))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("mode", ["raystab", "normals"])

@@ -150,43 +150,72 @@ def test_engine_slots_and_ring(tmp_path):
     assert torch.equal(eng.render_grid(grid, fc), imgs[0])
 
 
+class _Routed(Exception):
+    """Raised by a stubbed accel builder: the call was routed to it."""
+
+
+def _route_stub(name):
+    def stub(*args, **kwargs):
+        raise _Routed(name)
+    return stub
+
+
 def test_unported_options_raise(monkeypatch):
     """Options off the ported slices raise; the queue, deforming, ray-stab
-    and -normals paths, ported now, run (static meshes; ray-stab and
-    -normals at n >= 128 only on the CPU, as in the JAX package, since a
-    GPU runs gen-7 there)."""
+    and -normals paths run (on the CPU through gen-1 and the MT oracle, at
+    every n, deforming meshes included). On a GPU, ray-stab and -normals
+    route as in the JAX package: gen-7 at n >= 128 (through the accel cache
+    unless -noaccelcache), gen-6 below, and with -deform the gen-7 or gen-6
+    refitter; the builders are stubbed here, so only the routing runs."""
     scene = Scene(_tet_obj(ObjMesh), "cpu")
     base = VoxelizerConfig(grid_size=N, width=W, height=H)
     cam = OrbitCamera(W, H)
     fc = scene.update_frame(cam.eye, cam.view_proj, W, H)
     for cfg in (base.replace(inside_mode="raystab"),
                 base.replace(parity_normals=True)):
-        with pytest.raises(NotImplementedError, match="Deforming ray-stab"):
-            FramePipeline(cfg, scene.buffers, deforming=True)
         FramePipeline(cfg.replace(grid_size=128), scene.buffers)  # the CPU: gen-1
-        img = FramePipeline(cfg, scene.buffers).frame(fc)
-        assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+        for deforming in (False, True):
+            img = FramePipeline(cfg, scene.buffers, deforming=deforming).frame(fc)
+            assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
     from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
     from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
-    from dxrvoxelizer_tpu_torch.ops import raystab_fast
+    from dxrvoxelizer_tpu_torch.ops import (
+        raystab_fast,
+        raystab_refit,
+        raystab_tiled,
+    )
+    from dxrvoxelizer_tpu_torch.utils import accel_cache
 
-    # a mesh on the card (the check reads only its device): gen-7 raises
+    for mod, fn, name in (
+            (raystab_tiled, "build_raystab_accel7", "gen-7"),
+            (raystab_fast, "build_raystab_accel2", "gen-6"),
+            (accel_cache, "cached_build_raystab_accel7", "cached gen-7"),
+            (accel_cache, "cached_build_raystab_accel2", "cached gen-6"),
+            (raystab_tiled, "RaystabTiledRefitter", "gen-7 refit"),
+            (raystab_refit, "RaystabRefitter", "gen-6 refit")):
+        monkeypatch.setattr(mod, fn, _route_stub(name))
+    mb = scene.buffers
+    with pytest.raises(_Routed, match="^gen-7$"):
+        raystab_fast.voxelize_raystab_fast(mb.positions_norm.to("meta"),
+                                           mb.normals.to("meta"),
+                                           mb.tris.to("meta"), n=128)
+    # a mesh on the card (the routing reads only its device)
     monkeypatch.setattr(MeshBuffers, "device",
                         property(lambda self: torch.device("cuda")))
     for cfg in (base.replace(inside_mode="raystab"),
                 base.replace(parity_normals=True)):
-        with pytest.raises(NotImplementedError, match="gen-7"):
-            FramePipeline(cfg.replace(grid_size=128), scene.buffers)
-    with pytest.raises(NotImplementedError, match="gen-7"):
-        voxelize(scene.buffers, 128, mode="raystab")
-    with pytest.raises(NotImplementedError, match="gen-7"):
-        voxelize(scene.buffers, 128, with_normals=True, impl="xla")
+        for n, gen in ((128, "gen-7"), (N, "gen-6")):
+            c = cfg.replace(grid_size=n)
+            for c_, deforming, want in (
+                    (c, False, f"cached {gen}"),
+                    (c.replace(accel_cache=False), False, gen),
+                    (c, True, f"{gen} refit"),
+                    (c.replace(deform_pad=0.0), True, f"cached {gen}")):
+                with pytest.raises(_Routed, match=f"^{want}$"):
+                    FramePipeline(c_, mb, deforming=deforming).frame(fc)
+    with pytest.raises(_Routed, match="^gen-7$"):
+        voxelize(mb, 128, with_normals=True, impl="xla")
     monkeypatch.undo()
-    mb = scene.buffers
-    with pytest.raises(NotImplementedError, match="gen-7"):
-        raystab_fast.voxelize_raystab_fast(mb.positions_norm.to("meta"),
-                                           mb.normals.to("meta"),
-                                           mb.tris.to("meta"), n=128)
     g = voxelize(scene.buffers, N)
     for cfg, impl in ((base.replace(show_mip=1), "warp"),
                       (base.replace(point_light=True), "warp"),

@@ -479,8 +479,8 @@ def test_accel_impl_names_route_as_jax(monkeypatch, jax_python_path, impl):
 
 
 def test_cpu_raystab_at_128_runs_and_matches_jax():
-    """A stateless CPU ray-stab call at 128^3 (gen-7 on a GPU, not ported)
-    runs gen-1, as the JAX package's CPU call does, and equals it: the grid
+    """A stateless CPU ray-stab call at 128^3 (gen-7 on a GPU) runs gen-1,
+    as the JAX package's CPU call does, and equals it: the grid
     is the Moller-Trumbore oracle's, which is JAX's own oracle bit for bit
     (test_torch_raystab.py), as JAX's gen-1 query is (the query test above,
     at 16^3 and 32^3). JAX's query itself is not run here: op by op at

@@ -23,7 +23,7 @@ from dxrvoxelizer_tpu.ops.voxelize_pallas import (
 from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref as jax_ref
 from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
 from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
-from dxrvoxelizer_tpu_torch.ops import binning, packing, voxelize_cuda
+from dxrvoxelizer_tpu_torch.ops import binning, packing, raystab_tiled, voxelize_cuda
 from dxrvoxelizer_tpu_torch.ops.geom import parity_tri_setup
 from dxrvoxelizer_tpu_torch.ops.voxelize_ref import voxelize_parity_ref
 from tests.meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
@@ -163,20 +163,30 @@ def test_static_binned_voxelizer_and_voxelize_routes(monkeypatch):
     # the work-queue path (its kernel's plain version on the CPU)
     assert torch.equal(voxelize(mesh, 32, impl="queue").words, want)
     # ray-stab and -normals run on the CPU at every n (the JAX package's CPU
-    # route, gen-1 and the MT oracle); on a GPU they raise at n >= 128, where
-    # the JAX package runs gen-7 (not ported yet)
+    # route, gen-1 and the MT oracle); on a GPU they take gen-7 at n >= 128,
+    # as the JAX package does (its builder stubbed here: only the routing)
     assert torch.equal(voxelize(mesh, 32, with_normals=True).words, want)
     assert voxelize(mesh, 32, mode="raystab").rgba.shape == (32, 32, 32, 4)
     with pytest.raises(ValueError):
         voxelize(mesh, 32, impl="nope")
+
+    class Routed(Exception):
+        pass
+
+    def gen7(*args, **kwargs):
+        raise Routed
+
+    monkeypatch.setattr(raystab_tiled, "build_raystab_accel7", gen7)
     tv4, tt4 = _torch(*tetrahedron_mesh()[::2])
+    on_meta = [x.to("meta") for x in (tv4, tv4, tt4, tv4)]
+    with pytest.raises(Routed):  # a stateless call routes by its tensors
+        voxelize(MeshBuffers(*on_meta), 128, mode="raystab")
     tet = MeshBuffers(positions=tv4, normals=tv4, tris=tt4, positions_norm=tv4)
-    # a mesh on the card (the check reads only its device)
+    # a mesh on the card (the -normals routing reads only its device)
     monkeypatch.setattr(MeshBuffers, "device",
                         property(lambda self: torch.device("cuda")))
-    for bad in ({"mode": "raystab"}, {"with_normals": True, "impl": "xla"}):
-        with pytest.raises(NotImplementedError, match="gen-7"):
-            voxelize(tet, 128, **bad)
+    with pytest.raises(Routed):
+        voxelize(tet, 128, with_normals=True, impl="xla")
 
 
 def _assert_binned_crossings_inside_columns(verts, tris, n, max_span=3):
