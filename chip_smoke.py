@@ -132,18 +132,41 @@ the CUDA toolkit. Phases, one line each:
     and profiler device us per call, the main settings with the L2 flushed,
     and each width's slices and lane slots.
 
+20. the render variants and the rest of the app shell, on the 64^3
+    icosphere frame: through the app, ``-renderimpl gather`` (the gather
+    march and light volume kernels once per frame), ``-showmip 1`` and
+    ``2`` with and without ``-usemutex`` (the 16^3 mip level's ``-hq``
+    light step spans less than one slab, d0 = 0: the light volume kernel
+    once per frame), ``-pointlight`` (the light outside: the perspective
+    sweep) and with ``-renderimpl gather``, ``-renderimpl ref`` at
+    320x180, ``-ab`` (exit 0), ``-savegrid`` then ``-loadgrid``,
+    ``-timings``, ``-profile`` (the trace file exists), ``-interactive``
+    and ``-preview``; through the Engine, the X-key alternate frames (the
+    counting oracle + the gather renderer) and the point light inside the
+    volume (the light volume kernel); both kernels against their plain
+    versions at the 64^3 and 256^3 frames (the light volume directional,
+    point and inside; the march whole and on a band of rows); their
+    CUDA-event ms, profiler device us, plain ms, bounds (counted from the
+    live samples) and the ``grid_sample`` yardstick over the same sample
+    points; the gather frame against the warp ``-hq`` frame at 64^3 and
+    256^3 (frame ms in turns, device busy, idle share and ops per frame),
+    render-only times with the light volume computed and passed in, and
+    both images against ``raymarch_ref`` at 64^3, 1280x720 (mean, p99,
+    max).
+
 Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
-``-normals`` app runs and the core-tier gen-1 frames, each counted from
-zero; the fold-only kernel is on no main path, as in the JAX package, and
-shows 0), its largest difference from its plain version (over every
-comparison above), and, at the inputs of the main path it belongs to (the
-64^3 frame for the binned kernel, the march and the resolve; the 256^3
-frame for the work-queue kernel; the 64^3 ray-stab frame's tables for the
-gen-6 ray-stab kernels; the gen-1 accel's slices for the Moller-Trumbore
-kernel), its time, its plain version's time, its bound and, where one
-PyTorch call computes the same function, that call's time. Any failure
-raises and exits non-zero. The last line is the JSON result.
+``-normals`` app runs, the core-tier gen-1 frames and phase 20's runs,
+each counted from zero; the fold-only kernel is on no main path, as in the
+JAX package, and shows 0), its largest difference from its plain version
+(over every comparison above), and, at the inputs of the main path it
+belongs to (the 64^3 frame for the binned kernel, the march, the resolve
+and the render variants' kernels; the 256^3 frame for the work-queue
+kernel; the 64^3 ray-stab frame's tables for the gen-6 ray-stab kernels;
+the gen-1 accel's slices for the Moller-Trumbore kernel), its time, its
+plain version's time, its bound and, where one PyTorch call computes the
+same function (or the gathers alone, ``grid_sample``), that call's time.
+Any failure raises and exits non-zero. The last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -230,21 +253,21 @@ def write_obj(path: Path, verts: np.ndarray, tris: np.ndarray) -> None:
     path.write_text("\n".join(lines) + "\n")
 
 
-def cuda_ms(torch, fn) -> float:
-    """Time per call of ``fn``: CUDA events around INNER back-to-back calls,
-    median of REPS such runs, after one warm-up call."""
+def cuda_ms(torch, fn, reps: int = REPS, inner: int = INNER) -> float:
+    """Time per call of ``fn``: CUDA events around ``inner`` back-to-back
+    calls, median of ``reps`` such runs, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(INNER):
+        for _ in range(inner):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / INNER)
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -576,9 +599,11 @@ def frames_in_turns(torch, fns) -> dict:
     return turns
 
 
-def app_run(torch, app_main, kernels, args, png: Path, name: str):
+def app_run(torch, app_main, kernels, args, png: Path, name: str,
+            shape=None):
     """Drive the app as a user does, with every launch count set to 0 just
-    before and read just after; check the PNG -> (launches, covered)."""
+    before and read just after; check the PNG (1280x720 unless ``shape``)
+    -> (launches, covered)."""
     from dxrvoxelizer_tpu_torch.utils.image import read_png
 
     for k in kernels:
@@ -589,7 +614,8 @@ def app_run(torch, app_main, kernels, args, png: Path, name: str):
     check(rc == 0, f"{name}: app exited {rc}")
     check(png.is_file(), f"{name}: the app wrote no PNG")
     img = read_png(png)
-    check(img.shape == (720, 1280, 3), f"{name}: PNG shape {img.shape}")
+    shape = shape or (720, 1280, 3)
+    check(img.shape == shape, f"{name}: PNG shape {img.shape}")
     clear_u8 = np.array([0, 51, 102])
     covered = float((np.abs(img.astype(int) - clear_u8).sum(-1) > 3).mean())
     check(0.05 < covered < 0.9, f"{name}: volume covers {covered:.3f} of the frame")
@@ -618,6 +644,369 @@ def profile_frames(torch, frame_fn, sync_fn, kernels):
         for k in kernels
     }
     return busy_ms, per_frame, kernel_us
+
+
+# FP32 operations of the render variants' kernels, counted from their
+# sources (csrc/gather_march.cu, csrc/light_volume.cu, csrc/trilinear.cuh;
+# additions, subtractions, multiplications, divisions, floors and square
+# roots; compares, min/max and selects not counted): per density sample
+# the position 6, the texture coordinate 6, the taps 12 (c = tex * n - 0.5,
+# its floor and fraction per axis), the seven lerps 21 and GetSample's
+# scaling 1 = 46; per contributing step of the march sigma, the
+# attenuation and the product 3, the light volume's seven lerps 21 and the
+# scatter's three operations = 27; per hit pixel the composite 17; per light
+# step the sample's 46 and the attenuation's three = 49; per voxel of the
+# point light its normalised step 15
+GATHER_OPS_PER_SAMPLE = 46
+GATHER_OPS_PER_LIGHT = 27
+GATHER_OPS_PER_HIT = 17
+LIGHT_OPS_PER_STEP = 49
+LIGHT_OPS_PER_POINT_VOXEL = 15
+# a point light inside the volume, in local space (the exact per-voxel field)
+LIGHT_INSIDE = np.array([0.05, -0.1, 0.08], np.float32)
+
+
+def live_gather_points(torch, rf, entry, ray_dir, steps, n_samples):
+    """The march's density samples: pixel p's first steps[p] positions
+    entry + dir * (s * step) -> [L, 3]."""
+    soff = rf.sample_offsets(n_samples).to(entry.device)
+    s_idx, p_idx = (torch.arange(n_samples, device=entry.device)[:, None]
+                    < steps[None, :]).nonzero(as_tuple=True)
+    return entry[p_idx] + ray_dir[p_idx] * soff[s_idx][:, None]
+
+
+def live_light_points(torch, t, vec, steps, n, point: bool, n_light=32):
+    """The light volume's density samples: voxel v's first steps[v]
+    positions pos0 + step * (j + 1) -> [L, 3]."""
+    from dxrvoxelizer_tpu_torch.ops.raymarch_ref import MAX_DIST, norm3
+
+    dev = steps.device
+    t, vec = t.to(dev), vec.to(dev)
+    j_idx, v_idx = (torch.arange(n_light, device=dev)[:, None]
+                    < steps[None, :]).nonzero(as_tuple=True)
+    pos0 = torch.stack([t[v_idx // (n * n)], -t[(v_idx // n) % n],
+                        t[v_idx % n]], dim=-1)
+    if point:
+        ld = vec - pos0
+        step = ld / norm3(ld)[:, None] * (MAX_DIST / n_light)
+    else:
+        step = vec
+    return pos0 + step * (j_idx + 1).to(torch.float32)[:, None]
+
+
+def grid_sample_at(torch, vols, pos):
+    """One F.grid_sample call (the yardstick of the gathers alone):
+    trilinear reads of the stacked [N,N,N] volumes at local-space points
+    ``pos`` [L, 3], align_corners=False (texel centres at (i + 0.5) / N)
+    and border padding (LINEAR_CLAMP) -> (call, [C, L] values)."""
+    import torch.nn.functional as F
+
+    src = torch.stack(vols)[None]  # [1, C, D=x, H=y, W=z]
+    tex = pos * torch.tensor([0.5, -0.5, 0.5], device=pos.device) + 0.5
+    grid = (tex * 2.0 - 1.0)[:, [2, 1, 0]].reshape(1, 1, 1, -1, 3)
+
+    def call():
+        return F.grid_sample(src, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    return call, call().reshape(len(vols), -1)
+
+
+def img_err(torch, a, b) -> tuple[float, float, float]:
+    """(mean, p99, max) of |a - b| over every pixel and channel."""
+    d = (a.double() - b.double()).abs().flatten()
+    return float(d.mean()), float(torch.quantile(d, 0.99)), float(d.max())
+
+
+def phase20(torch, app_main, kernels, card, dev, state) -> dict:
+    """Phase 20: the render variants and the rest of the app shell.
+
+    ``state``: the 64^3 and 256^3 frames' (cfg, mesh buffers, constants)
+    and the meshes. Returns the two new kernels' launches, max errors,
+    times, bounds and yardsticks for the result line."""
+    from dxrvoxelizer_tpu_torch.core.pipeline import FramePipeline, render, voxelize
+    from dxrvoxelizer_tpu_torch.ez import Engine
+    from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
+    from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
+    from dxrvoxelizer_tpu_torch.ops.raymarch_ref import MAX_DIST
+
+    t_start = time.perf_counter()
+    gm, lv_k = rf.GATHER_MARCH.name, rf.LIGHT_VOLUME.name
+    launches = {gm: 0, lv_k: 0}
+    lines = []
+    cfg, mb, consts = state["64"]
+    cfg_hi, mb7, consts7 = state["256"]
+    clear = np.array(cfg.clear_color, np.float32)
+
+    # ---- 20a. every new path through the app and the Engine -------------
+    with tempfile.TemporaryDirectory() as td:
+        obj = Path(td) / "icosphere6.obj"
+        v6, t6 = state["mesh6"]
+        write_obj(obj, v6 * WORLD_SCALE + WORLD_CENTER, t6)
+        obj_arg = os.path.relpath(obj)
+        grid_npy, prof_dir = Path(td) / "g.npy", Path(td) / "prof"
+        base = ["-mesh", obj_arg, "-frames", str(FRAMES)]
+        f = FRAMES
+        # (name, extra flags, expected launches, image shape); None: any
+        runs = [
+            ("-renderimpl gather", ["-renderimpl", "gather"],
+             {gm: f, lv_k: f, "march": 0, "resolve": 0}, None),
+            ("-showmip 1", ["-showmip", "1"], {lv_k: 0, "march": f}, None),
+            ("-showmip 1 -usemutex", ["-showmip", "1", "-usemutex"],
+             {lv_k: 0, "march": f}, None),
+            # the 16^3 mip level: the -hq light step spans < 1 slab (d0 = 0)
+            ("-showmip 2 (16^3, d0 = 0)", ["-showmip", "2"],
+             {lv_k: f, "march": f}, None),
+            ("-showmip 2 -usemutex", ["-showmip", "2", "-usemutex"],
+             {lv_k: f, "march": f}, None),
+            ("-pointlight (light outside: the perspective sweep)",
+             ["-pointlight"], {lv_k: 0, "march": f}, None),
+            ("-pointlight -renderimpl gather",
+             ["-pointlight", "-renderimpl", "gather"], {gm: f, lv_k: f}, None),
+            ("-renderimpl ref 320x180", ["-renderimpl", "ref", "-width", "320",
+                                         "-height", "180", "-frames", "1"],
+             {gm: 0, lv_k: 0, "march": 0}, (180, 320, 3)),
+            ("-ab", ["-ab"], {gm: 1, lv_k: 1, "march": f + 1}, None),
+            ("-savegrid", ["-renderimpl", "gather", "-savegrid", str(grid_npy)],
+             {gm: f}, None),
+            ("-loadgrid", ["-renderimpl", "gather", "-loadgrid", str(grid_npy)],
+             {gm: 1, lv_k: 1}, None),
+            ("-timings", ["-timings"], {"march": f + 3}, None),
+            ("-profile", ["-profile", str(prof_dir)], {"march": f}, None),
+        ]
+        app_lines = []
+        for name, extra, want, shape in runs:
+            t0 = time.perf_counter()
+            got, covered = app_run(torch, app_main, kernels, [*base, *extra],
+                                   Path(td) / "v.png", name, shape=shape)
+            for k, c in want.items():
+                check(got[k] == c, f"{name}: {k} launched {got[k]} times, "
+                      f"expected {c}")
+            launches[gm] += got[gm]
+            launches[lv_k] += got[lv_k]
+            app_lines.append(f"{name} {time.perf_counter() - t0:.2f} s covers "
+                             f"{covered:.3f} ({got[gm]}, {got[lv_k]}, "
+                             f"{got['march']})")
+        check(grid_npy.is_file(), "-savegrid wrote no grid")
+        traces = list(prof_dir.glob("trace_*.json"))
+        check(len(traces) == 1 and traces[0].stat().st_size > 0,
+              "-profile wrote no trace")
+        for name, extra in (("-interactive", ["-interactive"]),
+                            ("-preview", ["-preview", "-out",
+                                          str(Path(td) / "p.png")])):
+            for k in kernels:
+                k.launches = 0
+            rc = app_main([*base, *extra])
+            torch.cuda.synchronize()
+            check(rc == 0, f"{name}: the app exited {rc}")
+            march_n = next(k.launches for k in kernels if k.name == "march")
+            check(march_n == f, f"{name}: march launched {march_n} times")
+            app_lines.append(f"{name} ran {f} frames")
+        lines.append("phase 20 app runs (launches gather_march, light_volume, "
+                     "march): " + "; ".join(app_lines))
+
+        # the X-key alternate frame and the point light inside the volume,
+        # through the Engine
+        eng_lines = []
+        for name, cfg_e, alt in (
+                ("X-key alt frame", cfg.replace(mesh=str(obj)), True),
+                ("-pointlight inside the volume",
+                 cfg.replace(mesh=str(obj), point_light=True,
+                             light_pt=tuple(float(x) for x in WORLD_CENTER)),
+                 False)):
+            for k in kernels:
+                k.launches = 0
+            eng = Engine(cfg_e, dev)
+            cam = OrbitCamera(cfg.width, cfg.height)
+            if alt:
+                check(eng.toggle_path(), "toggle_path did not switch")
+            for frame in range(f):
+                if frame:
+                    cam.orbit(12.0, 0.0)
+                eng.update_frame(frame % 3, cam.eye, cam.view_proj)
+                img = eng.render(frame % 3)
+            eng.sync()
+            got = {k.name: k.launches for k in kernels}
+            check(bool(torch.isfinite(img).all()), f"{name}: not finite")
+            want = ({gm: f, lv_k: f, "march": 0, "parity_voxelize": 0} if alt
+                    else {lv_k: f, "march": f})
+            for k, c in want.items():
+                check(got[k] == c, f"{name}: {k} launched {got[k]} times, "
+                      f"expected {c}")
+            launches[gm] += got[gm]
+            launches[lv_k] += got[lv_k]
+            eng_lines.append(f"{name} launches {got}")
+        lines.append("phase 20 Engine: " + "; ".join(eng_lines))
+
+    # ---- 20b. the kernels against their plain versions ------------------
+    errs = {gm: 0.0, lv_k: 0.0}
+    cases = []
+    grid64 = voxelize(mb, GRID)
+    grid256 = voxelize(mb7, GRID_HI)
+    work = {}
+    for size, grid, c_ in ((GRID, grid64, consts), (GRID_HI, grid256, consts7)):
+        dens = grid.density().contiguous()
+        light = c_.local_space_light_pt
+        for kind, pt, point in (("directional", light, False),
+                                ("point", light, True),
+                                ("inside", LIGHT_INSIDE, True)):
+            t, vec = rf.light_setup(size, pt, point_light=point)
+            got = rf.light_volume(dens, t, vec, point_light=point)
+            want, steps = rf.light_volume_plain(dens, t, vec, point_light=point,
+                                                return_steps=True)
+            e = max_err(got, want)
+            errs[lv_k] = max(errs[lv_k], e)
+            check(e <= TOL_MARCH, f"light_volume {size}^3 {kind} differs by {e:.3g}")
+            cases.append(f"light_volume {size}^3 {kind} {e:.3g}")
+            if kind == "directional":
+                work[("light", size)] = (dens, t, vec, steps, got)
+        lv = work[("light", size)][4]
+        rays = rf.gather_rays(c_.screen_to_local, c_.local_space_eye_pt,
+                              cfg.width, cfg.height, 0.0, dev)
+        got = rf.gather_march(dens, lv, *rays, clear)
+        want, sd, sl = rf.gather_march_plain(dens, lv, *rays, clear,
+                                             return_steps=True)
+        e = max_err(got, want)
+        errs[gm] = max(errs[gm], e)
+        check(e <= TOL_MARCH, f"gather_march {size}^3 differs by {e:.3g}")
+        # a band of 64 rows from row 300: the frame's rows
+        band = rf.gather_rays(c_.screen_to_local, c_.local_space_eye_pt,
+                              cfg.width, 64, 300.0, dev)
+        got_b = rf.gather_march(dens, lv, *band, clear)
+        e_b = max_err(got_b, rf.gather_march_plain(dens, lv, *band, clear,
+                                                   px_chunk=20_000))
+        errs[gm] = max(errs[gm], e_b)
+        check(e_b <= TOL_MARCH and torch.equal(
+            got_b, got.reshape(cfg.height, cfg.width, 3)[300:364].reshape(-1, 3)),
+            f"gather_march {size}^3 band differs by {e_b:.3g}")
+        cases.append(f"gather_march {size}^3 {e:.3g}, band of rows 300-363 "
+                     f"{e_b:.3g}")
+        work[("gather", size)] = (dens, lv, rays, sd, sl)
+    lines.append("phase 20 kernels against their plain versions (max|err|): "
+                 + "; ".join(cases))
+
+    # ---- 20c. times, bounds and yardsticks at the main path's shapes -----
+    times, dev_call, plain, bounds, library, work_lines = {}, {}, {}, {}, {}, []
+    for size in (GRID, GRID_HI):
+        dens, t, vec, steps, lv = work[("light", size)]
+        _, _, rays, sd, sl = work[("gather", size)]
+        n3 = size ** 3
+
+        def lv_call(dens=dens, t=t, vec=vec):
+            return rf.light_volume(dens, t, vec)
+
+        def gm_call(dens=dens, lv=lv, rays=rays):
+            return rf.gather_march(dens, lv, *rays, clear)
+
+        times[(lv_k, size)] = cuda_ms(torch, lv_call)
+        times[(gm, size)] = cuda_ms(torch, gm_call)
+        dev_call[(lv_k, size)] = device_us(torch, lv_call)
+        dev_call[(gm, size)] = device_us(torch, gm_call)
+        plain[(lv_k, size)] = cuda_ms(
+            torch, lambda: rf.light_volume_plain(dens, t, vec), reps=3, inner=1)
+        plain[(gm, size)] = cuda_ms(
+            torch, lambda: rf.gather_march_plain(dens, lv, *rays, clear),
+            reps=3, inner=1)
+        live_l, live_d, live_c = int(steps.sum()), int(sd.sum()), int(sl.sum())
+        hits = int(rays[2].sum())
+        n_px = rays[2].numel()
+        bounds[(lv_k, size)] = bound(n3 * 8 + size * 4,
+                                     live_l * LIGHT_OPS_PER_STEP)
+        bounds[(gm, size)] = bound(
+            2 * n3 * 4 + n_px * (24 + 1 + 12) + 128 * 4,
+            live_d * GATHER_OPS_PER_SAMPLE + live_c * GATHER_OPS_PER_LIGHT
+            + hits * GATHER_OPS_PER_HIT)
+        work_lines.append(
+            f"{size}^3: light volume {live_l} live steps of {n3 * 32}; march "
+            f"{live_d} density samples, {live_c} contributing, {hits} of "
+            f"{n_px} pixels hit")
+        if size == GRID:
+            # yardstick: one grid_sample over the same sample points
+            gs_l, vals_l = grid_sample_at(torch, [dens], live_light_points(
+                torch, t, vec, steps, size, False))
+            gs_g, vals_g = grid_sample_at(torch, [dens, lv], live_gather_points(
+                torch, rf, rays[0], rays[1], sd, 128))
+            library[lv_k] = cuda_ms(torch, gs_l)
+            library[gm] = cuda_ms(torch, gs_g)
+            dev_call[("grid_sample light", size)] = device_us(torch, gs_l)
+            dev_call[("grid_sample march", size)] = device_us(torch, gs_g)
+            # the yardstick reads what the kernels read (a sanity check)
+            pts = live_gather_points(torch, rf, rays[0], rays[1], sd, 128)
+            tex = pts * torch.tensor([0.5, -0.5, 0.5], device=dev) + 0.5
+            e_ys = max_err(vals_g[0], rf._flat_trilinear(dens.reshape(-1),
+                                                         size, tex))
+            check(e_ys <= 1e-5, f"grid_sample reads differ by {e_ys:.3g}")
+            work_lines.append(f"grid_sample yardstick: {vals_l.shape[1]} light "
+                              f"and {vals_g.shape[1]} march points, reads within "
+                              f"{e_ys:.3g} of the kernels' trilinear")
+    lines.append(
+        "phase 20 kernels (CUDA-event ms per call, 10 calls median of 5 / "
+        "profiler device us per call / plain ms, median of 3 / bound ms (by)): "
+        + "; ".join(
+            f"{k} {s}^3 {times[(k, s)]:.4f} / {dev_call[(k, s)]:.2f} / "
+            f"{plain[(k, s)]:.4f} / {bounds[(k, s)][0]:.6f} ({bounds[(k, s)][1]})"
+            for k in (gm, lv_k) for s in (GRID, GRID_HI))
+        + f"; grid_sample yardstick at {GRID}^3: march {library[gm]:.4f} ms "
+        f"({dev_call[('grid_sample march', GRID)]:.2f} us), light volume "
+        f"{library[lv_k]:.4f} ms ({dev_call[('grid_sample light', GRID)]:.2f} "
+        f"us); " + "; ".join(work_lines) + f"; {card}")
+
+    # ---- 20d. the product-path question: gather against warp -hq --------
+    frames = {}
+    for size, cfg_s, mb_s, c_ in ((GRID, cfg, mb, consts),
+                                  (GRID_HI, cfg_hi, mb7, consts7)):
+        for impl in ("warp", "gather"):
+            p_ = FramePipeline(cfg_s, mb_s, render_impl=impl)
+            frames[f"{impl} {size}"] = (lambda p_=p_, c_=c_: p_.frame(c_), p_)
+    turns = frames_in_turns(torch, frames)
+    prof = {name: profile_frames(torch, fn, p.sync, kernels)
+            for name, (fn, p) in frames.items()}
+    frame_lines = []
+    for name, (busy, per_frame, kus) in prof.items():
+        ms_ = statistics.median(turns[name])
+        frame_lines.append(
+            f"{name} {turns[name][0]:.4f} / {turns[name][1]:.4f} ms, busy "
+            f"{busy:.4f} ms (idle share {1 - busy / ms_:.3f}), {per_frame:.0f} "
+            f"device ops per frame, kernel us per frame "
+            f"{ {k: v for k, v in kus.items() if v} }")
+    # render only, on a fixed grid: the gather renderer with its light
+    # volume per frame and with one passed in, and shear-warp
+    render_lines = []
+    for size, cfg_s, grid, c_ in ((GRID, cfg, grid64, consts),
+                                  (GRID_HI, cfg_hi, grid256, consts7)):
+        lv = work[("light", size)][4]
+        r = {"gather": cuda_ms(torch, lambda: render(grid, c_, cfg_s, impl="gather")),
+             "gather, light volume passed in": cuda_ms(
+                 torch, lambda: render(grid, c_, cfg_s, impl="gather",
+                                       light_volume=lv)),
+             "warp -hq": cuda_ms(torch, lambda: render(grid, c_, cfg_s))}
+        render_lines.append(f"{size}^3 " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in r.items()))
+    # both images against the shader-exact oracle at 64^3, 1280x720
+    t0 = time.perf_counter()
+    img_ref = render(grid64, consts, cfg, impl="ref")
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(img_ref).all()), "raymarch_ref not finite")
+    err_lines = []
+    for impl in ("gather", "warp"):
+        e = img_err(torch, render(grid64, consts, cfg, impl=impl), img_ref)
+        err_lines.append(f"{impl} mean {e[0]:.6f} p99 {e[1]:.6f} max {e[2]:.6f}")
+        check(e[0] < 0.03 and e[1] < 0.35, f"{impl} image far from the oracle")
+    lines.append(
+        "phase 20 product path, frames 1280x720 (CUDA events in turns: warp 64, "
+        "gather 64, warp 256, gather 256 and back; profiler windows of "
+        f"{PROFILE_FRAMES} frames): " + "; ".join(frame_lines)
+        + "; render only (grid fixed): " + "; ".join(render_lines)
+        + f"; images against raymarch_ref at {GRID}^3 1280x720 (ref "
+        f"{ref_s:.2f} s on the card): " + "; ".join(err_lines) + f"; {card}")
+    lines.append(f"phase 20 took {time.perf_counter() - t_start:.1f} s")
+    for ln in lines:
+        print(ln)
+    return {"launches": launches, "errs": errs,
+            "ms": {k: (times[(k, GRID)], plain[(k, GRID)]) for k in (gm, lv_k)},
+            "bounds": {k: bounds[(k, GRID)] for k in (gm, lv_k)},
+            "library": library}
 
 
 def main() -> int:
@@ -653,6 +1042,7 @@ def main() -> int:
     from dxrvoxelizer_tpu_torch.ops import (
         _cuda,
         march_cuda,
+        raymarch_fast,
         raystab_cuda,
         raystab_fast,
         raystab_mt_cuda,
@@ -695,7 +1085,8 @@ def main() -> int:
     vq, vqc = voxelize_queue, voxelize_queue_cuda
     rsf, rsc, rmt = raystab_fast, raystab_cuda, raystab_mt_cuda
     kernels = [voxelize_cuda.KERNEL, vqc.KERNEL, march_cuda.KERNEL,
-               screen_warp_cuda.KERNEL, rsc.FOLD_EXTRACT, rsc.FOLD, rmt.KERNEL]
+               screen_warp_cuda.KERNEL, rsc.FOLD_EXTRACT, rsc.FOLD, rmt.KERNEL,
+               raymarch_fast.GATHER_MARCH, raymarch_fast.LIGHT_VOLUME]
     path_kernels = {  # the kernels each main path must launch
         "64": ("parity_voxelize", "march", "resolve"),
         "256": ("parity_queue", "march", "resolve"),
@@ -2137,6 +2528,16 @@ def main() -> int:
               f"copies per frame, kernel device us per frame {kus}, peak device "
               f"memory {peak:.1f} MiB; {card}")
 
+    # ---- 20. the render variants and the rest of the app shell ----------
+    p20 = phase20(torch, app_main, kernels, card, dev, {
+        "64": (cfg, mb, consts), "256": (cfg_hi, mb7, consts7),
+        "mesh6": (v6, t6)})
+    for k, c in p20["launches"].items():
+        main_launches[k] += c
+    errs.update(p20["errs"])
+    ms.update(p20["ms"])
+    library_ms.update(p20["library"])
+
     # ---- bounds: the least time for each kernel's work on this run's data
     w64 = GRID * GRID * (GRID // 32) * 4
     w256 = GRID_HI * GRID_HI * (GRID_HI // 32) * 4
@@ -2152,6 +2553,7 @@ def main() -> int:
         "raystab_fold_extract": raystab_bound(tb_rs, work_rs, True),
         "raystab_fold": raystab_bound(tb_rs, work_rs, False),
         "raystab_mt": bound(bytes1, ops1),
+        **p20["bounds"],
     }
     dev_call_us = {"parity_voxelize": p_dev_us, "parity_queue": q_dev_us[GRID_HI],
                    **rs_dev_us, "raystab_mt": mt_dev_us}

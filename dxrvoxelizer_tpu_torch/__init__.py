@@ -2,7 +2,8 @@
 
 A second package beside the JAX one (``dxrvoxelizer_tpu``, the reference):
 load a Wavefront-OBJ mesh, solid-voxelize it every frame into packed
-occupancy words, and shear-warp ray-march the grid to the screen, on an
+occupancy words, and ray-march the grid to the screen (shear-warp by
+default; the gather renderer and the shader-exact oracle on request), on an
 NVIDIA GPU through hand-written CUDA kernels (``csrc/``), or on the CPU
 through each kernel's plain torch version (``-warp``).
 
@@ -14,8 +15,10 @@ torch and never JAX, and builds no kernel at import time.
 - ``ez``     — stateful ``Engine``.
 - ``models`` — mesh / scene / camera state.
 - ``ops``    — voxelize and render ops, CUDA kernel wrappers + plain versions.
-- ``utils``  — OBJ loader, DirectXMath-convention matrices, timer, PNG, device.
-- ``app``    — CLI (``python -m dxrvoxelizer_tpu_torch.app -mesh x.obj``).
+- ``utils``  — OBJ loader, DirectXMath-convention matrices, timer, PNG,
+  device, profiling.
+- ``app``    — CLI (``python -m dxrvoxelizer_tpu_torch.app -mesh x.obj``),
+  the interactive hotkey loop and the live HTTP preview.
 - ``state``  — turn the JAX package's arrays (as numpy) into this package's.
 """
 

@@ -1,21 +1,31 @@
-"""Application shell: CLI, frame loop, FPS stats, PNG capture.
+"""Application shell: CLI, frame loop, FPS stats, capture sinks.
 
-Port of ``dxrvoxelizer_tpu/app/main.py`` for the flags of the parity
-frame: the reference's ``-mesh <file> [x y z scale]``, ``-warp`` (here:
-the CPU device) and ``-inside raystab`` (the reference's own inside rule),
-plus ``-normals -grid -width -height -frames -out -hq -fast -quality
--noorbit -voximpl -deform``. A frame loop orbits the camera (the
-mouse-drag analog), prints FPS at 1 Hz, and writes the last frame as a PNG.
-``-deform`` wobbles the vertices along their normals every frame, so every
-frame re-bins and re-voxelizes the mesh (the deforming configuration).
+Port of ``dxrvoxelizer_tpu/app/main.py``. The reference app
+(DXRVoxelizer/DXRVoxelizer.cpp) runs an interactive Win32 loop with an orbit
+camera, 1 Hz FPS stats (CalculateFrameStats, :553-584), F11 PNG screenshots
+(:531-551) and runtime path switching with X (:295-297). Headless analog:
+
+- the reference's CLI (``-mesh <file> [x y z scale]``, ``-warp`` -> the
+  CPU device, ``-``/``/`` prefixes, DXRVoxelizer.cpp:363-408), plus the
+  JAX package's extensions: ``-grid -width -height -frames -out -hq -fast
+  -quality -inside -normals -showmip -usemutex -pointlight -noorbit
+  -voximpl -renderimpl -deform -savegrid -loadgrid -timings -ab -profile
+  -interactive -preview [PORT]``;
+- a frame loop that orbits the camera (the mouse-drag analog), prints FPS
+  at 1 Hz, and writes PNG / .npy artifacts. ``-deform`` wobbles the
+  vertices along their normals every frame, so every frame re-bins and
+  re-voxelizes the mesh (the deforming configuration).
+
+``-chips N`` with N > 1 (multi-device frames) is not ported yet and raises.
 
     python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -frames 8 -out f.png
     python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -grid 256 -deform
-    python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -inside raystab
+    python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -renderimpl gather -ab
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 
@@ -26,14 +36,32 @@ from dxrvoxelizer_tpu_torch.ez import Engine
 from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
 from dxrvoxelizer_tpu_torch.utils.config import parse_args
 from dxrvoxelizer_tpu_torch.utils.device import select_device
-from dxrvoxelizer_tpu_torch.utils.image import screenshot_name, write_png
+from dxrvoxelizer_tpu_torch.utils.image import (
+    save_grid_npy,
+    screenshot_name,
+    write_png,
+)
 from dxrvoxelizer_tpu_torch.utils.timer import StepTimer
 
 
 def _parse_extras(argv: list[str]) -> dict:
     """Extension flags (reference-style prefixes)."""
-    out = {"frames": 8, "out": None, "orbit": True, "vox_impl": "auto",
-           "deform": False}
+    out = {
+        "frames": 8,
+        "out": None,
+        "save_grid": None,
+        "orbit": True,
+        "vox_impl": "auto",
+        "render_impl": "warp",
+        "timings": False,
+        "ab": False,
+        "deform": False,
+        "interactive": False,
+        "load_grid": None,
+        "profile": None,
+        "chips": 0,
+        "preview": None,  # None = off; -1 = any free port; else the port
+    }
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -42,12 +70,37 @@ def _parse_extras(argv: list[str]) -> dict:
             out["frames"] = int(argv[i + 1])
         elif key == "out" and i + 1 < len(argv):
             out["out"] = argv[i + 1]
+        elif key == "savegrid" and i + 1 < len(argv):
+            out["save_grid"] = argv[i + 1]
         elif key == "noorbit":
             out["orbit"] = False
         elif key == "voximpl" and i + 1 < len(argv):
             out["vox_impl"] = argv[i + 1]
+        elif key == "renderimpl" and i + 1 < len(argv):
+            out["render_impl"] = argv[i + 1]
+        elif key == "timings":
+            out["timings"] = True
+        elif key == "ab":
+            out["ab"] = True
         elif key == "deform":
             out["deform"] = True
+        elif key == "interactive":
+            out["interactive"] = True
+        elif key == "loadgrid" and i + 1 < len(argv):
+            out["load_grid"] = argv[i + 1]
+        elif key == "profile" and i + 1 < len(argv):
+            out["profile"] = argv[i + 1]
+        elif key == "chips" and i + 1 < len(argv):
+            out["chips"] = int(argv[i + 1])
+        elif key == "preview":
+            # optional port operand: -preview [PORT]
+            port = -1
+            if i + 1 < len(argv):
+                try:
+                    port = int(argv[i + 1])
+                except ValueError:
+                    port = -1
+            out["preview"] = port
         i += 1
     return out
 
@@ -66,14 +119,71 @@ def wobbled(base_mesh, base_x: np.ndarray, frame: int):
     return dataclasses.replace(base_mesh, positions_norm=pos)
 
 
+def _render_saved_grid(engine, cam, cfg, path: str, render_impl: str,
+                       out: str | None) -> str:
+    """-loadgrid: render a saved grid (packed words, or a boolean occupancy
+    grid) without re-voxelizing -> the PNG written."""
+    from dxrvoxelizer_tpu_torch.core.pipeline import VoxelGrid, render
+    from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
+
+    occ = np.load(path)
+    if occ.dtype == np.int32 and occ.ndim == 3 and occ.shape[2] * 32 == occ.shape[0]:
+        grid = VoxelGrid(words=torch.from_numpy(occ).to(engine.device))
+    else:
+        grid = VoxelGrid(words=pack_bits_z(
+            torch.from_numpy(occ.astype(bool)).to(engine.device)))
+    consts = engine.scene.update_frame(cam.eye, cam.view_proj, cfg.width,
+                                       cfg.height)
+    img = render(grid, consts, cfg, impl=render_impl)
+    out = out or screenshot_name()
+    write_png(out, img.cpu().numpy())
+    return out
+
+
+def _ab(engine, cam, cfg, base_mesh) -> bool:
+    """-ab: the voxelizer's fast path against its oracle, words bit for bit,
+    then the two full pipelines' images (shear-warp primary against the
+    gather renderer) within mean 0.03 and p99 0.35."""
+    from dxrvoxelizer_tpu_torch.core.pipeline import render, voxelize
+
+    engine.pipeline.mesh = base_mesh
+    # the oracle matches the fast path's contract: on the card the ray-stab
+    # accels run radial-form intersections, whose bit-exact ground truth is
+    # the radial oracle; everywhere else the Moller-Trumbore oracle
+    oracle = "xla"
+    if cfg.inside_mode == "raystab" and engine.device.type == "cuda":
+        oracle = "xla-radial"
+    a = voxelize(base_mesh, cfg.grid_size, mode=cfg.inside_mode, impl="auto")
+    b = voxelize(base_mesh, cfg.grid_size, mode=cfg.inside_mode, impl=oracle)
+    same = bool(torch.equal(a.words, b.words))
+    print(f"A/B voxelizer paths identical: {same}")
+    if not same:
+        return False
+    consts = engine.scene.update_frame(cam.eye, cam.view_proj, cfg.width,
+                                       cfg.height)
+    diff = (engine.render_grid(a, consts)
+            - render(b, consts, cfg, impl="gather")).abs().cpu().numpy()
+    mean_err = float(diff.mean())
+    p99_err = float(np.percentile(diff, 99))
+    ok = mean_err < 0.03 and p99_err < 0.35
+    print(f"A/B rendered images: mean|err|={mean_err:.4f} p99={p99_err:.4f} "
+          f"-> {'OK' if ok else 'FAIL'}")
+    return ok
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     cfg = parse_args(argv)
     extras = _parse_extras(argv)
+    if extras["chips"] > 1:
+        raise NotImplementedError(
+            f"-chips {extras['chips']}: multi-device frames are not ported to "
+            "the CUDA build yet (ROADMAP.md item 7)")
     # CUDA unless -warp/-cpu asks for the CPU; no silent fallback
     device = select_device("cpu" if cfg.backend == "cpu" else "default")
 
     engine = Engine(cfg, device, vox_impl=extras["vox_impl"],
+                    render_impl=extras["render_impl"],
                     deforming=extras["deform"])
     cam = OrbitCamera(cfg.width, cfg.height)
     timer = StepTimer()
@@ -82,29 +192,90 @@ def main(argv: list[str] | None = None) -> int:
         f"({engine.scene.buffers.num_triangles} tris) grid={cfg.grid_size}^3 "
         f"{cfg.width}x{cfg.height} ss={cfg.render_ss} mode={cfg.inside_mode} "
         f"normals={cfg.parity_normals} vox={extras['vox_impl']} "
-        f"deform={extras['deform']} device={device}"
+        f"render={extras['render_impl']} deform={extras['deform']} "
+        f"device={device}"
     )
+
+    preview = None
+    if extras["preview"] is not None:
+        # live view (the swap-chain Present analog): open the printed URL
+        from dxrvoxelizer_tpu_torch.app.preview import PreviewServer
+
+        port = extras["preview"]
+        preview = PreviewServer(port=0 if port < 0 else port)
+        print(f"live preview: {preview.url}")
+
+    if extras["interactive"]:
+        # hotkey loop (Space/f/s/x/q, the reference's WndProc analog,
+        # DXRVoxelizer.cpp:282-299); -frames still bounds it
+        from dxrvoxelizer_tpu_torch.app.interactive import run_interactive
+
+        frames = run_interactive(engine, cam, extras["frames"],
+                                 orbit=extras["orbit"], preview=preview)
+        print(f"rendered {frames} frames")
+        if preview is not None:
+            preview.close()
+        return 0
+
+    if extras["load_grid"]:
+        out = _render_saved_grid(engine, cam, cfg, extras["load_grid"],
+                                 extras["render_impl"], extras["out"])
+        print(f"rendered saved grid {extras['load_grid']} -> {out}")
+        return 0
+
     base_mesh = engine.pipeline.mesh
     if extras["deform"]:
         base_x = base_mesh.positions_norm[:, :1].cpu().numpy()
+    from dxrvoxelizer_tpu_torch.utils.profiling import PassTimers, device_trace
 
+    # -profile DIR: a profiler trace of the frame loop (the PIX-capture
+    # analog), written as a Chrome trace into DIR
+    trace_ctx = (device_trace(extras["profile"]) if extras["profile"]
+                 else contextlib.nullcontext())
     img = None
     last_fps = 0.0
-    for frame in range(extras["frames"]):
-        timer.tick()
-        if extras["orbit"] and frame:
-            cam.orbit(12.0, 0.0)  # slow yaw, the mouse-drag analog
-        if extras["deform"]:
-            engine.pipeline.mesh = wobbled(base_mesh, base_x, frame)
-        engine.update_frame(frame % 3, cam.eye, cam.view_proj)
-        img = engine.render(frame % 3)
-        if timer.frames_per_second != last_fps:
-            last_fps = timer.frames_per_second
-            print(f"fps: {last_fps:.1f}")
-    engine.sync()
+    with trace_ctx:
+        for frame in range(extras["frames"]):
+            timer.tick()
+            if preview is not None:
+                # browser drag-orbit / wheel-zoom (DXRVoxelizer.cpp:301-356)
+                preview.apply_camera_inputs(cam)
+            if extras["orbit"] and frame:
+                cam.orbit(12.0, 0.0)  # slow yaw, the mouse-drag analog
+            if extras["deform"]:
+                engine.pipeline.mesh = wobbled(base_mesh, base_x, frame)
+            engine.update_frame(frame % 3, cam.eye, cam.view_proj)
+            img = engine.render(frame % 3)
+            if preview is not None and preview.wants_frame():
+                preview.publish(img)
+            if timer.frames_per_second != last_fps:
+                last_fps = timer.frames_per_second
+                print(f"fps: {last_fps:.1f}")
+        engine.sync()
+    if preview is not None:
+        preview.close()
+
+    if extras["ab"] and not _ab(engine, cam, cfg, base_mesh):
+        return 1
 
     if img is not None:
         out = extras["out"] or screenshot_name()
         write_png(out, img.cpu().numpy())
         print(f"wrote {out}")
+    if extras["save_grid"]:
+        grid = engine.voxelize_only()
+        save_grid_npy(extras["save_grid"], grid.occupancy().cpu().numpy())
+        print(f"wrote {extras['save_grid']}")
+
+    if extras["timings"]:
+        # fenced voxelize / raycast passes: per-pass wall clock
+        timers = PassTimers(device)
+        consts = engine.scene.update_frame(cam.eye, cam.view_proj, cfg.width,
+                                           cfg.height)
+        for _ in range(3):
+            with timers.measure("voxelize"):
+                grid = engine.voxelize_only()
+            with timers.measure("raycast"):
+                engine.render_grid(grid, consts)
+        print(f"pass timings (ms): {timers.summary()}")
     return 0

@@ -8,7 +8,10 @@ package routes them: on a GPU through the gen-6 accel at n < 128 and the
 gen-7 accel above (refitted every frame when deforming, built through the
 on-disk accel cache otherwise); on the CPU, at every n, through the gen-1
 accel (``-inside raystab``; rebuilt when the mesh changes) and the
-Moller-Trumbore oracle under rule "hit" (``-normals``).
+Moller-Trumbore oracle under rule "hit" (``-normals``). ``render`` takes
+every renderer of the JAX package (shear-warp, the default; the gather
+march; the shader-exact oracle), mip levels (``-showmip``) and the point
+light (``-pointlight``).
 The reference's per-frame loop (Content/Voxelizer.cpp:108-113) is
 ``Render = voxelize() ; renderRayCast()`` against triple-buffered grids
 (FrameCount = 3, Voxelizer.h:24). Here the two passes are torch functions on
@@ -38,8 +41,15 @@ from dxrvoxelizer_tpu_torch.ops.packing import (
     quantize_r10g10b10a2,
     unpack_bits_z,
 )
+from dxrvoxelizer_tpu_torch.ops.mips import mip_level
+from dxrvoxelizer_tpu_torch.ops.raymarch_fast import (
+    precompute_light_volume,
+    raymarch_fast,
+)
+from dxrvoxelizer_tpu_torch.ops.raymarch_ref import raymarch_ref
 from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
     light_sweep_host,
+    light_sweep_point_host,
     light_sweep_ref_host,
     raymarch_shearwarp,
 )
@@ -54,13 +64,6 @@ FRAME_COUNT = 3  # frames in flight (reference: Voxelizer.h:24)
 # ray-stab impl names that run the direction-space accel, as in the JAX
 # package (the parity kernels' names select it too)
 RAYSTAB_ACCEL_IMPLS = ("auto", "fast", "queue", "pallas")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the CUDA build yet (ROADMAP.md, queue 1, "
-        f"{item!r})"
-    )
 
 
 @dataclass
@@ -229,32 +232,58 @@ def render(
     """Ray-march a grid -> [H,W,3] float32 image on the grid's device.
 
     ``impl``: "warp" (shear-warp, the production path; "fast" is its alias,
-    as in the JAX package). ``light_volume`` [N,N,N]: a light field to march
-    with instead of the sweep's. ``use_kernels=False`` runs the plain
-    versions of the march and resolve kernels (the on-card reference).
+    as in the JAX package), "gather" (the per-pixel march over a light
+    volume, ops/raymarch_fast.py) or "ref" (the shader-exact sequential
+    oracle, ops/raymarch_ref.py). ``cfg.show_mip`` renders from that mip
+    level of the grid (SharedConst.h:5); ``cfg.use_mutex`` selects the
+    float-grid sampling (no 2-bit alpha quantization of the mips,
+    PSRayCast.hlsl:42-46); ``cfg.point_light`` the _POINT_LIGHT_ branch.
+    ``light_volume`` [N,N,N]: a light field to march with ("warp",
+    "gather") instead of the one computed here. ``use_kernels=False`` runs
+    the plain versions of the kernels (the on-card reference).
     """
-    if impl in ("gather", "ref"):
-        raise _not_ported(f"the {impl!r} renderer", "Render variants")
-    if impl not in ("warp", "fast"):
-        raise ValueError(f"unknown renderer impl {impl!r}")
-    if cfg.show_mip > 0:
-        raise _not_ported("mip rendering (-showmip)", "Render variants")
-    if cfg.point_light:
-        raise _not_ported("the point light (-pointlight)", "Render variants")
     density = grid.density()
-    if light_volume is None:
-        # -hq: reference-step light field; -fast: per-slab recurrence
-        sweep = light_sweep_ref_host if cfg.render_ss > 1 else light_sweep_host
-        light_volume = sweep(density, consts.local_space_light_pt,
-                             density.shape[0])
-    elif tuple(light_volume.shape) != tuple(density.shape):
+    if cfg.show_mip > 0:
+        density = mip_level(density, cfg.show_mip,
+                            quantize_alpha=not cfg.use_mutex)
+    clear = np.array(cfg.clear_color, np.float32)
+    light = consts.local_space_light_pt
+    if impl == "ref":
+        return raymarch_ref(
+            density, consts.screen_to_local, consts.local_space_eye_pt, light,
+            clear, cfg.width, cfg.height, n_samples=cfg.num_samples,
+            n_light=cfg.num_light_samples, point_light=cfg.point_light,
+        )
+    if light_volume is not None and (
+            tuple(light_volume.shape) != tuple(density.shape)):
         raise ValueError(f"light_volume: expected {tuple(density.shape)}, "
                          f"got {tuple(light_volume.shape)}")
+    if impl == "gather":
+        if light_volume is None:
+            light_volume = precompute_light_volume(
+                density, light, n_light=cfg.num_light_samples,
+                point_light=cfg.point_light, use_kernel=use_kernels,
+            )
+        return raymarch_fast(
+            density, light_volume, consts.screen_to_local,
+            consts.local_space_eye_pt, clear, cfg.width, cfg.height,
+            n_samples=cfg.num_samples, use_kernel=use_kernels,
+        )
+    if impl not in ("warp", "fast"):
+        raise ValueError(f"unknown renderer impl {impl!r}")
+    if light_volume is None:
+        if cfg.point_light:
+            sweep = light_sweep_point_host
+        elif cfg.render_ss > 1:
+            # -hq: reference-step light field; -fast: per-slab recurrence
+            sweep = light_sweep_ref_host
+        else:
+            sweep = light_sweep_host
+        light_volume = sweep(density, light, density.shape[0])
     return raymarch_shearwarp(
         density, light_volume, consts.screen_to_local,
-        consts.local_space_eye_pt, np.array(cfg.clear_color, np.float32),
-        cfg.width, cfg.height, m_cap=cfg.intermediate_cap, ss=cfg.render_ss,
-        use_kernels=use_kernels,
+        consts.local_space_eye_pt, clear, cfg.width, cfg.height,
+        m_cap=cfg.intermediate_cap, ss=cfg.render_ss, use_kernels=use_kernels,
     )
 
 

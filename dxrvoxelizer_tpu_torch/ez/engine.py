@@ -3,9 +3,9 @@
 Port of ``dxrvoxelizer_tpu/ez/engine.py``: ``VoxelizerEZ::{Init,
 UpdateFrame, Render}`` (Content/VoxelizerEZ.h:17-23). ``Engine`` wires scene
 loading, per-frame constants, voxelize and ray-march; per-frame constants
-are slot-indexed like the reference's triple-buffered CBV sets. The
-alternate pipeline (X-key switch) and multi-device frames are not ported
-yet (ROADMAP.md).
+are slot-indexed like the reference's triple-buffered CBV sets. The X key's
+alternate pipeline (``toggle_path``) is an independent implementation of
+both passes. Multi-device frames are not ported yet (ROADMAP.md item 7).
 """
 
 from __future__ import annotations
@@ -38,6 +38,31 @@ class Engine:
             deforming=deforming,
         )
         self._consts: list[FrameConstants | None] = [None] * FRAME_COUNT
+        self.last_grid: VoxelGrid | None = None
+        # the reference keeps TWO complete pipelines alive and the X key
+        # swaps voxelize AND render between them (DXRVoxelizer.cpp:190-199,
+        # 295-297, 420-481); the alternate here is the counting oracle +
+        # the gather ray-marcher, built on the first switch
+        self.use_alt = False
+        self._pipeline_alt: FramePipeline | None = None
+
+    @property
+    def pipeline_alt(self) -> FramePipeline:
+        """The alternate (oracle voxelize + gather render) pipeline."""
+        if self._pipeline_alt is None:
+            self._pipeline_alt = FramePipeline(
+                self.cfg, self.pipeline.mesh, vox_impl="xla",
+                render_impl="gather",
+            )
+        return self._pipeline_alt
+
+    def toggle_path(self) -> bool:
+        """X-key analog: swap the ACTIVE pipeline (voxelize + render).
+
+        Returns True when the alternate pipeline is now active.
+        """
+        self.use_alt = not self.use_alt
+        return self.use_alt
 
     # -- reference surface ---------------------------------------------------
     def update_frame(self, frame_index: int, eye_pt, view_proj) -> None:
@@ -50,21 +75,30 @@ class Engine:
         )
 
     def render(self, frame_index: int) -> torch.Tensor:
-        """Voxelizer::Render analog: voxelize + ray-cast one frame."""
+        """Voxelizer::Render analog: voxelize + ray-cast one frame on the
+        active pipeline."""
         consts = self._consts[frame_index % FRAME_COUNT]
         if consts is None:
             raise RuntimeError("update_frame must be called before render")
+        if self.use_alt:
+            alt = self.pipeline_alt
+            alt.mesh = self.pipeline.mesh  # track deforming-geometry swaps
+            return alt.frame(consts)
         return self.pipeline.frame(consts)
 
     # -- conveniences --------------------------------------------------------
     def voxelize_only(self) -> VoxelGrid:
-        return voxelize(
+        grid = voxelize(
             self.scene.buffers, self.cfg.grid_size, mode=self.cfg.inside_mode,
             impl=self.pipeline.vox_impl,
         )
+        self.last_grid = grid
+        return grid
 
     def render_grid(self, grid: VoxelGrid, consts: FrameConstants) -> torch.Tensor:
         return render(grid, consts, self.cfg, impl=self.pipeline.render_impl)
 
     def sync(self) -> None:
         self.pipeline.sync()
+        if self._pipeline_alt is not None:
+            self._pipeline_alt.sync()

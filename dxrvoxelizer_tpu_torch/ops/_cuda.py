@@ -74,6 +74,13 @@ _SIGNATURES = {
     # the same, then threads, defer, stage, stream
     "dxv_raystab_mt_variant": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _P),
+    # density, light, entry, dir, hit, soff, rgb, n, n_px, n_samples,
+    # step_scale, clear r, g, b, stream
+    "dxv_gather_march": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                         _F, _P),
+    # density, t, out, n, n_light, lss, step or light point x, y, z, point,
+    # stream
+    "dxv_light_volume": (_P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
 }
 
 

@@ -10,7 +10,10 @@
    2 are one fused CUDA kernel (ops/march_cuda.py).
 3. **Light transmittance** comes from a slab-order recurrence along the
    light's major axis (:func:`light_sweep`, or the reference-step
-   :func:`light_sweep_ref` of the ``-hq`` default) — torch tensor ops.
+   :func:`light_sweep_ref` of the ``-hq`` default; for the point light the
+   perspective :func:`light_sweep_point`) — torch tensor ops; where the
+   recurrence does not apply (a light step under one slab, a light inside
+   the volume) the exact per-voxel field of ops/raymarch_fast.py.
 4. **Screen resolve**: each screen pixel finds where its ray meets the
    intermediate plane and whether it hits the volume, bilinearly reads the
    composited intermediate there and is composited to RGB — the second
@@ -34,12 +37,17 @@ from dxrvoxelizer_tpu_torch.ops.march_cuda import (
     march_ring,
     zmix_slabs,
 )
+from dxrvoxelizer_tpu_torch.ops.raymarch_fast import precompute_light_volume
 from dxrvoxelizer_tpu_torch.ops.raymarch_ref import ABSORPTION, MAX_DIST, TEX_SCALE
 from dxrvoxelizer_tpu_torch.ops.screen_warp_cuda import (
     resolve_screen,
     resolve_screen_plain,
 )
-from dxrvoxelizer_tpu_torch.ops.warp import interp_matrix, perm_for_axis
+from dxrvoxelizer_tpu_torch.ops.warp import (
+    interp_matrix,
+    perm_for_axis,
+    scale_offset_coords,
+)
 
 Z_REF = 1.25  # reference plane (tex space), just past the far slab
 S_MIN = 0.05  # near clipping for slabs almost at the eye plane
@@ -130,6 +138,79 @@ def light_sweep(density: torch.Tensor, light_local: np.ndarray,
         lvol[k] = l_k
         carry = l_k * att[k]
     return _from_slab_order(lvol, perm, flip)
+
+
+def light_sweep_point(density: torch.Tensor, light_local: np.ndarray,
+                      n: int, axis: int, flip: bool) -> torch.Tensor:
+    """Point-light transmittance volume by perspective slab sweep -> [N,N,N].
+
+    The _POINT_LIGHT_ variant of :func:`light_sweep` (PSRayCast.hlsl:151-154):
+    rays emanate from the light POINT, so the per-slab resample is a
+    scale+offset toward the light's xy instead of a constant shift, and the
+    per-crossing path length varies per voxel (``(2/N)*|p-l|/|p_z-l_z|``).
+    Requires the light outside the volume beyond the ``axis``/``flip`` side
+    (:func:`light_sweep_point_host` checks and takes the exact per-voxel
+    field otherwise). The matmuls are FP32 (no TF32 on the card).
+    """
+    if density.is_cuda:
+        assert not torch.backends.cuda.matmul.allow_tf32, "the sweep is FP32"
+    device = density.device
+    perm = perm_for_axis(axis)
+    dens = _to_slab_order(density, perm, flip)  # [K, X, Y]
+    l_t = (_f32(TEX_SCALE) * _f32(light_local) + 0.5)[list(perm)]
+    if flip:
+        l_t = l_t * _f32([1.0, 1.0, -1.0]) + _f32([0.0, 0.0, 1.0])
+    lx, ly, lz = (v.to(device) for v in l_t)
+
+    k = torch.arange(n, dtype=torch.float32, device=device)
+    z_k = (k + 0.5) / n
+    # slab k reads the carry field at its light-ray crossing of slab k+1:
+    # q = l + a_k (p - l), a_k = (z_{k+1}-lz)/(z_k-lz); the last slab's map
+    # is arbitrary (the carry is all-ones there)
+    z_next = torch.cat([z_k[1:], torch.full((1,), (n + 0.5) / n,
+                                            dtype=torch.float32, device=device)])
+    a_k = (z_next - lz) / (z_k - lz)  # [K]
+    wx = interp_matrix(scale_offset_coords(n, a_k, n * lx * (1.0 - a_k) - 0.5),
+                       n)  # [K, n, n]
+    wy = interp_matrix(scale_offset_coords(n, a_k, n * ly * (1.0 - a_k) - 0.5),
+                       n)
+
+    # per-voxel crossing length in normalized-space units (the obliquity
+    # ratio is scale-invariant, so tex-space components work directly)
+    x_t = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
+    dx2 = (x_t[:, None] - lx) ** 2  # [X, 1]
+    dy2 = (x_t[None, :] - ly) ** 2  # [1, Y]
+    dz = z_k - lz  # [K]
+    delta = (2.0 / n) * torch.sqrt(
+        dx2[None] + dy2[None] + (dz**2)[:, None, None]
+    ) / torch.abs(dz)[:, None, None]  # [K, X, Y]
+
+    g = torch.clamp(dens * 8.0, max=16.0)
+    att = torch.clamp(1.0 - ABSORPTION * delta * g, 0.0, 1.0)  # [K, X, Y]
+
+    lvol = torch.empty((n, n, n), dtype=torch.float32, device=device)
+    carry = torch.ones((n, n), dtype=torch.float32, device=device)
+    for s in range(n - 1, -1, -1):
+        wsum = wx[s].sum(-1)[:, None] * wy[s].sum(-1)[None, :]
+        l_k = wx[s] @ carry @ wy[s].t() + (1.0 - wsum)
+        lvol[s] = l_k
+        carry = l_k * att[s]
+    return _from_slab_order(lvol, perm, flip)
+
+
+def light_sweep_point_host(density: torch.Tensor, light_local: np.ndarray,
+                           n: int) -> torch.Tensor:
+    """Point-light field: perspective sweep when the light clears the
+    volume along its major axis, else the exact per-voxel march
+    (:func:`~dxrvoxelizer_tpu_torch.ops.raymarch_fast.precompute_light_volume`)."""
+    light_local = np.asarray(light_local)
+    l_t = np.asarray(TEX_SCALE) * light_local + 0.5
+    axis = int(np.argmax(np.abs(l_t - 0.5)))
+    flip = bool(l_t[axis] < 0.5)
+    lz = 1.0 - l_t[axis] if flip else l_t[axis]
+    if lz <= 1.0 + 1.0 / n:
+        return precompute_light_volume(density, light_local, point_light=True)
+    return light_sweep_point(density, light_local, n, axis, flip)
 
 
 def light_statics(light_local: np.ndarray) -> tuple[int, bool]:
@@ -253,14 +334,11 @@ def light_sweep_ref(density: torch.Tensor, light_local: np.ndarray,
 
 def light_sweep_ref_host(density: torch.Tensor, light_local: np.ndarray,
                          n: int, n_light: int = 32) -> torch.Tensor:
-    """Reference-step light field by the blocked recurrence (``d0 >= 1``)."""
+    """Reference-step light field: the blocked recurrence when the step
+    spans >= 1 slab, else the exact per-voxel march (tiny grids)."""
     axis, flip, d0 = light_ref_statics(light_local, n, n_light)
     if d0 < 1:
-        raise NotImplementedError(
-            f"the -hq light step spans < 1 slab at {n}^3 (d0 = 0): the exact "
-            "per-voxel field (precompute_light_volume) is not ported yet "
-            "(ROADMAP.md, queue 1, 'Render variants')"
-        )
+        return precompute_light_volume(density, light_local, n_light=n_light)
     return light_sweep_ref(density, light_local, n, axis, flip, d0,
                            n_light=n_light)
 

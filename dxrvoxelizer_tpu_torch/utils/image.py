@@ -3,8 +3,8 @@
 The reference's F11 screenshot path reads back the framebuffer and encodes a
 timestamped PNG with stb_image_write (reference: DXRVoxelizer.cpp:531-551,
 Common/stb_image_write.h). Here: a dependency-free PNG encoder (zlib is in the
-stdlib; the JAX package's native C++ encoder and its ``.npy`` grid export
-are not carried over yet).
+stdlib; the JAX package's native C++ encoder is not carried over yet) and
+``.npy`` export of voxel grids (``-savegrid``).
 """
 
 from __future__ import annotations
@@ -117,3 +117,10 @@ def read_png(path: str | Path) -> np.ndarray:
 def screenshot_name(prefix: str = "dxrvoxelizer_tpu_torch") -> str:
     """Timestamped capture name (reference: DXRVoxelizer.cpp:537-546)."""
     return time.strftime(f"{prefix}_%Y%m%d_%H%M%S.png")
+
+
+def save_grid_npy(path: str | Path, occupancy: np.ndarray) -> Path:
+    """Write a voxel grid (an occupancy array, or packed words) as .npy."""
+    path = Path(path)
+    np.save(path, np.asarray(occupancy))
+    return path

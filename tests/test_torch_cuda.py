@@ -603,3 +603,97 @@ def test_raystab_gen1_query_bit_identical_to_mt_oracle(dev, mesh):
     occ_r, rgba_r = voxelize_raystab_ref(v, nr, t, n=64)
     assert torch.equal(occ, occ_r) and torch.equal(rgba, rgba_r)
     assert bool(occ.any())
+
+
+# ---- the render variants' kernels (hand-written for XLA code) ---------------
+
+def _frame_rays(dev, n_mesh=4, width=320, height=180):
+    """An icosphere frame's density (the binned kernel at 64^3), frame
+    constants and ray set-up, as the gather renderer takes them."""
+    from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
+    from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
+
+    v, nrm, t = icosphere_mesh(n_mesh)
+    world = v * np.float32(5.5) + np.array([0.0, 4.0, 0.0], np.float32)
+    obj = ObjMesh(positions=world, normals=nrm, indices=t.reshape(-1),
+                  aabb_min=world.min(0), aabb_max=world.max(0))
+    scene = Scene(obj, dev)
+    cam = OrbitCamera(width, height)
+    fc = scene.update_frame(cam.eye, cam.view_proj, width, height)
+    density = voxelize(scene.buffers, 64).density().contiguous()
+    rays = rf.gather_rays(fc.screen_to_local, fc.local_space_eye_pt, width,
+                          height, 0.0, dev)
+    return density, fc, rays
+
+
+def _random_density(dev, n, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    d = (torch.rand((n, n, n), generator=g) < 0.2).float()
+    # fractional alphas too (mip levels, R10G10B10A2 rounding)
+    d[: n // 2] *= torch.rand((n // 2, n, n), generator=g)
+    return d.to(dev)
+
+
+@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("light", ["directional", "point", "inside"])
+def test_light_volume_kernel_bit_identical_to_plain(dev, n, light):
+    """csrc/light_volume.cu against its plain version on random grids with
+    fractional alphas: directional, point light outside and inside."""
+    from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
+
+    pt = {"directional": (-10.0, 45.0, -75.0), "point": (1.3, -2.0, 4.5),
+          "inside": (0.1, -0.3, 0.2)}[light]
+    dens = _random_density(dev, n)
+    t, vec = rf.light_setup(n, np.array(pt, np.float32),
+                            point_light=light != "directional")
+    point = light != "directional"
+    got = rf.light_volume(dens, t, vec, point_light=point)
+    want = rf.light_volume_plain(dens, t, vec, point_light=point)
+    assert torch.equal(got, want)
+    assert bool((want < 1).any()) and float(want.max()) > float(want.min())
+
+
+@pytest.mark.parametrize("light", ["directional", "point"])
+def test_gather_march_kernel_bit_identical_to_plain(dev, light):
+    """csrc/gather_march.cu against its plain version on the icosphere
+    frame (its light volume from the kernel), whole, with the plain
+    version in pixel chunks smaller than the frame, and on a band of rows
+    (y_offset) that equals the frame's rows; and on a random grid."""
+    from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
+
+    clear = np.array([0.0, 0.2, 0.4], np.float32)
+    density, fc, (entry, ray_dir, hit) = _frame_rays(dev)
+    lv = rf.precompute_light_volume(density, fc.local_space_light_pt,
+                                    point_light=light == "point")
+    got = rf.gather_march(density, lv, entry, ray_dir, hit, clear)
+    want = rf.gather_march_plain(density, lv, entry, ray_dir, hit, clear,
+                                 px_chunk=10_000)
+    assert torch.equal(got, want)
+    assert float((got - torch.tensor(clear, device=dev)).abs().max()) > 0.1
+    band = rf.gather_rays(fc.screen_to_local, fc.local_space_eye_pt, 320, 40,
+                          60.0, dev)
+    got_b = rf.gather_march(density, lv, *band, clear)
+    assert torch.equal(got_b, rf.gather_march_plain(density, lv, *band, clear))
+    assert torch.equal(got_b, got.reshape(180, 320, 3)[60:100].reshape(-1, 3))
+    rnd = _random_density(dev, 64, seed=9)
+    lv_r = rf.precompute_light_volume(rnd, fc.local_space_light_pt)
+    assert torch.equal(rf.gather_march(rnd, lv_r, entry, ray_dir, hit, clear),
+                       rf.gather_march_plain(rnd, lv_r, entry, ray_dir, hit,
+                                             clear))
+
+
+@pytest.mark.parametrize("impl", ["gather", "ref"])
+def test_render_variant_on_the_card_matches_the_cpu(dev, impl):
+    """render(impl="gather"/"ref") with mips and the point light on the
+    card within 1e-5 of the same render on the CPU."""
+    from dxrvoxelizer_tpu_torch.core.pipeline import VoxelGrid, render
+    from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
+
+    density, fc, _ = _frame_rays(dev, width=96, height=64)
+    words = pack_bits_z(density > 0)
+    for kw in ({}, {"show_mip": 1}, {"point_light": True}):
+        cfg = VoxelizerConfig(width=96, height=64, num_samples=64,
+                              num_light_samples=16, **kw)
+        a = render(VoxelGrid(words=words), fc, cfg, impl=impl)
+        b = render(VoxelGrid(words=words.cpu()), fc, cfg, impl=impl)
+        assert float((a.cpu() - b).abs().max()) <= 1e-5, kw

@@ -16,6 +16,7 @@ import torch
 from dxrvoxelizer_tpu_torch.ops import (
     _cuda,
     march_cuda,
+    raymarch_fast,
     raystab_cuda,
     raystab_mt_cuda,
     screen_warp_cuda,
@@ -48,7 +49,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
     mods = _modules()
     for m in ("ops.voxelize_cuda", "ops.voxelize_queue", "ops.voxelize_queue_cuda",
               "ops.intersect", "ops.raystab_fast", "ops.raystab_cuda",
-              "ops.raystab_mt_cuda", "state", "app.main"):
+              "ops.raystab_mt_cuda", "ops.raymarch_fast", "ops.raymarch_ref",
+              "ops.sampling", "ops.mips", "utils.profiling", "state",
+              "app.main", "app.interactive", "app.preview"):
         assert f"dxrvoxelizer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -106,6 +109,22 @@ def _meta(*shape, dtype=torch.float32):
 KERNELS = (voxelize_cuda.KERNEL, voxelize_queue_cuda.KERNEL, march_cuda.KERNEL,
            screen_warp_cuda.KERNEL, raystab_cuda.FOLD_EXTRACT, raystab_cuda.FOLD,
            raystab_mt_cuda.KERNEL)
+# hand-written kernels for functions that are XLA code in the JAX package
+XLA_KERNELS = (raymarch_fast.GATHER_MARCH, raymarch_fast.LIGHT_VOLUME)
+ALL_KERNELS = KERNELS + XLA_KERNELS
+
+
+def _gather_march_meta():
+    raymarch_fast.gather_march(_meta(32, 32, 32), _meta(32, 32, 32),
+                               _meta(100, 3), _meta(100, 3),
+                               _meta(100, dtype=torch.bool),
+                               np.zeros(3, np.float32))
+
+
+def _light_volume_meta(point: bool):
+    t, vec = raymarch_fast.light_setup(32, np.array([1.0, 2.0, 3.0]),
+                                       point_light=point)
+    raymarch_fast.light_volume(_meta(32, 32, 32), t, vec, point_light=point)
 
 
 def _meta_strips(s=2, p=300, bounds=True):
@@ -133,13 +152,18 @@ def _meta_map():
 @pytest.mark.parametrize("kernel", ["parity_voxelize", "parity_queue", "march",
                                     "resolve", "raystab_fold_extract",
                                     "raystab_fold", "raystab_mt",
-                                    "raystab_mt_shared"])
+                                    "raystab_mt_shared", "gather_march",
+                                    "light_volume", "light_volume_point"])
 def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises — the
     plain version is never a silent fallback for it."""
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in ALL_KERNELS}
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        if kernel == "parity_voxelize":
+        if kernel == "gather_march":
+            _gather_march_meta()
+        elif kernel.startswith("light_volume"):
+            _light_volume_meta(kernel.endswith("point"))
+        elif kernel == "parity_voxelize":
             voxelize_cuda.voxelize_parity_tiles(_meta(1, 8, 16), 32)
         elif kernel == "parity_queue":
             voxelize_queue_cuda.voxelize_parity_queue_chunks(
@@ -162,7 +186,7 @@ def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
                 _meta(8, 8), _meta(8, 8), np.eye(4, dtype=np.float32),
                 np.zeros(3, np.float32), np.zeros(3, np.float32), 3, 2, 2,
                 False, True, _meta_map())
-    after = {k.name: k.launches for k in KERNELS}
+    after = {k.name: k.launches for k in ALL_KERNELS}
     assert after == launches
 
 
@@ -174,7 +198,12 @@ def test_wrapper_on_a_box_without_cuda_raises_not_falls_back(monkeypatch):
     # bypass the process-wide caches (a card's tests may have filled them)
     monkeypatch.setattr(_cuda, "build", _cuda.build.__wrapped__)
     monkeypatch.setattr(_cuda, "load", _cuda.load.__wrapped__)
-    before = {k.name: k.launches for k in KERNELS}
+    before = {k.name: k.launches for k in ALL_KERNELS}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _gather_march_meta()
+    for point in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _light_volume_meta(point)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         voxelize_cuda.voxelize_parity_tiles(_meta(1, 8, 16), 32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -198,14 +227,17 @@ def test_wrapper_on_a_box_without_cuda_raises_not_falls_back(monkeypatch):
             _meta(8, 8), _meta(8, 8), np.eye(4, dtype=np.float32),
             np.zeros(3, np.float32), np.zeros(3, np.float32), 3, 2, 2, False,
             True, _meta_map(), coords=True)
-    assert {k.name: k.launches for k in KERNELS} == before
+    assert {k.name: k.launches for k in ALL_KERNELS} == before
 
 
 def test_cuda_sources_present_with_notes():
-    for k in KERNELS:
+    """Every kernel's source carries its note; ``replaces`` names the Pallas
+    kernel's function (TPU kernels) or the XLA function (the others)."""
+    for k in ALL_KERNELS:
         src = (REPO / k.source).read_text()
         assert "Replaces:" in src and "What bounds it on the card" in src
         assert "Design:" in src
         path, line = k.replaces.split(":")
         text = (REPO / path).read_text().splitlines()
-        assert text[int(line) - 1].startswith("def _"), k.replaces
+        prefix = "def _" if k in KERNELS else "def "
+        assert text[int(line) - 1].startswith(prefix), k.replaces

@@ -161,8 +161,9 @@ def _route_stub(name):
 
 
 def test_unported_options_raise(monkeypatch):
-    """Options off the ported slices raise; the queue, deforming, ray-stab
-    and -normals paths run (on the CPU through gen-1 and the MT oracle, at
+    """Every option of the JAX package's render now runs (mips, the point
+    light, the gather and ref renderers, checked against JAX); the queue,
+    deforming, ray-stab and -normals paths run (on the CPU through gen-1 and the MT oracle, at
     every n, deforming meshes included). On a GPU, ray-stab and -normals
     route as in the JAX package: gen-7 at n >= 128 (through the accel cache
     unless -noaccelcache), gen-6 below, and with -deform the gen-7 or gen-6
@@ -216,12 +217,24 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(_Routed, match="^gen-7$"):
         voxelize(mb, 128, with_normals=True, impl="xla")
     monkeypatch.undo()
+    # the render variants match the JAX package's render on the same grid:
+    # shear-warp at the tet-golden bound (2e-3), the gather renderer and the
+    # oracle within 1e-5
+    import jax.numpy as jnp
+
+    from dxrvoxelizer_tpu.core.pipeline import VoxelGrid as JaxVoxelGrid
+    from dxrvoxelizer_tpu.core.pipeline import render as jax_render
+
     g = voxelize(scene.buffers, N)
-    for cfg, impl in ((base.replace(show_mip=1), "warp"),
-                      (base.replace(point_light=True), "warp"),
-                      (base, "gather"), (base, "ref")):
-        with pytest.raises(NotImplementedError):
-            render(g, fc, cfg, impl=impl)
+    jg = JaxVoxelGrid(words=jnp.asarray(g.words.numpy()))
+    ref_kw = {"num_samples": 32, "num_light_samples": 8}
+    for kw, impl, tol in (({"show_mip": 1}, "warp", 2e-3),
+                          ({"point_light": True}, "warp", 2e-3),
+                          ({}, "gather", 1e-5), (ref_kw, "ref", 1e-5)):
+        got = render(g, fc, base.replace(**kw), impl=impl)
+        want = np.asarray(jax_render(
+            jg, fc, JaxConfig(grid_size=N, width=W, height=H, **kw), impl=impl))
+        assert np.abs(got.numpy() - want).max() <= tol, (kw, impl)
     want = render(voxelize(scene.buffers, N, impl="xla"), fc, base)
     for kw in ({"vox_impl": "queue"}, {"deforming": True},
                {"deforming": True, "vox_impl": "queue"}):

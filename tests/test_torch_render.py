@@ -52,7 +52,8 @@ def _density(n, seed=3, p=0.12):
 @pytest.mark.parametrize("n", [32, 64])
 def test_light_sweeps_match_jax(n, light):
     """-fast (per-slab recurrence) and -hq (reference-step, blocked d0
-    recurrence) light fields within 1e-5 of the JAX ones."""
+    recurrence; the exact per-voxel field where d0 = 0) light fields within
+    1e-5 of the JAX ones."""
     dens = _density(n)
     lt = np.asarray(light, np.float32)
     want = np.asarray(jrw.light_sweep_host(jnp.asarray(dens), lt, n))
@@ -60,21 +61,22 @@ def test_light_sweeps_match_jax(n, light):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     axis, flip, d0 = jrw.light_ref_statics(lt, n)
     assert (axis, flip, d0) == rw.light_ref_statics(lt, n)
-    if d0 < 1:
-        with pytest.raises(NotImplementedError, match="precompute_light_volume"):
-            rw.light_sweep_ref_host(_t(dens), lt, n)
-        return
-    want = np.asarray(jrw.light_sweep_ref(jnp.asarray(dens), jnp.asarray(lt),
-                                          n, axis, flip, d0))
+    want = np.asarray(jrw.light_sweep_ref_host(jnp.asarray(dens), lt, n))
     got = rw.light_sweep_ref_host(_t(dens), lt, n).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 def test_light_sweep_ref_below_one_slab_raises():
+    """At 16^3 the -hq light step spans less than one slab (d0 = 0): the
+    port takes the exact per-voxel field (precompute_light_volume), as the
+    JAX package does, within 1e-5 of JAX's."""
     lt = np.asarray(LIGHTS[0], np.float32)
     assert rw.light_ref_statics(lt, 16)[2] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rw.light_sweep_ref_host(torch.zeros((16, 16, 16)), lt, 16)
+    dens = _density(16)
+    want = np.asarray(jrw.light_sweep_ref_host(jnp.asarray(dens), lt, 16))
+    got = rw.light_sweep_ref_host(_t(dens), lt, 16).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (got < 0.5).any() and (got == 1.0).any()
 
 
 def _march_case(n, m, ss, seed=7):
