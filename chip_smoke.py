@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one CUDA card (sm_90a) and
 the CUDA toolkit. Phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   kernel in ``dxrvoxelizer_tpu_torch/csrc`` from source;
+   kernel in ``dxrvoxelizer_tpu_torch/csrc`` from source, and of the native
+   host tier (``utils/_native``, g++);
 2. the app's default frame, as a user runs it: 64^3 parity voxelize + ``-hq``
    shear-warp render at 1280x720, 4 orbiting frames, on a procedural
    81,920-triangle icosphere (``tests/meshes.py``) written to an OBJ at the
@@ -153,11 +154,23 @@ the CUDA toolkit. Phases, one line each:
     render-only times with the light volume computed and passed in, and
     both images against ``raymarch_ref`` at 64^3, 1280x720 (mean, p99,
     max).
+21. the multi-device frames, batch datagen and the native tier: a NCCL
+    group of one rank runs ``ShardedFramePipeline`` at 1280x720 (64^3
+    ``-hq``, 256^3 parity, 256^3 gen-7 ray-stab, 64^3 gather), each image
+    bit-identical to ``FramePipeline``'s, with frame ms, device busy, ops
+    per frame and the all_gather's bytes and ms; the rank bodies of world 2
+    and 4 in one process, every tile group of the work-queue kernel, band
+    of the resolve and strip slice of the fold against its plain version
+    and the whole call, bit for bit; ``-chips 2`` raising on the one-card
+    machine; datagen at 128^3 on 16 procedural meshes through
+    ``-impl queue`` and ``pallas`` (meshes per second); the native tier's
+    g++ builds (phase 1), OBJ parse, ray table and the gen-6 256^3 pack
+    walk against their Python versions.
 
 Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
-``-normals`` app runs, the core-tier gen-1 frames and phase 20's runs,
-each counted from zero; the fold-only kernel is on no main path, as in the
+``-normals`` app runs, the core-tier gen-1 frames, phase 20's runs and
+phase 21's sharded frames and datagen, each counted from zero; the fold-only kernel is on no main path, as in the
 JAX package, and shows 0), its largest difference from its plain version
 (over every comparison above), and, at the inputs of the main path it
 belongs to (the 64^3 frame for the binned kernel, the march, the resolve
@@ -1009,6 +1022,390 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
             "library": library}
 
 
+# sharded frames (phase 21): the world sizes the in-process rank bodies run
+SHARD_WORLDS = (2, 4)
+DATAGEN_GRID = 128
+
+
+def datagen_meshes(meshes) -> list:
+    """At least 16 procedural meshes for the batch datagen (phase 21d):
+    icospheres of subdivision 4-6 at several radii and centres, boxes, the
+    tetrahedron -> [(name, verts, tris)]."""
+    out = []
+    for sub in (4, 5, 6):
+        for radius, centre in ((0.72, (0.05, -0.03, 0.02)),
+                               (0.55, (0.1, 0.05, -0.08)),
+                               (0.35, (-0.2, 0.15, 0.1))):
+            v, _, t = meshes.icosphere_mesh(sub, radius=radius, center=centre)
+            out.append((f"ico{sub}_r{radius}", v, t))
+    for lo, hi in (((-0.5, -0.25, -0.75), (0.5, 0.75, 0.25)),
+                   ((-0.7, -0.6, -0.5), (0.6, 0.5, 0.7)),
+                   ((-0.3, -0.3, -0.3), (0.3, 0.3, 0.3)),
+                   ((-0.8, -0.1, -0.4), (0.2, 0.4, 0.8))):
+        v, _, t = meshes.box_mesh(lo, hi)
+        out.append((f"box{len(out)}", v, t))
+    for scale in (0.8, 0.5, 0.95):
+        v, _, t = meshes.tetrahedron_mesh(scale=scale)
+        out.append((f"tet{scale}", v, t))
+    return out
+
+
+def phase21(torch, app_main, kernels, card, dev, state) -> dict:
+    """Phase 21: the multi-device frames (parallel/), batch datagen and the
+    native C++ tier.
+
+    a. A NCCL group of world size 1 runs ShardedFramePipeline at full
+       width: 64^3 -hq on the 81,920-triangle icosphere, 256^3 parity and
+       gen-7 ray-stab on the 327,680-triangle one, and the 64^3 gather
+       frame; each image against the single-device FramePipeline's, bit for
+       bit; frame ms (CUDA events, median of 5 runs of 10 frames), device
+       ops per frame (profiler), the all_gather's bytes and ms. The counts
+       are set to 0 just before these frames and read just after.
+    b. The same frames' rank bodies at world 2 and 4 in this process (a
+       local group): every tile group of kernel 2.2, band of kernel 2.4 and
+       strip slice of kernel 2.5/2.6 against its plain version and against
+       the whole call, bit for bit; the frames against world 1's.
+    c. -chips 2 on this one-card machine raises, and runs nothing.
+    d. Batch datagen at 128^3 on 16+ procedural meshes, -impl queue and
+       pallas (kernels 2.2 and 2.1; their words equal): meshes per second.
+    e. The native tier: each library's build seconds (phase 1); the OBJ
+       parse, the
+       ray table and the gen-6 256^3 accel build's pack walk native against
+       Python (DXRV_RAYSTAB_GEN=6 builds), equal bit for bit.
+    Returns the launches of the paths a and d."""
+    from dxrvoxelizer_tpu_torch.core.pipeline import FramePipeline
+    from dxrvoxelizer_tpu_torch.ops import raystab_cuda as rsc
+    from dxrvoxelizer_tpu_torch.ops import raystab_fast as rsf
+    from dxrvoxelizer_tpu_torch.ops import screen_warp_cuda as swc
+    from dxrvoxelizer_tpu_torch.ops import voxelize_queue as vq
+    from dxrvoxelizer_tpu_torch.ops import voxelize_queue_cuda as vqc
+    from dxrvoxelizer_tpu_torch.ops.march_cuda import march
+    from dxrvoxelizer_tpu_torch.ops.packing import unpack_bits_z
+    from dxrvoxelizer_tpu_torch.ops.raymarch_warp import march_inputs
+    from dxrvoxelizer_tpu_torch.parallel import (
+        ShardedFramePipeline,
+        make_device_mesh,
+        make_local_group,
+    )
+    from dxrvoxelizer_tpu_torch.parallel import datagen
+    from dxrvoxelizer_tpu_torch.parallel.raystab_shard import (
+        stream_piece,
+        stream_sizes,
+    )
+    from dxrvoxelizer_tpu_torch.parallel.shard import (
+        light_volume_from_statics,
+        queue_group_piece,
+        split,
+    )
+    from dxrvoxelizer_tpu_torch.utils import native
+    from dxrvoxelizer_tpu_torch.utils.objloader import load_obj
+
+    t_start = time.perf_counter()
+    cfg, mb, consts = state["64"]
+    cfg_hi, mb7, consts7 = state["256"]
+    meshes = state["meshes"]
+    frames = {  # name -> (cfg, mesh buffers, constants)
+        "64 -hq": (cfg, mb, consts),
+        "256 parity": (cfg_hi, mb7, consts7),
+        "256 raystab gen-7": (cfg_hi.replace(inside_mode="raystab"), mb7,
+                              consts7),
+        "64 gather": (cfg, mb, consts),
+    }
+    impl = {"64 gather": "gather"}
+
+    # ---- 21a. world size 1 on a NCCL group: the main path ----------------
+    group = make_device_mesh(1)
+    check(group.backend == "nccl" and group.world == 1
+          and group.device == dev, f"phase 21a group {group}")
+    pipes = {name: ShardedFramePipeline(c_, m_, 1, group=group,
+                                        render_impl=impl.get(name, "warp"))
+             for name, (c_, m_, _) in frames.items()}
+    singles = {name: FramePipeline(c_, m_, render_impl=impl.get(name, "warp"))
+               for name, (c_, m_, _) in frames.items()}
+    check(type(pipes["256 raystab gen-7"].accel).__name__ == "RaystabAccel7",
+          "phase 21a: the 256^3 sharded ray-stab frame is not gen-7")
+    for name in frames:  # first frames (statics, accels from the cache)
+        pipes[name].frame(frames[name][2])
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    imgs = {name: pipes[name].frame(frames[name][2]) for name in frames}
+    for p in pipes.values():
+        p.sync()
+    launches = {k.name: k.launches for k in kernels}
+    for k in ("parity_queue", "march", "resolve", "raystab_fold_extract",
+              "gather_march", "light_volume"):
+        check(launches[k] > 0, f"phase 21a: kernel {k} never launched on the "
+              "sharded frames")
+    check(launches["parity_voxelize"] == 0 and launches["raystab_mt"] == 0,
+          f"phase 21a: the sharded frames took another route: {launches}")
+    for name, (c_, m_, k_) in frames.items():
+        want = singles[name].frame(k_)
+        check(imgs[name].shape == (720, 1280, 3) and torch.equal(imgs[name], want),
+              f"phase 21a {name}: sharded image differs from FramePipeline's "
+              f"by {max_err(imgs[name], want):.3g}")
+    timing = {}
+    for name, (c_, m_, k_) in frames.items():
+        p = pipes[name]
+        fn = lambda p=p, k_=k_: p.frame(k_)  # noqa: E731
+        ms_ = cuda_ms(torch, fn)
+        p.sync()
+        busy, per_frame, _ = profile_frames(torch, fn, p.sync, kernels)
+        fr = p._frames[next(iter(p._frames))]
+        ctx = (m_.positions_norm, p.mesh.tris, None, None, None, None)
+        piece = fr.piece(0, ctx)
+        gather_ms = cuda_ms(torch, lambda piece=piece: group.all_gather(piece))
+        timing[name] = (ms_, busy, per_frame, piece.numel() * piece.element_size(),
+                        gather_ms)
+    print("phase 21a ShardedFramePipeline on a NCCL group of 1 rank, "
+                 "1280x720, each image bit-identical to FramePipeline's "
+                 f"(launches {launches}): " + "; ".join(
+                     f"{k}: {v[0]:.4f} ms per frame (CUDA events, {INNER} "
+                     f"frames, median of {REPS}), device busy {v[1]:.4f} ms, "
+                     f"{v[2]:.0f} device ops per frame, all_gather "
+                     f"{v[3]} bytes in {v[4]:.4f} ms"
+                     for k, v in timing.items()) + f"; {card}")
+
+    # ---- 21b. rank bodies at world 2 and 4 in this process ---------------
+    checked = {"2.2 tile groups": 0, "2.4 bands": 0, "2.5/2.6 slices": 0,
+               "frames": 0}
+    n_hi = cfg_hi.grid_size
+    n_tiles = (n_hi // vqc.TILE_X) * (n_hi // vqc.TILE_Y)
+    cap = pipes["256 parity"].num_chunks_cap
+    whole_q = vq.StaticVoxelizer(mb7.positions_norm, mb7.tris, n_hi)()
+    accel7 = pipes["256 raystab gen-7"].accel
+    accel6 = rsf.build_raystab_accel2(mb.positions_norm, mb.tris, mb.normals,
+                                      n=cfg.grid_size)
+    stab = [(a, rsc.fold_extract(a.main, a.t_count, cfg.inside_threshold))
+            for a in (accel6, accel7)]
+    cfg_b, _, k_b = frames["64 -hq"]
+    p1 = pipes["64 -hq"]
+    statics = next(iter(p1._frames))
+    (waxis, wflip, wswap, m, l_axis, l_flip, l_mode, ss, l_d0) = statics
+    words64 = vq.voxelize_parity_queue(mb.positions_norm, mb.tris,
+                                       cfg.grid_size)
+    density = unpack_bits_z(words64, cfg.grid_size).to(torch.float32)
+    lv = light_volume_from_statics(density, k_b.local_space_light_pt,
+                                   cfg.grid_size, l_axis, l_flip, l_mode,
+                                   l_d0=l_d0)
+    mi = march_inputs(density, lv, k_b.local_space_eye_pt, cfg.grid_size, m,
+                      waxis, wflip, ss)
+    tr, sc = march(*mi.args(), ring=mi.ring)
+    res_args = (sc, tr, k_b.screen_to_local, k_b.local_space_eye_pt,
+                np.array(cfg.clear_color, np.float32), cfg.width)
+    whole_r = swc.resolve_screen(*res_args, cfg.height, waxis, wflip, wswap, mi)
+    resolve_err = 0.0
+    for w in SHARD_WORLDS:
+        # 2.2: each rank's tile group of the 256^3 parity frame
+        pieces = []
+        for r in range(w):
+            lo, hi = split(n_tiles, w, r)
+            piece = queue_group_piece(mb7.positions_norm, mb7.tris, n_hi, cap,
+                                      w, r)
+            q = vq._build_queue_device(mb7.positions_norm, mb7.tris, n_hi, cap,
+                                       *vq.SPAN_CAP, tile_lo=lo, tile_hi=hi)
+            check(bool(q[5]), f"phase 21b: group {r}/{w} overflowed {cap}")
+            plain = vqc.voxelize_parity_queue_chunks_plain(
+                q[0], q[2], q[3], n_hi, tile_lo=lo, tiles=hi - lo)
+            check(torch.equal(piece, plain),
+                  f"phase 21b: 2.2 tile group {r}/{w} differs from its plain "
+                  "version")
+            pieces.append(piece)
+            checked["2.2 tile groups"] += 1
+        check(torch.equal(vqc._tiles_to_grid(torch.cat(pieces), n_hi), whole_q),
+              f"phase 21b: 2.2 tile groups of world {w} differ from the whole "
+              "grid")
+        # 2.4: each rank's band of the 64^3 -hq frame
+        band = cfg.height // w
+        for r in range(w):
+            got = swc.resolve_screen(*res_args, band, waxis, wflip, wswap, mi,
+                                     coords=True, y_off=r * band)
+            want = swc.resolve_screen_plain(*res_args, band, waxis, wflip,
+                                            wswap, mi, y_off=r * band)
+            check(all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])),
+                  f"phase 21b: 2.4 band {r}/{w} coordinates differ from "
+                  "screen_coords")
+            resolve_err = max(resolve_err, max_err(got[0], want[0]))
+            check(resolve_err <= TOL_RESOLVE, f"phase 21b: 2.4 band {r}/{w} "
+                  f"differs from its plain version by {resolve_err:.3g}")
+            check(torch.equal(got[0], whole_r[r * band:(r + 1) * band]),
+                  f"phase 21b: 2.4 band {r}/{w} differs from the whole image's "
+                  "rows")
+            checked["2.4 bands"] += 1
+        # 2.5/2.6: each rank's strip slices, gen-6 64^3 and gen-7 256^3
+        for a, whole_f in stab:
+            tb = a.main
+            for r in range(w):
+                lo, hi = split(tb.strips, w, r)
+                sl = rsc.strip_slice(tb, lo, hi)
+                got = rsc.fold_extract(sl, a.t_count, cfg.inside_threshold)
+                for g_, w_ in zip(got, whole_f):
+                    check(torch.equal(g_, w_[lo:hi]), f"phase 21b: 2.5/2.6 "
+                          f"slice {r}/{w} differs from the whole stream's")
+                # the plain version on the slice (gen-7 256^3: its first and
+                # last 256 strips, the whole slice would take minutes)
+                parts = ([(0, hi - lo)] if a is accel6 else
+                         [(0, 256), (hi - lo - 256, hi - lo)])
+                for s0, s1 in parts:
+                    sub = rsc.strip_slice(sl, s0, s1)
+                    want = rsc.fold_extract_plain(sub, a.t_count,
+                                                  cfg.inside_threshold)
+                    for g_, w_ in zip(got, want):
+                        check(torch.equal(g_[s0:s1], w_), f"phase 21b: 2.5/2.6 "
+                              f"slice {r}/{w} differs from its plain version")
+                checked["2.5/2.6 slices"] += 1
+            piece = stream_piece(a, w, 0, cfg.inside_threshold, "backface")
+            check(piece.shape[0] == stream_sizes(a, w)[0],
+                  "phase 21b: stream piece rows")
+        # whole frames at world w against world 1's images
+        for name, (c_, m_, k_) in frames.items():
+            p = ShardedFramePipeline(c_, m_, w, group=make_local_group(w, dev),
+                                     render_impl=impl.get(name, "warp"))
+            check(torch.equal(p.frame(k_), imgs[name]),
+                  f"phase 21b: {name} at world {w} differs from world 1")
+            checked["frames"] += 1
+    torch.cuda.synchronize()
+    print(f"phase 21b rank bodies at world {SHARD_WORLDS} on the card: "
+                 f"bit-identical to their plain versions and to the whole calls "
+                 f"({checked}; the resolve's image within {resolve_err:.3g} of "
+                 "resolve_screen_plain, its coordinates and mask bit for bit); "
+                 "each frame equal to world 1's")
+    group.close()
+
+    # ---- 21c. -chips 2 on a one-card machine raises -------------------------
+    with tempfile.TemporaryDirectory() as td:
+        obj = Path(td) / "tet.obj"
+        write_obj(obj, *meshes.tetrahedron_mesh()[::2])
+        try:
+            app_main(["-mesh", os.path.relpath(obj), "-chips", "2",
+                      "-frames", "1"])
+        except ValueError as e:
+            check("requested 2 devices, found 1" in str(e),
+                  f"phase 21c: -chips 2 raised {e!r}")
+            print(f"phase 21c -chips 2 on {torch.cuda.device_count()} "
+                         f"card raised: {e}")
+        else:
+            raise RuntimeError("phase 21c: -chips 2 ran on one card")
+
+    # ---- 21d. batch datagen at 128^3 ------------------------------------------
+    dg_launch = {"parity_queue": 0, "parity_voxelize": 0}
+    with tempfile.TemporaryDirectory() as td:
+        paths = []
+        for name, v, t in datagen_meshes(meshes):
+            p = Path(td) / f"{name}.obj"
+            write_obj(p, v, t)
+            paths.append(str(p))
+        check(len(paths) >= 16, "phase 21d: fewer than 16 meshes")
+        rates, words = {}, {}
+        for dg_impl in ("queue", "pallas"):
+            datagen.voxelize_batch(paths[:1], n=DATAGEN_GRID, impl=dg_impl,
+                                   devices=[dev])  # warm-up
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            res = datagen.voxelize_batch(paths, n=DATAGEN_GRID, impl=dg_impl,
+                                         out_dir=Path(td) / dg_impl,
+                                         devices=[dev])
+            secs = time.perf_counter() - t0
+            for k in kernels:
+                if k.name in dg_launch:
+                    dg_launch[k.name] += k.launches
+            rates[dg_impl] = (len(res) / secs, secs)
+            words[dg_impl] = [np.load(r.out_file) for r in res]
+            check(all(r.occupied > 0 for r in res),
+                  f"phase 21d: {dg_impl} voxelized an empty mesh")
+        check(dg_launch["parity_queue"] >= len(paths)
+              and dg_launch["parity_voxelize"] >= len(paths),
+              f"phase 21d: datagen launches {dg_launch}")
+        for a_, b_ in zip(words["queue"], words["pallas"]):
+            check(np.array_equal(a_, b_), "phase 21d: queue and pallas words "
+                  "differ")
+        # the oracle on the small meshes (boxes and tetrahedra)
+        small = [i for i, p in enumerate(paths)
+                 if Path(p).stem.startswith(("box", "tet"))]
+        for i in small:
+            r = datagen.voxelize_mesh_file(paths[i], n=DATAGEN_GRID, impl="xla",
+                                           device=dev)
+            check(r.occupied == int(np.unpackbits(
+                words["queue"][i].view(np.uint8)).sum()),
+                  f"phase 21d: {paths[i]} oracle count differs")
+    print(f"phase 21d datagen at {DATAGEN_GRID}^3 on {len(paths)} meshes "
+                 "(icospheres of subdivision 4-6, boxes, tetrahedra; OBJ parse "
+                 "included; words of both impls equal, and the oracle's counts "
+                 f"on the {len(small)} small meshes): " + "; ".join(
+                     f"-impl {k} {v[0]:.2f} meshes/s ({v[1]:.3f} s)"
+                     for k, v in rates.items())
+                 + f"; launches {dg_launch}; {card}")
+
+    # ---- 21e. the native tier -------------------------------------------------
+    builds = state["native_builds"]
+    with tempfile.TemporaryDirectory() as td:
+        obj7 = Path(td) / "ico7.obj"
+        write_obj(obj7, *state["mesh7"])
+        parse = {}
+        for pi in ("native", "python"):
+            t0 = time.perf_counter()
+            parsed = load_obj(obj7, impl=pi)
+            parse[pi] = (time.perf_counter() - t0, parsed)
+        check(np.array_equal(parse["native"][1].indices,
+                             parse["python"][1].indices)
+              and np.array_equal(parse["native"][1].positions,
+                                 parse["python"][1].positions),
+              "phase 21e: native and Python OBJ parses differ")
+    raytab = {}
+    for n_, g_ in ((128, 64), (GRID_HI, 128)):
+        t0 = time.perf_counter()
+        rt_n = native.raytab_native(n_, g_)
+        raytab[(n_, "native")] = time.perf_counter() - t0
+        if n_ == 128:  # the numpy argsorts take seconds at 256^3
+            t0 = time.perf_counter()
+            rt_p = rsf._ray_table_filled_py(n_, g_)
+            raytab[(n_, "python")] = time.perf_counter() - t0
+            check(all(np.array_equal(a_, b_) for a_, b_ in zip(rt_n, rt_p)),
+                  "phase 21e: native and Python ray tables differ")
+    seen = []
+    real = rsf._make_packs
+    os.environ["DXRV_RAYSTAB_GEN"] = "6"
+    rsf._make_packs = lambda *a: seen.append(a) or real(*a)
+    try:
+        rsf._ray_table_filled.cache_clear()
+        t0 = time.perf_counter()
+        compact6 = rsf.build_raystab_compact2(mb7.positions_norm, mb7.tris,
+                                              n=GRID_HI)
+        build_native_s = time.perf_counter() - t0
+    finally:
+        rsf._make_packs = real
+        del os.environ["DXRV_RAYSTAB_GEN"]
+    (cell_csr, ray_table, rc, tri_bounds), = seen
+    walk = {}
+    for wi, fn in (("native", lambda: native.accel_pack_native(
+            *cell_csr, ray_table, rc, tri_bounds)),
+                   ("python", lambda: rsf._make_packs_py(
+            cell_csr, ray_table, rc, tri_bounds))):
+        t0 = time.perf_counter()
+        out = fn()
+        walk[wi] = (time.perf_counter() - t0, out)
+    check(all(np.array_equal(a_, b_) for a_, b_ in zip(walk["native"][1],
+                                                      walk["python"][1])),
+          "phase 21e: native and Python pack walks differ")
+    print(
+        "phase 21e native tier: g++ builds (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in builds.items())
+        + f"; OBJ parse of the {len(state['mesh7'][1])}-triangle icosphere: "
+        f"native {parse['native'][0]:.4f} s, Python {parse['python'][0]:.4f} s "
+        "(equal); ray table (s): " + ", ".join(
+            f"{n_}^3 {k} {v:.4f}" for (n_, k), v in raytab.items())
+        + f" (128^3 equal); gen-6 {GRID_HI}^3 compact with the native pack "
+        f"walk and ray table {build_native_s:.4f} s "
+        f"({compact6.stats.levels[0][4]} strips); the walk alone on its inputs: "
+        f"native {walk['native'][0]:.4f} s, Python {walk['python'][0]:.4f} s "
+        f"(equal CSR quadruples, {len(walk['native'][1][1]) - 1} packs); "
+        "host times, the card's host CPU")
+    print(f"phase 21 took {time.perf_counter() - t_start:.1f} s")
+    return {"launches": {k: launches[k] + dg_launch.get(k, 0) for k in launches}}
+
+
 def main() -> int:
     import torch
 
@@ -1072,7 +1469,7 @@ def main() -> int:
         voxelize_raystab_radial_ref,
         voxelize_raystab_ref,
     )
-    from dxrvoxelizer_tpu_torch.utils import accel_cache
+    from dxrvoxelizer_tpu_torch.utils import accel_cache, native
     from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
     from dxrvoxelizer_tpu_torch.utils.image import read_png
     from dxrvoxelizer_tpu_torch.utils.objloader import load_obj
@@ -1114,6 +1511,13 @@ def main() -> int:
     regs = [ln.strip() for ln in info.log.splitlines() if "Used" in ln]
     print(f"phase 1 build: {info.seconds:.2f} s, {len(regs)} kernel "
           f"variants; ptxas: {' | '.join(regs)}")
+    native_builds = {}  # the native host tier, built before its first use
+    for name in ("objparse", "pngwrite", "accelpack"):
+        nb = native.build(name)
+        check(nb is not None, f"the native {name} library did not build")
+        native_builds[name] = nb.seconds
+    print("phase 1 native build (g++, s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in native_builds.items()))
 
     main_launches = {k.name: 0 for k in kernels}
     with tempfile.TemporaryDirectory() as td:
@@ -2537,6 +2941,14 @@ def main() -> int:
     errs.update(p20["errs"])
     ms.update(p20["ms"])
     library_ms.update(p20["library"])
+
+    # ---- 21. multi-device frames, batch datagen, the native tier --------
+    p21 = phase21(torch, app_main, kernels, card, dev, {
+        "64": (cfg, mb, consts), "256": (cfg_hi, mb7, consts7),
+        "meshes": meshes, "mesh7": (v7 * WORLD_SCALE + WORLD_CENTER, t7),
+        "native_builds": native_builds})
+    for k, c in p21["launches"].items():
+        main_launches[k] += c
 
     # ---- bounds: the least time for each kernel's work on this run's data
     w64 = GRID * GRID * (GRID // 32) * 4

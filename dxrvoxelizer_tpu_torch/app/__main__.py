@@ -2,4 +2,5 @@ import sys
 
 from dxrvoxelizer_tpu_torch.app.main import main
 
-sys.exit(main(sys.argv[1:]))
+if __name__ == "__main__":  # spawned -chips ranks import this module too
+    sys.exit(main(sys.argv[1:]))

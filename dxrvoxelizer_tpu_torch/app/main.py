@@ -16,17 +16,24 @@ camera, 1 Hz FPS stats (CalculateFrameStats, :553-584), F11 PNG screenshots
   vertices along their normals every frame, so every frame re-bins and
   re-voxelizes the mesh (the deforming configuration).
 
-``-chips N`` with N > 1 (multi-device frames) is not ported yet and raises.
+``-chips N`` runs every frame across N ranks (parallel/): on N cards, one
+NCCL rank per card, or with ``-warp`` N gloo ranks on the CPU. The app
+spawns the ranks itself, or joins the group a launcher made (``torchrun
+--nproc-per-node N``, read from its ``WORLD_SIZE``/``RANK``/``LOCAL_RANK``);
+rank 0 alone prints, writes the PNG and ``.npy`` files and serves
+``-preview``.
 
     python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -frames 8 -out f.png
     python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -grid 256 -deform
     python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -renderimpl gather -ab
+    python -m dxrvoxelizer_tpu_torch.app -mesh bunny.obj -chips 2 -warp
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -171,20 +178,72 @@ def _ab(engine, cam, cfg, base_mesh) -> bool:
     return ok
 
 
+def _rank_run(argv: list[str]) -> int:
+    """One rank of ``-chips N`` (its process group initialised): rank 0
+    prints, the others run silently."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        return main(argv)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return main(argv)
+
+
+def _rank_main(argv: list[str]) -> None:
+    """Entry of a spawned rank: a non-zero exit code fails the launch."""
+    code = _rank_run(argv)
+    if code:
+        raise SystemExit(code)
+
+
+def _launch_ranks(argv: list[str], cfg, chips: int) -> int:
+    """``-chips N`` without a process group: join the one a launcher
+    describes in the environment (torchrun), else spawn N ranks here (one
+    per card under NCCL, or N gloo ranks on the CPU with ``-warp``). Raises
+    when the machine has fewer than N cards; never falls back to the CPU."""
+    import torch.distributed as dist
+
+    from dxrvoxelizer_tpu_torch.parallel.mesh import spawn_ranks
+
+    cpu = cfg.backend == "cpu"
+    if "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if world != chips:
+            raise ValueError(f"-chips {chips}, but the launcher started "
+                             f"{world} ranks")
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("gloo" if cpu else "nccl", init_method="env://")
+        try:
+            return _rank_run(argv)
+        finally:
+            dist.destroy_process_group()
+    spawn_ranks(_rank_main, chips, args=(argv,), cpu=cpu)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     cfg = parse_args(argv)
     extras = _parse_extras(argv)
-    if extras["chips"] > 1:
-        raise NotImplementedError(
-            f"-chips {extras['chips']}: multi-device frames are not ported to "
-            "the CUDA build yet (ROADMAP.md item 7)")
+    chips = extras["chips"]
+    rank = 0
+    if chips > 1:
+        import torch.distributed as dist
+
+        if extras["interactive"]:
+            raise ValueError("-interactive reads this terminal and runs on one "
+                             "device; drop -chips")
+        if not dist.is_initialized():
+            return _launch_ranks(argv, cfg, chips)
+        rank = dist.get_rank()
     # CUDA unless -warp/-cpu asks for the CPU; no silent fallback
     device = select_device("cpu" if cfg.backend == "cpu" else "default")
 
     engine = Engine(cfg, device, vox_impl=extras["vox_impl"],
                     render_impl=extras["render_impl"],
-                    deforming=extras["deform"])
+                    deforming=extras["deform"], chips=chips)
+    sharded = chips > 1
     cam = OrbitCamera(cfg.width, cfg.height)
     timer = StepTimer()
     print(
@@ -193,11 +252,11 @@ def main(argv: list[str] | None = None) -> int:
         f"{cfg.width}x{cfg.height} ss={cfg.render_ss} mode={cfg.inside_mode} "
         f"normals={cfg.parity_normals} vox={extras['vox_impl']} "
         f"render={extras['render_impl']} deform={extras['deform']} "
-        f"device={device}"
+        f"device={device}" + (f" chips={chips}" if sharded else "")
     )
 
     preview = None
-    if extras["preview"] is not None:
+    if extras["preview"] is not None and rank == 0:
         # live view (the swap-chain Present analog): open the printed URL
         from dxrvoxelizer_tpu_torch.app.preview import PreviewServer
 
@@ -218,6 +277,8 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if extras["load_grid"]:
+        if rank:
+            return 0  # one device renders a saved grid
         out = _render_saved_grid(engine, cam, cfg, extras["load_grid"],
                                  extras["render_impl"], extras["out"])
         print(f"rendered saved grid {extras['load_grid']} -> {out}")
@@ -230,7 +291,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # -profile DIR: a profiler trace of the frame loop (the PIX-capture
     # analog), written as a Chrome trace into DIR
-    trace_ctx = (device_trace(extras["profile"]) if extras["profile"]
+    trace_ctx = (device_trace(extras["profile"]) if extras["profile"] and not rank
                  else contextlib.nullcontext())
     img = None
     last_fps = 0.0
@@ -246,14 +307,23 @@ def main(argv: list[str] | None = None) -> int:
                 engine.pipeline.mesh = wobbled(base_mesh, base_x, frame)
             engine.update_frame(frame % 3, cam.eye, cam.view_proj)
             img = engine.render(frame % 3)
+            if sharded and extras["preview"] is not None:
+                # every rank takes part in the gather; rank 0 publishes
+                img_full = engine.pipeline.gather_image(img)
+            else:
+                img_full = img
             if preview is not None and preview.wants_frame():
-                preview.publish(img)
+                preview.publish(img_full)
             if timer.frames_per_second != last_fps:
                 last_fps = timer.frames_per_second
                 print(f"fps: {last_fps:.1f}")
         engine.sync()
+    if sharded and img is not None:
+        img = engine.pipeline.gather_image(img)  # the whole image
     if preview is not None:
         preview.close()
+    if rank:
+        return 0  # rank 0 alone checks, writes and times
 
     if extras["ab"] and not _ab(engine, cam, cfg, base_mesh):
         return 1

@@ -140,11 +140,14 @@ __device__ __forceinline__ bool live_slot(const int* __restrict__ chunk_nsub,
 }
 
 // crossing bits -> occupancy (suffix parity) in shared memory, one thread per
-// column; then the tile's words stored once, as its 16 runs (one per x) of
-// 8 * N/32 contiguous words, neighbouring threads on neighbouring words
+// column; then the tile's words stored once, neighbouring threads on
+// neighbouring words: into the grid as its 16 runs (one per x) of 8 * N/32
+// contiguous words, or, for a tile group (`tile_out` not null), as the tile's
+// [N/32, 128] block of the group's output, the field's own layout
 template <int NT>
 __device__ void store_tile(unsigned* field, unsigned* __restrict__ words,
-                           int ox, int oy, int n) {
+                           unsigned* __restrict__ tile_out, int ox, int oy,
+                           int n) {
   const int w_words = n >> 5;
   for (int l = threadIdx.x; l < kLanes; l += NT) {
     unsigned carry = 0u;
@@ -155,6 +158,11 @@ __device__ void store_tile(unsigned* field, unsigned* __restrict__ words,
     }
   }
   __syncthreads();
+  if (tile_out) {
+    for (int i = threadIdx.x; i < w_words * kLanes; i += NT)
+      tile_out[i] = field[i];
+    return;
+  }
   const int per_x = kTileY * w_words;
   for (int i = threadIdx.x; i < kTileX * per_x; i += NT) {
     const int xl = i / per_x, rem = i - xl * per_x;
@@ -164,14 +172,17 @@ __device__ void store_tile(unsigned* field, unsigned* __restrict__ words,
   }
 }
 
-// kRun (the main path): block t folds tile t's run of chunks, in warp
+// kRun (the main path): block b folds tile tile_lo + b's run of chunks, in warp
 // slices: each warp stages its own slices of 32 rows (the slice's
 // 2 KiB copied by the warp with neighbouring lanes on neighbouring 16 bytes,
 // the next slice's copy in flight while this one's pairs run), scans their
 // pair counts by shuffles, and folds the pairs with a 5-step search, with no
 // block-wide barrier between slices; then it stores the tile's words. A tile
-// with no chunk stores zeros.
-// !kRun: block c folds chunk c alone, NT rows per round (one per thread, a
+// with no chunk stores zeros. With `group` not null the launch covers the
+// tile group [tile_lo, tile_lo + gridDim.x) and block b writes its tile's
+// [N/32, 128] words to group[b] (a rank's share of the grid); else tile_lo
+// is 0 and the words go to the grid.
+// !kRun (no group): block c folds chunk c alone, NT rows per round (one per thread, a
 // block scan of the pair counts), and XORs the field's non-zero words into
 // the zeroed output.
 template <bool kRun, int NT>
@@ -179,7 +190,8 @@ __global__ void __launch_bounds__(NT)
 queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
              const int* __restrict__ chunk_tile,
              const int* __restrict__ chunk_nsub, unsigned* __restrict__ words,
-             int num_chunks, int n, int k_chunk) {
+             unsigned* __restrict__ group, int tile_lo, int num_chunks, int n,
+             int k_chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* s_rows = reinterpret_cast<float4*>(smem + Smem<NT>::rows);
   int* s_pre = reinterpret_cast<int*>(smem + Smem<NT>::pre);
@@ -190,10 +202,13 @@ queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
   const int nty = n / kTileY;
   const int n_tiles = (n / kTileX) * nty;
   const int w_words = n >> 5;
-  // kRun: block b folds tile b's run of chunks [c, c_end), or zeroes the
-  // tile if it has none; else block b folds chunk b
+  // kRun: block b folds tile tile_lo + b's run of chunks [c, c_end), or
+  // zeroes the tile if it has none; else block b folds chunk b
   int c = blockIdx.x, c_end = c + 1;
-  const int tile = kRun ? c : chunk_tile[c];
+  const int tile = kRun ? tile_lo + c : chunk_tile[c];
+  unsigned* const tile_out =
+      group ? group + static_cast<size_t>(blockIdx.x) * w_words * kLanes
+            : nullptr;
   if (kRun) {
     // the tile's chunks with live rows: chunk_tile is non-decreasing, and a
     // tile's padding chunks (no live row; a queue built at a fixed capacity
@@ -207,7 +222,12 @@ queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
       if (live < NT) break;
     }
     if (c_end == c) {  // no live row: the tile is empty
-      zero_tile<NT>(words, tile, n);
+      if (tile_out) {
+        for (int i = threadIdx.x; i < w_words * kLanes; i += NT)
+          tile_out[i] = 0u;
+      } else {
+        zero_tile<NT>(words, tile, n);
+      }
       return;
     }
   }
@@ -270,7 +290,7 @@ queue_kernel(const float* __restrict__ coefs, const short4* __restrict__ spans,
       __syncwarp();  // the next slice overwrites the warp's rows
     }
     __syncthreads();
-    store_tile<NT>(field, words, ox, oy, n);
+    store_tile<NT>(field, words, tile_out, ox, oy, n);
     return;
   }
 
@@ -329,10 +349,13 @@ __global__ void queue_kernel_suffix_parity(unsigned int* __restrict__ words,
   }
 }
 
+// group null: the whole grid into `words`; else the `tiles` tiles from
+// tile_lo into `group` (kRun only)
 template <bool kRun, int NT>
 int launch(const float* coefs, const short4* spans, const int* chunk_tile,
-           const int* chunk_nsub, unsigned* words, int num_chunks, int n,
-           int k_chunk, cudaStream_t stream) {
+           const int* chunk_nsub, unsigned* words, unsigned* group,
+           int tile_lo, int tiles, int num_chunks, int n, int k_chunk,
+           cudaStream_t stream) {
   const int w_words = n / 32;
   const size_t smem = Smem<NT>::bytes(w_words);
   const size_t bytes = static_cast<size_t>(n) * n * w_words * sizeof(unsigned);
@@ -343,11 +366,13 @@ int launch(const float* coefs, const short4* spans, const int* chunk_tile,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (!kRun) cudaMemsetAsync(words, 0, bytes, stream);  // a zeroed field
-  // kRun: a block per tile; else a block per chunk
-  const int blocks = kRun ? (n / kTileX) * (n / kTileY) : num_chunks;
+  // kRun: a block per tile (of the group); else a block per chunk
+  const int blocks =
+      kRun ? (group ? tiles : (n / kTileX) * (n / kTileY)) : num_chunks;
   if (blocks > 0)
     queue_kernel<kRun, NT><<<blocks, NT, smem, stream>>>(
-        coefs, spans, chunk_tile, chunk_nsub, words, num_chunks, n, k_chunk);
+        coefs, spans, chunk_tile, chunk_nsub, words, group, tile_lo,
+        num_chunks, n, k_chunk);
   if (!kRun) {
     const int columns = n * n;
     constexpr int kBlock = 256;
@@ -378,8 +403,26 @@ extern "C" int dxv_parity_queue(const float* coefs, const short* spans,
   if (const int e = check_args(num_chunks, n, k_chunk)) return e;
   return launch<kMainRun, kMainThreads>(
       coefs, reinterpret_cast<const short4*>(spans), chunk_tile, chunk_nsub,
-      reinterpret_cast<unsigned*>(words), num_chunks, n, k_chunk,
-      static_cast<cudaStream_t>(stream));
+      reinterpret_cast<unsigned*>(words), nullptr, 0, 0, num_chunks, n,
+      k_chunk, static_cast<cudaStream_t>(stream));
+}
+
+// The same on the tile group [tile_lo, tile_lo + tiles) (a rank's share of
+// a sharded voxelize): group: [tiles, n/32, 128] int32, tile tile_lo + b's
+// words at group[b], lane l = x_local * 8 + y_local, written whole.
+extern "C" int dxv_parity_queue_group(const float* coefs, const short* spans,
+                                      const int* chunk_tile,
+                                      const int* chunk_nsub, int* group,
+                                      int tile_lo, int tiles, int num_chunks,
+                                      int n, int k_chunk, void* stream) {
+  if (const int e = check_args(num_chunks, n, k_chunk)) return e;
+  const int n_tiles = (n / kTileX) * (n / kTileY);
+  if (tile_lo < 0 || tiles < 0 || tile_lo + tiles > n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kMainRun, kMainThreads>(
+      coefs, reinterpret_cast<const short4*>(spans), chunk_tile, chunk_nsub,
+      nullptr, reinterpret_cast<unsigned*>(group), tile_lo, tiles, num_chunks,
+      n, k_chunk, static_cast<cudaStream_t>(stream));
 }
 
 // The same with the layout (run = 1: a block per tile run; 0: a block per
@@ -396,8 +439,8 @@ extern "C" int dxv_parity_queue_variant(const float* coefs, const short* spans,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DXV_QUEUE_CASE(R, T)                                                 \
   if ((run != 0) == R && threads == T)                                       \
-    return launch<R, T>(coefs, sp, chunk_tile, chunk_nsub, w, num_chunks, n, \
-                        k_chunk, s);
+    return launch<R, T>(coefs, sp, chunk_tile, chunk_nsub, w, nullptr, 0, 0, \
+                        num_chunks, n, k_chunk, s);
   DXV_QUEUE_CASE(true, 128)
   DXV_QUEUE_CASE(true, 256)
   DXV_QUEUE_CASE(true, 512)

@@ -26,6 +26,10 @@
 // device memory; the TPU kernel takes coordinates because its 32x32 block
 // tiling (raymarch_warp._to_blocks) needed them.
 //
+// A band of the image (a rank's share of a sharded frame, parallel/) is the
+// launch over `height` rows from screen row `y_off`: its pixels equal those
+// rows of the whole image bit for bit.
+//
 // Design: one thread per pixel in 32x8 blocks; the per-frame constants come
 // by value. The mapping is scalarised in screen_coords' order with __f*_rn
 // intrinsics, so nothing contracts into an FMA and every rounding is the one
@@ -54,10 +58,11 @@ struct ScreenParams {
   float tex[3];   // TEX_SCALE[perm[c]]
   int perm[3];    // the march axis last
   int flip, swap, m, width, height;
+  int y_off, pad_;  // first screen row of the band (0: the whole image)
   float e_x, e_y, c_ref, gmin_x, gmin_y, gext_x, gext_y;
   float clear[3];
 };
-static_assert(sizeof(ScreenParams) == 160, "layout packed by the wrapper");
+static_assert(sizeof(ScreenParams) == 168, "layout packed by the wrapper");
 
 // Everything one launch takes, packed by ops/screen_warp_cuda.py in this
 // order into one host buffer (one argument to cross from Python).
@@ -71,7 +76,7 @@ struct ResolveArgs {
   void* stream;
   ScreenParams p;
 };
-static_assert(sizeof(ResolveArgs) == 216, "layout packed by the wrapper");
+static_assert(sizeof(ResolveArgs) == 224, "layout packed by the wrapper");
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -131,8 +136,11 @@ resolve_screen_kernel(const float* __restrict__ scatter,
   const size_t idx = static_cast<size_t>(row) * p.width + col;
 
   // ---- the mapping, in screen_coords' order -------------------------------
-  const float px = static_cast<float>(col) + 0.5f;  // arange + 0.5: exact
-  const float py = static_cast<float>(row) + 0.5f;
+  // arange + 0.5 (exact), then the band's first row added in float32, as
+  // the JAX package's band render does (sy + y_off; exact below 2^23)
+  const float px = static_cast<float>(col) + 0.5f;
+  const float py = add(static_cast<float>(row) + 0.5f,
+                       static_cast<float>(p.y_off));
   float h[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c)

@@ -5,7 +5,9 @@ UpdateFrame, Render}`` (Content/VoxelizerEZ.h:17-23). ``Engine`` wires scene
 loading, per-frame constants, voxelize and ray-march; per-frame constants
 are slot-indexed like the reference's triple-buffered CBV sets. The X key's
 alternate pipeline (``toggle_path``) is an independent implementation of
-both passes. Multi-device frames are not ported yet (ROADMAP.md item 7).
+both passes. ``chips > 1`` runs every frame across the ranks of a device
+group (parallel/pipeline.py ``ShardedFramePipeline``): each rank's
+``render`` returns its band of the image.
 """
 
 from __future__ import annotations
@@ -29,14 +31,23 @@ class Engine:
 
     def __init__(self, cfg: VoxelizerConfig, device: torch.device | str,
                  scene: Scene | None = None, vox_impl: str = "auto",
-                 render_impl: str = "warp", deforming: bool = False):
+                 render_impl: str = "warp", deforming: bool = False,
+                 chips: int = 0):
         self.cfg = cfg
         self.device = torch.device(device)
         self.scene = scene if scene is not None else Scene.load(cfg, self.device)
-        self.pipeline = FramePipeline(
-            cfg, self.scene.buffers, vox_impl=vox_impl, render_impl=render_impl,
-            deforming=deforming,
-        )
+        if chips > 1:
+            # scale-out: each frame across the device group's ranks
+            from dxrvoxelizer_tpu_torch.parallel import ShardedFramePipeline
+
+            self.pipeline = ShardedFramePipeline(
+                cfg, self.scene.buffers, chips, vox_impl=vox_impl,
+                render_impl=render_impl, deforming=deforming)
+        else:
+            self.pipeline = FramePipeline(
+                cfg, self.scene.buffers, vox_impl=vox_impl,
+                render_impl=render_impl, deforming=deforming,
+            )
         self._consts: list[FrameConstants | None] = [None] * FRAME_COUNT
         self.last_grid: VoxelGrid | None = None
         # the reference keeps TWO complete pipelines alive and the X key

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "dxv_parity_queue": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # the same, then run, threads, stream
     "dxv_parity_queue_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # coefs, spans, chunk_tile, chunk_nsub, group, tile_lo, tiles,
+    # num_chunks, n, k_chunk, stream
+    "dxv_parity_queue_group": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # slabs, wts, front, scale_x, off_x, scale_y, off_y, delta,
     # transmit, scatter, kn, n, m, ss, cz, fx, fy4, stream
     "dxv_march": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -451,17 +451,21 @@ def _shearwarp_core(
     swap: bool,
     ss: int = 1,
     use_kernels: bool = True,
+    y_off: int = 0,
 ) -> torch.Tensor:
     """March + resolve one frame -> [H, W, 3] f32. ``use_kernels=False``
-    runs the plain versions of both kernels (on any device)."""
+    runs the plain versions of both kernels (on any device). ``y_off``: the
+    first screen row of a band of ``height`` rows (a rank's share of a
+    sharded frame; the march is the whole intermediate on every rank, as in
+    the JAX package)."""
     mi = march_inputs(density, light_vol, eye_local, n, m, axis, flip, ss)
     statics = (screen_to_local, eye_local, clear_color, width, height, axis,
                flip, swap, mi)
     if use_kernels:
         transmit_i, scatter_i = march(*mi.args(), ring=mi.ring)
-        return resolve_screen(scatter_i, transmit_i, *statics)
+        return resolve_screen(scatter_i, transmit_i, *statics, y_off=y_off)
     transmit_i, scatter_i = march_plain(*mi.args())
-    return resolve_screen_plain(scatter_i, transmit_i, *statics)[0]
+    return resolve_screen_plain(scatter_i, transmit_i, *statics, y_off)[0]
 
 
 def _box_screen_px(screen_to_local: np.ndarray, width: int, height: int) -> float:

@@ -70,6 +70,16 @@ class StripTables:
         return int(self.rays.shape[0])
 
 
+def strip_slice(tb: StripTables, lo: int, hi: int) -> StripTables:
+    """Strips ``[lo, hi)`` of a stream (views; the candidate rows are
+    shared): the kernel's output for them equals those strips of the whole
+    stream's, bit for bit (each strip is folded on its own)."""
+    return StripTables(
+        rays=tb.rays[lo:hi], cand_off=tb.cand_off[lo:hi],
+        cand_cnt=tb.cand_cnt[lo:hi], rows=tb.rows,
+        bounds=None if tb.bounds is None else tb.bounds[lo:hi])
+
+
 def _check(tb: StripTables, t_count: int) -> None:
     s = tb.strips
     if tb.rays.ndim != 3 or tuple(tb.rays.shape[1:]) != (4, LANES):

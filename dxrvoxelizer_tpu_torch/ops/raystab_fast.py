@@ -152,7 +152,18 @@ def _ray_table_filled(n: int, g: int):
     """Static voxel->cell grouping (kept in memory): (ray_table [C, R_cap]
     int32 voxel ids / -1, rc [C] int64 per-cell ray counts). Within every
     cell the rays ascend by (origin-radius f32 bits, voxel id), so the pack
-    walk cuts big cells into radius-banded strips directly."""
+    walk cuts big cells into radius-banded strips directly. Built by the
+    native tier (utils/native.raytab_native, two linear passes) when it
+    builds, else by :func:`_ray_table_filled_py`; the two are equal bit
+    for bit."""
+    from dxrvoxelizer_tpu_torch.utils import native
+
+    nat = native.raytab_native(n, g)
+    return nat if nat is not None else _ray_table_filled_py(n, g)
+
+
+def _ray_table_filled_py(n: int, g: int):
+    """:func:`_ray_table_filled` in numpy (argsorts over every voxel)."""
     n_cells = 6 * g * g
     v = n * n * n
     cx, cy, cz = voxel_centers_norm(n)
@@ -529,6 +540,18 @@ def _fold_levels_csr(level_runs, g_fine: int):
     return offs, data
 
 
+def _make_packs(cell_csr, ray_table, rc, tri_bounds):
+    """The strip-packing walk: the native tier's
+    (utils/native.accel_pack_native) when it builds, else
+    :func:`_make_packs_py`; the two are equal bit for bit."""
+    from dxrvoxelizer_tpu_torch.utils import native
+
+    out = native.accel_pack_native(cell_csr[0], cell_csr[1], ray_table, rc,
+                                   tri_bounds)
+    return out if out is not None else _make_packs_py(cell_csr, ray_table, rc,
+                                                      tri_bounds)
+
+
 def _make_packs_py(cell_csr, ray_table, rc, tri_bounds):
     """Greedy strip packing -> CSR quadruple (ray_data i32, ray_offs i64,
     id_data i64, id_offs i64): pack p owns rays ray_data[ray_offs[p]:
@@ -631,7 +654,7 @@ def _pack_classes2(cell_ids, ray_table, rc, s0_p, tri_bounds):
         s0m = np.where(rt128 >= 0, s0_p[idx], 0.0).max(axis=1)
         return np.maximum(chunk_lo - s0m[:, None], 0.0).astype(np.float32)
 
-    ray_data, ray_offs, id_data, id_offs = _make_packs_py(
+    ray_data, ray_offs, id_data, id_offs = _make_packs(
         cell_ids, ray_table, rc, tri_bounds
     )
     compact = []
@@ -902,33 +925,48 @@ def build_raystab_accel2(verts_norm, tris, normals, n: int = 64,
     return assemble_raystab_accel2(compact, verts_norm, tris, normals)
 
 
-def _merge_winners2(accel: RaystabAccel2, threshold: float, rule: str,
-                    use_kernels: bool = True):
-    """Stream kernel(s) -> per-ray finished (nx, ny, nz, a) channels [V, 4].
+def strip_streams2(accel: RaystabAccel2) -> dict:
+    """The accel's strip streams by name ("main", "ov"), those it has."""
+    return {k: tb for k, tb in (("main", accel.main), ("ov", accel.ov))
+            if tb is not None}
+
+
+def _merge_streams2(accel: RaystabAccel2, outs: dict) -> torch.Tensor:
+    """The streams' kernel outputs (``outs[name] = (t, id, ns)``) -> per-ray
+    finished (nx, ny, nz, a) channels [V, 4].
 
     The main stream's slots go to ray order through ``slot_ray`` (a scatter:
     the strips partition the rays; padding slots land in the dump row V).
     Rays no strip covers keep zeros. The near-origin stream is already in
     ray order and merges by the same (t, lowest id) rule."""
-    fold = (raystab_cuda.fold_extract if use_kernels
-            else raystab_cuda.fold_extract_plain)
-    v, t_count = accel.n ** 3, accel.t_count
+    v = accel.n ** 3
     dev = accel.device
     ns = torch.zeros((v + 1, 4), dtype=torch.float32, device=dev)
-    if accel.main is not None:
-        t_s, i_s, ns_s = fold(accel.main, t_count, threshold, rule)
+    if "main" in outs:
+        t_s, i_s, ns_s = outs["main"]
         ns.index_copy_(0, accel.slot_ray, ns_s.reshape(-1, 4))
-    if accel.ov is None:
+    if "ov" not in outs:
         return ns[:v]
     t = torch.full((v + 1,), float("inf"), dtype=torch.float32, device=dev)
     i = torch.full((v + 1,), intersect.BIG_ID, dtype=torch.int32, device=dev)
-    if accel.main is not None:
+    if "main" in outs:
         t.index_copy_(0, accel.slot_ray, t_s.reshape(-1))
         i.index_copy_(0, accel.slot_ray, i_s.reshape(-1))
-    t_o, i_o, ns_o = fold(accel.ov, t_count, threshold, rule)
+    t_o, i_o, ns_o = outs["ov"]
     t_o, i_o, ns_o = t_o.reshape(-1)[:v], i_o.reshape(-1)[:v], ns_o.reshape(-1, 4)[:v]
     closer = (t_o < t[:v]) | ((t_o == t[:v]) & (i_o < i[:v]))
     return torch.where(closer[:, None], ns_o, ns[:v])
+
+
+def _merge_winners2(accel: RaystabAccel2, threshold: float, rule: str,
+                    use_kernels: bool = True):
+    """Stream kernel(s) -> per-ray finished (nx, ny, nz, a) channels [V, 4]
+    (:func:`_merge_streams2` of each stream's fold + extraction)."""
+    fold = (raystab_cuda.fold_extract if use_kernels
+            else raystab_cuda.fold_extract_plain)
+    return _merge_streams2(accel, {
+        k: fold(tb, accel.t_count, threshold, rule)
+        for k, tb in strip_streams2(accel).items()})
 
 
 def raystab_query2(accel: RaystabAccel2, threshold: float = INSIDE_THRESHOLD,

@@ -149,12 +149,18 @@ def _tile_statics(n: int, g: int, device: str):
     int64, ascending by tile then cell) and each tile's smallest and largest
     voxel origin radius (``s0min``, ``s0max`` [NT] f32, from the float32
     expression sqrt((x^2 + y^2) + z^2), correctly rounded)."""
+    from dxrvoxelizer_tpu_torch.utils import native
+
     tx, ty, tz = TILE
     nc = 6 * g * g
     cx, cy, cz = voxel_centers_norm(n)
-    pos = np.stack(np.meshgrid(cx, cy, cz, indexing="ij"), axis=-1).reshape(-1, 3)
-    key = torch.from_numpy(_tile_ids(n) * nc + _dir_cells_host(pos, g))
-    del pos
+    cells = native.dir_cells_native(n, g)  # the same bits, without [V, 3]
+    if cells is None:
+        pos = np.stack(np.meshgrid(cx, cy, cz, indexing="ij"),
+                       axis=-1).reshape(-1, 3)
+        cells = _dir_cells_host(pos, g)
+        del pos
+    key = torch.from_numpy(_tile_ids(n) * nc + cells)
     pairs = torch.unique(key.to(device))
     sq = torch.from_numpy(cx * cx).to(device)
     s0 = intersect.sqrt_rn((sq[:, None, None] + sq[None, :, None])
@@ -350,24 +356,32 @@ def build_raystab_accel7(verts_norm, tris, normals, n: int = 64,
     return assemble_raystab_accel7(compact, verts_norm, tris, normals)
 
 
-def raystab_query7(accel: RaystabAccel7, threshold: float = INSIDE_THRESHOLD,
-                   rule: str = "backface", use_kernels: bool = True):
-    """Per-frame trace -> (occupancy [n,n,n] bool, rgba [n,n,n,4] f32): one
-    fold + extraction over the live tiles (the kernel on a CUDA tensor, its
-    plain version on a CPU one, or with ``use_kernels=False``), their
-    outputs scattered into a zeroed tile buffer (dead tiles stay zero) and
-    untiled by one permute. Ground truth is the radial oracle."""
+def untile7(accel: RaystabAccel7, ns: torch.Tensor | None):
+    """The live tiles' channels ``ns`` [L, 128, 4] (None: no live tile) ->
+    (occupancy [n,n,n] bool, rgba [n,n,n,4] f32): scattered into a zeroed
+    tile buffer (dead tiles stay zero) and untiled by one permute."""
     n, (tx, ty, tz) = accel.n, TILE
     out = torch.zeros((n * n * n // 128, 128, 4), dtype=torch.float32,
                       device=accel.device)
-    if accel.main is not None:
-        fold = (raystab_cuda.fold_extract if use_kernels
-                else raystab_cuda.fold_extract_plain)
-        _, _, ns = fold(accel.main, accel.t_count, threshold, rule)
+    if ns is not None:
         out.index_copy_(0, accel.tids, ns)
     rgba = (out.reshape(n // tx, n // ty, n // tz, tx, ty, tz, 4)
             .permute(0, 3, 1, 4, 2, 5, 6).reshape(n, n, n, 4))
     return rgba[..., 3] != 0.0, rgba
+
+
+def raystab_query7(accel: RaystabAccel7, threshold: float = INSIDE_THRESHOLD,
+                   rule: str = "backface", use_kernels: bool = True):
+    """Per-frame trace -> (occupancy [n,n,n] bool, rgba [n,n,n,4] f32): one
+    fold + extraction over the live tiles (the kernel on a CUDA tensor, its
+    plain version on a CPU one, or with ``use_kernels=False``), untiled by
+    :func:`untile7`. Ground truth is the radial oracle."""
+    ns = None
+    if accel.main is not None:
+        fold = (raystab_cuda.fold_extract if use_kernels
+                else raystab_cuda.fold_extract_plain)
+        _, _, ns = fold(accel.main, accel.t_count, threshold, rule)
+    return untile7(accel, ns)
 
 
 class RaystabTiledRefitter(RaystabRefitter):

@@ -37,9 +37,9 @@ KERNEL = _cuda.Kernel(
 _BIG = 3.402823466e38  # FLT_MAX: "no hit yet"
 # csrc/screen_warp.cu ResolveArgs: scatter, transmit, out, gi_x, gi_y, ok
 # (0: none) and the stream; then ScreenParams: screen_to_local (16), eye
-# (3), tex scale (3); perm (3), flip, swap, m, width, height; e_xy (2),
-# c_ref, gmin (2), gext (2), clear colour (3)
-_ARGS = struct.Struct("<7Q22f8i10f")
+# (3), tex scale (3); perm (3), flip, swap, m, width, height, y_off, pad;
+# e_xy (2), c_ref, gmin (2), gext (2), clear colour (3)
+_ARGS = struct.Struct("<7Q22f10i10f")
 # per march axis: the tex scale and the permutation, adjacent in ScreenParams
 _AXIS = {axis: (*(float(TEX_SCALE[p]) for p in perm_for_axis(axis)),
                 *perm_for_axis(axis)) for axis in range(3)}
@@ -47,16 +47,19 @@ _AXIS = {axis: (*(float(TEX_SCALE[p]) for p in perm_for_axis(axis)),
 
 def screen_coords(screen_to_local: np.ndarray, eye_local: np.ndarray,
                   width: int, height: int, axis: int, flip: bool, m: int,
-                  mi, device) -> tuple[torch.Tensor, ...]:
+                  mi, device, y_off: int = 0) -> tuple[torch.Tensor, ...]:
     """Per-pixel intermediate coordinates (gi_x, gi_y) [H*W] and the hit
     mask ``ok`` — the ray/box entry test of ComputeStartPoint
     (PSRayCast.hlsl:71-98), planar per component. ``mi``: the frame's
     ``raymarch_warp.MarchInputs`` (its ``e_xy``, ``c_ref``, ``gmin`` and
-    ``gext``)."""
+    ``gext``). ``y_off``: the first screen row (a band of ``height`` rows;
+    the JAX package adds it to the row centres in float32)."""
     s_m = np.asarray(screen_to_local, np.float32)
     eye = np.asarray(eye_local, np.float32)
     sx = torch.arange(width, dtype=torch.float32, device=device) + 0.5
     sy = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    if y_off:
+        sy = sy + float(y_off)
     px, py = torch.meshgrid(sx, sy, indexing="xy")  # [H, W]
     pxf = px.reshape(-1)
     pyf = py.reshape(-1)
@@ -154,12 +157,13 @@ def resolve_plain(scatter_i, transmit_i, gi_x, gi_y, ok, clear_color,
 
 def resolve_screen_plain(scatter_i, transmit_i, screen_to_local, eye_local,
                          clear_color, width: int, height: int, axis: int,
-                         flip: bool, swap: bool, mi):
+                         flip: bool, swap: bool, mi, y_off: int = 0):
     """Plain version: :func:`screen_coords` + :func:`resolve_plain` ->
-    (image [H, W, 3], gi_x, gi_y, ok)."""
+    (image [H, W, 3], gi_x, gi_y, ok), ``height`` rows from screen row
+    ``y_off``."""
     m = scatter_i.shape[0]
     gi_x, gi_y, ok = screen_coords(screen_to_local, eye_local, width, height,
-                                   axis, flip, m, mi, scatter_i.device)
+                                   axis, flip, m, mi, scatter_i.device, y_off)
     if swap:  # intermediate rows then track screen rows
         img = resolve_plain(scatter_i.t().contiguous(),
                             transmit_i.t().contiguous(), gi_y, gi_x, ok,
@@ -172,9 +176,12 @@ def resolve_screen_plain(scatter_i, transmit_i, screen_to_local, eye_local,
 
 def resolve_screen(scatter_i, transmit_i, screen_to_local: np.ndarray,
                    eye_local: np.ndarray, clear_color, width: int, height: int,
-                   axis: int, flip: bool, swap: bool, mi, coords: bool = False):
+                   axis: int, flip: bool, swap: bool, mi, coords: bool = False,
+                   y_off: int = 0):
     """Map every screen pixel to the intermediates, resolve and composite ->
-    [H, W, 3] f32, or (image, gi_x, gi_y, ok) with ``coords``.
+    [H, W, 3] f32, or (image, gi_x, gi_y, ok) with ``coords``; ``height``
+    rows from screen row ``y_off`` (a band of a sharded frame: those rows of
+    the whole image, bit for bit).
 
     ``scatter_i``/``transmit_i`` [M, M] f32, untransposed; the host statics
     ``screen_to_local`` [4, 4], ``eye_local`` [3] and ``clear_color`` [3]
@@ -186,7 +193,7 @@ def resolve_screen(scatter_i, transmit_i, screen_to_local: np.ndarray,
     if scatter_i.device.type == "cpu":
         out = resolve_screen_plain(scatter_i, transmit_i, screen_to_local,
                                    eye_local, clear_color, width, height,
-                                   axis, flip, swap, mi)
+                                   axis, flip, swap, mi, y_off)
         return out if coords else out[0]
     m = scatter_i.shape[0]
     # the one check the kernel needs, cheap on the common path; the reason
@@ -211,7 +218,8 @@ def resolve_screen(scatter_i, transmit_i, screen_to_local: np.ndarray,
         scatter_i.data_ptr(), transmit_i.data_ptr(), out.data_ptr(),
         *([t.data_ptr() for t in extra] or (0, 0, 0)), _cuda.stream_ptr(dev),
         *screen_to_local.ravel().tolist(), *eye_local.tolist(), *_AXIS[axis],
-        flip, swap, m, width, height, *mi.e_xy, mi.c_ref, *mi.gmin, *mi.gext,
+        flip, swap, m, width, height, y_off, 0, *mi.e_xy, mi.c_ref, *mi.gmin,
+        *mi.gext,
         *clear_color.tolist(),
     )
     _cuda.check(lib.dxv_resolve_screen(args), KERNEL.name)

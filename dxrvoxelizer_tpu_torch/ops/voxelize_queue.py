@@ -227,13 +227,17 @@ def voxelize_parity_queue(verts_norm: torch.Tensor, tris: torch.Tensor,
 
 # ---- deforming-mesh path: device-only queue build ---------------------------
 
-def _assemble_window(phase_a_out, n: int, num_chunks: int):
-    """Assemble the queue from phase-A results at a fixed capacity.
+def _assemble_window(phase_a_out, n: int, num_chunks: int, tile_lo: int = 0,
+                     tile_hi: int | None = None):
+    """Assemble the queue of the tiles ``[tile_lo, tile_hi)`` (default: every
+    tile) from phase-A results at a fixed capacity.
 
     Sync-free: returns (coefs, spans, chunk_tile, chunk_nsub, chunk_last,
-    ok) as device tensors. ``ok`` is False when the queue needs more than
-    ``num_chunks`` chunks or the overflow count exceeds phase A's ov_ids
-    capacity (either way the queue is truncated; grow and retry).
+    ok) as device tensors; ``chunk_tile`` holds global tile ids (padding
+    chunks name the last tile and hold no live row). ``ok`` is False when
+    the queue needs more than ``num_chunks`` chunks or the overflow count
+    exceeds phase A's ov_ids capacity (either way the queue is truncated;
+    grow and retry).
     """
     k_chunk = K_CHUNK
     nty = n // TILE_Y
@@ -241,7 +245,11 @@ def _assemble_window(phase_a_out, n: int, num_chunks: int):
     coef, sorted_tris, starts, counts, ov_ids, n_ov, spans = phase_a_out
     device = coef.device
 
-    per_tile = torch.where((counts > 0) | (n_ov > 0), counts + n_ov, 0)
+    tile_idx = torch.arange(n_tiles, device=device)
+    in_window = (tile_idx >= tile_lo) & (tile_idx < (
+        n_tiles if tile_hi is None else tile_hi))
+    per_tile = torch.where(in_window & ((counts > 0) | (n_ov > 0)),
+                           counts + n_ov, 0)
     cpt = (per_tile + k_chunk - 1) // k_chunk  # chunks per tile
     bounds = torch.cumsum(cpt, 0)  # end chunk (exclusive) per tile
     first_chunk = bounds - cpt
@@ -280,11 +288,14 @@ def _assemble_window(phase_a_out, n: int, num_chunks: int):
 
 
 def _build_queue_device(verts_norm, tris, n: int, num_chunks: int,
-                        max_span_x: int, max_span_y: int):
-    """Fully-on-device queue build (no host sync) for per-frame rebinning."""
+                        max_span_x: int, max_span_y: int, tile_lo: int = 0,
+                        tile_hi: int | None = None):
+    """Fully-on-device queue build (no host sync) for per-frame rebinning,
+    of the tiles ``[tile_lo, tile_hi)`` (a rank's tile group,
+    parallel/shard.py; default every tile)."""
     pa = _queue_phase_a(verts_norm, tris, n, max_span_x, max_span_y,
                         ov_cap=OV_CAP_DEVICE)
-    return _assemble_window(pa, n, num_chunks)
+    return _assemble_window(pa, n, num_chunks, tile_lo, tile_hi)
 
 
 def rest_mesh_spans(verts_norm: torch.Tensor, tris: torch.Tensor,

@@ -17,6 +17,10 @@ shares with kernel 2.1, csrc/parity_common.cuh).
 
 - :func:`voxelize_parity_queue_chunks` is the wrapper: a CUDA tensor
   launches ``csrc/parity_queue.cu``; a CPU tensor takes the plain version.
+  With ``tiles`` it computes only the tile group ``[tile_lo, tile_lo +
+  tiles)`` (a rank's share of a sharded voxelize, parallel/shard.py) as
+  ``[tiles, N//32, 128]`` words in the JAX package's tile layout
+  (``_queue_run_group``'s output; :func:`_tiles_to_grid` assembles them).
 - :func:`voxelize_parity_queue_chunks_plain` is the plain torch version: the
   same coverage and cutoff per (column, live row) on all 128 columns of the
   tile (it never reads a span), then a per-column histogram of cutoffs and a
@@ -63,10 +67,17 @@ def _tiles_to_grid(out: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(n, n, w_words)
 
 
-def _check_queue(coefs, chunk_tile, chunk_nsub, n: int) -> tuple[int, int]:
-    """Validate a queue -> (num_chunks, k_chunk rows per chunk)."""
+def _check_queue(coefs, chunk_tile, chunk_nsub, n: int, tile_lo: int = 0,
+                 tiles: int | None = None) -> tuple[int, int]:
+    """Validate a queue (and a tile group) -> (num_chunks, k_chunk rows per
+    chunk)."""
     if n % 32 != 0:
         raise ValueError(f"grid size must be a multiple of 32, got {n}")
+    n_tiles = (n // TILE_X) * (n // TILE_Y)
+    if tiles is not None and not (0 <= tile_lo and 0 <= tiles
+                                  and tile_lo + tiles <= n_tiles):
+        raise ValueError(f"tile group [{tile_lo}, {tile_lo} + {tiles}) "
+                         f"outside the {n_tiles} tiles")
     num_chunks = chunk_tile.shape[0]
     k_chunk = coefs.shape[0] // max(num_chunks, 1)
     if (coefs.ndim != 2 or coefs.shape[1] != NCOEF or k_chunk % SUB != 0
@@ -128,33 +139,45 @@ def row_columns(coefs: torch.Tensor, spans: torch.Tensor,
 def voxelize_parity_queue_chunks_plain(coefs: torch.Tensor,
                                        chunk_tile: torch.Tensor,
                                        chunk_nsub: torch.Tensor,
-                                       n: int) -> torch.Tensor:
-    """Plain torch version of the queue kernel -> words [N, N, N//32]."""
-    num_chunks, _ = _check_queue(coefs, chunk_tile, chunk_nsub, n)
+                                       n: int, tile_lo: int = 0,
+                                       tiles: int | None = None
+                                       ) -> torch.Tensor:
+    """Plain torch version of the queue kernel -> words [N, N, N//32], or
+    with ``tiles`` the group's [tiles, N//32, 128] (chunks of other tiles
+    are left out)."""
+    num_chunks, _ = _check_queue(coefs, chunk_tile, chunk_nsub, n, tile_lo,
+                                 tiles)
     dev = coefs.device
-    n_tiles = (n // TILE_X) * (n // TILE_Y)
+    n_out = (n // TILE_X) * (n // TILE_Y) if tiles is None else tiles
     lane = torch.arange(LANES, device=dev)
-    # hist[t, l, m]: covered crossings of column l of tile t with cutoff m
-    hist = torch.zeros(n_tiles * LANES * (n + 1), dtype=torch.int32, device=dev)
+    # hist[t, l, m]: covered crossings of column l of tile tile_lo + t with
+    # cutoff m
+    hist = torch.zeros(n_out * LANES * (n + 1), dtype=torch.int32, device=dev)
     for s in range(0, num_chunks, PLAIN_BATCH):
         b = slice(s, s + PLAIN_BATCH)
         covered, m = queue_crossings(coefs, chunk_tile, chunk_nsub, n, b)
-        tile = chunk_tile[b].to(torch.int64)
-        idx = (tile[:, None, None] * LANES + lane[None, :, None]) * (n + 1) + m
-        hist.scatter_add_(0, idx.reshape(-1), covered.to(torch.int32).reshape(-1))
+        rel = chunk_tile[b].to(torch.int64) - tile_lo
+        mine = (rel >= 0) & (rel < n_out)
+        rel = torch.clamp(rel, 0, max(n_out - 1, 0))
+        idx = (rel[:, None, None] * LANES + lane[None, :, None]) * (n + 1) + m
+        hist.scatter_add_(0, idx.reshape(-1),
+                          (covered & mine[:, None, None]).to(torch.int32).reshape(-1))
     # voxel k flips once per crossing with cutoff m > k
-    hist = hist.view(n_tiles, LANES, n + 1)
+    hist = hist.view(n_out, LANES, n + 1)
     above = hist.flip(-1).cumsum(-1, dtype=torch.int32).flip(-1)[..., 1:]
-    words = pack_bits_z((above & 1).to(torch.bool))  # [n_tiles, 128, W]
-    return _tiles_to_grid(words.transpose(1, 2), n)
+    words = pack_bits_z((above & 1).to(torch.bool)).transpose(1, 2)  # [t, W, 128]
+    return words.contiguous() if tiles is not None else _tiles_to_grid(words, n)
 
 
 def voxelize_parity_queue_chunks(coefs: torch.Tensor, chunk_tile: torch.Tensor,
                                  chunk_nsub: torch.Tensor, n: int,
                                  spans: torch.Tensor | None = None,
-                                 variant: tuple[bool, int] | None = None
+                                 variant: tuple[bool, int] | None = None,
+                                 tile_lo: int = 0, tiles: int | None = None
                                  ) -> torch.Tensor:
-    """Run the queue kernel -> packed occupancy words [N, N, N//32].
+    """Run the queue kernel -> packed occupancy words [N, N, N//32], or with
+    ``tiles`` the tile group ``[tile_lo, tile_lo + tiles)``'s words
+    [tiles, N//32, 128] (tile layout, lane = x_local * TILE_Y + y_local).
 
     ``coefs`` [num_chunks * k_chunk, NCOEF] f32 (``k_chunk`` rows per chunk,
     a multiple of 8; the queue build uses K_CHUNK); ``chunk_tile`` and
@@ -164,26 +187,40 @@ def voxelize_parity_queue_chunks(coefs: torch.Tensor, chunk_tile: torch.Tensor,
     [num_chunks * k_chunk, 4] int16 column spans or None (every row spans
     its tile). ``variant`` = (one block per tile run, else one per chunk;
     threads) picks a layout and block size of the kernel other than the
-    main path's (csrc/parity_queue.cu; the timing sweep). A CPU tensor takes the plain version, which tests every column;
-    a CUDA tensor launches the kernel.
+    main path's (csrc/parity_queue.cu; the timing sweep; not with
+    ``tiles``). A CPU tensor takes the plain version, which tests every
+    column; a CUDA tensor launches the kernel.
     """
-    num_chunks, k_chunk = _check_queue(coefs, chunk_tile, chunk_nsub, n)
+    num_chunks, k_chunk = _check_queue(coefs, chunk_tile, chunk_nsub, n,
+                                       tile_lo, tiles)
+    if variant is not None and tiles is not None:
+        raise ValueError("the timing sweep's variants cover the whole grid")
     if spans is not None and tuple(spans.shape) != (coefs.shape[0], 4):
         raise ValueError(f"spans: expected [{coefs.shape[0]}, 4], "
                          f"got {tuple(spans.shape)}")
     if coefs.device.type == "cpu":
         return voxelize_parity_queue_chunks_plain(coefs, chunk_tile,
-                                                  chunk_nsub, n)
+                                                  chunk_nsub, n, tile_lo, tiles)
     _cuda.require(coefs, "coefs", torch.float32)
     _cuda.require(chunk_tile, "chunk_tile", torch.int32)
     _cuda.require(chunk_nsub, "chunk_nsub", torch.int32)
     if spans is not None:
         _cuda.require(spans, "spans", torch.int16)
     lib = _cuda.load()
+    sp = 0 if spans is None else spans.data_ptr()
+    if tiles is not None:
+        group = torch.empty((tiles, n // 32, LANES), dtype=torch.int32,
+                            device=coefs.device)
+        code = lib.dxv_parity_queue_group(
+            coefs.data_ptr(), sp, chunk_tile.data_ptr(), chunk_nsub.data_ptr(),
+            group.data_ptr(), tile_lo, tiles, num_chunks, n, k_chunk,
+            _cuda.stream_ptr(coefs.device))
+        _cuda.check(code, KERNEL.name)
+        KERNEL.launches += 1
+        return group
     words = torch.empty((n, n, n // 32), dtype=torch.int32, device=coefs.device)
-    args = (coefs.data_ptr(), 0 if spans is None else spans.data_ptr(),
-            chunk_tile.data_ptr(), chunk_nsub.data_ptr(), words.data_ptr(),
-            num_chunks, n, k_chunk)
+    args = (coefs.data_ptr(), sp, chunk_tile.data_ptr(), chunk_nsub.data_ptr(),
+            words.data_ptr(), num_chunks, n, k_chunk)
     if variant is None:
         code = lib.dxv_parity_queue(*args, _cuda.stream_ptr(coefs.device))
     else:

@@ -93,18 +93,24 @@ def voxelize_raystab_radial_ref(verts_norm: torch.Tensor, normals: torch.Tensor,
 
 
 def voxelize_parity_ref(verts_norm: torch.Tensor, tris: torch.Tensor,
-                        n: int = 64, tri_chunk: int = 1024) -> torch.Tensor:
-    """Axis-parity solid voxelization oracle -> occupancy [n,n,n] bool.
+                        n: int = 64, tri_chunk: int = 1024,
+                        x_slab: int | None = None,
+                        x_offset: int = 0) -> torch.Tensor:
+    """Axis-parity solid voxelization oracle -> occupancy [x_slab,n,n] bool.
 
     Counts, per voxel column, the crossings strictly above each voxel center
-    and takes the parity.
+    and takes the parity. ``x_slab``/``x_offset`` restrict it to the grid-x
+    rows [x_offset, x_offset + x_slab) (default: all n), the unit of the
+    sharded reference frame (parallel/shard.py).
     """
     device = verts_norm.device
     pt = parity_tri_setup(verts_norm, tris, n)
+    x_slab = n if x_slab is None else x_slab
     # column centers in index space are the integers 0..n-1
-    gx = torch.arange(n, dtype=torch.float32, device=device)[:, None, None]
+    gx = (torch.arange(x_slab, dtype=torch.float32, device=device)
+          + float(x_offset))[:, None, None]
     gy = torch.arange(n, dtype=torch.float32, device=device)[None, :, None]
-    counts = torch.zeros((n, n, n), dtype=torch.int32, device=device)
+    counts = torch.zeros((x_slab, n, n), dtype=torch.int32, device=device)
     for s in range(0, tris.shape[0], tri_chunk):
         ptc = type(pt)(*(x[s:s + tri_chunk] for x in pt))
         covered, m = column_crossing(ptc, gx, gy)  # [n,n,Tc]

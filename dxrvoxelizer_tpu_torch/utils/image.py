@@ -2,8 +2,9 @@
 
 The reference's F11 screenshot path reads back the framebuffer and encodes a
 timestamped PNG with stb_image_write (reference: DXRVoxelizer.cpp:531-551,
-Common/stb_image_write.h). Here: a dependency-free PNG encoder (zlib is in the
-stdlib; the JAX package's native C++ encoder is not carried over yet) and
+Common/stb_image_write.h). Here: the native C++ encoder (utils/native.py,
+``_native/pngwrite.cpp``) for file writes when it builds, a dependency-free
+Python encoder otherwise and for in-memory PNGs (zlib is in the stdlib), and
 ``.npy`` export of voxel grids (``-savegrid``).
 """
 
@@ -57,9 +58,14 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
 
 
 def write_png(path: str | Path, img: np.ndarray) -> Path:
-    """Write an [H,W,3] or [H,W,4] uint8/float image as PNG (stdlib zlib)."""
+    """Write an [H,W,3] or [H,W,4] uint8/float image as PNG: the native
+    encoder when it builds, else :func:`encode_png`."""
+    from dxrvoxelizer_tpu_torch.utils.native import write_png_native
+
     path = Path(path)
-    path.write_bytes(encode_png(_normalize_u8(img)))
+    img = _normalize_u8(img)
+    if not write_png_native(path, img):
+        path.write_bytes(encode_png(img))
     return path
 
 

@@ -21,9 +21,10 @@ Behavioral contract (reference: DXRVoxelizer/XUSG/Optional/XUSGObjLoader.cpp):
   (XUSGObjLoader.cpp:386-416).
 
 The implementation is NumPy-vectorized (no per-token Python loop on the hot
-path for pure-triangle files, which all canonical scenes are). This is the
-Python parser path of ``dxrvoxelizer_tpu/utils/objloader.py``, copied so the
-port never imports JAX; the native C++ parser is not carried over yet.
+path for pure-triangle files, which all canonical scenes are). This is
+``dxrvoxelizer_tpu/utils/objloader.py``, copied so the port never imports
+JAX; its native C++ tokenizer (utils/native.py, ``_native/objparse.cpp``)
+is used when it builds, the Python parser otherwise.
 """
 
 from __future__ import annotations
@@ -87,13 +88,32 @@ def _resolve_indices(raw: np.ndarray, counts_so_far: np.ndarray, total: int) -> 
 
 
 def load_obj(path: str | Path, need_norm: bool = True, need_aabb: bool = True,
-             for_dx: bool = True, swap_yz: bool = False) -> ObjMesh:
+             for_dx: bool = True, swap_yz: bool = False,
+             impl: str = "auto") -> ObjMesh:
     """Load an OBJ file with reference-equivalent semantics.
 
     Mirrors ``ObjLoader::Import`` (XUSGObjLoader.cpp:18-40). Normals are always
     returned when ``need_norm``; AABB is always computed when ``need_aabb``.
+    ``impl``: "auto" (the native C++ tokenizer when it builds, else
+    Python), "native" (raises without it), or "python".
     """
     path = Path(path)
+    if impl not in ("auto", "native", "python"):
+        raise ValueError(f"unknown OBJ parser impl {impl!r}")
+    if impl != "python":
+        from dxrvoxelizer_tpu_torch.utils.native import parse_obj_native
+
+        parsed = parse_obj_native(path)
+        if parsed is not None:
+            positions, file_normals, corner_v, corner_vn = parsed
+            has_vn = file_normals.shape[0] > 0
+            return _postprocess(
+                positions.copy(), file_normals.copy(), corner_v,
+                corner_vn if has_vn else None, has_vn,
+                need_norm, need_aabb, for_dx, swap_yz,
+            )
+        if impl == "native":
+            raise RuntimeError("native OBJ parser unavailable (g++ missing?)")
     text = path.read_text(errors="replace")
     lines = text.split("\n")
 

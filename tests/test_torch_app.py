@@ -495,5 +495,8 @@ def test_app_interactive_and_preview_flags(ico_dir, capsys):
 
 
 def test_app_chips_raises_and_names_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["-mesh", "never_loaded.obj", "-warp", "-chips", "2"])
+    """-chips N (ROADMAP item 7, ported) on the card by default: without
+    cards it raises before loading anything, never falling back to the CPU
+    (``-chips 2 -warp`` runs gloo ranks: tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="requested 2 devices, found 0"):
+        main(["-mesh", "never_loaded.obj", "-chips", "2"])

@@ -697,3 +697,126 @@ def test_render_variant_on_the_card_matches_the_cpu(dev, impl):
         a = render(VoxelGrid(words=words), fc, cfg, impl=impl)
         b = render(VoxelGrid(words=words.cpu()), fc, cfg, impl=impl)
         assert float((a.cpu() - b).abs().max()) <= 1e-5, kw
+
+
+# ---- the sharded frames' pieces (parallel/): tile groups, bands, slices ----
+
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("mesh", ["box", "icosphere"])
+def test_queue_kernel_tile_groups_bit_identical(dev, mesh, n):
+    """Kernel 2.2 on each tile group of world sizes 2, 3 and 4 (the
+    group's own device queue) equals its plain version and those tiles of
+    the whole grid, bit for bit."""
+    from dxrvoxelizer_tpu_torch.parallel.shard import queue_capacity, split
+
+    verts, tris = _mesh(mesh, n, dev)
+    whole = voxelize_queue.voxelize_parity_queue(verts, tris, n)
+    n_tiles = (n // voxelize_queue_cuda.TILE_X) * (n // voxelize_queue_cuda.TILE_Y)
+    for world in (2, 3, 4):
+        cap = queue_capacity(verts, tris, n, world)
+        pieces = []
+        for r in range(world):
+            lo, hi = split(n_tiles, world, r)
+            coefs, spans, ct, cn, _, ok = voxelize_queue._build_queue_device(
+                verts, tris, n, cap, *voxelize_queue.SPAN_CAP, tile_lo=lo,
+                tile_hi=hi)
+            assert bool(ok)
+            got = voxelize_queue_cuda.voxelize_parity_queue_chunks(
+                coefs, ct, cn, n, spans=spans, tile_lo=lo, tiles=hi - lo)
+            want = voxelize_queue_cuda.voxelize_parity_queue_chunks_plain(
+                coefs, ct, cn, n, tile_lo=lo, tiles=hi - lo)
+            assert torch.equal(got, want)
+            pieces.append(got)
+        assert torch.equal(voxelize_queue_cuda._tiles_to_grid(
+            torch.cat(pieces), n), whole)
+
+
+@pytest.mark.parametrize("m", [32, 128])
+def test_fused_resolve_bands_bit_identical(dev, m):
+    """Kernel 2.4 on bands of rows from y_off: coordinates and mask equal
+    screen_coords' bit for bit, the image the plain version's within 1e-6
+    and the whole call's rows bit for bit."""
+    from dxrvoxelizer_tpu_torch.ops.raymarch_warp import (
+        march_inputs,
+        shearwarp_statics,
+    )
+
+    w, h = 1280, 720
+    s2l, eye = _orbit_consts(0.25, 0.0, w, h)
+    axis, flip, swap, _ = shearwarp_statics(s2l, eye, w, h)
+    zero = torch.zeros((64,) * 3, device=dev)
+    mi = march_inputs(zero, zero, eye, 64, m, axis, flip, 2)
+    rng = np.random.default_rng(m)
+    sc, tr = (torch.from_numpy((rng.random((m, m)) * 1.2 - 0.1)
+                               .astype(np.float32)).to(dev) for _ in range(2))
+    clear = np.array([0.0, 0.2, 0.4], np.float32)
+    args = (sc, tr, s2l, eye, clear, w)
+    whole = screen_warp_cuda.resolve_screen(*args, h, axis, flip, swap, mi)
+    for y0, rows in ((0, 360), (360, 360), (180, 180), (701, 19)):
+        got = screen_warp_cuda.resolve_screen(*args, rows, axis, flip, swap, mi,
+                                              coords=True, y_off=y0)
+        want = screen_warp_cuda.resolve_screen_plain(*args, rows, axis, flip,
+                                                     swap, mi, y_off=y0)
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a, b)
+        assert float((got[0] - want[0]).abs().max()) <= 1e-6
+        assert torch.equal(got[0], whole[y0:y0 + rows])
+
+
+@pytest.mark.parametrize("mesh", ["icosphere", "box", "near_origin"])
+def test_fold_kernel_strip_slices_bit_identical(dev, mesh):
+    """Kernel 2.5/2.6 on contiguous strip slices of world sizes 2 and 4
+    equals the whole stream's strips and its plain version, bit for bit."""
+    from dxrvoxelizer_tpu_torch.parallel.shard import split
+
+    v, nr, t = _raystab_mesh(mesh, 64, dev)
+    accel = raystab_fast.build_raystab_accel2(v, t, nr, n=64)
+    for tb in (s for s in (accel.main, accel.ov) if s is not None):
+        whole = raystab_cuda.fold_extract(tb, t.shape[0], 0.12)
+        for world in (2, 4):
+            for r in range(world):
+                lo, hi = split(tb.strips, world, r)
+                sl = raystab_cuda.strip_slice(tb, lo, hi)
+                got = raystab_cuda.fold_extract(sl, t.shape[0], 0.12)
+                want = raystab_cuda.fold_extract_plain(sl, t.shape[0], 0.12)
+                for a, b, c in zip(got, want, whole):
+                    assert torch.equal(a, b) and torch.equal(a, c[lo:hi])
+
+
+@pytest.mark.parametrize("inside", ["parity", "raystab"])
+def test_sharded_pipeline_on_the_card_bit_identical(dev, inside, tmp_path,
+                                                    monkeypatch):
+    """ShardedFramePipeline's rank bodies at world 1, 2 and 4 on the card
+    (a local group) equal FramePipeline's frame (parity) or the gen-6
+    query's (ray-stab), bit for bit."""
+    from dxrvoxelizer_tpu_torch.core.pipeline import VoxelGrid, render
+    from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z, quantize_r10g10b10a2
+    from dxrvoxelizer_tpu_torch.parallel import (
+        ShardedFramePipeline,
+        make_local_group,
+    )
+
+    monkeypatch.setenv("DXRVOX_ACCEL_CACHE", str(tmp_path))
+    v, nrm, t = icosphere_mesh(4)
+    v = np.asarray(v, np.float32) * 2.0 + np.array([0, 4, 0], np.float32)
+    scene = Scene(ObjMesh(positions=v, normals=np.asarray(nrm, np.float32),
+                          indices=t.astype(np.int32).reshape(-1),
+                          aabb_min=v.min(0), aabb_max=v.max(0)), dev)
+    cfg = VoxelizerConfig(grid_size=64, width=320, height=180,
+                          inside_mode=inside)
+    cam = OrbitCamera(cfg.width, cfg.height)
+    consts = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
+    want = None
+    for world in (1, 2, 4):
+        p = ShardedFramePipeline(cfg, scene.buffers, world,
+                                 group=make_local_group(world, dev))
+        got = p.frame(consts)
+        if want is None:
+            if inside == "parity":
+                want = FramePipeline(cfg, scene.buffers).frame(consts)
+            else:
+                occ, rgba = raystab_fast.raystab_query2(p.accel)
+                want = render(VoxelGrid(words=pack_bits_z(occ),
+                                        rgba=quantize_r10g10b10a2(rgba)),
+                              consts, cfg)
+        assert torch.equal(got, want), world

@@ -51,7 +51,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
               "ops.intersect", "ops.raystab_fast", "ops.raystab_cuda",
               "ops.raystab_mt_cuda", "ops.raymarch_fast", "ops.raymarch_ref",
               "ops.sampling", "ops.mips", "utils.profiling", "state",
-              "app.main", "app.interactive", "app.preview"):
+              "app.main", "app.interactive", "app.preview", "parallel.mesh",
+              "parallel.shard", "parallel.raystab_shard", "parallel.pipeline",
+              "parallel.datagen", "entry", "utils.native"):
         assert f"dxrvoxelizer_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -63,6 +65,10 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "from dxrvoxelizer_tpu_torch.ops import _cuda\n"
         "assert _cuda.build.cache_info().currsize == 0  # nothing built\n"
         "assert _cuda.load.cache_info().currsize == 0\n"
+        "from dxrvoxelizer_tpu_torch.utils import native\n"
+        "assert native.build.cache_info().currsize == 0  # nor g++\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # no process group started\n"
         "print('ok', len(sys.modules))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
