@@ -143,13 +143,21 @@ the CUDA toolkit. Phases, one line each:
     320x180, ``-ab`` (exit 0), ``-savegrid`` then ``-loadgrid``,
     ``-timings``, ``-profile`` (the trace file exists), ``-interactive``
     and ``-preview``; through the Engine, the X-key alternate frames (the
-    counting oracle + the gather renderer) and the point light inside the
-    volume (the light volume kernel); both kernels against their plain
-    versions at the 64^3 and 256^3 frames (the light volume directional,
-    point and inside; the march whole and on a band of rows); their
-    CUDA-event ms, profiler device us, plain ms, bounds (counted from the
-    live samples) and the ``grid_sample`` yardstick over the same sample
-    points; the gather frame against the warp ``-hq`` frame at 64^3 and
+    counting oracle + the gather renderer; the Engine built as the JAX
+    package builds it, ``Engine(cfg)``, on the card) and the point light
+    inside the volume (the light volume kernel); both kernels against
+    their plain versions at 64^3 and 256^3, on the frame's grid, a random
+    grid and a 4-level alpha grid, every case of the card tests: the light
+    volume directional, point and inside; the march (its ray set-up fused
+    in) against gather_rays + the plain march from the frame's camera over
+    each light volume, from a camera inside the box and along an axis, and
+    on a band of rows; every variant of both sweeps; their CUDA-event ms,
+    profiler device us, wrapper host us, plain ms, bounds (counted from
+    the live samples; the march's also under PR 10's formula) and the
+    ``grid_sample`` yardstick over the same sample points; the loads each
+    steps-per-batch setting issues past a break; the sweeps (steps per
+    batch x layout) in profiler device us; the gather frame against the
+    warp ``-hq`` frame at 64^3 and
     256^3 (frame ms in turns, device busy, idle share and ops per frame),
     render-only times with the light volume computed and passed in, and
     both images against ``raymarch_ref`` at 64^3, 1280x720 (mean, p99,
@@ -186,6 +194,7 @@ from __future__ import annotations
 
 import atexit
 import json
+import re
 import os
 import shutil
 import statistics
@@ -667,12 +676,17 @@ def profile_frames(torch, frame_fn, sync_fn, kernels):
 # its floor and fraction per axis), the seven lerps 21 and GetSample's
 # scaling 1 = 46; per contributing step of the march sigma, the
 # attenuation and the product 3, the light volume's seven lerps 21 and the
-# scatter's three operations = 27; per hit pixel the composite 17; per light
-# step the sample's 46 and the attenuation's three = 49; per voxel of the
-# point light its normalised step 15
+# scatter's three operations = 27; per hit pixel the composite 17; per
+# pixel the fused ray set-up 70 (the screen point 3, the row-order
+# transform's 16 products and 12 sums, the division by h.w 3, the
+# difference to the eye 3, the norm 6, the direction 3, three slab tests of
+# 6 and the entry point 6); per light step the sample's 46 and the
+# attenuation's three = 49; per voxel of the point light its normalised
+# step 15
 GATHER_OPS_PER_SAMPLE = 46
 GATHER_OPS_PER_LIGHT = 27
 GATHER_OPS_PER_HIT = 17
+GATHER_OPS_PER_PIXEL = 70
 LIGHT_OPS_PER_STEP = 49
 LIGHT_OPS_PER_POINT_VOXEL = 15
 # a point light inside the volume, in local space (the exact per-voxel field)
@@ -705,6 +719,51 @@ def live_light_points(torch, t, vec, steps, n, point: bool, n_light=32):
     else:
         step = vec
     return pos0 + step * (j_idx + 1).to(torch.float32)[:, None]
+
+
+def gather_registers(log: str) -> str:
+    """ptxas's registers and spill stores for each instance of the gather
+    renderer's kernels, from the build log."""
+    out, name, spill = [], None, "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = m.group(1), "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            for sym in ("gather_march_compact_kernel", "gather_march_kernel",
+                        "light_volume_kernel"):
+                if sym in name:
+                    args = re.findall(r"Li(\d+)E", name.split(sym, 1)[1]
+                                      .split("Ev", 1)[0])
+                    out.append(f"{sym}<{', '.join(args)}> {m.group(1)} "
+                               f"registers, {spill} B spilled")
+                    break
+            name = None
+    return "; ".join(out)
+
+
+def issued_steps(torch, stop, k: int, n_steps: int) -> int:
+    """Steps whose taps a kernel that issues them K at a time loads: up to
+    the end of the batch holding each loop's stop step (``stop``: the step
+    that ended the loop, ``n_steps`` if none)."""
+    batches = (stop.long() + k) // k  # batches up to the stop step's
+    full = -(-n_steps // k)
+    return int((torch.clamp(batches, max=full) * k).sum())
+
+
+def light_stops(torch, out, steps, n_light: int = 32):
+    """The step at which each voxel's light march stopped: the one whose
+    transmittance fell below 0.01, else the first outside the box, else
+    ``n_light``."""
+    from dxrvoxelizer_tpu_torch.ops.raymarch_ref import ZERO_THRESHOLD
+
+    died = out.reshape(-1) < ZERO_THRESHOLD
+    return torch.where(died, steps - 1, steps)
 
 
 def grid_sample_at(torch, vols, pos):
@@ -829,7 +888,9 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
                  False)):
             for k in kernels:
                 k.launches = 0
-            eng = Engine(cfg_e, dev)
+            # the JAX package's call: the device resolves to the card
+            eng = Engine(cfg_e) if alt else Engine(cfg_e, dev)
+            check(eng.device.type == "cuda", f"{name}: Engine on {eng.device}")
             cam = OrbitCamera(cfg.width, cfg.height)
             if alt:
                 check(eng.toggle_path(), "toggle_path did not switch")
@@ -852,87 +913,151 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
         lines.append("phase 20 Engine: " + "; ".join(eng_lines))
 
     # ---- 20b. the kernels against their plain versions ------------------
+    # every case of the card tests: the frame's grid, a random grid with
+    # fractional alphas and a ray-stab grid's 4-level alpha; the
+    # directional light, a point light outside and inside; the frame's
+    # camera, one inside the box and a view along an axis (1280x721: the
+    # axis view's middle row is on the axis); a band; every variant
+    cases_mod = state["cases"]
     errs = {gm: 0.0, lv_k: 0.0}
     cases = []
     grid64 = voxelize(mb, GRID)
     grid256 = voxelize(mb7, GRID_HI)
+    cams = cases_mod.gather_cameras(cfg.width, cfg.height + 1)
     work = {}
-    for size, grid, c_ in ((GRID, grid64, consts), (GRID_HI, grid256, consts7)):
-        dens = grid.density().contiguous()
-        light = c_.local_space_light_pt
-        for kind, pt, point in (("directional", light, False),
-                                ("point", light, True),
-                                ("inside", LIGHT_INSIDE, True)):
-            t, vec = rf.light_setup(size, pt, point_light=point)
-            got = rf.light_volume(dens, t, vec, point_light=point)
-            want, steps = rf.light_volume_plain(dens, t, vec, point_light=point,
-                                                return_steps=True)
-            e = max_err(got, want)
-            errs[lv_k] = max(errs[lv_k], e)
-            check(e <= TOL_MARCH, f"light_volume {size}^3 {kind} differs by {e:.3g}")
-            cases.append(f"light_volume {size}^3 {kind} {e:.3g}")
-            if kind == "directional":
-                work[("light", size)] = (dens, t, vec, steps, got)
-        lv = work[("light", size)][4]
-        rays = rf.gather_rays(c_.screen_to_local, c_.local_space_eye_pt,
-                              cfg.width, cfg.height, 0.0, dev)
-        got = rf.gather_march(dens, lv, *rays, clear)
-        want, sd, sl = rf.gather_march_plain(dens, lv, *rays, clear,
-                                             return_steps=True)
+
+    def hold(name, got, want, kernel):
         e = max_err(got, want)
-        errs[gm] = max(errs[gm], e)
-        check(e <= TOL_MARCH, f"gather_march {size}^3 differs by {e:.3g}")
-        # a band of 64 rows from row 300: the frame's rows
-        band = rf.gather_rays(c_.screen_to_local, c_.local_space_eye_pt,
-                              cfg.width, 64, 300.0, dev)
-        got_b = rf.gather_march(dens, lv, *band, clear)
-        e_b = max_err(got_b, rf.gather_march_plain(dens, lv, *band, clear,
-                                                   px_chunk=20_000))
-        errs[gm] = max(errs[gm], e_b)
-        check(e_b <= TOL_MARCH and torch.equal(
-            got_b, got.reshape(cfg.height, cfg.width, 3)[300:364].reshape(-1, 3)),
-            f"gather_march {size}^3 band differs by {e_b:.3g}")
-        cases.append(f"gather_march {size}^3 {e:.3g}, band of rows 300-363 "
-                     f"{e_b:.3g}")
-        work[("gather", size)] = (dens, lv, rays, sd, sl)
+        errs[kernel] = max(errs[kernel], e)
+        check(e <= TOL_MARCH, f"{name} differs by {e:.3g}")
+        return e
+
+    for size, grid, c_ in ((GRID, grid64, consts), (GRID_HI, grid256, consts7)):
+        g_ = torch.Generator().manual_seed(size)
+        rnd = (torch.rand((size,) * 3, generator=g_) < 0.2).float()
+        rnd[: size // 2] *= torch.rand((size // 2, size, size), generator=g_)
+        grids = {"frame": grid.density().contiguous(), "random": rnd.to(dev),
+                 "alpha": cases_mod.alpha_grid(size, 3, dev)}
+        lvs = {}
+        n_var = 0
+        for gname, g in grids.items():
+            for kind, pt, point in (("directional", c_.local_space_light_pt, False),
+                                    ("point", c_.local_space_light_pt, True),
+                                    ("inside", LIGHT_INSIDE, True)):
+                t, vec = rf.light_setup(size, pt, point_light=point)
+                want, steps = rf.light_volume_plain(g, t, vec, point_light=point,
+                                                    return_steps=True)
+                got = rf.light_volume(g, vec, point_light=point)
+                e = hold(f"light_volume {size}^3 {gname} {kind}", got, want, lv_k)
+                for var in cases_mod.LIGHT_VARIANTS:
+                    hold(f"light_volume {size}^3 {gname} {kind} {var}",
+                         rf.light_volume(g, vec, point_light=point, variant=var),
+                         want, lv_k)
+                    n_var += 1
+                cases.append(f"light_volume {size}^3 {gname} {kind} {e:.3g}")
+                lvs[(gname, kind)] = got
+                if gname == "frame" and kind == "directional":
+                    work[("light", size)] = (g, t, vec, steps, got)
+        # the march: the frame's camera over each light volume, the other
+        # cameras and grids over the directional one
+        s2l, eye = c_.screen_to_local, c_.local_space_eye_pt
+        dens = grids["frame"]
+        march_cases = [(f"frame {k}", dens, lvs[("frame", k)], s2l, eye,
+                        cfg.height) for k in ("directional", "point", "inside")]
+        march_cases += [(f"camera {k}", dens, lvs[("frame", "directional")],
+                         cams[k][0], cams[k][1], cfg.height + 1)
+                        for k in ("inside", "axis")]
+        march_cases += [(f"{k} grid", grids[k], lvs[(k, "directional")], s2l, eye,
+                         cfg.height) for k in ("random", "alpha")]
+        for name, g, lv, m_, eye_, h_ in march_cases:
+            rays = rf.gather_rays(m_, eye_, cfg.width, h_, 0.0, dev)
+            want, sd, sl, stop = rf.gather_march_plain(g, lv, *rays, clear,
+                                                       return_steps=True)
+            got = rf.gather_march(g, lv, m_, eye_, clear, cfg.width, h_)
+            e = hold(f"gather_march {size}^3 {name}", got, want, gm)
+            cases.append(f"gather_march {size}^3 {name} {e:.3g} "
+                         f"({int(rays[2].sum())} hits)")
+            if name == "frame directional":
+                work[("gather", size)] = (g, lv, rays, sd, sl, stop)
+                for var in cases_mod.GATHER_VARIANTS:
+                    hold(f"gather_march {size}^3 {var}",
+                         rf.gather_march(g, lv, m_, eye_, clear, cfg.width, h_,
+                                         variant=var), want, gm)
+                    n_var += 1
+                # a band of 64 rows from row 300: the frame's rows
+                band = rf.gather_rays(m_, eye_, cfg.width, 64, 300.0, dev)
+                got_b = rf.gather_march(g, lv, m_, eye_, clear, cfg.width, 64,
+                                        y_offset=300.0)
+                e_b = hold(f"gather_march {size}^3 band", got_b,
+                           rf.gather_march_plain(g, lv, *band, clear,
+                                                 px_chunk=20_000), gm)
+                check(torch.equal(got_b, got.reshape(h_, cfg.width, 3)[300:364]
+                                  .reshape(-1, 3)),
+                      f"gather_march {size}^3 band differs from the frame's rows")
+                cases.append(f"gather_march {size}^3 band of rows 300-363 "
+                             f"{e_b:.3g}")
+        cases.append(f"{size}^3: {n_var} variant calls equal their plain versions")
     lines.append("phase 20 kernels against their plain versions (max|err|): "
                  + "; ".join(cases))
 
     # ---- 20c. times, bounds and yardsticks at the main path's shapes -----
     times, dev_call, plain, bounds, library, work_lines = {}, {}, {}, {}, {}, []
-    for size in (GRID, GRID_HI):
+    host, sweep, old_bounds = {}, {}, {}
+    for size, c_ in ((GRID, consts), (GRID_HI, consts7)):
         dens, t, vec, steps, lv = work[("light", size)]
-        _, _, rays, sd, sl = work[("gather", size)]
+        _, _, rays, sd, sl, stop = work[("gather", size)]
+        m_, eye_ = c_.screen_to_local, c_.local_space_eye_pt
         n3 = size ** 3
 
-        def lv_call(dens=dens, t=t, vec=vec):
-            return rf.light_volume(dens, t, vec)
+        def lv_call(dens=dens, vec=vec, variant=None):
+            return rf.light_volume(dens, vec, variant=variant)
 
-        def gm_call(dens=dens, lv=lv, rays=rays):
-            return rf.gather_march(dens, lv, *rays, clear)
+        def gm_call(dens=dens, lv=lv, m_=m_, eye_=eye_, variant=None):
+            return rf.gather_march(dens, lv, m_, eye_, clear, cfg.width,
+                                   cfg.height, variant=variant)
 
-        times[(lv_k, size)] = cuda_ms(torch, lv_call)
-        times[(gm, size)] = cuda_ms(torch, gm_call)
-        dev_call[(lv_k, size)] = device_us(torch, lv_call)
-        dev_call[(gm, size)] = device_us(torch, gm_call)
+        for k, fn in ((lv_k, lv_call), (gm, gm_call)):
+            times[(k, size)] = cuda_ms(torch, fn)
+            dev_call[(k, size)] = device_us(torch, fn)
+            host[(k, size)] = host_us(torch, fn)
+        for var in state["cases"].LIGHT_VARIANTS:
+            sweep[(lv_k, size, var)] = device_us(
+                torch, lambda var=var: lv_call(variant=var))
+        for var in state["cases"].GATHER_VARIANTS:
+            sweep[(gm, size, var)] = device_us(
+                torch, lambda var=var: gm_call(variant=var))
         plain[(lv_k, size)] = cuda_ms(
             torch, lambda: rf.light_volume_plain(dens, t, vec), reps=3, inner=1)
         plain[(gm, size)] = cuda_ms(
-            torch, lambda: rf.gather_march_plain(dens, lv, *rays, clear),
+            torch, lambda: rf.raymarch_fast(dens, lv, m_, eye_, clear, cfg.width,
+                                            cfg.height, use_kernel=False),
             reps=3, inner=1)
         live_l, live_d, live_c = int(steps.sum()), int(sd.sum()), int(sl.sum())
         hits = int(rays[2].sum())
         n_px = rays[2].numel()
-        bounds[(lv_k, size)] = bound(n3 * 8 + size * 4,
-                                     live_l * LIGHT_OPS_PER_STEP)
-        bounds[(gm, size)] = bound(
-            2 * n3 * 4 + n_px * (24 + 1 + 12) + 128 * 4,
-            live_d * GATHER_OPS_PER_SAMPLE + live_c * GATHER_OPS_PER_LIGHT
-            + hits * GATHER_OPS_PER_HIT)
+        bounds[(lv_k, size)] = bound(n3 * 8, live_l * LIGHT_OPS_PER_STEP)
+        march_ops = (live_d * GATHER_OPS_PER_SAMPLE + live_c * GATHER_OPS_PER_LIGHT
+                     + hits * GATHER_OPS_PER_HIT)
+        bounds[(gm, size)] = bound(2 * n3 * 4 + n_px * 12 + 24 * 4,
+                                   march_ops + n_px * GATHER_OPS_PER_PIXEL)
+        # PR 10's formula: the rays read (37 bytes per pixel) and the step
+        # offsets, no set-up operations
+        old_bounds[(gm, size)] = bound(2 * n3 * 4 + n_px * (24 + 1 + 12)
+                                       + 128 * 4, march_ops)
+        l_stop = light_stops(torch, lv, steps)
+        wasted = []
+        for kk in (1, 2, 4, 8):
+            iss_l = issued_steps(torch, l_stop, kk, 32)
+            iss_g = issued_steps(torch, stop[rays[2]], kk, 128)
+            wasted.append(f"K={kk}: light {iss_l - live_l} of {iss_l} step "
+                          f"loads ({(iss_l - live_l) / iss_l:.3f}), march "
+                          f"{iss_g - live_d} of {iss_g} "
+                          f"({(iss_g - live_d) / iss_g:.3f})")
         work_lines.append(
             f"{size}^3: light volume {live_l} live steps of {n3 * 32}; march "
             f"{live_d} density samples, {live_c} contributing, {hits} of "
-            f"{n_px} pixels hit")
+            f"{n_px} pixels hit; loads issued past a break (8 taps a step): "
+            + ", ".join(wasted))
         if size == GRID:
             # yardstick: one grid_sample over the same sample points
             gs_l, vals_l = grid_sample_at(torch, [dens], live_light_points(
@@ -954,15 +1079,28 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
                               f"{e_ys:.3g} of the kernels' trilinear")
     lines.append(
         "phase 20 kernels (CUDA-event ms per call, 10 calls median of 5 / "
-        "profiler device us per call / plain ms, median of 3 / bound ms (by)): "
+        "profiler device us per call / wrapper host us per call / plain ms, "
+        "median of 3 / bound ms (by) / PR 10's bound formula for the march): "
         + "; ".join(
             f"{k} {s}^3 {times[(k, s)]:.4f} / {dev_call[(k, s)]:.2f} / "
-            f"{plain[(k, s)]:.4f} / {bounds[(k, s)][0]:.6f} ({bounds[(k, s)][1]})"
+            f"{host[(k, s)]:.2f} / {plain[(k, s)]:.4f} / "
+            f"{bounds[(k, s)][0]:.6f} ({bounds[(k, s)][1]})"
+            + (f" / {old_bounds[(k, s)][0]:.6f} ({old_bounds[(k, s)][1]})"
+               if k == gm else "")
             for k in (gm, lv_k) for s in (GRID, GRID_HI))
         + f"; grid_sample yardstick at {GRID}^3: march {library[gm]:.4f} ms "
         f"({dev_call[('grid_sample march', GRID)]:.2f} us), light volume "
         f"{library[lv_k]:.4f} ms ({dev_call[('grid_sample light', GRID)]:.2f} "
         f"us); " + "; ".join(work_lines) + f"; {card}")
+    lines.append(
+        "phase 20 sweep, profiler device us per call ((steps per batch, "
+        "layout): light volume layouts 0 rows, 1-3 bricks of 4x8x8, 2x4x32, "
+        "1x8x32; march 0 16x16 tiles, 1 rows, 2 compacted 32x32 tiles): " + "; ".join(
+            f"{k} {s}^3 " + ", ".join(
+                f"{var} {sweep[(k, s, var)]:.2f}"
+                for var in (state["cases"].LIGHT_VARIANTS if k == lv_k
+                            else state["cases"].GATHER_VARIANTS))
+            for k in (lv_k, gm) for s in (GRID, GRID_HI)) + f"; {card}")
 
     # ---- 20d. the product-path question: gather against warp -hq --------
     frames = {}
@@ -1511,6 +1649,8 @@ def main() -> int:
     regs = [ln.strip() for ln in info.log.splitlines() if "Used" in ln]
     print(f"phase 1 build: {info.seconds:.2f} s, {len(regs)} kernel "
           f"variants; ptxas: {' | '.join(regs)}")
+    print(f"phase 1 gather kernels (template (K, layout)): "
+          f"{gather_registers(info.log)}")
     native_builds = {}  # the native host tier, built before its first use
     for name in ("objparse", "pngwrite", "accelpack"):
         nb = native.build(name)
@@ -1554,7 +1694,7 @@ def main() -> int:
 
         # ---- 3b. the three 64^3 frames, timed before any other heavy phase
         cfg = VoxelizerConfig(mesh=str(obj))
-        scene = Scene(load_obj(obj), dev, pos_scale=cfg.pos_scale,
+        scene = Scene(load_obj(obj), pos_scale=cfg.pos_scale, device=dev,
                       light_pt=cfg.light_pt)
         mb = scene.buffers
         cam = OrbitCamera(cfg.width, cfg.height)
@@ -1671,7 +1811,7 @@ def main() -> int:
 
         # the hi-res path's state, rebuilt for the comparisons
         cfg_hi = VoxelizerConfig(mesh=str(obj7), grid_size=GRID_HI)
-        scene7 = Scene(load_obj(obj7), dev, pos_scale=cfg_hi.pos_scale,
+        scene7 = Scene(load_obj(obj7), pos_scale=cfg_hi.pos_scale, device=dev,
                        light_pt=cfg_hi.light_pt)
     for phase, name in ((6, "static"), (7, "deform")):
         launches, covered = hi[name]
@@ -2935,7 +3075,7 @@ def main() -> int:
     # ---- 20. the render variants and the rest of the app shell ----------
     p20 = phase20(torch, app_main, kernels, card, dev, {
         "64": (cfg, mb, consts), "256": (cfg_hi, mb7, consts7),
-        "mesh6": (v6, t6)})
+        "mesh6": (v6, t6), "cases": cases})
     for k, c in p20["launches"].items():
         main_launches[k] += c
     errs.update(p20["errs"])

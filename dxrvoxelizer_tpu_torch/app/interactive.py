@@ -18,6 +18,16 @@ analog reads raw single keys from a non-blocking TTY:
   q/Esc  quit
 
 Runs headless (no TTY / -frames exhausted) exactly like the batch loop.
+
+With a sharded engine (``-chips N``: every rank runs this loop) the ranks
+run in lock step: rank 0 alone reads the terminal and serves the preview,
+and each pass of its loop sends the others one message (one
+``dist.broadcast_object_list``): the X toggles of the pass and, unless it
+is paused, the camera of the frame (eye and view-projection) and whether
+rank 0 needs the whole image (a screenshot or a waiting viewer). Every rank
+then applies the same toggles and renders the same frame collectively;
+rank 0 alone prints, saves and publishes. Rank 0's quit, or the end of
+``-frames``, ends every rank's loop on the same frame.
 """
 
 from __future__ import annotations
@@ -64,6 +74,53 @@ class _RawTTY:
         return None
 
 
+def _ranks(engine: Engine):
+    """A sharded engine's group of several ranks, each its own process,
+    else None (a local group renders whole frames in this process)."""
+    group = getattr(engine.pipeline, "group", None)
+    if group is None or group.world == 1 or group.local:
+        return None
+    return group
+
+
+def _send(group, msg) -> None:
+    """Rank 0's message of one pass to the other ranks (None: quit)."""
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([msg], src=0, device=group.device)
+
+
+def _whole(engine: Engine, img):
+    """The whole image from this rank's band (every rank takes part); the
+    alternate pipeline renders whole images on every rank."""
+    return img if engine.use_alt else engine.pipeline.gather_image(img)
+
+
+def _follow(engine: Engine, group) -> int:
+    """A rank other than 0: apply rank 0's messages until it quits."""
+    import torch.distributed as dist
+
+    frame = 0
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0, device=group.device)
+        if msg[0] is None:
+            break
+        toggles, view, whole = msg[0]
+        for _ in range(toggles):
+            engine.toggle_path()
+        if view is None:  # rank 0 is paused
+            continue
+        engine.update_frame(frame % 3, *view)
+        img = engine.render(frame % 3)
+        frame += 1
+        if whole:
+            _whole(engine, img)
+    engine.sync()
+    return frame
+
+
 def run_interactive(engine: Engine, cam: OrbitCamera, max_frames: int | None,
                     orbit: bool = True, preview=None) -> int:
     """Drive the engine until quit / max_frames. Returns frames rendered.
@@ -71,8 +128,13 @@ def run_interactive(engine: Engine, cam: OrbitCamera, max_frames: int | None,
     ``preview``: optional :class:`~dxrvoxelizer_tpu_torch.app.preview.
     PreviewServer` — the latest frame is published whenever a viewer is
     waiting for one (the swap-chain Present analog; costs nothing while
-    nobody watches).
+    nobody watches). A sharded engine's ranks other than 0 follow rank 0
+    (module docstring).
     """
+    group = _ranks(engine)
+    if group is not None and group.rank:
+        return _follow(engine, group)
+    toggles = 0  # X presses not yet sent to the other ranks
     timer = StepTimer()
     paused = False  # Space (reference: OnKeyUp VK_SPACE -> m_pausing)
     show_fps = True  # F1 (reference: s_showFPS)
@@ -97,6 +159,7 @@ def run_interactive(engine: Engine, cam: OrbitCamera, max_frames: int | None,
                     # full pipeline swap (voxelize AND render), like the
                     # reference's X between Voxelizer and VoxelizerEZ
                     alt = engine.toggle_path()
+                    toggles += 1
                     print(
                         "pipeline -> "
                         + ("alt (oracle voxelize + gather render)"
@@ -119,6 +182,8 @@ def run_interactive(engine: Engine, cam: OrbitCamera, max_frames: int | None,
             if paused:
                 import time
 
+                _send(group, (toggles, None, False))
+                toggles = 0
                 time.sleep(0.05)  # idle politely until resumed
                 timer.tick()  # keep wall time honest while paused
                 continue
@@ -129,10 +194,19 @@ def run_interactive(engine: Engine, cam: OrbitCamera, max_frames: int | None,
                 preview.apply_camera_inputs(cam)
             if orbit and frame:
                 cam.orbit(12.0, 0.0)
+            if group is not None:
+                # the whole image is gathered only when rank 0 needs it
+                show = preview is not None and preview.wants_frame()
+                _send(group, (toggles, (cam.eye, cam.view_proj), shot or show))
+                toggles = 0
             engine.update_frame(frame % 3, cam.eye, cam.view_proj)
             img = engine.render(frame % 3)
             frame += 1
-            if preview is not None and preview.wants_frame():
+            if group is None:
+                show = preview is not None and preview.wants_frame()
+            elif shot or show:
+                img = _whole(engine, img)
+            if show:
                 preview.publish(img)
             if show_fps and timer.frames_per_second != last_fps:
                 last_fps = timer.frames_per_second
@@ -142,5 +216,6 @@ def run_interactive(engine: Engine, cam: OrbitCamera, max_frames: int | None,
                 out = screenshot_name()
                 write_png(out, img.cpu().numpy())
                 print(f"wrote {out}")
+    _send(group, None)
     engine.sync()
     return frame

@@ -42,7 +42,6 @@ import torch
 from dxrvoxelizer_tpu_torch.ez import Engine
 from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
 from dxrvoxelizer_tpu_torch.utils.config import parse_args
-from dxrvoxelizer_tpu_torch.utils.device import select_device
 from dxrvoxelizer_tpu_torch.utils.image import (
     save_grid_npy,
     screenshot_name,
@@ -231,16 +230,12 @@ def main(argv: list[str] | None = None) -> int:
     if chips > 1:
         import torch.distributed as dist
 
-        if extras["interactive"]:
-            raise ValueError("-interactive reads this terminal and runs on one "
-                             "device; drop -chips")
         if not dist.is_initialized():
             return _launch_ranks(argv, cfg, chips)
         rank = dist.get_rank()
-    # CUDA unless -warp/-cpu asks for the CPU; no silent fallback
-    device = select_device("cpu" if cfg.backend == "cpu" else "default")
-
-    engine = Engine(cfg, device, vox_impl=extras["vox_impl"],
+    # CUDA unless -warp/-cpu asks for the CPU (the Engine's default device);
+    # no silent fallback
+    engine = Engine(cfg, vox_impl=extras["vox_impl"],
                     render_impl=extras["render_impl"],
                     deforming=extras["deform"], chips=chips)
     sharded = chips > 1
@@ -252,7 +247,7 @@ def main(argv: list[str] | None = None) -> int:
         f"{cfg.width}x{cfg.height} ss={cfg.render_ss} mode={cfg.inside_mode} "
         f"normals={cfg.parity_normals} vox={extras['vox_impl']} "
         f"render={extras['render_impl']} deform={extras['deform']} "
-        f"device={device}" + (f" chips={chips}" if sharded else "")
+        f"device={engine.device}" + (f" chips={chips}" if sharded else "")
     )
 
     preview = None
@@ -339,7 +334,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if extras["timings"]:
         # fenced voxelize / raycast passes: per-pass wall clock
-        timers = PassTimers(device)
+        timers = PassTimers(engine.device)
         consts = engine.scene.update_frame(cam.eye, cam.view_proj, cfg.width,
                                            cfg.height)
         for _ in range(3):

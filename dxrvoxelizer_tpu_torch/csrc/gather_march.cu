@@ -1,38 +1,62 @@
 // Gather ray-march: the reference's primary march per screen pixel, with
-// the light transmittance read from a precomputed light volume (Hopper).
+// the light transmittance read from a precomputed light volume, and the
+// ray set-up fused in (Hopper).
 //
-// Replaces: dxrvoxelizer_tpu/ops/raymarch_fast.py::raymarch_fast, the march
-// of its chunk_fn (an XLA function, not a Pallas kernel): 128 samples per
-// pixel at pos_s = entry + dir * (s * step), each an 8-tap trilinear read of
-// the density (GetSample, PSRayCast.hlsl:103-112) and, where it contributes,
-// one of the light volume; transmittance as a cumprod and the shader's
-// breaks as monotone masks, over chunks of 2^17 pixels. On a TPU that form
-// avoids a sequential loop; here each pixel is one thread that runs the
-// loop and breaks, as the shader does (PSRayCast.hlsl:134-179): the first
-// step outside the box ends the march, and so does the first occupied step
-// whose transmittance falls below 0.01, whose value is then the final one.
-// The composite follows: scatter * 0.8 + 0.2 lerped to clear^2 by the
+// Replaces: dxrvoxelizer_tpu/ops/raymarch_fast.py::raymarch_fast (an XLA
+// function, not a Pallas kernel): its ray set-up (the screen-to-local
+// transform and ComputeStartPoint, :184-196) and the march of its chunk_fn:
+// 128 samples per pixel at pos_s = entry + dir * (s * step), each an 8-tap
+// trilinear read of the density (GetSample, PSRayCast.hlsl:103-112) and,
+// where it contributes, one of the light volume; transmittance as a cumprod
+// and the shader's breaks as monotone masks, over chunks of 2^17 pixels.
+// Here each pixel is one thread that sets up its ray and runs the loop with
+// the shader's breaks (PSRayCast.hlsl:134-179): the first step outside the
+// box ends the march, and so does the first occupied step whose
+// transmittance falls below 0.01, whose value is then the final one. The
+// composite follows: scatter * 0.8 + 0.2 lerped to clear^2 by the
 // transmittance, its square root, and the clear colour for misses.
 //
-// What bounds it on the card: its least time is set by bytes, the rays
-// in and the colours out (37 bytes per pixel, 34 MB at 1280x720, beside
-// the two volumes: 1 MiB each at 64^3, 64 MiB at 256^3), against 46 FP32
-// operations per density sample and 27 per contributing step
-// (chip_smoke.py GATHER_OPS_*). In practice one ray is a dependent chain:
-// each step's eight taps depend on the position, and whether the next step
-// runs depends on this step's transmittance, so a thread issues one step's
-// loads only after the previous step is done.
+// What bounds it on the card: by the count of chip_smoke.py (GATHER_OPS_*:
+// 46 FP32 operations per density sample, 27 per contributing step, 17 per
+// hit pixel and 70 for the set-up of every pixel) against bytes of the
+// colours out (12 bytes per pixel, 11 MB at 1280x720) and the two volumes
+// in (1 MiB each at 64^3, 64 MiB at 256^3): operations at 64^3, bytes at
+// 256^3. In practice the taps' latency: a ray is a dependent chain (each
+// step's eight taps depend on the position, and whether the next step
+// runs depends on this step's transmittance), and at 256^3 the two
+// volumes (128 MiB) exceed the 50 MB L2.
 //
-// Design: one thread per pixel in blocks of 256 consecutive pixels of the
-// row-major screen, so a warp's 32 rays are neighbours in a row whose taps
-// fall in the same cache lines; the volumes are read through the read-only
-// path (__ldg). Entry, direction and hit come from the plain ray set-up
-// (ops/raymarch_fast.py gather_rays: compute_start_point and the
-// screen-to-local transform), which both versions share, as does the table
-// of step offsets s * step (soff). A warp runs until its last ray stops.
-// Every operation is an explicitly rounded intrinsic in the plain
-// version's order (trilinear.cuh), so the kernel is the plain version bit
-// for bit. A simple kernel that is right: making it fast is later work.
+// Design:
+// - The set-up is in the kernel, so no ray table is written or read and
+//   nothing is copied from the host per call: the 16 floats of
+//   screen_to_local, the eye, the clear colour, the band's first row
+//   (y_offset) and the step are kernel arguments. Per pixel: the screen
+//   point, the row-order transform (a sum of four products, as
+//   raymarch_ref.screen_rays), the division by h.w, the norm as
+//   ((x*x + y*y) + z*z) and its correctly rounded root, the three slab
+//   tests of compute_start_point with its d_i == 0 case, the inside case
+//   and the final clamp, and the step offsets s * step rounded as
+//   sample_offsets rounds them.
+// - Screen tiles: a block is 16 x 16 pixels and a warp 8 x 4 (layout 0), so
+//   a warp's rays are neighbours in 2-D whose taps share cache lines, and a
+//   block outside the box's screen footprint ends at once. The sweep
+//   (chip_smoke.py phase 20; PERF.md §6, PR 11) measured them faster than
+//   rows of 256 pixels (layout 1, the previous design's shape) and than 32
+//   x 32 tiles whose hit pixels are compacted in shared memory and then
+//   marched by all 256 threads (layout 2): the compaction's extra pass and
+//   its shared-memory rays cost more than the idle lanes of the silhouette
+//   warps. Both stay for the sweep.
+// - The density taps run K = 2 steps ahead of the breaks, as in the light
+//   volume (a step outside the box loads none): a batch issues the taps of
+//   K steps, then applies the breaks in order; the light-volume tap stays
+//   conditional on a contributing step, at a position computed again (its
+//   taps are not kept: fewer registers). The sweep measured K = 1, 2 and 4
+//   close and K = 8 slower (more registers, fewer warps in flight).
+// - Taps index with 32-bit offsets (n <= 1024).
+// Every operation is an explicitly rounded intrinsic in the plain version's
+// order (trilinear.cuh; PyTorch's CUDA ops round each operation once and
+// divide tensors exactly), so the kernel is the plain path (gather_rays +
+// gather_march_plain) bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -41,74 +65,340 @@
 namespace {
 
 constexpr float kZeroThreshold = 0.01f;  // PSRayCast.hlsl:10
+constexpr float kFltMax = 3.402823466e38f;  // raymarch_ref.FLT_MAX
 constexpr int kThreads = 256;
+constexpr int kMainK = 2;       // steps per batch of the main entry point
+constexpr int kMainLayout = 0;  // 16 x 16 tiles
+constexpr int kCompactTile = 32;  // layout 2: 32 x 32 pixels per block
 
-__global__ void __launch_bounds__(kThreads)
-gather_march_kernel(const float* __restrict__ density,
-                    const float* __restrict__ light,
-                    const float* __restrict__ entry,
-                    const float* __restrict__ dir,
-                    const unsigned char* __restrict__ hit,
-                    const float* __restrict__ soff, float* __restrict__ rgb,
-                    int n, int n_px, int n_samples, float step_scale,
-                    float clear_r, float clear_g, float clear_b) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n_px) return;
-  float* out = rgb + 3 * static_cast<size_t>(p);
-  if (!hit[p]) {  // misses return the clear color (PSRayCast.hlsl:121)
-    out[0] = clear_r;
-    out[1] = clear_g;
-    out[2] = clear_b;
-    return;
+// the frame's constants, passed by value (the host packs them: 24 floats)
+struct Camera {
+  float m[16];  // screen_to_local, row-vector convention, row-major
+  float eye[3];
+  float clear[3];
+  float y_offset;  // the band's first screen row
+  float step;      // float32(MAX_DIST / n_samples)
+};
+constexpr int kCameraFloats = 24;
+
+struct Ray {
+  float e[3];  // entry point (ComputeStartPoint)
+  float d[3];  // unit direction
+};
+
+__device__ __forceinline__ float clamp_unit(float x) {
+  // torch.clamp(x, -1, 1), which keeps a NaN
+  return isnan(x) ? x : fminf(fmaxf(x, -1.0f), 1.0f);
+}
+
+// raymarch_ref.screen_rays + compute_start_point for pixel (px, py) of the
+// band; returns whether the ray hits the box (or starts inside it)
+__device__ __forceinline__ bool setup_ray(const Camera& c, int px, int py,
+                                          Ray& r) {
+  const float sx = __fadd_rn(static_cast<float>(px), 0.5f);
+  const float sy =
+      __fadd_rn(__fadd_rn(static_cast<float>(py), 0.5f), c.y_offset);
+  // h = (sx, sy, 0, 1) @ m as a sum in row order, one rounding per operation
+  float h[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __fmul_rn(sx, c.m[k]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __fadd_rn(h[k], __fmul_rn(sy, c.m[4 + k]));
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    h[k] = __fadd_rn(h[k], __fmul_rn(0.0f, c.m[8 + k]));
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    h[k] = __fadd_rn(h[k], __fmul_rn(1.0f, c.m[12 + k]));
+  float pos[3], d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    pos[k] = __fdiv_rn(h[k], h[3]);  // ScreenToLocal
+    d[k] = __fsub_rn(pos[k], c.eye[k]);
   }
-  const float ex = entry[3 * p], ey = entry[3 * p + 1], ez = entry[3 * p + 2];
-  const float dx = dir[3 * p], dy = dir[3 * p + 1], dz = dir[3 * p + 2];
+  const float nrm = __fsqrt_rn(__fadd_rn(
+      __fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
+      __fmul_rn(d[2], d[2])));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.d[k] = __fdiv_rn(d[k], nrm);
+  // ComputeStartPoint (PSRayCast.hlsl:71-98)
+  const bool inside = dxv::in_box(pos[0], pos[1], pos[2]);
+  float u_best = kFltMax;
+  bool hit = false;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int j = (i + 1) % 3, k = (i + 2) % 3;
+    const float di = r.d[i];
+    // d_i == 0: no crossing (the plain version's u = FLT_MAX never passes
+    // u < u_best)
+    if (di != 0.0f) {
+      const float sgn = di > 0.0f ? 1.0f : (di < 0.0f ? -1.0f : 0.0f);
+      const float u = __fdiv_rn(__fsub_rn(-sgn, pos[i]), di);
+      const bool ok =
+          u >= 0.0f &&
+          fabsf(__fadd_rn(__fmul_rn(r.d[j], u), pos[j])) <= 1.0f &&
+          fabsf(__fadd_rn(__fmul_rn(r.d[k], u), pos[k])) <= 1.0f &&
+          u < u_best;
+      if (ok) {
+        u_best = u;
+        hit = true;
+      }
+    }
+  }
+  const float u_final = (!inside && hit) ? u_best : 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    r.e[k] = inside ? pos[k]
+                    : clamp_unit(__fadd_rn(__fmul_rn(r.d[k], u_final), pos[k]));
+  return inside || hit;
+}
+
+// step s of a ray: its taps and whether it lies in the box
+struct Sample {
+  dxv::Axis x, y, z;
+  bool inside;
+};
+
+__device__ __forceinline__ Sample sample_at(const Ray& r, int s, float step,
+                                            int n) {
+  const float o = __fmul_rn(static_cast<float>(s), step);  // sample_offsets
+  const float px = __fadd_rn(r.e[0], __fmul_rn(r.d[0], o));
+  const float py = __fadd_rn(r.e[1], __fmul_rn(r.d[1], o));
+  const float pz = __fadd_rn(r.e[2], __fmul_rn(r.d[2], o));
+  Sample p;
+  p.inside = dxv::in_box(px, py, pz);
+  p.x = dxv::axis_taps(dxv::to_tex(0.5f, px), n);
+  p.y = dxv::axis_taps(dxv::to_tex(-0.5f, py), n);
+  p.z = dxv::axis_taps(dxv::to_tex(0.5f, pz), n);
+  return p;
+}
+
+// the march from r.e along r.d and the composite -> rgb
+template <int K>
+__device__ __forceinline__ void march(const float* __restrict__ density,
+                                      const float* __restrict__ light, int n,
+                                      int n_samples, const Camera& c,
+                                      const Ray& r, float* __restrict__ out) {
   float transmit = 1.0f;
   float scatter = 0.0f;
-  for (int s = 0; s < n_samples; ++s) {
-    const float o = __ldg(soff + s);
-    const float px = __fadd_rn(ex, __fmul_rn(dx, o));
-    const float py = __fadd_rn(ey, __fmul_rn(dy, o));
-    const float pz = __fadd_rn(ez, __fmul_rn(dz, o));
-    if (!dxv::in_box(px, py, pz)) break;
-    const dxv::Axis ax = dxv::axis_taps(dxv::to_tex(0.5f, px), n);
-    const dxv::Axis ay = dxv::axis_taps(dxv::to_tex(-0.5f, py), n);
-    const dxv::Axis az = dxv::axis_taps(dxv::to_tex(0.5f, pz), n);
-    const float dens = dxv::get_sample(density, n, ax, ay, az);
-    if (!(dens > kZeroThreshold)) continue;
-    const float sigma = __fmul_rn(dens, step_scale);
-    const float att = fminf(fmaxf(__fsub_rn(1.0f, sigma), 0.0f), 1.0f);
-    transmit = __fmul_rn(transmit, att);
-    // the shader breaks BEFORE accumulating scatter (PSRayCast.hlsl:147-148)
-    if (transmit < kZeroThreshold) break;
-    const float lt = dxv::trilinear(light, n, ax, ay, az);
-    scatter = __fadd_rn(scatter, __fmul_rn(__fmul_rn(lt, transmit), sigma));
-  }
-  const float r = __fadd_rn(__fmul_rn(scatter, 0.8f), 0.2f);
-  const float cc[3] = {clear_r, clear_g, clear_b};
+  for (int s0 = 0; s0 < n_samples; s0 += K) {
+    // issue: the batch's positions and density taps, before any break test
+    dxv::Taps taps[K];
+    float fx[K], fy[K], fz[K];
+    bool inside[K];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float cc2 = __fmul_rn(cc[c], cc[c]);
-    out[c] = __fsqrt_rn(__fadd_rn(r, __fmul_rn(__fsub_rn(cc2, r), transmit)));
+    for (int b = 0; b < K; ++b) {
+      const Sample p = sample_at(r, s0 + b, c.step, n);
+      inside[b] = p.inside;
+      // a step outside the box ends the march: its taps are not loaded
+      taps[b] = p.inside ? dxv::load_taps(density, n, p.x, p.y, p.z)
+                         : dxv::Taps{};
+      fx[b] = p.x.f;
+      fy[b] = p.y.f;
+      fz[b] = p.z.f;
+    }
+    // apply: the breaks in step order; values past a break are discarded
+    bool done = false;
+#pragma unroll
+    for (int b = 0; b < K; ++b) {
+      if (s0 + b >= n_samples || !inside[b]) {
+        done = true;
+        break;
+      }
+      const float dens =
+          dxv::scale_sample(dxv::combine(taps[b], fx[b], fy[b], fz[b]));
+      if (!(dens > kZeroThreshold)) continue;
+      const float sigma = __fmul_rn(dens, c.step);
+      const float att = fminf(fmaxf(__fsub_rn(1.0f, sigma), 0.0f), 1.0f);
+      transmit = __fmul_rn(transmit, att);
+      // the shader breaks BEFORE accumulating scatter (PSRayCast.hlsl:147-148)
+      if (transmit < kZeroThreshold) {
+        done = true;
+        break;
+      }
+      // the light tap's position again (fewer registers than keeping it)
+      const Sample p = sample_at(r, s0 + b, c.step, n);
+      const float lt = dxv::trilinear(light, n, p.x, p.y, p.z);
+      scatter = __fadd_rn(scatter, __fmul_rn(__fmul_rn(lt, transmit), sigma));
+    }
+    if (done) break;
+  }
+  const float res = __fadd_rn(__fmul_rn(scatter, 0.8f), 0.2f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float cc2 = __fmul_rn(c.clear[k], c.clear[k]);
+    out[k] =
+        __fsqrt_rn(__fadd_rn(res, __fmul_rn(__fsub_rn(cc2, res), transmit)));
+  }
+}
+
+__device__ __forceinline__ void write_clear(const Camera& c, float* out) {
+  // misses return the clear color (PSRayCast.hlsl:121)
+  out[0] = c.clear[0];
+  out[1] = c.clear[1];
+  out[2] = c.clear[2];
+}
+
+// layouts 0 (16 x 16 tiles, 8 x 4 warps) and 1 (rows of 256 pixels): one
+// pixel per thread
+template <int K, int kLayout>
+__global__ void __launch_bounds__(kThreads)
+gather_march_kernel(const float* __restrict__ density,
+                    const float* __restrict__ light, float* __restrict__ rgb,
+                    const Camera c, int n, int width, int height,
+                    int n_samples) {
+  int px, py;
+  if constexpr (kLayout == 0) {
+    const int tiles_x = (width + 15) / 16;
+    const int t = threadIdx.x, w = t / 32;
+    px = (blockIdx.x % tiles_x) * 16 + (w % 2) * 8 + t % 8;
+    py = (blockIdx.x / tiles_x) * 16 + (w / 2) * 4 + (t / 8) % 4;
+    if (px >= width || py >= height) return;
+  } else {
+    const size_t p = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+    if (p >= static_cast<size_t>(width) * height) return;
+    px = static_cast<int>(p % width);
+    py = static_cast<int>(p / width);
+  }
+  float* out = rgb + 3 * (static_cast<size_t>(py) * width + px);
+  Ray r;
+  if (!setup_ray(c, px, py, r)) {
+    write_clear(c, out);
+    return;
+  }
+  march<K>(density, light, n, n_samples, c, r, out);
+}
+
+// layout 2: a 32 x 32 tile per block; each thread sets up 4 pixels, the
+// hit ones are compacted in shared memory (warp-aggregated, so a warp's
+// hits stay together), then every thread marches queue entries
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+gather_march_compact_kernel(const float* __restrict__ density,
+                            const float* __restrict__ light,
+                            float* __restrict__ rgb, const Camera c, int n,
+                            int width, int height, int n_samples) {
+  constexpr int kPixels = kCompactTile * kCompactTile;
+  __shared__ Ray queue[kPixels];
+  __shared__ int queue_px[kPixels];
+  __shared__ int count;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  const int tiles_x = (width + kCompactTile - 1) / kCompactTile;
+  const int x0 = (blockIdx.x % tiles_x) * kCompactTile;
+  const int y0 = (blockIdx.x / tiles_x) * kCompactTile;
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < kPixels; i += kThreads) {
+    const int px = x0 + i % kCompactTile, py = y0 + i / kCompactTile;
+    const bool valid = px < width && py < height;
+    Ray r;
+    bool hit = false;
+    if (valid) {
+      hit = setup_ray(c, px, py, r);
+      if (!hit) write_clear(c, rgb + 3 * (static_cast<size_t>(py) * width + px));
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    int base = 0;
+    if (lane == 0 && mask) base = atomicAdd(&count, __popc(mask));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (hit) {
+      const int slot = base + __popc(mask & ((1u << lane) - 1u));
+      queue[slot] = r;
+      queue_px[slot] = py * width + px;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    march<K>(density, light, n, n_samples, c, queue[i],
+             rgb + 3 * static_cast<size_t>(queue_px[i]));
+  }
+}
+
+template <int K, int kLayout>
+int launch(const void* density, const void* light, void* rgb, const Camera& c,
+           int n, int width, int height, int n_samples, cudaStream_t stream) {
+  const auto* d = static_cast<const float*>(density);
+  const auto* l = static_cast<const float*>(light);
+  auto* o = static_cast<float*>(rgb);
+  if constexpr (kLayout == 2) {
+    const unsigned blocks =
+        static_cast<unsigned>(((width + kCompactTile - 1) / kCompactTile) *
+                              ((height + kCompactTile - 1) / kCompactTile));
+    gather_march_compact_kernel<K><<<blocks, kThreads, 0, stream>>>(
+        d, l, o, c, n, width, height, n_samples);
+  } else {
+    const size_t pixels = static_cast<size_t>(width) * height;
+    const unsigned blocks =
+        kLayout == 0 ? static_cast<unsigned>(((width + 15) / 16) *
+                                             ((height + 15) / 16))
+                     : static_cast<unsigned>((pixels + kThreads - 1) / kThreads);
+    gather_march_kernel<K, kLayout><<<blocks, kThreads, 0, stream>>>(
+        d, l, o, c, n, width, height, n_samples);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kLayout>
+int launch_k(int k, const void* density, const void* light, void* rgb,
+             const Camera& c, int n, int width, int height, int n_samples,
+             cudaStream_t stream) {
+  switch (k) {
+    case 1:
+      return launch<1, kLayout>(density, light, rgb, c, n, width, height,
+                                n_samples, stream);
+    case 2:
+      return launch<2, kLayout>(density, light, rgb, c, n, width, height,
+                                n_samples, stream);
+    case 4:
+      return launch<4, kLayout>(density, light, rgb, c, n, width, height,
+                                n_samples, stream);
+    case 8:
+      return launch<8, kLayout>(density, light, rgb, c, n, width, height,
+                                n_samples, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// camera: kCameraFloats host floats (screen_to_local row-major, eye, clear,
+// y_offset, step), read here and passed to the kernel by value; k: steps
+// per batch (1, 2, 4 or 8); layout: 0 tiles, 1 rows, 2 compacted tiles
+extern "C" int dxv_gather_march_variant(const void* density, const void* light,
+                                        void* rgb, const float* camera, int n,
+                                        int width, int height, int n_samples,
+                                        int k, int layout, void* stream) {
+  if (width <= 0 || height <= 0) return 0;
+  static_assert(sizeof(Camera) == kCameraFloats * sizeof(float), "layout");
+  Camera c;
+  const float* src = camera;
+  for (int i = 0; i < 16; ++i) c.m[i] = *src++;
+  for (int i = 0; i < 3; ++i) c.eye[i] = *src++;
+  for (int i = 0; i < 3; ++i) c.clear[i] = *src++;
+  c.y_offset = *src++;
+  c.step = *src++;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (layout) {
+    case 0:
+      return launch_k<0>(k, density, light, rgb, c, n, width, height,
+                         n_samples, s);
+    case 1:
+      return launch_k<1>(k, density, light, rgb, c, n, width, height,
+                         n_samples, s);
+    case 2:
+      return launch_k<2>(k, density, light, rgb, c, n, width, height,
+                         n_samples, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int dxv_gather_march(const void* density, const void* light,
-                                const void* entry, const void* dir,
-                                const void* hit, const void* soff, void* rgb,
-                                int n, int n_px, int n_samples,
-                                float step_scale, float clear_r, float clear_g,
-                                float clear_b, void* stream) {
-  if (n_px <= 0) return 0;
-  const int blocks = (n_px + kThreads - 1) / kThreads;
-  gather_march_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(density), static_cast<const float*>(light),
-      static_cast<const float*>(entry), static_cast<const float*>(dir),
-      static_cast<const unsigned char*>(hit), static_cast<const float*>(soff),
-      static_cast<float*>(rgb), n, n_px, n_samples, step_scale, clear_r,
-      clear_g, clear_b);
-  return static_cast<int>(cudaGetLastError());
+                                void* rgb, const float* camera, int n,
+                                int width, int height, int n_samples,
+                                void* stream) {
+  return dxv_gather_march_variant(density, light, rgb, camera, n, width,
+                                  height, n_samples, kMainK, kMainLayout,
+                                  stream);
 }

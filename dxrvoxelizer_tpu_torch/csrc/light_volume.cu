@@ -10,24 +10,42 @@
 // breaks: the first step outside the box ends it, and so does the first
 // step whose transmittance falls below 0.01, whose value is the result.
 // The step is shared for the directional light (light_dir * MAX_DIST /
-// n_light, computed on the host) and normalize(light - pos0) * MAX_DIST /
-// n_light per voxel for the point light (the _POINT_LIGHT_ branch,
-// PSRayCast.hlsl:151-154).
+// n_light, computed on the host and passed by value) and
+// normalize(light - pos0) * MAX_DIST / n_light per voxel for the point
+// light (the _POINT_LIGHT_ branch, PSRayCast.hlsl:151-154).
 //
-// What bounds it on the card: operations, at 49 FP32 operations per live
-// step (chip_smoke.py LIGHT_OPS_*), against bytes of one density read and
-// one write per voxel (8 bytes); a step's loads depend on the previous
-// step's break, so each thread is a latency chain, and neighbouring voxels'
-// rays are parallel (directional) or nearly so (point), so their taps share
-// cache lines.
+// What bounds it on the card: by the count of chip_smoke.py (LIGHT_OPS_*),
+// operations, at 49 FP32 operations per live step, against bytes of one
+// density read and one write per voxel (8 bytes). In practice its integer
+// and address work and its taps: a ray takes few live steps (3.4 on
+// average on the 256^3 icosphere frame: it leaves the box or dies within a
+// few), each step 14 voxels from the last at 256^3, so a step's taps come
+// from L2 or device memory, and at 256^3 the density (64 MiB) and the
+// output (64 MiB) exceed the 50 MB L2.
 //
-// Design: one thread per voxel in blocks of 256 consecutive voxels of the
-// row-major [x, y, z] grid (z fastest), so a warp's 32 rays start at 32
-// neighbouring voxel centres of one z-row. The voxel-centre coordinates t
-// come from the plain version's table (the same tensor), so pos0 is the
-// same bits on both; every operation is an explicitly rounded intrinsic in
-// the plain version's order (trilinear.cuh), so the kernel matches it bit
-// for bit. A simple kernel that is right: making it fast is later work.
+// Design:
+// - No host-to-card copy: each thread computes its voxel-centre coordinate
+//   (i + 0.5) / n * 2 - 1 with the rounded intrinsics in that order, the
+//   bits of the plain version's host table (torch's CPU division is
+//   correctly rounded); the step is passed by value.
+// - The loads may run ahead of the breaks: the steps go in batches of K; a
+//   batch first computes every position and issues all its taps (a
+//   clamped tap is always a valid address; a step outside the box, which
+//   ends the march, loads none), then applies the two break rules step by
+//   step in order, with the same rounded operations. Values read past a
+//   break are discarded. The sweep (chip_smoke.py phase 20; PERF.md §6,
+//   PR 11) measured K = 1 fastest: with so few live steps, a batch mostly
+//   loads steps past the break, and its registers cut the blocks in
+//   flight.
+// - Blocks are 4 x 8 x 8 voxel bricks (x, y, z; z fastest, so a warp is 4
+//   y-rows of 8 z): neighbouring rays are parallel (directional) or nearly
+//   so (point), so a brick's taps share cache lines step after step. The
+//   sweep measured them faster than rows of 256 voxels (layout 0) and than
+//   2 x 4 x 32 and 1 x 8 x 32 bricks (layouts 2, 3), which stay for the
+//   sweep.
+// - Taps index with 32-bit offsets (n <= 1024): fewer integer operations.
+// Every operation is an explicitly rounded intrinsic in the plain version's
+// order (trilinear.cuh), so the kernel matches it bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -37,19 +55,69 @@ namespace {
 
 constexpr float kZeroThreshold = 0.01f;  // PSRayCast.hlsl:10
 constexpr int kThreads = 256;
+constexpr int kMainK = 1;       // steps per batch of the main entry point
+constexpr int kMainLayout = 1;  // 4 x 8 x 8 bricks
 
+// a block's brick of voxels (x, y, z; z fastest) for layouts 1-3: 4 x 8 x 8
+// (a warp 4 y-rows of 8 z), 2 x 4 x 32 and 1 x 8 x 32 (a warp one z-row)
+template <int kLayout>
+struct Brick {
+  static constexpr int x = kLayout == 1 ? 4 : (kLayout == 2 ? 2 : 1);
+  static constexpr int z = kLayout == 1 ? 8 : 32;
+  static constexpr int y = kThreads / (x * z);
+};
+
+// (i + 0.5) / n * 2 - 1, rounded as the plain version's host table
+__device__ __forceinline__ float centre(int i, float n) {
+  return __fsub_rn(
+      __fmul_rn(__fdiv_rn(__fadd_rn(static_cast<float>(i), 0.5f), n), 2.0f),
+      1.0f);
+}
+
+// this thread's voxel; false past the grid's edge
+template <int kLayout>
+__device__ __forceinline__ bool voxel_of(int n, int& ix, int& iy, int& iz) {
+  if constexpr (kLayout == 0) {
+    const size_t nn = static_cast<size_t>(n);
+    const size_t v = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+    iz = static_cast<int>(v % nn);
+    iy = static_cast<int>((v / nn) % nn);
+    ix = static_cast<int>(v / (nn * nn));
+    return v < nn * nn * nn;
+  }
+  using B = Brick<kLayout>;
+  const int bz = (n + B::z - 1) / B::z;
+  const int by = (n + B::y - 1) / B::y;
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  iz = (b % bz) * B::z + (t % B::z);
+  iy = ((b / bz) % by) * B::y + (t / B::z) % B::y;
+  ix = (b / (bz * by)) * B::x + t / (B::z * B::y);
+  return ix < n && iy < n && iz < n;
+}
+
+template <int kLayout>
+unsigned blocks_for(int n) {
+  if constexpr (kLayout == 0) {
+    const size_t voxels = static_cast<size_t>(n) * n * n;
+    return static_cast<unsigned>((voxels + kThreads - 1) / kThreads);
+  }
+  using B = Brick<kLayout>;
+  return static_cast<unsigned>(((n + B::x - 1) / B::x) *
+                               ((n + B::y - 1) / B::y) *
+                               ((n + B::z - 1) / B::z));
+}
+
+template <int K, int kLayout>
 __global__ void __launch_bounds__(kThreads)
-light_volume_kernel(const float* __restrict__ density,
-                    const float* __restrict__ t, float* __restrict__ out,
+light_volume_kernel(const float* __restrict__ density, float* __restrict__ out,
                     int n, int n_light, float lss, float vx, float vy,
                     float vz, int point) {
-  const size_t v = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const size_t nn = static_cast<size_t>(n);
-  if (v >= nn * nn * nn) return;
-  const int iz = static_cast<int>(v % nn);
-  const int iy = static_cast<int>((v / nn) % nn);
-  const int ix = static_cast<int>(v / (nn * nn));
-  const float p0x = t[ix], p0y = -t[iy], p0z = t[iz];
+  int ix, iy, iz;
+  if (!voxel_of<kLayout>(n, ix, iy, iz)) return;
+  const float nf = static_cast<float>(n);
+  const float p0x = centre(ix, nf), p0y = -centre(iy, nf),
+              p0z = centre(iz, nf);
   float sx = vx, sy = vy, sz = vz;  // the directional step
   if (point) {  // v = the light point: normalize(light - pos0) * lss
     const float lx = __fsub_rn(vx, p0x);
@@ -62,37 +130,114 @@ light_volume_kernel(const float* __restrict__ density,
     sz = __fmul_rn(__fdiv_rn(lz, nrm), lss);
   }
   float trans = 1.0f;
-  for (int j = 0; j < n_light; ++j) {
-    // the first sample is one step off (PSRayCast.hlsl:157)
-    const float k = static_cast<float>(j + 1);
-    const float px = __fadd_rn(p0x, __fmul_rn(sx, k));
-    const float py = __fadd_rn(p0y, __fmul_rn(sy, k));
-    const float pz = __fadd_rn(p0z, __fmul_rn(sz, k));
-    if (!dxv::in_box(px, py, pz)) break;
-    const float dens = dxv::get_sample(
-        density, n, dxv::axis_taps(dxv::to_tex(0.5f, px), n),
-        dxv::axis_taps(dxv::to_tex(-0.5f, py), n),
-        dxv::axis_taps(dxv::to_tex(0.5f, pz), n));
-    const float att =
-        fminf(fmaxf(__fsub_rn(1.0f, __fmul_rn(lss, dens)), 0.0f), 1.0f);
-    trans = __fmul_rn(trans, att);
-    if (trans < kZeroThreshold) break;
+  for (int j0 = 0; j0 < n_light; j0 += K) {
+    // issue: every position and tap of the batch, before any break test
+    dxv::Taps taps[K];
+    float fx[K], fy[K], fz[K];
+    bool inside[K];
+#pragma unroll
+    for (int b = 0; b < K; ++b) {
+      // the first sample is one step off (PSRayCast.hlsl:157)
+      const float k = static_cast<float>(j0 + b + 1);
+      const float px = __fadd_rn(p0x, __fmul_rn(sx, k));
+      const float py = __fadd_rn(p0y, __fmul_rn(sy, k));
+      const float pz = __fadd_rn(p0z, __fmul_rn(sz, k));
+      inside[b] = dxv::in_box(px, py, pz);
+      const dxv::Axis ax = dxv::axis_taps(dxv::to_tex(0.5f, px), n);
+      const dxv::Axis ay = dxv::axis_taps(dxv::to_tex(-0.5f, py), n);
+      const dxv::Axis az = dxv::axis_taps(dxv::to_tex(0.5f, pz), n);
+      // a step outside the box ends the march: its taps are not loaded
+      taps[b] = inside[b] ? dxv::load_taps(density, n, ax, ay, az) : dxv::Taps{};
+      fx[b] = ax.f;
+      fy[b] = ay.f;
+      fz[b] = az.f;
+    }
+    // apply: the breaks in step order; values past a break are discarded
+    bool done = false;
+#pragma unroll
+    for (int b = 0; b < K; ++b) {
+      if (j0 + b >= n_light || !inside[b]) {
+        done = true;
+        break;
+      }
+      const float dens =
+          dxv::scale_sample(dxv::combine(taps[b], fx[b], fy[b], fz[b]));
+      const float att =
+          fminf(fmaxf(__fsub_rn(1.0f, __fmul_rn(lss, dens)), 0.0f), 1.0f);
+      trans = __fmul_rn(trans, att);
+      if (trans < kZeroThreshold) {
+        done = true;
+        break;
+      }
+    }
+    if (done) break;
   }
-  out[v] = trans;
+  out[(static_cast<size_t>(ix) * n + iy) * n + iz] = trans;
+}
+
+template <int K, int kLayout>
+int launch(const void* density, void* out, int n, int n_light, float lss,
+           float vx, float vy, float vz, int point, void* stream) {
+  light_volume_kernel<K, kLayout>
+      <<<blocks_for<kLayout>(n), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(density), static_cast<float*>(out), n,
+          n_light, lss, vx, vy, vz, point);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kLayout>
+int launch_k(int k, const void* density, void* out, int n, int n_light,
+             float lss, float vx, float vy, float vz, int point,
+             void* stream) {
+  switch (k) {
+    case 1:
+      return launch<1, kLayout>(density, out, n, n_light, lss, vx, vy, vz,
+                                point, stream);
+    case 2:
+      return launch<2, kLayout>(density, out, n, n_light, lss, vx, vy, vz,
+                                point, stream);
+    case 4:
+      return launch<4, kLayout>(density, out, n, n_light, lss, vx, vy, vz,
+                                point, stream);
+    case 8:
+      return launch<8, kLayout>(density, out, n, n_light, lss, vx, vy, vz,
+                                point, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-extern "C" int dxv_light_volume(const void* density, const void* t, void* out,
-                                int n, int n_light, float lss, float vx,
-                                float vy, float vz, int point, void* stream) {
-  const size_t voxels = static_cast<size_t>(n) * n * n;
-  if (voxels == 0) return 0;
-  const unsigned blocks =
-      static_cast<unsigned>((voxels + kThreads - 1) / kThreads);
-  light_volume_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(density), static_cast<const float*>(t),
-      static_cast<float*>(out), n, n_light, lss, vx, vy, vz, point);
-  return static_cast<int>(cudaGetLastError());
+// k: steps per batch (1, 2, 4 or 8); layout: 0 rows of 256 voxels, bricks
+// of 1: 4 x 8 x 8, 2: 2 x 4 x 32, 3: 1 x 8 x 32 voxels
+extern "C" int dxv_light_volume_variant(const void* density, void* out, int n,
+                                        int n_light, float lss, float vx,
+                                        float vy, float vz, int point, int k,
+                                        int layout, void* stream) {
+  if (n <= 0) return 0;
+  switch (layout) {
+    case 0:
+      return launch_k<0>(k, density, out, n, n_light, lss, vx, vy, vz, point,
+                         stream);
+    case 1:
+      return launch_k<1>(k, density, out, n, n_light, lss, vx, vy, vz, point,
+                         stream);
+    case 2:
+      return launch_k<2>(k, density, out, n, n_light, lss, vx, vy, vz, point,
+                         stream);
+    case 3:
+      return launch_k<3>(k, density, out, n, n_light, lss, vx, vy, vz, point,
+                         stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int dxv_light_volume(const void* density, void* out, int n,
+                                int n_light, float lss, float vx, float vy,
+                                float vz, int point, void* stream) {
+  return dxv_light_volume_variant(density, out, n, n_light, lss, vx, vy, vz,
+                                  point, kMainK, kMainLayout, stream);
 }

@@ -30,30 +30,57 @@ __device__ __forceinline__ Axis axis_taps(float tex, int n) {
   return a;
 }
 
+// The eight taps of one read, loaded apart from their combination so that
+// a kernel can issue the loads of several steps before it needs any value.
+struct Taps {
+  float v000, v100, v010, v110, v001, v101, v011, v111;
+};
+
+// 32-bit offsets: the wrappers take n <= 1024 (ops/raymarch_fast.py MAX_N)
+__device__ __forceinline__ Taps load_taps(const float* __restrict__ vol,
+                                          int n, const Axis& x,
+                                          const Axis& y, const Axis& z) {
+  const unsigned nn = static_cast<unsigned>(n);
+  const unsigned r00 = (x.i0 * nn + y.i0) * nn, r10 = (x.i1 * nn + y.i0) * nn;
+  const unsigned r01 = (x.i0 * nn + y.i1) * nn, r11 = (x.i1 * nn + y.i1) * nn;
+  Taps t;
+  t.v000 = __ldg(vol + r00 + z.i0);
+  t.v100 = __ldg(vol + r10 + z.i0);
+  t.v010 = __ldg(vol + r01 + z.i0);
+  t.v110 = __ldg(vol + r11 + z.i0);
+  t.v001 = __ldg(vol + r00 + z.i1);
+  t.v101 = __ldg(vol + r10 + z.i1);
+  t.v011 = __ldg(vol + r01 + z.i1);
+  t.v111 = __ldg(vol + r11 + z.i1);
+  return t;
+}
+
+__device__ __forceinline__ float combine(const Taps& t, float fx, float fy,
+                                         float fz) {
+  const float c00 = lerp_rn(t.v000, t.v100, fx);
+  const float c10 = lerp_rn(t.v010, t.v110, fx);
+  const float c01 = lerp_rn(t.v001, t.v101, fx);
+  const float c11 = lerp_rn(t.v011, t.v111, fx);
+  const float c0 = lerp_rn(c00, c10, fy);
+  const float c1 = lerp_rn(c01, c11, fy);
+  return lerp_rn(c0, c1, fz);
+}
+
 __device__ __forceinline__ float trilinear(const float* __restrict__ vol,
                                            int n, const Axis& x,
                                            const Axis& y, const Axis& z) {
-  const size_t nn = static_cast<size_t>(n);
-  const size_t r00 = (x.i0 * nn + y.i0) * nn, r10 = (x.i1 * nn + y.i0) * nn;
-  const size_t r01 = (x.i0 * nn + y.i1) * nn, r11 = (x.i1 * nn + y.i1) * nn;
-  const float v000 = __ldg(vol + r00 + z.i0), v100 = __ldg(vol + r10 + z.i0);
-  const float v010 = __ldg(vol + r01 + z.i0), v110 = __ldg(vol + r11 + z.i0);
-  const float v001 = __ldg(vol + r00 + z.i1), v101 = __ldg(vol + r10 + z.i1);
-  const float v011 = __ldg(vol + r01 + z.i1), v111 = __ldg(vol + r11 + z.i1);
-  const float c00 = lerp_rn(v000, v100, x.f);
-  const float c10 = lerp_rn(v010, v110, x.f);
-  const float c01 = lerp_rn(v001, v101, x.f);
-  const float c11 = lerp_rn(v011, v111, x.f);
-  const float c0 = lerp_rn(c00, c10, y.f);
-  const float c1 = lerp_rn(c01, c11, y.f);
-  return lerp_rn(c0, c1, z.f);
+  return combine(load_taps(vol, n, x, y, z), x.f, y.f, z.f);
 }
 
 // GetSample (PSRayCast.hlsl:103-112): min(trilinear * 8, 16)
+__device__ __forceinline__ float scale_sample(float v) {
+  return fminf(__fmul_rn(v, 8.0f), 16.0f);
+}
+
 __device__ __forceinline__ float get_sample(const float* __restrict__ vol,
                                             int n, const Axis& x,
                                             const Axis& y, const Axis& z) {
-  return fminf(__fmul_rn(trilinear(vol, n, x, y, z), 8.0f), 16.0f);
+  return scale_sample(trilinear(vol, n, x, y, z));
 }
 
 // tex = TEX_SCALE * pos + 0.5, TEX_SCALE = (0.5, -0.5, 0.5)

@@ -24,18 +24,44 @@ from dxrvoxelizer_tpu_torch.core.pipeline import (
 )
 from dxrvoxelizer_tpu_torch.models.scene import FrameConstants, Scene
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+from dxrvoxelizer_tpu_torch.utils.device import config_device
 
 
 class Engine:
-    """Load once, then per frame: ``update_frame`` + ``render``."""
+    """Load once, then per frame: ``update_frame`` + ``render``.
 
-    def __init__(self, cfg: VoxelizerConfig, device: torch.device | str,
-                 scene: Scene | None = None, vox_impl: str = "auto",
-                 render_impl: str = "warp", deforming: bool = False,
-                 chips: int = 0):
+    The JAX package's signature, ``Engine(cfg, scene=None, vox_impl=...,
+    render_impl=..., deforming=..., chips=...)``, with ``device`` as a
+    keyword: by default the scene's device, or without a scene the
+    configuration's, as the app picks it (the CPU for ``-warp``/``-cpu``,
+    else the CUDA device). A ``str`` or ``torch.device`` in the second
+    position is taken as the device (``Engine(cfg, "cpu", scene=...)``)."""
+
+    def __init__(self, cfg: VoxelizerConfig,
+                 scene_or_device: Scene | torch.device | str | None = None,
+                 vox_impl: str = "auto", render_impl: str = "warp",
+                 deforming: bool = False, chips: int = 0, *,
+                 scene: Scene | None = None,
+                 device: torch.device | str | None = None):
+        if isinstance(scene_or_device, (str, torch.device)):
+            if device is not None:
+                raise TypeError("Engine: device given twice")
+            device = scene_or_device
+        elif scene_or_device is not None:
+            if scene is not None:
+                raise TypeError("Engine: scene given twice")
+            scene = scene_or_device
+        if scene is None:
+            device = config_device(cfg) if device is None else device
+            scene = Scene.load(cfg, device)
+        elif device is not None:
+            want, have = torch.device(device), scene.buffers.device
+            if want.type != have.type or want.index not in (None, have.index):
+                raise ValueError(f"Engine: device {want}, but the scene lies "
+                                 f"on {have}")
         self.cfg = cfg
-        self.device = torch.device(device)
-        self.scene = scene if scene is not None else Scene.load(cfg, self.device)
+        self.scene = scene
+        self.device = scene.buffers.device
         if chips > 1:
             # scale-out: each frame across the device group's ranks
             from dxrvoxelizer_tpu_torch.parallel import ShardedFramePipeline

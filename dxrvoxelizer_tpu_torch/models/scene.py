@@ -18,6 +18,7 @@ from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
 from dxrvoxelizer_tpu_torch.utils import dxmath as dxm
 from dxrvoxelizer_tpu_torch.utils.assets import find_asset
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+from dxrvoxelizer_tpu_torch.utils.device import config_device, select_device
 from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh, load_obj
 
 
@@ -31,25 +32,38 @@ class FrameConstants:
 
 
 class Scene:
-    """A loaded mesh plus its placement; produces per-frame constants."""
+    """A loaded mesh plus its placement; produces per-frame constants.
 
-    def __init__(self, mesh: ObjMesh, device: torch.device | str,
-                 pos_scale=(0.0, 0.0, 0.0, 1.0),
-                 light_pt=(-10.0, 45.0, -75.0)):
+    The JAX package's signature; ``device`` (keyword) places the mesh
+    buffers, by default on the CUDA device. A ``str`` or ``torch.device`` in
+    the second position is taken as the device (``Scene(mesh, "cpu")``)."""
+
+    def __init__(self, mesh: ObjMesh, pos_scale=(0.0, 0.0, 0.0, 1.0),
+                 light_pt=(-10.0, 45.0, -75.0), *,
+                 device: torch.device | str | None = None):
+        if isinstance(pos_scale, (str, torch.device)):
+            if device is not None:
+                raise TypeError("Scene: device given twice")
+            pos_scale, device = (0.0, 0.0, 0.0, 1.0), pos_scale
         self.obj = mesh
         self.pos_scale = np.asarray(pos_scale, dtype=np.float32)
         self.light_pt = np.asarray(light_pt, dtype=np.float32)
         self.bound = mesh.bound()  # (cx, cy, cz, half_extent), Voxelizer.cpp:51-57
+        device = select_device() if device is None else device
         self.buffers = MeshBuffers.from_obj(mesh, device, self.bound)
 
     @classmethod
-    def load(cls, cfg: VoxelizerConfig, device: torch.device | str) -> "Scene":
+    def load(cls, cfg: VoxelizerConfig,
+             device: torch.device | str | None = None) -> "Scene":
+        """``device``: by default the configuration's, as the app picks it
+        (the CPU for ``-warp``/``-cpu``, else the CUDA device)."""
         mesh = load_obj(find_asset(cfg.mesh))
         if cfg.subdiv > 0:
             from dxrvoxelizer_tpu_torch.utils.objloader import subdivide
 
             mesh = subdivide(mesh, cfg.subdiv)
-        return cls(mesh, device, pos_scale=cfg.pos_scale, light_pt=cfg.light_pt)
+        return cls(mesh, pos_scale=cfg.pos_scale, light_pt=cfg.light_pt,
+                   device=config_device(cfg) if device is None else device)
 
     def world(self) -> np.ndarray:
         return dxm.world_matrix(self.bound, self.pos_scale)

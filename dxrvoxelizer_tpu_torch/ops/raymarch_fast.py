@@ -15,8 +15,10 @@ of a light volume:
 
 The JAX package writes the breaks as a cumprod and masked maxima, which a
 TPU runs without a sequential loop. A GPU runs the loop: each has a hand
-written CUDA kernel (``csrc/light_volume.cu``, ``csrc/gather_march.cu``,
-one thread per voxel or pixel) and a plain version that runs the same
+written CUDA kernel (``csrc/light_volume.cu``, one thread per voxel in
+voxel bricks; ``csrc/gather_march.cu``, one thread per pixel in screen
+tiles, with the ray set-up fused in, issuing the density taps of two
+steps before their break tests) and a plain version that runs the same
 loop as torch ops, step by step, vectorised over voxels or pixels, with the
 loop's break rules: an out-of-box step ends the march, and the first
 occupied step whose transmittance falls below 0.01 ends it with that value
@@ -26,15 +28,19 @@ JAX (``pos0 + step * (j + 1)``, ``entry + dir * (s * step)``).
 
 - :func:`light_volume` and :func:`gather_march` are the wrappers: a CUDA
   tensor launches the kernel (or raises), a CPU tensor takes the plain
-  version (:func:`light_volume_plain`, :func:`gather_march_plain`).
-- The set-up both versions share (voxel-centre table, light step, the ray
-  set-up and step offsets) is torch ops: :func:`light_setup`,
-  :func:`gather_rays`, :func:`sample_offsets`.
+  version (:func:`light_volume_plain`; :func:`gather_rays` then
+  :func:`gather_march_plain`). Neither kernel copies anything from the
+  host: the light step and the camera are kernel arguments.
+- The plain versions' set-up is torch ops on the host or the density's
+  device: :func:`light_setup` (voxel-centre table and light step),
+  :func:`gather_rays` (the ray set-up), :func:`sample_offsets`. The kernels
+  compute the same values themselves, rounded the same way.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -68,7 +74,14 @@ LIGHT_VOLUME = _cuda.Kernel(
 )
 
 LIGHT_CHUNK = 1 << 18  # voxels per step of the plain light volume
+MAX_N = 1024  # the kernels' volumes index with 32-bit offsets (trilinear.cuh)
 PX_CHUNK = 1 << 17  # pixels per step of the plain march (the JAX default)
+
+
+def _check_n(n: int) -> None:
+    if n > MAX_N:
+        raise ValueError(f"the gather kernels take volumes up to {MAX_N}^3, "
+                         f"got {n}^3")
 
 
 def _flat_trilinear(vol_flat: torch.Tensor, n: int,
@@ -112,20 +125,33 @@ def _get_sample(vol_flat, n, tex):
 
 # ---- light volume -----------------------------------------------------------
 
+def voxel_centres(n: int) -> torch.Tensor:
+    """Voxel-centre coordinates (i + 0.5) / n * 2 - 1, [n] f32 on the host
+    (pos0 is (t[x], -t[y], t[z]), JAX's ``meshgrid(t, -t, t)``)."""
+    return (torch.arange(n, dtype=torch.float32) + 0.5) / n * 2.0 - 1.0
+
+
+def light_vector(light_local, n_light: int = 32,
+                 point_light: bool = False) -> torch.Tensor:
+    """The light volume's step, [3] f32 on the host: the directional step
+    ``light / |light| * MAX_DIST / n_light`` (numpy float32, each operation
+    rounded once as torch's), or the light point itself for
+    ``point_light``."""
+    x, y, z = np.asarray(light_local, np.float32).reshape(3)
+    if not point_light:
+        # float32 scalars; the root of the float32 sum in float64, rounded
+        # once (the correctly rounded float32 root, as sqrt_rn)
+        nrm = np.float32(math.sqrt((x * x + y * y) + z * z))
+        s = np.float32(MAX_DIST / n_light)
+        x, y, z = x / nrm * s, y / nrm * s, z / nrm * s
+    return torch.from_numpy(np.array((x, y, z), np.float32))
+
+
 def light_setup(n: int, light_local, n_light: int = 32,
                 point_light: bool = False):
-    """The light volume's shared inputs, on the host -> (t [n], vec [3]).
-
-    ``t``: voxel-centre coordinates ((i + 0.5) / n * 2 - 1; pos0 is
-    (t[x], -t[y], t[z]), JAX's ``meshgrid(t, -t, t)``). ``vec``: the
-    directional step ``light / |light| * MAX_DIST / n_light``, or the light
-    point itself for ``point_light``.
-    """
-    t = (torch.arange(n, dtype=torch.float32) + 0.5) / n * 2.0 - 1.0
-    light = _f32(light_local)
-    if point_light:
-        return t, light
-    return t, light / norm3(light) * (MAX_DIST / n_light)
+    """The plain light volume's inputs, on the host -> (t [n], vec [3]):
+    :func:`voxel_centres` and :func:`light_vector`."""
+    return voxel_centres(n), light_vector(light_local, n_light, point_light)
 
 
 def light_volume_plain(density: torch.Tensor, t: torch.Tensor,
@@ -171,27 +197,34 @@ def light_volume_plain(density: torch.Tensor, t: torch.Tensor,
     return (out, steps) if return_steps else out
 
 
-def light_volume(density: torch.Tensor, t: torch.Tensor, vec: torch.Tensor,
-                 n_light: int = 32, point_light: bool = False) -> torch.Tensor:
+def light_volume(density: torch.Tensor, vec: torch.Tensor, n_light: int = 32,
+                 point_light: bool = False,
+                 variant: tuple[int, int] | None = None) -> torch.Tensor:
     """Light volume -> [N,N,N] f32: a CUDA tensor launches
     ``csrc/light_volume.cu``; a CPU tensor takes :func:`light_volume_plain`.
-    ``t``, ``vec``: from :func:`light_setup` (host tensors)."""
-    if density.device.type == "cpu":
-        return light_volume_plain(density, t, vec, n_light, point_light)
+    ``vec``: from :func:`light_vector` (a host tensor, passed by value).
+    ``variant``: (steps per batch 1/2/4/8, layout 0 rows / 1-3 voxel
+    bricks of 4x8x8, 2x4x32, 1x8x32) for the timing sweep; the main entry
+    point by default."""
     n = density.shape[0]
+    if density.device.type == "cpu":
+        return light_volume_plain(density, voxel_centres(n), vec, n_light,
+                                  point_light)
     _cuda.require(density, "density", torch.float32, (n, n, n))
-    if tuple(t.shape) != (n,) or tuple(vec.shape) != (3,):
-        raise ValueError(f"t: expected ({n},), vec (3,): got "
-                         f"{tuple(t.shape)}, {tuple(vec.shape)}")
-    t_d = t.to(device=density.device, dtype=torch.float32).contiguous()
+    _check_n(n)
+    if tuple(vec.shape) != (3,):
+        raise ValueError(f"vec: expected (3,), got {tuple(vec.shape)}")
     vx, vy, vz = (float(x) for x in vec.tolist())
     lib = _cuda.load()
     out = torch.empty((n, n, n), dtype=torch.float32, device=density.device)
-    code = lib.dxv_light_volume(
-        density.data_ptr(), t_d.data_ptr(), out.data_ptr(), n, n_light,
-        ctypes.c_float(MAX_DIST / n_light), vx, vy, vz, int(point_light),
-        _cuda.stream_ptr(density.device),
-    )
+    args = (density.data_ptr(), out.data_ptr(), n, n_light,
+            ctypes.c_float(MAX_DIST / n_light), vx, vy, vz, int(point_light))
+    stream = _cuda.stream_ptr(density.device)
+    if variant is None:
+        code = lib.dxv_light_volume(*args, stream)
+    else:
+        code = lib.dxv_light_volume_variant(*args, int(variant[0]),
+                                            int(variant[1]), stream)
     _cuda.check(code, LIGHT_VOLUME.name)
     LIGHT_VOLUME.launches += 1
     return out
@@ -209,9 +242,12 @@ def precompute_light_volume(density: torch.Tensor, light_local,
     _POINT_LIGHT_ branch, PSRayCast.hlsl:151-154). ``use_kernel=False``
     runs the plain version on any device.
     """
-    t, vec = light_setup(density.shape[0], light_local, n_light, point_light)
-    fn = light_volume if use_kernel else light_volume_plain
-    return fn(density.contiguous(), t, vec, n_light, point_light)
+    vec = light_vector(light_local, n_light, point_light)
+    density = density.contiguous()
+    if use_kernel:
+        return light_volume(density, vec, n_light, point_light)
+    return light_volume_plain(density, voxel_centres(density.shape[0]), vec,
+                              n_light, point_light)
 
 
 # ---- gather march -----------------------------------------------------------
@@ -236,9 +272,11 @@ def gather_march_plain(density: torch.Tensor, light_vol: torch.Tensor,
                        hit: torch.Tensor, clear_color, n_samples: int = 128,
                        px_chunk: int = PX_CHUNK, return_steps: bool = False):
     """Plain gather march -> rgb [P, 3] f32 (with ``return_steps``: also
-    the density and light samples taken per pixel, [P] int32 each).
-    Chunks of ``px_chunk`` pixels, each a loop over the ``n_samples``
-    steps."""
+    the density and light samples taken per pixel and the step at which
+    each hit pixel's loop stopped, the first out-of-box step or the one
+    whose transmittance fell below 0.01, ``n_samples`` if none: [P] int32
+    each). Chunks of ``px_chunk`` pixels, each a loop over the
+    ``n_samples`` steps."""
     n = density.shape[0]
     device = density.device
     step_scale = MAX_DIST / n_samples
@@ -252,13 +290,17 @@ def gather_march_plain(density: torch.Tensor, light_vol: torch.Tensor,
     if return_steps:
         steps_d = torch.zeros(n_px, dtype=torch.int32, device=device)
         steps_l = torch.zeros(n_px, dtype=torch.int32, device=device)
+        stop = torch.zeros(n_px, dtype=torch.int32, device=device)
     for lo in range(0, n_px, px_chunk):
         hi = min(lo + px_chunk, n_px)
         e, d, alive = entry[lo:hi], ray_dir[lo:hi], hit[lo:hi]
+        if return_steps:
+            stop[lo:hi] = torch.where(alive, n_samples, 0)
         transmit = torch.ones(hi - lo, dtype=torch.float32, device=device)
         scatter = torch.zeros(hi - lo, dtype=torch.float32, device=device)
         for s in range(n_samples):
             pos = e + d * soff[s]
+            was = alive
             alive = alive & torch.all(torch.abs(pos) <= 1.0, dim=-1)
             tex = tex_scale * pos + 0.5
             dens = _get_sample(dens_flat, n, tex)
@@ -275,41 +317,71 @@ def gather_march_plain(density: torch.Tensor, light_vol: torch.Tensor,
             if return_steps:
                 steps_d[lo:hi] += alive.to(torch.int32)
                 steps_l[lo:hi] += contributes.to(torch.int32)
+                stopped = (was & ~alive) | died
+                stop[lo:hi] = torch.where(stopped, s, stop[lo:hi])
             alive = alive & ~died
         result = scatter[:, None] * 0.8 + 0.2
         result = result + (clear * clear - result) * transmit[:, None]
         # misses return the clear color directly (PSRayCast.hlsl:121)
         rgb[lo:hi] = torch.where(hit[lo:hi, None], sqrt_rn(result), clear)
-    return (rgb, steps_d, steps_l) if return_steps else rgb
+    return (rgb, steps_d, steps_l, stop) if return_steps else rgb
+
+
+def _gather_plain(density, light_vol, screen_to_local, eye_local,
+                  clear_color, width, height, n_samples, y_offset, px_chunk):
+    """The plain path from the camera: :func:`gather_rays` then
+    :func:`gather_march_plain`."""
+    rays = gather_rays(screen_to_local, eye_local, width, height, y_offset,
+                       density.device)
+    return gather_march_plain(density, light_vol, *rays, clear_color,
+                              n_samples, px_chunk)
+
+
+def _camera_args(screen_to_local, eye_local, clear_color, y_offset: float,
+                n_samples: int) -> np.ndarray:
+    """The gather kernel's camera, 24 host float32s: ``screen_to_local``
+    (row-major), the eye, the clear colour, the band's first row and the
+    step ``MAX_DIST / n_samples``, each rounded to float32 as the plain
+    version's torch ops round them."""
+    return np.concatenate([
+        np.asarray(screen_to_local, np.float32).reshape(16),
+        np.asarray(eye_local, np.float32).reshape(3),
+        np.asarray(clear_color, np.float32).reshape(3),
+        np.array([y_offset, MAX_DIST / n_samples], np.float32)])
 
 
 def gather_march(density: torch.Tensor, light_vol: torch.Tensor,
-                 entry: torch.Tensor, ray_dir: torch.Tensor, hit: torch.Tensor,
-                 clear_color, n_samples: int = 128,
-                 px_chunk: int = PX_CHUNK) -> torch.Tensor:
-    """Gather march -> rgb [P, 3] f32: a CUDA tensor launches
-    ``csrc/gather_march.cu`` (one thread per pixel; ``px_chunk`` is the
-    plain version's); a CPU tensor takes :func:`gather_march_plain`."""
+                 screen_to_local, eye_local, clear_color, width: int,
+                 height: int, n_samples: int = 128, y_offset: float = 0.0,
+                 px_chunk: int = PX_CHUNK,
+                 variant: tuple[int, int] | None = None) -> torch.Tensor:
+    """Gather march from the camera -> rgb [height * width, 3] f32 (rows of
+    the band from screen row ``y_offset``): a CUDA tensor launches
+    ``csrc/gather_march.cu``, which sets up its rays itself; a CPU tensor
+    takes :func:`gather_rays` then :func:`gather_march_plain` (``px_chunk``
+    is its). ``variant``: (steps per batch 1/2/4/8, layout 0 tiles / 1 rows
+    / 2 compacted tiles) for the timing sweep."""
     if density.device.type == "cpu":
-        return gather_march_plain(density, light_vol, entry, ray_dir, hit,
-                                  clear_color, n_samples, px_chunk)
+        return _gather_plain(density, light_vol, screen_to_local, eye_local,
+                             clear_color, width, height, n_samples, y_offset,
+                             px_chunk)
     n = density.shape[0]
-    n_px = entry.shape[0]
     _cuda.require(density, "density", torch.float32, (n, n, n))
     _cuda.require(light_vol, "light_volume", torch.float32, (n, n, n))
-    _cuda.require(entry, "entry", torch.float32, (n_px, 3))
-    _cuda.require(ray_dir, "dir", torch.float32, (n_px, 3))
-    _cuda.require(hit, "hit", torch.bool, (n_px,))
-    soff = sample_offsets(n_samples).to(density.device)
-    cr, cg, cb = (float(c) for c in np.asarray(clear_color, np.float32))
+    _check_n(n)
+    camera = _camera_args(screen_to_local, eye_local, clear_color, y_offset,
+                         n_samples)
     lib = _cuda.load()
-    rgb = torch.empty((n_px, 3), dtype=torch.float32, device=density.device)
-    code = lib.dxv_gather_march(
-        density.data_ptr(), light_vol.data_ptr(), entry.data_ptr(),
-        ray_dir.data_ptr(), hit.data_ptr(), soff.data_ptr(), rgb.data_ptr(),
-        n, n_px, n_samples, ctypes.c_float(MAX_DIST / n_samples), cr, cg, cb,
-        _cuda.stream_ptr(density.device),
-    )
+    rgb = torch.empty((width * height, 3), dtype=torch.float32,
+                      device=density.device)
+    args = (density.data_ptr(), light_vol.data_ptr(), rgb.data_ptr(),
+            camera.ctypes.data, n, width, height, n_samples)
+    stream = _cuda.stream_ptr(density.device)
+    if variant is None:
+        code = lib.dxv_gather_march(*args, stream)
+    else:
+        code = lib.dxv_gather_march_variant(*args, int(variant[0]),
+                                            int(variant[1]), stream)
     _cuda.check(code, GATHER_MARCH.name)
     GATHER_MARCH.launches += 1
     return rgb
@@ -333,11 +405,11 @@ def raymarch_fast(
     ``density``: [N,N,N] alpha grid; ``light_vol``: from
     :func:`precompute_light_volume`; matrices in row-vector convention.
     ``y_offset``: first screen row (band renders). ``use_kernel=False``
-    runs the plain version on any device.
+    runs the plain version (:func:`gather_rays` + :func:`gather_march_plain`)
+    on any device.
     """
-    entry, ray_dir, hit = gather_rays(screen_to_local, eye_local, width,
-                                      height, y_offset, density.device)
-    fn = gather_march if use_kernel else gather_march_plain
-    rgb = fn(density.contiguous(), light_vol.contiguous(), entry, ray_dir, hit,
-             clear_color, n_samples, px_chunk)
+    fn = gather_march if use_kernel else _gather_plain
+    rgb = fn(density.contiguous(), light_vol.contiguous(), screen_to_local,
+             eye_local, clear_color, width, height, n_samples, y_offset,
+             px_chunk)
     return rgb.reshape(height, width, 3)

@@ -27,3 +27,10 @@ def select_device(prefer: str = "default") -> torch.device:
             "CUDA is not available; pass -warp (or -cpu) to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def config_device(cfg) -> torch.device:
+    """The device a configuration runs on, as the app picks it: the CPU for
+    ``-warp``/``-cpu`` (``cfg.backend == "cpu"``), else the CUDA device
+    (raises without one)."""
+    return select_device("cpu" if cfg.backend == "cpu" else "default")

@@ -378,6 +378,41 @@ BASE = ["-mesh", "ico.obj", "-warp", "-grid", "32", "-width", "48",
         "-height", "32", "-frames", "2"]
 
 
+def test_engine_and_scene_take_the_jax_signatures(ico_dir, monkeypatch):
+    """Engine(cfg), Engine(cfg, scene=...), Engine(cfg, scene) and
+    Scene.load(cfg), called as the JAX package calls them, resolve a -warp
+    config to the CPU and render the frame of Engine(cfg, "cpu", scene=...);
+    without -warp they ask for the card (and raise here, without one)."""
+    from dxrvoxelizer_tpu_torch.utils.config import parse_args
+
+    cfg = parse_args(BASE)
+    assert cfg.backend == "cpu"
+    scene = Scene.load(cfg)
+    assert scene.buffers.device == torch.device("cpu")
+    engines = [Engine(cfg, "cpu", scene=Scene.load(cfg, "cpu")),
+               Engine(cfg, scene=scene), Engine(cfg), Engine(cfg, scene),
+               Engine(cfg, scene=scene, device="cpu")]
+    cam = OrbitCamera(cfg.width, cfg.height)
+    frames = []
+    for eng in engines:
+        assert eng.device == torch.device("cpu")
+        eng.update_frame(0, cam.eye, cam.view_proj)
+        frames.append(eng.render(0))
+        eng.sync()
+    for f in frames[1:]:
+        assert torch.equal(f, frames[0])
+    with pytest.raises(ValueError, match="the scene lies on cpu"):
+        Engine(cfg, scene=scene, device="cuda")
+    with pytest.raises(TypeError, match="scene given twice"):
+        Engine(cfg, scene, scene=scene)
+    card = cfg.replace(backend="default")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: Engine(card), lambda: Scene.load(card),
+                 lambda: Scene(scene.obj)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 @pytest.mark.parametrize("extra", [
     ["-renderimpl", "gather"],
     ["-renderimpl", "ref", "-width", "24", "-height", "16"],

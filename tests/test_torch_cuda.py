@@ -44,11 +44,15 @@ from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
 from meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
 from torch_cases import (
     FOLD_VARIANTS,
+    GATHER_VARIANTS,
+    LIGHT_VARIANTS,
     MT_VARIANTS,
     PARITY_VARIANTS,
     QUEUE_VARIANTS,
     SOUP_TRIS,
+    alpha_grid,
     chunks_run,
+    gather_cameras,
     mt_stress,
     needle_soup,
     stab_stress,
@@ -607,23 +611,19 @@ def test_raystab_gen1_query_bit_identical_to_mt_oracle(dev, mesh):
 
 # ---- the render variants' kernels (hand-written for XLA code) ---------------
 
-def _frame_rays(dev, n_mesh=4, width=320, height=180):
-    """An icosphere frame's density (the binned kernel at 64^3), frame
-    constants and ray set-up, as the gather renderer takes them."""
+def _frame_density(dev, n_mesh=4, width=320, height=180):
+    """An icosphere frame's density (the binned kernel at 64^3) and frame
+    constants, as the gather renderer takes them."""
     from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
-    from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
 
     v, nrm, t = icosphere_mesh(n_mesh)
     world = v * np.float32(5.5) + np.array([0.0, 4.0, 0.0], np.float32)
     obj = ObjMesh(positions=world, normals=nrm, indices=t.reshape(-1),
                   aabb_min=world.min(0), aabb_max=world.max(0))
-    scene = Scene(obj, dev)
+    scene = Scene(obj, device=dev)
     cam = OrbitCamera(width, height)
     fc = scene.update_frame(cam.eye, cam.view_proj, width, height)
-    density = voxelize(scene.buffers, 64).density().contiguous()
-    rays = rf.gather_rays(fc.screen_to_local, fc.local_space_eye_pt, width,
-                          height, 0.0, dev)
-    return density, fc, rays
+    return voxelize(scene.buffers, 64).density().contiguous(), fc
 
 
 def _random_density(dev, n, seed=5):
@@ -634,52 +634,92 @@ def _random_density(dev, n, seed=5):
     return d.to(dev)
 
 
-@pytest.mark.parametrize("n", [32, 64, 128])
+def _grid(dev, kind, n):
+    """A random grid with fractional alphas, or a ray-stab grid's 4-level
+    alpha."""
+    return _random_density(dev, n) if kind == "random" else alpha_grid(n, 3, dev)
+
+
+LIGHTS = {"directional": (-10.0, 45.0, -75.0), "point": (1.3, -2.0, 4.5),
+          "inside": (0.1, -0.3, 0.2)}
+
+
+@pytest.mark.parametrize("n", [32, 64, 256])
+@pytest.mark.parametrize("grid", ["random", "alpha"])
 @pytest.mark.parametrize("light", ["directional", "point", "inside"])
-def test_light_volume_kernel_bit_identical_to_plain(dev, n, light):
-    """csrc/light_volume.cu against its plain version on random grids with
-    fractional alphas: directional, point light outside and inside."""
+def test_light_volume_kernel_bit_identical_to_plain(dev, n, grid, light):
+    """csrc/light_volume.cu against its plain version (the host's voxel
+    centres) on random grids with fractional alphas and on 4-level alpha
+    grids: directional, point light outside and inside; the main entry
+    point and every variant of the sweep (steps per batch, layout)."""
     from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
 
-    pt = {"directional": (-10.0, 45.0, -75.0), "point": (1.3, -2.0, 4.5),
-          "inside": (0.1, -0.3, 0.2)}[light]
-    dens = _random_density(dev, n)
-    t, vec = rf.light_setup(n, np.array(pt, np.float32),
-                            point_light=light != "directional")
     point = light != "directional"
-    got = rf.light_volume(dens, t, vec, point_light=point)
+    dens = _grid(dev, grid, n)
+    t, vec = rf.light_setup(n, np.array(LIGHTS[light], np.float32),
+                            point_light=point)
     want = rf.light_volume_plain(dens, t, vec, point_light=point)
-    assert torch.equal(got, want)
+    assert torch.equal(rf.light_volume(dens, vec, point_light=point), want)
+    for variant in LIGHT_VARIANTS:
+        got = rf.light_volume(dens, vec, point_light=point, variant=variant)
+        assert torch.equal(got, want), variant
     assert bool((want < 1).any()) and float(want.max()) > float(want.min())
 
 
+@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("grid", ["random", "alpha"])
+@pytest.mark.parametrize("camera", ["frame", "inside", "axis"])
+def test_gather_march_kernel_bit_identical_to_plain(dev, camera, grid, n):
+    """csrc/gather_march.cu (the ray set-up fused in) against the plain
+    path, gather_rays + gather_march_plain, on the card: an orbit frame, a
+    camera inside the box and a view along an axis (d_i == 0 rays), on
+    random and 4-level alpha grids, over the directional, point and inside
+    light volumes; whole, with every variant of the sweep, and as a band
+    of rows (y_offset) that equals the frame's rows."""
+    from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
+
+    w, h = 320, 181  # an odd height: the axis view's middle row is on-axis
+    clear = np.array([0.0, 0.2, 0.4], np.float32)
+    s2l, eye, light = gather_cameras(w, h)[camera]
+    dens = _grid(dev, grid, n)
+    rays = rf.gather_rays(s2l, eye, w, h, 0.0, dev)
+    assert bool(rays[2].any())
+    for kind in ("directional", "point", "inside"):
+        pt = light if kind == "directional" else np.array(LIGHTS[kind])
+        lv = rf.precompute_light_volume(dens, pt, point_light=kind != "directional")
+        got = rf.gather_march(dens, lv, s2l, eye, clear, w, h)
+        want = rf.gather_march_plain(dens, lv, *rays, clear, px_chunk=20_000)
+        assert torch.equal(got, want), kind
+        assert float((got - torch.tensor(clear, device=dev)).abs().max()) > 0.05
+    for variant in GATHER_VARIANTS:
+        got_v = rf.gather_march(dens, lv, s2l, eye, clear, w, h, variant=variant)
+        assert torch.equal(got_v, want), variant
+    band = rf.gather_rays(s2l, eye, w, 40, 60.0, dev)
+    got_b = rf.gather_march(dens, lv, s2l, eye, clear, w, 40, y_offset=60.0)
+    assert torch.equal(got_b, rf.gather_march_plain(dens, lv, *band, clear))
+    assert torch.equal(got_b, got.reshape(h, w, 3)[60:100].reshape(-1, 3))
+
+
 @pytest.mark.parametrize("light", ["directional", "point"])
-def test_gather_march_kernel_bit_identical_to_plain(dev, light):
-    """csrc/gather_march.cu against its plain version on the icosphere
-    frame (its light volume from the kernel), whole, with the plain
-    version in pixel chunks smaller than the frame, and on a band of rows
-    (y_offset) that equals the frame's rows; and on a random grid."""
+def test_gather_march_kernel_on_the_icosphere_frame(dev, light):
+    """The fused march on the icosphere frame's density and constants (its
+    light volume from the kernel) against the plain path, and raymarch_fast
+    with and without the kernels."""
     from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
 
     clear = np.array([0.0, 0.2, 0.4], np.float32)
-    density, fc, (entry, ray_dir, hit) = _frame_rays(dev)
+    density, fc = _frame_density(dev)
     lv = rf.precompute_light_volume(density, fc.local_space_light_pt,
                                     point_light=light == "point")
-    got = rf.gather_march(density, lv, entry, ray_dir, hit, clear)
-    want = rf.gather_march_plain(density, lv, entry, ray_dir, hit, clear,
-                                 px_chunk=10_000)
-    assert torch.equal(got, want)
-    assert float((got - torch.tensor(clear, device=dev)).abs().max()) > 0.1
-    band = rf.gather_rays(fc.screen_to_local, fc.local_space_eye_pt, 320, 40,
-                          60.0, dev)
-    got_b = rf.gather_march(density, lv, *band, clear)
-    assert torch.equal(got_b, rf.gather_march_plain(density, lv, *band, clear))
-    assert torch.equal(got_b, got.reshape(180, 320, 3)[60:100].reshape(-1, 3))
-    rnd = _random_density(dev, 64, seed=9)
-    lv_r = rf.precompute_light_volume(rnd, fc.local_space_light_pt)
-    assert torch.equal(rf.gather_march(rnd, lv_r, entry, ray_dir, hit, clear),
-                       rf.gather_march_plain(rnd, lv_r, entry, ray_dir, hit,
-                                             clear))
+    got = rf.gather_march(density, lv, fc.screen_to_local,
+                          fc.local_space_eye_pt, clear, 320, 180)
+    rays = rf.gather_rays(fc.screen_to_local, fc.local_space_eye_pt, 320, 180,
+                          0.0, dev)
+    assert torch.equal(got, rf.gather_march_plain(density, lv, *rays, clear))
+    args = (density, lv, fc.screen_to_local, fc.local_space_eye_pt, clear,
+            320, 180)
+    assert torch.equal(rf.raymarch_fast(*args),
+                       rf.raymarch_fast(*args, use_kernel=False))
 
 
 @pytest.mark.parametrize("impl", ["gather", "ref"])
@@ -689,7 +729,7 @@ def test_render_variant_on_the_card_matches_the_cpu(dev, impl):
     from dxrvoxelizer_tpu_torch.core.pipeline import VoxelGrid, render
     from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
 
-    density, fc, _ = _frame_rays(dev, width=96, height=64)
+    density, fc = _frame_density(dev, width=96, height=64)
     words = pack_bits_z(density > 0)
     for kw in ({}, {"show_mip": 1}, {"point_light": True}):
         cfg = VoxelizerConfig(width=96, height=64, num_samples=64,

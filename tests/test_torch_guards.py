@@ -122,15 +122,15 @@ ALL_KERNELS = KERNELS + XLA_KERNELS
 
 def _gather_march_meta():
     raymarch_fast.gather_march(_meta(32, 32, 32), _meta(32, 32, 32),
-                               _meta(100, 3), _meta(100, 3),
-                               _meta(100, dtype=torch.bool),
-                               np.zeros(3, np.float32))
+                               np.eye(4, dtype=np.float32),
+                               np.zeros(3, np.float32),
+                               np.zeros(3, np.float32), 10, 10)
 
 
 def _light_volume_meta(point: bool):
-    t, vec = raymarch_fast.light_setup(32, np.array([1.0, 2.0, 3.0]),
-                                       point_light=point)
-    raymarch_fast.light_volume(_meta(32, 32, 32), t, vec, point_light=point)
+    vec = raymarch_fast.light_vector(np.array([1.0, 2.0, 3.0]),
+                                     point_light=point)
+    raymarch_fast.light_volume(_meta(32, 32, 32), vec, point_light=point)
 
 
 def _meta_strips(s=2, p=300, bounds=True):
@@ -194,6 +194,20 @@ def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
                 False, True, _meta_map())
     after = {k.name: k.launches for k in ALL_KERNELS}
     assert after == launches
+
+
+def test_gather_kernels_refuse_volumes_over_1024(monkeypatch):
+    """The gather kernels index their volumes with 32-bit offsets: past the
+    operand checks, a volume over 1024^3 raises before any launch."""
+    monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
+    big = _meta(1025, 1025, 1025)
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    with pytest.raises(ValueError, match="up to 1024"):
+        raymarch_fast.light_volume(big, raymarch_fast.light_vector([1, 2, 3]))
+    with pytest.raises(ValueError, match="up to 1024"):
+        raymarch_fast.gather_march(big, big, np.eye(4, dtype=np.float32),
+                                   np.zeros(3), np.zeros(3), 8, 8)
+    assert {k.name: k.launches for k in ALL_KERNELS} == launches
 
 
 def test_wrapper_on_a_box_without_cuda_raises_not_falls_back(monkeypatch):

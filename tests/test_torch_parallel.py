@@ -475,11 +475,47 @@ def test_app_chips_2_warp(tmp_path, monkeypatch):
     assert app_main([*base, "-out", "c1.png"]) == 0
     assert np.array_equal(read_png(tmp_path / "c2.png"),
                           read_png(tmp_path / "c1.png"))
-    with pytest.raises(ValueError, match="-interactive"):
-        app_main([*base, "-chips", "2", "-interactive"])
+    # headless (no terminal): the ranks run -frames in lock step
+    assert app_main([*base, "-chips", "2", "-interactive"]) == 0
     monkeypatch.setenv("WORLD_SIZE", "3")  # a launcher's group of 3 ranks
     with pytest.raises(ValueError, match="launcher started 3 ranks"):
         app_main([*base, "-chips", "2"])
+
+
+def test_app_chips_2_interactive_equals_one_device(tmp_path, monkeypatch,
+                                                  capfd):
+    """``-chips 2 -interactive``: two spawned gloo ranks in lock step, rank
+    0 reading a scripted key sequence (screenshots, X toggles, orbit and
+    zoom keys, a toggle while paused, quit) through a patched TTY. Its
+    screenshots equal the single-device run's, shot for shot, and both
+    quit on the same frame."""
+    from dxrvoxelizer_tpu_torch.app import interactive
+    from dxrvoxelizer_tpu_torch.parallel.mesh import spawn_ranks
+    from torch_ranks import interactive_rank, script_interactive
+
+    v, _, t = _ico_world()
+    _write_obj(tmp_path / "ico.obj", v, t)
+    monkeypatch.chdir(tmp_path)
+    argv = ["-mesh", "ico.obj", "-warp", "-grid", str(N), "-width", str(W),
+            "-height", str(H), "-frames", "30", "-interactive"]
+    keys = ["s", "h", "x", "s", None, "+", "x", " ", "x", " ", "s", "k", "o",
+            "s", "q"]
+    c1, c2 = tmp_path / "one", tmp_path / "two"
+    c1.mkdir()
+    c2.mkdir()
+    spawn_ranks(interactive_rank, 2, args=([*argv, "-chips", "2"], keys,
+                                           str(c2)), cpu=True)
+    out2 = capfd.readouterr().out
+    script_interactive(interactive, keys, str(c1), monkeypatch.setattr)
+    assert app_main(argv) == 0
+    out1 = capfd.readouterr().out
+    for out in (out1, out2):
+        assert "rendered 12 frames" in out and out.count("wrote ") == 4
+        assert out.count("pipeline -> ") == 3
+    shots = sorted(p.name for p in c1.iterdir())
+    assert shots == sorted(p.name for p in c2.iterdir()) and len(shots) == 4
+    for name in shots:
+        assert np.array_equal(read_png(c2 / name), read_png(c1 / name)), name
 
 
 def test_dryrun_multichip_two_ranks(capfd):

@@ -31,6 +31,7 @@ from dxrvoxelizer_tpu_torch.state import grid_from_numpy
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 from tests.meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
 from tests.test_raymarch import _frame_consts
+from tests.torch_cases import gather_cameras
 
 torch.set_num_threads(2)
 
@@ -173,6 +174,81 @@ def test_raymarch_fast_matches_jax(scene, n):
                             y_offset=12.0)
     np.testing.assert_allclose(band.numpy(), band_want, rtol=0, atol=TOL)
     np.testing.assert_array_equal(band.numpy(), got.numpy()[12:20])
+
+
+def _kernel_ray_setup(s2l, eye, w, h, y_offset):
+    """csrc/gather_march.cu ``setup_ray`` replayed in numpy float32, one
+    rounding per operation in the kernel's order -> (entry, dir, hit)."""
+    f = np.float32
+    m = np.asarray(s2l, f).reshape(16)
+    e_ = np.asarray(eye, f)
+    py, px = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    sx = (px.astype(f) + f(0.5)).reshape(-1)
+    sy = ((py.astype(f) + f(0.5)) + f(y_offset)).reshape(-1)
+    hh = [sx * m[k] for k in range(4)]
+    hh = [hh[k] + sy * m[4 + k] for k in range(4)]
+    hh = [hh[k] + f(0.0) * m[8 + k] for k in range(4)]
+    hh = [hh[k] + f(1.0) * m[12 + k] for k in range(4)]
+    pos = [hh[k] / hh[3] for k in range(3)]
+    d = [pos[k] - e_[k] for k in range(3)]
+    nrm = np.sqrt((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2])
+    d = [d[k] / nrm for k in range(3)]
+    inside = np.all([np.abs(p) <= 1 for p in pos], axis=0)
+    u_best = np.full(sx.shape, f(3.402823466e38))
+    hit = np.zeros(sx.shape, bool)
+    for i in range(3):
+        j, k = (i + 1) % 3, (i + 2) % 3
+        nz = d[i] != 0
+        di = np.where(nz, d[i], f(1.0))
+        u = (-np.sign(di) - pos[i]) / di
+        ok = (nz & (u >= 0) & (np.abs(d[j] * u + pos[j]) <= 1)
+              & (np.abs(d[k] * u + pos[k]) <= 1) & (u < u_best))
+        u_best = np.where(ok, u, u_best)
+        hit |= ok
+    u_final = np.where(~inside & hit, u_best, f(0.0))
+    entry = [np.where(inside, pos[k], np.clip(d[k] * u_final + pos[k], -1, 1))
+             for k in range(3)]
+    return np.stack(entry, -1), np.stack(d, -1), inside | hit
+
+
+@pytest.mark.parametrize("camera", ["frame", "inside", "axis"])
+def test_fused_ray_setup_replica_matches_gather_rays(camera):
+    """The gather kernel's fused ray set-up, replayed in numpy float32 in
+    its order of operations, equals the plain set-up (``gather_rays``) bit
+    for bit: the orbit frame, a camera inside the box and a view along an
+    axis (exact zero components), whole and as bands (``y_offset``)."""
+    w, h = 33, 25
+    s2l, eye, _ = gather_cameras(w, h)[camera]
+    for y0, rows in ((0.0, h), (7.0, 9)):
+        want = rf.gather_rays(s2l, eye, w, rows, y0)
+        got = _kernel_ray_setup(s2l, eye, w, rows, y0)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b.numpy())
+    # the voxel centres the light kernel computes, (i + 0.5) / n * 2 - 1
+    for n in (16, 32, 64, 256, 512):
+        i = np.arange(n, dtype=np.float32)
+        t = (i + np.float32(0.5)) / np.float32(n) * np.float32(2) - np.float32(1)
+        np.testing.assert_array_equal(t, rf.voxel_centres(n).numpy())
+
+
+@pytest.mark.parametrize("camera", ["inside", "axis"])
+def test_raymarch_fast_cameras_match_jax(camera):
+    """The plain gather frame from a camera inside the box and along an
+    axis (d_i == 0 rays) within 1e-5 of JAX's, whole and as a band."""
+    w, h = 33, 25
+    s2l, eye_l, light_l = gather_cameras(w, h)[camera]
+    dens = _density("box", 16)
+    lv = np.asarray(jfast.precompute_light_volume(jnp.asarray(dens),
+                                                  jnp.asarray(light_l)))
+    args = (jnp.asarray(dens), jnp.asarray(lv), jnp.asarray(s2l),
+            jnp.asarray(eye_l), jnp.asarray(CLEAR))
+    want = np.asarray(jfast.raymarch_fast(*args, w, h, px_chunk=512))
+    got = rf.raymarch_fast(_t(dens), _t(lv), s2l, eye_l, CLEAR, w, h)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+    assert np.abs(want - CLEAR).max() > 0.1
+    band = rf.raymarch_fast(_t(dens), _t(lv), s2l, eye_l, CLEAR, w, 6,
+                            y_offset=10.0)
+    np.testing.assert_array_equal(band.numpy(), got.numpy()[10:16])
 
 
 @pytest.mark.parametrize("point", [False, True])

@@ -2,8 +2,8 @@
 (csrc/raystab_fold.cu) at its boundaries, built from a real gen-6 accel; a
 slice stream that stresses the Moller-Trumbore kernel's rejects
 (csrc/raystab_mt.cu); triangle soups that stress a bounding box (the parity
-kernels' spans); and the settings of the redesigned kernels' timing
-sweeps.
+kernels' spans); the gather renderer's cameras and 4-level alpha grids;
+and the settings of the redesigned kernels' timing sweeps.
 
 Shared by ``tests/test_torch_cuda.py``, ``tests/test_torch_raystab.py`` (the
 plain fold, on the CPU) and ``chip_smoke.py`` (which loads this file by
@@ -50,6 +50,12 @@ PARITY_VARIANTS = [("tile", 1, 256), ("tile", 4, 256), ("tile", 8, 256),
 # staged through shared memory), run on slice streams of each width
 MT_VARIANTS = [(th, d, st) for th in (128, 256) for d in (False, True)
                for st in (False, True)]
+# the gather renderer's kernels: (steps per batch, layout); the light volume
+# in rows (0) or voxel bricks of 4 x 8 x 8 (1), 2 x 4 x 32 (2) or 1 x 8 x 32
+# (3), the march in 16 x 16 tiles (0), rows of 256 pixels (1) or 32 x 32
+# tiles with their hit pixels compacted (2)
+LIGHT_VARIANTS = [(k, lay) for lay in (0, 1, 2, 3) for k in (1, 2, 4, 8)]
+GATHER_VARIANTS = [(k, lay) for lay in (0, 1, 2) for k in (1, 2, 4, 8)]
 
 
 @dataclass
@@ -307,3 +313,50 @@ def mt_stress(device, lanes: int = rmt.LANES) -> rmt.MTTables:
     return rmt.slice_stream(pos, dirs, torch.from_numpy(rows).to(device),
                             np.arange(nray.sum()), np.cumsum(nray) - nray, nray,
                             c_start, ncand, lanes)
+
+
+# ---- the gather renderer's inputs -------------------------------------------
+
+def gather_cameras(w: int, h: int) -> dict:
+    """Cameras of the gather march, name -> (screen_to_local [4, 4], eye,
+    light), local space, row-vector convention:
+
+    - "frame": the app's orbit camera on a bound of half extent 2 at (0, 4,
+      0) (a box's footprint on the screen);
+    - "inside": the same camera on a bound of half extent 3 around the eye,
+      so every near-plane point lies inside the box (the inside case);
+    - "axis": a parallel view along +z from x = 0.25 (every direction's x
+      is exactly 0: the d_i == 0 case), and for an odd ``h`` a middle row
+      along the z axis itself.
+    """
+    from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
+    from dxrvoxelizer_tpu_torch.utils import dxmath as dxm
+
+    cam = OrbitCamera(w, h)
+    light_w = np.array([-10.0, 45.0, -75.0], np.float32)
+    out = {}
+    for name, bnd in (("frame", (0.0, 4.0, 0.0, 2.0)),
+                      ("inside", (8.0, 12.0, -13.5, 3.0))):
+        world = dxm.world_matrix(np.array(bnd, np.float32),
+                                 np.array([0, 0, 0, 1], np.float32))
+        inv = dxm.inverse(world)
+        out[name] = (dxm.screen_to_local(world, cam.view_proj, w, h),
+                     dxm.transform_coord(cam.eye, inv),
+                     dxm.transform_coord(light_w, inv))
+    k = np.float32(2.0 ** -np.ceil(np.log2(max(w, h) / 2.5)))  # dyadic pitch
+    s2l = np.zeros((4, 4), np.float32)
+    s2l[1, 1] = s2l[0, 2] = k  # y from the row, z from the column
+    s2l[3] = (0.25, -np.float32(h / 2) * k, -3.0 - np.float32(w / 2) * k, 1.0)
+    out["axis"] = (s2l, np.array([0.25, 0.0, -5.0], np.float32),
+                   out["frame"][2])
+    return out
+
+
+def alpha_grid(n: int, seed: int, device) -> torch.Tensor:
+    """A ray-stab grid's density: R10G10B10A2 alpha, 4 levels k / 3 (the
+    rounding of ``packing.quantize_r10g10b10a2``), in clumps of 4^3."""
+    g = torch.Generator().manual_seed(seed)
+    c = torch.randint(0, 4, (n // 4, n // 4, n // 4), generator=g)
+    c = c * (torch.rand(c.shape, generator=g) < 0.35)
+    k = c.repeat_interleave(4, 0).repeat_interleave(4, 1).repeat_interleave(4, 2)
+    return (k.to(torch.float32) / 3.0).to(device)
