@@ -151,17 +151,16 @@ the CUDA toolkit. Phases, one line each:
     volume directional, point and inside; the march (its ray set-up fused
     in) against gather_rays + the plain march from the frame's camera over
     each light volume, from a camera inside the box and along an axis, and
-    on a band of rows; every variant of both sweeps; their CUDA-event ms,
-    profiler device us, wrapper host us, plain ms, bounds (counted from
-    the live samples; the march's also under PR 10's formula) and the
-    ``grid_sample`` yardstick over the same sample points; the loads each
-    steps-per-batch setting issues past a break; the sweeps (steps per
-    batch x layout) in profiler device us; the gather frame against the
-    warp ``-hq`` frame at 64^3 and
-    256^3 (frame ms in turns, device busy, idle share and ops per frame),
-    render-only times with the light volume computed and passed in, and
-    both images against ``raymarch_ref`` at 64^3, 1280x720 (mean, p99,
-    max).
+    on a band of rows; their CUDA-event ms, profiler device us, wrapper
+    host us, plain ms, bounds (counted from the live samples; the march's
+    also under the formula of the kernel it replaced, which read its rays)
+    and the ``grid_sample`` yardstick over the same sample points; the step
+    loads that batches of K = 1, 2, 4, 8 steps issue past a break (in-box
+    steps after the stop step, to the end of its batch); the gather frame
+    against the warp ``-hq`` frame at 64^3 and 256^3 (frame ms in turns,
+    device busy, idle share and ops per frame), render-only times with the
+    light volume computed and passed in, and both images against
+    ``raymarch_ref`` at 64^3, 1280x720 (mean, p99, max).
 21. the multi-device frames, batch datagen and the native tier: a NCCL
     group of one rank runs ``ShardedFramePipeline`` at 1280x720 (64^3
     ``-hq``, 256^3 parity, 256^3 gen-7 ray-stab, 64^3 gather), each image
@@ -693,24 +692,20 @@ LIGHT_OPS_PER_POINT_VOXEL = 15
 LIGHT_INSIDE = np.array([0.05, -0.1, 0.08], np.float32)
 
 
-def live_gather_points(torch, rf, entry, ray_dir, steps, n_samples):
-    """The march's density samples: pixel p's first steps[p] positions
-    entry + dir * (s * step) -> [L, 3]."""
+def gather_points(torch, rf, entry, ray_dir, p_idx, s_idx, n_samples):
+    """The march's positions entry + dir * (s * step) of pixels ``p_idx``
+    at steps ``s_idx`` -> [L, 3], rounded as the plain march rounds them."""
     soff = rf.sample_offsets(n_samples).to(entry.device)
-    s_idx, p_idx = (torch.arange(n_samples, device=entry.device)[:, None]
-                    < steps[None, :]).nonzero(as_tuple=True)
     return entry[p_idx] + ray_dir[p_idx] * soff[s_idx][:, None]
 
 
-def live_light_points(torch, t, vec, steps, n, point: bool, n_light=32):
-    """The light volume's density samples: voxel v's first steps[v]
-    positions pos0 + step * (j + 1) -> [L, 3]."""
+def light_points(torch, t, vec, v_idx, j_idx, n, point: bool, n_light=32):
+    """The light march's positions pos0 + step * (j + 1) of voxels ``v_idx``
+    at steps ``j_idx`` -> [L, 3], rounded as the plain version rounds them."""
     from dxrvoxelizer_tpu_torch.ops.raymarch_ref import MAX_DIST, norm3
 
-    dev = steps.device
+    dev = v_idx.device
     t, vec = t.to(dev), vec.to(dev)
-    j_idx, v_idx = (torch.arange(n_light, device=dev)[:, None]
-                    < steps[None, :]).nonzero(as_tuple=True)
     pos0 = torch.stack([t[v_idx // (n * n)], -t[(v_idx // n) % n],
                         t[v_idx % n]], dim=-1)
     if point:
@@ -721,9 +716,16 @@ def live_light_points(torch, t, vec, steps, n, point: bool, n_light=32):
     return pos0 + step * (j_idx + 1).to(torch.float32)[:, None]
 
 
+def live_steps(torch, steps, n_steps):
+    """(ray, step) of every live step: ray r's first steps[r] steps."""
+    s_idx, r_idx = (torch.arange(n_steps, device=steps.device)[:, None]
+                    < steps[None, :]).nonzero(as_tuple=True)
+    return r_idx, s_idx
+
+
 def gather_registers(log: str) -> str:
-    """ptxas's registers and spill stores for each instance of the gather
-    renderer's kernels, from the build log."""
+    """ptxas's registers and spill stores for the gather renderer's kernels,
+    from the build log."""
     out, name, spill = [], None, "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -735,25 +737,30 @@ def gather_registers(log: str) -> str:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            for sym in ("gather_march_compact_kernel", "gather_march_kernel",
-                        "light_volume_kernel"):
+            for sym in ("gather_march_kernel", "light_volume_kernel"):
                 if sym in name:
-                    args = re.findall(r"Li(\d+)E", name.split(sym, 1)[1]
-                                      .split("Ev", 1)[0])
-                    out.append(f"{sym}<{', '.join(args)}> {m.group(1)} "
-                               f"registers, {spill} B spilled")
+                    out.append(f"{sym} {m.group(1)} registers, {spill} B "
+                               "spilled")
                     break
             name = None
     return "; ".join(out)
 
 
-def issued_steps(torch, stop, k: int, n_steps: int) -> int:
-    """Steps whose taps a kernel that issues them K at a time loads: up to
-    the end of the batch holding each loop's stop step (``stop``: the step
-    that ended the loop, ``n_steps`` if none)."""
-    batches = (stop.long() + k) // k  # batches up to the stop step's
-    full = -(-n_steps // k)
-    return int((torch.clamp(batches, max=full) * k).sum())
+def loads_past_break(torch, stop, k: int, n_steps: int, pos_at) -> int:
+    """Steps whose taps a kernel that issues them K at a time loads and
+    then discards: each loop's steps after its stop step, up to the end of
+    that step's batch, that lie in the box (a step outside the box loads
+    nothing). ``stop``: [R], the step that ended each loop (``n_steps`` if
+    none); ``pos_at(r, s)``: the positions of loops ``r`` at steps ``s``."""
+    stop = stop.long()
+    end = torch.clamp((stop // k + 1) * k, max=n_steps)
+    wasted = 0
+    for o in range(1, k):
+        r = (stop + o < end).nonzero(as_tuple=True)[0]
+        if len(r):
+            pos = pos_at(r, stop[r] + o)
+            wasted += int((pos.abs() <= 1.0).all(dim=-1).sum())
+    return wasted
 
 
 def light_stops(torch, out, steps, n_light: int = 32):
@@ -917,7 +924,7 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
     # fractional alphas and a ray-stab grid's 4-level alpha; the
     # directional light, a point light outside and inside; the frame's
     # camera, one inside the box and a view along an axis (1280x721: the
-    # axis view's middle row is on the axis); a band; every variant
+    # axis view's middle row is on the axis); a band
     cases_mod = state["cases"]
     errs = {gm: 0.0, lv_k: 0.0}
     cases = []
@@ -939,7 +946,6 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
         grids = {"frame": grid.density().contiguous(), "random": rnd.to(dev),
                  "alpha": cases_mod.alpha_grid(size, 3, dev)}
         lvs = {}
-        n_var = 0
         for gname, g in grids.items():
             for kind, pt, point in (("directional", c_.local_space_light_pt, False),
                                     ("point", c_.local_space_light_pt, True),
@@ -949,11 +955,6 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
                                                     return_steps=True)
                 got = rf.light_volume(g, vec, point_light=point)
                 e = hold(f"light_volume {size}^3 {gname} {kind}", got, want, lv_k)
-                for var in cases_mod.LIGHT_VARIANTS:
-                    hold(f"light_volume {size}^3 {gname} {kind} {var}",
-                         rf.light_volume(g, vec, point_light=point, variant=var),
-                         want, lv_k)
-                    n_var += 1
                 cases.append(f"light_volume {size}^3 {gname} {kind} {e:.3g}")
                 lvs[(gname, kind)] = got
                 if gname == "frame" and kind == "directional":
@@ -979,11 +980,6 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
                          f"({int(rays[2].sum())} hits)")
             if name == "frame directional":
                 work[("gather", size)] = (g, lv, rays, sd, sl, stop)
-                for var in cases_mod.GATHER_VARIANTS:
-                    hold(f"gather_march {size}^3 {var}",
-                         rf.gather_march(g, lv, m_, eye_, clear, cfg.width, h_,
-                                         variant=var), want, gm)
-                    n_var += 1
                 # a band of 64 rows from row 300: the frame's rows
                 band = rf.gather_rays(m_, eye_, cfg.width, 64, 300.0, dev)
                 got_b = rf.gather_march(g, lv, m_, eye_, clear, cfg.width, 64,
@@ -996,36 +992,29 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
                       f"gather_march {size}^3 band differs from the frame's rows")
                 cases.append(f"gather_march {size}^3 band of rows 300-363 "
                              f"{e_b:.3g}")
-        cases.append(f"{size}^3: {n_var} variant calls equal their plain versions")
     lines.append("phase 20 kernels against their plain versions (max|err|): "
                  + "; ".join(cases))
 
     # ---- 20c. times, bounds and yardsticks at the main path's shapes -----
     times, dev_call, plain, bounds, library, work_lines = {}, {}, {}, {}, {}, []
-    host, sweep, old_bounds = {}, {}, {}
+    host, old_bounds = {}, {}
     for size, c_ in ((GRID, consts), (GRID_HI, consts7)):
         dens, t, vec, steps, lv = work[("light", size)]
         _, _, rays, sd, sl, stop = work[("gather", size)]
         m_, eye_ = c_.screen_to_local, c_.local_space_eye_pt
         n3 = size ** 3
 
-        def lv_call(dens=dens, vec=vec, variant=None):
-            return rf.light_volume(dens, vec, variant=variant)
+        def lv_call(dens=dens, vec=vec):
+            return rf.light_volume(dens, vec)
 
-        def gm_call(dens=dens, lv=lv, m_=m_, eye_=eye_, variant=None):
+        def gm_call(dens=dens, lv=lv, m_=m_, eye_=eye_):
             return rf.gather_march(dens, lv, m_, eye_, clear, cfg.width,
-                                   cfg.height, variant=variant)
+                                   cfg.height)
 
         for k, fn in ((lv_k, lv_call), (gm, gm_call)):
             times[(k, size)] = cuda_ms(torch, fn)
             dev_call[(k, size)] = device_us(torch, fn)
             host[(k, size)] = host_us(torch, fn)
-        for var in state["cases"].LIGHT_VARIANTS:
-            sweep[(lv_k, size, var)] = device_us(
-                torch, lambda var=var: lv_call(variant=var))
-        for var in state["cases"].GATHER_VARIANTS:
-            sweep[(gm, size, var)] = device_us(
-                torch, lambda var=var: gm_call(variant=var))
         plain[(lv_k, size)] = cuda_ms(
             torch, lambda: rf.light_volume_plain(dens, t, vec), reps=3, inner=1)
         plain[(gm, size)] = cuda_ms(
@@ -1040,36 +1029,46 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
                      + hits * GATHER_OPS_PER_HIT)
         bounds[(gm, size)] = bound(2 * n3 * 4 + n_px * 12 + 24 * 4,
                                    march_ops + n_px * GATHER_OPS_PER_PIXEL)
-        # PR 10's formula: the rays read (37 bytes per pixel) and the step
+        # the replaced kernel's formula: the rays read (37 bytes per pixel) and the step
         # offsets, no set-up operations
         old_bounds[(gm, size)] = bound(2 * n3 * 4 + n_px * (24 + 1 + 12)
                                        + 128 * 4, march_ops)
+        # the loads a batch of K steps would issue past a break, for the
+        # shipped K and the others: the light volume's (K = 1) and the
+        # march's (K = 2) are the shipped kernels' own
+        hit_px = rays[2].nonzero(as_tuple=True)[0]
         l_stop = light_stops(torch, lv, steps)
+        g_stop = stop[hit_px]
         wasted = []
         for kk in (1, 2, 4, 8):
-            iss_l = issued_steps(torch, l_stop, kk, 32)
-            iss_g = issued_steps(torch, stop[rays[2]], kk, 128)
-            wasted.append(f"K={kk}: light {iss_l - live_l} of {iss_l} step "
-                          f"loads ({(iss_l - live_l) / iss_l:.3f}), march "
-                          f"{iss_g - live_d} of {iss_g} "
-                          f"({(iss_g - live_d) / iss_g:.3f})")
+            w_l = loads_past_break(
+                torch, l_stop, kk, 32, lambda r, s_: light_points(
+                    torch, t, vec, r, s_, size, False))
+            w_g = loads_past_break(
+                torch, g_stop, kk, 128, lambda r, s_: gather_points(
+                    torch, rf, rays[0], rays[1], hit_px[r], s_, 128))
+            wasted.append(f"K={kk}: light {w_l} of {live_l + w_l} step loads "
+                          f"({w_l / (live_l + w_l):.4f}), march {w_g} of "
+                          f"{live_d + w_g} ({w_g / (live_d + w_g):.4f})")
         work_lines.append(
             f"{size}^3: light volume {live_l} live steps of {n3 * 32}; march "
             f"{live_d} density samples, {live_c} contributing, {hits} of "
-            f"{n_px} pixels hit; loads issued past a break (8 taps a step): "
+            f"{n_px} pixels hit; step loads past a break (8 taps a step; "
+            "in-box steps after the stop step, to the end of its batch): "
             + ", ".join(wasted))
         if size == GRID:
             # yardstick: one grid_sample over the same sample points
-            gs_l, vals_l = grid_sample_at(torch, [dens], live_light_points(
-                torch, t, vec, steps, size, False))
-            gs_g, vals_g = grid_sample_at(torch, [dens, lv], live_gather_points(
-                torch, rf, rays[0], rays[1], sd, 128))
+            pts_l = light_points(torch, t, vec, *live_steps(torch, steps, 32),
+                                 size, False)
+            r_idx, s_idx = live_steps(torch, sd, 128)
+            pts = gather_points(torch, rf, rays[0], rays[1], r_idx, s_idx, 128)
+            gs_l, vals_l = grid_sample_at(torch, [dens], pts_l)
+            gs_g, vals_g = grid_sample_at(torch, [dens, lv], pts)
             library[lv_k] = cuda_ms(torch, gs_l)
             library[gm] = cuda_ms(torch, gs_g)
             dev_call[("grid_sample light", size)] = device_us(torch, gs_l)
             dev_call[("grid_sample march", size)] = device_us(torch, gs_g)
             # the yardstick reads what the kernels read (a sanity check)
-            pts = live_gather_points(torch, rf, rays[0], rays[1], sd, 128)
             tex = pts * torch.tensor([0.5, -0.5, 0.5], device=dev) + 0.5
             e_ys = max_err(vals_g[0], rf._flat_trilinear(dens.reshape(-1),
                                                          size, tex))
@@ -1080,7 +1079,8 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
     lines.append(
         "phase 20 kernels (CUDA-event ms per call, 10 calls median of 5 / "
         "profiler device us per call / wrapper host us per call / plain ms, "
-        "median of 3 / bound ms (by) / PR 10's bound formula for the march): "
+        "median of 3 / bound ms (by) / the march's bound under the formula of "
+        "the kernel that read its rays): "
         + "; ".join(
             f"{k} {s}^3 {times[(k, s)]:.4f} / {dev_call[(k, s)]:.2f} / "
             f"{host[(k, s)]:.2f} / {plain[(k, s)]:.4f} / "
@@ -1092,15 +1092,6 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
         f"({dev_call[('grid_sample march', GRID)]:.2f} us), light volume "
         f"{library[lv_k]:.4f} ms ({dev_call[('grid_sample light', GRID)]:.2f} "
         f"us); " + "; ".join(work_lines) + f"; {card}")
-    lines.append(
-        "phase 20 sweep, profiler device us per call ((steps per batch, "
-        "layout): light volume layouts 0 rows, 1-3 bricks of 4x8x8, 2x4x32, "
-        "1x8x32; march 0 16x16 tiles, 1 rows, 2 compacted 32x32 tiles): " + "; ".join(
-            f"{k} {s}^3 " + ", ".join(
-                f"{var} {sweep[(k, s, var)]:.2f}"
-                for var in (state["cases"].LIGHT_VARIANTS if k == lv_k
-                            else state["cases"].GATHER_VARIANTS))
-            for k in (lv_k, gm) for s in (GRID, GRID_HI)) + f"; {card}")
 
     # ---- 20d. the product-path question: gather against warp -hq --------
     frames = {}
@@ -1649,7 +1640,7 @@ def main() -> int:
     regs = [ln.strip() for ln in info.log.splitlines() if "Used" in ln]
     print(f"phase 1 build: {info.seconds:.2f} s, {len(regs)} kernel "
           f"variants; ptxas: {' | '.join(regs)}")
-    print(f"phase 1 gather kernels (template (K, layout)): "
+    print(f"phase 1 gather kernels: "
           f"{gather_registers(info.log)}")
     native_builds = {}  # the native host tier, built before its first use
     for name in ("objparse", "pngwrite", "accelpack"):

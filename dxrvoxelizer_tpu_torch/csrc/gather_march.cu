@@ -37,21 +37,18 @@
 //   tests of compute_start_point with its d_i == 0 case, the inside case
 //   and the final clamp, and the step offsets s * step rounded as
 //   sample_offsets rounds them.
-// - Screen tiles: a block is 16 x 16 pixels and a warp 8 x 4 (layout 0), so
-//   a warp's rays are neighbours in 2-D whose taps share cache lines, and a
-//   block outside the box's screen footprint ends at once. The sweep
-//   (chip_smoke.py phase 20; PERF.md §6, PR 11) measured them faster than
-//   rows of 256 pixels (layout 1, the previous design's shape) and than 32
-//   x 32 tiles whose hit pixels are compacted in shared memory and then
-//   marched by all 256 threads (layout 2): the compaction's extra pass and
-//   its shared-memory rays cost more than the idle lanes of the silhouette
-//   warps. Both stay for the sweep.
-// - The density taps run K = 2 steps ahead of the breaks, as in the light
+// - Screen tiles: a block is 16 x 16 pixels and a warp 8 x 4, so a warp's
+//   rays are neighbours in 2-D whose taps share cache lines, and a block
+//   outside the box's screen footprint ends at once. A sweep (PERF.md §6)
+//   measured them faster than rows of 256 pixels (the previous design's
+//   shape) and than 32 x 32 tiles whose hit pixels are compacted in shared
+//   memory and then marched by all 256 threads (2.7-2.8x slower).
+// - The density taps run kK = 2 steps ahead of the breaks, as in the light
 //   volume (a step outside the box loads none): a batch issues the taps of
-//   K steps, then applies the breaks in order; the light-volume tap stays
+//   kK steps, then applies the breaks in order; the light-volume tap stays
 //   conditional on a contributing step, at a position computed again (its
 //   taps are not kept: fewer registers). The sweep measured K = 1, 2 and 4
-//   close and K = 8 slower (more registers, fewer warps in flight).
+//   close and K = 8 slower.
 // - Taps index with 32-bit offsets (n <= 1024).
 // Every operation is an explicitly rounded intrinsic in the plain version's
 // order (trilinear.cuh; PyTorch's CUDA ops round each operation once and
@@ -67,9 +64,9 @@ namespace {
 constexpr float kZeroThreshold = 0.01f;  // PSRayCast.hlsl:10
 constexpr float kFltMax = 3.402823466e38f;  // raymarch_ref.FLT_MAX
 constexpr int kThreads = 256;
-constexpr int kMainK = 2;       // steps per batch of the main entry point
-constexpr int kMainLayout = 0;  // 16 x 16 tiles
-constexpr int kCompactTile = 32;  // layout 2: 32 x 32 pixels per block
+constexpr int kK = 2;     // steps per batch
+constexpr int kTile = 16;  // a block's tile of kTile x kTile pixels
+static_assert(kTile * kTile == kThreads, "tile");
 
 // the frame's constants, passed by value (the host packs them: 24 floats)
 struct Camera {
@@ -174,20 +171,19 @@ __device__ __forceinline__ Sample sample_at(const Ray& r, int s, float step,
 }
 
 // the march from r.e along r.d and the composite -> rgb
-template <int K>
 __device__ __forceinline__ void march(const float* __restrict__ density,
                                       const float* __restrict__ light, int n,
                                       int n_samples, const Camera& c,
                                       const Ray& r, float* __restrict__ out) {
   float transmit = 1.0f;
   float scatter = 0.0f;
-  for (int s0 = 0; s0 < n_samples; s0 += K) {
+  for (int s0 = 0; s0 < n_samples; s0 += kK) {
     // issue: the batch's positions and density taps, before any break test
-    dxv::Taps taps[K];
-    float fx[K], fy[K], fz[K];
-    bool inside[K];
+    dxv::Taps taps[kK];
+    float fx[kK], fy[kK], fz[kK];
+    bool inside[kK];
 #pragma unroll
-    for (int b = 0; b < K; ++b) {
+    for (int b = 0; b < kK; ++b) {
       const Sample p = sample_at(r, s0 + b, c.step, n);
       inside[b] = p.inside;
       // a step outside the box ends the march: its taps are not loaded
@@ -200,7 +196,7 @@ __device__ __forceinline__ void march(const float* __restrict__ density,
     // apply: the breaks in step order; values past a break are discarded
     bool done = false;
 #pragma unroll
-    for (int b = 0; b < K; ++b) {
+    for (int b = 0; b < kK; ++b) {
       if (s0 + b >= n_samples || !inside[b]) {
         done = true;
         break;
@@ -232,143 +228,38 @@ __device__ __forceinline__ void march(const float* __restrict__ density,
   }
 }
 
-__device__ __forceinline__ void write_clear(const Camera& c, float* out) {
-  // misses return the clear color (PSRayCast.hlsl:121)
-  out[0] = c.clear[0];
-  out[1] = c.clear[1];
-  out[2] = c.clear[2];
-}
-
-// layouts 0 (16 x 16 tiles, 8 x 4 warps) and 1 (rows of 256 pixels): one
-// pixel per thread
-template <int K, int kLayout>
+// a block is a 16 x 16 tile and a warp 8 x 4 pixels of it; one pixel per
+// thread
 __global__ void __launch_bounds__(kThreads)
 gather_march_kernel(const float* __restrict__ density,
                     const float* __restrict__ light, float* __restrict__ rgb,
                     const Camera c, int n, int width, int height,
                     int n_samples) {
-  int px, py;
-  if constexpr (kLayout == 0) {
-    const int tiles_x = (width + 15) / 16;
-    const int t = threadIdx.x, w = t / 32;
-    px = (blockIdx.x % tiles_x) * 16 + (w % 2) * 8 + t % 8;
-    py = (blockIdx.x / tiles_x) * 16 + (w / 2) * 4 + (t / 8) % 4;
-    if (px >= width || py >= height) return;
-  } else {
-    const size_t p = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-    if (p >= static_cast<size_t>(width) * height) return;
-    px = static_cast<int>(p % width);
-    py = static_cast<int>(p / width);
-  }
+  const int tiles_x = (width + kTile - 1) / kTile;
+  const int t = threadIdx.x, w = t / 32;
+  const int px = (blockIdx.x % tiles_x) * kTile + (w % 2) * 8 + t % 8;
+  const int py = (blockIdx.x / tiles_x) * kTile + (w / 2) * 4 + (t / 8) % 4;
+  if (px >= width || py >= height) return;
   float* out = rgb + 3 * (static_cast<size_t>(py) * width + px);
   Ray r;
   if (!setup_ray(c, px, py, r)) {
-    write_clear(c, out);
+    // misses return the clear color (PSRayCast.hlsl:121)
+    out[0] = c.clear[0];
+    out[1] = c.clear[1];
+    out[2] = c.clear[2];
     return;
   }
-  march<K>(density, light, n, n_samples, c, r, out);
-}
-
-// layout 2: a 32 x 32 tile per block; each thread sets up 4 pixels, the
-// hit ones are compacted in shared memory (warp-aggregated, so a warp's
-// hits stay together), then every thread marches queue entries
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-gather_march_compact_kernel(const float* __restrict__ density,
-                            const float* __restrict__ light,
-                            float* __restrict__ rgb, const Camera c, int n,
-                            int width, int height, int n_samples) {
-  constexpr int kPixels = kCompactTile * kCompactTile;
-  __shared__ Ray queue[kPixels];
-  __shared__ int queue_px[kPixels];
-  __shared__ int count;
-  if (threadIdx.x == 0) count = 0;
-  __syncthreads();
-  const int tiles_x = (width + kCompactTile - 1) / kCompactTile;
-  const int x0 = (blockIdx.x % tiles_x) * kCompactTile;
-  const int y0 = (blockIdx.x / tiles_x) * kCompactTile;
-  const int lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < kPixels; i += kThreads) {
-    const int px = x0 + i % kCompactTile, py = y0 + i / kCompactTile;
-    const bool valid = px < width && py < height;
-    Ray r;
-    bool hit = false;
-    if (valid) {
-      hit = setup_ray(c, px, py, r);
-      if (!hit) write_clear(c, rgb + 3 * (static_cast<size_t>(py) * width + px));
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    int base = 0;
-    if (lane == 0 && mask) base = atomicAdd(&count, __popc(mask));
-    base = __shfl_sync(0xffffffffu, base, 0);
-    if (hit) {
-      const int slot = base + __popc(mask & ((1u << lane) - 1u));
-      queue[slot] = r;
-      queue_px[slot] = py * width + px;
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < count; i += kThreads) {
-    march<K>(density, light, n, n_samples, c, queue[i],
-             rgb + 3 * static_cast<size_t>(queue_px[i]));
-  }
-}
-
-template <int K, int kLayout>
-int launch(const void* density, const void* light, void* rgb, const Camera& c,
-           int n, int width, int height, int n_samples, cudaStream_t stream) {
-  const auto* d = static_cast<const float*>(density);
-  const auto* l = static_cast<const float*>(light);
-  auto* o = static_cast<float*>(rgb);
-  if constexpr (kLayout == 2) {
-    const unsigned blocks =
-        static_cast<unsigned>(((width + kCompactTile - 1) / kCompactTile) *
-                              ((height + kCompactTile - 1) / kCompactTile));
-    gather_march_compact_kernel<K><<<blocks, kThreads, 0, stream>>>(
-        d, l, o, c, n, width, height, n_samples);
-  } else {
-    const size_t pixels = static_cast<size_t>(width) * height;
-    const unsigned blocks =
-        kLayout == 0 ? static_cast<unsigned>(((width + 15) / 16) *
-                                             ((height + 15) / 16))
-                     : static_cast<unsigned>((pixels + kThreads - 1) / kThreads);
-    gather_march_kernel<K, kLayout><<<blocks, kThreads, 0, stream>>>(
-        d, l, o, c, n, width, height, n_samples);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kLayout>
-int launch_k(int k, const void* density, const void* light, void* rgb,
-             const Camera& c, int n, int width, int height, int n_samples,
-             cudaStream_t stream) {
-  switch (k) {
-    case 1:
-      return launch<1, kLayout>(density, light, rgb, c, n, width, height,
-                                n_samples, stream);
-    case 2:
-      return launch<2, kLayout>(density, light, rgb, c, n, width, height,
-                                n_samples, stream);
-    case 4:
-      return launch<4, kLayout>(density, light, rgb, c, n, width, height,
-                                n_samples, stream);
-    case 8:
-      return launch<8, kLayout>(density, light, rgb, c, n, width, height,
-                                n_samples, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  march(density, light, n, n_samples, c, r, out);
 }
 
 }  // namespace
 
 // camera: kCameraFloats host floats (screen_to_local row-major, eye, clear,
-// y_offset, step), read here and passed to the kernel by value; k: steps
-// per batch (1, 2, 4 or 8); layout: 0 tiles, 1 rows, 2 compacted tiles
-extern "C" int dxv_gather_march_variant(const void* density, const void* light,
-                                        void* rgb, const float* camera, int n,
-                                        int width, int height, int n_samples,
-                                        int k, int layout, void* stream) {
+// y_offset, step), read here and passed to the kernel by value
+extern "C" int dxv_gather_march(const void* density, const void* light,
+                                void* rgb, const float* camera, int n,
+                                int width, int height, int n_samples,
+                                void* stream) {
   if (width <= 0 || height <= 0) return 0;
   static_assert(sizeof(Camera) == kCameraFloats * sizeof(float), "layout");
   Camera c;
@@ -378,27 +269,11 @@ extern "C" int dxv_gather_march_variant(const void* density, const void* light,
   for (int i = 0; i < 3; ++i) c.clear[i] = *src++;
   c.y_offset = *src++;
   c.step = *src++;
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (layout) {
-    case 0:
-      return launch_k<0>(k, density, light, rgb, c, n, width, height,
-                         n_samples, s);
-    case 1:
-      return launch_k<1>(k, density, light, rgb, c, n, width, height,
-                         n_samples, s);
-    case 2:
-      return launch_k<2>(k, density, light, rgb, c, n, width, height,
-                         n_samples, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-extern "C" int dxv_gather_march(const void* density, const void* light,
-                                void* rgb, const float* camera, int n,
-                                int width, int height, int n_samples,
-                                void* stream) {
-  return dxv_gather_march_variant(density, light, rgb, camera, n, width,
-                                  height, n_samples, kMainK, kMainLayout,
-                                  stream);
+  const unsigned blocks = static_cast<unsigned>(
+      ((width + kTile - 1) / kTile) * ((height + kTile - 1) / kTile));
+  gather_march_kernel<<<blocks, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(density), static_cast<const float*>(light),
+      static_cast<float*>(rgb), c, n, width, height, n_samples);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -33,16 +33,14 @@
 //   clamped tap is always a valid address; a step outside the box, which
 //   ends the march, loads none), then applies the two break rules step by
 //   step in order, with the same rounded operations. Values read past a
-//   break are discarded. The sweep (chip_smoke.py phase 20; PERF.md §6,
-//   PR 11) measured K = 1 fastest: with so few live steps, a batch mostly
-//   loads steps past the break, and its registers cut the blocks in
-//   flight.
+//   break are discarded. A sweep of K = 1, 2, 4, 8 (PERF.md §6) measured
+//   K = 1 fastest, so kK = 1: no load is issued ahead of a break test. The
+//   batch is kept so that kK can be raised.
 // - Blocks are 4 x 8 x 8 voxel bricks (x, y, z; z fastest, so a warp is 4
 //   y-rows of 8 z): neighbouring rays are parallel (directional) or nearly
 //   so (point), so a brick's taps share cache lines step after step. The
-//   sweep measured them faster than rows of 256 voxels (layout 0) and than
-//   2 x 4 x 32 and 1 x 8 x 32 bricks (layouts 2, 3), which stay for the
-//   sweep.
+//   same sweep measured them faster than rows of 256 voxels and than
+//   2 x 4 x 32 and 1 x 8 x 32 bricks.
 // - Taps index with 32-bit offsets (n <= 1024): fewer integer operations.
 // Every operation is an explicitly rounded intrinsic in the plain version's
 // order (trilinear.cuh), so the kernel matches it bit for bit.
@@ -55,17 +53,10 @@ namespace {
 
 constexpr float kZeroThreshold = 0.01f;  // PSRayCast.hlsl:10
 constexpr int kThreads = 256;
-constexpr int kMainK = 1;       // steps per batch of the main entry point
-constexpr int kMainLayout = 1;  // 4 x 8 x 8 bricks
-
-// a block's brick of voxels (x, y, z; z fastest) for layouts 1-3: 4 x 8 x 8
-// (a warp 4 y-rows of 8 z), 2 x 4 x 32 and 1 x 8 x 32 (a warp one z-row)
-template <int kLayout>
-struct Brick {
-  static constexpr int x = kLayout == 1 ? 4 : (kLayout == 2 ? 2 : 1);
-  static constexpr int z = kLayout == 1 ? 8 : 32;
-  static constexpr int y = kThreads / (x * z);
-};
+constexpr int kK = 1;  // steps per batch
+// a block's brick of voxels (x, y, z; z fastest): a warp is 4 y-rows of 8 z
+constexpr int kBrickX = 4, kBrickY = 8, kBrickZ = 8;
+static_assert(kBrickX * kBrickY * kBrickZ == kThreads, "brick");
 
 // (i + 0.5) / n * 2 - 1, rounded as the plain version's host table
 __device__ __forceinline__ float centre(int i, float n) {
@@ -75,46 +66,23 @@ __device__ __forceinline__ float centre(int i, float n) {
 }
 
 // this thread's voxel; false past the grid's edge
-template <int kLayout>
 __device__ __forceinline__ bool voxel_of(int n, int& ix, int& iy, int& iz) {
-  if constexpr (kLayout == 0) {
-    const size_t nn = static_cast<size_t>(n);
-    const size_t v = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-    iz = static_cast<int>(v % nn);
-    iy = static_cast<int>((v / nn) % nn);
-    ix = static_cast<int>(v / (nn * nn));
-    return v < nn * nn * nn;
-  }
-  using B = Brick<kLayout>;
-  const int bz = (n + B::z - 1) / B::z;
-  const int by = (n + B::y - 1) / B::y;
+  const int bz = (n + kBrickZ - 1) / kBrickZ;
+  const int by = (n + kBrickY - 1) / kBrickY;
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  iz = (b % bz) * B::z + (t % B::z);
-  iy = ((b / bz) % by) * B::y + (t / B::z) % B::y;
-  ix = (b / (bz * by)) * B::x + t / (B::z * B::y);
+  iz = (b % bz) * kBrickZ + (t % kBrickZ);
+  iy = ((b / bz) % by) * kBrickY + (t / kBrickZ) % kBrickY;
+  ix = (b / (bz * by)) * kBrickX + t / (kBrickZ * kBrickY);
   return ix < n && iy < n && iz < n;
 }
 
-template <int kLayout>
-unsigned blocks_for(int n) {
-  if constexpr (kLayout == 0) {
-    const size_t voxels = static_cast<size_t>(n) * n * n;
-    return static_cast<unsigned>((voxels + kThreads - 1) / kThreads);
-  }
-  using B = Brick<kLayout>;
-  return static_cast<unsigned>(((n + B::x - 1) / B::x) *
-                               ((n + B::y - 1) / B::y) *
-                               ((n + B::z - 1) / B::z));
-}
-
-template <int K, int kLayout>
 __global__ void __launch_bounds__(kThreads)
 light_volume_kernel(const float* __restrict__ density, float* __restrict__ out,
                     int n, int n_light, float lss, float vx, float vy,
                     float vz, int point) {
   int ix, iy, iz;
-  if (!voxel_of<kLayout>(n, ix, iy, iz)) return;
+  if (!voxel_of(n, ix, iy, iz)) return;
   const float nf = static_cast<float>(n);
   const float p0x = centre(ix, nf), p0y = -centre(iy, nf),
               p0z = centre(iz, nf);
@@ -130,13 +98,13 @@ light_volume_kernel(const float* __restrict__ density, float* __restrict__ out,
     sz = __fmul_rn(__fdiv_rn(lz, nrm), lss);
   }
   float trans = 1.0f;
-  for (int j0 = 0; j0 < n_light; j0 += K) {
+  for (int j0 = 0; j0 < n_light; j0 += kK) {
     // issue: every position and tap of the batch, before any break test
-    dxv::Taps taps[K];
-    float fx[K], fy[K], fz[K];
-    bool inside[K];
+    dxv::Taps taps[kK];
+    float fx[kK], fy[kK], fz[kK];
+    bool inside[kK];
 #pragma unroll
-    for (int b = 0; b < K; ++b) {
+    for (int b = 0; b < kK; ++b) {
       // the first sample is one step off (PSRayCast.hlsl:157)
       const float k = static_cast<float>(j0 + b + 1);
       const float px = __fadd_rn(p0x, __fmul_rn(sx, k));
@@ -155,7 +123,7 @@ light_volume_kernel(const float* __restrict__ density, float* __restrict__ out,
     // apply: the breaks in step order; values past a break are discarded
     bool done = false;
 #pragma unroll
-    for (int b = 0; b < K; ++b) {
+    for (int b = 0; b < kK; ++b) {
       if (j0 + b >= n_light || !inside[b]) {
         done = true;
         break;
@@ -175,69 +143,19 @@ light_volume_kernel(const float* __restrict__ density, float* __restrict__ out,
   out[(static_cast<size_t>(ix) * n + iy) * n + iz] = trans;
 }
 
-template <int K, int kLayout>
-int launch(const void* density, void* out, int n, int n_light, float lss,
-           float vx, float vy, float vz, int point, void* stream) {
-  light_volume_kernel<K, kLayout>
-      <<<blocks_for<kLayout>(n), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(density), static_cast<float*>(out), n,
-          n_light, lss, vx, vy, vz, point);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kLayout>
-int launch_k(int k, const void* density, void* out, int n, int n_light,
-             float lss, float vx, float vy, float vz, int point,
-             void* stream) {
-  switch (k) {
-    case 1:
-      return launch<1, kLayout>(density, out, n, n_light, lss, vx, vy, vz,
-                                point, stream);
-    case 2:
-      return launch<2, kLayout>(density, out, n, n_light, lss, vx, vy, vz,
-                                point, stream);
-    case 4:
-      return launch<4, kLayout>(density, out, n, n_light, lss, vx, vy, vz,
-                                point, stream);
-    case 8:
-      return launch<8, kLayout>(density, out, n, n_light, lss, vx, vy, vz,
-                                point, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
-
-// k: steps per batch (1, 2, 4 or 8); layout: 0 rows of 256 voxels, bricks
-// of 1: 4 x 8 x 8, 2: 2 x 4 x 32, 3: 1 x 8 x 32 voxels
-extern "C" int dxv_light_volume_variant(const void* density, void* out, int n,
-                                        int n_light, float lss, float vx,
-                                        float vy, float vz, int point, int k,
-                                        int layout, void* stream) {
-  if (n <= 0) return 0;
-  switch (layout) {
-    case 0:
-      return launch_k<0>(k, density, out, n, n_light, lss, vx, vy, vz, point,
-                         stream);
-    case 1:
-      return launch_k<1>(k, density, out, n, n_light, lss, vx, vy, vz, point,
-                         stream);
-    case 2:
-      return launch_k<2>(k, density, out, n, n_light, lss, vx, vy, vz, point,
-                         stream);
-    case 3:
-      return launch_k<3>(k, density, out, n, n_light, lss, vx, vy, vz, point,
-                         stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 extern "C" int dxv_light_volume(const void* density, void* out, int n,
                                 int n_light, float lss, float vx, float vy,
                                 float vz, int point, void* stream) {
-  return dxv_light_volume_variant(density, out, n, n_light, lss, vx, vy, vz,
-                                  point, kMainK, kMainLayout, stream);
+  if (n <= 0) return 0;
+  const unsigned blocks =
+      static_cast<unsigned>(((n + kBrickX - 1) / kBrickX) *
+                            ((n + kBrickY - 1) / kBrickY) *
+                            ((n + kBrickZ - 1) / kBrickZ));
+  light_volume_kernel<<<blocks, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(density), static_cast<float*>(out), n,
+      n_light, lss, vx, vy, vz, point);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -80,14 +80,9 @@ _SIGNATURES = {
     # density, light, rgb, camera (host floats), n, width, height,
     # n_samples, stream
     "dxv_gather_march": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # the same, then k, layout, stream
-    "dxv_gather_march_variant": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # density, out, n, n_light, lss, step or light point x, y, z, point,
     # stream
     "dxv_light_volume": (_P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
-    # the same, then k, layout, stream
-    "dxv_light_volume_variant": (_P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I,
-                                 _P),
 }
 
 

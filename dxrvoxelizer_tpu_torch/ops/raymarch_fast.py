@@ -198,14 +198,10 @@ def light_volume_plain(density: torch.Tensor, t: torch.Tensor,
 
 
 def light_volume(density: torch.Tensor, vec: torch.Tensor, n_light: int = 32,
-                 point_light: bool = False,
-                 variant: tuple[int, int] | None = None) -> torch.Tensor:
+                 point_light: bool = False) -> torch.Tensor:
     """Light volume -> [N,N,N] f32: a CUDA tensor launches
     ``csrc/light_volume.cu``; a CPU tensor takes :func:`light_volume_plain`.
-    ``vec``: from :func:`light_vector` (a host tensor, passed by value).
-    ``variant``: (steps per batch 1/2/4/8, layout 0 rows / 1-3 voxel
-    bricks of 4x8x8, 2x4x32, 1x8x32) for the timing sweep; the main entry
-    point by default."""
+    ``vec``: from :func:`light_vector` (a host tensor, passed by value)."""
     n = density.shape[0]
     if density.device.type == "cpu":
         return light_volume_plain(density, voxel_centres(n), vec, n_light,
@@ -217,14 +213,10 @@ def light_volume(density: torch.Tensor, vec: torch.Tensor, n_light: int = 32,
     vx, vy, vz = (float(x) for x in vec.tolist())
     lib = _cuda.load()
     out = torch.empty((n, n, n), dtype=torch.float32, device=density.device)
-    args = (density.data_ptr(), out.data_ptr(), n, n_light,
-            ctypes.c_float(MAX_DIST / n_light), vx, vy, vz, int(point_light))
-    stream = _cuda.stream_ptr(density.device)
-    if variant is None:
-        code = lib.dxv_light_volume(*args, stream)
-    else:
-        code = lib.dxv_light_volume_variant(*args, int(variant[0]),
-                                            int(variant[1]), stream)
+    code = lib.dxv_light_volume(density.data_ptr(), out.data_ptr(), n, n_light,
+                                ctypes.c_float(MAX_DIST / n_light), vx, vy, vz,
+                                int(point_light),
+                                _cuda.stream_ptr(density.device))
     _cuda.check(code, LIGHT_VOLUME.name)
     LIGHT_VOLUME.launches += 1
     return out
@@ -353,14 +345,12 @@ def _camera_args(screen_to_local, eye_local, clear_color, y_offset: float,
 def gather_march(density: torch.Tensor, light_vol: torch.Tensor,
                  screen_to_local, eye_local, clear_color, width: int,
                  height: int, n_samples: int = 128, y_offset: float = 0.0,
-                 px_chunk: int = PX_CHUNK,
-                 variant: tuple[int, int] | None = None) -> torch.Tensor:
+                 px_chunk: int = PX_CHUNK) -> torch.Tensor:
     """Gather march from the camera -> rgb [height * width, 3] f32 (rows of
     the band from screen row ``y_offset``): a CUDA tensor launches
     ``csrc/gather_march.cu``, which sets up its rays itself; a CPU tensor
     takes :func:`gather_rays` then :func:`gather_march_plain` (``px_chunk``
-    is its). ``variant``: (steps per batch 1/2/4/8, layout 0 tiles / 1 rows
-    / 2 compacted tiles) for the timing sweep."""
+    is its)."""
     if density.device.type == "cpu":
         return _gather_plain(density, light_vol, screen_to_local, eye_local,
                              clear_color, width, height, n_samples, y_offset,
@@ -374,14 +364,10 @@ def gather_march(density: torch.Tensor, light_vol: torch.Tensor,
     lib = _cuda.load()
     rgb = torch.empty((width * height, 3), dtype=torch.float32,
                       device=density.device)
-    args = (density.data_ptr(), light_vol.data_ptr(), rgb.data_ptr(),
-            camera.ctypes.data, n, width, height, n_samples)
-    stream = _cuda.stream_ptr(density.device)
-    if variant is None:
-        code = lib.dxv_gather_march(*args, stream)
-    else:
-        code = lib.dxv_gather_march_variant(*args, int(variant[0]),
-                                            int(variant[1]), stream)
+    code = lib.dxv_gather_march(density.data_ptr(), light_vol.data_ptr(),
+                                rgb.data_ptr(), camera.ctypes.data, n, width,
+                                height, n_samples,
+                                _cuda.stream_ptr(density.device))
     _cuda.check(code, GATHER_MARCH.name)
     GATHER_MARCH.launches += 1
     return rgb

@@ -7,69 +7,34 @@ commit of the port, e.g. one unpacked with ``git archive``), in turns:
 
 Builds TREE's kernels, then runs ``FramePipeline(render_impl="gather")``
 frames at 64^3 and 256^3 on the icospheres of subdivision 6 (81,920
-triangles) and 7 (327,680) at 1280x720, as ``chip_smoke.py`` does, and
-prints per frame: CUDA-event ms (10 back-to-back frames, median of 5
-runs), device busy ms and device ops (profiler, 5 frames), the idle share,
-the two gather kernels' device us per frame; then the renderer's two
-public calls alone on the frame's grid, ``precompute_light_volume`` and
-``raymarch_fast`` (CUDA-event ms, as for frames; the same signatures in
-every tree); and the card's name and power limit. Needs a CUDA card;
-imports no JAX.
+triangles) and 7 (327,680) at 1280x720, placed as ``chip_smoke.py`` places
+them, and prints per frame: CUDA-event ms, device busy ms and device ops,
+the idle share and the two gather kernels' device us per frame; then the
+renderer's two public calls alone on the frame's grid,
+``precompute_light_volume`` and ``raymarch_fast`` (CUDA-event ms; the same
+signatures in every tree); and the card's name and power limit. The timing
+is this repository's ``chip_smoke.py`` (``cuda_ms``, ``profile_frames``),
+whichever tree is timed, so two trees are timed alike and as phase 20
+times them. Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
 
 import importlib.util
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-FRAMES_PROFILED = 5
 
 
-def _meshes():
-    spec = importlib.util.spec_from_file_location(
-        "dxv_test_meshes", HERE / "tests" / "meshes.py")
+def _by_path(name: str, path: Path):
+    """A module by path: an installed package named ``tests`` would shadow
+    the repository's directory of that name."""
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def frame_ms(torch, fn, reps: int = 5, inner: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
-def busy_and_ops(torch, fn) -> tuple[float, float, dict]:
-    """Device busy ms, device ops and each gather kernel's device us, per
-    frame (profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(FRAMES_PROFILED):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in p.key_averages() if str(e.device_type) == "DeviceType.CUDA"]
-    busy = sum(e.self_device_time_total for e in dev) / FRAMES_PROFILED / 1e3
-    kernels = {k: round(sum(e.self_device_time_total for e in dev
-                            if f"::{k}" in e.key) / FRAMES_PROFILED, 3)
-               for k in ("light_volume_kernel", "gather_march_kernel")}
-    return busy, sum(e.count for e in dev) / FRAMES_PROFILED, kernels
 
 
 def main(argv: list[str]) -> int:
@@ -91,17 +56,19 @@ def main(argv: list[str]) -> int:
 
     import dxrvoxelizer_tpu_torch
 
+    smoke = _by_path("dxv_chip_smoke", HERE / "chip_smoke.py")
     pkg = Path(dxrvoxelizer_tpu_torch.__file__).resolve().parents[1]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     build = _cuda.build()
-    meshes = _meshes()
+    meshes = _by_path("dxv_test_meshes", HERE / "tests" / "meshes.py")
+    kernels = (rf.LIGHT_VOLUME, rf.GATHER_MARCH)
     dev = torch.device("cuda")
     out = []
     for sub, n in ((6, 64), (7, 256)):
         v, nrm, t = meshes.icosphere_mesh(sub)
-        w = v * np.float32(5.5) + np.array([0.0, 4.0, 0.0], np.float32)
+        w = v * smoke.WORLD_SCALE + smoke.WORLD_CENTER
         obj = ObjMesh(positions=w, normals=nrm, indices=t.reshape(-1),
                       aabb_min=w.min(0), aabb_max=w.max(0))
         cfg = VoxelizerConfig(grid_size=n)
@@ -117,16 +84,18 @@ def main(argv: list[str]) -> int:
         img = frame()
         pipe.sync()
         assert bool(torch.isfinite(img).all()) and img.shape == (720, 1280, 3)
-        ms = frame_ms(torch, frame)
+        ms = smoke.cuda_ms(torch, frame)
         pipe.sync()
-        busy, ops, kus = busy_and_ops(torch, frame)
+        frame()
         pipe.sync()
+        busy, ops, kus = smoke.profile_frames(torch, frame, pipe.sync, kernels)
         dens = voxelize(scene.buffers, n).density().contiguous()
         light, clear = consts.local_space_light_pt, np.array(cfg.clear_color,
                                                              np.float32)
         lv = rf.precompute_light_volume(dens, light)
-        lv_ms = frame_ms(torch, lambda: rf.precompute_light_volume(dens, light))
-        rm_ms = frame_ms(torch, lambda: rf.raymarch_fast(
+        lv_ms = smoke.cuda_ms(torch, lambda: rf.precompute_light_volume(dens,
+                                                                        light))
+        rm_ms = smoke.cuda_ms(torch, lambda: rf.raymarch_fast(
             dens, lv, consts.screen_to_local, consts.local_space_eye_pt, clear,
             cfg.width, cfg.height))
         out.append(f"{n}^3 gather frame ({len(t)} tris, 1280x720): {ms:.4f} ms, "

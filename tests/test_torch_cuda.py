@@ -44,8 +44,6 @@ from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
 from meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
 from torch_cases import (
     FOLD_VARIANTS,
-    GATHER_VARIANTS,
-    LIGHT_VARIANTS,
     MT_VARIANTS,
     PARITY_VARIANTS,
     QUEUE_VARIANTS,
@@ -650,8 +648,7 @@ LIGHTS = {"directional": (-10.0, 45.0, -75.0), "point": (1.3, -2.0, 4.5),
 def test_light_volume_kernel_bit_identical_to_plain(dev, n, grid, light):
     """csrc/light_volume.cu against its plain version (the host's voxel
     centres) on random grids with fractional alphas and on 4-level alpha
-    grids: directional, point light outside and inside; the main entry
-    point and every variant of the sweep (steps per batch, layout)."""
+    grids: directional, point light outside and inside."""
     from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
 
     point = light != "directional"
@@ -660,9 +657,6 @@ def test_light_volume_kernel_bit_identical_to_plain(dev, n, grid, light):
                             point_light=point)
     want = rf.light_volume_plain(dens, t, vec, point_light=point)
     assert torch.equal(rf.light_volume(dens, vec, point_light=point), want)
-    for variant in LIGHT_VARIANTS:
-        got = rf.light_volume(dens, vec, point_light=point, variant=variant)
-        assert torch.equal(got, want), variant
     assert bool((want < 1).any()) and float(want.max()) > float(want.min())
 
 
@@ -674,8 +668,8 @@ def test_gather_march_kernel_bit_identical_to_plain(dev, camera, grid, n):
     path, gather_rays + gather_march_plain, on the card: an orbit frame, a
     camera inside the box and a view along an axis (d_i == 0 rays), on
     random and 4-level alpha grids, over the directional, point and inside
-    light volumes; whole, with every variant of the sweep, and as a band
-    of rows (y_offset) that equals the frame's rows."""
+    light volumes; whole, and as a band of rows (y_offset) that equals the
+    frame's rows."""
     from dxrvoxelizer_tpu_torch.ops import raymarch_fast as rf
 
     w, h = 320, 181  # an odd height: the axis view's middle row is on-axis
@@ -691,9 +685,6 @@ def test_gather_march_kernel_bit_identical_to_plain(dev, camera, grid, n):
         want = rf.gather_march_plain(dens, lv, *rays, clear, px_chunk=20_000)
         assert torch.equal(got, want), kind
         assert float((got - torch.tensor(clear, device=dev)).abs().max()) > 0.05
-    for variant in GATHER_VARIANTS:
-        got_v = rf.gather_march(dens, lv, s2l, eye, clear, w, h, variant=variant)
-        assert torch.equal(got_v, want), variant
     band = rf.gather_rays(s2l, eye, w, 40, 60.0, dev)
     got_b = rf.gather_march(dens, lv, s2l, eye, clear, w, 40, y_offset=60.0)
     assert torch.equal(got_b, rf.gather_march_plain(dens, lv, *band, clear))

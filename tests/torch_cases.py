@@ -50,12 +50,6 @@ PARITY_VARIANTS = [("tile", 1, 256), ("tile", 4, 256), ("tile", 8, 256),
 # staged through shared memory), run on slice streams of each width
 MT_VARIANTS = [(th, d, st) for th in (128, 256) for d in (False, True)
                for st in (False, True)]
-# the gather renderer's kernels: (steps per batch, layout); the light volume
-# in rows (0) or voxel bricks of 4 x 8 x 8 (1), 2 x 4 x 32 (2) or 1 x 8 x 32
-# (3), the march in 16 x 16 tiles (0), rows of 256 pixels (1) or 32 x 32
-# tiles with their hit pixels compacted (2)
-LIGHT_VARIANTS = [(k, lay) for lay in (0, 1, 2, 3) for k in (1, 2, 4, 8)]
-GATHER_VARIANTS = [(k, lay) for lay in (0, 1, 2) for k in (1, 2, 4, 8)]
 
 
 @dataclass
