@@ -46,8 +46,8 @@ the CUDA toolkit. Phases, one line each:
     and profiler device us per call, and with the L2 cache flushed before
     each call;
 5b. the march at the 64^3 frame's inputs across intermediate sizes M = 64,
-    128, 256 and sub-slab counts KS = 64, 128 (ss = 1, 2): CUDA-event ms
-    and profiler device us per call;
+    128, 256, 512 and sub-slab counts KS = 64, 128 (ss = 1, 2): CUDA-event
+    ms and profiler device us per call;
 6. the hi-res app frame: ``-grid 256``, 4 frames, on the 327,680-triangle
    icosphere at the same footprint (the stand-in for the hi-res dragon):
    the work-queue kernel must launch once per frame, the binned one never;
@@ -173,11 +173,21 @@ the CUDA toolkit. Phases, one line each:
     ``-impl queue`` and ``pallas`` (meshes per second); the native tier's
     g++ builds (phase 1), OBJ parse, ray table and the gen-6 256^3 pack
     walk against their Python versions.
+22. the port's benchmark, ``python -m dxrvoxelizer_tpu_torch.bench``, as a
+    subprocess on the card (its entries at 1920x1080, 512^3, 1024^3 and on
+    the 400k-triangle mesh, each output held against its plain version
+    before it is timed): its JSON line and wall time; it must exit 0 with
+    every key of ``bench.expected_keys()``, no ``failed_`` key, launch
+    the parity, queue, march, resolve and fold + extraction kernels in its
+    timed calls, and report its largest error against the plain versions
+    for the queue kernel, the march and the resolve (folded into the
+    kernels' ``max_abs_err`` below).
 
 Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
-``-normals`` app runs, the core-tier gen-1 frames, phase 20's runs and
-phase 21's sharded frames and datagen, each counted from zero; the fold-only kernel is on no main path, as in the
+``-normals`` app runs, the core-tier gen-1 frames, phase 20's runs,
+phase 21's sharded frames and datagen and phase 22's benchmark, each
+counted from zero; the fold-only kernel is on no main path, as in the
 JAX package, and shows 0), its largest difference from its plain version
 (over every comparison above), and, at the inputs of the main path it
 belongs to (the 64^3 frame for the binned kernel, the march, the resolve
@@ -207,16 +217,23 @@ from pathlib import Path
 
 import numpy as np
 
+# the timing helpers the port's benchmark uses (run from the repository root:
+# an empty directory has no package, and the script fails there)
+from dxrvoxelizer_tpu_torch.bench import (
+    INNER,
+    PROFILE_FRAMES,
+    REPS,
+    WORLD_CENTER,  # the icospheres at the reference bunny's world footprint
+    WORLD_SCALE,
+    cuda_ms,
+    device_us,
+    profile_frames,
+    write_obj,
+)
+
 FRAMES = 4
 GRID = 64
 GRID_HI = 256
-# icosphere placement at the bunny's world footprint (the default camera
-# focuses on (0, 4, 0); tests/goldens/render_bunny_720p.png)
-WORLD_SCALE = np.float32(5.5)
-WORLD_CENTER = np.array([0.0, 4.0, 0.0], np.float32)
-REPS = 5  # timed runs per measurement (the median is reported)
-INNER = 10  # back-to-back calls per timed run
-PROFILE_FRAMES = 5
 # kernel-vs-plain bounds (absolute): the march's is the JAX package's own
 # kernel bound (tests/test_march_pallas.py); the resolve's absorbs the
 # march's ulp-level noise through the sqrt tone curve; the frame's is the
@@ -268,30 +285,6 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def write_obj(path: Path, verts: np.ndarray, tris: np.ndarray) -> None:
-    lines = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in verts]
-    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in tris]
-    path.write_text("\n".join(lines) + "\n")
-
-
-def cuda_ms(torch, fn, reps: int = REPS, inner: int = INNER) -> float:
-    """Time per call of ``fn``: CUDA events around ``inner`` back-to-back
-    calls, median of ``reps`` such runs, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
 def _load_test_module(root: Path, name: str):
     """``tests/<name>.py`` by path: an installed package named ``tests``
     would shadow the repository's directory of that name."""
@@ -337,29 +330,6 @@ def bbox_pairs(torch, verts, tris, n: int) -> int:
 
     cols = span(pt.xmin, pt.xmax) * span(pt.ymin, pt.ymax) * (pt.valid > 0)
     return int(cols.double().sum())
-
-
-def device_us(torch, fn, calls: int = 10, windows: int = 3) -> float:
-    """Device time per call of ``fn`` (profiler: every device kernel and
-    copy it runs), after one warm-up call: the median of ``windows``
-    profiler windows of ``calls`` calls (a window can miss or double some
-    device records; one that saw no device activity is dropped)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if str(e.device_type) == "DeviceType.CUDA") / calls
-        if us > 0:
-            per_call.append(us)
-    return statistics.median(per_call) if per_call else 0.0
 
 
 def host_us(torch, fn, calls: int = 200) -> float:
@@ -560,13 +530,13 @@ def raystab_pass_pairs(torch, rsc, tb) -> tuple[int, int, int, int]:
 def cold_device_us(torch, fn, flush) -> float:
     """Device time per call of ``fn`` with the L2 cache flushed before each
     call: the profiler's time of flush + call, less the flush's alone."""
-    return (device_us(torch, lambda: (flush.zero_(), fn()))
-            - device_us(torch, flush.zero_))
+    return (device_us(lambda: (flush.zero_(), fn()))
+            - device_us(flush.zero_))
 
 
 def time_sweep(torch, fns: dict) -> dict:
     """CUDA-event ms and profiler device us per call of each function."""
-    return {k: (cuda_ms(torch, fn), device_us(torch, fn)) for k, fn in fns.items()}
+    return {k: (cuda_ms(fn), device_us(fn)) for k, fn in fns.items()}
 
 
 def mt_stage_pairs(torch, tb) -> list[int]:
@@ -615,7 +585,7 @@ def frames_in_turns(torch, fns) -> dict:
     turns = {name: [] for name in fns}
     for name in [*fns, *reversed(fns)]:
         fn, p = fns[name]
-        turns[name].append(cuda_ms(torch, fn))
+        turns[name].append(cuda_ms(fn))
         p.sync()
     return turns
 
@@ -641,30 +611,6 @@ def app_run(torch, app_main, kernels, args, png: Path, name: str,
     covered = float((np.abs(img.astype(int) - clear_u8).sum(-1) > 3).mean())
     check(0.05 < covered < 0.9, f"{name}: volume covers {covered:.3f} of the frame")
     return launches, covered
-
-
-def profile_frames(torch, frame_fn, sync_fn, kernels):
-    """Profiler window of PROFILE_FRAMES frames -> (device busy ms per frame,
-    device kernels and copies per frame, kernel device us per frame)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_FRAMES):
-            frame_fn()
-        sync_fn()
-    dev_events = [e for e in prof.key_averages()
-                  if str(e.device_type) == "DeviceType.CUDA"]
-    dev_us = {e.key: e.self_device_time_total for e in dev_events}
-    busy_ms = sum(dev_us.values()) / PROFILE_FRAMES / 1e3
-    per_frame = sum(e.count for e in dev_events) / PROFILE_FRAMES
-    # "::symbol" in the demangled name (the kernels live in an anonymous
-    # namespace); queue_kernel's prefix also takes its conversion pass
-    kernel_us = {
-        k.name: round(sum(us for key, us in dev_us.items()
-                          if f"::{k.symbol}" in key) / PROFILE_FRAMES, 3)
-        for k in kernels
-    }
-    return busy_ms, per_frame, kernel_us
 
 
 # FP32 operations of the render variants' kernels, counted from their
@@ -1012,14 +958,14 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
                                    cfg.height)
 
         for k, fn in ((lv_k, lv_call), (gm, gm_call)):
-            times[(k, size)] = cuda_ms(torch, fn)
-            dev_call[(k, size)] = device_us(torch, fn)
+            times[(k, size)] = cuda_ms(fn)
+            dev_call[(k, size)] = device_us(fn)
             host[(k, size)] = host_us(torch, fn)
         plain[(lv_k, size)] = cuda_ms(
-            torch, lambda: rf.light_volume_plain(dens, t, vec), reps=3, inner=1)
+            lambda: rf.light_volume_plain(dens, t, vec), reps=3, inner=1)
         plain[(gm, size)] = cuda_ms(
-            torch, lambda: rf.raymarch_fast(dens, lv, m_, eye_, clear, cfg.width,
-                                            cfg.height, use_kernel=False),
+            lambda: rf.raymarch_fast(dens, lv, m_, eye_, clear, cfg.width,
+                                     cfg.height, use_kernel=False),
             reps=3, inner=1)
         live_l, live_d, live_c = int(steps.sum()), int(sd.sum()), int(sl.sum())
         hits = int(rays[2].sum())
@@ -1064,10 +1010,10 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
             pts = gather_points(torch, rf, rays[0], rays[1], r_idx, s_idx, 128)
             gs_l, vals_l = grid_sample_at(torch, [dens], pts_l)
             gs_g, vals_g = grid_sample_at(torch, [dens, lv], pts)
-            library[lv_k] = cuda_ms(torch, gs_l)
-            library[gm] = cuda_ms(torch, gs_g)
-            dev_call[("grid_sample light", size)] = device_us(torch, gs_l)
-            dev_call[("grid_sample march", size)] = device_us(torch, gs_g)
+            library[lv_k] = cuda_ms(gs_l)
+            library[gm] = cuda_ms(gs_g)
+            dev_call[("grid_sample light", size)] = device_us(gs_l)
+            dev_call[("grid_sample march", size)] = device_us(gs_g)
             # the yardstick reads what the kernels read (a sanity check)
             tex = pts * torch.tensor([0.5, -0.5, 0.5], device=dev) + 0.5
             e_ys = max_err(vals_g[0], rf._flat_trilinear(dens.reshape(-1),
@@ -1101,7 +1047,7 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
             p_ = FramePipeline(cfg_s, mb_s, render_impl=impl)
             frames[f"{impl} {size}"] = (lambda p_=p_, c_=c_: p_.frame(c_), p_)
     turns = frames_in_turns(torch, frames)
-    prof = {name: profile_frames(torch, fn, p.sync, kernels)
+    prof = {name: profile_frames(fn, p.sync, kernels)
             for name, (fn, p) in frames.items()}
     frame_lines = []
     for name, (busy, per_frame, kus) in prof.items():
@@ -1117,11 +1063,11 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
     for size, cfg_s, grid, c_ in ((GRID, cfg, grid64, consts),
                                   (GRID_HI, cfg_hi, grid256, consts7)):
         lv = work[("light", size)][4]
-        r = {"gather": cuda_ms(torch, lambda: render(grid, c_, cfg_s, impl="gather")),
+        r = {"gather": cuda_ms(lambda: render(grid, c_, cfg_s, impl="gather")),
              "gather, light volume passed in": cuda_ms(
-                 torch, lambda: render(grid, c_, cfg_s, impl="gather",
-                                       light_volume=lv)),
-             "warp -hq": cuda_ms(torch, lambda: render(grid, c_, cfg_s))}
+                 lambda: render(grid, c_, cfg_s, impl="gather",
+                                light_volume=lv)),
+             "warp -hq": cuda_ms(lambda: render(grid, c_, cfg_s))}
         render_lines.append(f"{size}^3 " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in r.items()))
     # both images against the shader-exact oracle at 64^3, 1280x720
@@ -1277,13 +1223,13 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
     for name, (c_, m_, k_) in frames.items():
         p = pipes[name]
         fn = lambda p=p, k_=k_: p.frame(k_)  # noqa: E731
-        ms_ = cuda_ms(torch, fn)
+        ms_ = cuda_ms(fn)
         p.sync()
-        busy, per_frame, _ = profile_frames(torch, fn, p.sync, kernels)
+        busy, per_frame, _ = profile_frames(fn, p.sync, kernels)
         fr = p._frames[next(iter(p._frames))]
         ctx = (m_.positions_norm, p.mesh.tris, None, None, None, None)
         piece = fr.piece(0, ctx)
-        gather_ms = cuda_ms(torch, lambda piece=piece: group.all_gather(piece))
+        gather_ms = cuda_ms(lambda piece=piece: group.all_gather(piece))
         timing[name] = (ms_, busy, per_frame, piece.numel() * piece.element_size(),
                         gather_ms)
     print("phase 21a ShardedFramePipeline on a NCCL group of 1 rank, "
@@ -1535,6 +1481,58 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
     return {"launches": {k: launches[k] + dg_launch.get(k, 0) for k in launches}}
 
 
+# the kernels the benchmark's timed calls must launch (2.1 for the 64^3
+# render density, 2.2, the march and the resolve, the gen-6/7 fold)
+BENCH_KERNELS = ("parity_voxelize", "parity_queue", "march", "resolve",
+                 "raystab_fold_extract")
+# the kernels whose outputs the benchmark holds against their plain versions
+# (the queue's words; the march and the image at 1920x1080)
+BENCH_HELD = ("parity_queue", "march", "resolve")
+BENCH_TIMEOUT_S = 600
+
+
+def phase22(torch, root: Path) -> tuple[dict, dict]:
+    """Run ``python -m dxrvoxelizer_tpu_torch.bench`` on the card as a
+    subprocess; print its JSON line and wall time; fail unless it exits 0
+    with every key of ``bench.expected_keys()``, no ``failed_`` key, a
+    launch of each of BENCH_KERNELS and an error from each of BENCH_HELD ->
+    (its launches, its largest error per kernel held against its plain
+    version)."""
+    from dxrvoxelizer_tpu_torch import bench
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the bench's 512^3 and 1024^3 entries
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "dxrvoxelizer_tpu_torch.bench"], cwd=root,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    print(f"phase 22 bench: exit {res.returncode} in {wall:.1f} s")
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        print(res.stderr[-6000:], file=sys.stderr)
+        raise RuntimeError(f"phase 22: the bench exited {res.returncode}")
+    print(lines[-1])
+    line = json.loads(lines[-1])
+    sec = line["secondaries"]
+    missing = [k for k in bench.expected_keys() if k not in sec]
+    failed = [k for k in sec if k.startswith("failed_")]
+    check(not missing and not failed,
+          f"phase 22: the bench lacks {missing}, failed {failed}")
+    check(line["value"] == sec["voxelize_256_ms"]
+          and line["metric"].endswith("_voxelize_256cubed_ms"),
+          "phase 22: the headline is not the 256^3 voxelize")
+    launches, errs = line["launches"], line["max_abs_err"]
+    for k in BENCH_KERNELS:
+        check(launches[k] > 0, f"phase 22: the bench never launched {k}")
+    check(set(errs) == set(BENCH_HELD),
+          f"phase 22: the bench held {sorted(errs)}, not {BENCH_HELD}")
+    print(f"phase 22 bench launches {launches}; max|err| against the plain "
+          f"versions {errs}; stderr tail: "
+          + " | ".join(res.stderr.strip().splitlines()[-4:]))
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -1568,7 +1566,6 @@ def main() -> int:
     from dxrvoxelizer_tpu_torch.ops import (
         _cuda,
         march_cuda,
-        raymarch_fast,
         raystab_cuda,
         raystab_fast,
         raystab_mt_cuda,
@@ -1610,9 +1607,7 @@ def main() -> int:
 
     vq, vqc = voxelize_queue, voxelize_queue_cuda
     rsf, rsc, rmt = raystab_fast, raystab_cuda, raystab_mt_cuda
-    kernels = [voxelize_cuda.KERNEL, vqc.KERNEL, march_cuda.KERNEL,
-               screen_warp_cuda.KERNEL, rsc.FOLD_EXTRACT, rsc.FOLD, rmt.KERNEL,
-               raymarch_fast.GATHER_MARCH, raymarch_fast.LIGHT_VOLUME]
+    kernels = _cuda.all_kernels()
     path_kernels = {  # the kernels each main path must launch
         "64": ("parity_voxelize", "march", "resolve"),
         "256": ("parity_queue", "march", "resolve"),
@@ -1998,27 +1993,26 @@ def main() -> int:
     # ---- 5. timings ------------------------------------------------------
     ms = {
         "parity_voxelize": (
-            cuda_ms(torch, sb_main),
-            cuda_ms(torch, lambda: voxelize_cuda.voxelize_parity_tiles_plain(coef_main, GRID)),
+            cuda_ms(sb_main),
+            cuda_ms(lambda: voxelize_cuda.voxelize_parity_tiles_plain(coef_main, GRID)),
         ),
         "march": (
-            cuda_ms(torch, lambda: march_cuda.march(*mi.args(),
+            cuda_ms(lambda: march_cuda.march(*mi.args(),
                                                     ring=mi.ring)),
-            cuda_ms(torch, lambda: march_cuda.march_plain(*mi.args())),
+            cuda_ms(lambda: march_cuda.march_plain(*mi.args())),
         ),
         "resolve": (
-            cuda_ms(torch, lambda: screen_warp_cuda.resolve_screen(*res_args)),
-            cuda_ms(torch,
-                    lambda: screen_warp_cuda.resolve_screen_plain(*res_args)),
+            cuda_ms(lambda: screen_warp_cuda.resolve_screen(*res_args)),
+            cuda_ms(lambda: screen_warp_cuda.resolve_screen_plain(*res_args)),
         ),
     }
     gs = grid_sample_call(torch, res_args)
     dev_us = {  # device time per call (profiler)
-        "march": device_us(torch, lambda: march_cuda.march(
+        "march": device_us(lambda: march_cuda.march(
             *mi.args(), ring=mi.ring)),
-        "resolve": device_us(torch,
-                             lambda: screen_warp_cuda.resolve_screen(*res_args)),
-        "grid_sample": device_us(torch, gs),
+        "resolve": device_us(
+            lambda: screen_warp_cuda.resolve_screen(*res_args)),
+        "grid_sample": device_us(gs),
     }
     # the resolve wrapper's host time per call beside one elementwise torch
     # op's (a multiplication by a CPU scalar, as in screen_coords)
@@ -2037,17 +2031,17 @@ def main() -> int:
     ring_in = [t.cpu() for t in (mi.scale_x, mi.off_x, mi.scale_y, mi.off_y)]
     ring_host_us = host_us(torch, lambda: march_cuda.march_ring(
         *ring_in, m, GRID, cfg.render_ss))
-    frame_ms = cuda_ms(torch, frame_kernels)
+    frame_ms = cuda_ms(frame_kernels)
     pipe.sync()
-    frame_plain_ms = cuda_ms(torch, frame_plain)
+    frame_plain_ms = cuda_ms(frame_plain)
 
-    library_ms = {"resolve": cuda_ms(torch, gs)}
+    library_ms = {"resolve": cuda_ms(gs)}
 
     # device time by kernel over a steady window of frames (profiler): what
     # the card is busy with per frame, and how long it idles
     torch.cuda.reset_peak_memory_stats()
-    busy_ms, per_frame, kernel_us = profile_frames(torch, frame_kernels,
-                                                   pipe.sync, kernels)
+    busy_ms, per_frame, kernel_us = profile_frames(frame_kernels, pipe.sync,
+                                                   kernels)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     print(f"phase 5 frame {GRID}^3 1280x720 -hq: {frame_ms:.4f} ms with the "
           f"kernels, {frame_plain_ms:.4f} ms plain (CUDA events over "
@@ -2078,7 +2072,7 @@ def main() -> int:
     p_fns["parent (column, no counts)"] = (
         lambda: voxelize_cuda.voxelize_parity_tiles(coef_main, GRID))
     p_sweep = time_sweep(torch, p_fns)
-    p_dev_us = device_us(torch, sb_main)
+    p_dev_us = device_us(sb_main)
     p_cold_us = {k: cold_device_us(torch, fn, flush)
                  for k, fn in [("main", sb_main), *p_fns.items()]}
     p_rows, p_pairs = binned_tested_pairs(torch, voxelize_cuda, coef_main,
@@ -2099,20 +2093,20 @@ def main() -> int:
               f"{v} {us:.2f}" for v, us in p_cold_us.items()) + f"; {card}")
 
     # ---- 5b. the march across intermediate sizes and sub-slab counts -----
-    # at the 64^3 frame's inputs, M = 64, 128, 256 and ss = 1, 2 (KS = 64,
+    # at the 64^3 frame's inputs, M = 64 to 512 and ss = 1, 2 (KS = 64,
     # 128): a latency chain per step shows as time that follows KS and stays
     # flat in M while M^2 threads underfill the card
     sweep = []
     for ss in (1, 2):
-        for m_s in (64, 128, 256):
+        for m_s in (64, 128, 256, 512):
             mi_s = march_inputs(*vols, eye, GRID, m_s, axis, flip, ss)
 
             def march_s(mi_s=mi_s):
                 return march_cuda.march(*mi_s.args(), ring=mi_s.ring)
 
             sweep.append(f"M={m_s} KS={GRID * ss} ring {mi_s.ring} "
-                         f"{cuda_ms(torch, march_s):.4f} ms "
-                         f"{device_us(torch, march_s):.2f} us")
+                         f"{cuda_ms(march_s):.4f} ms "
+                         f"{device_us(march_s):.2f} us")
     print(f"phase 5b march at the {GRID}^3 frame's inputs (CUDA-event ms and "
           f"profiler device us per call): " + "; ".join(sweep) + f"; {card}")
 
@@ -2240,16 +2234,16 @@ def main() -> int:
     # ---- 11. hi-res timings ----------------------------------------------
     sv512 = vq.StaticVoxelizer(mb7.positions_norm, mb7.tris, 512)
     ms["parity_queue"] = (
-        cuda_ms(torch, sv),
-        cuda_ms(torch, lambda: vqc.voxelize_parity_queue_chunks_plain(
+        cuda_ms(sv),
+        cuda_ms(lambda: vqc.voxelize_parity_queue_chunks_plain(
             sv.coefs, sv.chunk_tile, sv.chunk_nsub, GRID_HI)),
     )
     q512_ms = (
-        cuda_ms(torch, sv512),
-        cuda_ms(torch, lambda: vqc.voxelize_parity_queue_chunks_plain(
+        cuda_ms(sv512),
+        cuda_ms(lambda: vqc.voxelize_parity_queue_chunks_plain(
             sv512.coefs, sv512.chunk_tile, sv512.chunk_nsub, 512)),
     )
-    q_dev_us = {GRID_HI: device_us(torch, sv), 512: device_us(torch, sv512)}
+    q_dev_us = {GRID_HI: device_us(sv), 512: device_us(sv512)}
     q_pairs = {n_: queue_tested_pairs(torch, vqc, v_.coefs, v_.spans,
                                       v_.chunk_tile, v_.chunk_nsub, n_)
                for n_, v_ in ((GRID_HI, sv), (512, sv512))}
@@ -2257,8 +2251,8 @@ def main() -> int:
                 for n_ in (GRID_HI, 512)}
     sb7 = StaticBinnedVoxelizer(mb7.positions_norm, mb7.tris, GRID_HI)
     stats_b7 = sb7.stats
-    binned256_ms = cuda_ms(torch, sb7)
-    deform_call_ms = cuda_ms(torch, lambda: dv(wob[2]))
+    binned256_ms = cuda_ms(sb7)
+    deform_call_ms = cuda_ms(lambda: dv(wob[2]))
     pipe7d = FramePipeline(cfg_hi, mb7, deforming=True)
     pipe7d.mesh = wobbled(mb7, base_x, 2)
 
@@ -2266,35 +2260,35 @@ def main() -> int:
         return pipe7d.frame(consts7)
 
     render7 = {  # kernel ms, plain ms, bound at the 256^3 frame's inputs
-        "march": (cuda_ms(torch, lambda: march_cuda.march(
+        "march": (cuda_ms(lambda: march_cuda.march(
             *mi7.args(), ring=mi7.ring)),
-                  cuda_ms(torch, lambda: march_cuda.march_plain(*mi7.args())),
+                  cuda_ms(lambda: march_cuda.march_plain(*mi7.args())),
                   march_bound(torch, mi7)),
-        "resolve": (cuda_ms(torch,
-                            lambda: screen_warp_cuda.resolve_screen(*res_args7)),
-                    cuda_ms(torch, lambda: screen_warp_cuda.resolve_screen_plain(
+        "resolve": (cuda_ms(
+                        lambda: screen_warp_cuda.resolve_screen(*res_args7)),
+                    cuda_ms(lambda: screen_warp_cuda.resolve_screen_plain(
                         *res_args7)),
                     resolve_bound(res_args7)),
     }
     gs7 = grid_sample_call(torch, res_args7)
-    grid_sample7_ms = cuda_ms(torch, gs7)
+    grid_sample7_ms = cuda_ms(gs7)
     dev_us7 = {
-        "march": device_us(torch, lambda: march_cuda.march(
+        "march": device_us(lambda: march_cuda.march(
             *mi7.args(), ring=mi7.ring)),
         "resolve": device_us(
-            torch, lambda: screen_warp_cuda.resolve_screen(*res_args7)),
-        "grid_sample": device_us(torch, gs7),
+            lambda: screen_warp_cuda.resolve_screen(*res_args7)),
+        "grid_sample": device_us(gs7),
     }
-    hi_ms = {"static": cuda_ms(torch, frame7_kernels)}
+    hi_ms = {"static": cuda_ms(frame7_kernels)}
     pipe7.sync()
-    hi_ms["deform"] = cuda_ms(torch, frame7_deform)
+    hi_ms["deform"] = cuda_ms(frame7_deform)
     pipe7d.sync()
-    hi_ms["static plain"] = cuda_ms(torch, frame7_plain)
+    hi_ms["static plain"] = cuda_ms(frame7_plain)
     hi_prof = {}
     for name, fn, p in (("static", frame7_kernels, pipe7),
                         ("deform", frame7_deform, pipe7d)):
         torch.cuda.reset_peak_memory_stats()
-        prof = profile_frames(torch, fn, p.sync, kernels)
+        prof = profile_frames(fn, p.sync, kernels)
         hi_prof[name] = (*prof, torch.cuda.max_memory_allocated() / 2**20)
     print(f"phase 11 work-queue kernel {GRID_HI}^3 {ms['parity_queue'][0]:.4f} "
           f"ms (plain {ms['parity_queue'][1]:.4f} ms), 512^3 {q512_ms[0]:.4f} "
@@ -2488,12 +2482,12 @@ def main() -> int:
     tb_rs = accel_rs.main
     tc6 = int(mb.tris.shape[0])
     ms["raystab_fold_extract"] = (
-        cuda_ms(torch, lambda: rsc.fold_extract(tb_rs, tc6, thr)),
-        cuda_ms(torch, lambda: rsc.fold_extract_plain(tb_rs, tc6, thr)),
+        cuda_ms(lambda: rsc.fold_extract(tb_rs, tc6, thr)),
+        cuda_ms(lambda: rsc.fold_extract_plain(tb_rs, tc6, thr)),
     )
     ms["raystab_fold"] = (
-        cuda_ms(torch, lambda: rsc.fold(tb_rs)),
-        cuda_ms(torch, lambda: rsc.fold_plain(tb_rs)),
+        cuda_ms(lambda: rsc.fold(tb_rs)),
+        cuda_ms(lambda: rsc.fold_plain(tb_rs)),
     )
     # the accel build: the first from a cold ray table, then 3 warm ones
     rsf._ray_table_filled.cache_clear()
@@ -2512,20 +2506,20 @@ def main() -> int:
     # them first): how far host time drifted
     turns = frames_in_turns(torch, frames64)
     stab_ms = {k: statistics.median(v) for k, v in early.items()}
-    stab_ms["raystab plain"] = cuda_ms(torch, frame_rs_plain)
-    stab_ms["normals plain"] = cuda_ms(torch, frame_nm_plain)
+    stab_ms["raystab plain"] = cuda_ms(frame_rs_plain)
+    stab_ms["normals plain"] = cuda_ms(frame_nm_plain)
     stab_prof = {}
     for name, fn, p in (("raystab", frame_rs, pipe_rs),
                         ("normals", frame_nm, pipe_nm)):
         torch.cuda.reset_peak_memory_stats()
-        prof = profile_frames(torch, fn, p.sync, kernels)
+        prof = profile_frames(fn, p.sync, kernels)
         stab_prof[name] = (*prof, torch.cuda.max_memory_allocated() / 2**20)
     work_rs = raystab_work(torch, rsc, tb_rs)
     pass_rs = raystab_pass_pairs(torch, rsc, tb_rs)
     rs_dev_us = {
         "raystab_fold_extract": device_us(
-            torch, lambda: rsc.fold_extract(tb_rs, tc6, thr)),
-        "raystab_fold": device_us(torch, lambda: rsc.fold(tb_rs)),
+            lambda: rsc.fold_extract(tb_rs, tc6, thr)),
+        "raystab_fold": device_us(lambda: rsc.fold(tb_rs)),
     }
     # ---- 15b. the fold + extraction kernel's sweep --------------------------
     rs_sweep = time_sweep(torch, {
@@ -2691,9 +2685,9 @@ def main() -> int:
     gen1_err = max_err(gen1_frame(consts), gen1_frame_plain())
     check(gen1_err <= TOL_FRAME, f"gen-1 frame differs by {gen1_err:.3g}")
 
-    ms["raystab_mt"] = (cuda_ms(torch, lambda: rmt.closest_hit(acc1.main)),
-                        cuda_ms(torch, lambda: rmt.closest_hit_plain(acc1.main)))
-    mt_dev_us = device_us(torch, lambda: rmt.closest_hit(acc1.main))
+    ms["raystab_mt"] = (cuda_ms(lambda: rmt.closest_hit(acc1.main)),
+                        cuda_ms(lambda: rmt.closest_hit_plain(acc1.main)))
+    mt_dev_us = device_us(lambda: rmt.closest_hit(acc1.main))
     mt_host_us = host_us(torch, lambda: rmt.closest_hit(acc1.main))
     # ---- 16b. kernel 2.8's sweep: slice widths x settings -------------------
     want1 = rmt.closest_hit_plain(acc1.main)
@@ -2718,10 +2712,10 @@ def main() -> int:
         mt_slots[lanes] = (tb_l.slices, int((cc * lanes).sum()),
                            int(((cnt + 31) // 32 * 32 * cc).sum()),
                            int((cnt * cc).sum()))
-    gen1_ms = cuda_ms(torch, lambda: gen1_frame(consts))
+    gen1_ms = cuda_ms(lambda: gen1_frame(consts))
     torch.cuda.reset_peak_memory_stats()
     busy1, per_frame1, kus1 = profile_frames(
-        torch, lambda: gen1_frame(consts), torch.cuda.synchronize, kernels)
+        lambda: gen1_frame(consts), torch.cuda.synchronize, kernels)
     peak1 = torch.cuda.max_memory_allocated() / 2**20
     # the work the function needs: each cell's candidate rows once (40 of
     # their 48 bytes), each ray's origin and direction in and (t, id) out,
@@ -3045,10 +3039,10 @@ def main() -> int:
             err_ = max_err(img_, render(grid_, consts7, c_, use_kernels=False))
             check(err_ <= TOL_FRAME, f"{name} frame differs by {err_:.3g}")
         fn_ = lambda p_=p_: p_.frame(consts7)  # noqa: E731
-        ms_ = cuda_ms(torch, fn_)
+        ms_ = cuda_ms(fn_)
         p_.sync()
         torch.cuda.reset_peak_memory_stats()
-        prof = profile_frames(torch, fn_, p_.sync, kernels)
+        prof = profile_frames(fn_, p_.sync, kernels)
         new_frames[name] = (ms_, *prof, torch.cuda.max_memory_allocated() / 2**20,
                             first_s, err_)
         del p_
@@ -3080,6 +3074,13 @@ def main() -> int:
         "native_builds": native_builds})
     for k, c in p21["launches"].items():
         main_launches[k] += c
+
+    # ---- 22. the port's benchmark, as a user runs it ---------------------
+    p22_launches, p22_errs = phase22(torch, root)
+    for k, c in p22_launches.items():
+        main_launches[k] += c
+    for k, e in p22_errs.items():
+        errs[k] = max(errs[k], e)
 
     # ---- bounds: the least time for each kernel's work on this run's data
     w64 = GRID * GRID * (GRID // 32) * 4

@@ -99,6 +99,26 @@ class Kernel:
     launches: int = 0
 
 
+def all_kernels() -> list[Kernel]:
+    """Every hand-written kernel of the port (imported here, on call: the
+    modules that hold them import this one)."""
+    from dxrvoxelizer_tpu_torch.ops import (
+        march_cuda,
+        raymarch_fast,
+        raystab_cuda,
+        raystab_mt_cuda,
+        screen_warp_cuda,
+        voxelize_cuda,
+        voxelize_queue_cuda,
+    )
+
+    return [voxelize_cuda.KERNEL, voxelize_queue_cuda.KERNEL,
+            march_cuda.KERNEL, screen_warp_cuda.KERNEL,
+            raystab_cuda.FOLD_EXTRACT, raystab_cuda.FOLD,
+            raystab_mt_cuda.KERNEL, raymarch_fast.GATHER_MARCH,
+            raymarch_fast.LIGHT_VOLUME]
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 

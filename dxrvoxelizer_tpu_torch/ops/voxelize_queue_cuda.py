@@ -49,6 +49,10 @@ LANES = TILE_X * TILE_Y
 SUB = 8  # rows per sub-block: chunk_nsub counts these
 K_CHUNK = 64  # coefficient rows per queue chunk
 PLAIN_BATCH = 512  # chunks per step of the plain version (bounds its memory)
+# histogram entries per tile group of the plain version (bounds its memory:
+# one histogram of every tile would take 4.3 GB at 1024^3, its flips and
+# sums as much again)
+PLAIN_HIST = 1 << 26
 
 KERNEL = _cuda.Kernel(
     name="parity_queue",
@@ -92,9 +96,11 @@ def _check_queue(coefs, chunk_tile, chunk_nsub, n: int, tile_lo: int = 0,
 
 
 def queue_crossings(coefs: torch.Tensor, chunk_tile: torch.Tensor,
-                    chunk_nsub: torch.Tensor, n: int, chunks: slice):
+                    chunk_nsub: torch.Tensor, n: int,
+                    chunks: slice | torch.Tensor):
     """The plain version's test of every column of each chunk's tile against
-    every live row, for the chunks ``chunks`` -> (covered [b, 128, k] bool,
+    every live row, for the chunks ``chunks`` (a slice or an index tensor)
+    -> (covered [b, 128, k] bool,
     cutoff m [b, 128, k] int64 in [0, N]); lane l of tile t is column
     (tx * TILE_X + l // TILE_Y, ty * TILE_Y + l % TILE_Y)."""
     num_chunks, k_chunk = _check_queue(coefs, chunk_tile, chunk_nsub, n)
@@ -144,29 +150,40 @@ def voxelize_parity_queue_chunks_plain(coefs: torch.Tensor,
                                        ) -> torch.Tensor:
     """Plain torch version of the queue kernel -> words [N, N, N//32], or
     with ``tiles`` the group's [tiles, N//32, 128] (chunks of other tiles
-    are left out)."""
-    num_chunks, _ = _check_queue(coefs, chunk_tile, chunk_nsub, n, tile_lo,
-                                 tiles)
-    dev = coefs.device
+    are left out). The tiles are taken in groups of at most
+    ``PLAIN_HIST // (128 * (N + 1))``, each with a histogram of its own."""
+    _check_queue(coefs, chunk_tile, chunk_nsub, n, tile_lo, tiles)
     n_out = (n // TILE_X) * (n // TILE_Y) if tiles is None else tiles
+    step = max(1, PLAIN_HIST // (LANES * (n + 1)))
+    words = torch.cat([
+        _plain_group(coefs, chunk_tile, chunk_nsub, n, lo,
+                     min(step, tile_lo + n_out - lo))
+        for lo in range(tile_lo, tile_lo + n_out, step)
+    ]) if n_out else torch.zeros((0, n // 32, LANES), dtype=torch.int32,
+                                 device=coefs.device)
+    return words if tiles is not None else _tiles_to_grid(words, n)
+
+
+def _plain_group(coefs, chunk_tile, chunk_nsub, n: int, tile_lo: int,
+                 tiles: int) -> torch.Tensor:
+    """The plain version on the tiles [tile_lo, tile_lo + tiles) ->
+    [tiles, N//32, 128] words, from the chunks of those tiles only."""
+    dev = coefs.device
     lane = torch.arange(LANES, device=dev)
+    rel_all = chunk_tile.to(torch.int64) - tile_lo
+    mine = torch.nonzero((rel_all >= 0) & (rel_all < tiles)).reshape(-1)
     # hist[t, l, m]: covered crossings of column l of tile tile_lo + t with
     # cutoff m
-    hist = torch.zeros(n_out * LANES * (n + 1), dtype=torch.int32, device=dev)
-    for s in range(0, num_chunks, PLAIN_BATCH):
-        b = slice(s, s + PLAIN_BATCH)
+    hist = torch.zeros(tiles * LANES * (n + 1), dtype=torch.int32, device=dev)
+    for s in range(0, mine.shape[0], PLAIN_BATCH):
+        b = mine[s:s + PLAIN_BATCH]
         covered, m = queue_crossings(coefs, chunk_tile, chunk_nsub, n, b)
-        rel = chunk_tile[b].to(torch.int64) - tile_lo
-        mine = (rel >= 0) & (rel < n_out)
-        rel = torch.clamp(rel, 0, max(n_out - 1, 0))
-        idx = (rel[:, None, None] * LANES + lane[None, :, None]) * (n + 1) + m
-        hist.scatter_add_(0, idx.reshape(-1),
-                          (covered & mine[:, None, None]).to(torch.int32).reshape(-1))
+        idx = (rel_all[b][:, None, None] * LANES + lane[None, :, None]) * (n + 1) + m
+        hist.scatter_add_(0, idx.reshape(-1), covered.to(torch.int32).reshape(-1))
     # voxel k flips once per crossing with cutoff m > k
-    hist = hist.view(n_out, LANES, n + 1)
+    hist = hist.view(tiles, LANES, n + 1)
     above = hist.flip(-1).cumsum(-1, dtype=torch.int32).flip(-1)[..., 1:]
-    words = pack_bits_z((above & 1).to(torch.bool)).transpose(1, 2)  # [t, W, 128]
-    return words.contiguous() if tiles is not None else _tiles_to_grid(words, n)
+    return pack_bits_z((above & 1).to(torch.bool)).transpose(1, 2).contiguous()
 
 
 def voxelize_parity_queue_chunks(coefs: torch.Tensor, chunk_tile: torch.Tensor,

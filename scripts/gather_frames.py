@@ -13,9 +13,10 @@ the idle share and the two gather kernels' device us per frame; then the
 renderer's two public calls alone on the frame's grid,
 ``precompute_light_volume`` and ``raymarch_fast`` (CUDA-event ms; the same
 signatures in every tree); and the card's name and power limit. The timing
-is this repository's ``chip_smoke.py`` (``cuda_ms``, ``profile_frames``),
-whichever tree is timed, so two trees are timed alike and as phase 20
-times them. Needs a CUDA card; imports no JAX.
+is this repository's (``dxrvoxelizer_tpu_torch/bench.py``: ``cuda_ms``,
+``profile_frames``, loaded by path), whichever tree is timed, so two trees
+are timed alike and as ``chip_smoke.py`` phase 20 times them. Needs a CUDA
+card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ def main(argv: list[str]) -> int:
 
     import dxrvoxelizer_tpu_torch
 
-    smoke = _by_path("dxv_chip_smoke", HERE / "chip_smoke.py")
+    timing = _by_path("dxv_bench_timing",
+                      HERE / "dxrvoxelizer_tpu_torch" / "bench.py")
     pkg = Path(dxrvoxelizer_tpu_torch.__file__).resolve().parents[1]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -68,7 +70,7 @@ def main(argv: list[str]) -> int:
     out = []
     for sub, n in ((6, 64), (7, 256)):
         v, nrm, t = meshes.icosphere_mesh(sub)
-        w = v * smoke.WORLD_SCALE + smoke.WORLD_CENTER
+        w = v * timing.WORLD_SCALE + timing.WORLD_CENTER
         obj = ObjMesh(positions=w, normals=nrm, indices=t.reshape(-1),
                       aabb_min=w.min(0), aabb_max=w.max(0))
         cfg = VoxelizerConfig(grid_size=n)
@@ -84,18 +86,17 @@ def main(argv: list[str]) -> int:
         img = frame()
         pipe.sync()
         assert bool(torch.isfinite(img).all()) and img.shape == (720, 1280, 3)
-        ms = smoke.cuda_ms(torch, frame)
+        ms = timing.cuda_ms(frame)
         pipe.sync()
         frame()
         pipe.sync()
-        busy, ops, kus = smoke.profile_frames(torch, frame, pipe.sync, kernels)
+        busy, ops, kus = timing.profile_frames(frame, pipe.sync, kernels)
         dens = voxelize(scene.buffers, n).density().contiguous()
         light, clear = consts.local_space_light_pt, np.array(cfg.clear_color,
                                                              np.float32)
         lv = rf.precompute_light_volume(dens, light)
-        lv_ms = smoke.cuda_ms(torch, lambda: rf.precompute_light_volume(dens,
-                                                                        light))
-        rm_ms = smoke.cuda_ms(torch, lambda: rf.raymarch_fast(
+        lv_ms = timing.cuda_ms(lambda: rf.precompute_light_volume(dens, light))
+        rm_ms = timing.cuda_ms(lambda: rf.raymarch_fast(
             dens, lv, consts.screen_to_local, consts.local_space_eye_pt, clear,
             cfg.width, cfg.height))
         out.append(f"{n}^3 gather frame ({len(t)} tris, 1280x720): {ms:.4f} ms, "
