@@ -132,6 +132,18 @@ the CUDA toolkit. Phases, one line each:
     shared memory, each bit for bit against the plain version: CUDA-event ms
     and profiler device us per call, the main settings with the L2 flushed,
     and each width's slices and lane slots.
+18. gen-7 at 256^3 (build by stage, the query against its plain version,
+    gen-6 and the radial oracle) and the refitters: refitted streams hold
+    the frame's fused matrix and the rest build's row ids, and the fold
+    kernels read each candidate row through its id; those kernels (the main
+    path's and a setting of the sweep) against their plain versions
+    on the rows each stream stands for, bit for bit, on gen-7 refits at
+    256^3 of the 327,680-triangle icosphere and of the cells' 100,000-
+    triangle torus, and on a gen-6 refit at 64^3 of the icosphere with the
+    near-origin soup (both streams); the fold's device time on materialised
+    rows against row ids, warm and with the L2 flushed; the candidate rows
+    and the bytes a refit no longer writes per frame; a refit + query under
+    ``set_sync_debug_mode("error")``.
 
 20. the render variants and the rest of the app shell, on the 64^3
     icosphere frame: through the app, ``-renderimpl gather`` (the gather
@@ -185,8 +197,10 @@ the CUDA toolkit. Phases, one line each:
 23. the benchmark's cells (``BENCHMARK.json``), each as a subprocess,
     ``python3 benchmark/run.py --workload <cell> --seed 0 --frames 20``:
     each must exit 0 with ``correct`` true, every metric the file lists for
-    the cell measured, and every ``_roofline_share`` at most 1.0. Their
-    launches are not counted in the kernels line (no kernel is new).
+    the cell measured but the refit's row gather, which must read null (the
+    refit gathers no rows: the fold reads them through their ids), and every
+    ``_roofline_share`` at most 1.0. Their launches are not counted in the
+    kernels line (no kernel is new).
 
 Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
@@ -207,6 +221,7 @@ Any failure raises and exits non-zero. The last line is the JSON result.
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import json
 import re
 import os
@@ -233,6 +248,7 @@ from dxrvoxelizer_tpu_torch.bench import (
     cuda_ms,
     device_us,
     profile_frames,
+    torus_mesh,
     write_obj,
 )
 
@@ -436,8 +452,6 @@ def raystab_work(torch, rsc, tb) -> tuple[int, int, int]:
     best t over the chunks before it is below the chunk's bound; the best t
     is replayed with the plain fold. -> (real rays, candidate rows tested,
     real (ray, candidate) pairs tested)."""
-    import dataclasses
-
     r, kb = tb.rays, rsc.K_BLOCK
     real = (~((r[:, 0] == 0) & (r[:, 1] == 0) & (r[:, 2] == 0))).sum(1)
     cnt = tb.cand_cnt.long()
@@ -460,12 +474,16 @@ def raystab_work(torch, rsc, tb) -> tuple[int, int, int]:
 
 def raystab_bound(tb, work, extract: bool) -> tuple[float, str]:
     """Bound of a ray-stab kernel: the tested candidates' rows (20 floats
-    with extraction: g0 g1 g2 c id n0 n1 n2; 11 for the fold alone), each
+    with extraction: g0 g1 g2 c id n0 n1 n2; 11 for the fold alone; through
+    row ids, each tested candidate's id and the table's rows instead), each
     real ray's 4 floats and its outputs (t, id, and the 4 channels with
     extraction), the offsets, counts and bounds, each once; the tested real
     pairs' operations."""
     real, tested, pairs = work
-    n_in = (tested * (20 if extract else 11) + real * 4 + 2 * tb.strips
+    row_f = 20 if extract else 11
+    rows = (tested * row_f if tb.row_ids is None
+            else tested + tb.rows.shape[0] * row_f)
+    n_in = (rows + real * 4 + 2 * tb.strips
             + (0 if tb.bounds is None else tb.bounds.numel())) * 4
     n_out = real * (4 + 4 + (16 if extract else 0))
     return bound(n_in + n_out, pairs * RAYSTAB_OPS_PER_PAIR)
@@ -530,6 +548,62 @@ def raystab_pass_pairs(torch, rsc, tb) -> tuple[int, int, int, int]:
         out[2] += int(pair.reshape(nb, 4, 32, -1).any(2).sum())
         out[3] += int(passed.reshape(nb, 4, 32, -1).any(2).sum())
     return tuple(out)
+
+
+def cold_event_us(torch, fn, flush, reps: int = 9) -> float:
+    """Device time of one call of ``fn`` with the L2 cache flushed before it:
+    CUDA events around the call, median of ``reps``."""
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) * 1e3)
+    return statistics.median(times)
+
+
+def by_id_case(torch, rsc, rf, verts, t_count: int, threshold: float,
+               flush) -> tuple[int, dict]:
+    """A refit of ``verts`` by refitter ``rf``: each stream, read through its
+    row ids by the fold + extraction (the main path's and a setting of the
+    sweep) and by the fold alone, against the plain versions on the
+    rows it stands for, bit for bit, both rules; then the main stream's fold
+    + extraction on the materialised rows and on the ids, timed by CUDA
+    events in two passes (forward, then backward), warm and with the L2
+    flushed. -> (candidate rows over the streams, {label: (warm us, L2-
+    flushed us) of each pass})"""
+    acc = rf.refit(verts)
+    n_rows, times = 0, {}
+    for f in rf._ids:
+        tb = getattr(acc, f)
+        check(tb.row_ids is not None and tb.rows.shape[0] == t_count + 1,
+              f"a refitted {f} stream holds no row ids into the fused matrix")
+        rows = dataclasses.replace(tb, rows=rsc.candidate_rows(tb), row_ids=None)
+        n_rows += tb.row_ids.numel()
+        for rule in ("backface", "hit"):
+            want = rsc.fold_extract_plain(rows, t_count, threshold, rule)
+            for variant in (None, (2, 2, False)):
+                got = rsc.fold_extract(tb, t_count, threshold, rule,
+                                       variant=variant)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"fold_extract through the {f} stream's row ids "
+                      f"({rule}, {variant}) differs from the plain version")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(rsc.fold(tb), rsc.fold_plain(rows))),
+              f"fold through the {f} stream's row ids differs from the plain fold")
+        if f == "main":
+            fns = {"materialised rows": lambda: rsc.fold_extract(
+                       rows, t_count, threshold),
+                   "row ids": lambda: rsc.fold_extract(tb, t_count, threshold)}
+            order = [*fns, *reversed(fns)]
+            for k in order:
+                times.setdefault(k, []).append(
+                    (cuda_ms(fns[k]) * 1e3, cold_event_us(torch, fns[k], flush)))
+        del rows
+    return n_rows, times
 
 
 def cold_device_us(torch, fn, flush) -> float:
@@ -1542,6 +1616,9 @@ def phase22(torch, root: Path) -> tuple[dict, dict]:
 CELL_FRAMES = 20
 CELL_WARMUP = 5
 CELL_TIMEOUT_S = 400
+# the refit's row gather, a metric of the deforming cell: the refit gathers
+# no rows (the fold reads them through their ids), so it must read null
+REFIT_GATHER = "refit_gather_ms_per_frame"
 
 
 def phase23(root: Path) -> None:
@@ -1563,11 +1640,14 @@ def phase23(root: Path) -> None:
             raise RuntimeError(f"phase 23: {cell} exited {res.returncode}")
         line = json.loads(lines[-1])
         met = line["metrics"]
-        missing = [k for k in cell_metrics(cell) if met.get(k) is None]
+        missing = [k for k in cell_metrics(cell)
+                   if met.get(k) is None and k != REFIT_GATHER]
         shares = {k: v for k, v in met.items() if k.endswith("_roofline_share")}
         check(line["correct"] is True and not missing,
               f"phase 23: {cell} correct {line['correct']}, not measured "
               f"{missing}")
+        check(met.get(REFIT_GATHER) is None, f"phase 23: {cell} measured a "
+              f"row gather in the refit, {met.get(REFIT_GATHER)} ms per frame")
         check(shares and all(v <= 1.0 for v in shares.values()),
               f"phase 23: {cell} roofline shares {shares}")
         print(f"phase 23 {cell} in {wall:.1f} s: " + ", ".join(
@@ -2830,7 +2910,7 @@ def main() -> int:
     def stream_bytes(tb):
         return sum(x.numel() * x.element_size() for x in
                    (tb.rays, tb.cand_off, tb.cand_cnt, tb.rows,
-                    *(() if tb.bounds is None else (tb.bounds,))))
+                    *(x_ for x_ in (tb.bounds, tb.row_ids) if x_ is not None)))
 
     def stab_query(acc, rule="backface"):
         q_ = (rst.raystab_query7 if isinstance(acc, rst.RaystabAccel7)
@@ -2944,17 +3024,37 @@ def main() -> int:
     wob7 = wobbled(mb7, base_x, 5).positions_norm
     refit_t = {name: time_sweep(torch, {"refit": lambda rf_=rf_: rf_.refit(wob7)})["refit"]
                for name, rf_ in (("gen-7", rf7), ("gen-6", rf6))}
-    # the refit's row gather (index_select, as the refitter runs it) beside a
-    # device copy of the same bytes, the memory system's yardstick
-    fused7 = rsf._fused_coef_matrix(wob7, mb7.tris, mb7.normals)
-    ids7 = rf7._ids["main"]
-    rows7 = torch.index_select(fused7, 0, ids7)
-    check(torch.equal(rows7, fused7[ids7]), "index_select gathered other rows")
-    rows7b = torch.empty_like(rows7)
-    gather_t = time_sweep(torch, {
-        "index_select": lambda: torch.index_select(fused7, 0, ids7),
-        "copy_ of as many bytes": lambda: rows7b.copy_(rows7)})
-    del fused7, rows7, rows7b
+    # refitted streams read their rows through ids: the kernels against
+    # their plain versions on the rows they stand for (gen-7 at 256^3 on
+    # this mesh and on the cells' torus; gen-6 at 64^3 on this mesh with
+    # the near-origin soup: both streams); the fold on materialised rows
+    # against row ids
+    vno, nno, tno = dev_mesh3(*near)
+    mb6o = dataclasses.replace(
+        mb7, positions=torch.cat([mb7.positions, vno]),
+        normals=torch.cat([mb7.normals, nno]),
+        tris=torch.cat([mb7.tris, tno + mb7.positions.shape[0]]),
+        positions_norm=torch.cat([mb7.positions_norm, vno]))
+    torus_obj = Path(accel_cache_dir) / "torus.obj"
+    tv_, tt_ = torus_mesh()
+    write_obj(torus_obj, tv_ * WORLD_SCALE + WORLD_CENTER, tt_)
+    mbt = Scene.load(cfg_hi.replace(mesh=str(torus_obj)), device=dev).buffers
+    by_id = {}
+    for name, mesh_, n_, cls in (
+            (f"gen-7 {GRID_HI}^3 icosphere", mb7, GRID_HI, rst.RaystabTiledRefitter),
+            (f"gen-7 {GRID_HI}^3 torus", mbt, GRID_HI, rst.RaystabTiledRefitter),
+            (f"gen-6 {GRID}^3 icosphere + near-origin soup", mb6o, GRID,
+             rrf.RaystabRefitter)):
+        rf_ = rf7 if mesh_ is mb7 and n_ == GRID_HI else cls(
+            mesh_.positions_norm, mesh_.tris, mesh_.normals, n_,
+            pad=cfg_hi.deform_pad, pad_dirs=mesh_.normals)
+        check(n_ == GRID_HI or set(rf_._ids) == {"main", "ov"},
+              f"{name}: the refitter has streams {set(rf_._ids)}")
+        wm = wobbled(mesh_, mesh_.positions_norm[:, :1].cpu().numpy(), 4)
+        by_id[name] = by_id_case(torch, rsc, rf_, wm.positions_norm,
+                                 int(mesh_.tris.shape[0]), thr, flush)
+        del rf_, wm
+    del mb6o, mbt
     # a deforming frame after its first: refit + query + packing under
     # set_sync_debug_mode("error"); and the host syncs of a whole frame
     # (render included) counted under "warn"
@@ -3034,16 +3134,26 @@ def main() -> int:
           f"bit-identical to gen-6 at 128^3 and {GRID_HI}^3, both rules; to "
           f"the radial oracle at 128^3 ({'; '.join(oracle7)}), both rules; "
           f"refitted accels (gen-7 at {GRID_HI}^3 built in {rf7_s:.4f} s, "
-          f"{rf7.rest_accel.main.rows.shape[0]} rows; gen-6 at {GRID}^3 in "
-          f"{rf6_s:.4f} s, {rf6.rest_accel.main.rows.shape[0]} rows; pad "
+          f"{rf7.rest_accel.main.row_ids.numel()} candidate rows; gen-6 at "
+          f"{GRID}^3 in {rf6_s:.4f} s, {rf6.rest_accel.main.row_ids.numel()} "
+          f"candidate rows; pad "
           f"{cfg_hi.deform_pad} along the normals) bit-identical to fresh "
           f"builds of two wobbled frames; refit per frame (CUDA-event ms, "
           f"profiler device us): " + ", ".join(
               f"{k} {v[0]:.4f} ms {v[1]:.2f} us" for k, v in refit_t.items())
-          + f"; the gen-7 refit's row gather alone ({ids7.numel()} rows of 96 B): " + ", ".join(
-              f"{k} {v[0]:.4f} ms {v[1]:.2f} us" for k, v in gather_t.items())
           + "; under set_sync_debug_mode('error') the refit + query ran "
           "without a host sync; " + "; ".join(sync_lines))
+    print("phase 18 refitted streams read through their row ids (frame 4 of "
+          "the wobble), the fold kernels bit-identical to their plain "
+          "versions on the rows each stream stands for (both rules, the main "
+          "path and the sweep's (2, 2, False), the fold alone): " + "; ".join(
+              f"{name}: {rows_} candidate rows, {rows_ * 96} B the refit no "
+              f"longer writes per frame ({rows_ * 96 / 2**20:.1f} MiB); fold + "
+              "extraction on the main stream (CUDA-event us per call, warm / "
+              "with the L2 flushed, forward pass then backward): " + ", ".join(
+                  f"{k} " + " then ".join(f"{w:.2f} / {c:.2f}" for w, c in v)
+                  for k, v in t_.items())
+              for name, (rows_, t_) in by_id.items()) + f"; {card}")
     print("phase 18 gen-6 against gen-7 on the same mesh (CUDA-event ms, "
           "profiler device us per call): " + "; ".join(
               f"{n_}^3 ({v['shape']}): " + ", ".join(

@@ -49,6 +49,19 @@
 // last) start first. The near-origin stream is a second launch with every
 // strip's offset 0. dxv_raystab_fold_extract_variant runs the other G, NST
 // and kDefer settings (the timing sweep of chip_smoke.py).
+//
+// Row ids (kIds): a refitted stream holds no rows of its own. rows is then
+// the per-triangle table [n_rows = T+1, 24] (9.6 MB at 100,000 triangles, so
+// it stays in the 50 MB L2) and candidate p of the stream is the table's row
+// row_ids[p]: the staging copies each row from the table through its id, and
+// the winner's read goes through its id too. A round's ids are consecutive, so
+// their loads coalesce; they are loaded one round ahead into registers (the
+// faster of that and loading them as the round is issued on the cells' torus
+// and at 64^3, PERF.md). An id outside [0, n_rows) traps the kernel before any
+// read through it, as torch's own gathers do; the check sits where the id is
+// used, a round after its load (at the load it waits on it: +6 %, PERF.md). Same rows in the same order: the
+// results are those of the materialised stream, bit for bit. Without ids the
+// staging is the direct instance's strided loop, unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,6 +81,10 @@ constexpr float kTMax = 1e4f;
 // the main path's settings (chip_smoke.py phase 15b sweeps the others)
 constexpr int kGroups = 1;
 constexpr int kStages = 3;
+// 16-byte pieces a thread copies per round with row ids: G * kSub * kStaged
+// = 1.5 threads
+constexpr int kPer = 2;
+static_assert(kSub * kStaged <= kPer * kLanes, "a round's pieces per thread");
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                                       float by, float bz) {
@@ -97,10 +114,11 @@ __device__ __forceinline__ bool before(float t2, float i2, int k2, float t,
   return t2 < t || (t2 == t && (i2 < i || (i2 == i && k2 < k)));
 }
 
-template <bool kExtract, int G, int NST, bool kDefer>
+template <bool kExtract, int G, int NST, bool kDefer, bool kIds>
 __global__ void __launch_bounds__(G * kLanes)
 stab_kernel(const float* __restrict__ rays, const int* __restrict__ cand_off,
             const int* __restrict__ cand_cnt, const float* __restrict__ rows,
+            const int* __restrict__ row_ids, int n_rows,
             const float* __restrict__ bounds, int n_bounds,
             float* __restrict__ t_out, int* __restrict__ i_out,
             float4* __restrict__ ns_out, int strips, int t_count,
@@ -126,9 +144,23 @@ stab_kernel(const float* __restrict__ rays, const int* __restrict__ cand_off,
   int bk = -1;  // the winner's row in the strip
 
   const int cnt = cand_cnt[s];
-  const float* src = rows + static_cast<size_t>(cand_off[s]) * kRow;
+  const int off = cand_off[s];
+  // candidate k's row: src + k * kRow, or (kIds) the table's row ids[k]
+  const float* src = rows + (kIds ? 0 : static_cast<size_t>(off) * kRow);
+  const int* ids = kIds ? row_ids + off : nullptr;
   const int rounds = (cnt + G * kSub - 1) / (G * kSub);
 
+  // kIds: the table row of each piece of the next round issue() takes
+  int nid[kPer] = {};
+  auto load_ids = [&](int q) {
+    const int row0 = q * G * kSub;
+    const int n4 = q < rounds ? min(G * kSub, cnt - row0) * kStaged : 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = tid + j * kThreads;
+      if (i < n4) nid[j] = __ldg(ids + row0 + i / kStaged);
+    }
+  };
   // round q's rows -> ring stage q % NST (an empty commit group past the end
   // keeps the wait counts uniform)
   auto issue = [&](int q) {
@@ -136,14 +168,32 @@ stab_kernel(const float* __restrict__ rays, const int* __restrict__ cand_off,
       const int row0 = q * G * kSub;
       const int n4 = min(G * kSub, cnt - row0) * kStaged;
       float4* dst = ring + (q % NST) * kStageF4;
-      const float* base = src + static_cast<size_t>(row0) * kRow;
-      for (int i = tid; i < n4; i += kThreads) {
-        const int row = i / kStaged;
-        cp_async16(dst + i, base + row * kRow + (i - row * kStaged) * 4);
+      if constexpr (kIds) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int i = tid + j * kThreads;
+          if (i < n4) {
+            // checked here, a round after its load, so the check does not
+            // wait on it
+            if (static_cast<unsigned>(nid[j]) >= static_cast<unsigned>(n_rows))
+              __trap();  // an id outside the table
+            const int row = i / kStaged;
+            cp_async16(dst + i, rows + static_cast<size_t>(nid[j]) * kRow +
+                                    (i - row * kStaged) * 4);
+          }
+        }
+      } else {
+        const float* base = src + static_cast<size_t>(row0) * kRow;
+        for (int i = tid; i < n4; i += kThreads) {
+          const int row = i / kStaged;
+          cp_async16(dst + i, base + row * kRow + (i - row * kStaged) * 4);
+        }
       }
     }
     cp_async_commit();
+    if constexpr (kIds) load_ids(q + 1);
   };
+  if constexpr (kIds) load_ids(0);
 #pragma unroll
   for (int q = 0; q < NST - 1; ++q) issue(q);
 
@@ -242,8 +292,9 @@ stab_kernel(const float* __restrict__ rays, const int* __restrict__ cand_off,
 #pragma unroll
   for (int c = 0; c < 18; ++c) win[c] = 0.0f;
   if (bk >= 0) {
-    const float4* w4 =
-        reinterpret_cast<const float4*>(src + static_cast<size_t>(bk) * kRow);
+    const float4* w4 = reinterpret_cast<const float4*>(
+        kIds ? rows + static_cast<size_t>(__ldg(ids + bk)) * kRow
+             : src + static_cast<size_t>(bk) * kRow);
     const float4 a = w4[0], b = w4[1], c = w4[2];
     const float4 na = w4[3], nb = w4[4], nc = w4[5];
     const float gv[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
@@ -277,61 +328,67 @@ stab_kernel(const float* __restrict__ rays, const int* __restrict__ cand_off,
                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-template <bool kExtract, int G, int NST, bool kDefer>
-int launch(const float* rays, const int* cand_off, const int* cand_cnt,
-           const float* rows, const float* bounds, int n_bounds, float* t_out,
-           int* i_out, float* ns_out, int strips, int t_count, float threshold,
-           int rule_hit, void* stream) {
-  if (strips < 0 || n_bounds < 0 || t_count < 0 || t_count >= (1 << 24))
+// The kernel's arguments past the settings, as every entry point takes them.
+struct Args {
+  const float* rays;
+  const int* cand_off;
+  const int* cand_cnt;
+  const float* rows;
+  const int* row_ids;
+  int n_rows;
+  const float* bounds;
+  int n_bounds;
+  float* t_out;
+  int* i_out;
+  float* ns_out;
+  int strips;
+  int t_count;
+  float threshold;
+  int rule_hit;
+  void* stream;
+};
+
+template <bool kExtract, int G, int NST, bool kDefer, bool kIds>
+int launch(const Args& a) {
+  if (a.strips < 0 || a.n_bounds < 0 || a.t_count < 0 ||
+      a.t_count >= (1 << 24) || kIds != (a.row_ids != nullptr) ||
+      a.n_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (strips > 0) {
+  if (a.strips > 0) {
     const size_t smem = static_cast<size_t>(NST) * G * kSub * kStaged *
                             sizeof(float4) +
                         (G > 1 ? static_cast<size_t>(G) * kLanes * 12 : 0);
-    stab_kernel<kExtract, G, NST, kDefer>
-        <<<strips, G * kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
-            rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out, i_out,
-            reinterpret_cast<float4*>(ns_out), strips, t_count, threshold,
-            rule_hit);
+    stab_kernel<kExtract, G, NST, kDefer, kIds>
+        <<<a.strips, G * kLanes, smem, static_cast<cudaStream_t>(a.stream)>>>(
+            a.rays, a.cand_off, a.cand_cnt, a.rows, a.row_ids, a.n_rows,
+            a.bounds, a.n_bounds, a.t_out, a.i_out,
+            reinterpret_cast<float4*>(a.ns_out), a.strips, a.t_count,
+            a.threshold, a.rule_hit);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows read directly (no ids) or through the ids
+template <bool kExtract, int G, int NST, bool kDefer>
+int run(const Args& a) {
+  return a.row_ids != nullptr ? launch<kExtract, G, NST, kDefer, true>(a)
+                              : launch<kExtract, G, NST, kDefer, false>(a);
+}
+
 template <int G, int NST>
-int launch_defer(int defer, const float* rays, const int* cand_off,
-                 const int* cand_cnt, const float* rows, const float* bounds,
-                 int n_bounds, float* t_out, int* i_out, float* ns_out,
-                 int strips, int t_count, float threshold, int rule_hit,
-                 void* stream) {
-  return defer ? launch<true, G, NST, true>(
-                     rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out,
-                     i_out, ns_out, strips, t_count, threshold, rule_hit,
-                     stream)
-               : launch<true, G, NST, false>(
-                     rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out,
-                     i_out, ns_out, strips, t_count, threshold, rule_hit,
-                     stream);
+int run_defer(int defer, const Args& a) {
+  return defer ? run<true, G, NST, true>(a) : run<true, G, NST, false>(a);
 }
 
 template <int G>
-int launch_stages(int stages, int defer, const float* rays,
-                  const int* cand_off, const int* cand_cnt, const float* rows,
-                  const float* bounds, int n_bounds, float* t_out, int* i_out,
-                  float* ns_out, int strips, int t_count, float threshold,
-                  int rule_hit, void* stream) {
+int run_stages(int stages, int defer, const Args& a) {
   switch (stages) {
     case 1:
-      return launch_defer<G, 1>(defer, rays, cand_off, cand_cnt, rows, bounds,
-                                n_bounds, t_out, i_out, ns_out, strips,
-                                t_count, threshold, rule_hit, stream);
+      return run_defer<G, 1>(defer, a);
     case 2:
-      return launch_defer<G, 2>(defer, rays, cand_off, cand_cnt, rows, bounds,
-                                n_bounds, t_out, i_out, ns_out, strips,
-                                t_count, threshold, rule_hit, stream);
+      return run_defer<G, 2>(defer, a);
     case 3:
-      return launch_defer<G, 3>(defer, rays, cand_off, cand_cnt, rows, bounds,
-                                n_bounds, t_out, i_out, ns_out, strips,
-                                t_count, threshold, rule_hit, stream);
+      return run_defer<G, 3>(defer, a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -340,39 +397,40 @@ int launch_stages(int stages, int defer, const float* rays,
 }  // namespace
 
 // rays [strips, 4, 128] f32; cand_off, cand_cnt [strips] int32; rows [P, 24]
-// f32 (16-byte aligned); bounds [strips, n_bounds] f32 or null;
+// f32 (16-byte aligned), or with row_ids [P] int32 (null: none) the table
+// [n_rows, 24] the ids index (n_rows is read only with ids);
+// bounds [strips, n_bounds] f32 or null;
 // t_out [strips, 128] f32; i_out [strips, 128] int32; ns_out [strips, 128, 4]
 // f32.
 extern "C" int dxv_raystab_fold_extract(
     const float* rays, const int* cand_off, const int* cand_cnt,
-    const float* rows, const float* bounds, int n_bounds, float* t_out,
-    int* i_out, float* ns_out, int strips, int t_count, float threshold,
-    int rule_hit, void* stream) {
-  return launch<true, kGroups, kStages, true>(
-      rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out, i_out, ns_out,
-      strips, t_count, threshold, rule_hit, stream);
+    const float* rows, const int* row_ids, int n_rows, const float* bounds,
+    int n_bounds, float* t_out, int* i_out, float* ns_out, int strips,
+    int t_count, float threshold, int rule_hit, void* stream) {
+  const Args a{rays,   cand_off, cand_cnt, rows,      row_ids,  n_rows,
+               bounds, n_bounds, t_out,    i_out,     ns_out,   strips,
+               t_count, threshold, rule_hit, stream};
+  return run<true, kGroups, kStages, true>(a);
 }
 
 // The same with groups per strip (1, 2, 4), ring stages (1, 2, 3) and the
 // deferred division (0, 1) chosen by the caller: the timing sweep.
 extern "C" int dxv_raystab_fold_extract_variant(
     const float* rays, const int* cand_off, const int* cand_cnt,
-    const float* rows, const float* bounds, int n_bounds, float* t_out,
-    int* i_out, float* ns_out, int strips, int t_count, float threshold,
-    int rule_hit, int groups, int stages, int defer, void* stream) {
+    const float* rows, const int* row_ids, int n_rows, const float* bounds,
+    int n_bounds, float* t_out, int* i_out, float* ns_out, int strips,
+    int t_count, float threshold, int rule_hit, int groups, int stages,
+    int defer, void* stream) {
+  const Args a{rays,   cand_off, cand_cnt, rows,      row_ids,  n_rows,
+               bounds, n_bounds, t_out,    i_out,     ns_out,   strips,
+               t_count, threshold, rule_hit, stream};
   switch (groups) {
     case 1:
-      return launch_stages<1>(stages, defer, rays, cand_off, cand_cnt, rows,
-                              bounds, n_bounds, t_out, i_out, ns_out, strips,
-                              t_count, threshold, rule_hit, stream);
+      return run_stages<1>(stages, defer, a);
     case 2:
-      return launch_stages<2>(stages, defer, rays, cand_off, cand_cnt, rows,
-                              bounds, n_bounds, t_out, i_out, ns_out, strips,
-                              t_count, threshold, rule_hit, stream);
+      return run_stages<2>(stages, defer, a);
     case 4:
-      return launch_stages<4>(stages, defer, rays, cand_off, cand_cnt, rows,
-                              bounds, n_bounds, t_out, i_out, ns_out, strips,
-                              t_count, threshold, rule_hit, stream);
+      return run_stages<4>(stages, defer, a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -381,10 +439,12 @@ extern "C" int dxv_raystab_fold_extract_variant(
 // The fold alone: t_out, i_out as above.
 extern "C" int dxv_raystab_fold(const float* rays, const int* cand_off,
                                 const int* cand_cnt, const float* rows,
+                                const int* row_ids, int n_rows,
                                 const float* bounds, int n_bounds,
                                 float* t_out, int* i_out, int strips,
                                 void* stream) {
-  return launch<false, kGroups, kStages, true>(
-      rays, cand_off, cand_cnt, rows, bounds, n_bounds, t_out, i_out, nullptr,
-      strips, 0, 0.0f, 0, stream);
+  const Args a{rays,  cand_off, cand_cnt, rows,   row_ids, n_rows, bounds,
+               n_bounds, t_out, i_out,    nullptr, strips, 0,      0.0f,
+               0,     stream};
+  return run<false, kGroups, kStages, true>(a);
 }

@@ -62,15 +62,17 @@ _SIGNATURES = {
                   _I, _I, _P),
     # one host buffer: the pointers, the stream and the per-frame constants
     "dxv_resolve_screen": (ctypes.c_char_p,),
-    # rays, cand_off, cand_cnt, rows, bounds, n_bounds, t, id, ns, strips,
-    # t_count, threshold, rule_hit, stream
-    "dxv_raystab_fold_extract": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                                 _F, _I, _P),
+    # rays, cand_off, cand_cnt, rows, row_ids, n_rows, bounds, n_bounds, t,
+    # id, ns, strips, t_count, threshold, rule_hit, stream
+    "dxv_raystab_fold_extract": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                                 _I, _I, _F, _I, _P),
     # the same, then groups, stages, defer, stream
-    "dxv_raystab_fold_extract_variant": (_P, _P, _P, _P, _P, _I, _P, _P, _P,
-                                         _I, _I, _F, _I, _I, _I, _I, _P),
-    # rays, cand_off, cand_cnt, rows, bounds, n_bounds, t, id, strips, stream
-    "dxv_raystab_fold": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P),
+    "dxv_raystab_fold_extract_variant": (_P, _P, _P, _P, _P, _I, _P, _I, _P,
+                                         _P, _P, _I, _I, _F, _I, _I, _I, _I,
+                                         _P),
+    # rays, cand_off, cand_cnt, rows, row_ids, n_rows, bounds, n_bounds, t,
+    # id, strips, stream
+    "dxv_raystab_fold": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P),
     # pos, dirs, ray_ids, ray_off, ray_cnt, cand_off, cand_cnt, rows, t, id,
     # slices, lanes, stream
     "dxv_raystab_mt": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),

@@ -8,6 +8,9 @@ and of the fold alone (``_stab_kernel2``). A strip is 128 ray lanes (rows
 dx dy dz s0; an all-zero lane is padding) tested against its candidate
 rows, ``rows[cand_off[s] : cand_off[s] + cand_cnt[s]]``, each a fused
 24-float row ``g0 g1 g2 c id pad | n0 n1 n2 pad(3)`` (ops/raystab_fast.py).
+A refitted stream holds no rows of its own: its candidate ``p`` is row
+``row_ids[p]`` of the per-triangle table, which the kernel reads through
+the id.
 Per lane: ``intersect.radial_hit`` against every candidate, the
 lexicographic (t, lowest id) minimum, the winner's 9 coefficient and 9
 normal floats, and the finished (nx, ny, nz, a) channels. Candidates come in
@@ -57,27 +60,44 @@ FOLD = _cuda.Kernel(
 class StripTables:
     """One strip stream: ``rays`` [S,4,128] f32, ``cand_off`` and
     ``cand_cnt`` [S] int32, ``rows`` [P,24] f32, ``bounds`` [S,B] f32 chunk
-    lower bounds on t (-inf: no bound) or None."""
+    lower bounds on t (-inf: no bound) or None.
+
+    ``row_ids`` [P] int32 or None: when set, ``rows`` is the per-triangle
+    table [T+1,24] and candidate ``p`` of the stream is ``rows[row_ids[p]]``
+    (a refitted stream: its rows are never materialised). The ids must lie
+    in ``[0, rows.shape[0])``: the plain version raises on one outside, the
+    kernel traps before it reads through it (a CUDA error, as torch's own
+    gathers give). Checking them on the host would cost a sync, so the
+    owner of the ids checks them once (``RaystabRefitter``)."""
 
     rays: torch.Tensor
     cand_off: torch.Tensor
     cand_cnt: torch.Tensor
     rows: torch.Tensor
     bounds: torch.Tensor | None = None
+    row_ids: torch.Tensor | None = None
 
     @property
     def strips(self) -> int:
         return int(self.rays.shape[0])
 
 
+def candidate_rows(tb: StripTables) -> torch.Tensor:
+    """The stream's candidate rows [P,24]: ``rows``, or gathered through
+    ``row_ids`` (a copy; the plain versions and the tests take it)."""
+    return tb.rows if tb.row_ids is None else tb.rows.index_select(0, tb.row_ids)
+
+
 def strip_slice(tb: StripTables, lo: int, hi: int) -> StripTables:
-    """Strips ``[lo, hi)`` of a stream (views; the candidate rows are
-    shared): the kernel's output for them equals those strips of the whole
-    stream's, bit for bit (each strip is folded on its own)."""
+    """Strips ``[lo, hi)`` of a stream (views; the candidate rows, or the
+    table and its ids, are shared): the kernel's output for them equals
+    those strips of the whole stream's, bit for bit (each strip is folded on
+    its own)."""
     return StripTables(
         rays=tb.rays[lo:hi], cand_off=tb.cand_off[lo:hi],
         cand_cnt=tb.cand_cnt[lo:hi], rows=tb.rows,
-        bounds=None if tb.bounds is None else tb.bounds[lo:hi])
+        bounds=None if tb.bounds is None else tb.bounds[lo:hi],
+        row_ids=tb.row_ids)
 
 
 def _check(tb: StripTables, t_count: int) -> None:
@@ -86,6 +106,12 @@ def _check(tb: StripTables, t_count: int) -> None:
         raise ValueError(f"rays: expected [S, 4, {LANES}], got {tuple(tb.rays.shape)}")
     if tb.rows.ndim != 2 or tb.rows.shape[1] != NROW:
         raise ValueError(f"rows: expected [P, {NROW}], got {tuple(tb.rows.shape)}")
+    if tb.row_ids is not None and (tb.row_ids.ndim != 1
+                                   or tb.row_ids.dtype != torch.int32):
+        raise ValueError(f"row_ids: expected [P] int32, got "
+                         f"{tuple(tb.row_ids.shape)} {tb.row_ids.dtype}")
+    if tb.row_ids is not None and tb.row_ids.numel() and tb.rows.shape[0] == 0:
+        raise ValueError("rows: row ids into an empty table")
     for name, x in (("cand_off", tb.cand_off), ("cand_cnt", tb.cand_cnt)):
         if tuple(x.shape) != (s,):
             raise ValueError(f"{name}: expected [{s}], got {tuple(x.shape)}")
@@ -102,10 +128,11 @@ def _plain(tb: StripTables, t_count: int, threshold: float, rule: str,
     s_all = tb.strips
     inf = float("inf")
     big = float(intersect.BIG_ID)
-    p = tb.rows.shape[0]
+    rows = candidate_rows(tb)
+    p = rows.shape[0]
     pad_row = torch.zeros((1, NROW), dtype=torch.float32, device=dev)
     pad_row[0, ID_COL] = big  # what a missing candidate tests as: a miss
-    rows_p = torch.cat([tb.rows, pad_row])
+    rows_p = torch.cat([rows, pad_row])
     n_bnd = 0 if tb.bounds is None else tb.bounds.shape[1]
     t_out = torch.empty((s_all, LANES), dtype=torch.float32, device=dev)
     i_out = torch.empty((s_all, LANES), dtype=torch.int32, device=dev)
@@ -178,12 +205,14 @@ def fold_plain(tb: StripTables):
 
 
 def _launch(tb: StripTables, t_count: int, threshold: float, rule: str,
-            extract: bool, variant: tuple[int, int, bool] | None = None):
+            extract: bool, variant: tuple | None = None):
     _check(tb, t_count)
     _cuda.require(tb.rays, "rays", torch.float32)
     _cuda.require(tb.cand_off, "cand_off", torch.int32)
     _cuda.require(tb.cand_cnt, "cand_cnt", torch.int32)
     _cuda.require(tb.rows, "rows", torch.float32)
+    if tb.row_ids is not None:
+        _cuda.require(tb.row_ids, "row_ids", torch.int32)
     if tb.bounds is not None:
         _cuda.require(tb.bounds, "bounds", torch.float32)
     dev = tb.rays.device
@@ -194,26 +223,30 @@ def _launch(tb: StripTables, t_count: int, threshold: float, rule: str,
     s = tb.strips
     t = torch.empty((s, LANES), dtype=torch.float32, device=dev)
     i = torch.empty((s, LANES), dtype=torch.int32, device=dev)
+    ids_ptr = 0 if tb.row_ids is None else tb.row_ids.data_ptr()
+    n_rows = int(tb.rows.shape[0])
     bnd_ptr = 0 if tb.bounds is None else tb.bounds.data_ptr()
     n_bnd = 0 if tb.bounds is None else int(tb.bounds.shape[1])
     if extract:
         ns = torch.empty((s, LANES, 4), dtype=torch.float32, device=dev)
         args = (tb.rays.data_ptr(), tb.cand_off.data_ptr(),
-                tb.cand_cnt.data_ptr(), tb.rows.data_ptr(), bnd_ptr, n_bnd,
-                t.data_ptr(), i.data_ptr(), ns.data_ptr(), s, t_count,
-                threshold, int(rule == "hit"))
+                tb.cand_cnt.data_ptr(), tb.rows.data_ptr(), ids_ptr, n_rows,
+                bnd_ptr, n_bnd, t.data_ptr(), i.data_ptr(), ns.data_ptr(), s,
+                t_count, threshold, int(rule == "hit"))
         if variant is None:
             code = lib.dxv_raystab_fold_extract(*args, _cuda.stream_ptr(dev))
         else:
+            groups, stages, defer = variant
             code = lib.dxv_raystab_fold_extract_variant(
-                *args, *(int(v) for v in variant), _cuda.stream_ptr(dev))
+                *args, int(groups), int(stages), int(defer),
+                _cuda.stream_ptr(dev))
         _cuda.check(code, FOLD_EXTRACT.name)
         FOLD_EXTRACT.launches += 1
         return t, i, ns
     code = lib.dxv_raystab_fold(
         tb.rays.data_ptr(), tb.cand_off.data_ptr(), tb.cand_cnt.data_ptr(),
-        tb.rows.data_ptr(), bnd_ptr, n_bnd, t.data_ptr(), i.data_ptr(), s,
-        _cuda.stream_ptr(dev),
+        tb.rows.data_ptr(), ids_ptr, n_rows, bnd_ptr, n_bnd, t.data_ptr(),
+        i.data_ptr(), s, _cuda.stream_ptr(dev),
     )
     _cuda.check(code, FOLD.name)
     FOLD.launches += 1
@@ -221,8 +254,7 @@ def _launch(tb: StripTables, t_count: int, threshold: float, rule: str,
 
 
 def fold_extract(tb: StripTables, t_count: int, threshold: float,
-                 rule: str = "backface",
-                 variant: tuple[int, int, bool] | None = None):
+                 rule: str = "backface", variant: tuple | None = None):
     """Run the fold + extraction kernel -> (t, id, ns). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel. ``variant`` = (groups
     per strip, ring stages, deferred division) picks settings of the kernel

@@ -843,7 +843,7 @@ def _strip_rays(rt128: torch.Tensor, dirs_p: torch.Tensor,
 def stream_ids2(compact: RaystabCompact2, device) -> dict:
     """The triangle id of every candidate row of each strip stream ("main",
     "ov") an accel assembled from ``compact`` has, as int64 tensors on
-    ``device``: its rows are ``fused[ids]`` (the refitter regathers them)."""
+    ``device``: its rows are ``fused[ids]``."""
     out = {}
     if compact.classes:
         out["main"] = np.concatenate([c[1][c[1] >= 0] for c in compact.classes])
@@ -853,14 +853,25 @@ def stream_ids2(compact: RaystabCompact2, device) -> dict:
             for k, v in out.items()}
 
 
+def stream_rows(fused: torch.Tensor, ids: torch.Tensor, by_id: bool) -> dict:
+    """A strip stream's candidate rows ``fused[ids]``: gathered (``rows``),
+    or ``by_id`` as the table and its int32 ids (``rows``, ``row_ids``),
+    which the fold reads through the ids and nothing gathers."""
+    if by_id:
+        return {"rows": fused, "row_ids": ids.to(torch.int32)}
+    return {"rows": torch.index_select(fused, 0, ids)}
+
+
 def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
-                            normals) -> RaystabAccel2:
+                            normals, by_id: bool = False) -> RaystabAccel2:
     """Device half of the accel build: expand a compact product into the
     strip streams by torch gathers on the geometry's device.
 
     ``verts_norm``/``tris``/``normals`` must be the geometry the compact was
     built from; the coefficient and normal rows are computed here, so they
-    match the same-device oracle bit for bit."""
+    match the same-device oracle bit for bit. ``by_id``: the streams hold
+    the per-triangle table and row ids instead of gathered rows
+    (:func:`stream_rows`; the refitter's form)."""
     dev = verts_norm.device
     n = compact.n
     v = n * n * n
@@ -893,8 +904,8 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
             rays=_strip_rays(rt_d, dirs_p, s0_p),
             cand_off=torch.from_numpy(offs.astype(np.int32)).to(dev),
             cand_cnt=torch.from_numpy(counts.astype(np.int32)).to(dev),
-            rows=torch.index_select(fused, 0, ids["main"]),
             bounds=bounds,
+            **stream_rows(fused, ids["main"], by_id),
         )
         slot_ray = torch.where(rt_d >= 0, rt_d, v).reshape(-1)
 
@@ -908,8 +919,7 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
             rays=_strip_rays(rt_ov.reshape(strips, 128), dirs_p, s0_p),
             cand_off=torch.zeros((strips,), dtype=torch.int32, device=dev),
             cand_cnt=torch.full((strips,), o, dtype=torch.int32, device=dev),
-            rows=torch.index_select(fused, 0, ids["ov"]),
-            bounds=None,
+            **stream_rows(fused, ids["ov"], by_id),
         )
     return RaystabAccel2(n=n, t_count=int(tris.shape[0]), device=dev,
                          main=main, slot_ray=slot_ray, ov=ov,

@@ -12,14 +12,17 @@ splits an accel into
   deformation ``pad`` (``raystab_fast._cone_keys_np``), conservative for
   every frame within it; and
 - the candidate rows themselves, ``fused[ids]`` with ``fused`` the
-  per-triangle coefficient + normal matrix of the frame's geometry,
-  regathered every frame by one gather on the device (no host sync).
+  per-triangle coefficient + normal matrix of the frame's geometry. They
+  are never gathered: a refitted stream holds ``fused`` and the rest
+  build's int32 ids (``StripTables.row_ids``), and the fold kernel reads
+  each candidate's row through its id. A refit computes ``fused`` alone
+  (no gather, no host sync).
 
 A refitted accel equals a fresh build of the deformed mesh in every row it
-holds; its candidate sets are a superset, which the exact intersection test
-rejects, so its queries equal the radial oracle on the deformed mesh. The
-TPU's separate coefficient-only refit (normal tables reused) is not carried
-over: a row holds both.
+stands for; its candidate sets are a superset, which the exact intersection
+test rejects, so its queries equal the radial oracle on the deformed mesh.
+The TPU's separate coefficient-only refit (normal tables reused) is not
+carried over: a row holds both.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
     _fused_coef_matrix,
     assemble_raystab_accel2,
     build_raystab_compact2,
-    stream_ids2,
 )
 
 
@@ -62,9 +64,18 @@ class RaystabRefitter:
                           else torch.as_tensor(pad_dirs, dtype=torch.float32,
                                                device=verts_rest.device))
         compact = self._compact(verts_rest, tris, gs, use_cache, cache_dir)
-        self.rest_accel = self._assemble(compact, verts_rest, tris, normals_rest)
+        self.rest_accel = self._assemble(compact, verts_rest, tris,
+                                         normals_rest, by_id=True)
         self.stats = self.rest_accel.stats
-        self._ids = self._stream_ids(compact, verts_rest.device)
+        # each stream's int32 row ids into the fused matrix [T+1, 24], held
+        # to its range once here: the kernel reads through them unchecked
+        self._ids = {f: getattr(self.rest_accel, f).row_ids
+                     for f in ("main", "ov")
+                     if getattr(self.rest_accel, f, None) is not None}
+        rows = int(tris.shape[0]) + 1
+        for f, ids in self._ids.items():
+            if ids.numel() and not 0 <= int(ids.min()) <= int(ids.max()) < rows:
+                raise ValueError(f"{f} stream: row ids outside [0, {rows})")
 
     def _compact(self, verts_rest, tris, gs, use_cache, cache_dir):
         if use_cache:
@@ -76,7 +87,6 @@ class RaystabRefitter:
                                       pad_dirs=self._pad_dirs)
 
     _assemble = staticmethod(assemble_raystab_accel2)
-    _stream_ids = staticmethod(stream_ids2)
 
     def refit(self, verts_norm, normals=None, check: bool = False):
         """Deformed vertices (and normals; None: the rest normals) -> a
@@ -88,9 +98,8 @@ class RaystabRefitter:
         fused = _fused_coef_matrix(
             verts_norm, self.tris,
             self._normals_rest if normals is None else normals)
-        streams = {f: dataclasses.replace(getattr(self.rest_accel, f),
-                                          rows=torch.index_select(fused, 0, ids))
-                   for f, ids in self._ids.items()}
+        streams = {f: dataclasses.replace(getattr(self.rest_accel, f), rows=fused)
+                   for f in self._ids}
         return dataclasses.replace(self.rest_accel, **streams)
 
 

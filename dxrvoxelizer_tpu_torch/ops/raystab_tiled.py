@@ -61,6 +61,7 @@ from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
     _strip_rays,
     _tri_minr,
     default_gs,
+    stream_rows,
 )
 from dxrvoxelizer_tpu_torch.ops.raystab_refit import RaystabRefitter
 
@@ -310,18 +311,19 @@ def _tile_vox_ids(tids: torch.Tensor, n: int) -> torch.Tensor:
 
 def stream_ids7(compact: RaystabCompact7, device) -> dict:
     """The triangle id of every candidate row of the accel's strip stream
-    ("main"): its rows are ``fused[ids]`` (the refitter regathers them)."""
+    ("main"): its rows are ``fused[ids]``."""
     return {"main": compact.ids.to(device)} if compact.tids.numel() else {}
 
 
 def assemble_raystab_accel7(compact: RaystabCompact7, verts_norm, tris,
-                            normals) -> RaystabAccel7:
+                            normals, by_id: bool = False) -> RaystabAccel7:
     """Device half of the gen-7 build: the live tiles as one strip stream
     (each tile's 128 rays, its CSR run of candidate rows, its chunk bounds),
     by torch gathers on the geometry's device. ``verts_norm``/``tris``/
     ``normals`` must be the geometry the compact was built from; the rows
     are gathers of gen-6's fused matrix, so they match the oracle's
-    arithmetic bit for bit."""
+    arithmetic bit for bit. ``by_id``: the stream holds that matrix and the
+    row ids instead (``raystab_fast.stream_rows``; the refitter's form)."""
     dev = verts_norm.device
     n = compact.n
     tids = compact.tids.to(dev)
@@ -339,9 +341,9 @@ def assemble_raystab_accel7(compact: RaystabCompact7, verts_norm, tris,
             rays=_strip_rays(_tile_vox_ids(tids, n), dirs_p, s0_p),
             cand_off=offs[:-1].to(torch.int32),
             cand_cnt=(offs[1:] - offs[:-1]).to(torch.int32),
-            rows=torch.index_select(_fused_coef_matrix(verts_norm, tris, normals),
-                                    0, stream_ids7(compact, dev)["main"]),
             bounds=None if compact.bounds is None else compact.bounds.to(dev),
+            **stream_rows(_fused_coef_matrix(verts_norm, tris, normals),
+                          stream_ids7(compact, dev)["main"], by_id),
         )
     return RaystabAccel7(n=n, t_count=int(tris.shape[0]), device=dev,
                          main=main, tids=tids, stats=compact.stats)
@@ -386,8 +388,8 @@ def raystab_query7(accel: RaystabAccel7, threshold: float = INSIDE_THRESHOLD,
 
 class RaystabTiledRefitter(RaystabRefitter):
     """Gen-7 deforming-mesh refitter: the padded compact built once from the
-    rest pose, the candidate rows regathered from each frame's geometry
-    (the contract and the API of :class:`~raystab_refit.RaystabRefitter`)."""
+    rest pose, each frame's fused matrix read through the rest build's row
+    ids (the contract and the API of :class:`~raystab_refit.RaystabRefitter`)."""
 
     def _compact(self, verts_rest, tris, gs, use_cache, cache_dir):
         if use_cache:
@@ -399,4 +401,3 @@ class RaystabTiledRefitter(RaystabRefitter):
                                       pad_dirs=self._pad_dirs)
 
     _assemble = staticmethod(assemble_raystab_accel7)
-    _stream_ids = staticmethod(stream_ids7)

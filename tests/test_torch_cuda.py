@@ -10,6 +10,8 @@ skip ``tests/conftest.py`` (it imports JAX):
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -49,6 +51,7 @@ from torch_cases import (
     QUEUE_VARIANTS,
     SOUP_TRIS,
     alpha_grid,
+    by_id,
     chunks_run,
     gather_cameras,
     mt_stress,
@@ -462,6 +465,86 @@ def test_fold_kernel_stress_cases_bit_identical_to_plain(dev, case):
             assert torch.equal(torch.where(low >= 0, want[1][sel], -1), low)
     for a, b in zip(raystab_cuda.fold(tb), raystab_cuda.fold_plain(tb)):
         assert torch.equal(a[sel], b[sel])
+
+
+@pytest.mark.parametrize("case", ["ties", "many_chunks", "padding"])
+def test_fold_kernel_reads_rows_through_ids(dev, case):
+    """Kernels 2.5-2.7 on the stress strips in the row-id form (a
+    deduplicated table in another order, tests/torch_cases.py ``by_id``),
+    at every setting of the sweep, against the plain version on the
+    materialised rows, bit for bit."""
+    sc = stab_stress(dev)
+    tb, sel = by_id(sc.tables), sc.strips[case]
+    for rule in ("backface", "hit"):
+        want = raystab_cuda.fold_extract_plain(sc.tables, sc.t_count, 0.12, rule)
+        for variant in [None, *FOLD_VARIANTS]:
+            got = raystab_cuda.fold_extract(tb, sc.t_count, 0.12, rule,
+                                            variant=variant)
+            for a, b in zip(got, want):
+                assert torch.equal(a[sel], b[sel]), (variant, rule)
+    for a, b in zip(raystab_cuda.fold(tb), raystab_cuda.fold_plain(sc.tables)):
+        assert torch.equal(a[sel], b[sel])
+
+
+@pytest.mark.parametrize("bad", [None, 2, -1])
+def test_fold_kernel_traps_on_row_id_outside_the_table(dev, bad):
+    """The kernels trap on a row id outside [0, rows.shape[0]) before they
+    read through it, so the call fails with a CUDA error instead of reading
+    past the table. A trap ends the process's CUDA context, so each case
+    runs in a process of its own; ``None`` (ids inside) must pass there."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    ids = [1, 0, 1] if bad is None else [1, bad, 0]
+    code = (
+        "import torch\n"
+        "from dxrvoxelizer_tpu_torch.ops import raystab_cuda as rsc\n"
+        "d = torch.device('cuda')\n"
+        "tb = rsc.StripTables(rays=torch.ones((1, 4, 128), device=d),\n"
+        "    cand_off=torch.zeros(1, dtype=torch.int32, device=d),\n"
+        "    cand_cnt=torch.full((1,), 3, dtype=torch.int32, device=d),\n"
+        "    rows=torch.zeros((2, 24), device=d),\n"
+        f"    row_ids=torch.tensor({ids}, dtype=torch.int32, device=d))\n"
+        "for fn in (rsc.fold, lambda x: rsc.fold_extract(x, 2, 0.12)):\n"
+        "    fn(tb)\n"
+        "    torch.cuda.synchronize()\n"
+        "print('folded')\n")
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    if bad is None:
+        assert res.returncode == 0 and "folded" in res.stdout, res.stderr
+    else:
+        assert res.returncode != 0 and "folded" not in res.stdout
+        assert "CUDA error" in res.stderr or "AcceleratorError" in res.stderr, \
+            res.stderr[-2000:]
+
+
+@pytest.mark.parametrize("gen,n", [("gen-6", 64), ("gen-7", 128)])
+@pytest.mark.parametrize("mesh", ["icosphere", "near_origin"])
+def test_refit_streams_kernel_bit_identical_to_plain(dev, gen, n, mesh):
+    """A refitted accel's streams (gen-6: main and the near-origin one) hold
+    the frame's fused matrix and row ids; the kernels read through them and
+    equal the plain version on the rows they stand for, bit for bit."""
+    v, nr, t = _raystab_mesh(mesh, n, dev)
+    cls = (raystab_refit.RaystabRefitter if gen == "gen-6"
+           else raystab_tiled.RaystabTiledRefitter)
+    rf = cls(v, t, nr, n, pad=0.035, pad_dirs=nr)
+    vd = v + 0.03 * torch.sin(v[:, :1] * 5.0) * nr
+    accel = rf.refit(vd)
+    for f in rf._ids:
+        tb = getattr(accel, f)
+        assert tb.row_ids is not None and tb.rows.shape[0] == t.shape[0] + 1
+        rows = dataclasses.replace(tb, rows=raystab_cuda.candidate_rows(tb),
+                                   row_ids=None)
+        for rule in ("backface", "hit"):
+            got = raystab_cuda.fold_extract(tb, t.shape[0], 0.12, rule)
+            want = raystab_cuda.fold_extract_plain(rows, t.shape[0], 0.12, rule)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (f, rule)
+        for a, b in zip(raystab_cuda.fold(tb), raystab_cuda.fold_plain(rows)):
+            assert torch.equal(a, b), f
 
 
 @pytest.mark.parametrize("mesh", ["icosphere", "box", "near_origin", "dense_cone"])

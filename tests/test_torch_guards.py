@@ -4,6 +4,7 @@ refuse what they cannot launch."""
 
 from __future__ import annotations
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -133,11 +134,15 @@ def _light_volume_meta(point: bool):
     raymarch_fast.light_volume(_meta(32, 32, 32), vec, point_light=point)
 
 
-def _meta_strips(s=2, p=300, bounds=True):
+def _meta_strips(s=2, p=300, bounds=True, by_id=False):
+    """Meta strip tables; ``by_id``: a 40-row table read through ``p`` row
+    ids (the refitted form)."""
     return raystab_cuda.StripTables(
         rays=_meta(s, 4, 128), cand_off=_meta(s, dtype=torch.int32),
-        cand_cnt=_meta(s, dtype=torch.int32), rows=_meta(p, 24),
-        bounds=_meta(s, 2) if bounds else None)
+        cand_cnt=_meta(s, dtype=torch.int32),
+        rows=_meta(40 if by_id else p, 24),
+        bounds=_meta(s, 2) if bounds else None,
+        row_ids=_meta(p, dtype=torch.int32) if by_id else None)
 
 
 def _meta_mt(s=2, v=300, p=40):
@@ -157,7 +162,9 @@ def _meta_map():
 
 @pytest.mark.parametrize("kernel", ["parity_voxelize", "parity_queue", "march",
                                     "resolve", "raystab_fold_extract",
-                                    "raystab_fold", "raystab_mt",
+                                    "raystab_fold_extract_by_id",
+                                    "raystab_fold", "raystab_fold_by_id",
+                                    "raystab_mt",
                                     "raystab_mt_shared", "gather_march",
                                     "light_volume", "light_volume_point"])
 def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
@@ -175,10 +182,12 @@ def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
             voxelize_queue_cuda.voxelize_parity_queue_chunks(
                 _meta(128 * 64, 16), _meta(128, dtype=torch.int32),
                 _meta(128, dtype=torch.int32), 32)
-        elif kernel == "raystab_fold_extract":
-            raystab_cuda.fold_extract(_meta_strips(), 1000, 0.12)
-        elif kernel == "raystab_fold":
-            raystab_cuda.fold(_meta_strips(bounds=False))
+        elif kernel.startswith("raystab_fold_extract"):
+            raystab_cuda.fold_extract(
+                _meta_strips(by_id=kernel.endswith("by_id")), 1000, 0.12)
+        elif kernel.startswith("raystab_fold"):
+            raystab_cuda.fold(_meta_strips(bounds=False,
+                                           by_id=kernel.endswith("by_id")))
         elif kernel.startswith("raystab_mt"):
             # the overflow stream: strips of all rays against 320 rows
             raystab_mt_cuda.closest_hit(_meta_mt(s=3, p=320) if kernel.endswith(
@@ -194,6 +203,45 @@ def test_wrapper_refuses_non_cpu_tensor_it_cannot_launch(kernel):
                 False, True, _meta_map())
     after = {k.name: k.launches for k in ALL_KERNELS}
     assert after == launches
+
+
+@pytest.mark.parametrize("bad", ["int64", "2-D", "float32"])
+def test_fold_refuses_bad_row_ids(bad):
+    """A strip stream's row ids are [P] int32: the fold's wrappers and plain
+    versions refuse another dtype or shape before they read a row."""
+    ids = {"int64": torch.zeros(3, dtype=torch.int64),
+           "2-D": torch.zeros((3, 1), dtype=torch.int32),
+           "float32": torch.zeros(3)}[bad]
+    tb = raystab_cuda.StripTables(
+        rays=torch.ones((1, 4, 128)), cand_off=torch.zeros(1, dtype=torch.int32),
+        cand_cnt=torch.full((1,), 3, dtype=torch.int32),
+        rows=torch.zeros((2, 24)), row_ids=ids)
+    for fn in (raystab_cuda.fold, raystab_cuda.fold_plain,
+               lambda x: raystab_cuda.fold_extract(x, 2, 0.12)):
+        with pytest.raises(ValueError, match="row_ids: expected"):
+            fn(tb)
+    ok = dataclasses.replace(tb, row_ids=torch.tensor([1, 0, 1], dtype=torch.int32))
+    assert raystab_cuda.fold_plain(ok)[0].shape == (1, 128)
+
+
+@pytest.mark.parametrize("bad", ["past the end", "negative", "empty table"])
+def test_fold_refuses_row_ids_outside_the_table(bad):
+    """A row id must lie in [0, rows.shape[0]): the plain versions raise on
+    one outside the table, and ids into an empty table are refused before
+    any read (the kernel traps on such an id: tests/test_torch_cuda.py)."""
+    rows, ids = {"past the end": (torch.zeros((2, 24)), [1, 2, 0]),
+                 "negative": (torch.zeros((2, 24)), [1, -1, 0]),
+                 "empty table": (torch.zeros((0, 24)), [0, 0, 0])}[bad]
+    tb = raystab_cuda.StripTables(
+        rays=torch.ones((1, 4, 128)), cand_off=torch.zeros(1, dtype=torch.int32),
+        cand_cnt=torch.full((1,), 3, dtype=torch.int32), rows=rows,
+        row_ids=torch.tensor(ids, dtype=torch.int32))
+    err = ValueError if bad == "empty table" else IndexError
+    for fn in (raystab_cuda.fold, raystab_cuda.fold_plain,
+               lambda x: raystab_cuda.fold_extract(x, 2, 0.12),
+               lambda x: raystab_cuda.fold_extract_plain(x, 2, 0.12)):
+        with pytest.raises(err):
+            fn(tb)
 
 
 def test_gather_kernels_refuse_volumes_over_1024(monkeypatch):

@@ -693,3 +693,54 @@ def test_stress_tables_exercise_the_fold_boundaries():
     for a, b in zip(rsc.fold_plain(tb), rsc.fold_plain(unbounded)):
         assert torch.equal(a, b)
     assert bool(torch.isfinite(rsc.fold_plain(tb)[0][many]).any())
+
+
+# ---- the row-id form: a stream that reads a table through its ids --------------
+
+@pytest.mark.parametrize("name", ["near_origin32", "dense_cone16", "multistrip32"])
+@pytest.mark.parametrize("rule", ["backface", "hit"])
+def test_row_id_streams_fold_as_their_rows(name, rule):
+    """The gen-6 accel assembled by id (the refitter's form) holds the fused
+    matrix and int32 ids in each stream (main, and the near-origin one of
+    ``near_origin32``), stands for the static assembly's rows bit for bit,
+    and folds as they do; its query equals the static accel's and JAX's
+    radial oracle run op by op."""
+    v, nr, t = _port(name)
+    from tests.torch_cases import assert_folds_equal
+
+    _, n, gs = CASES[name]
+    compact = rf.build_raystab_compact2(v, t, n, gs)
+    rows = rf.assemble_raystab_accel2(compact, v, t, nr)
+    by_id = rf.assemble_raystab_accel2(compact, v, t, nr, by_id=True)
+    fused = rf._fused_coef_matrix(v, t, nr)
+    streams = rf.strip_streams2(by_id)
+    assert streams.keys() == rf.strip_streams2(rows).keys()
+    assert name != "near_origin32" or set(streams) == {"main", "ov"}
+    for f, tb in streams.items():
+        want = getattr(rows, f)
+        assert want.row_ids is None and tb.row_ids.dtype == torch.int32
+        assert torch.equal(tb.rows, fused) and tb.rows is by_id.main.rows
+        assert torch.equal(rc.candidate_rows(tb), want.rows)
+        assert_folds_equal(tb, want, int(t.shape[0]), rule)
+    got, static = rf.raystab_query2(by_id, rule=rule), rf.raystab_query2(rows, rule=rule)
+    assert torch.equal(got[0], static[0]) and torch.equal(got[1], static[1])
+    if rule == "backface":
+        want = _jax_radial_oracle(name)
+        assert _same(got[0].numpy(), want[0]) and _same(got[1].numpy(), want[1])
+
+
+@pytest.mark.parametrize("rule", ["backface", "hit"])
+def test_row_id_stress_tables_fold_as_their_rows(rule):
+    """The fold's stress strips (ties across chunk and sub-chunk boundaries,
+    skipped chunks, padding) in the row-id form of tests/torch_cases.py (a
+    deduplicated table in another order): the plain kernels equal the
+    materialised stream's bit for bit."""
+    from tests.torch_cases import assert_folds_equal, by_id, stab_stress
+
+    case = stab_stress("cpu")
+    tb = by_id(case.tables)
+    assert tb.rows.shape[0] < case.tables.rows.shape[0]  # rows are shared
+    assert not torch.equal(tb.row_ids, torch.arange(tb.row_ids.shape[0],
+                                                    dtype=torch.int32))
+    assert torch.equal(rc.candidate_rows(tb), case.tables.rows)
+    assert_folds_equal(tb, case.tables, case.t_count, rule)

@@ -23,11 +23,14 @@ import torch
 import dxrvoxelizer_tpu.core.pipeline as jpl
 import dxrvoxelizer_tpu.ops.raystab_fast as jrf
 import dxrvoxelizer_tpu.ops.raystab_tiled as jt
+import dxrvoxelizer_tpu.ops.voxelize_ref as jvr
 from dxrvoxelizer_tpu.models.mesh import MeshBuffers as JaxMeshBuffers
 from dxrvoxelizer_tpu.utils import accel_cache as jac
 from dxrvoxelizer_tpu.utils.config import VoxelizerConfig as JaxConfig
+from benchmark import work
 from dxrvoxelizer_tpu_torch.core import pipeline as ppl
 from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
+from dxrvoxelizer_tpu_torch.ops import raystab_cuda as rc
 from dxrvoxelizer_tpu_torch.ops import raystab_fast as rf
 from dxrvoxelizer_tpu_torch.ops import raystab_refit as rr
 from dxrvoxelizer_tpu_torch.ops import raystab_tiled as rt
@@ -39,6 +42,7 @@ from dxrvoxelizer_tpu_torch.state import (
 from dxrvoxelizer_tpu_torch.utils import accel_cache as ac
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig, parse_args
 from tests.meshes import box_mesh, icosphere_mesh
+from tests.torch_cases import assert_folds_equal
 from tests.test_torch_raystab1 import jax_python_path  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
@@ -164,11 +168,74 @@ def test_refit_matches_fresh_build_and_oracle(gen, dirs):
             ref = vr.voxelize_raystab_radial_ref(vd, _t(nr), _t(t), n=N, rule=rule)
             assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
             assert bool(got[0].any())
-    # the rows of the rest pose, regathered, are the rest build's
+    # the rows of the rest pose, refitted, are the rest build's
     again = rfit.refit(_t(v))
-    assert torch.equal(again.main.rows, rest.main.rows)
+    assert torch.equal(rc.candidate_rows(again.main), rc.candidate_rows(rest.main))
     with pytest.raises(ValueError, match="zero-pad"):
         cls(_t(v), _t(t), _t(nr), N, pad=0.0)
+
+
+def _sphere_near_origin():
+    """:func:`_sphere` with a small triangle about the origin appended: gen-6
+    gives it the near-origin stream ("ov"), gen-7 every tile's candidates."""
+    v, nr, t = _sphere()
+    tri = np.array([[-0.04, -0.03, 0.01], [0.05, -0.02, -0.01],
+                    [0.0, 0.05, 0.02]], np.float32)
+    up = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (3, 1))
+    t2 = np.arange(3, dtype=np.int32)[None] + v.shape[0]
+    return (np.concatenate([v, tri]), np.concatenate([nr, up]),
+            np.concatenate([t, t2]).astype(np.int32))
+
+
+@pytest.mark.parametrize("gen", list(REFITTERS))
+def test_refit_reads_rows_through_ids(gen):
+    """A refit gathers no rows: each refitted stream holds the frame's fused
+    matrix and the rest build's int32 row ids (the same tensor every frame),
+    and no ``aten::index_select`` runs in it (the op benchmark/run.py reads
+    as the refit's row gather). The plain kernels on it equal those on the
+    rows it stands for, bit for bit, whole, through strip_slice and on
+    benchmark/work.py's sub-tables (``raystab_work``); its query equals
+    JAX's radial oracle run op by op on the deformed mesh."""
+    cls, _, query = REFITTERS[gen]
+    v, nr, t = _sphere_near_origin()
+    rfit = cls(_t(v), _t(t), _t(nr), N, pad=PAD, pad_dirs=_t(nr))
+    assert set(rfit._ids) == ({"main", "ov"} if gen == "gen-6" else {"main"})
+    vd = _t(_wobble(v, nr, 5))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        accel = rfit.refit(vd)
+    assert "aten::index_select" not in {e.name for e in prof.events()}
+    fused = rf._fused_coef_matrix(vd, _t(t), _t(nr))
+    tc = int(t.shape[0])
+    for f, ids in rfit._ids.items():
+        tb = getattr(accel, f)
+        assert tb.row_ids is ids is getattr(rfit.rest_accel, f).row_ids
+        assert ids.dtype == torch.int32 and torch.equal(tb.rows, fused)
+        rows = dataclasses.replace(tb, rows=rc.candidate_rows(tb), row_ids=None)
+        assert torch.equal(rows.rows, fused[ids.long()])
+        for rule in ("backface", "hit"):
+            assert_folds_equal(tb, rows, tc, rule)
+        assert work.raystab_work(tb) == work.raystab_work(rows)
+    with jax.disable_jit():
+        want = jvr.voxelize_raystab_radial_ref(
+            jnp.asarray(vd.numpy()), jnp.asarray(nr), jnp.asarray(t), n=N)
+    got = query(accel)
+    assert _same(got[0].numpy(), want[0]) and _same(got[1].numpy(), want[1])
+    assert bool(got[0].any())
+
+
+@pytest.mark.parametrize("gen", list(REFITTERS))
+def test_refitter_checks_its_row_ids(gen, monkeypatch):
+    """The refitter holds its row ids to the fused matrix's range once, at
+    build (the kernel reads through them unchecked)."""
+    cls = REFITTERS[gen][0]
+    mod, name = (rf, "stream_ids2") if gen == "gen-6" else (rt, "stream_ids7")
+    real = getattr(mod, name)
+    v, nr, t = _sphere()
+    monkeypatch.setattr(mod, name, lambda c, d: {
+        k: ids + len(t) for k, ids in real(c, d).items()})
+    with pytest.raises(ValueError, match="row ids outside"):
+        cls(_t(v), _t(t), _t(nr), N, pad=PAD)
 
 
 @pytest.mark.parametrize("dirs", [True, False])
@@ -276,8 +343,9 @@ def test_noaccelcache_builds_fresh(tmp_path, monkeypatch, n):
     assert [f[:4] for f in os.listdir(tmp_path)] == ["pt7_" if n >= 128 else "pt6_"]
     again = ppl._stab_accel_for(cfg.replace(accel_cache=True), mesh)
     for a in (cached, again):
-        for f in ("rays", "cand_off", "cand_cnt", "rows"):
+        for f in ("rays", "cand_off", "cand_cnt"):
             assert torch.equal(getattr(a.main, f), getattr(fresh.main, f)), f
+        assert torch.equal(rc.candidate_rows(a.main), rc.candidate_rows(fresh.main))
 
 
 # ---- the CPU's deforming frame --------------------------------------------------

@@ -12,6 +12,7 @@ path). numpy and the port only.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 from dataclasses import dataclass
 from pathlib import Path
@@ -165,12 +166,55 @@ def stab_stress(device) -> StressCase:
                       torch.stack(lowest).to(device), n_chunks)
 
 
+def by_id(tb: rsc.StripTables) -> rsc.StripTables:
+    """The stream in the row-id form: its distinct rows (bit patterns) as the
+    table, in another order than the stream's, and each candidate's id into
+    it; it stands for the same candidate rows."""
+    bits, ids = torch.unique(tb.rows.view(torch.int32), dim=0,
+                             return_inverse=True)
+    table = bits.view(torch.float32).flip(0).contiguous()
+    ids = (table.shape[0] - 1 - ids).to(torch.int32)
+    return dataclasses.replace(tb, rows=table, row_ids=ids)
+
+
+def _folds(tb, t_count, rule):
+    """(t, id, ns) of the plain fold + extraction and (t, id) of the plain
+    fold alone on one stream."""
+    return (*rsc.fold_extract_plain(tb, t_count, 0.12, rule), *rsc.fold_plain(tb))
+
+
+def assert_folds_equal(by_id: rsc.StripTables, rows: rsc.StripTables,
+                       t_count: int, rule: str) -> None:
+    """The plain kernels on a row-id stream and on the materialised stream it
+    stands for, bit for bit: whole, in two strip slices, and on every other
+    strip as ``benchmark/work.py`` cuts sub-tables (``dataclasses.replace``
+    of rays, offsets, counts and bounds)."""
+    whole = _folds(by_id, t_count, rule)
+    for a, b in zip(whole, _folds(rows, t_count, rule)):
+        assert torch.equal(a, b)
+    half = by_id.strips // 2
+    parts = [_folds(rsc.strip_slice(by_id, lo, hi), t_count, rule)
+             for lo, hi in ((0, half), (half, by_id.strips))]
+    for a, *pieces in zip(whole, *parts):
+        assert torch.equal(a, torch.cat(pieces))
+    sel = torch.arange(0, by_id.strips, 2, device=by_id.rays.device)
+
+    def sub(tb):
+        return dataclasses.replace(
+            tb, rays=tb.rays[sel], cand_off=tb.cand_off[sel],
+            cand_cnt=tb.cand_cnt[sel],
+            bounds=None if tb.bounds is None else tb.bounds[sel])
+
+    assert sub(by_id).row_ids is by_id.row_ids
+    for a, b in zip(_folds(sub(by_id), t_count, rule),
+                    _folds(sub(rows), t_count, rule)):
+        assert torch.equal(a, b)
+
+
 def chunks_run(tb: rsc.StripTables, strip: int) -> list[bool]:
     """Which chunks of ``strip`` the fold tests: a chunk runs unless every
     lane's best t over the chunks before it is below its bound (replayed
     with the plain fold)."""
-    import dataclasses
-
     one = dataclasses.replace(
         tb, rays=tb.rays[strip:strip + 1], cand_off=tb.cand_off[strip:strip + 1],
         cand_cnt=tb.cand_cnt[strip:strip + 1], bounds=tb.bounds[strip:strip + 1])
