@@ -195,12 +195,17 @@ the CUDA toolkit. Phases, one line each:
     for the queue kernel, the march and the resolve (folded into the
     kernels' ``max_abs_err`` below).
 22b. the light recurrences' kernel (``csrc/light_sweep.cu``): X.3 (the
-    ``-hq`` reference step) and X.4 (the ``-fast`` per-slab sweep) against
-    their plain versions at 32, 64, 128, 160 and 256^3 for lights of every
-    major axis and sign with the reference step's windows d0 = 1..13 and
-    each cell's own light, and on the 64^3 and 256^3 frames' densities
-    (within 1e-5); their ms, device us, bounds and the plain versions' at
-    those frames' inputs; each cell, as phase 23 runs it, with the sweep's plain version alone; the app's ``-fast``
+    ``-hq`` reference step) and X.4 (the ``-fast`` per-slab sweep), in the
+    form the rule chooses and in each form it can choose (a thread block
+    cluster; a grid whose blocks wait on their producers' flags;
+    ``ops/raymarch_warp.sweep_plan``, whose C twin must agree), against their plain versions at 32, 64, 128, 160 and
+    256^3 for lights of every major axis and sign with the reference step's
+    windows d0 = 1..13 and each cell's own light, and on the 64^3 and 256^3
+    frames' densities (within 1e-5); at those frames' inputs each form's and
+    the chosen one's ms, device us, us per step and roofline share, the
+    bounds and the plain versions' times, and with ``--parent TREE`` the
+    kernel of TREE's ``csrc/light_sweep.cu`` in turns with the chosen one;
+    each cell, as phase 23 runs it, with the sweep's plain version alone; the app's ``-fast``
     frames, in which X.4 must launch once per frame and X.3 never;
 23. the benchmark's cells (``BENCHMARK.json``), each as a subprocess,
     ``python3 benchmark/run.py --workload <cell> --seed 0 --frames 20``:
@@ -312,6 +317,17 @@ MT_OPS_BY_STAGE = (16, 11, 16, 2, 8, 2)
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def _load_script(root: Path, name: str):
+    """``scripts/<name>.py`` by path (the directory is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"dxv_script_{name}", root / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _load_test_module(root: Path, name: str):
@@ -1628,6 +1644,9 @@ def phase22(torch, root: Path) -> tuple[dict, dict]:
 # 160^3, 8-13 at 256^3) and the 256^3 windows of the d0 lights
 TOL_SWEEP = 1e-5
 SWEEP_GRIDS = (32, 64, 128, 160, 256)
+# the forms the kernel's rule can choose (ops/raymarch_warp.py FLAGS and
+# CLUSTER)
+SWEEP_FORMS = {"flags": 0, "cluster": 1}
 SWEEP_D0 = range(8, 14)
 # FP32 operations per voxel, counted from csrc/light_sweep.cu (additions,
 # subtractions, multiplications, floors; compares, min/max and selects not
@@ -1660,14 +1679,22 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     """Phase 22b: the light recurrences' kernel (csrc/light_sweep.cu: X.3,
     the -hq reference step, and X.4, the -fast per-slab sweep).
 
-    a. Each instance against its plain version on the card at 32, 64, 128,
-       160 and 256^3, on a seeded random grid with fractional alphas, for lights
-       of every major axis and sign with the windows d0 = 1..13, the CPU
-       tests' lights and each cell's own light; and on the 64^3 and 256^3
-       frames' own densities and lights. Over TOL_SWEEP fails.
+    a. Each instance, in the form the rule chooses and in each form it can
+       choose (SWEEP_FORMS: the flags form, the cluster form), against its plain
+       version on the card at 32, 64, 128, 160 and 256^3, on a seeded random
+       grid with fractional alphas, for lights of every major axis and sign
+       with the windows d0 = 1..13, the CPU tests' lights and each cell's
+       own light; and on the 64^3 and 256^3 frames' own densities and
+       lights. Over TOL_SWEEP fails; the largest error is printed per
+       instance, grid and form. The C rule (``dxv_light_sweep_plan``) must
+       give the Python mirror's plan for every grid, window and form.
     b. At the 64^3 and 256^3 frames' inputs: each instance's CUDA-event ms
-       (INNER calls, median of REPS), device us per call (profiler), its
-       bound, the plain version's ms and device us.
+       (INNER calls, median of REPS), device us per call (profiler), us per
+       step and roofline share, in each form and in the chosen one; its
+       bound, the plain version's ms and device us; with
+       ``state["parent"]`` (``--parent TREE``), TREE's kernel built alone
+       (``scripts/light_sweep_forms.parent_sweep``) and the chosen form in
+       turns, parent, change, change, parent.
     c. Each cell of ``BENCHMARK.json`` run as phase 23 runs it, with the
        sweep's plain version alone (``use_kernel=False``): its p50, device
        busy ms, device ops, torch-op ms and idle share, against phase
@@ -1688,12 +1715,31 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     names = (ref_k.name, dir_k.name)
 
     def call(name, dens, light, n, **kw):
-        """One field: X.3 or X.4 (``use_kernel`` passes through)."""
+        """One field: X.3 or X.4 (``use_kernel`` and ``variant`` pass
+        through)."""
         lt = np.asarray(light, np.float32)
         if name == ref_k.name:
             return rw.light_sweep_ref(dens, lt, n, *rw.light_ref_statics(lt, n),
                                       **kw)
         return rw.light_sweep(dens, lt, n, *rw.light_statics(lt), **kw)
+
+    def d0_of(name, light, n):
+        return (rw.light_ref_statics(np.asarray(light, np.float32), n)[2]
+                if name == ref_k.name else 1)
+
+    def plans(name, light, n) -> dict:
+        """The chosen form (None: the launch's own rule) and each form, with
+        the mirror's plan; the C rule must agree."""
+        ref, d0 = name == ref_k.name, d0_of(name, light, n)
+        out = {"chosen": (None, rw.sweep_plan(n, ref, d0))}
+        for label, form in SWEEP_FORMS.items():
+            for f in (None, form):
+                c_plan = rw.sweep_plan_c(n, ref, d0, f)
+                check(c_plan == rw.sweep_plan(n, ref, d0, f),
+                      f"phase 22b: {name} {n}^3 d0 {d0} form {f}: the C "
+                      f"rule's plan {c_plan} is not the mirror's")
+            out[label] = (rw.sweep_plan(n, ref, d0, form),) * 2
+        return out
 
     # the cells: their runners (mesh, light, frames) and their lights
     spec = load_spec()
@@ -1722,13 +1768,16 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
         for light in lights:
             windows.add(rw.light_ref_statics(np.asarray(light, np.float32), n))
             for name in names:
-                got = call(name, dens, light, n)
                 want = call(name, dens, light, n, use_kernel=False)
-                e = max_err(got, want)
-                err_at[(name, n)] = max(err_at.get((name, n), 0.0), e)
-                errs[name] = max(errs[name], e)
-                check(e <= TOL_SWEEP, f"phase 22b: {name} {n}^3 light "
-                      f"{light} differs from its plain version by {e:.3g}")
+                for label, (variant, plan) in plans(name, light, n).items():
+                    got = call(name, dens, light, n, variant=variant)
+                    e = max_err(got, want)
+                    key = (name, n, label)
+                    err_at[key] = max(err_at.get(key, 0.0), e)
+                    errs[name] = max(errs[name], e)
+                    check(e <= TOL_SWEEP, f"phase 22b: {name} {n}^3 light "
+                          f"{light} {label} {plan} differs from its plain "
+                          f"version by {e:.3g}")
     check({d for _, _, d in windows} == set(range(1, 14))
           and {(a, f) for a, f, _ in windows}
           == {(a, f) for a in range(3) for f in (False, True)},
@@ -1736,17 +1785,19 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     frames = {GRID: state["64"], GRID_HI: state["256"]}
     for n, (dens, light) in frames.items():
         for name in names:
-            e = max_err(call(name, dens, light, n),
-                        call(name, dens, light, n, use_kernel=False))
-            err_at[(name, f"frame {n}")] = e
-            errs[name] = max(errs[name], e)
-            check(e <= TOL_SWEEP, f"phase 22b: {name} on the {n}^3 frame "
-                  f"differs from its plain version by {e:.3g}")
+            want = call(name, dens, light, n, use_kernel=False)
+            for label, (variant, plan) in plans(name, light, n).items():
+                e = max_err(call(name, dens, light, n, variant=variant), want)
+                err_at[(name, f"frame {n}", label)] = e
+                errs[name] = max(errs[name], e)
+                check(e <= TOL_SWEEP, f"phase 22b: {name} {label} {plan} on "
+                      f"the {n}^3 frame differs from its plain version by "
+                      f"{e:.3g}")
     print(f"phase 22b kernels against their plain versions (max|err|; "
           f"{len(lights)} lights at {SWEEP_GRIDS}^3, windows d0 "
           f"{sorted({d for _, _, d in windows})}, every axis and flip; the "
-          f"cells' lights {cell_lights}): " + ", ".join(
-              f"{k[0]} {k[1]} {v:.3g}" for k, v in err_at.items()))
+          f"cells' lights {cell_lights}; each form, and the chosen one): " + ", ".join(
+              f"{k[0]} {k[1]} {k[2]} {v:.3g}" for k, v in err_at.items()))
 
     # ---- 22b-b. times and bounds at the frames' inputs ---------------------
     def dev_us(fn):
@@ -1761,9 +1812,20 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
                  f", share {bound_ms / (us / 1e3):.4f} of the device time")
         return f"{us:.2f} us device per call{share}"
 
+    def step_text(us, n_steps):
+        return f", {us / n_steps:.3f} us a step of {n_steps}" if us else ""
+
     timing = {}
+    parent = None
+    if state.get("parent"):
+        parent = _load_script(Path(__file__).resolve().parent,
+                              "light_sweep_forms").parent_sweep(
+            Path(state["parent"]).resolve(),
+            Path(tempfile.mkdtemp(prefix="dxv_parent_")))
     for n, (dens, light) in frames.items():
         for name in names:
+            n_steps = -(-n // d0_of(name, light, n))
+            bnd = sweep_bound(rw, name, n, light)
             fn = (lambda name=name, dens=dens, light=light, n=n:
                   call(name, dens, light, n))
             plain = (lambda name=name, dens=dens, light=light, n=n:
@@ -1771,7 +1833,31 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
             timing[(name, n)] = {
                 "ms": cuda_ms(fn), "dev_us": dev_us(fn),
                 "plain_ms": cuda_ms(plain), "plain_dev_us": dev_us(plain),
-                "bound": sweep_bound(rw, name, n, light)}
+                "bound": bnd}
+            for label, (variant, plan) in plans(name, light, n).items():
+                f = (lambda name=name, dens=dens, light=light, n=n,
+                     variant=variant: call(name, dens, light, n,
+                                           variant=variant))
+                us = dev_us(f)
+                print(f"phase 22b {name} {n}^3 frame, {label} form {plan}: "
+                      f"{cuda_ms(f):.4f} ms (CUDA events), "
+                      f"{dev_text(us, bnd[0])}{step_text(us, n_steps)}; "
+                      f"{card}")
+            if parent is not None:
+                old = (lambda ref=name == ref_k.name, dens=dens, light=light,
+                       n=n: parent(ref, dens, light, n))
+                e = max_err(old(), plain())
+                turns = []
+                for who, f in (("parent", old), ("change", fn),
+                               ("change", fn), ("parent", old)):
+                    us = dev_us(f)
+                    turns.append(f"{who} {cuda_ms(f):.4f} ms, "
+                                 f"{dev_text(us, bnd[0])}"
+                                 f"{step_text(us, n_steps)}")
+                print(f"phase 22b {name} {n}^3 frame in turns, the kernel of "
+                      f"{state['parent']} (max|err| {e:.3g} against the plain "
+                      f"version) and the chosen form: " + "; ".join(turns)
+                      + f"; {card}")
     for (name, n), t in timing.items():
         lt = np.asarray(frames[n][1], np.float32)
         statics = (rw.light_ref_statics(lt, n) if name == ref_k.name
@@ -1892,9 +1978,17 @@ def phase23(root: Path) -> None:
             for k, v in met.items()))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="The port's smoke run on the "
+                                 "card (see the module's docstring).")
+    ap.add_argument("--parent", default=None, help="a checkout of another "
+                    "commit: phase 22b times its light-sweep kernel in turns "
+                    "with this one's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3475,7 +3569,7 @@ def main() -> int:
     p22b = phase22b(torch, app_main, kernels, card, dev, {
         "64": (vols[0], consts.local_space_light_pt),
         "256": (vols7[0], consts7.local_space_light_pt),
-        "mesh6": (v6, t6), "cases": cases})
+        "mesh6": (v6, t6), "cases": cases, "parent": args.parent})
     for k, c in p22b["launches"].items():
         main_launches[k] += c
     errs.update(p22b["errs"])

@@ -1,6 +1,5 @@
 // Light recurrences of the warp render: the -hq reference-step sweep (X.3)
-// and the -fast per-slab sweep (X.4), one cooperative launch per field
-// (Hopper).
+// and the -fast per-slab sweep (X.4), one launch per field (Hopper).
 //
 // Replaces: dxrvoxelizer_tpu/ops/raymarch_warp.py::light_sweep_ref and
 // ::light_sweep (XLA functions, not Pallas kernels: each a jax.lax.scan over
@@ -24,33 +23,46 @@
 // benchmark/work.py: the density read once and the field written once,
 // 8 bytes a voxel (0.63 us at 64^3, 40 us at 256^3 at 3.35 TB/s), against
 // 66 FP32 operations per voxel inside the box for X.3 and 38 for X.4. In
-// practice the chain of dependent steps: ceil(n/d0) grid-wide barriers for
-// X.3 (32 at 64^3 and 24 at 256^3 for the default light), n - 1 for X.4,
-// each step's taps reading the slabs the step before wrote.
+// practice the chain of dependent steps: ceil(n/d0) steps for X.3 (22 at
+// 64^3 and 256^3 for the cells' light), n for X.4, each reading slabs an
+// earlier step wrote d0+1 texels away at most, so a step waits for the
+// blocks that wrote them. A step's time is its chain's latency: the wait,
+// one round of loads through L2, the resample, the stores and their
+// release (about 3 us on the H100 at 64^3), not its bytes.
 //
 // Design:
 // - Each resample is a 2-tap stencil per axis: no interpolation matrix is
-//   built or multiplied (the plain version multiplies [n, n] matrices of
-//   which 2 entries a row are nonzero). Taps outside the volume load
-//   nothing and weigh 0, as the matrices' zero columns do.
+//   built or multiplied. Taps outside the volume load nothing and weigh 0,
+//   as the matrices' zero columns do. A voxel's 8 carry taps and 8 density
+//   taps are loaded together, one round trip a step.
 // - The output volume is the carry: the slabs a step reads are ones an
-//   earlier step wrote, read back through L2 (__ldcg) after the barrier.
-//   There is no carry buffer, no concatenation and no attenuation volume
-//   (X.3 takes its attenuation from 8 density taps where it needs it, X.4
-//   multiplies each carry tap by its own voxel's attenuation).
+//   earlier step wrote, read back through L2 (__ldcg). There is no carry
+//   buffer, no concatenation and no attenuation volume.
 // - Natural layout in and out: density is read and L written in their
 //   [N, N, N] layout; the slab order's permutation and flip are strides and
-//   an index reflection, so no permuted or flipped copy is made.
-// - One cooperative launch (cudaLaunchCooperativeKernel) per field: the
-//   d0 slabs of an X.3 step (one slab for X.4) are independent and spread
-//   over the grid (a warp's threads along slab y, or, where the light
-//   marches along the layout's minor axis, along the step's d0 slabs,
-//   which then lie side by side in memory); steps depend on earlier steps
-//   across the whole plane (the lateral shift reaches d0+1 texels a step,
-//   so no tile with a halo is closed), so a grid.sync() separates them.
-//   The grid is as many 256-thread blocks as a step has voxels for, capped
-//   by what the card keeps resident (smaller caps measured no faster at
-//   64^3 and slower at 256^3).
+//   an index reflection, so no permuted or flipped copy is made. A step's
+//   voxels are spread over the threads (a warp along slab y where it is the
+//   layout's minor axis, else along the step's d0 slabs, side by side in
+//   memory).
+// - Two forms, one rule (plan_for below, mirrored by
+//   ops/raymarch_warp.py::sweep_plan):
+//   - Cluster (a step of at most 2,048 voxels): one thread block cluster of
+//     up to 16 blocks, a voxel a thread, the cluster's hardware barrier
+//     between steps (barrier.cluster.arrive.release / wait.acquire).
+//   - Flags (larger steps): a cooperative grid of at most what stays
+//     resident, without a grid-wide barrier between steps. Each block
+//     publishes the steps it has done in a flag (its stores, a fence, the
+//     flag) and, before a step, waits only for its producers: the blocks
+//     whose voxels its carry taps read, a short range of blocks found once
+//     per launch from the taps' geometry (the shift is constant; a block
+//     holds one run of each step's voxels, so the range stays short). Steps
+//     overlap across the grid instead of each ending in a barrier. The
+//     flags live in scratch that the wrapper allocates once per device and
+//     stream; one grid barrier at the end (a word of the same scratch, by
+//     sense reversal: thread 0 of each block adds 1, block 0 adds
+//     2^31 - (blocks - 1), the top bit flips once all have arrived) lets
+//     each block zero its flag, so the scratch is left as found and a
+//     frame gains no device op. A wait that never ends traps.
 // - FP32 throughout; every operation is an explicitly rounded intrinsic in
 //   the plain version's order (z-mix products then sum; x taps, then y
 //   taps, each as product, product, sum), so nvcc contracts nothing.
@@ -59,23 +71,28 @@
 //   with the plain version's float32 operations: no device read, no sync.
 
 #include <climits>
+#include <mutex>
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxDevices = 64;
+constexpr int kMaxCluster = 16;       // blocks (beyond 8: non-portable)
+constexpr int kClusterVoxels = 2048;  // the cluster form's largest step
+constexpr int kFlags = 4096;          // blocks of the flags form, at most
+constexpr long long kPatience = 1LL << 24;  // polls before a wait traps
+
+enum Form { kFlagsForm = 0, kClusterForm = 1 };
 
 struct Sweep {
   const float* density;
   float* out;
+  unsigned* bar;    // the end's grid barrier word
+  unsigned* flags;  // steps done, a flag a block
   int n;
-  int d0;                // whole slabs per step (X.3); 1 for X.4
-  int flip;              // slab k lies at n-1-k along the axis
+  int per;    // slabs per step: d0 (X.3), 1 (X.4)
+  int flip;   // slab k lies at n-1-k along the axis
   long long sk, sx, sy;  // strides of slab, x and y in the natural layout
   float w;               // X.3: weight of the farther slab of each z-mix
   float shift_x, shift_y;  // tap coordinate = texel index + shift
@@ -153,8 +170,8 @@ __device__ __forceinline__ float ref_voxel(const Sweep& p, int k, int x,
   // the clamped coordinate (LINEAR_CLAMP)
   const Axis dx = axis_taps(fminf(fmaxf(cx, 0.0f), top), n);
   const Axis dy = axis_taps(fminf(fmaxf(cy, 0.0f), top), n);
-  const float* d0s = p.density + slab_offset(p, min(k + p.d0, n - 1));
-  const float* d1s = p.density + slab_offset(p, min(k + p.d0 + 1, n - 1));
+  const float* d0s = p.density + slab_offset(p, min(k + p.per, n - 1));
+  const float* d1s = p.density + slab_offset(p, min(k + p.per + 1, n - 1));
   const float dres = resample(dx, dy, [&](int i, int j) {
     const long long o = texel(p, i, j);
     return __fadd_rn(__fmul_rn(__ldg(d0s + o), omw),
@@ -166,9 +183,10 @@ __device__ __forceinline__ float ref_voxel(const Sweep& p, int k, int x,
   const Axis lx = axis_taps(cx, n);
   const Axis ly = axis_taps(cy, n);
   const int r = n - 1 - k;
-  const float* la = r - p.d0 >= 0 ? p.out + slab_offset(p, k + p.d0) : nullptr;
+  const float* la =
+      r - p.per >= 0 ? p.out + slab_offset(p, k + p.per) : nullptr;
   const float* lb =
-      r - p.d0 - 1 >= 0 ? p.out + slab_offset(p, k + p.d0 + 1) : nullptr;
+      r - p.per - 1 >= 0 ? p.out + slab_offset(p, k + p.per + 1) : nullptr;
   const float lres = resample(lx, ly, [&](int i, int j) {
     const long long o = texel(p, i, j);
     const float a = la ? __ldcg(la + o) : 1.0f;
@@ -197,88 +215,332 @@ __device__ __forceinline__ float dir_voxel(const Sweep& p, int k, int x,
   return __fadd_rn(res, __fsub_rn(1.0f, __fmul_rn(row_sum(ax), row_sum(ay))));
 }
 
+// a step's voxel v -> (j, x, y): neighbouring threads on neighbouring
+// addresses, along slab y where it is the layout's minor axis, else along
+// the step's slabs
+__device__ __forceinline__ void voxel_at(const Sweep& p, int v, int& j,
+                                         int& x, int& y) {
+  const int plane = p.n * p.n;
+  int xy;
+  if (p.sy == 1 || p.per == 1) {
+    j = v / plane;
+    xy = v - j * plane;
+  } else {
+    xy = v / p.per;
+    j = v - xy * p.per;
+  }
+  x = xy / p.n;
+  y = xy - x * p.n;
+}
+
+// voxel_at's inverse
+__device__ __forceinline__ int voxel_index(const Sweep& p, int j, int x,
+                                           int y) {
+  const int xy = x * p.n + y;
+  return (p.sy == 1 || p.per == 1) ? j * p.n * p.n + xy : xy * p.per + j;
+}
+
+// ---- the flags form --------------------------------------------------------
+
+// the blocks that write what this block's carry taps read, as one range
+// lo..hi (a superset is safe; none: lo > hi). Block b holds voxels
+// b*chunk .. (b+1)*chunk-1 of every step; X.3's slab r-d0 is step s-1's
+// slab j, its slab r-d0-1 step s-1's slab j-1 (j = 0: step s-2's slab
+// d0-1); X.4's slab r-1 is step s-1's only slab
 template <bool kRef>
-__global__ void __launch_bounds__(kThreads) light_sweep_kernel(const Sweep p) {
-  cg::grid_group grid = cg::this_grid();
-  const int n = p.n;
-  const int plane = n * n;
-  const int per = kRef ? p.d0 : 1;  // slabs a step computes
-  const int steps = (n + per - 1) / per;
-  const int items = per * plane;
-  const int stride = gridDim.x * blockDim.x;
-  for (int s = 0; s < steps; ++s) {
-    for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < items;
-         t += stride) {
-      // neighbouring threads on neighbouring addresses: along slab y where
-      // it is the layout's minor axis, else along the step's slabs
-      int j, xy;
-      if (p.sy == 1 || per == 1) {
-        j = t / plane;
-        xy = t - j * plane;
-      } else {
-        xy = t / per;
-        j = t - xy * per;
+__device__ void producers(const Sweep& p, int count, int chunk, int* lo,
+                          int* hi) {
+  __shared__ int s_lo, s_hi;
+  if (threadIdx.x == 0) {
+    s_lo = INT_MAX;
+    s_hi = -1;
+  }
+  __syncthreads();
+  int b_lo = INT_MAX, b_hi = -1;
+  const int end = min(count, (blockIdx.x + 1) * chunk);
+  for (int v = blockIdx.x * chunk + threadIdx.x; v < end;
+       v += blockDim.x) {
+    int j, x, y;
+    voxel_at(p, v, j, x, y);
+    const Axis ax =
+        axis_taps(__fadd_rn(static_cast<float>(x), p.shift_x), p.n);
+    const Axis ay =
+        axis_taps(__fadd_rn(static_cast<float>(y), p.shift_y), p.n);
+    const int js[2] = {kRef ? j : 0, kRef ? (j > 0 ? j - 1 : p.per - 1) : 0};
+#pragma unroll 1
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll 1
+      for (int t = 0; t < 4; ++t) {
+        const bool in =
+            (t & 1 ? ax.in1 : ax.in0) && (t >> 1 ? ay.in1 : ay.in0);
+        if (!in) continue;
+        const int w = voxel_index(p, js[q], ax.i0 + (t & 1),
+                                  ay.i0 + (t >> 1));
+        const int b = w / chunk;
+        b_lo = min(b_lo, b);
+        b_hi = max(b_hi, b);
       }
-      const int x = xy / n;
-      const int y = xy - x * n;
-      const int r = s * per + j;  // reversed slab order: far slab first
-      if (r >= n) continue;
-      const int k = n - 1 - r;
-      const float v = kRef ? ref_voxel(p, k, x, y) : dir_voxel(p, k, x, y);
-      __stcg(p.out + slab_offset(p, k) + texel(p, x, y), v);
     }
-    if (s + 1 < steps) grid.sync();
+  }
+  if (b_hi >= 0) {
+    atomicMin(&s_lo, b_lo);
+    atomicMax(&s_hi, b_hi);
+  }
+  __syncthreads();
+  *lo = s_lo;
+  *hi = s_hi;
+}
+
+// wait until blocks lo..hi have done `steps` steps (acquire), a thread a
+// flag; a wait that never ends traps instead of hanging
+__device__ __forceinline__ void flags_wait(const Sweep& p, int lo, int hi,
+                                           unsigned steps) {
+  if (lo <= hi) {
+    for (int b = lo + threadIdx.x; b <= hi; b += blockDim.x) {
+      unsigned v;
+      long long polls = 0;
+      do {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                     : "=r"(v) : "l"(p.flags + b) : "memory");
+        if (++polls > kPatience) __trap();
+      } while (v < steps);
+    }
+  }
+  __syncthreads();
+}
+
+// the block's stores, then its count of steps done
+__device__ __forceinline__ void flags_post(const Sweep& p, unsigned steps) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+                 :: "l"(p.flags + blockIdx.x), "r"(steps) : "memory");
   }
 }
 
-// the most blocks of one instance the card keeps resident (per device)
-template <bool kRef>
-int resident_blocks() {
-  static int cache[kMaxDevices];
+// the end's grid barrier: every block has done its last wait
+__device__ __forceinline__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned token = atomicAdd(bar, inc);
+    unsigned v;
+    long long polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v) : "l"(bar) : "memory");
+      if (++polls > kPatience) __trap();
+    } while (((v ^ token) & 0x80000000u) == 0);
+  }
+  __syncthreads();
+}
+
+// ---- the cluster form -------------------------------------------------------
+
+// every thread of the cluster takes part, each warp converged (aligned)
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+template <bool kRef, bool kCluster>
+__global__ void __launch_bounds__(kCluster ? 1024 : 256, kCluster ? 1 : 6)
+    light_sweep_kernel(const Sweep p) {
+  const int per = kRef ? p.per : 1;
+  const int steps = (p.n + per - 1) / per;
+  const int count = per * p.n * p.n;  // voxels a step
+  // the block's voxels of every step: one run, threads side by side
+  const int chunk = (count + gridDim.x - 1) / gridDim.x;
+  const int end = min(count, (blockIdx.x + 1) * chunk);
+  int lo = 0, hi = -1;
+  if (!kCluster) producers<kRef>(p, count, chunk, &lo, &hi);
+  for (int s = 0; s < steps; ++s) {
+    if (s > 0) {
+      if (kCluster) {
+        cluster_wait();
+      } else {
+        flags_wait(p, lo, hi, s);
+      }
+    }
+    for (int v = blockIdx.x * chunk + threadIdx.x; v < end;
+         v += blockDim.x) {
+      int j, x, y;
+      voxel_at(p, v, j, x, y);
+      const int r = s * per + j;  // reversed slab order: far slab first
+      if (r >= p.n) continue;
+      const int k = p.n - 1 - r;
+      const float val = kRef ? ref_voxel(p, k, x, y) : dir_voxel(p, k, x, y);
+      __stcg(p.out + slab_offset(p, k) + texel(p, x, y), val);
+    }
+    if (s + 1 < steps) {
+      if (kCluster) {
+        cluster_arrive();
+      } else {
+        flags_post(p, s + 1);
+      }
+    }
+  }
+  if (!kCluster) {
+    // no block waits any more: leave the flags as found (zero)
+    grid_barrier(p.bar);
+    if (threadIdx.x == 0) p.flags[blockIdx.x] = 0;
+  }
+}
+
+// ---- the plan --------------------------------------------------------------
+
+struct Plan {
+  int form, threads;
+};
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// the form rule (mirrored by ops/raymarch_warp.py::sweep_plan); form -1:
+// the rule's choice. A step of at most kClusterVoxels voxels runs as a
+// cluster of 16 blocks, a voxel a thread; a larger one in the flags form,
+// in blocks of 128 threads up to 16,384 voxels a step, else 256.
+Plan plan_for(int n, int ref, int d0, int form) {
+  const long long count = static_cast<long long>(ref ? d0 : 1) * n * n;
+  Plan pl;
+  pl.form = form >= 0 ? form
+                      : (count <= kClusterVoxels ? kClusterForm : kFlagsForm);
+  if (pl.form == kClusterForm) {
+    const long long per_block = (count + kMaxCluster - 1) / kMaxCluster;
+    pl.threads = static_cast<int>(
+        per_block >= 1024 ? 1024 : (per_block < 32 ? 32
+                                                   : (per_block + 31) / 32 * 32));
+  } else {
+    pl.threads = count <= 16384 ? 128 : 256;
+  }
+  return pl;
+}
+
+// ---- launch ----------------------------------------------------------------
+
+template <bool kRef, bool kCluster>
+constexpr auto kernel_of() {
+  return light_sweep_kernel<kRef, kCluster>;
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, int threads,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = blocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// per device and configuration: the most blocks that stay resident (the
+// flags form) or whether one cluster fits (1)
+struct Fit {
+  int dev, ref, cluster, blocks, threads, value;
+};
+constexpr int kFits = 64;
+Fit g_fits[kFits];
+int g_nfits = 0;
+std::mutex g_fits_lock;
+
+template <bool kRef, bool kCluster>
+int fit_for(int dev, int blocks, int threads, cudaStream_t stream) {
+  std::lock_guard<std::mutex> hold(g_fits_lock);
+  for (int i = 0; i < g_nfits; ++i) {
+    const Fit& f = g_fits[i];
+    if (f.dev == dev && f.ref == kRef && f.cluster == kCluster &&
+        f.threads == threads && f.blocks == blocks) {
+      return f.value;
+    }
+  }
+  auto fn = kernel_of<kRef, kCluster>();
+  int value = 0;
+  if (kCluster) {
+    if (blocks > 8 &&
+        cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1) != cudaSuccess) {
+      return 0;
+    }
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(blocks, threads, stream, &attr);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) != cudaSuccess) {
+      return 0;
+    }
+    value = clusters >= 1 ? 1 : 0;
+  } else {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      0) != cudaSuccess) {
+      return 0;
+    }
+    value = sms * per_sm;
+  }
+  if (value > 0 && g_nfits < kFits) {
+    g_fits[g_nfits++] = {dev, kRef, kCluster, blocks, threads, value};
+  }
+  return value;
+}
+
+template <bool kRef, bool kCluster>
+int launch(Sweep& p, int threads, cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
-    return 0;
+    return static_cast<int>(cudaErrorInvalidDevice);
   }
-  if (cache[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, light_sweep_kernel<kRef>, kThreads, 0);
-    cache[dev] = sms * per_sm;
+  auto fn = kernel_of<kRef, kCluster>();
+  const int needed = ceil_div((kRef ? p.per : 1) * p.n * p.n, threads);
+  if (kCluster) {
+    const int blocks = min(needed, kMaxCluster);
+    if (fit_for<kRef, kCluster>(dev, blocks, threads, stream) < 1) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(blocks, threads, stream, &attr);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, p);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    if (p.bar == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int most = fit_for<kRef, kCluster>(dev, 0, threads, stream);
+    if (most <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int blocks = min(min(needed, most), kFlags);
+    void* args[] = {&p};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(fn), dim3(blocks), dim3(threads), args,
+        0, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return cache[dev];
-}
-
-template <bool kRef>
-int launch(const Sweep& p, cudaStream_t stream) {
-  const int most = resident_blocks<kRef>();
-  if (most <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const long long items = static_cast<long long>(kRef ? p.d0 : 1) * p.n * p.n;
-  long long grid = (items + kThreads - 1) / kThreads;
-  if (grid > most) grid = most;
-  Sweep arg = p;
-  void* args[] = {&arg};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(light_sweep_kernel<kRef>),
-      dim3(static_cast<unsigned>(grid)), dim3(kThreads), args, 0, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// density [n, n, n] -> out [n, n, n]; axis, flip: the light's major tex
-// axis and sign; ref: X.3 (1) or X.4 (0); d0, w, the box (xlo..xhi,
-// ylo..yhi in slab x/y, slabs 0..kmax): X.3 only
-extern "C" int dxv_light_sweep(const void* density, void* out, int n, int ref,
-                               int axis, int flip, int d0, float w,
-                               float shift_x, float shift_y, float absl,
-                               int xlo, int xhi, int ylo, int yhi, int kmax,
-                               void* stream) {
+int run(const void* density, void* out, void* scratch, int n, int ref,
+        int axis, int flip, int d0, float w, float shift_x, float shift_y,
+        float absl, int xlo, int xhi, int ylo, int yhi, int kmax,
+        const Plan& pl, void* stream) {
   if (n <= 0) return 0;
   // a step's voxels are indexed with 32-bit ints
   if (axis < 0 || axis > 2 || (ref && d0 < 1) ||
-      static_cast<long long>(ref ? d0 : 1) * n * n > INT_MAX) {
+      static_cast<long long>(ref ? d0 : 1) * n * n > INT_MAX ||
+      pl.threads < 32 || pl.threads % 32 ||
+      pl.threads > (pl.form == kClusterForm ? 1024 : 256) ||
+      (pl.form != kFlagsForm && pl.form != kClusterForm)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long stride[3] = {static_cast<long long>(n) * n, n, 1};
@@ -287,8 +549,10 @@ extern "C" int dxv_light_sweep(const void* density, void* out, int n, int ref,
   Sweep p;
   p.density = static_cast<const float*>(density);
   p.out = static_cast<float*>(out);
+  p.bar = static_cast<unsigned*>(scratch);
+  p.flags = p.bar == nullptr ? nullptr : p.bar + 32;
   p.n = n;
-  p.d0 = ref ? d0 : 1;
+  p.per = ref ? d0 : 1;
   p.flip = flip;
   p.sk = stride[axis];
   p.sx = stride[rest0];
@@ -303,5 +567,49 @@ extern "C" int dxv_light_sweep(const void* density, void* out, int n, int ref,
   p.yhi = yhi;
   p.kmax = kmax;
   const auto s = static_cast<cudaStream_t>(stream);
-  return ref ? launch<true>(p, s) : launch<false>(p, s);
+  if (pl.form == kClusterForm) {
+    return ref ? launch<true, true>(p, pl.threads, s)
+               : launch<false, true>(p, pl.threads, s);
+  }
+  return ref ? launch<true, false>(p, pl.threads, s)
+             : launch<false, false>(p, pl.threads, s);
+}
+
+}  // namespace
+
+// density [n, n, n] -> out [n, n, n]; scratch: 32 + 4,096 zeroed 32-bit
+// words per device and stream (the flags form's end barrier word, then its
+// flags; left as found); axis, flip: the light's major tex axis and sign;
+// ref: X.3 (1) or X.4 (0); d0, w, the box (xlo..xhi, ylo..yhi in slab x/y,
+// slabs 0..kmax): X.3 only. The form is the rule's (plan_for).
+extern "C" int dxv_light_sweep(const void* density, void* out, void* scratch,
+                               int n, int ref, int axis, int flip, int d0,
+                               float w, float shift_x, float shift_y,
+                               float absl, int xlo, int xhi, int ylo, int yhi,
+                               int kmax, void* stream) {
+  const Plan pl = plan_for(n, ref, d0, -1);
+  return run(density, out, scratch, n, ref, axis, flip, d0, w, shift_x,
+             shift_y, absl, xlo, xhi, ylo, yhi, kmax, pl, stream);
+}
+
+// the same in a given form (0 flags, 1 cluster) and threads per block (the
+// forms' sweeps)
+extern "C" int dxv_light_sweep_variant(
+    const void* density, void* out, void* scratch, int n, int ref, int axis,
+    int flip, int d0, float w, float shift_x, float shift_y, float absl,
+    int xlo, int xhi, int ylo, int yhi, int kmax, int form, int threads,
+    void* stream) {
+  const Plan pl = {form, threads};
+  return run(density, out, scratch, n, ref, axis, flip, d0, w, shift_x,
+             shift_y, absl, xlo, xhi, ylo, yhi, kmax, pl, stream);
+}
+
+// the rule's plan for an n^3 field (form -1: its choice of form) ->
+// plan[2]: form, threads
+extern "C" int dxv_light_sweep_plan(int n, int ref, int d0, int form,
+                                    int* plan) {
+  const Plan pl = plan_for(n, ref, d0, form);
+  plan[0] = pl.form;
+  plan[1] = pl.threads;
+  return 0;
 }

@@ -85,10 +85,15 @@ _SIGNATURES = {
     # density, out, n, n_light, lss, step or light point x, y, z, point,
     # stream
     "dxv_light_volume": (_P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
-    # density, out, n, ref, axis, flip, d0, w, shift x, shift y, absl, xlo,
-    # xhi, ylo, yhi, kmax, stream
-    "dxv_light_sweep": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
-                        _I, _I, _I, _P),
+    # density, out, scratch, n, ref, axis, flip, d0, w, shift x, shift y,
+    # absl, xlo, xhi, ylo, yhi, kmax, stream
+    "dxv_light_sweep": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I,
+                        _I, _I, _I, _I, _P),
+    # the same, then form, threads, stream
+    "dxv_light_sweep_variant": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                                _F, _I, _I, _I, _I, _I, _I, _I, _P),
+    # n, ref, d0, form (-1: the rule's), int[2] out
+    "dxv_light_sweep_plan": (_I, _I, _I, _I, _P),
 }
 
 

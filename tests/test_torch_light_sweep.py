@@ -7,9 +7,15 @@ Their CUDA kernel (csrc/light_sweep.cu) runs only on the card
 kernel's index arithmetic (the natural [N, N, N] layout read through the
 slab order's strides and reflection, reversed slab r reading r-d0 and
 r-d0-1 of its own output, the clamped density taps, the host's box of
-texels inside the volume) is held against the plain versions within 1e-6;
-the plain versions are held against the JAX package by
-tests/test_torch_render.py::test_light_sweeps_match_jax on the same lights.
+texels inside the volume) is held against the plain versions within 1e-6,
+slab by slab and in the kernel's schedule: its blocks, each running its
+steps as soon as the blocks it found as its producers have posted theirs
+(the flags form; the cluster form waits for all), so that a producer range
+that missed a writer reads a slab before it is written. The producer
+ranges are checked without a volume at 256^3 too, and the form rule
+(``sweep_plan``) by its choices. The plain versions are held against the
+JAX package by tests/test_torch_render.py::test_light_sweeps_match_jax on
+the same lights.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 from dxrvoxelizer_tpu_torch.core import pipeline
 from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw
 from tests.test_torch_render import LIGHTS
-from tests.torch_cases import SWEEP_LIGHTS
+from tests.torch_cases import SWEEP_LIGHTS, cell_light, d0_light
 
 torch.set_num_threads(2)
 
@@ -169,24 +175,293 @@ def mirror_dir(dens: np.ndarray, light) -> np.ndarray:
     return out.reshape(n, n, n)
 
 
+# ---- the kernel's schedule (csrc/light_sweep.cu: forms, producers) ---------
+
+def _voxel_at(n, per, minor_y, v):
+    """csrc/light_sweep.cu voxel_at: a step's voxel ids -> (j, x, y), along
+    slab y where it is the layout's minor axis (or X.4), else along the
+    step's slabs."""
+    if minor_y or per == 1:
+        j, xy = np.divmod(v, n * n)
+    else:
+        xy, j = np.divmod(v, per)
+    x, y = np.divmod(xy, n)
+    return j, x, y
+
+
+def _voxel_index(n, per, minor_y, j, x, y):
+    """voxel_at's inverse."""
+    xy = x * n + y
+    return j * n * n + xy if (minor_y or per == 1) else xy * per + j
+
+
+def _first_tap(x, shift):
+    """The first tap of a texel's coordinate: floor of the float32
+    x + shift."""
+    return np.floor(np.asarray(x, F32) + F32(shift)).astype(np.int64)
+
+
+def sweep_blocks(n, ref, d0, plan, resident):
+    """csrc/light_sweep.cu launch: as many blocks as a step's voxels need (a
+    voxel a thread), at most 16 for a cluster, at most ``resident`` (the
+    card's occupancy) and 4,096 (its flags) for the flags form."""
+    need = -(-(d0 if ref else 1) * n * n // plan.threads)
+    if plan.form == rw.CLUSTER:
+        return min(need, rw.CLUSTER_BLOCKS)
+    return min(need, resident, rw.SCRATCH_WORDS - 32)
+
+
+class Schedule:
+    """A field's launch as csrc/light_sweep.cu runs it: ``blocks`` blocks of
+    ``plan.threads``, block b holding voxels b*chunk .. (b+1)*chunk-1 of
+    every step, and per block the range of its producers (``producers``:
+    the blocks whose voxels its carry taps read; the cluster form waits
+    for all)."""
+
+    def __init__(self, n, ref, axis, flip, d0, shift, plan, resident):
+        self.n, self.ref, self.per = n, ref, (d0 if ref else 1)
+        self.count = self.per * n * n
+        self.steps = -(-n // self.per)
+        self.minor_y = _layout(n, axis, flip)[2] == 1
+        self.plan = plan
+        self.blocks = sweep_blocks(n, ref, d0, plan, resident)
+        chunk = -(-self.count // self.blocks)
+        v = np.arange(self.count)
+        self.owner = v // chunk
+        j, x, y = _voxel_at(n, self.per, self.minor_y, v)
+        writers = []  # [voxels, taps] block writing each tap (-1: none)
+        for jq in ((j, np.where(j > 0, j - 1, self.per - 1)) if ref
+                   else (np.zeros_like(j),)):
+            for dx in (0, 1):
+                for dy in (0, 1):
+                    i = _first_tap(x, shift[0]) + dx
+                    jj = _first_tap(y, shift[1]) + dy
+                    inside = (i >= 0) & (i < n) & (jj >= 0) & (jj < n)
+                    w = _voxel_index(n, self.per, self.minor_y, jq,
+                                     np.clip(i, 0, n - 1),
+                                     np.clip(jj, 0, n - 1))
+                    writers.append(np.where(inside, w // chunk, -1))
+        self.writers = np.stack(writers, axis=1)
+        if plan.form == rw.CLUSTER:
+            self.lo = np.zeros(self.blocks, np.int64)
+            self.hi = np.full(self.blocks, self.blocks - 1)
+            return
+        big = np.iinfo(np.int64).max
+        lo, hi = np.full(self.blocks, big), np.full(self.blocks, -1)
+        has = self.writers >= 0
+        np.minimum.at(lo, np.repeat(self.owner, has.sum(1)),
+                      self.writers[has])
+        np.maximum.at(hi, np.repeat(self.owner, has.sum(1)),
+                      self.writers[has])
+        self.lo, self.hi = lo, hi
+
+    def covers(self) -> int:
+        """Every tap's writer lies in its reader's producer range -> the
+        taps checked."""
+        lo, hi = self.lo[self.owner], self.hi[self.owner]
+        w = self.writers
+        ok = (w < 0) | ((w >= lo[:, None]) & (w <= hi[:, None]))
+        assert ok.all(), np.argwhere(~ok)[:5]
+        return int((w >= 0).sum())
+
+
+def _voxels(out, flat, ref, n, layout, d0, shift, w, absl, box, k, x, y):
+    """The kernel's ref_voxel / dir_voxel on arrays of voxels (slab k,
+    texel (x, y)), reading the field so far from ``out``."""
+    slab, sx, sy = layout
+    cx = x.astype(F32) + F32(shift[0])
+    cy = y.astype(F32) + F32(shift[1])
+    lx, ly = _taps(cx, n), _taps(cy, n)
+    corr = F32(1) - _row_sum(lx) * _row_sum(ly)
+    if not ref:
+        first = k == n - 1
+        s1 = slab(np.minimum(k + 1, n - 1))
+
+        def carry(i, j):
+            o = s1 + i * sx + j * sy
+            return np.where(first, F32(1),
+                            out[o] * _attenuation(flat[o], absl))
+
+        return _resample(lx, ly, carry, n) + corr
+    w, omw = F32(w), F32(1) - F32(w)
+    xlo, xhi, ylo, yhi, kmax = box
+    inside = (x >= xlo) & (x <= xhi) & (y >= ylo) & (y <= yhi) & (k <= kmax)
+    top = F32(n - 1)
+    dx, dy = _taps(np.clip(cx, 0, top), n), _taps(np.clip(cy, 0, top), n)
+    z0, z1 = slab(np.minimum(k + d0, n - 1)), slab(np.minimum(k + d0 + 1,
+                                                              n - 1))
+    att = _attenuation(_resample(
+        dx, dy, lambda i, j: (flat[z0 + i * sx + j * sy] * omw
+                              + flat[z1 + i * sx + j * sy] * w), n), absl)
+    r = n - 1 - k
+    la, lb = r - d0 >= 0, r - d0 - 1 >= 0
+
+    def carry(i, j):
+        o = i * sx + j * sy
+        a = np.where(la, out[z0 + o], F32(1))
+        b = np.where(lb, out[z1 + o], F32(1))
+        return a * omw + b * w
+
+    lres = _resample(lx, ly, carry, n)
+    return np.where(inside, att * (lres + corr), F32(1))
+
+
+def scheduled_field(dens, ref, axis, flip, d0, shift, w, absl, box, plan,
+                    resident):
+    """The field built as the launch builds it: each block runs its steps
+    as soon as its producers' flags allow, the most advanced ready block
+    first (a block that read a slab before its writer wrote it reads NaN).
+    Returns the field and the schedule."""
+    n = dens.shape[0]
+    sch = Schedule(n, ref, axis, flip, d0, shift, plan, resident)
+    layout = _layout(n, axis, flip)
+    slab, sx, sy = layout
+    flat, out = dens.reshape(-1), np.full(n ** 3, np.nan, F32)
+    ids = [np.nonzero(sch.owner == b)[0] for b in range(sch.blocks)]
+    flags = np.zeros(sch.blocks, np.int64)
+    while (flags < sch.steps).any():
+        ready = [b for b in range(sch.blocks) if flags[b] < sch.steps and (
+            sch.lo[b] > sch.hi[b]
+            or flags[sch.lo[b]:sch.hi[b] + 1].min() >= flags[b])]
+        b = max(ready, key=lambda q: (flags[q], -q))
+        s = flags[b]
+        j, x, y = _voxel_at(n, sch.per, sch.minor_y, ids[b])
+        r = s * sch.per + j
+        keep = r < n
+        k, x, y = n - 1 - r[keep], x[keep], y[keep]
+        val = _voxels(out, flat, ref, n, layout, d0, shift, w, absl, box,
+                      k, x, y)
+        assert not np.isnan(val).any(), f"block {b} step {s} read too early"
+        at = slab(k) + x * sx + y * sy
+        assert np.isnan(out[at]).all(), "a voxel written twice"
+        out[at] = val
+        flags[b] += 1
+    assert not np.isnan(out).any()
+    return out.reshape(n, n, n), sch
+
+
+def _statics(light, n, ref):
+    """(axis, flip, d0, shift, w, absl, box) as the wrappers pass them."""
+    lt = np.asarray(light, F32)
+    if ref:
+        axis, flip, d0 = rw.light_ref_statics(lt, n)
+        st = rw.ref_statics(rw._light_key(lt), n, axis, flip, d0)
+        return axis, flip, d0, st.shift, st.w, st.absl, st.box
+    axis, flip = rw.light_statics(lt)
+    sx, sy, absl = rw._dir_statics(rw._light_key(lt), n, axis, flip)
+    return axis, flip, 1, (sx, sy), 0.0, absl, (0, n - 1, 0, n - 1, n - 1)
+
+
+# resident blocks of the H100 (132 SMs) at 4 blocks an SM, and a third of
+# what a step needs (every thread several voxels: producers wrap around)
+RESIDENT = 132 * 4
+
+
+def _schedule(schedule, n, ref, d0):
+    """None: slab by slab; "rule": the kernel's plan and the H100's
+    residency; "flags": the flags form in 64-thread blocks, a third of the
+    blocks a step needs resident."""
+    if schedule == "slab":
+        return None, 0
+    if schedule == "rule":
+        return rw.sweep_plan(n, ref, d0), RESIDENT
+    plan = rw.SweepPlan(rw.FLAGS, 64)
+    return plan, -(-(d0 if ref else 1) * n * n // 64 // 3)
+
+
 @pytest.mark.parametrize("light", ALL_LIGHTS)
 @pytest.mark.parametrize("n", [32, 64])
 @pytest.mark.parametrize("sweep", ["ref", "dir"])
-def test_kernel_index_mirror_matches_plain(sweep, n, light):
-    """The kernel's index arithmetic (numpy) against the plain version,
-    within 1e-6, on every axis, flip and window d0 = 1..3."""
+@pytest.mark.parametrize("schedule", ["slab", "rule", "flags"])
+def test_kernel_index_mirror_matches_plain(schedule, sweep, n, light):
+    """The kernel's index arithmetic (numpy), slab by slab and in its
+    schedule (the rule's form, and the flags form with several voxels a
+    thread), against the plain version, within 1e-6, on every axis, flip
+    and window d0 = 1..3."""
     dens = _density(n)
     lt = np.asarray(light, F32)
-    if sweep == "ref":
-        axis, flip, d0 = rw.light_ref_statics(lt, n)
-        want = rw.light_sweep_ref_plain(torch.from_numpy(dens), lt, n, axis,
-                                        flip, d0)
-        got = mirror_ref(dens, light)
+    ref = sweep == "ref"
+    statics = _statics(light, n, ref)
+    plan, resident = _schedule(schedule, n, ref, statics[2])
+    if ref:
+        want = rw.light_sweep_ref_plain(torch.from_numpy(dens), lt, n,
+                                        *statics[:3])
+        got = (mirror_ref(dens, light) if plan is None else
+               scheduled_field(dens, True, *statics, plan, resident)[0])
     else:
-        axis, flip = rw.light_statics(lt)
-        want = rw.light_sweep_plain(torch.from_numpy(dens), lt, n, axis, flip)
-        got = mirror_dir(dens, light)
+        want = rw.light_sweep_plain(torch.from_numpy(dens), lt, n,
+                                    *statics[:2])
+        got = (mirror_dir(dens, light) if plan is None else
+               scheduled_field(dens, False, *statics, plan, resident)[0])
     np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=TOL_MIRROR)
+
+
+CELL_CONFIGS = ("dragon-64-hq", "dragon-256-raystab-deform")
+
+
+@pytest.mark.parametrize("sweep", ["ref", "dir"])
+def test_producers_cover_every_tap(sweep):
+    """Without a volume: every carry tap's writer lies in its reader's
+    producer range, in the rule's form and in the flags form with several
+    voxels a thread, for the cells' light at 64 and 256^3 and lights of
+    every axis and sign with d0 = 8..13 at 256^3 (X.4: every axis and
+    sign)."""
+    ref = sweep == "ref"
+    cases = [(n, cell_light(c)) for c in CELL_CONFIGS for n in (64, 256)]
+    if ref:
+        cases += [(256, d0_light(a, sg, d, 256)) for a in range(3)
+                  for sg in (1.0, -1.0) for d in range(8, 14, 5 if sg < 0
+                                                       else 1)]
+    else:
+        cases += [(256, d0_light(a, sg, 8, 256)) for a in range(3)
+                  for sg in (1.0, -1.0)]
+    d0s = set()
+    for n, lt in cases:
+        statics = _statics(lt, n, ref)
+        axis, flip, d0, shift = statics[:4]
+        d0s.add(d0)
+        for plan, resident in ((rw.sweep_plan(n, ref, d0), RESIDENT),
+                               (rw.SweepPlan(rw.FLAGS, 256), 60)):
+            sch = Schedule(n, ref, axis, flip, d0, shift, plan, resident)
+            assert sch.covers() > 0
+    assert d0s == ({3, 12} | set(range(8, 14)) if ref else {1})
+
+
+def test_cells_light():
+    """The cells' light: d0 = 3 at 64^3 and 12 at 256^3, marching along the
+    layout's minor axis."""
+    for c in CELL_CONFIGS:
+        lt = np.asarray(cell_light(c), F32)
+        for n, d0 in ((64, 3), (256, 12)):
+            axis, _, got = rw.light_ref_statics(lt, n)
+            assert (axis, got) == (2, d0)
+
+
+@pytest.mark.parametrize("n", [32, 64, 128, 160, 256])
+def test_sweep_plan_rule(n):
+    """The form rule (mirror of csrc/light_sweep.cu plan_for) at 32-256^3:
+    a cluster of 16 blocks, a voxel a thread, while a step has at most
+    2,048 voxels; above, the flags form in 128-thread blocks up to 16,384
+    voxels a step, else 256; a forced cluster takes up to 1,024 threads."""
+    for d0 in range(1, 14):
+        for ref in (True, False):
+            count = (d0 if ref else 1) * n * n
+            plan = rw.sweep_plan(n, ref, d0)
+            if count <= 2048:
+                assert plan.form == rw.CLUSTER
+                assert plan.threads * 16 >= count > (plan.threads - 32) * 16
+                assert sweep_blocks(n, ref, d0, plan, RESIDENT) <= 16
+            else:
+                assert plan == rw.SweepPlan(
+                    rw.FLAGS, 128 if count <= 16384 else 256)
+            forced = rw.sweep_plan(n, ref, d0, rw.CLUSTER)
+            assert forced.form == rw.CLUSTER and 32 <= forced.threads <= 1024
+            assert forced.threads % 32 == 0
+            assert rw.sweep_plan(n, ref, d0, rw.FLAGS).form == rw.FLAGS
+    # the cells' fields: X.3 at 64^3 (12,288 voxels a step) and 256^3
+    assert rw.sweep_plan(64, True, 3) == rw.SweepPlan(rw.FLAGS, 128)
+    assert rw.sweep_plan(256, True, 12) == rw.SweepPlan(rw.FLAGS, 256)
+    assert rw.sweep_plan(32, True, 1) == rw.SweepPlan(rw.CLUSTER, 64)
 
 
 def test_ref_box_is_the_plain_mask():

@@ -412,6 +412,30 @@ SWEEP_LIGHTS = [(-40.0, 5.0, -3.0), (7.0, 4.0, -5.0), (-7.0, -5.0, 4.0),
                 (-5.0, -7.0, 4.0), (3.0, 2.0, 30.0), (-5.0, 6.0, -30.0)]
 
 
+def cell_light(config: str) -> tuple:
+    """The local-space light of a configuration of BENCHMARK.json, as its
+    cell's scene computes it (the torus placed as benchmark/run.py places
+    it; the light does not move with the camera or the wobble)."""
+    import json
+
+    from benchmark.run import (ROOT, WORLD_CENTER, WORLD_SCALE, torus_mesh)
+    from dxrvoxelizer_tpu_torch.utils import dxmath as dxm
+    from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+
+    c = json.loads((ROOT / "BENCHMARK.json").read_text())["configs"][config]
+    assert c["settings"]["mesh"] == "torus", config
+    cfg = VoxelizerConfig(**{**c["settings"], "mesh": "torus.obj"})
+    v, _ = torus_mesh(tuple(c["torus_segments"]))
+    v = (v * WORLD_SCALE + WORLD_CENTER).astype(np.float32)
+    lo, hi = v.min(0), v.max(0)
+    bound = np.array([*((lo + hi) * 0.5), float(np.max(hi - lo)) * 0.5],
+                     np.float32)
+    world = dxm.world_matrix(bound, np.asarray(cfg.pos_scale, np.float32))
+    light = dxm.transform_coord(np.asarray(cfg.light_pt, np.float32),
+                                dxm.inverse(world))
+    return tuple(float(x) for x in np.asarray(light, np.float32))
+
+
 def d0_light(axis: int, sign: float, d0: int, n: int) -> tuple:
     """A light whose reference step at ``n`` has major tex axis ``axis``
     (the direction's sign along it ``sign``) and window ``d0``: the major
