@@ -58,11 +58,11 @@
 //     holds one run of each step's voxels, so the range stays short). Steps
 //     overlap across the grid instead of each ending in a barrier. The
 //     flags live in scratch that the wrapper allocates once per device and
-//     stream; one grid barrier at the end (a word of the same scratch, by
-//     sense reversal: thread 0 of each block adds 1, block 0 adds
-//     2^31 - (blocks - 1), the top bit flips once all have arrived) lets
-//     each block zero its flag, so the scratch is left as found and a
-//     frame gains no device op. A wait that never ends traps.
+//     stream: each flag holds the launch's epoch (high word) and the steps
+//     done (low word), so a flag left by an earlier launch reads as none
+//     done and nothing is reset; the last block to finish (a count in the
+//     same scratch) advances the epoch, all on the device, so a frame gains
+//     no device op. A wait that never ends traps.
 // - FP32 throughout; every operation is an explicitly rounded intrinsic in
 //   the plain version's order (z-mix products then sum; x taps, then y
 //   taps, each as product, product, sum), so nvcc contracts nothing.
@@ -81,6 +81,8 @@ constexpr int kMaxDevices = 64;
 constexpr int kMaxCluster = 16;       // blocks (beyond 8: non-portable)
 constexpr int kClusterVoxels = 2048;  // the cluster form's largest step
 constexpr int kFlags = 4096;          // blocks of the flags form, at most
+// scratch (32-bit words): the epoch, the count of blocks done, then from
+// word 32 a 64-bit flag a block
 constexpr long long kPatience = 1LL << 24;  // polls before a wait traps
 
 enum Form { kFlagsForm = 0, kClusterForm = 1 };
@@ -88,8 +90,8 @@ enum Form { kFlagsForm = 0, kClusterForm = 1 };
 struct Sweep {
   const float* density;
   float* out;
-  unsigned* bar;    // the end's grid barrier word
-  unsigned* flags;  // steps done, a flag a block
+  unsigned* epoch;  // the launch's epoch; then the count of blocks done
+  unsigned long long* flags;  // epoch << 32 | steps done, a flag a block
   int n;
   int per;    // slabs per step: d0 (X.3), 1 (X.4)
   int flip;   // slab k lies at n-1-k along the axis
@@ -282,7 +284,10 @@ __device__ void producers(const Sweep& p, int count, int chunk, int* lo,
       }
     }
   }
-  if (b_hi >= 0) {
+  // a warp's range first: one shared atomic a warp
+  b_lo = __reduce_min_sync(0xffffffffu, b_lo);
+  b_hi = __reduce_max_sync(0xffffffffu, b_hi);
+  if ((threadIdx.x & 31) == 0 && b_hi >= 0) {
     atomicMin(&s_lo, b_lo);
     atomicMax(&s_hi, b_hi);
   }
@@ -291,17 +296,18 @@ __device__ void producers(const Sweep& p, int count, int chunk, int* lo,
   *hi = s_hi;
 }
 
-// wait until blocks lo..hi have done `steps` steps (acquire), a thread a
-// flag; a wait that never ends traps instead of hanging
+// wait until blocks lo..hi have posted `steps` steps of this launch
+// (acquire), a thread a flag; a wait that never ends traps instead of
+// hanging
 __device__ __forceinline__ void flags_wait(const Sweep& p, int lo, int hi,
-                                           unsigned steps) {
+                                           unsigned long long steps) {
   if (lo <= hi) {
     for (int b = lo + threadIdx.x; b <= hi; b += blockDim.x) {
-      unsigned v;
+      unsigned long long v;
       long long polls = 0;
       do {
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                     : "=r"(v) : "l"(p.flags + b) : "memory");
+        asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                     : "=l"(v) : "l"(p.flags + b) : "memory");
         if (++polls > kPatience) __trap();
       } while (v < steps);
     }
@@ -309,32 +315,23 @@ __device__ __forceinline__ void flags_wait(const Sweep& p, int lo, int hi,
   __syncthreads();
 }
 
-// the block's stores, then its count of steps done
-__device__ __forceinline__ void flags_post(const Sweep& p, unsigned steps) {
+// the block's stores, then its steps done (epoch << 32 | steps)
+__device__ __forceinline__ void flags_post(const Sweep& p,
+                                           unsigned long long steps) {
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
-    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
-                 :: "l"(p.flags + blockIdx.x), "r"(steps) : "memory");
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+                 :: "l"(p.flags + blockIdx.x), "l"(steps) : "memory");
   }
 }
 
-// the end's grid barrier: every block has done its last wait
-__device__ __forceinline__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    __threadfence();
-    const unsigned token = atomicAdd(bar, inc);
-    unsigned v;
-    long long polls = 0;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(v) : "l"(bar) : "memory");
-      if (++polls > kPatience) __trap();
-    } while (((v ^ token) & 0x80000000u) == 0);
+// the last block to finish advances the epoch (every block has read it)
+__device__ __forceinline__ void flags_done(const Sweep& p) {
+  if (threadIdx.x == 0 && atomicAdd(p.epoch + 1, 1u) == gridDim.x - 1) {
+    p.epoch[1] = 0;
+    p.epoch[0] += 1;
   }
-  __syncthreads();
 }
 
 // ---- the cluster form -------------------------------------------------------
@@ -360,13 +357,17 @@ __global__ void __launch_bounds__(kCluster ? 1024 : 256, kCluster ? 1 : 6)
   const int chunk = (count + gridDim.x - 1) / gridDim.x;
   const int end = min(count, (blockIdx.x + 1) * chunk);
   int lo = 0, hi = -1;
-  if (!kCluster) producers<kRef>(p, count, chunk, &lo, &hi);
+  unsigned long long tag = 0;  // this launch's epoch << 32
+  if (!kCluster) {
+    tag = static_cast<unsigned long long>(__ldcg(p.epoch)) << 32;
+    producers<kRef>(p, count, chunk, &lo, &hi);
+  }
   for (int s = 0; s < steps; ++s) {
     if (s > 0) {
       if (kCluster) {
         cluster_wait();
       } else {
-        flags_wait(p, lo, hi, s);
+        flags_wait(p, lo, hi, tag | s);
       }
     }
     for (int v = blockIdx.x * chunk + threadIdx.x; v < end;
@@ -383,15 +384,11 @@ __global__ void __launch_bounds__(kCluster ? 1024 : 256, kCluster ? 1 : 6)
       if (kCluster) {
         cluster_arrive();
       } else {
-        flags_post(p, s + 1);
+        flags_post(p, tag | (s + 1));
       }
     }
   }
-  if (!kCluster) {
-    // no block waits any more: leave the flags as found (zero)
-    grid_barrier(p.bar);
-    if (threadIdx.x == 0) p.flags[blockIdx.x] = 0;
-  }
+  if (!kCluster) flags_done(p);
 }
 
 // ---- the plan --------------------------------------------------------------
@@ -517,7 +514,7 @@ int launch(Sweep& p, int threads, cudaStream_t stream) {
     const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, p);
     if (e != cudaSuccess) return static_cast<int>(e);
   } else {
-    if (p.bar == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (p.epoch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const int most = fit_for<kRef, kCluster>(dev, 0, threads, stream);
     if (most <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
     const int blocks = min(min(needed, most), kFlags);
@@ -549,8 +546,10 @@ int run(const void* density, void* out, void* scratch, int n, int ref,
   Sweep p;
   p.density = static_cast<const float*>(density);
   p.out = static_cast<float*>(out);
-  p.bar = static_cast<unsigned*>(scratch);
-  p.flags = p.bar == nullptr ? nullptr : p.bar + 32;
+  p.epoch = static_cast<unsigned*>(scratch);
+  p.flags = p.epoch == nullptr
+                ? nullptr
+                : reinterpret_cast<unsigned long long*>(p.epoch + 32);
   p.n = n;
   p.per = ref ? d0 : 1;
   p.flip = flip;
@@ -577,9 +576,9 @@ int run(const void* density, void* out, void* scratch, int n, int ref,
 
 }  // namespace
 
-// density [n, n, n] -> out [n, n, n]; scratch: 32 + 4,096 zeroed 32-bit
-// words per device and stream (the flags form's end barrier word, then its
-// flags; left as found); axis, flip: the light's major tex axis and sign;
+// density [n, n, n] -> out [n, n, n]; scratch: 32 + 2 * 4,096 zeroed
+// 32-bit words per device and stream, 8-byte aligned (the flags form's
+// epoch and count, then its flags; reused by every launch on the stream); axis, flip: the light's major tex axis and sign;
 // ref: X.3 (1) or X.4 (0); d0, w, the box (xlo..xhi, ylo..yhi in slab x/y,
 // slabs 0..kmax): X.3 only. The form is the rule's (plan_for).
 extern "C" int dxv_light_sweep(const void* density, void* out, void* scratch,

@@ -148,7 +148,8 @@ def _dir_statics(light: tuple, n: int, axis: int,
 FLAGS, CLUSTER = 0, 1  # a grid synced by per-block flags; one cluster
 CLUSTER_BLOCKS = 16  # blocks of the cluster form (beyond 8: non-portable)
 CLUSTER_VOXELS = 2048  # the cluster form's largest step
-SCRATCH_WORDS = 32 + 4096  # the end barrier's word, then a flag a block
+FLAGS_MAX = 4096  # blocks of the flags form, a 64-bit flag each
+SCRATCH_WORDS = 32 + 2 * FLAGS_MAX  # the epoch and a count, then the flags
 
 
 @dataclass(frozen=True)
@@ -181,7 +182,8 @@ def sweep_plan(n: int, ref: bool, d0: int, form: int | None = None
 @functools.lru_cache(maxsize=None)
 def _scratch(device: torch.device, stream: int) -> torch.Tensor:
     """The flags form's scratch: SCRATCH_WORDS zeroed words per device and
-    stream, allocated once (the kernel leaves them as it found them)."""
+    stream, allocated once (the kernel tags its flags with an epoch it
+    advances itself, so nothing is reset between launches)."""
     return torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=device)
 
 

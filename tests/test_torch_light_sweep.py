@@ -208,7 +208,7 @@ def sweep_blocks(n, ref, d0, plan, resident):
     need = -(-(d0 if ref else 1) * n * n // plan.threads)
     if plan.form == rw.CLUSTER:
         return min(need, rw.CLUSTER_BLOCKS)
-    return min(need, resident, rw.SCRATCH_WORDS - 32)
+    return min(need, resident, rw.FLAGS_MAX)
 
 
 class Schedule:
