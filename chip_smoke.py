@@ -195,16 +195,14 @@ the CUDA toolkit. Phases, one line each:
     for the queue kernel, the march and the resolve (folded into the
     kernels' ``max_abs_err`` below).
 22b. the light recurrences' kernel (``csrc/light_sweep.cu``): X.3 (the
-    ``-hq`` reference step) and X.4 (the ``-fast`` per-slab sweep), in the
-    form the rule chooses and in each form it can choose (a thread block
-    cluster; a grid whose blocks wait on their producers' flags;
-    ``ops/raymarch_warp.sweep_plan``, whose C twin must agree), against their plain versions at 32, 64, 128, 160 and
-    256^3 for lights of every major axis and sign with the reference step's
-    windows d0 = 1..13 and each cell's own light, and on the 64^3 and 256^3
-    frames' densities (within 1e-5); at those frames' inputs each form's and
-    the chosen one's ms, device us, us per step and roofline share, the
-    bounds and the plain versions' times, and with ``--parent TREE`` the
-    kernel of TREE's ``csrc/light_sweep.cu`` in turns with the chosen one;
+    ``-hq`` reference step) and X.4 (the ``-fast`` per-slab sweep) against
+    their plain versions at 32, 64, 128, 160 and 256^3 for lights of every
+    major axis and sign with the reference step's windows d0 = 1..13 and
+    each cell's own light, and on the 64^3 and 256^3 frames' densities
+    (within 1e-5); at those frames' inputs their ms, device us, us per step
+    and roofline share, the bounds and the plain versions' times, and with
+    ``--parent TREE`` the kernel of TREE's ``csrc/light_sweep.cu`` in
+    turns with this tree's, 10 pairs, the first side alternating;
     each cell, as phase 23 runs it, with the sweep's plain version alone; the app's ``-fast``
     frames, in which X.4 must launch once per frame and X.3 never;
 23. the benchmark's cells (``BENCHMARK.json``), each as a subprocess,
@@ -1644,10 +1642,8 @@ def phase22(torch, root: Path) -> tuple[dict, dict]:
 # 160^3, 8-13 at 256^3) and the 256^3 windows of the d0 lights
 TOL_SWEEP = 1e-5
 SWEEP_GRIDS = (32, 64, 128, 160, 256)
-# the forms the kernel's rule can choose (ops/raymarch_warp.py FLAGS and
-# CLUSTER)
-SWEEP_FORMS = {"flags": 0, "cluster": 1}
 SWEEP_D0 = range(8, 14)
+SWEEP_PAIRS = 10  # pairs of the --parent turns
 # FP32 operations per voxel, counted from csrc/light_sweep.cu (additions,
 # subtractions, multiplications, floors; compares, min/max and selects not
 # counted). X.3, per voxel whose p+s lies in the box (the others only write
@@ -1679,22 +1675,19 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     """Phase 22b: the light recurrences' kernel (csrc/light_sweep.cu: X.3,
     the -hq reference step, and X.4, the -fast per-slab sweep).
 
-    a. Each instance, in the form the rule chooses and in each form it can
-       choose (SWEEP_FORMS: the flags form, the cluster form), against its plain
-       version on the card at 32, 64, 128, 160 and 256^3, on a seeded random
-       grid with fractional alphas, for lights of every major axis and sign
-       with the windows d0 = 1..13, the CPU tests' lights and each cell's
-       own light; and on the 64^3 and 256^3 frames' own densities and
-       lights. Over TOL_SWEEP fails; the largest error is printed per
-       instance, grid and form. The C rule (``dxv_light_sweep_plan``) must
-       give the Python mirror's plan for every grid, window and form.
+    a. Each instance against its plain version on the card at 32, 64, 128,
+       160 and 256^3, on a seeded random grid with fractional alphas, for
+       lights of every major axis and sign with the windows d0 = 1..13, the
+       CPU tests' lights and each cell's own light; and on the 64^3 and
+       256^3 frames' own densities and lights. Over TOL_SWEEP fails; the
+       largest error is printed per instance and grid.
     b. At the 64^3 and 256^3 frames' inputs: each instance's CUDA-event ms
        (INNER calls, median of REPS), device us per call (profiler), us per
-       step and roofline share, in each form and in the chosen one; its
-       bound, the plain version's ms and device us; with
-       ``state["parent"]`` (``--parent TREE``), TREE's kernel built alone
-       (``scripts/light_sweep_forms.parent_sweep``) and the chosen form in
-       turns, parent, change, change, parent.
+       step and roofline share; its bound, the plain version's ms and
+       device us; with ``state["parent"]`` (``--parent TREE``), TREE's
+       kernel built alone (``scripts/light_sweep_turns.parent_sweep``) and
+       this tree's in SWEEP_PAIRS pairs, the first side alternating, with
+       the pairs this tree's won (``pairs_in_turns``).
     c. Each cell of ``BENCHMARK.json`` run as phase 23 runs it, with the
        sweep's plain version alone (``use_kernel=False``): its p50, device
        busy ms, device ops, torch-op ms and idle share, against phase
@@ -1715,8 +1708,7 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     names = (ref_k.name, dir_k.name)
 
     def call(name, dens, light, n, **kw):
-        """One field: X.3 or X.4 (``use_kernel`` and ``variant`` pass
-        through)."""
+        """One field: X.3 or X.4 (``use_kernel`` passes through)."""
         lt = np.asarray(light, np.float32)
         if name == ref_k.name:
             return rw.light_sweep_ref(dens, lt, n, *rw.light_ref_statics(lt, n),
@@ -1726,20 +1718,6 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     def d0_of(name, light, n):
         return (rw.light_ref_statics(np.asarray(light, np.float32), n)[2]
                 if name == ref_k.name else 1)
-
-    def plans(name, light, n) -> dict:
-        """The chosen form (None: the launch's own rule) and each form, with
-        the mirror's plan; the C rule must agree."""
-        ref, d0 = name == ref_k.name, d0_of(name, light, n)
-        out = {"chosen": (None, rw.sweep_plan(n, ref, d0))}
-        for label, form in SWEEP_FORMS.items():
-            for f in (None, form):
-                c_plan = rw.sweep_plan_c(n, ref, d0, f)
-                check(c_plan == rw.sweep_plan(n, ref, d0, f),
-                      f"phase 22b: {name} {n}^3 d0 {d0} form {f}: the C "
-                      f"rule's plan {c_plan} is not the mirror's")
-            out[label] = (rw.sweep_plan(n, ref, d0, form),) * 2
-        return out
 
     # the cells: their runners (mesh, light, frames) and their lights
     spec = load_spec()
@@ -1768,16 +1746,13 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
         for light in lights:
             windows.add(rw.light_ref_statics(np.asarray(light, np.float32), n))
             for name in names:
+                got = call(name, dens, light, n)
                 want = call(name, dens, light, n, use_kernel=False)
-                for label, (variant, plan) in plans(name, light, n).items():
-                    got = call(name, dens, light, n, variant=variant)
-                    e = max_err(got, want)
-                    key = (name, n, label)
-                    err_at[key] = max(err_at.get(key, 0.0), e)
-                    errs[name] = max(errs[name], e)
-                    check(e <= TOL_SWEEP, f"phase 22b: {name} {n}^3 light "
-                          f"{light} {label} {plan} differs from its plain "
-                          f"version by {e:.3g}")
+                e = max_err(got, want)
+                err_at[(name, n)] = max(err_at.get((name, n), 0.0), e)
+                errs[name] = max(errs[name], e)
+                check(e <= TOL_SWEEP, f"phase 22b: {name} {n}^3 light "
+                      f"{light} differs from its plain version by {e:.3g}")
     check({d for _, _, d in windows} == set(range(1, 14))
           and {(a, f) for a, f, _ in windows}
           == {(a, f) for a in range(3) for f in (False, True)},
@@ -1785,19 +1760,17 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     frames = {GRID: state["64"], GRID_HI: state["256"]}
     for n, (dens, light) in frames.items():
         for name in names:
-            want = call(name, dens, light, n, use_kernel=False)
-            for label, (variant, plan) in plans(name, light, n).items():
-                e = max_err(call(name, dens, light, n, variant=variant), want)
-                err_at[(name, f"frame {n}", label)] = e
-                errs[name] = max(errs[name], e)
-                check(e <= TOL_SWEEP, f"phase 22b: {name} {label} {plan} on "
-                      f"the {n}^3 frame differs from its plain version by "
-                      f"{e:.3g}")
+            e = max_err(call(name, dens, light, n),
+                        call(name, dens, light, n, use_kernel=False))
+            err_at[(name, f"frame {n}")] = e
+            errs[name] = max(errs[name], e)
+            check(e <= TOL_SWEEP, f"phase 22b: {name} on the {n}^3 frame "
+                  f"differs from its plain version by {e:.3g}")
     print(f"phase 22b kernels against their plain versions (max|err|; "
           f"{len(lights)} lights at {SWEEP_GRIDS}^3, windows d0 "
           f"{sorted({d for _, _, d in windows})}, every axis and flip; the "
-          f"cells' lights {cell_lights}; each form, and the chosen one): " + ", ".join(
-              f"{k[0]} {k[1]} {k[2]} {v:.3g}" for k, v in err_at.items()))
+          f"cells' lights {cell_lights}): " + ", ".join(
+              f"{k[0]} {k[1]} {v:.3g}" for k, v in err_at.items()))
 
     # ---- 22b-b. times and bounds at the frames' inputs ---------------------
     def dev_us(fn):
@@ -1818,8 +1791,9 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     timing = {}
     parent = None
     if state.get("parent"):
-        parent = _load_script(Path(__file__).resolve().parent,
-                              "light_sweep_forms").parent_sweep(
+        turns = _load_script(Path(__file__).resolve().parent,
+                             "light_sweep_turns")
+        parent = turns.parent_sweep(
             Path(state["parent"]).resolve(),
             Path(tempfile.mkdtemp(prefix="dxv_parent_")))
     for n, (dens, light) in frames.items():
@@ -1833,31 +1807,17 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
             timing[(name, n)] = {
                 "ms": cuda_ms(fn), "dev_us": dev_us(fn),
                 "plain_ms": cuda_ms(plain), "plain_dev_us": dev_us(plain),
-                "bound": bnd}
-            for label, (variant, plan) in plans(name, light, n).items():
-                f = (lambda name=name, dens=dens, light=light, n=n,
-                     variant=variant: call(name, dens, light, n,
-                                           variant=variant))
-                us = dev_us(f)
-                print(f"phase 22b {name} {n}^3 frame, {label} form {plan}: "
-                      f"{cuda_ms(f):.4f} ms (CUDA events), "
-                      f"{dev_text(us, bnd[0])}{step_text(us, n_steps)}; "
-                      f"{card}")
+                "bound": bnd, "steps": n_steps}
             if parent is not None:
                 old = (lambda ref=name == ref_k.name, dens=dens, light=light,
                        n=n: parent(ref, dens, light, n))
                 e = max_err(old(), plain())
-                turns = []
-                for who, f in (("parent", old), ("change", fn),
-                               ("change", fn), ("parent", old)):
-                    us = dev_us(f)
-                    turns.append(f"{who} {cuda_ms(f):.4f} ms, "
-                                 f"{dev_text(us, bnd[0])}"
-                                 f"{step_text(us, n_steps)}")
-                print(f"phase 22b {name} {n}^3 frame in turns, the kernel of "
+                res = turns.pairs_in_turns(old, fn, bnd[0], n_steps,
+                                           SWEEP_PAIRS)
+                print(f"phase 22b {name} {n}^3 frame, the kernel of "
                       f"{state['parent']} (max|err| {e:.3g} against the plain "
-                      f"version) and the chosen form: " + "; ".join(turns)
-                      + f"; {card}")
+                      f"version) in turns with this tree's: {res['line']}; "
+                      f"{card}")
     for (name, n), t in timing.items():
         lt = np.asarray(frames[n][1], np.float32)
         statics = (rw.light_ref_statics(lt, n) if name == ref_k.name
@@ -1866,7 +1826,8 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
               f"{', d0' if name == ref_k.name else ''} {statics}): "
               f"{t['ms']:.4f} ms (CUDA events, {INNER} calls, median of "
               f"{REPS}); bound {t['bound'][0]:.6f} ms ({t['bound'][1]}); "
-              f"{dev_text(t['dev_us'], t['bound'][0])}; plain "
+              f"{dev_text(t['dev_us'], t['bound'][0])}"
+              f"{step_text(t['dev_us'], t['steps'])}; plain "
               f"{t['plain_ms']:.4f} ms, {dev_text(t['plain_dev_us'])}; "
               f"{card}")
 

@@ -44,25 +44,22 @@
 //   voxels are spread over the threads (a warp along slab y where it is the
 //   layout's minor axis, else along the step's d0 slabs, side by side in
 //   memory).
-// - Two forms, one rule (plan_for below, mirrored by
-//   ops/raymarch_warp.py::sweep_plan):
-//   - Cluster (a step of at most 2,048 voxels): one thread block cluster of
-//     up to 16 blocks, a voxel a thread, the cluster's hardware barrier
-//     between steps (barrier.cluster.arrive.release / wait.acquire).
-//   - Flags (larger steps): a cooperative grid of at most what stays
-//     resident, without a grid-wide barrier between steps. Each block
-//     publishes the steps it has done in a flag (its stores, a fence, the
-//     flag) and, before a step, waits only for its producers: the blocks
-//     whose voxels its carry taps read, a short range of blocks found once
-//     per launch from the taps' geometry (the shift is constant; a block
-//     holds one run of each step's voxels, so the range stays short). Steps
-//     overlap across the grid instead of each ending in a barrier. The
-//     flags live in scratch that the wrapper allocates once per device and
-//     stream: each flag holds the launch's epoch (high word) and the steps
-//     done (low word), so a flag left by an earlier launch reads as none
-//     done and nothing is reset; the last block to finish (a count in the
-//     same scratch) advances the epoch, all on the device, so a frame gains
-//     no device op. A wait that never ends traps.
+// - A cooperative grid of at most what stays resident, without a
+//   grid-wide barrier between steps. Each block publishes the steps it has
+//   done in a flag (its stores, a fence, the flag) and, before a step,
+//   waits only for its producers: the blocks whose voxels its carry taps
+//   read, a short range of blocks found once per launch from the taps'
+//   geometry (the shift is constant; a block holds one run of each step's
+//   voxels, so the range stays short). Steps overlap across the grid
+//   instead of each ending in a barrier. Blocks of 128 threads up to
+//   16,384 voxels a step, else 256 (threads_for below, mirrored by
+//   ops/raymarch_warp.py::sweep_threads). The flags live in scratch that
+//   the wrapper allocates once per device and stream: each flag holds the
+//   launch's epoch (high word) and the steps done (low word), so a flag
+//   left by an earlier launch reads as none done and nothing is reset; the
+//   last block to finish (a count in the same scratch) advances the epoch,
+//   all on the device, so a frame gains no device op. A wait that never
+//   ends traps.
 // - FP32 throughout; every operation is an explicitly rounded intrinsic in
 //   the plain version's order (z-mix products then sum; x taps, then y
 //   taps, each as product, product, sum), so nvcc contracts nothing.
@@ -78,14 +75,10 @@
 namespace {
 
 constexpr int kMaxDevices = 64;
-constexpr int kMaxCluster = 16;       // blocks (beyond 8: non-portable)
-constexpr int kClusterVoxels = 2048;  // the cluster form's largest step
-constexpr int kFlags = 4096;          // blocks of the flags form, at most
-// scratch (32-bit words): the epoch, the count of blocks done, then from
-// word 32 a 64-bit flag a block
+// blocks, at most: scratch (32-bit words) holds the epoch, the count of
+// blocks done, then from word 32 a 64-bit flag a block
+constexpr int kFlags = 4096;
 constexpr long long kPatience = 1LL << 24;  // polls before a wait traps
-
-enum Form { kFlagsForm = 0, kClusterForm = 1 };
 
 struct Sweep {
   const float* density;
@@ -242,7 +235,7 @@ __device__ __forceinline__ int voxel_index(const Sweep& p, int j, int x,
   return (p.sy == 1 || p.per == 1) ? j * p.n * p.n + xy : xy * p.per + j;
 }
 
-// ---- the flags form --------------------------------------------------------
+// ---- the producers' flags ---------------------------------------------------
 
 // the blocks that write what this block's carry taps read, as one range
 // lo..hi (a superset is safe; none: lo > hi). Block b holds voxels
@@ -334,42 +327,21 @@ __device__ __forceinline__ void flags_done(const Sweep& p) {
   }
 }
 
-// ---- the cluster form -------------------------------------------------------
-
-// every thread of the cluster takes part, each warp converged (aligned)
-__device__ __forceinline__ void cluster_arrive() {
-  __syncwarp();
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  __syncwarp();
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-template <bool kRef, bool kCluster>
-__global__ void __launch_bounds__(kCluster ? 1024 : 256, kCluster ? 1 : 6)
-    light_sweep_kernel(const Sweep p) {
+template <bool kRef>
+__global__ void __launch_bounds__(256, 6) light_sweep_kernel(const Sweep p) {
   const int per = kRef ? p.per : 1;
   const int steps = (p.n + per - 1) / per;
   const int count = per * p.n * p.n;  // voxels a step
   // the block's voxels of every step: one run, threads side by side
   const int chunk = (count + gridDim.x - 1) / gridDim.x;
   const int end = min(count, (blockIdx.x + 1) * chunk);
-  int lo = 0, hi = -1;
-  unsigned long long tag = 0;  // this launch's epoch << 32
-  if (!kCluster) {
-    tag = static_cast<unsigned long long>(__ldcg(p.epoch)) << 32;
-    producers<kRef>(p, count, chunk, &lo, &hi);
-  }
+  // this launch's epoch << 32
+  const unsigned long long tag =
+      static_cast<unsigned long long>(__ldcg(p.epoch)) << 32;
+  int lo, hi;
+  producers<kRef>(p, count, chunk, &lo, &hi);
   for (int s = 0; s < steps; ++s) {
-    if (s > 0) {
-      if (kCluster) {
-        cluster_wait();
-      } else {
-        flags_wait(p, lo, hi, tag | s);
-      }
-    }
+    if (s > 0) flags_wait(p, lo, hi, tag | s);
     for (int v = blockIdx.x * chunk + threadIdx.x; v < end;
          v += blockDim.x) {
       int j, x, y;
@@ -380,164 +352,75 @@ __global__ void __launch_bounds__(kCluster ? 1024 : 256, kCluster ? 1 : 6)
       const float val = kRef ? ref_voxel(p, k, x, y) : dir_voxel(p, k, x, y);
       __stcg(p.out + slab_offset(p, k) + texel(p, x, y), val);
     }
-    if (s + 1 < steps) {
-      if (kCluster) {
-        cluster_arrive();
-      } else {
-        flags_post(p, tag | (s + 1));
-      }
-    }
+    if (s + 1 < steps) flags_post(p, tag | (s + 1));
   }
-  if (!kCluster) flags_done(p);
-}
-
-// ---- the plan --------------------------------------------------------------
-
-struct Plan {
-  int form, threads;
-};
-
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// the form rule (mirrored by ops/raymarch_warp.py::sweep_plan); form -1:
-// the rule's choice. A step of at most kClusterVoxels voxels runs as a
-// cluster of 16 blocks, a voxel a thread; a larger one in the flags form,
-// in blocks of 128 threads up to 16,384 voxels a step, else 256.
-Plan plan_for(int n, int ref, int d0, int form) {
-  const long long count = static_cast<long long>(ref ? d0 : 1) * n * n;
-  Plan pl;
-  pl.form = form >= 0 ? form
-                      : (count <= kClusterVoxels ? kClusterForm : kFlagsForm);
-  if (pl.form == kClusterForm) {
-    const long long per_block = (count + kMaxCluster - 1) / kMaxCluster;
-    pl.threads = static_cast<int>(
-        per_block >= 1024 ? 1024 : (per_block < 32 ? 32
-                                                   : (per_block + 31) / 32 * 32));
-  } else {
-    pl.threads = count <= 16384 ? 128 : 256;
-  }
-  return pl;
+  flags_done(p);
 }
 
 // ---- launch ----------------------------------------------------------------
 
-template <bool kRef, bool kCluster>
-constexpr auto kernel_of() {
-  return light_sweep_kernel<kRef, kCluster>;
-}
+// threads per block (mirrored by ops/raymarch_warp.py::sweep_threads): 128
+// up to 16,384 voxels a step (X.3: d0 slabs, X.4: one), else 256
+int threads_for(long long count) { return count <= 16384 ? 128 : 256; }
 
-cudaLaunchConfig_t cluster_config(int blocks, int threads,
-                                  cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = blocks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// per device and configuration: the most blocks that stay resident (the
-// flags form) or whether one cluster fits (1)
-struct Fit {
-  int dev, ref, cluster, blocks, threads, value;
-};
-constexpr int kFits = 64;
-Fit g_fits[kFits];
-int g_nfits = 0;
-std::mutex g_fits_lock;
-
-template <bool kRef, bool kCluster>
-int fit_for(int dev, int blocks, int threads, cudaStream_t stream) {
-  std::lock_guard<std::mutex> hold(g_fits_lock);
-  for (int i = 0; i < g_nfits; ++i) {
-    const Fit& f = g_fits[i];
-    if (f.dev == dev && f.ref == kRef && f.cluster == kCluster &&
-        f.threads == threads && f.blocks == blocks) {
-      return f.value;
-    }
-  }
-  auto fn = kernel_of<kRef, kCluster>();
-  int value = 0;
-  if (kCluster) {
-    if (blocks > 8 &&
-        cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1) != cudaSuccess) {
-      return 0;
-    }
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(blocks, threads, stream, &attr);
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) != cudaSuccess) {
-      return 0;
-    }
-    value = clusters >= 1 ? 1 : 0;
-  } else {
+// the most blocks of one instance at `threads` the card keeps resident
+// (per device, instance and block size; 0: the query failed)
+template <bool kRef>
+int resident_blocks(int dev, int threads) {
+  static int cache[kMaxDevices][2];
+  static std::mutex lock;
+  std::lock_guard<std::mutex> hold(lock);
+  int& most = cache[dev][threads == 256];
+  if (most == 0) {
     int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
-                                                      0) != cudaSuccess) {
-      return 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+            cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, light_sweep_kernel<kRef>, threads, 0) == cudaSuccess) {
+      most = sms * per_sm;
     }
-    value = sms * per_sm;
   }
-  if (value > 0 && g_nfits < kFits) {
-    g_fits[g_nfits++] = {dev, kRef, kCluster, blocks, threads, value};
-  }
-  return value;
+  return most;
 }
 
-template <bool kRef, bool kCluster>
-int launch(Sweep& p, int threads, cudaStream_t stream) {
+template <bool kRef>
+int launch(Sweep& p, cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
     return static_cast<int>(cudaErrorInvalidDevice);
   }
-  auto fn = kernel_of<kRef, kCluster>();
-  const int needed = ceil_div((kRef ? p.per : 1) * p.n * p.n, threads);
-  if (kCluster) {
-    const int blocks = min(needed, kMaxCluster);
-    if (fit_for<kRef, kCluster>(dev, blocks, threads, stream) < 1) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(blocks, threads, stream, &attr);
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, p);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  } else {
-    if (p.epoch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int most = fit_for<kRef, kCluster>(dev, 0, threads, stream);
-    if (most <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-    const int blocks = min(min(needed, most), kFlags);
-    void* args[] = {&p};
-    const cudaError_t e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(fn), dim3(blocks), dim3(threads), args,
-        0, stream);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const long long count = static_cast<long long>(p.per) * p.n * p.n;
+  const int threads = threads_for(count);
+  const int most = resident_blocks<kRef>(dev, threads);
+  if (most <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  long long blocks = (count + threads - 1) / threads;
+  if (blocks > most) blocks = most;
+  if (blocks > kFlags) blocks = kFlags;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(light_sweep_kernel<kRef>),
+      dim3(static_cast<unsigned>(blocks)), dim3(threads), args, 0, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-int run(const void* density, void* out, void* scratch, int n, int ref,
-        int axis, int flip, int d0, float w, float shift_x, float shift_y,
-        float absl, int xlo, int xhi, int ylo, int yhi, int kmax,
-        const Plan& pl, void* stream) {
+}  // namespace
+
+// density [n, n, n] -> out [n, n, n]; scratch: 32 + 2 * 4,096 zeroed
+// 32-bit words per device and stream, 8-byte aligned (the epoch and the
+// count of blocks done, then the flags; reused by every launch on the
+// stream); axis, flip: the light's major tex axis and sign; ref: X.3 (1) or
+// X.4 (0); d0, w, the box (xlo..xhi, ylo..yhi in slab x/y, slabs
+// 0..kmax): X.3 only
+extern "C" int dxv_light_sweep(const void* density, void* out, void* scratch,
+                               int n, int ref, int axis, int flip, int d0,
+                               float w, float shift_x, float shift_y,
+                               float absl, int xlo, int xhi, int ylo, int yhi,
+                               int kmax, void* stream) {
   if (n <= 0) return 0;
   // a step's voxels are indexed with 32-bit ints
-  if (axis < 0 || axis > 2 || (ref && d0 < 1) ||
-      static_cast<long long>(ref ? d0 : 1) * n * n > INT_MAX ||
-      pl.threads < 32 || pl.threads % 32 ||
-      pl.threads > (pl.form == kClusterForm ? 1024 : 256) ||
-      (pl.form != kFlagsForm && pl.form != kClusterForm)) {
+  if (axis < 0 || axis > 2 || (ref && d0 < 1) || scratch == nullptr ||
+      static_cast<long long>(ref ? d0 : 1) * n * n > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long stride[3] = {static_cast<long long>(n) * n, n, 1};
@@ -547,9 +430,7 @@ int run(const void* density, void* out, void* scratch, int n, int ref,
   p.density = static_cast<const float*>(density);
   p.out = static_cast<float*>(out);
   p.epoch = static_cast<unsigned*>(scratch);
-  p.flags = p.epoch == nullptr
-                ? nullptr
-                : reinterpret_cast<unsigned long long*>(p.epoch + 32);
+  p.flags = reinterpret_cast<unsigned long long*>(p.epoch + 32);
   p.n = n;
   p.per = ref ? d0 : 1;
   p.flip = flip;
@@ -566,49 +447,5 @@ int run(const void* density, void* out, void* scratch, int n, int ref,
   p.yhi = yhi;
   p.kmax = kmax;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (pl.form == kClusterForm) {
-    return ref ? launch<true, true>(p, pl.threads, s)
-               : launch<false, true>(p, pl.threads, s);
-  }
-  return ref ? launch<true, false>(p, pl.threads, s)
-             : launch<false, false>(p, pl.threads, s);
-}
-
-}  // namespace
-
-// density [n, n, n] -> out [n, n, n]; scratch: 32 + 2 * 4,096 zeroed
-// 32-bit words per device and stream, 8-byte aligned (the flags form's
-// epoch and count, then its flags; reused by every launch on the stream); axis, flip: the light's major tex axis and sign;
-// ref: X.3 (1) or X.4 (0); d0, w, the box (xlo..xhi, ylo..yhi in slab x/y,
-// slabs 0..kmax): X.3 only. The form is the rule's (plan_for).
-extern "C" int dxv_light_sweep(const void* density, void* out, void* scratch,
-                               int n, int ref, int axis, int flip, int d0,
-                               float w, float shift_x, float shift_y,
-                               float absl, int xlo, int xhi, int ylo, int yhi,
-                               int kmax, void* stream) {
-  const Plan pl = plan_for(n, ref, d0, -1);
-  return run(density, out, scratch, n, ref, axis, flip, d0, w, shift_x,
-             shift_y, absl, xlo, xhi, ylo, yhi, kmax, pl, stream);
-}
-
-// the same in a given form (0 flags, 1 cluster) and threads per block (the
-// forms' sweeps)
-extern "C" int dxv_light_sweep_variant(
-    const void* density, void* out, void* scratch, int n, int ref, int axis,
-    int flip, int d0, float w, float shift_x, float shift_y, float absl,
-    int xlo, int xhi, int ylo, int yhi, int kmax, int form, int threads,
-    void* stream) {
-  const Plan pl = {form, threads};
-  return run(density, out, scratch, n, ref, axis, flip, d0, w, shift_x,
-             shift_y, absl, xlo, xhi, ylo, yhi, kmax, pl, stream);
-}
-
-// the rule's plan for an n^3 field (form -1: its choice of form) ->
-// plan[2]: form, threads
-extern "C" int dxv_light_sweep_plan(int n, int ref, int d0, int form,
-                                    int* plan) {
-  const Plan pl = plan_for(n, ref, d0, form);
-  plan[0] = pl.form;
-  plan[1] = pl.threads;
-  return 0;
+  return ref ? launch<true>(p, s) : launch<false>(p, s);
 }

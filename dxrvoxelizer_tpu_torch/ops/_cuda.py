@@ -89,11 +89,6 @@ _SIGNATURES = {
     # absl, xlo, xhi, ylo, yhi, kmax, stream
     "dxv_light_sweep": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I,
                         _I, _I, _I, _I, _P),
-    # the same, then form, threads, stream
-    "dxv_light_sweep_variant": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                                _F, _I, _I, _I, _I, _I, _I, _I, _P),
-    # n, ref, d0, form (-1: the rule's), int[2] out
-    "dxv_light_sweep_plan": (_I, _I, _I, _I, _P),
 }
 
 

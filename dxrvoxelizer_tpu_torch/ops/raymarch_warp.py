@@ -53,17 +53,15 @@ from dxrvoxelizer_tpu_torch.ops.warp import (
     scale_offset_coords,
 )
 
-# the kernel's instances are light_sweep_kernel<ref, cluster>: each symbol is
-# a prefix of both of its forms' names
 LIGHT_SWEEP_REF = _cuda.Kernel(
     name="light_sweep_ref",
-    symbol="light_sweep_kernel<true,",
+    symbol="light_sweep_kernel<true>",
     source="dxrvoxelizer_tpu_torch/csrc/light_sweep.cu",
     replaces="dxrvoxelizer_tpu/ops/raymarch_warp.py:272",
 )
 LIGHT_SWEEP = _cuda.Kernel(
     name="light_sweep",
-    symbol="light_sweep_kernel<false,",
+    symbol="light_sweep_kernel<false>",
     source="dxrvoxelizer_tpu_torch/csrc/light_sweep.cu",
     replaces="dxrvoxelizer_tpu/ops/raymarch_warp.py:93",
 )
@@ -143,45 +141,22 @@ def _dir_statics(light: tuple, n: int, axis: int,
     return shift_x, shift_y, (ABSORPTION * delta_l).item()
 
 
-# ---- the kernel's plan (csrc/light_sweep.cu plan_for) ----------------------
+# ---- the kernel's launch (csrc/light_sweep.cu) -----------------------------
 
-FLAGS, CLUSTER = 0, 1  # a grid synced by per-block flags; one cluster
-CLUSTER_BLOCKS = 16  # blocks of the cluster form (beyond 8: non-portable)
-CLUSTER_VOXELS = 2048  # the cluster form's largest step
-FLAGS_MAX = 4096  # blocks of the flags form, a 64-bit flag each
+FLAGS_MAX = 4096  # blocks of a launch, at most: a 64-bit flag each
 SCRATCH_WORDS = 32 + 2 * FLAGS_MAX  # the epoch and a count, then the flags
 
 
-@dataclass(frozen=True)
-class SweepPlan:
-    """How ``csrc/light_sweep.cu`` runs a field: its form (FLAGS or
-    CLUSTER) and threads per block."""
-
-    form: int
-    threads: int
-
-
-def sweep_plan(n: int, ref: bool, d0: int, form: int | None = None
-               ) -> SweepPlan:
-    """The kernel's form rule (``plan_for`` in csrc/light_sweep.cu, which
-    the launch takes; ``form`` forces a form, as the forms' sweeps do): a
-    step of at most CLUSTER_VOXELS voxels (X.3: d0 slabs, X.4: one) runs as
-    a cluster of 16 blocks, a voxel a thread; a larger one in the flags
-    form, in blocks of 128 threads up to 16,384 voxels a step, else 256."""
-    count = (d0 if ref else 1) * n * n
-    if form is None:
-        form = CLUSTER if count <= CLUSTER_VOXELS else FLAGS
-    if form == CLUSTER:
-        threads = min(1024, max(32, -(-(-(-count // CLUSTER_BLOCKS)) // 32)
-                                * 32))
-    else:
-        threads = 128 if count <= 16384 else 256
-    return SweepPlan(form, threads)
+def sweep_threads(n: int, ref: bool, d0: int) -> int:
+    """Threads per block of a launch (``threads_for`` in
+    csrc/light_sweep.cu): 128 up to 16,384 voxels a step (X.3: d0 slabs,
+    X.4: one), else 256."""
+    return 128 if (d0 if ref else 1) * n * n <= 16384 else 256
 
 
 @functools.lru_cache(maxsize=None)
 def _scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """The flags form's scratch: SCRATCH_WORDS zeroed words per device and
+    """The launch's scratch: SCRATCH_WORDS zeroed words per device and
     stream, allocated once (the kernel tags its flags with an epoch it
     advances itself, so nothing is reset between launches)."""
     return torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=device)
@@ -189,40 +164,21 @@ def _scratch(device: torch.device, stream: int) -> torch.Tensor:
 
 def _launch(kernel: _cuda.Kernel, density: torch.Tensor, n: int, axis: int,
             flip: bool, d0: int, w: float, shift: tuple[float, float],
-            absl: float, box: tuple[int, ...],
-            variant: SweepPlan | None) -> torch.Tensor:
-    """One launch of ``csrc/light_sweep.cu`` -> [N,N,N]: the rule's form,
-    or ``variant``."""
+            absl: float, box: tuple[int, ...]) -> torch.Tensor:
+    """One cooperative launch of ``csrc/light_sweep.cu`` -> [N,N,N]."""
     density = density.contiguous()
     _cuda.require(density, "density", torch.float32, (n, n, n))
     lib = _cuda.load()
     out = torch.empty((n, n, n), dtype=torch.float32, device=density.device)
     stream = _cuda.stream_ptr(density.device)
-    args = (density.data_ptr(), out.data_ptr(),
-            _scratch(density.device, stream).data_ptr(), n,
-            int(kernel is LIGHT_SWEEP_REF), axis, int(flip), d0, w, *shift,
-            absl, *box)
-    if variant is None:
-        code = lib.dxv_light_sweep(*args, stream)
-    else:
-        code = lib.dxv_light_sweep_variant(*args, variant.form,
-                                           variant.threads, stream)
+    code = lib.dxv_light_sweep(
+        density.data_ptr(), out.data_ptr(),
+        _scratch(density.device, stream).data_ptr(), n,
+        int(kernel is LIGHT_SWEEP_REF), axis, int(flip), d0, w, *shift, absl,
+        *box, stream)
     _cuda.check(code, kernel.name)
     kernel.launches += 1
     return out
-
-
-def sweep_plan_c(n: int, ref: bool, d0: int, form: int | None = None
-                 ) -> SweepPlan:
-    """The C entry point's own plan (``dxv_light_sweep_plan``; builds the
-    kernel library): on the card it must equal :func:`sweep_plan`."""
-    import ctypes
-
-    got = (ctypes.c_int * 2)()
-    _cuda.check(_cuda.load().dxv_light_sweep_plan(
-        n, int(ref), d0, -1 if form is None else form,
-        ctypes.cast(got, ctypes.c_void_p)), "sweep plan")
-    return SweepPlan(*got)
 
 
 def light_sweep_plain(density: torch.Tensor, light_local: np.ndarray,
@@ -257,23 +213,20 @@ def light_sweep_plain(density: torch.Tensor, light_local: np.ndarray,
 
 def light_sweep(density: torch.Tensor, light_local: np.ndarray,
                 n: int, axis: int, flip: bool,
-                use_kernel: bool = True,
-                variant: SweepPlan | None = None) -> torch.Tensor:
+                use_kernel: bool = True) -> torch.Tensor:
     """Directional light-transmittance volume by slab recurrence -> [N,N,N].
 
     The ``-fast`` mode's light field. ``axis``/``flip``: the light
     direction's major tex axis and sign (:func:`light_statics`). A CUDA
-    tensor launches ``csrc/light_sweep.cu`` (X.4) once, in the form of
-    :func:`sweep_plan` (or ``variant``), or raises; a CPU tensor, or
-    ``use_kernel=False``, takes :func:`light_sweep_plain`.
+    tensor launches ``csrc/light_sweep.cu`` (X.4) once, or raises; a CPU
+    tensor, or ``use_kernel=False``, takes :func:`light_sweep_plain`.
     """
     if not use_kernel or density.device.type == "cpu":
         return light_sweep_plain(density, light_local, n, axis, flip)
     shift_x, shift_y, absl = _dir_statics(_light_key(light_local), n, axis,
                                           flip)
     return _launch(LIGHT_SWEEP, density, n, axis, flip, 1, 0.0,
-                   (shift_x, shift_y), absl, (0, n - 1, 0, n - 1, n - 1),
-                   variant)
+                   (shift_x, shift_y), absl, (0, n - 1, 0, n - 1, n - 1))
 
 
 def light_sweep_point(density: torch.Tensor, light_local: np.ndarray,
@@ -511,8 +464,7 @@ def light_sweep_ref_plain(density: torch.Tensor, light_local: np.ndarray,
 def light_sweep_ref(density: torch.Tensor, light_local: np.ndarray,
                     n: int, axis: int, flip: bool, d0: int,
                     n_light: int = 32,
-                    use_kernel: bool = True,
-                    variant: SweepPlan | None = None) -> torch.Tensor:
+                    use_kernel: bool = True) -> torch.Tensor:
     """REFERENCE-step directional light field -> [N,N,N] transmittance.
 
     The reference's light loop (PSRayCast.hlsl:156-173) marches ``n_light``
@@ -524,9 +476,8 @@ def light_sweep_ref(density: torch.Tensor, light_local: np.ndarray,
     L = 1 where p+s leaves the box (the loop's first-step break).
     ``d0 >= 1`` required (:func:`light_ref_statics`).
 
-    A CUDA tensor launches ``csrc/light_sweep.cu`` (X.3) once, in the form
-    of :func:`sweep_plan` (or ``variant``), or raises; a CPU tensor, or
-    ``use_kernel=False``, takes :func:`light_sweep_ref_plain`.
+    A CUDA tensor launches ``csrc/light_sweep.cu`` (X.3) once, or raises; a
+    CPU tensor, or ``use_kernel=False``, takes :func:`light_sweep_ref_plain`.
     """
     if not use_kernel or density.device.type == "cpu":
         return light_sweep_ref_plain(density, light_local, n, axis, flip, d0,
@@ -535,7 +486,7 @@ def light_sweep_ref(density: torch.Tensor, light_local: np.ndarray,
         raise ValueError("light step spans < 1 slab; use the exact field")
     st = ref_statics(_light_key(light_local), n, axis, flip, d0, n_light)
     return _launch(LIGHT_SWEEP_REF, density, n, axis, flip, d0, st.w,
-                   st.shift, st.absl, st.box, variant)
+                   st.shift, st.absl, st.box)
 
 
 def light_sweep_ref_host(density: torch.Tensor, light_local: np.ndarray,

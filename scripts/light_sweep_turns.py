@@ -1,28 +1,27 @@
 """Time the light recurrences' kernel (``csrc/light_sweep.cu``: X.3, the
-``-hq`` reference step, and X.4, the ``-fast`` per-slab sweep) in its forms
-and block sizes on the card.
+``-hq`` reference step, and X.4, the ``-fast`` per-slab sweep) in turns
+with another tree's on the card.
 
 Run from the repository root:
 
-    python3 scripts/light_sweep_forms.py [--parent TREE] [--sizes 64,256]
-                                         [--out FILE]
+    python3 scripts/light_sweep_turns.py --parent TREE [--sizes 64,256]
+                                         [--pairs 10] [--out FILE]
 
-At each size (default 32, 64, 128, 160 and 256): a seeded random density
-(a fifth of the voxels filled, fractional alphas) and the cells' light
-(``tests/torch_cases.cell_light``: d0 = 3 at 64^3, 12 at 256^3, marching
-along the layout's minor axis). Each instance in the rule's plan
-(``ops/raymarch_warp.sweep_plan``, whose C twin the launch takes and must
-agree), each form forced, and the block sizes of :func:`variants`, held
-against its plain version (above 1e-5 fails) and timed: CUDA-event ms
-(``bench.cuda_ms``: 10 calls, median of 5), device us per call
-(``bench.device_us``, the profiler), us per step (X.3 ceil(n/d0) steps,
-X.4 n) and the roofline share against the density read and the field
-written once (8 bytes a voxel at 3.35 TB/s); ``chip_smoke.py`` phase 22b
-holds every form on lights of every axis, sign and window. ``--parent
-TREE``: TREE's ``csrc/light_sweep.cu`` alone is built with nvcc and its
-kernel timed in turns with this tree's rule plan (parent, change, change,
-parent) at each size. Prints the card's name and
-power limit; needs a CUDA card; imports no JAX.
+TREE's ``csrc/light_sweep.cu`` alone is built with nvcc
+(:func:`parent_sweep`). At each size (default 32, 64, 128, 160 and 256): a
+seeded random density (a fifth of the voxels filled, fractional alphas)
+and the cells' light (``tests/torch_cases.cell_light``: d0 = 3 at 64^3, 12
+at 256^3, marching along the layout's minor axis). Each instance of both
+trees is held against its plain version (above 1e-5 fails), then timed in
+``--pairs`` pairs, the side that goes first alternating
+(:func:`pairs_in_turns`): CUDA-event ms (``bench.cuda_ms``: 10 calls,
+median of 5), device us per call (``bench.device_us``, the profiler), us
+per step (X.3 ceil(n/d0) steps, X.4 n) and the roofline share against the
+density read and the field written once (8 bytes a voxel at 3.35 TB/s).
+A pair is this tree's win when its device us is the lower. Prints the
+card's name and power limit; needs a CUDA card; imports no JAX.
+``chip_smoke.py --parent TREE`` (phase 22b) runs the same pairs at the
+64^3 and 256^3 frames' inputs.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ import ctypes
 import importlib.util
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -50,6 +50,7 @@ from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw  # noqa: E402
 TOL = 1e-5  # the port's bar against its plain versions (chip_smoke.py)
 HBM = 3.35e12  # bytes per second, the H100 SXM's published rate
 SIZES = (32, 64, 128, 160, 256)
+PAIRS = 10
 SEED = 16
 
 
@@ -85,30 +86,10 @@ def call(ref: bool, dens, light, n: int, **kw):
     return rw.light_sweep(dens, lt, n, axis, flip, **kw)
 
 
-def steps(ref: bool, n: int, d0: int) -> int:
-    return -(-n // d0) if ref else n
-
-
-def variants(n: int, ref: bool, d0: int) -> dict:
-    """The rule's plan, each form with the rule's threads for it, and the
-    flags form in blocks of 64, 128 and 256 threads."""
-    out = {"rule": rw.sweep_plan(n, ref, d0),
-           "flags": rw.sweep_plan(n, ref, d0, rw.FLAGS),
-           "cluster": rw.sweep_plan(n, ref, d0, rw.CLUSTER)}
-    for t in (64, 128, 256):
-        out[f"flags {t}"] = rw.SweepPlan(rw.FLAGS, t)
-    seen, uniq = set(), {}
-    for k, v in out.items():
-        if k in ("rule", "flags", "cluster") or v not in seen:
-            uniq[k] = v
-            seen.add(v)
-    return uniq
-
-
 def parent_sweep(tree: Path, workdir: Path):
     """TREE's csrc/light_sweep.cu built alone -> call(ref, dens, light, n)
     launching its kernel with this tree's statics (the C signature with or
-    without the barrier word, whichever TREE has)."""
+    without the scratch word, whichever TREE has)."""
     src = tree / "dxrvoxelizer_tpu_torch" / "csrc" / "light_sweep.cu"
     lib_path = workdir / "libparent_light_sweep.so"
     built = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared",
@@ -118,12 +99,14 @@ def parent_sweep(tree: Path, workdir: Path):
         line.strip() for line in (built.stdout + built.stderr).splitlines()
         if "registers" in line or "spill" in line), flush=True)
     lib = ctypes.CDLL(str(lib_path))
-    with_bar = "void* bar" in src.read_text()
+    with_scratch = "void* scratch" in src.read_text()
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dxv_light_sweep.argtypes = ([P, P] + ([P] if with_bar else [])
+    lib.dxv_light_sweep.argtypes = ([P, P] + ([P] if with_scratch else [])
                                     + [I] * 5 + [F] * 4 + [I] * 5 + [P])
     lib.dxv_light_sweep.restype = I
-    bar = torch.zeros(1, dtype=torch.int32, device="cuda")
+    # its own scratch, as this tree's wrapper keeps one per stream
+    scratch = torch.zeros(rw.SCRATCH_WORDS, dtype=torch.int32,
+                          device="cuda")
 
     def run(ref: bool, dens, light, n: int):
         lt = np.asarray(light, np.float32)
@@ -137,8 +120,8 @@ def parent_sweep(tree: Path, workdir: Path):
             w, shift, box = 0.0, (sx, sy), (0, n - 1, 0, n - 1, n - 1)
         out = torch.empty_like(dens)
         head = [dens.data_ptr(), out.data_ptr()]
-        if with_bar:
-            head.append(bar.data_ptr())
+        if with_scratch:
+            head.append(scratch.data_ptr())
         code = lib.dxv_light_sweep(
             *head, n, int(ref), axis, int(flip), d0, w, *shift, absl, *box,
             _cuda.stream_ptr(dens.device))
@@ -162,14 +145,52 @@ def text(t: dict) -> str:
             f"{t['us_per_step']:.3f} us a step, share {t['share']:.4f}")
 
 
+def pairs_in_turns(parent, change, bound_ms: float, n_steps: int,
+                   pairs: int = PAIRS) -> dict:
+    """``pairs`` pairs of :func:`timed`, the parent first in even pairs and
+    the change first in odd ones -> each side's runs, the pairs the change
+    won (lower device us; a pair with a side not measured counts for
+    neither), and the summary line."""
+    runs = {"parent": [], "change": []}
+    wins = measured = 0
+    for i in range(pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        got = {}
+        for who in order:
+            got[who] = timed(parent if who == "parent" else change,
+                             bound_ms, n_steps)
+            runs[who].append(got[who])
+        if got["parent"]["dev_us"] and got["change"]["dev_us"]:
+            measured += 1
+            wins += got["change"]["dev_us"] < got["parent"]["dev_us"]
+
+    def side(who):
+        us = [t["dev_us"] for t in runs[who] if t["dev_us"]]
+        ms = [t["ms"] for t in runs[who]]
+        if not us:
+            return (f"{who} ms {min(ms):.4f}-{max(ms):.4f}; device us not "
+                    f"measured")
+        med = statistics.median(us)
+        return (f"{who} ms {min(ms):.4f}-{max(ms):.4f}, device us "
+                f"{min(us):.2f}-{max(us):.2f} (median {med:.2f}, "
+                f"{med / n_steps:.3f} a step, share "
+                f"{bound_ms / (med / 1e3):.4f})")
+
+    line = (f"{pairs} pairs, the first side alternating: {side('parent')}; "
+            f"{side('change')}; the change faster in {wins} of {measured} "
+            f"pairs measured")
+    return {"runs": runs, "wins": wins, "measured": measured, "line": line}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
+    ap.add_argument("--pairs", type=int, default=PAIRS)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("light_sweep_forms: needs a CUDA card", file=sys.stderr)
+        print("light_sweep_turns: needs a CUDA card", file=sys.stderr)
         return 2
     card = bench.card_line()
     info = _cuda.build()
@@ -181,55 +202,32 @@ def main(argv=None) -> int:
                     and "light_sweep" in line), flush=True)
     cases = _by_path("dxv_test_torch_cases", HERE / "tests" / "torch_cases.py")
     light = cases.cell_light("dragon-64-hq")
-    sizes = [int(s) for s in args.sizes.split(",")]
-    parent = None
-    if args.parent is not None:
-        parent = parent_sweep(args.parent.resolve(),
-                              Path(tempfile.mkdtemp(prefix="dxv_parent_")))
+    parent = parent_sweep(args.parent.resolve(),
+                          Path(tempfile.mkdtemp(prefix="dxv_parent_")))
     worst, rows = 0.0, []
-    for n in sizes:
+    for n in (int(s) for s in args.sizes.split(",")):
         dens = density(n)
         for ref in (True, False):
             name = "X.3" if ref else "X.4"
             axis, flip, d0 = statics(ref, light, n)
+            n_steps = -(-n // d0) if ref else n
             bound_ms = n ** 3 * 8 / HBM * 1e3
             want = call(ref, dens, light, n, use_kernel=False)
-            plans = variants(n, ref, d0)
-            # the C rule must be the Python mirror's
-            for form in (None, rw.FLAGS, rw.CLUSTER):
-                c_plan = rw.sweep_plan_c(n, ref, d0, form)
-                if c_plan != rw.sweep_plan(n, ref, d0, form):
-                    raise RuntimeError(f"{name} {n}^3 form {form}: the C "
-                                       f"plan {c_plan} is not the mirror's")
-            n_steps = steps(ref, n, d0)
-            for label, plan in plans.items():
-                err = float((call(ref, dens, light, n, variant=plan)
-                             - want).abs().max())
-                worst = max(worst, err)
-                t = timed(lambda plan=plan: call(ref, dens, light, n,
-                                                 variant=plan),
-                          bound_ms, n_steps)
-                print(f"{name} {n}^3 (axis {axis}, flip {int(flip)}, d0 "
-                      f"{d0}, {n_steps} steps) {label} {plan}: {text(t)}; "
-                      f"max|err| {err:.3g}", flush=True)
-                rows.append({"n": n, "sweep": name, "label": label,
-                             "plan": [plan.form, plan.threads], "err": err,
-                             **t})
-            if parent is not None:
-                turns = []
-                for who in ("parent", "change", "change", "parent"):
-                    fn = ((lambda: parent(ref, dens, light, n))
-                          if who == "parent" else
-                          (lambda: call(ref, dens, light, n)))
-                    turns.append((who, timed(fn, bound_ms, n_steps)))
-                perr = float((parent(ref, dens, light, n) - want).abs().max())
-                print(f"{name} {n}^3 in turns, parent tree "
-                      f"{args.parent} against this tree's rule "
-                      f"{plans['rule']} (parent max|err| {perr:.3g}): "
-                      + "; ".join(f"{who} {text(t)}" for who, t in turns),
-                      flush=True)
-                rows.append({"n": n, "sweep": name, "turns": [
-                    {"who": who, **t} for who, t in turns]})
+            errs = {who: float((f() - want).abs().max()) for who, f in (
+                ("change", lambda: call(ref, dens, light, n)),
+                ("parent", lambda: parent(ref, dens, light, n)))}
+            worst = max(worst, *errs.values())
+            res = pairs_in_turns(lambda: parent(ref, dens, light, n),
+                                 lambda: call(ref, dens, light, n),
+                                 bound_ms, n_steps, args.pairs)
+            print(f"{name} {n}^3 (axis {axis}, flip {int(flip)}, d0 {d0}, "
+                  f"{n_steps} steps; max|err| change {errs['change']:.3g}, "
+                  f"parent {errs['parent']:.3g}), the kernel of "
+                  f"{args.parent} in turns with this tree's: {res['line']}; "
+                  f"{card}", flush=True)
+            rows.append({"n": n, "sweep": name, "d0": d0, "errs": errs,
+                         "wins": res["wins"], "measured": res["measured"],
+                         "runs": res["runs"]})
         del dens
         torch.cuda.empty_cache()
     if args.out is not None:

@@ -9,11 +9,10 @@ slab order's strides and reflection, reversed slab r reading r-d0 and
 r-d0-1 of its own output, the clamped density taps, the host's box of
 texels inside the volume) is held against the plain versions within 1e-6,
 slab by slab and in the kernel's schedule: its blocks, each running its
-steps as soon as the blocks it found as its producers have posted theirs
-(the flags form; the cluster form waits for all), so that a producer range
-that missed a writer reads a slab before it is written. The producer
-ranges are checked without a volume at 256^3 too, and the form rule
-(``sweep_plan``) by its choices. The plain versions are held against the
+steps as soon as the blocks it found as its producers have posted theirs,
+so that a producer range that missed a writer reads a slab before it is
+written. The producer ranges are checked without a volume at 256^3 too,
+and the launch's block size (``sweep_threads``) by its choices. The plain versions are held against the
 JAX package by tests/test_torch_render.py::test_light_sweeps_match_jax on
 the same lights.
 """
@@ -175,7 +174,7 @@ def mirror_dir(dens: np.ndarray, light) -> np.ndarray:
     return out.reshape(n, n, n)
 
 
-# ---- the kernel's schedule (csrc/light_sweep.cu: forms, producers) ---------
+# ---- the kernel's schedule (csrc/light_sweep.cu: blocks, producers) --------
 
 def _voxel_at(n, per, minor_y, v):
     """csrc/light_sweep.cu voxel_at: a step's voxel ids -> (j, x, y), along
@@ -201,30 +200,26 @@ def _first_tap(x, shift):
     return np.floor(np.asarray(x, F32) + F32(shift)).astype(np.int64)
 
 
-def sweep_blocks(n, ref, d0, plan, resident):
-    """csrc/light_sweep.cu launch: as many blocks as a step's voxels need (a
-    voxel a thread), at most 16 for a cluster, at most ``resident`` (the
-    card's occupancy) and 4,096 (its flags) for the flags form."""
-    need = -(-(d0 if ref else 1) * n * n // plan.threads)
-    if plan.form == rw.CLUSTER:
-        return min(need, rw.CLUSTER_BLOCKS)
+def sweep_blocks(n, ref, d0, threads, resident):
+    """csrc/light_sweep.cu launch: as many blocks of ``threads`` as a step's
+    voxels need (a voxel a thread), at most ``resident`` (the card's
+    occupancy) and 4,096 (its flags)."""
+    need = -(-(d0 if ref else 1) * n * n // threads)
     return min(need, resident, rw.FLAGS_MAX)
 
 
 class Schedule:
     """A field's launch as csrc/light_sweep.cu runs it: ``blocks`` blocks of
-    ``plan.threads``, block b holding voxels b*chunk .. (b+1)*chunk-1 of
-    every step, and per block the range of its producers (``producers``:
-    the blocks whose voxels its carry taps read; the cluster form waits
-    for all)."""
+    ``threads``, block b holding voxels b*chunk .. (b+1)*chunk-1 of every
+    step, and per block the range of its producers (``producers``: the
+    blocks whose voxels its carry taps read)."""
 
-    def __init__(self, n, ref, axis, flip, d0, shift, plan, resident):
+    def __init__(self, n, ref, axis, flip, d0, shift, threads, resident):
         self.n, self.ref, self.per = n, ref, (d0 if ref else 1)
         self.count = self.per * n * n
         self.steps = -(-n // self.per)
         self.minor_y = _layout(n, axis, flip)[2] == 1
-        self.plan = plan
-        self.blocks = sweep_blocks(n, ref, d0, plan, resident)
+        self.blocks = sweep_blocks(n, ref, d0, threads, resident)
         chunk = -(-self.count // self.blocks)
         v = np.arange(self.count)
         self.owner = v // chunk
@@ -242,10 +237,6 @@ class Schedule:
                                      np.clip(jj, 0, n - 1))
                     writers.append(np.where(inside, w // chunk, -1))
         self.writers = np.stack(writers, axis=1)
-        if plan.form == rw.CLUSTER:
-            self.lo = np.zeros(self.blocks, np.int64)
-            self.hi = np.full(self.blocks, self.blocks - 1)
-            return
         big = np.iinfo(np.int64).max
         lo, hi = np.full(self.blocks, big), np.full(self.blocks, -1)
         has = self.writers >= 0
@@ -306,14 +297,14 @@ def _voxels(out, flat, ref, n, layout, d0, shift, w, absl, box, k, x, y):
     return np.where(inside, att * (lres + corr), F32(1))
 
 
-def scheduled_field(dens, ref, axis, flip, d0, shift, w, absl, box, plan,
+def scheduled_field(dens, ref, axis, flip, d0, shift, w, absl, box, threads,
                     resident):
     """The field built as the launch builds it: each block runs its steps
     as soon as its producers' flags allow, the most advanced ready block
     first (a block that read a slab before its writer wrote it reads NaN).
     Returns the field and the schedule."""
     n = dens.shape[0]
-    sch = Schedule(n, ref, axis, flip, d0, shift, plan, resident)
+    sch = Schedule(n, ref, axis, flip, d0, shift, threads, resident)
     layout = _layout(n, axis, flip)
     slab, sx, sy = layout
     flat, out = dens.reshape(-1), np.full(n ** 3, np.nan, F32)
@@ -358,15 +349,14 @@ RESIDENT = 132 * 4
 
 
 def _schedule(schedule, n, ref, d0):
-    """None: slab by slab; "rule": the kernel's plan and the H100's
-    residency; "flags": the flags form in 64-thread blocks, a third of the
-    blocks a step needs resident."""
+    """(threads, resident blocks); None: slab by slab. "rule": the launch's
+    block size and the H100's residency; "flags": 64-thread blocks, a third
+    of the blocks a step needs resident."""
     if schedule == "slab":
         return None, 0
     if schedule == "rule":
-        return rw.sweep_plan(n, ref, d0), RESIDENT
-    plan = rw.SweepPlan(rw.FLAGS, 64)
-    return plan, -(-(d0 if ref else 1) * n * n // 64 // 3)
+        return rw.sweep_threads(n, ref, d0), RESIDENT
+    return 64, -(-(d0 if ref else 1) * n * n // 64 // 3)
 
 
 @pytest.mark.parametrize("light", ALL_LIGHTS)
@@ -375,24 +365,24 @@ def _schedule(schedule, n, ref, d0):
 @pytest.mark.parametrize("schedule", ["slab", "rule", "flags"])
 def test_kernel_index_mirror_matches_plain(schedule, sweep, n, light):
     """The kernel's index arithmetic (numpy), slab by slab and in its
-    schedule (the rule's form, and the flags form with several voxels a
-    thread), against the plain version, within 1e-6, on every axis, flip
+    schedule (the launch's block size, and small blocks with several voxels
+    a thread), against the plain version, within 1e-6, on every axis, flip
     and window d0 = 1..3."""
     dens = _density(n)
     lt = np.asarray(light, F32)
     ref = sweep == "ref"
     statics = _statics(light, n, ref)
-    plan, resident = _schedule(schedule, n, ref, statics[2])
+    threads, resident = _schedule(schedule, n, ref, statics[2])
     if ref:
         want = rw.light_sweep_ref_plain(torch.from_numpy(dens), lt, n,
                                         *statics[:3])
-        got = (mirror_ref(dens, light) if plan is None else
-               scheduled_field(dens, True, *statics, plan, resident)[0])
+        got = (mirror_ref(dens, light) if threads is None else
+               scheduled_field(dens, True, *statics, threads, resident)[0])
     else:
         want = rw.light_sweep_plain(torch.from_numpy(dens), lt, n,
                                     *statics[:2])
-        got = (mirror_dir(dens, light) if plan is None else
-               scheduled_field(dens, False, *statics, plan, resident)[0])
+        got = (mirror_dir(dens, light) if threads is None else
+               scheduled_field(dens, False, *statics, threads, resident)[0])
     np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=TOL_MIRROR)
 
 
@@ -402,10 +392,10 @@ CELL_CONFIGS = ("dragon-64-hq", "dragon-256-raystab-deform")
 @pytest.mark.parametrize("sweep", ["ref", "dir"])
 def test_producers_cover_every_tap(sweep):
     """Without a volume: every carry tap's writer lies in its reader's
-    producer range, in the rule's form and in the flags form with several
-    voxels a thread, for the cells' light at 64 and 256^3 and lights of
-    every axis and sign with d0 = 8..13 at 256^3 (X.4: every axis and
-    sign)."""
+    producer range, at the launch's block size and in 256-thread blocks
+    with several voxels a thread, for the cells' light at 64 and 256^3 and
+    lights of every axis and sign with d0 = 8..13 at 256^3 (X.4: every axis
+    and sign)."""
     ref = sweep == "ref"
     cases = [(n, cell_light(c)) for c in CELL_CONFIGS for n in (64, 256)]
     if ref:
@@ -420,9 +410,9 @@ def test_producers_cover_every_tap(sweep):
         statics = _statics(lt, n, ref)
         axis, flip, d0, shift = statics[:4]
         d0s.add(d0)
-        for plan, resident in ((rw.sweep_plan(n, ref, d0), RESIDENT),
-                               (rw.SweepPlan(rw.FLAGS, 256), 60)):
-            sch = Schedule(n, ref, axis, flip, d0, shift, plan, resident)
+        for threads, resident in ((rw.sweep_threads(n, ref, d0), RESIDENT),
+                                  (256, 60)):
+            sch = Schedule(n, ref, axis, flip, d0, shift, threads, resident)
             assert sch.covers() > 0
     assert d0s == ({3, 12} | set(range(8, 14)) if ref else {1})
 
@@ -439,29 +429,22 @@ def test_cells_light():
 
 @pytest.mark.parametrize("n", [32, 64, 128, 160, 256])
 def test_sweep_plan_rule(n):
-    """The form rule (mirror of csrc/light_sweep.cu plan_for) at 32-256^3:
-    a cluster of 16 blocks, a voxel a thread, while a step has at most
-    2,048 voxels; above, the flags form in 128-thread blocks up to 16,384
-    voxels a step, else 256; a forced cluster takes up to 1,024 threads."""
+    """The launch's block size (mirror of csrc/light_sweep.cu threads_for)
+    at 32-256^3: 128 threads up to 16,384 voxels a step, else 256; every
+    launch within the flags' 4,096 blocks at the H100's residency."""
     for d0 in range(1, 14):
         for ref in (True, False):
             count = (d0 if ref else 1) * n * n
-            plan = rw.sweep_plan(n, ref, d0)
-            if count <= 2048:
-                assert plan.form == rw.CLUSTER
-                assert plan.threads * 16 >= count > (plan.threads - 32) * 16
-                assert sweep_blocks(n, ref, d0, plan, RESIDENT) <= 16
-            else:
-                assert plan == rw.SweepPlan(
-                    rw.FLAGS, 128 if count <= 16384 else 256)
-            forced = rw.sweep_plan(n, ref, d0, rw.CLUSTER)
-            assert forced.form == rw.CLUSTER and 32 <= forced.threads <= 1024
-            assert forced.threads % 32 == 0
-            assert rw.sweep_plan(n, ref, d0, rw.FLAGS).form == rw.FLAGS
-    # the cells' fields: X.3 at 64^3 (12,288 voxels a step) and 256^3
-    assert rw.sweep_plan(64, True, 3) == rw.SweepPlan(rw.FLAGS, 128)
-    assert rw.sweep_plan(256, True, 12) == rw.SweepPlan(rw.FLAGS, 256)
-    assert rw.sweep_plan(32, True, 1) == rw.SweepPlan(rw.CLUSTER, 64)
+            threads = rw.sweep_threads(n, ref, d0)
+            assert threads == (128 if count <= 16384 else 256)
+            assert sweep_blocks(n, ref, d0, threads, RESIDENT) <= rw.FLAGS_MAX
+    # the cells' fields: X.3 at 64^3 (12,288 voxels a step, 96 blocks) and
+    # 256^3 (786,432, as many blocks as stay resident)
+    assert rw.sweep_threads(64, True, 3) == 128
+    assert sweep_blocks(64, True, 3, 128, RESIDENT) == 96
+    assert rw.sweep_threads(256, True, 12) == 256
+    assert sweep_blocks(256, True, 12, 256, RESIDENT) == RESIDENT
+    assert rw.sweep_threads(256, False, 1) == 256
 
 
 def test_ref_box_is_the_plain_mask():
