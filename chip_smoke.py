@@ -151,7 +151,8 @@ the CUDA toolkit. Phases, one line each:
     ``2`` with and without ``-usemutex`` (the 16^3 mip level's ``-hq``
     light step spans less than one slab, d0 = 0: the light volume kernel
     once per frame), ``-pointlight`` (the light outside: the perspective
-    sweep) and with ``-renderimpl gather``, ``-renderimpl ref`` at
+    sweep X.5 once per frame) and with ``-renderimpl gather``,
+    ``-renderimpl ref`` at
     320x180, ``-ab`` (exit 0), ``-savegrid`` then ``-loadgrid``,
     ``-timings``, ``-profile`` (the trace file exists), ``-interactive``
     and ``-preview``; through the Engine, the X-key alternate frames (the
@@ -175,8 +176,9 @@ the CUDA toolkit. Phases, one line each:
     ``raymarch_ref`` at 64^3, 1280x720 (mean, p99, max).
 21. the multi-device frames, batch datagen and the native tier: a NCCL
     group of one rank runs ``ShardedFramePipeline`` at 1280x720 (64^3
-    ``-hq``, 256^3 parity, 256^3 gen-7 ray-stab, 64^3 gather), each image
-    bit-identical to ``FramePipeline``'s, with frame ms, device busy, ops
+    ``-hq``, 256^3 parity, 256^3 gen-7 ray-stab, 64^3 gather, 64^3
+    ``-pointlight``), each image bit-identical to ``FramePipeline``'s,
+    with frame ms, device busy, ops
     per frame and the all_gather's bytes and ms; the rank bodies of world 2
     and 4 in one process, every tile group of the work-queue kernel, band
     of the resolve and strip slice of the fold against its plain version
@@ -198,13 +200,20 @@ the CUDA toolkit. Phases, one line each:
     ``-hq`` reference step) and X.4 (the ``-fast`` per-slab sweep) against
     their plain versions at 32, 64, 128, 160 and 256^3 for lights of every
     major axis and sign with the reference step's windows d0 = 1..13 and
-    each cell's own light, and on the 64^3 and 256^3 frames' densities
-    (within 1e-5); at those frames' inputs their ms, device us, us per step
-    and roofline share, the bounds and the plain versions' times, and with
-    ``--parent TREE`` the kernel of TREE's ``csrc/light_sweep.cu`` in
-    turns with this tree's, 10 pairs, the first side alternating;
+    each cell's own light, X.5 (the ``-pointlight`` perspective sweep) for
+    point lights of every major axis and side, far, near the far face and
+    off-axis, and all three on the 64^3 and 256^3 frames' densities and
+    lights (within 1e-5); at those frames' inputs their ms, device us, us
+    per step and roofline share, the bounds and the plain versions' times,
+    and with ``--parent TREE`` the kernel of TREE's
+    ``csrc/light_sweep.cu`` in turns with this tree's, 10 pairs, the first
+    side alternating (X.5: "no parent kernel" where TREE has none);
     each cell, as phase 23 runs it, with the sweep's plain version alone; the app's ``-fast``
-    frames, in which X.4 must launch once per frame and X.3 never;
+    frames, in which X.4 must launch once per frame and X.3 never; the
+    app's ``-pointlight`` frames at 64^3 and 256^3, in which X.5 must
+    launch once per frame and X.3 and X.4 never, and those frames' device
+    ops, busy ms and ms through ``FramePipeline`` with the kernel and with
+    the point sweep's plain version;
 23. the benchmark's cells (``BENCHMARK.json``), each as a subprocess,
     ``python3 benchmark/run.py --workload <cell> --seed 0 --frames 20``:
     each must exit 0 with ``correct`` true, every metric the file lists for
@@ -217,7 +226,7 @@ Then one JSON line with every kernel's launches on the main paths (the
 64^3, 256^3, 256^3 ``-deform``, 64^3 ``-inside raystab`` and 64^3
 ``-normals`` app runs, the core-tier gen-1 frames, phase 20's runs,
 phase 21's sharded frames and datagen, phase 22's benchmark and phase
-22b's ``-fast`` app run, each counted from zero; the fold-only kernel is on no main path, as in the
+22b's ``-fast`` and ``-pointlight`` app runs, each counted from zero; the fold-only kernel is on no main path, as in the
 JAX package, and shows 0), its largest difference from its plain version
 (over every comparison above), and, at the inputs of the main path it
 belongs to (the 64^3 frame for the binned kernel, the march, the resolve,
@@ -886,9 +895,11 @@ def phase20(torch, app_main, kernels, card, dev, state) -> dict:
             ("-showmip 2 -usemutex", ["-showmip", "2", "-usemutex"],
              {lv_k: f, "march": f}, None),
             ("-pointlight (light outside: the perspective sweep)",
-             ["-pointlight"], {lv_k: 0, "march": f}, None),
+             ["-pointlight"], {lv_k: 0, "march": f, "light_sweep_point": f},
+             None),
             ("-pointlight -renderimpl gather",
-             ["-pointlight", "-renderimpl", "gather"], {gm: f, lv_k: f}, None),
+             ["-pointlight", "-renderimpl", "gather"],
+             {gm: f, lv_k: f, "light_sweep_point": 0}, None),
             ("-renderimpl ref 320x180", ["-renderimpl", "ref", "-width", "320",
                                          "-height", "180", "-frames", "1"],
              {gm: 0, lv_k: 0, "march": 0}, (180, 320, 3)),
@@ -1232,10 +1243,11 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
 
     a. A NCCL group of world size 1 runs ShardedFramePipeline at full
        width: 64^3 -hq on the 81,920-triangle icosphere, 256^3 parity and
-       gen-7 ray-stab on the 327,680-triangle one, and the 64^3 gather
-       frame; each image against the single-device FramePipeline's, bit for
-       bit; frame ms (CUDA events, median of 5 runs of 10 frames), device
-       ops per frame (profiler), the all_gather's bytes and ms. The counts
+       gen-7 ray-stab on the 327,680-triangle one, the 64^3 gather frame
+       and the 64^3 -pointlight frame (X.5); each image against the
+       single-device FramePipeline's, bit for bit; frame ms (CUDA events,
+       median of 5 runs of 10 frames), device ops per frame (profiler),
+       the all_gather's bytes and ms. The counts
        are set to 0 just before these frames and read just after.
     b. The same frames' rank bodies at world 2 and 4 in this process (a
        local group): every tile group of kernel 2.2, band of kernel 2.4 and
@@ -1286,6 +1298,7 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
         "256 raystab gen-7": (cfg_hi.replace(inside_mode="raystab"), mb7,
                               consts7),
         "64 gather": (cfg, mb, consts),
+        "64 -pointlight": (cfg.replace(point_light=True), mb, consts),
     }
     impl = {"64 gather": "gather"}
 
@@ -1310,7 +1323,7 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
         p.sync()
     launches = {k.name: k.launches for k in kernels}
     for k in ("parity_queue", "march", "resolve", "raystab_fold_extract",
-              "gather_march", "light_volume"):
+              "gather_march", "light_volume", "light_sweep_point"):
         check(launches[k] > 0, f"phase 21a: kernel {k} never launched on the "
               "sharded frames")
     check(launches["parity_voxelize"] == 0 and launches["raystab_mt"] == 0,
@@ -1653,8 +1666,16 @@ SWEEP_PAIRS = 10  # pairs of the --parent turns
 # 12 and their resample 9, the row sums and the complement 4, its addition
 # and the product 2 = 66. X.4, per voxel: the tap coordinates 2 and taps 6,
 # each of the four carry taps' attenuation 3 and product 1 = 16, the
-# resample 9, the row sums and the complement 4 and its addition 1 = 38
-SWEEP_OPS = {"light_sweep_ref": 66, "light_sweep": 38}
+# resample 9, the row sums and the complement 4 and its addition 1 = 38.
+# X.5, per voxel (square roots and divisions counted as one): the tap
+# coordinates 4 and taps 6; the centres' offsets from the light and their
+# squares at the two x and two y taps 4 x 4 = 16; per carry tap the
+# crossing length 6 (two sums, the root, 2/n times it, the division by
+# |dz|, ABSORPTION times it), the attenuation 3 and the product 1, 4 x 10
+# = 40; the resample 9, the row sums, complement and addition 5 = 80
+# (every voxel counted with four taps: the most it can need)
+SWEEP_OPS = {"light_sweep_ref": 66, "light_sweep": 38,
+             "light_sweep_point": 80}
 
 
 def sweep_bound(rw, name: str, n: int, light) -> tuple[float, str]:
@@ -1673,46 +1694,62 @@ def sweep_bound(rw, name: str, n: int, light) -> tuple[float, str]:
 
 def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     """Phase 22b: the light recurrences' kernel (csrc/light_sweep.cu: X.3,
-    the -hq reference step, and X.4, the -fast per-slab sweep).
+    the -hq reference step, X.4, the -fast per-slab sweep, and X.5, the
+    -pointlight perspective sweep).
 
     a. Each instance against its plain version on the card at 32, 64, 128,
-       160 and 256^3, on a seeded random grid with fractional alphas, for
-       lights of every major axis and sign with the windows d0 = 1..13, the
-       CPU tests' lights and each cell's own light; and on the 64^3 and
-       256^3 frames' own densities and lights. Over TOL_SWEEP fails; the
-       largest error is printed per instance and grid.
+       160 and 256^3, on a seeded random grid with fractional alphas: X.3
+       and X.4 for lights of every major axis and sign with the windows
+       d0 = 1..13, the CPU tests' lights and each cell's own light; X.5
+       for point lights of every major axis and side, far, near the far
+       face and off-axis (``tests/torch_cases.point_lights``); and all
+       three on the 64^3 and 256^3 frames' own densities and lights. Over
+       TOL_SWEEP fails; the largest error is printed per instance and grid.
     b. At the 64^3 and 256^3 frames' inputs: each instance's CUDA-event ms
        (INNER calls, median of REPS), device us per call (profiler), us per
        step and roofline share; its bound, the plain version's ms and
        device us; with ``state["parent"]`` (``--parent TREE``), TREE's
        kernel built alone (``scripts/light_sweep_turns.parent_sweep``) and
        this tree's in SWEEP_PAIRS pairs, the first side alternating, with
-       the pairs this tree's won (``pairs_in_turns``).
+       the pairs this tree's won and each side's interquartile range
+       (``pairs_in_turns``); X.5 "no parent kernel" where TREE has none.
     c. Each cell of ``BENCHMARK.json`` run as phase 23 runs it, with the
        sweep's plain version alone (``use_kernel=False``): its p50, device
        busy ms, device ops, torch-op ms and idle share, against phase
        23's run of the same cell with the kernel.
     d. The app's ``-fast`` frames with every launch count set to 0 before
-       and read after: X.4 once per frame, X.3 never.
+       and read after: X.4 once per frame, X.3 and X.5 never.
+    e. The app's ``-pointlight`` frames at 64^3 and 256^3 the same way: X.5
+       once per frame, X.3 and X.4 never; then those frames through
+       ``FramePipeline`` with the kernel and with the point sweep's plain
+       version (``use_kernel=False``): ms (CUDA events), device busy ms,
+       device ops and X.5's device us per frame (profiler).
 
-    ``state``: the 64^3 and 256^3 frames' (density, light) and the 64^3
-    mesh. Returns the -fast run's launches and, for the result line, each
-    instance's largest error, its and its plain version's ms and its bound
-    at the 64^3 frame's inputs."""
+    ``state``: the 64^3 and 256^3 frames' (density, light), their (cfg,
+    mesh buffers, constants) and the meshes. Returns the -fast and
+    -pointlight runs' launches and, for the result line, each instance's
+    largest error, its and its plain version's ms and its bound at the 64^3
+    frame's inputs."""
     from benchmark.run import Runner, cell_from_spec, load_spec
     from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw
 
     t_start = time.perf_counter()
     cases = state["cases"]
     ref_k, dir_k = rw.LIGHT_SWEEP_REF, rw.LIGHT_SWEEP
-    names = (ref_k.name, dir_k.name)
+    pt_k = rw.LIGHT_SWEEP_POINT
+    names = (ref_k.name, dir_k.name, pt_k.name)
 
     def call(name, dens, light, n, **kw):
-        """One field: X.3 or X.4 (``use_kernel`` passes through)."""
+        """One field: X.3, X.4 or X.5 (``use_kernel`` passes through)."""
         lt = np.asarray(light, np.float32)
         if name == ref_k.name:
             return rw.light_sweep_ref(dens, lt, n, *rw.light_ref_statics(lt, n),
                                       **kw)
+        if name == pt_k.name:
+            axis, flip, sweep = rw.point_light_statics(lt, n)
+            check(sweep, f"phase 22b: the point light {light} is not beyond "
+                  f"the volume at {n}^3")
+            return rw.light_sweep_point(dens, lt, n, axis, flip, **kw)
         return rw.light_sweep(dens, lt, n, *rw.light_statics(lt), **kw)
 
     def d0_of(name, light, n):
@@ -1743,16 +1780,20 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     for n in SWEEP_GRIDS:
         fill = torch.rand((n, n, n), generator=gen) < 0.2
         dens = (fill * torch.rand((n, n, n), generator=gen)).to(dev)
-        for light in lights:
-            windows.add(rw.light_ref_statics(np.asarray(light, np.float32), n))
-            for name in names:
-                got = call(name, dens, light, n)
-                want = call(name, dens, light, n, use_kernel=False)
-                e = max_err(got, want)
-                err_at[(name, n)] = max(err_at.get((name, n), 0.0), e)
-                errs[name] = max(errs[name], e)
-                check(e <= TOL_SWEEP, f"phase 22b: {name} {n}^3 light "
-                      f"{light} differs from its plain version by {e:.3g}")
+        runs = [(name, light) for light in lights
+                for name in (ref_k.name, dir_k.name)]
+        runs += [(pt_k.name, light) for light in cases.point_lights(n)]
+        for name, light in runs:
+            if name == ref_k.name:
+                windows.add(rw.light_ref_statics(np.asarray(light, np.float32),
+                                                 n))
+            got = call(name, dens, light, n)
+            want = call(name, dens, light, n, use_kernel=False)
+            e = max_err(got, want)
+            err_at[(name, n)] = max(err_at.get((name, n), 0.0), e)
+            errs[name] = max(errs[name], e)
+            check(e <= TOL_SWEEP, f"phase 22b: {name} {n}^3 light "
+                  f"{light} differs from its plain version by {e:.3g}")
     check({d for _, _, d in windows} == set(range(1, 14))
           and {(a, f) for a, f, _ in windows}
           == {(a, f) for a in range(3) for f in (False, True)},
@@ -1769,7 +1810,9 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
     print(f"phase 22b kernels against their plain versions (max|err|; "
           f"{len(lights)} lights at {SWEEP_GRIDS}^3, windows d0 "
           f"{sorted({d for _, _, d in windows})}, every axis and flip; the "
-          f"cells' lights {cell_lights}): " + ", ".join(
+          f"cells' lights {cell_lights}; X.5: {len(cases.point_lights(GRID))} "
+          f"point lights a grid, {cases.POINT_KINDS} on every axis and side, "
+          f"and the frames' lights): " + ", ".join(
               f"{k[0]} {k[1]} {v:.3g}" for k, v in err_at.items()))
 
     # ---- 22b-b. times and bounds at the frames' inputs ---------------------
@@ -1808,22 +1851,33 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
                 "ms": cuda_ms(fn), "dev_us": dev_us(fn),
                 "plain_ms": cuda_ms(plain), "plain_dev_us": dev_us(plain),
                 "bound": bnd, "steps": n_steps}
-            if parent is not None:
+            if parent is None:
+                continue
+            if name == pt_k.name and parent.point is None:
+                print(f"phase 22b {name} {n}^3 frame: no parent kernel "
+                      f"({state['parent']}'s light_sweep.cu has no X.5)")
+                continue
+            if name == pt_k.name:
+                old = (lambda dens=dens, light=light, n=n:
+                       parent.point(dens, light, n))
+            else:
                 old = (lambda ref=name == ref_k.name, dens=dens, light=light,
                        n=n: parent(ref, dens, light, n))
-                e = max_err(old(), plain())
-                res = turns.pairs_in_turns(old, fn, bnd[0], n_steps,
-                                           SWEEP_PAIRS)
-                print(f"phase 22b {name} {n}^3 frame, the kernel of "
-                      f"{state['parent']} (max|err| {e:.3g} against the plain "
-                      f"version) in turns with this tree's: {res['line']}; "
-                      f"{card}")
+            e = max_err(old(), plain())
+            res = turns.pairs_in_turns(old, fn, bnd[0], n_steps, SWEEP_PAIRS)
+            print(f"phase 22b {name} {n}^3 frame, the kernel of "
+                  f"{state['parent']} (max|err| {e:.3g} against the plain "
+                  f"version) in turns with this tree's: {res['line']}; "
+                  f"{card}")
     for (name, n), t in timing.items():
         lt = np.asarray(frames[n][1], np.float32)
-        statics = (rw.light_ref_statics(lt, n) if name == ref_k.name
-                   else rw.light_statics(lt))
+        statics = {ref_k.name: lambda: rw.light_ref_statics(lt, n),
+                   dir_k.name: lambda: rw.light_statics(lt),
+                   pt_k.name: lambda: rw.point_light_statics(lt, n)}[name]()
+        what = {ref_k.name: ", d0", dir_k.name: "",
+                pt_k.name: ", sweep"}[name]
         print(f"phase 22b {name} at the {n}^3 frame's inputs (axis, flip"
-              f"{', d0' if name == ref_k.name else ''} {statics}): "
+              f"{what} {statics}): "
               f"{t['ms']:.4f} ms (CUDA events, {INNER} calls, median of "
               f"{REPS}); bound {t['bound'][0]:.6f} ms ({t['bound'][1]}); "
               f"{dev_text(t['dev_us'], t['bound'][0])}"
@@ -1870,11 +1924,53 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
             torch, app_main, kernels,
             ["-mesh", os.path.relpath(obj), "-frames", str(FRAMES), "-fast"],
             Path(td) / "fast.png", "64^3 -fast app")
-    check(launches[dir_k.name] == FRAMES and launches[ref_k.name] == 0,
+    check(launches[dir_k.name] == FRAMES and launches[ref_k.name] == 0
+          and launches[pt_k.name] == 0,
           f"phase 22b -fast: {dir_k.name} launched {launches[dir_k.name]}, "
-          f"{ref_k.name} {launches[ref_k.name]} times in {FRAMES} frames")
+          f"{ref_k.name} {launches[ref_k.name]}, {pt_k.name} "
+          f"{launches[pt_k.name]} times in {FRAMES} frames")
     print(f"phase 22b -fast app frames {GRID}^3 1280x720, {FRAMES} frames, "
           f"launches {launches}, volume covers {covered:.3f} of the image")
+
+    # ---- 22b-e. the -pointlight frames: the app, then FramePipeline ------
+    with tempfile.TemporaryDirectory() as td:
+        for n, mesh, extra in ((GRID, state["mesh6"], []),
+                               (GRID_HI, state["mesh7"],
+                                ["-grid", str(GRID_HI)])):
+            obj = Path(td) / f"point{n}.obj"
+            write_obj(obj, mesh[0] * WORLD_SCALE + WORLD_CENTER, mesh[1])
+            got, covered = app_run(
+                torch, app_main, kernels,
+                ["-mesh", os.path.relpath(obj), "-frames", str(FRAMES),
+                 "-pointlight", *extra],
+                Path(td) / "point.png", f"{n}^3 -pointlight app")
+            check(got[pt_k.name] == FRAMES and got[ref_k.name] == 0
+                  and got[dir_k.name] == 0,
+                  f"phase 22b -pointlight {n}^3: {pt_k.name} launched "
+                  f"{got[pt_k.name]}, {ref_k.name} {got[ref_k.name]}, "
+                  f"{dir_k.name} {got[dir_k.name]} times in {FRAMES} frames")
+            for k, c in got.items():
+                launches[k] += c
+            # the frames profiled in a process of their own, as the cells
+            res = subprocess.run(
+                [sys.executable, "-c", POINT_FRAMES, str(obj), str(n)],
+                cwd=Path(__file__).resolve().parent,
+                capture_output=True, text=True, timeout=CELL_TIMEOUT_S)
+            lines = res.stdout.strip().splitlines()
+            if res.returncode != 0 or not lines:
+                print(res.stdout[-3000:], res.stderr[-6000:], file=sys.stderr)
+                raise RuntimeError(f"phase 22b -pointlight {n}^3 frames "
+                                   f"exited {res.returncode}")
+            row = {k: (f"{v['ms']:.4f} ms a frame (CUDA events, {INNER} "
+                       f"frames, median of {REPS}), device busy "
+                       f"{v['busy_ms']:.4f} ms, {v['ops']:.0f} device ops, "
+                       f"{pt_k.name} {v['x5_us']:.2f} us a frame")
+                   for k, v in json.loads(lines[-1]).items()}
+            print(f"phase 22b -pointlight {n}^3 1280x720 -hq: the app's "
+                  f"{FRAMES} frames launch {got}, volume covers "
+                  f"{covered:.3f} of the image; FramePipeline with the "
+                  f"kernel: {row['kernel']}; with the sweep's plain version: "
+                  f"{row['plain']}; {card}")
     print(f"phase 22b took {time.perf_counter() - t_start:.1f} s")
     t64 = {name: timing[(name, GRID)] for name in names}
     return {"launches": launches, "errs": errs,
@@ -1894,6 +1990,46 @@ def plain(density, light, n, **kw):
 pipeline.light_sweep_ref_host = plain
 sys.exit(run.main(["--workload", sys.argv[1], "--seed", "0", "--frames",
                    sys.argv[2], "--warmup", sys.argv[3]]))
+"""
+
+# phase 22b-e: the -pointlight frames through FramePipeline (argv: OBJ,
+# grid), with the kernel and with the point sweep's plain version: ms
+# (CUDA events), device busy ms, device ops and X.5's device us per frame
+POINT_FRAMES = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from dxrvoxelizer_tpu_torch.bench import cuda_ms, profile_frames
+from dxrvoxelizer_tpu_torch.core import pipeline
+from dxrvoxelizer_tpu_torch.core.pipeline import FramePipeline
+from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
+from dxrvoxelizer_tpu_torch.models.scene import Scene
+from dxrvoxelizer_tpu_torch.ops import _cuda
+from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+from dxrvoxelizer_tpu_torch.utils.objloader import load_obj
+obj, n = sys.argv[1], int(sys.argv[2])
+cfg = VoxelizerConfig(mesh=obj, grid_size=n, point_light=True)
+scene = Scene(load_obj(obj), pos_scale=cfg.pos_scale,
+              device=torch.device("cuda", 0), light_pt=cfg.light_pt)
+cam = OrbitCamera(cfg.width, cfg.height)
+consts = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
+pipe = FramePipeline(cfg, scene.buffers)
+sweep = pipeline.light_sweep_point_host
+def plain(density, light, n, **kw):
+    return sweep(density, light, n, **{**kw, "use_kernel": False})
+def frame():
+    return pipe.frame(consts)
+out = {}
+for label, fn in (("kernel", sweep), ("plain", plain)):
+    pipeline.light_sweep_point_host = fn
+    frame()
+    pipe.sync()
+    ms = cuda_ms(frame)
+    pipe.sync()
+    busy, ops, kus = profile_frames(frame, pipe.sync, _cuda.all_kernels())
+    out[label] = {"ms": ms, "busy_ms": busy, "ops": ops,
+                  "x5_us": kus["light_sweep_point"]}
+print(json.dumps(out))
 """
 
 # the benchmark's cells (phase 23): 20 timed frames each, after 5 warm-up
@@ -3530,7 +3666,9 @@ def main(argv=None) -> int:
     p22b = phase22b(torch, app_main, kernels, card, dev, {
         "64": (vols[0], consts.local_space_light_pt),
         "256": (vols7[0], consts7.local_space_light_pt),
-        "mesh6": (v6, t6), "cases": cases, "parent": args.parent})
+        "pipes": {GRID: (cfg, mb, consts), GRID_HI: (cfg_hi, mb7, consts7)},
+        "mesh6": (v6, t6), "mesh7": (v7, t7), "cases": cases,
+        "parent": args.parent})
     for k, c in p22b["launches"].items():
         main_launches[k] += c
     errs.update(p22b["errs"])

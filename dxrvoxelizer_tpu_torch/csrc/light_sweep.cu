@@ -1,12 +1,14 @@
-// Light recurrences of the warp render: the -hq reference-step sweep (X.3)
-// and the -fast per-slab sweep (X.4), one launch per field (Hopper).
+// Light recurrences of the warp render: the -hq reference-step sweep (X.3),
+// the -fast per-slab sweep (X.4) and the -pointlight perspective sweep
+// (X.5), one launch per field (Hopper).
 //
-// Replaces: dxrvoxelizer_tpu/ops/raymarch_warp.py::light_sweep_ref and
-// ::light_sweep (XLA functions, not Pallas kernels: each a jax.lax.scan over
-// slabs whose 2-tap bilinear resamples are dense [N, N] interpolation
-// matrices multiplied on the matrix unit). Both march the light's major tex
-// axis far to near in slab order (the volume permuted so that axis comes
-// last, flipped when the light points down it):
+// Replaces: dxrvoxelizer_tpu/ops/raymarch_warp.py::light_sweep_ref,
+// ::light_sweep and ::light_sweep_point (XLA functions, not Pallas kernels:
+// each a jax.lax.scan over slabs whose 2-tap bilinear resamples are dense
+// [N, N] interpolation matrices multiplied on the matrix unit). All three
+// march the light's major tex axis far to near in slab order (the volume
+// permuted so that axis comes last, flipped when the light points down
+// it):
 // - X.3 (light_sweep_ref): in reversed slab order r = n-1-k, slab r reads
 //   the output slabs r-d0 (weight 1-w) and r-d0-1 (weight w), 1 below 0;
 //   that z-mix is resampled in x then y at the constant shift (sx, sy),
@@ -18,15 +20,27 @@
 // - X.4 (light_sweep): L[k] = resample(carry) + (1 - sum_x * sum_y) with
 //   carry = L[k+1] * att[k+1] (ones past the far slab) and att taken from
 //   the density at the voxel itself.
+// - X.5 (light_sweep_point): X.4's recurrence toward a light point l (in
+//   slab-order tex space, beyond the far slab): slab k's taps lie at
+//   a_k (i + 0.5) + (n l_x (1 - a_k) - 0.5), a_k = (z_{k+1} - l_z) /
+//   (z_k - l_z), z_k = (k + 0.5) / n (the last slab's z_{k+1} is
+//   (n + 0.5) / n), the same in y; each carry tap's attenuation takes its
+//   own crossing length ((2/n) sqrt((dx^2 + dy^2) + dz^2)) / |dz| from the
+//   tap's texel centre to l. The texel and slab centres (k + 0.5) / n are
+//   rounded as the plain version rounds them on the card (times the
+//   float32 reciprocal of n): with the light near the far face the map is
+//   ill-conditioned, and an ulp of z_k moves a tap by 1e-3 texels at
+//   160^3.
 //
 // What bounds it on the card: bytes, by the count of chip_smoke.py and
 // benchmark/work.py: the density read once and the field written once,
 // 8 bytes a voxel (0.63 us at 64^3, 40 us at 256^3 at 3.35 TB/s), against
-// 66 FP32 operations per voxel inside the box for X.3 and 38 for X.4. In
-// practice the chain of dependent steps: ceil(n/d0) steps for X.3 (22 at
-// 64^3 and 256^3 for the cells' light), n for X.4, each reading slabs an
-// earlier step wrote d0+1 texels away at most, so a step waits for the
-// blocks that wrote them. A step's time is its chain's latency: the wait,
+// 66 FP32 operations per voxel inside the box for X.3, 38 for X.4 and 80
+// for X.5 (a square root and a division a tap). In practice the chain of
+// dependent steps: ceil(n/d0) steps for X.3 (22 at 64^3 and 256^3 for the
+// cells' light), n for X.4 and X.5, each reading slabs an earlier step
+// wrote d0+1 texels away at most (X.5: its taps lie within a texel of the
+// voxel's light ray), so a step waits for the blocks that wrote them. A step's time is its chain's latency: the wait,
 // one round of loads through L2, the resample, the stores and their
 // release (about 3 us on the H100 at 64^3), not its bytes.
 //
@@ -50,7 +64,9 @@
 //   waits only for its producers: the blocks whose voxels its carry taps
 //   read, a short range of blocks found once per launch from the taps'
 //   geometry (the shift is constant; a block holds one run of each step's
-//   voxels, so the range stays short). Steps overlap across the grid
+//   voxels, so the range stays short; X.5's tap map changes with the slab,
+//   so its range is found every step from the run's end rows, in O(1): the
+//   map is monotone). Steps overlap across the grid
 //   instead of each ending in a barrier. Blocks of 128 threads up to
 //   16,384 voxels a step, else 256 (threads_for below, mirrored by
 //   ops/raymarch_warp.py::sweep_threads). The flags live in scratch that
@@ -64,8 +80,11 @@
 //   the plain version's order (z-mix products then sum; x taps, then y
 //   taps, each as product, product, sum), so nvcc contracts nothing.
 // - The statics (w, sx, sy, the attenuation's constant, the box of texels
-//   whose p+s lies inside) come by value from the host, which computes them
-//   with the plain version's float32 operations: no device read, no sync.
+//   whose p+s lies inside; X.5: the light point alone, the per-slab maps
+//   and crossing lengths computed here with the plain version's float32
+//   operations) come by value from the host, which computes them with the
+//   plain version's float32 operations: no device read, no sync, no
+//   per-slab vector copied to the card.
 
 #include <climits>
 #include <mutex>
@@ -91,8 +110,9 @@ struct Sweep {
   long long sk, sx, sy;  // strides of slab, x and y in the natural layout
   float w;               // X.3: weight of the farther slab of each z-mix
   float shift_x, shift_y;  // tap coordinate = texel index + shift
-  float absl;            // ABSORPTION times the step length, float32
+  float absl;  // ABSORPTION times the step length (X.5: ABSORPTION)
   int xlo, xhi, ylo, yhi, kmax;  // X.3: texels whose p+s lies in the box
+  float lx, ly, lz;  // X.5: the light point in slab-order tex space
 };
 
 // one axis of an interp_matrix row: coordinate c, taps i0 and i0 + 1
@@ -357,51 +377,248 @@ __global__ void __launch_bounds__(256, 6) light_sweep_kernel(const Sweep p) {
   flags_done(p);
 }
 
+// ---- X.5: the point light ---------------------------------------------------
+
+// (k + 0.5) / n, texel or slab k's centre, as the plain version rounds it
+// on the card: PyTorch's CUDA division by a CPU scalar multiplies by the
+// float32 reciprocal (the CPU divides; the two agree where n is a power of
+// two)
+__device__ __forceinline__ float slab_z(int k, int n) {
+  return __fmul_rn(__fadd_rn(static_cast<float>(k), 0.5f),
+                   __frcp_rn(static_cast<float>(n)));
+}
+
+// slab k's tap map, coordinate = a * (i + 0.5) + off, and the carry slab
+// k+1's offset from the light along the sweep (dz^2 and |dz|)
+struct PointSlab {
+  float a, off_x, off_y;
+  float dz2, adz;
+};
+
+__device__ __forceinline__ PointSlab point_slab(const Sweep& p, int k) {
+  const float nf = static_cast<float>(p.n);
+  // the plane past the far slab: (n + 0.5) / n, rounded once
+  const float z1 = k + 1 < p.n ? slab_z(k + 1, p.n)
+                               : __fdiv_rn(__fadd_rn(nf, 0.5f), nf);
+  const float dz = __fsub_rn(z1, p.lz);
+  PointSlab m;
+  m.a = __fdiv_rn(dz, __fsub_rn(slab_z(k, p.n), p.lz));
+  const float oma = __fsub_rn(1.0f, m.a);
+  m.off_x = __fsub_rn(__fmul_rn(__fmul_rn(nf, p.lx), oma), 0.5f);
+  m.off_y = __fsub_rn(__fmul_rn(__fmul_rn(nf, p.ly), oma), 0.5f);
+  m.dz2 = __fmul_rn(dz, dz);
+  m.adz = fabsf(dz);
+  return m;
+}
+
+__device__ __forceinline__ float point_coord(float a, float off, int i) {
+  return __fadd_rn(__fmul_rn(a, __fadd_rn(static_cast<float>(i), 0.5f)), off);
+}
+
+// (texel i's centre - l)^2 along one slab axis
+__device__ __forceinline__ float point_d2(int i, float l, int n) {
+  const float d = __fsub_rn(slab_z(i, n), l);
+  return __fmul_rn(d, d);
+}
+
+// X.5: slab k, texel (x, y); reads output slab k+1 times each tap's
+// attenuation at the tap's own crossing length. The four carry taps and
+// their densities are loaded before any is used (one round trip), then
+// resampled as resample() does: x taps, then y taps.
+__device__ __forceinline__ float point_voxel(const Sweep& p,
+                                             const PointSlab& m, int k,
+                                             int x, int y) {
+  const int n = p.n;
+  const Axis ax = axis_taps(point_coord(m.a, m.off_x, x), n);
+  const Axis ay = axis_taps(point_coord(m.a, m.off_y, y), n);
+  const float corr =
+      __fsub_rn(1.0f, __fmul_rn(row_sum(ax), row_sum(ay)));
+  bool in[2][2];  // [y tap][x tap]: the tap lies in the volume
+  float val[2][2];
+  if (k == n - 1) {  // the carry past the far slab is 1
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      in[t >> 1][t & 1] = (t >> 1 ? ay.in1 : ay.in0) && (t & 1 ? ax.in1
+                                                                : ax.in0);
+      val[t >> 1][t & 1] = 1.0f;
+    }
+  } else {
+    const long long s1 = slab_offset(p, k + 1);
+    float carry[2][2], dens[2][2];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int tx = t & 1, ty = t >> 1;
+      in[ty][tx] = (ty ? ay.in1 : ay.in0) && (tx ? ax.in1 : ax.in0);
+      const long long o = s1 + texel(p, ax.i0 + tx, ay.i0 + ty);
+      carry[ty][tx] = in[ty][tx] ? __ldcg(p.out + o) : 0.0f;
+      dens[ty][tx] = in[ty][tx] ? __ldg(p.density + o) : 0.0f;
+    }
+    const float c2n = __fdiv_rn(2.0f, static_cast<float>(n));
+    const float dx2[2] = {point_d2(ax.i0, p.lx, n),
+                          point_d2(ax.i0 + 1, p.lx, n)};
+    const float dy2[2] = {point_d2(ay.i0, p.ly, n),
+                          point_d2(ay.i0 + 1, p.ly, n)};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int tx = t & 1, ty = t >> 1;
+      const float r =
+          __fsqrt_rn(__fadd_rn(__fadd_rn(dx2[tx], dy2[ty]), m.dz2));
+      const float delta = __fdiv_rn(__fmul_rn(c2n, r), m.adz);
+      val[ty][tx] = __fmul_rn(
+          carry[ty][tx],
+          attenuation(dens[ty][tx], __fmul_rn(p.absl, delta)));
+    }
+  }
+  float row[2];
+#pragma unroll
+  for (int ty = 0; ty < 2; ++ty) {
+    const float a = in[ty][0] ? val[ty][0] : 0.0f;
+    const float b = in[ty][1] ? val[ty][1] : 0.0f;
+    row[ty] = __fadd_rn(__fmul_rn(ax.w0, a), __fmul_rn(ax.w1, b));
+  }
+  return __fadd_rn(
+      __fadd_rn(__fmul_rn(ay.w0, row[0]), __fmul_rn(ay.w1, row[1])), corr);
+}
+
+// the taps that coordinates a * (i + 0.5) + off read for i in i0..i1, as
+// one range lo..hi inside [0, n-1] (none: lo > hi); the map is monotone, so
+// the ends' taps bound it
+__device__ __forceinline__ void tap_range(float a, float off, int i0, int i1,
+                                          int n, int* lo, int* hi) {
+  const int t0 = static_cast<int>(floorf(point_coord(a, off, i0)));
+  const int t1 = static_cast<int>(floorf(point_coord(a, off, i1)));
+  *lo = max(min(t0, t1), 0);
+  *hi = min(max(t0, t1) + 1, n - 1);
+}
+
+// the blocks that wrote what voxels v0..v1 of slab k read in slab k+1, as
+// one range lo..hi (none: lo > hi): the rows x0..x1 of the run and its
+// columns (y0..y1 on one row, else every column) under slab k's map; the
+// taps' voxels (tx, ty) lie between (tx_lo, ty_lo) and (tx_hi, ty_hi) in
+// the step's order, whose blocks are runs of `chunk`
+__device__ __forceinline__ void point_producers(const Sweep& p,
+                                                const PointSlab& m, int v0,
+                                                int v1, int chunk, int* lo,
+                                                int* hi) {
+  const int n = p.n;
+  *lo = 1;
+  *hi = 0;
+  if (v0 > v1) return;
+  const int x0 = v0 / n, x1 = v1 / n;
+  const int y0 = x0 == x1 ? v0 - x0 * n : 0;
+  const int y1 = x0 == x1 ? v1 - x1 * n : n - 1;
+  int tx0, tx1, ty0, ty1;
+  tap_range(m.a, m.off_x, x0, x1, n, &tx0, &tx1);
+  tap_range(m.a, m.off_y, y0, y1, n, &ty0, &ty1);
+  if (tx0 > tx1 || ty0 > ty1) return;
+  *lo = (tx0 * n + ty0) / chunk;
+  *hi = (tx1 * n + ty1) / chunk;
+}
+
+// 4 blocks of 256 an SM at most: up to 64 registers, where the bound X.3
+// and X.4 take (6 blocks, 40 registers) spills the crossing lengths'
+// temporaries; every launch of X.5 up to 256^3 (256 blocks) stays resident
+__global__ void __launch_bounds__(256, 4)
+    light_sweep_point_kernel(const Sweep p) {
+  const int n = p.n;
+  const int count = n * n;  // voxels a step: one slab
+  const int chunk = (count + gridDim.x - 1) / gridDim.x;
+  const int v0 = blockIdx.x * chunk;
+  const int end = min(count, v0 + chunk);
+  const unsigned long long tag =
+      static_cast<unsigned long long>(__ldcg(p.epoch)) << 32;
+  for (int s = 0; s < n; ++s) {
+    const int k = n - 1 - s;  // far slab first
+    const PointSlab m = point_slab(p, k);
+    if (s > 0) {
+      int lo, hi;
+      point_producers(p, m, v0, end - 1, chunk, &lo, &hi);
+      flags_wait(p, lo, hi, tag | s);
+    }
+    for (int v = v0 + threadIdx.x; v < end; v += blockDim.x) {
+      const int x = v / n;
+      const int y = v - x * n;
+      __stcg(p.out + slab_offset(p, k) + texel(p, x, y),
+             point_voxel(p, m, k, x, y));
+    }
+    if (s + 1 < n) flags_post(p, tag | (s + 1));
+  }
+  flags_done(p);
+}
+
 // ---- launch ----------------------------------------------------------------
 
 // threads per block (mirrored by ops/raymarch_warp.py::sweep_threads): 128
-// up to 16,384 voxels a step (X.3: d0 slabs, X.4: one), else 256
+// up to 16,384 voxels a step (X.3: d0 slabs, X.4 and X.5: one), else 256
 int threads_for(long long count) { return count <= 16384 ? 128 : 256; }
+
+// the instances: X.3, X.4, X.5
+constexpr int kInstances = 3;
+const void* instance(int which) {
+  switch (which) {
+    case 0: return reinterpret_cast<const void*>(light_sweep_kernel<true>);
+    case 1: return reinterpret_cast<const void*>(light_sweep_kernel<false>);
+    default: return reinterpret_cast<const void*>(light_sweep_point_kernel);
+  }
+}
 
 // the most blocks of one instance at `threads` the card keeps resident
 // (per device, instance and block size; 0: the query failed)
-template <bool kRef>
-int resident_blocks(int dev, int threads) {
-  static int cache[kMaxDevices][2];
+int resident_blocks(int dev, int which, int threads) {
+  static int cache[kMaxDevices][kInstances][2];
   static std::mutex lock;
   std::lock_guard<std::mutex> hold(lock);
-  int& most = cache[dev][threads == 256];
+  int& most = cache[dev][which][threads == 256];
   if (most == 0) {
     int sms = 0, per_sm = 0;
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
             cudaSuccess &&
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, light_sweep_kernel<kRef>, threads, 0) == cudaSuccess) {
+            &per_sm, instance(which), threads, 0) == cudaSuccess) {
       most = sms * per_sm;
     }
   }
   return most;
 }
 
-template <bool kRef>
-int launch(Sweep& p, cudaStream_t stream) {
+// one cooperative launch of instance `which` with `count` voxels a step
+int launch(int which, Sweep& p, long long count, cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
     return static_cast<int>(cudaErrorInvalidDevice);
   }
-  const long long count = static_cast<long long>(p.per) * p.n * p.n;
   const int threads = threads_for(count);
-  const int most = resident_blocks<kRef>(dev, threads);
+  const int most = resident_blocks(dev, which, threads);
   if (most <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   long long blocks = (count + threads - 1) / threads;
   if (blocks > most) blocks = most;
   if (blocks > kFlags) blocks = kFlags;
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(light_sweep_kernel<kRef>),
-      dim3(static_cast<unsigned>(blocks)), dim3(threads), args, 0, stream);
+      instance(which), dim3(static_cast<unsigned>(blocks)), dim3(threads),
+      args, 0, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the fields every instance reads: volumes, scratch, layout
+Sweep sweep_of(const void* density, void* out, void* scratch, int n,
+               int axis, int flip) {
+  const long long stride[3] = {static_cast<long long>(n) * n, n, 1};
+  const int rest0 = axis == 0 ? 1 : 0;
+  const int rest1 = axis == 2 ? 1 : 2;
+  Sweep p{};
+  p.density = static_cast<const float*>(density);
+  p.out = static_cast<float*>(out);
+  p.epoch = static_cast<unsigned*>(scratch);
+  p.flags = reinterpret_cast<unsigned long long*>(p.epoch + 32);
+  p.n = n;
+  p.per = 1;
+  p.flip = flip;
+  p.sk = stride[axis];
+  p.sx = stride[rest0];
+  p.sy = stride[rest1];
+  return p;
 }
 
 }  // namespace
@@ -423,20 +640,8 @@ extern "C" int dxv_light_sweep(const void* density, void* out, void* scratch,
       static_cast<long long>(ref ? d0 : 1) * n * n > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long stride[3] = {static_cast<long long>(n) * n, n, 1};
-  const int rest0 = axis == 0 ? 1 : 0;
-  const int rest1 = axis == 2 ? 1 : 2;
-  Sweep p;
-  p.density = static_cast<const float*>(density);
-  p.out = static_cast<float*>(out);
-  p.epoch = static_cast<unsigned*>(scratch);
-  p.flags = reinterpret_cast<unsigned long long*>(p.epoch + 32);
-  p.n = n;
+  Sweep p = sweep_of(density, out, scratch, n, axis, flip);
   p.per = ref ? d0 : 1;
-  p.flip = flip;
-  p.sk = stride[axis];
-  p.sx = stride[rest0];
-  p.sy = stride[rest1];
   p.w = w;
   p.shift_x = shift_x;
   p.shift_y = shift_y;
@@ -446,6 +651,30 @@ extern "C" int dxv_light_sweep(const void* density, void* out, void* scratch,
   p.ylo = ylo;
   p.yhi = yhi;
   p.kmax = kmax;
-  const auto s = static_cast<cudaStream_t>(stream);
-  return ref ? launch<true>(p, s) : launch<false>(p, s);
+  return launch(ref ? 0 : 1, p, static_cast<long long>(p.per) * n * n,
+                static_cast<cudaStream_t>(stream));
+}
+
+// X.5: density [n, n, n] -> out [n, n, n]; scratch as above (shared with
+// X.3 and X.4 on the stream); axis, flip: the light's major tex axis and
+// side; lx, ly, lz: the light point in slab-order tex space (float32, the
+// plain version's l_t), beyond the far slab (lz > (n + 0.5) / n);
+// absorption: ABSORPTION
+extern "C" int dxv_light_sweep_point(const void* density, void* out,
+                                     void* scratch, int n, int axis,
+                                     int flip, float lx, float ly, float lz,
+                                     float absorption, void* stream) {
+  if (n <= 0) return 0;
+  if (axis < 0 || axis > 2 || scratch == nullptr ||
+      static_cast<long long>(n) * n > INT_MAX ||
+      !(lz > (static_cast<float>(n) + 0.5f) / static_cast<float>(n))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Sweep p = sweep_of(density, out, scratch, n, axis, flip);
+  p.absl = absorption;
+  p.lx = lx;
+  p.ly = ly;
+  p.lz = lz;
+  return launch(2, p, static_cast<long long>(n) * n,
+                static_cast<cudaStream_t>(stream));
 }

@@ -89,6 +89,9 @@ _SIGNATURES = {
     # absl, xlo, xhi, ylo, yhi, kmax, stream
     "dxv_light_sweep": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I,
                         _I, _I, _I, _I, _P),
+    # density, out, scratch, n, axis, flip, light x, y, z, absorption,
+    # stream
+    "dxv_light_sweep_point": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
 }
 
 
@@ -124,7 +127,7 @@ def all_kernels() -> list[Kernel]:
             raystab_cuda.FOLD_EXTRACT, raystab_cuda.FOLD,
             raystab_mt_cuda.KERNEL, raymarch_fast.GATHER_MARCH,
             raymarch_fast.LIGHT_VOLUME, raymarch_warp.LIGHT_SWEEP_REF,
-            raymarch_warp.LIGHT_SWEEP]
+            raymarch_warp.LIGHT_SWEEP, raymarch_warp.LIGHT_SWEEP_POINT]
 
 
 def _sources() -> list[Path]:

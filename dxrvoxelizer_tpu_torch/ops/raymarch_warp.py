@@ -11,11 +11,10 @@
 3. **Light transmittance** comes from a slab-order recurrence along the
    light's major axis (:func:`light_sweep`, or the reference-step
    :func:`light_sweep_ref` of the ``-hq`` default: one launch each of the
-   hand-written CUDA kernel ``csrc/light_sweep.cu`` on the card; for the
-   point light the perspective :func:`light_sweep_point`, torch tensor
-   ops); where the recurrence does not apply (a light step under one slab,
-   a light inside the volume) the exact per-voxel field of
-   ops/raymarch_fast.py.
+   hand-written CUDA kernel ``csrc/light_sweep.cu`` on the card, as is the
+   point light's perspective :func:`light_sweep_point`); where the
+   recurrence does not apply (a light step under one slab, a light inside
+   the volume) the exact per-voxel field of ops/raymarch_fast.py.
 4. **Screen resolve**: each screen pixel finds where its ray meets the
    intermediate plane and whether it hits the volume, bilinearly reads the
    composited intermediate there and is composited to RGB — the second
@@ -64,6 +63,12 @@ LIGHT_SWEEP = _cuda.Kernel(
     symbol="light_sweep_kernel<false>",
     source="dxrvoxelizer_tpu_torch/csrc/light_sweep.cu",
     replaces="dxrvoxelizer_tpu/ops/raymarch_warp.py:93",
+)
+LIGHT_SWEEP_POINT = _cuda.Kernel(
+    name="light_sweep_point",
+    symbol="light_sweep_point_kernel",
+    source="dxrvoxelizer_tpu_torch/csrc/light_sweep.cu",
+    replaces="dxrvoxelizer_tpu/ops/raymarch_warp.py:153",
 )
 
 Z_REF = 1.25  # reference plane (tex space), just past the far slab
@@ -141,6 +146,19 @@ def _dir_statics(light: tuple, n: int, axis: int,
     return shift_x, shift_y, (ABSORPTION * delta_l).item()
 
 
+@functools.lru_cache(maxsize=256)
+def _point_statics(light: tuple, axis: int,
+                   flip: bool) -> tuple[float, float, float]:
+    """Host statics of :func:`light_sweep_point`: the light point ``l_t``
+    in slab-order tex space as (l_x, l_y, l_z), float32 values computed on
+    the CPU with the plain version's operations (l_z reflected when
+    ``flip``)."""
+    l_t = (_f32(TEX_SCALE) * _f32(light) + 0.5)[list(perm_for_axis(axis))]
+    if flip:
+        l_t = l_t * _f32([1.0, 1.0, -1.0]) + _f32([0.0, 0.0, 1.0])
+    return tuple(v.item() for v in l_t)
+
+
 # ---- the kernel's launch (csrc/light_sweep.cu) -----------------------------
 
 FLAGS_MAX = 4096  # blocks of a launch, at most: a 64-bit flag each
@@ -150,7 +168,7 @@ SCRATCH_WORDS = 32 + 2 * FLAGS_MAX  # the epoch and a count, then the flags
 def sweep_threads(n: int, ref: bool, d0: int) -> int:
     """Threads per block of a launch (``threads_for`` in
     csrc/light_sweep.cu): 128 up to 16,384 voxels a step (X.3: d0 slabs,
-    X.4: one), else 256."""
+    X.4 and X.5: one), else 256."""
     return 128 if (d0 if ref else 1) * n * n <= 16384 else 256
 
 
@@ -178,6 +196,27 @@ def _launch(kernel: _cuda.Kernel, density: torch.Tensor, n: int, axis: int,
         *box, stream)
     _cuda.check(code, kernel.name)
     kernel.launches += 1
+    return out
+
+
+def _launch_point(density: torch.Tensor, n: int, axis: int, flip: bool,
+                  light: tuple[float, float, float]) -> torch.Tensor:
+    """One cooperative launch of X.5 (``csrc/light_sweep.cu``) -> [N,N,N].
+    ``light``: :func:`_point_statics`, beyond the far slab."""
+    density = density.contiguous()
+    _cuda.require(density, "density", torch.float32, (n, n, n))
+    if not light[2] > float(np.float32(n + 0.5) / np.float32(n)):
+        raise ValueError(f"the light (slab-order z {light[2]}) must lie "
+                         "beyond the far slab")
+    lib = _cuda.load()
+    out = torch.empty((n, n, n), dtype=torch.float32, device=density.device)
+    stream = _cuda.stream_ptr(density.device)
+    code = lib.dxv_light_sweep_point(
+        density.data_ptr(), out.data_ptr(),
+        _scratch(density.device, stream).data_ptr(), n, axis, int(flip),
+        *light, ABSORPTION, stream)
+    _cuda.check(code, LIGHT_SWEEP_POINT.name)
+    LIGHT_SWEEP_POINT.launches += 1
     return out
 
 
@@ -229,18 +268,12 @@ def light_sweep(density: torch.Tensor, light_local: np.ndarray,
                    (shift_x, shift_y), absl, (0, n - 1, 0, n - 1, n - 1))
 
 
-def light_sweep_point(density: torch.Tensor, light_local: np.ndarray,
-                      n: int, axis: int, flip: bool) -> torch.Tensor:
-    """Point-light transmittance volume by perspective slab sweep -> [N,N,N].
-
-    The _POINT_LIGHT_ variant of :func:`light_sweep` (PSRayCast.hlsl:151-154):
-    rays emanate from the light POINT, so the per-slab resample is a
-    scale+offset toward the light's xy instead of a constant shift, and the
-    per-crossing path length varies per voxel (``(2/N)*|p-l|/|p_z-l_z|``).
-    Requires the light outside the volume beyond the ``axis``/``flip`` side
-    (:func:`light_sweep_point_host` checks and takes the exact per-voxel
-    field otherwise). The matmuls are FP32 (no TF32 on the card).
-    """
+def light_sweep_point_plain(density: torch.Tensor, light_local: np.ndarray,
+                            n: int, axis: int, flip: bool) -> torch.Tensor:
+    """Plain version of :func:`light_sweep_point`: the JAX package's scan
+    as a loop of torch ops (dense [K, n, n] interpolation matrices and a
+    per-voxel step length), on any device. The matmuls are FP32 (no TF32
+    on the card)."""
     if density.is_cuda:
         assert not torch.backends.cuda.matmul.allow_tf32, "the sweep is FP32"
     device = density.device
@@ -287,21 +320,55 @@ def light_sweep_point(density: torch.Tensor, light_local: np.ndarray,
     return _from_slab_order(lvol, perm, flip)
 
 
+def light_sweep_point(density: torch.Tensor, light_local: np.ndarray,
+                      n: int, axis: int, flip: bool,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """Point-light transmittance volume by perspective slab sweep -> [N,N,N].
+
+    The _POINT_LIGHT_ variant of :func:`light_sweep` (PSRayCast.hlsl:151-154):
+    rays emanate from the light POINT, so the per-slab resample is a
+    scale+offset toward the light's xy instead of a constant shift, and the
+    per-crossing path length varies per voxel (``(2/N)*|p-l|/|p_z-l_z|``).
+    Requires the light outside the volume beyond the ``axis``/``flip`` side
+    (:func:`light_sweep_point_host` checks and takes the exact per-voxel
+    field otherwise; the kernel raises).
+
+    A CUDA tensor launches ``csrc/light_sweep.cu`` (X.5) once, or raises; a
+    CPU tensor, or ``use_kernel=False``, takes
+    :func:`light_sweep_point_plain`.
+    """
+    if not use_kernel or density.device.type == "cpu":
+        return light_sweep_point_plain(density, light_local, n, axis, flip)
+    return _launch_point(density, n, axis, flip,
+                         _point_statics(_light_key(light_local), axis, flip))
+
+
+def point_light_statics(light_local: np.ndarray,
+                        n: int) -> tuple[int, bool, bool]:
+    """Host statics of the point light's field: ``(axis, flip, sweep)``,
+    the light's major tex axis and side, and whether it lies more than a
+    texel beyond that face (the perspective sweep; else the exact per-voxel
+    field)."""
+    l_t = np.asarray(TEX_SCALE) * np.asarray(light_local) + 0.5
+    axis = int(np.argmax(np.abs(l_t - 0.5)))
+    flip = bool(l_t[axis] < 0.5)
+    lz = 1.0 - l_t[axis] if flip else l_t[axis]
+    return axis, flip, bool(lz > 1.0 + 1.0 / n)
+
+
 def light_sweep_point_host(density: torch.Tensor, light_local: np.ndarray,
                            n: int, use_kernel: bool = True) -> torch.Tensor:
     """Point-light field: perspective sweep when the light clears the
     volume along its major axis, else the exact per-voxel march
-    (:func:`~dxrvoxelizer_tpu_torch.ops.raymarch_fast.precompute_light_volume`;
-    ``use_kernel=False``: its plain version)."""
+    (:func:`~dxrvoxelizer_tpu_torch.ops.raymarch_fast.precompute_light_volume`);
+    ``use_kernel=False`` takes the plain versions."""
     light_local = np.asarray(light_local)
-    l_t = np.asarray(TEX_SCALE) * light_local + 0.5
-    axis = int(np.argmax(np.abs(l_t - 0.5)))
-    flip = bool(l_t[axis] < 0.5)
-    lz = 1.0 - l_t[axis] if flip else l_t[axis]
-    if lz <= 1.0 + 1.0 / n:
+    axis, flip, sweep = point_light_statics(light_local, n)
+    if not sweep:
         return precompute_light_volume(density, light_local, point_light=True,
                                        use_kernel=use_kernel)
-    return light_sweep_point(density, light_local, n, axis, flip)
+    return light_sweep_point(density, light_local, n, axis, flip,
+                             use_kernel=use_kernel)
 
 
 def light_statics(light_local: np.ndarray) -> tuple[int, bool]:

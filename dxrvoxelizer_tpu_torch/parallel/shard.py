@@ -131,37 +131,37 @@ def _light_mode(light_local, n: int) -> tuple[int, bool, str]:
     decision of ops/raymarch_warp.light_sweep_point_host: the perspective
     slab sweep ("persp") needs the light outside the volume along its major
     axis; otherwise the exact per-voxel march ("exact")."""
-    from dxrvoxelizer_tpu_torch.ops.raymarch_ref import TEX_SCALE
+    from dxrvoxelizer_tpu_torch.ops.raymarch_warp import point_light_statics
 
-    l_t = np.asarray(TEX_SCALE) * np.asarray(light_local) + 0.5
-    axis = int(np.argmax(np.abs(l_t - 0.5)))
-    flip = bool(l_t[axis] < 0.5)
-    lz = 1.0 - l_t[axis] if flip else l_t[axis]
-    mode = "exact" if lz <= 1.0 + 1.0 / n else "persp"
-    return axis, flip, mode
+    axis, flip, sweep = point_light_statics(light_local, n)
+    return axis, flip, "persp" if sweep else "exact"
 
 
 def light_volume_from_statics(density, light, n: int, l_axis: int,
                               l_flip: bool, l_mode: str, n_light: int = 32,
-                              l_d0: int = 0) -> torch.Tensor:
+                              l_d0: int = 0,
+                              use_kernel: bool = True) -> torch.Tensor:
     """The light field by the host-derived mode (:func:`frame_statics`):
-    "persp" and "exact" (point light), "ref" and "exact-dir" (``-hq``), or
-    the per-slab directional recurrence ("dir")."""
+    "persp" (X.5) and "exact" (point light), "ref" (X.3) and "exact-dir"
+    (``-hq``), or the per-slab directional recurrence ("dir", X.4); a CUDA
+    tensor launches the mode's kernel, ``use_kernel=False`` takes its plain
+    version."""
     from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw
 
+    kw = {"use_kernel": use_kernel}
     if l_mode == "persp":
-        return rw.light_sweep_point(density, light, n, l_axis, l_flip)
+        return rw.light_sweep_point(density, light, n, l_axis, l_flip, **kw)
     if l_mode == "exact":
         return precompute_light_volume(density, light, n_light=n_light,
-                                       point_light=True)
+                                       point_light=True, **kw)
     if l_mode == "ref":
         return rw.light_sweep_ref(density, light, n, l_axis, l_flip, l_d0,
-                                  n_light=n_light)
+                                  n_light=n_light, **kw)
     if l_mode == "exact-dir":
         # -hq on a grid too small for the slab recurrence (d0 < 1):
         # light_sweep_ref_host's own fallback
-        return precompute_light_volume(density, light, n_light=n_light)
-    return rw.light_sweep(density, light, n, l_axis, l_flip)
+        return precompute_light_volume(density, light, n_light=n_light, **kw)
+    return rw.light_sweep(density, light, n, l_axis, l_flip, **kw)
 
 
 def frame_statics(consts, width: int, height: int, m_cap: int = 128,

@@ -1,23 +1,28 @@
 """Time the light recurrences' kernel (``csrc/light_sweep.cu``: X.3, the
-``-hq`` reference step, and X.4, the ``-fast`` per-slab sweep) in turns
-with another tree's on the card.
+``-hq`` reference step, X.4, the ``-fast`` per-slab sweep, and X.5, the
+``-pointlight`` perspective sweep) in turns with another tree's on the
+card.
 
 Run from the repository root:
 
     python3 scripts/light_sweep_turns.py --parent TREE [--sizes 64,256]
+                                         [--sweeps X.3,X.4,X.5]
                                          [--pairs 10] [--out FILE]
 
 TREE's ``csrc/light_sweep.cu`` alone is built with nvcc
 (:func:`parent_sweep`). At each size (default 32, 64, 128, 160 and 256): a
 seeded random density (a fifth of the voxels filled, fractional alphas)
 and the cells' light (``tests/torch_cases.cell_light``: d0 = 3 at 64^3, 12
-at 256^3, marching along the layout's minor axis). Each instance of both
-trees is held against its plain version (above 1e-5 fails), then timed in
-``--pairs`` pairs, the side that goes first alternating
+at 256^3, marching along the layout's minor axis; X.5: the app's default
+light_pt as a point on the cells' axis and side,
+``tests/torch_cases.point_light(2, -1.0, "far", n)``). Each instance of
+both trees is held against its plain version (above 1e-5 fails), then
+timed in ``--pairs`` pairs, the side that goes first alternating
 (:func:`pairs_in_turns`): CUDA-event ms (``bench.cuda_ms``: 10 calls,
 median of 5), device us per call (``bench.device_us``, the profiler), us
-per step (X.3 ceil(n/d0) steps, X.4 n) and the roofline share against the
-density read and the field written once (8 bytes a voxel at 3.35 TB/s).
+per step (X.3 ceil(n/d0) steps, X.4 and X.5 n) and the roofline share
+against the density read and the field written once (8 bytes a voxel at
+3.35 TB/s). Where TREE has no X.5, this tree's X.5 is timed alone.
 A pair is this tree's win when its device us is the lower. Prints the
 card's name and power limit; needs a CUDA card; imports no JAX.
 ``chip_smoke.py --parent TREE`` (phase 22b) runs the same pairs at the
@@ -70,6 +75,13 @@ def density(n: int, seed: int = SEED) -> torch.Tensor:
     return (fill * torch.rand((n, n, n), generator=gen)).cuda()
 
 
+def point_call(dens, light, n: int, **kw):
+    """X.5 on the point light ``light``."""
+    lt = np.asarray(light, np.float32)
+    axis, flip, _ = rw.point_light_statics(lt, n)
+    return rw.light_sweep_point(dens, lt, n, axis, flip, **kw)
+
+
 def statics(ref: bool, light, n: int) -> tuple:
     """(axis, flip, d0) of the light at n (d0 1 for X.4)."""
     lt = np.asarray(light, np.float32)
@@ -89,7 +101,8 @@ def call(ref: bool, dens, light, n: int, **kw):
 def parent_sweep(tree: Path, workdir: Path):
     """TREE's csrc/light_sweep.cu built alone -> call(ref, dens, light, n)
     launching its kernel with this tree's statics (the C signature with or
-    without the scratch word, whichever TREE has)."""
+    without the scratch word, whichever TREE has); ``call.point(dens,
+    light, n)`` launches TREE's X.5 (None where TREE has none)."""
     src = tree / "dxrvoxelizer_tpu_torch" / "csrc" / "light_sweep.cu"
     lib_path = workdir / "libparent_light_sweep.so"
     built = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared",
@@ -128,6 +141,23 @@ def parent_sweep(tree: Path, workdir: Path):
         _cuda.check(code, "parent light_sweep")
         return out
 
+    run.point = None
+    if "dxv_light_sweep_point" in src.read_text():
+        lib.dxv_light_sweep_point.argtypes = [P, P, P, I, I, I, F, F, F, F, P]
+        lib.dxv_light_sweep_point.restype = I
+
+        def point(dens, light, n: int):
+            lt = np.asarray(light, np.float32)
+            axis, flip, _ = rw.point_light_statics(lt, n)
+            out = torch.empty_like(dens)
+            code = lib.dxv_light_sweep_point(
+                dens.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, axis,
+                int(flip), *rw._point_statics(rw._light_key(lt), axis, flip),
+                rw.ABSORPTION, _cuda.stream_ptr(dens.device))
+            _cuda.check(code, "parent light_sweep_point")
+            return out
+
+        run.point = point
     return run
 
 
@@ -171,8 +201,11 @@ def pairs_in_turns(parent, change, bound_ms: float, n_steps: int,
             return (f"{who} ms {min(ms):.4f}-{max(ms):.4f}; device us not "
                     f"measured")
         med = statistics.median(us)
+        q1, _, q3 = (statistics.quantiles(us, n=4) if len(us) > 1
+                     else (us[0], us[0], us[0]))
         return (f"{who} ms {min(ms):.4f}-{max(ms):.4f}, device us "
                 f"{min(us):.2f}-{max(us):.2f} (median {med:.2f}, "
+                f"interquartile range {q3 - q1:.2f}, "
                 f"{med / n_steps:.3f} a step, share "
                 f"{bound_ms / (med / 1e3):.4f})")
 
@@ -186,6 +219,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
+    ap.add_argument("--sweeps", default="X.3,X.4,X.5",
+                    help="the instances to time")
     ap.add_argument("--pairs", type=int, default=PAIRS)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -209,6 +244,8 @@ def main(argv=None) -> int:
         dens = density(n)
         for ref in (True, False):
             name = "X.3" if ref else "X.4"
+            if name not in args.sweeps.split(","):
+                continue
             axis, flip, d0 = statics(ref, light, n)
             n_steps = -(-n // d0) if ref else n
             bound_ms = n ** 3 * 8 / HBM * 1e3
@@ -228,6 +265,34 @@ def main(argv=None) -> int:
             rows.append({"n": n, "sweep": name, "d0": d0, "errs": errs,
                          "wins": res["wins"], "measured": res["measured"],
                          "runs": res["runs"]})
+        # X.5: TREE's in turns with this tree's, or this tree's alone
+        if "X.5" not in args.sweeps.split(","):
+            continue
+        pl = cases.point_light(2, -1.0, "far", n)
+        axis, flip, _ = rw.point_light_statics(np.asarray(pl, np.float32), n)
+        bound_ms = n ** 3 * 8 / HBM * 1e3
+        want = point_call(dens, pl, n, use_kernel=False)
+        sides = {"change": lambda: point_call(dens, pl, n)}
+        if parent.point is not None:
+            sides["parent"] = lambda: parent.point(dens, pl, n)
+        errs = {who: float((f() - want).abs().max())
+                for who, f in sides.items()}
+        worst = max(worst, *errs.values())
+        if parent.point is None:
+            res = {"line": f"no parent kernel ({args.parent} has no X.5); "
+                           f"this tree's " + text(timed(sides["change"],
+                                                        bound_ms, n)),
+                   "wins": 0, "measured": 0, "runs": {}}
+        else:
+            res = pairs_in_turns(sides["parent"], sides["change"], bound_ms,
+                                 n, args.pairs)
+        print(f"X.5 {n}^3 (axis {axis}, flip {int(flip)}, light {pl}, {n} "
+              f"steps; max|err| " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in errs.items())
+              + f"): {res['line']}; {card}", flush=True)
+        rows.append({"n": n, "sweep": "X.5", "d0": 1, "errs": errs,
+                     "wins": res["wins"], "measured": res["measured"],
+                     "runs": res["runs"]})
         del dens
         torch.cuda.empty_cache()
     if args.out is not None:

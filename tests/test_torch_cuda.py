@@ -58,6 +58,7 @@ from torch_cases import (
     gather_cameras,
     mt_stress,
     needle_soup,
+    point_lights,
     stab_stress,
 )
 
@@ -952,21 +953,28 @@ def _sweep_lights(n):
               for d in (8, 13))]
 
 
-@pytest.mark.parametrize("n", [32, 64, 128, 256])
-@pytest.mark.parametrize("sweep", ["ref", "dir"])
+@pytest.mark.parametrize("n", [32, 64, 128, 160, 256])
+@pytest.mark.parametrize("sweep", ["ref", "dir", "point"])
 def test_light_sweep_kernels_match_plain(dev, sweep, n):
-    """X.3 (the reference step) and X.4 (the per-slab sweep) launch once per
-    field and stay within 1e-5 of their plain versions on the card, every
-    axis, flip and window; ``use_kernel=False`` launches nothing."""
+    """X.3 (the reference step), X.4 (the per-slab sweep) and X.5 (the
+    point light's perspective sweep) launch once per field and stay within
+    1e-5 of their plain versions on the card, every axis, flip and window
+    (X.5: every axis and side, the light far, near and off-axis; 160^3,
+    where the card's plain version rounds (k + 0.5) / n by a reciprocal);
+    ``use_kernel=False`` launches nothing."""
     from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw
 
     dens = _grid(dev, "random", n)
-    kernel = rw.LIGHT_SWEEP_REF if sweep == "ref" else rw.LIGHT_SWEEP
-    for light in _sweep_lights(n):
+    kernel = {"ref": rw.LIGHT_SWEEP_REF, "dir": rw.LIGHT_SWEEP,
+              "point": rw.LIGHT_SWEEP_POINT}[sweep]
+    for light in (point_lights(n) if sweep == "point" else _sweep_lights(n)):
         lt = np.asarray(light, np.float32)
         if sweep == "ref":
             args = (dens, lt, n, *rw.light_ref_statics(lt, n))
             fn = rw.light_sweep_ref
+        elif sweep == "point":
+            args = (dens, lt, n, *rw.point_light_statics(lt, n)[:2])
+            fn = rw.light_sweep_point
         else:
             args = (dens, lt, n, *rw.light_statics(lt))
             fn = rw.light_sweep
@@ -978,4 +986,4 @@ def test_light_sweep_kernels_match_plain(dev, sweep, n):
         err = float((got - want).abs().max())
         assert err <= TOL_SWEEP, (light, err)
         assert bool((want < 0.5).any()), light
-        assert sweep == "dir" or bool((want == 1.0).any()), light
+        assert sweep != "ref" or bool((want == 1.0).any()), light

@@ -1,20 +1,25 @@
 """The light recurrences of the warp render (ops/raymarch_warp.py
-``light_sweep_ref``, the ``-hq`` reference-step sweep X.3, and
-``light_sweep``, the ``-fast`` per-slab sweep X.4) on the CPU.
+``light_sweep_ref``, the ``-hq`` reference-step sweep X.3,
+``light_sweep``, the ``-fast`` per-slab sweep X.4, and
+``light_sweep_point``, the ``-pointlight`` perspective sweep X.5) on the
+CPU.
 
 Their CUDA kernel (csrc/light_sweep.cu) runs only on the card
 (tests/test_torch_cuda.py, chip_smoke.py). Here a numpy mirror of the
 kernel's index arithmetic (the natural [N, N, N] layout read through the
 slab order's strides and reflection, reversed slab r reading r-d0 and
 r-d0-1 of its own output, the clamped density taps, the host's box of
-texels inside the volume) is held against the plain versions within 1e-6,
-slab by slab and in the kernel's schedule: its blocks, each running its
-steps as soon as the blocks it found as its producers have posted theirs,
-so that a producer range that missed a writer reads a slab before it is
-written. The producer ranges are checked without a volume at 256^3 too,
-and the launch's block size (``sweep_threads``) by its choices. The plain versions are held against the
-JAX package by tests/test_torch_render.py::test_light_sweeps_match_jax on
-the same lights.
+texels inside the volume; X.5's per-slab tap maps and per-tap crossing
+lengths in the kernel's rounding order) is held against the plain versions
+within 1e-6, slab by slab and in the kernel's schedule: its blocks, each
+running its steps as soon as the blocks it found as its producers have
+posted theirs (X.5: a range found anew every step), so that a producer
+range that missed a writer reads a slab before it is written. The producer
+ranges are checked without a volume at 256^3 too, and the launch's block
+size (``sweep_threads``) by its choices. The plain versions are held
+against the JAX package by
+tests/test_torch_render.py::test_light_sweeps_match_jax and (X.5)
+tests/test_torch_render_variants.py on the same lights.
 """
 
 from __future__ import annotations
@@ -25,8 +30,16 @@ import torch
 
 from dxrvoxelizer_tpu_torch.core import pipeline
 from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw
+from dxrvoxelizer_tpu_torch.ops.raymarch_ref import ABSORPTION
 from tests.test_torch_render import LIGHTS
-from tests.torch_cases import SWEEP_LIGHTS, cell_light, d0_light
+from tests.torch_cases import (
+    POINT_KINDS,
+    SWEEP_LIGHTS,
+    cell_light,
+    d0_light,
+    point_light,
+    point_lights,
+)
 
 torch.set_num_threads(2)
 
@@ -174,6 +187,122 @@ def mirror_dir(dens: np.ndarray, light) -> np.ndarray:
     return out.reshape(n, n, n)
 
 
+def _point_statics(light, n):
+    """(axis, flip, (l_x, l_y, l_z)) as light_sweep_point_host passes them
+    to the kernel."""
+    lt = np.asarray(light, F32)
+    axis, flip, sweep = rw.point_light_statics(lt, n)
+    assert sweep, light
+    return axis, flip, rw._point_statics(rw._light_key(lt), axis, flip)
+
+
+def _slab_z(k, n):
+    """csrc/light_sweep.cu slab_z: (k + 0.5) / n as the plain version
+    rounds it on the card, (k + 0.5) times the float32 reciprocal of n (on
+    the CPU it divides: the same values at the powers of two tested
+    here)."""
+    return (np.asarray(k).astype(F32) + F32(0.5)) * (F32(1) / F32(n))
+
+
+def _point_slab(n, k, light):
+    """csrc/light_sweep.cu point_slab: slab k's tap map (a, off_x, off_y)
+    and the carry slab k+1's dz^2 and |dz|."""
+    lx, ly, lz = (F32(v) for v in light)
+    z1 = _slab_z(k + 1, n) if k + 1 < n else F32(n + 0.5) / F32(n)
+    dz = z1 - lz
+    a = dz / (_slab_z(k, n) - lz)
+    oma = F32(1) - a
+    nf = F32(n)
+    return (a, (nf * lx) * oma - F32(0.5), (nf * ly) * oma - F32(0.5),
+            dz * dz, np.abs(dz))
+
+
+def _point_coord(a, off, i):
+    """csrc/light_sweep.cu point_coord: a * (i + 0.5) + off."""
+    return a * (np.asarray(i).astype(F32) + F32(0.5)) + off
+
+
+def _point_voxels(out, flat, n, layout, light, k, x, y):
+    """The kernel's point_voxel on arrays of voxels of slab k, reading slab
+    k+1 of the field so far from ``out``: each carry tap times the
+    attenuation at its own crossing length."""
+    slab, sx, sy = layout
+    lx, ly, _ = (F32(v) for v in light)
+    a, off_x, off_y, dz2, adz = _point_slab(n, k, light)
+    ax = _taps(_point_coord(a, off_x, x), n)
+    ay = _taps(_point_coord(a, off_y, y), n)
+    corr = F32(1) - _row_sum(ax) * _row_sum(ay)
+    c2n = F32(2) / F32(n)
+
+    def carry(i, j):
+        if k == n - 1:  # past the far slab
+            return np.ones(np.broadcast(i, j).shape, F32)
+        o = slab(k + 1) + i * sx + j * sy
+        dx, dy = _slab_z(i, n) - lx, _slab_z(j, n) - ly
+        delta = (c2n * np.sqrt((dx * dx + dy * dy) + dz2)) / adz
+        return out[o] * _attenuation(flat[o], F32(ABSORPTION) * delta)
+
+    return _resample(ax, ay, carry, n) + corr
+
+
+def mirror_point(dens: np.ndarray, light) -> np.ndarray:
+    """X.5 as the kernel computes it, slab by slab."""
+    n = dens.shape[0]
+    axis, flip, lt = _point_statics(light, n)
+    layout = _layout(n, axis, flip)
+    slab, sx, sy = layout
+    flat, out = dens.reshape(-1), np.full(n ** 3, np.nan, F32)
+    x, y = np.arange(n)[:, None], np.arange(n)[None, :]
+    for k in range(n - 1, -1, -1):
+        out[slab(k) + x * sx + y * sy] = _point_voxels(out, flat, n, layout,
+                                                       lt, k, x, y)
+    assert not np.isnan(out).any()
+    return out.reshape(n, n, n)
+
+
+def test_point_constants_round_as_the_plain_version():
+    """X.5's kernel rounds 2 / n and (n + 0.5) / n in float32 where the
+    plain version rounds Python's float64 quotients to float32: the same
+    values at every grid up to 4096; its texel and slab centres, (k + 0.5)
+    times the float32 reciprocal, are the CPU's quotients at the powers of
+    two."""
+    for n in range(1, 4097):
+        assert np.float32(2.0 / n) == F32(2) / F32(n), n
+        assert np.float32((n + 0.5) / n) == F32(n + 0.5) / F32(n), n
+    for n in (16, 32, 64, 128, 256):
+        k = np.arange(n + 1)
+        np.testing.assert_array_equal(_slab_z(k, n),
+                                      (k.astype(F32) + F32(0.5)) / F32(n))
+
+
+def test_point_mirror_follows_the_cards_division_at_160(monkeypatch):
+    """At 160^3 (n not a power of two) the plain version's (k + 0.5) / n
+    rounds as a float32 reciprocal multiply on the card (PyTorch's CUDA
+    division by a CPU scalar) and as a division on the CPU; with the light
+    near the far face the field moves by 2e-4 between them. The kernel's
+    arithmetic follows the card: its mirror is within 1e-6 of the plain
+    version run with the card's division (emulated here)."""
+    n = 160
+    dens = _density(n)
+    light = point_light(0, 1.0, "near", n)
+    axis, flip, _ = _point_statics(light, n)
+    args = (torch.from_numpy(dens), np.asarray(light, F32), n, axis, flip)
+    cpu = rw.light_sweep_point_plain(*args).numpy()
+    div = torch.Tensor.__truediv__
+
+    def card_div(a, b):
+        if isinstance(b, (int, float)) and a.dtype == torch.float32:
+            return a * torch.tensor(F32(1) / F32(b))
+        return div(a, b)
+
+    monkeypatch.setattr(torch.Tensor, "__truediv__", card_div)
+    card = rw.light_sweep_point_plain(*args).numpy()
+    monkeypatch.undo()
+    got = mirror_point(dens, light)
+    np.testing.assert_allclose(got, card, rtol=0, atol=TOL_MIRROR)
+    assert np.abs(cpu - card).max() > 1e-5
+
+
 # ---- the kernel's schedule (csrc/light_sweep.cu: blocks, producers) --------
 
 def _voxel_at(n, per, minor_y, v):
@@ -208,52 +337,110 @@ def sweep_blocks(n, ref, d0, threads, resident):
     return min(need, resident, rw.FLAGS_MAX)
 
 
+def _tap_range(a, off, i0, i1, n):
+    """csrc/light_sweep.cu tap_range: the taps coordinates a * (i + 0.5) +
+    off read for i in i0..i1 (arrays), clipped to [0, n-1] (none: lo >
+    hi)."""
+    t0 = np.floor(_point_coord(a, off, i0)).astype(np.int64)
+    t1 = np.floor(_point_coord(a, off, i1)).astype(np.int64)
+    return (np.maximum(np.minimum(t0, t1), 0),
+            np.minimum(np.maximum(t0, t1) + 1, n - 1))
+
+
+def point_producers(n, chunk, blocks, slab_map):
+    """csrc/light_sweep.cu point_producers for every block at one step
+    (slab k's map ``slab_map`` = (a, off_x, off_y)): the run's end rows
+    and columns under the map -> (lo, hi) per block (none: lo > hi)."""
+    a, off_x, off_y = slab_map
+    v0 = np.arange(blocks) * chunk
+    v1 = np.minimum(n * n, v0 + chunk) - 1
+    x0, x1 = v0 // n, v1 // n
+    one = x0 == x1
+    y0 = np.where(one, v0 - x0 * n, 0)
+    y1 = np.where(one, v1 - x1 * n, n - 1)
+    tx0, tx1 = _tap_range(a, off_x, x0, x1, n)
+    ty0, ty1 = _tap_range(a, off_y, y0, y1, n)
+    none = (v0 > v1) | (tx0 > tx1) | (ty0 > ty1)
+    return (np.where(none, 1, (tx0 * n + ty0) // chunk),
+            np.where(none, 0, (tx1 * n + ty1) // chunk))
+
+
 class Schedule:
     """A field's launch as csrc/light_sweep.cu runs it: ``blocks`` blocks of
     ``threads``, block b holding voxels b*chunk .. (b+1)*chunk-1 of every
-    step, and per block the range of its producers (``producers``: the
-    blocks whose voxels its carry taps read)."""
+    step, and per step and block the range of its producers (``lo[s]``,
+    ``hi[s]``: the blocks whose voxels its carry taps read; X.3 and X.4 find
+    one range per launch, X.5, whose tap map changes with the slab
+    (``point``: its light (l_x, l_y, l_z)), one a step)."""
 
-    def __init__(self, n, ref, axis, flip, d0, shift, threads, resident):
+    def __init__(self, n, ref, axis, flip, d0, shift, threads, resident,
+                 point=None):
         self.n, self.ref, self.per = n, ref, (d0 if ref else 1)
+        self.shift, self.point = shift, point
         self.count = self.per * n * n
         self.steps = -(-n // self.per)
         self.minor_y = _layout(n, axis, flip)[2] == 1
         self.blocks = sweep_blocks(n, ref, d0, threads, resident)
-        chunk = -(-self.count // self.blocks)
+        self.chunk = -(-self.count // self.blocks)
         v = np.arange(self.count)
-        self.owner = v // chunk
-        j, x, y = _voxel_at(n, self.per, self.minor_y, v)
-        writers = []  # [voxels, taps] block writing each tap (-1: none)
-        for jq in ((j, np.where(j > 0, j - 1, self.per - 1)) if ref
+        self.owner = v // self.chunk
+        self.jxy = _voxel_at(n, self.per, self.minor_y, v)
+        if point is None:  # one tap map: the writers of every step
+            self._writers = w = self._tap_writers(
+                _first_tap(self.jxy[1], shift[0]),
+                _first_tap(self.jxy[2], shift[1]))
+            big = np.iinfo(np.int64).max
+            lo, hi = np.full(self.blocks, big), np.full(self.blocks, -1)
+            has = w >= 0
+            np.minimum.at(lo, np.repeat(self.owner, has.sum(1)), w[has])
+            np.maximum.at(hi, np.repeat(self.owner, has.sum(1)), w[has])
+            self.lo = np.broadcast_to(lo, (self.steps, self.blocks))
+            self.hi = np.broadcast_to(hi, (self.steps, self.blocks))
+        else:
+            ranges = [point_producers(n, self.chunk, self.blocks,
+                                      _point_slab(n, n - 1 - s, point)[:3])
+                      for s in range(self.steps)]
+            self.lo = np.stack([r[0] for r in ranges])
+            self.hi = np.stack([r[1] for r in ranges])
+
+    def writers(self, s):
+        """[voxels, taps]: the block writing each carry tap of step s (-1:
+        none, the tap outside)."""
+        if self.point is None:
+            return self._writers
+        n, (_, x, y) = self.n, self.jxy
+        a, off_x, off_y = _point_slab(n, n - 1 - s, self.point)[:3]
+        first = [np.floor(_point_coord(a, off, np.arange(n))).astype(np.int64)
+                 for off in (off_x, off_y)]
+        return self._tap_writers(first[0][x], first[1][y])
+
+    def _tap_writers(self, ix, iy):
+        """writers() from each voxel's first tap along slab x and y."""
+        n, j = self.n, self.jxy[0]
+        out = []
+        for jq in ((j, np.where(j > 0, j - 1, self.per - 1)) if self.ref
                    else (np.zeros_like(j),)):
             for dx in (0, 1):
                 for dy in (0, 1):
-                    i = _first_tap(x, shift[0]) + dx
-                    jj = _first_tap(y, shift[1]) + dy
+                    i, jj = ix + dx, iy + dy
                     inside = (i >= 0) & (i < n) & (jj >= 0) & (jj < n)
                     w = _voxel_index(n, self.per, self.minor_y, jq,
                                      np.clip(i, 0, n - 1),
                                      np.clip(jj, 0, n - 1))
-                    writers.append(np.where(inside, w // chunk, -1))
-        self.writers = np.stack(writers, axis=1)
-        big = np.iinfo(np.int64).max
-        lo, hi = np.full(self.blocks, big), np.full(self.blocks, -1)
-        has = self.writers >= 0
-        np.minimum.at(lo, np.repeat(self.owner, has.sum(1)),
-                      self.writers[has])
-        np.maximum.at(hi, np.repeat(self.owner, has.sum(1)),
-                      self.writers[has])
-        self.lo, self.hi = lo, hi
+                    out.append(np.where(inside, w // self.chunk, -1))
+        return np.stack(out, axis=1)
 
     def covers(self) -> int:
-        """Every tap's writer lies in its reader's producer range -> the
-        taps checked."""
-        lo, hi = self.lo[self.owner], self.hi[self.owner]
-        w = self.writers
-        ok = (w < 0) | ((w >= lo[:, None]) & (w <= hi[:, None]))
-        assert ok.all(), np.argwhere(~ok)[:5]
-        return int((w >= 0).sum())
+        """Every tap's writer lies in its reader's producer range at every
+        step that reads -> the taps checked."""
+        checked = 0
+        for s in (range(1, self.steps) if self.point is not None else (0,)):
+            w = self.writers(s)
+            lo, hi = self.lo[s][self.owner], self.hi[s][self.owner]
+            ok = (w < 0) | ((w >= lo[:, None]) & (w <= hi[:, None]))
+            assert ok.all(), (s, np.argwhere(~ok)[:5])
+            checked += int((w >= 0).sum())
+        return checked
 
 
 def _voxels(out, flat, ref, n, layout, d0, shift, w, absl, box, k, x, y):
@@ -298,30 +485,40 @@ def _voxels(out, flat, ref, n, layout, d0, shift, w, absl, box, k, x, y):
 
 
 def scheduled_field(dens, ref, axis, flip, d0, shift, w, absl, box, threads,
-                    resident):
+                    resident, point=None):
     """The field built as the launch builds it: each block runs its steps
     as soon as its producers' flags allow, the most advanced ready block
     first (a block that read a slab before its writer wrote it reads NaN).
+    ``point``: X.5's light (the per-slab sweep's arguments ignored).
     Returns the field and the schedule."""
     n = dens.shape[0]
-    sch = Schedule(n, ref, axis, flip, d0, shift, threads, resident)
+    sch = Schedule(n, ref, axis, flip, d0, shift, threads, resident, point)
     layout = _layout(n, axis, flip)
     slab, sx, sy = layout
     flat, out = dens.reshape(-1), np.full(n ** 3, np.nan, F32)
     ids = [np.nonzero(sch.owner == b)[0] for b in range(sch.blocks)]
     flags = np.zeros(sch.blocks, np.int64)
+    blk = np.arange(sch.blocks)
     while (flags < sch.steps).any():
-        ready = [b for b in range(sch.blocks) if flags[b] < sch.steps and (
-            sch.lo[b] > sch.hi[b]
-            or flags[sch.lo[b]:sch.hi[b] + 1].min() >= flags[b])]
-        b = max(ready, key=lambda q: (flags[q], -q))
+        # a block is ready when every block of its step's producer range
+        # has posted that step (an empty range: at once)
+        at = np.minimum(flags, sch.steps - 1)
+        lo, hi = sch.lo[at, blk], sch.hi[at, blk]
+        waits = (blk >= lo[:, None]) & (blk <= hi[:, None])
+        posted = np.where(waits, flags[None, :], np.iinfo(np.int64).max)
+        ready = (flags < sch.steps) & (posted.min(1) >= flags)
+        # the most advanced ready block, the lowest index among equals
+        b = int(np.flatnonzero(ready & (flags == flags[ready].max()))[0])
         s = flags[b]
         j, x, y = _voxel_at(n, sch.per, sch.minor_y, ids[b])
         r = s * sch.per + j
         keep = r < n
         k, x, y = n - 1 - r[keep], x[keep], y[keep]
-        val = _voxels(out, flat, ref, n, layout, d0, shift, w, absl, box,
-                      k, x, y)
+        if point is not None:
+            val = _point_voxels(out, flat, n, layout, point, n - 1 - s, x, y)
+        else:
+            val = _voxels(out, flat, ref, n, layout, d0, shift, w, absl, box,
+                          k, x, y)
         assert not np.isnan(val).any(), f"block {b} step {s} read too early"
         at = slab(k) + x * sx + y * sy
         assert np.isnan(out[at]).all(), "a voxel written twice"
@@ -386,16 +583,56 @@ def test_kernel_index_mirror_matches_plain(schedule, sweep, n, light):
     np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=TOL_MIRROR)
 
 
+@pytest.mark.parametrize("case", range(3 * 6))
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("schedule", ["slab", "rule", "flags"])
+def test_point_kernel_index_mirror_matches_plain(schedule, n, case):
+    """X.5's index and rounding arithmetic (numpy: per-slab tap maps, each
+    carry tap's crossing length), slab by slab and in its schedule (the
+    launch's block size, and small blocks with several voxels a thread,
+    producer ranges found every step), against light_sweep_point_plain
+    within 1e-6, on every axis and side with the light far, near (its map
+    contracting most) and off-axis."""
+    dens = _density(n)
+    light = point_lights(n)[case]
+    axis, flip, lt = _point_statics(light, n)
+    want = rw.light_sweep_point_plain(torch.from_numpy(dens),
+                                      np.asarray(light, F32), n, axis, flip)
+    threads, resident = _schedule(schedule, n, False, 1)
+    got = (mirror_point(dens, light) if threads is None else
+           scheduled_field(dens, False, axis, flip, 1, None, 0.0, 0.0, None,
+                           threads, resident, point=lt)[0])
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=TOL_MIRROR)
+
+
 CELL_CONFIGS = ("dragon-64-hq", "dragon-256-raystab-deform")
 
 
-@pytest.mark.parametrize("sweep", ["ref", "dir"])
+@pytest.mark.parametrize("sweep", ["ref", "dir", "point"])
 def test_producers_cover_every_tap(sweep):
     """Without a volume: every carry tap's writer lies in its reader's
     producer range, at the launch's block size and in 256-thread blocks
     with several voxels a thread, for the cells' light at 64 and 256^3 and
     lights of every axis and sign with d0 = 8..13 at 256^3 (X.4: every axis
-    and sign)."""
+    and sign; X.5, at every step: every axis, side and kind at 64^3, and at
+    256^3 each kind on the cells' axis and side, the near light in both
+    block sizes; a tap map depends on the axis only through the light's
+    components)."""
+    if sweep == "point":
+        small = (256, 60)
+        cases = [(64, lt, plan) for lt in point_lights(64)
+                 for plan in ("rule", small)]
+        cases += [(256, point_light(2, -1.0, kind, 256), "rule")
+                  for kind in POINT_KINDS]
+        cases += [(256, point_light(2, -1.0, "near", 256), small)]
+        for n, lt, plan in cases:
+            axis, flip, light = _point_statics(lt, n)
+            threads, resident = ((rw.sweep_threads(n, False, 1), RESIDENT)
+                                 if plan == "rule" else plan)
+            sch = Schedule(n, False, axis, flip, 1, None, threads, resident,
+                           point=light)
+            assert sch.covers() > 0
+        return
     ref = sweep == "ref"
     cases = [(n, cell_light(c)) for c in CELL_CONFIGS for n in (64, 256)]
     if ref:
@@ -470,18 +707,21 @@ def test_ref_box_is_the_plain_mask():
 
 # ---- routing ----------------------------------------------------------------
 
-@pytest.mark.parametrize("sweep", ["ref", "dir"])
+@pytest.mark.parametrize("sweep", ["ref", "dir", "point"])
 def test_use_kernel_false_takes_the_plain_version_on_any_device(sweep):
     """``use_kernel=False`` runs the plain version on a non-CPU tensor
     (here a meta tensor) and launches nothing; with the kernel asked for,
     the same tensor raises instead of falling back."""
     n, lt = 32, np.asarray(LIGHTS[0], F32)
     meta = torch.empty((n, n, n), device="meta")
-    kernels = (rw.LIGHT_SWEEP_REF, rw.LIGHT_SWEEP)
+    kernels = (rw.LIGHT_SWEEP_REF, rw.LIGHT_SWEEP, rw.LIGHT_SWEEP_POINT)
     before = [k.launches for k in kernels]
     if sweep == "ref":
         args = (meta, lt, n, *rw.light_ref_statics(lt, n))
         fn = rw.light_sweep_ref
+    elif sweep == "point":
+        args = (meta, lt, n, *rw.point_light_statics(lt, n)[:2])
+        fn = rw.light_sweep_point
     else:
         args = (meta, lt, n, *rw.light_statics(lt))
         fn = rw.light_sweep
@@ -532,3 +772,55 @@ def test_render_passes_use_kernels_to_the_light_field(monkeypatch, mode,
     img = render(grid, consts, cfg, use_kernels=use_kernels)
     assert seen == [{"use_kernel": use_kernels}]
     assert tuple(img.shape) == (32, 48, 3) and torch.isfinite(img).all()
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_point_host_passes_use_kernel_to_both_branches(monkeypatch,
+                                                       use_kernel):
+    """light_sweep_point_host hands ``use_kernel`` to the perspective sweep
+    (the light beyond the volume) and to the exact per-voxel field (the
+    light inside, or within a texel of the face)."""
+    seen = []
+
+    def spy(name):
+        def fn(*args, **kw):
+            seen.append((name, kw.get("use_kernel")))
+            return torch.zeros(1)
+        return fn
+
+    monkeypatch.setattr(rw, "light_sweep_point", spy("sweep"))
+    monkeypatch.setattr(rw, "precompute_light_volume", spy("exact"))
+    n = 32
+    dens = torch.zeros((n, n, n))
+    for light in (point_light(1, -1.0, "near", n), (0.3, -0.2, 0.1)):
+        rw.light_sweep_point_host(dens, np.asarray(light, F32), n,
+                                  use_kernel=use_kernel)
+    assert seen == [("sweep", use_kernel), ("exact", use_kernel)]
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_sharded_light_modes_pass_use_kernel(monkeypatch, use_kernel):
+    """The sharded frame's light field (``shard.light_volume_from_statics``)
+    reaches each mode's routed function with ``use_kernel``: "persp" X.5,
+    "ref" X.3, "dir" X.4, "exact" and "exact-dir" the exact field."""
+    from dxrvoxelizer_tpu_torch.parallel import shard
+
+    seen = []
+
+    def spy(name):
+        def fn(*args, **kw):
+            seen.append((name, kw.get("use_kernel")))
+            return torch.zeros(1)
+        return fn
+
+    for name in ("light_sweep_point", "light_sweep_ref", "light_sweep"):
+        monkeypatch.setattr(rw, name, spy(name))
+    monkeypatch.setattr(shard, "precompute_light_volume", spy("exact"))
+    modes = ("persp", "exact", "ref", "exact-dir", "dir")
+    for mode in modes:
+        shard.light_volume_from_statics(torch.zeros(1), LIGHTS[0], 32, 2,
+                                        True, mode, l_d0=2,
+                                        use_kernel=use_kernel)
+    assert seen == [(name, use_kernel) for name in (
+        "light_sweep_point", "exact", "light_sweep_ref", "exact",
+        "light_sweep")]

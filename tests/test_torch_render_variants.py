@@ -31,7 +31,7 @@ from dxrvoxelizer_tpu_torch.state import grid_from_numpy
 from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
 from tests.meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
 from tests.test_raymarch import _frame_consts
-from tests.torch_cases import gather_cameras
+from tests.torch_cases import gather_cameras, point_light
 
 torch.set_num_threads(2)
 
@@ -289,6 +289,24 @@ def test_light_sweep_point_matches_jax(n):
                                             jnp.asarray(light_l), n, axis, flip))
     got = rw.light_sweep_point(_t(dens), light_l, n, axis, flip)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("n", [16, 32])
+def test_light_sweep_point_plain_matches_jax_near_light(n, axis, sign):
+    """The plain version of the -pointlight sweep (X.5's) against JAX's
+    ``light_sweep_point`` within 1e-5, with the light 1.25 texels past the
+    far face (the tap map contracting most), on every major axis and
+    side."""
+    light = np.asarray(point_light(axis, sign, "near", n), np.float32)
+    dens = _density("random", n)
+    flip = sign < 0
+    want = np.asarray(jrw.light_sweep_point(jnp.asarray(dens),
+                                            jnp.asarray(light), n, axis, flip))
+    got = rw.light_sweep_point_plain(_t(dens), light, n, axis, flip)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+    assert (want < 0.5).any()
 
 
 # ---- render over every renderer and switch ---------------------------------

@@ -401,8 +401,8 @@ def alpha_grid(n: int, seed: int, device) -> torch.Tensor:
     return (k.to(torch.float32) / 3.0).to(device)
 
 
-# ---- the light recurrences (ops/raymarch_warp.py light_sweep_ref and
-# light_sweep, csrc/light_sweep.cu) -------------------------------------------
+# ---- the light recurrences (ops/raymarch_warp.py light_sweep_ref,
+# light_sweep and light_sweep_point, csrc/light_sweep.cu) ---------------------
 
 # lights (local space) that, with the render tests' four, give every major
 # tex axis and flip both the reference-step windows d0 = 2 and 3 at 64^3
@@ -454,3 +454,41 @@ def d0_light(axis: int, sign: float, d0: int, n: int) -> tuple:
     got = light_ref_statics(np.asarray(light, np.float32), n)
     assert got[0] == axis and got[2] == d0, (light, got)
     return light
+
+
+# the point light's kinds (X.5): "far", the app's default light_pt
+# (-10, 45, -75) taken as a local-space point, moved to each major axis and
+# side; "near", 1.25 texels past the far face (the host sweeps from 1 texel
+# on), where the tap map contracts most (a_k down to 0.43 at the last slab);
+# "off", off-axis, the other two components nearly as far out as the major
+# one, so that many taps fall outside the volume
+POINT_KINDS = ("far", "near", "off")
+
+
+def point_light(axis: int, sign: float, kind: str, n: int) -> tuple:
+    """A point light (local space) whose slab sweep at ``n`` runs along tex
+    axis ``axis``, the light on its ``sign`` side, of kind ``kind``
+    (POINT_KINDS); checked against the host's rule
+    (``raymarch_warp.point_light_statics``)."""
+    from dxrvoxelizer_tpu_torch.ops.raymarch_ref import TEX_SCALE
+    from dxrvoxelizer_tpu_torch.ops.raymarch_warp import point_light_statics
+
+    # l_t - 0.5 in tex space: the major component, then the other two
+    major, rest = {"far": (37.5, (-5.0, -22.5)),
+                   "near": (0.5 + 1.25 / n, (0.1, -0.15)),
+                   "off": (2.0, (1.9, -1.8))}[kind]
+    rel = np.zeros(3)
+    rel[axis] = sign * major
+    others = [a for a in range(3) if a != axis]
+    rel[others[0]], rel[others[1]] = rest
+    light = tuple(float(x) for x in
+                  (rel / np.asarray(TEX_SCALE, np.float64)).astype(np.float32))
+    got = point_light_statics(np.asarray(light, np.float32), n)
+    assert got == (axis, sign < 0, True), (light, got)
+    return light
+
+
+def point_lights(n: int, kinds=POINT_KINDS) -> list:
+    """Point lights of every major tex axis and side, of each kind."""
+    return [point_light(a, sg, kind, n) for kind in kinds for a in range(3)
+            for sg in (1.0, -1.0)]
