@@ -1725,8 +1725,8 @@ def phase22b(torch, app_main, kernels, card, dev, state) -> dict:
        version (``use_kernel=False``): ms (CUDA events), device busy ms,
        device ops and X.5's device us per frame (profiler).
 
-    ``state``: the 64^3 and 256^3 frames' (density, light), their (cfg,
-    mesh buffers, constants) and the meshes. Returns the -fast and
+    ``state``: the 64^3 and 256^3 frames' (density, light), the meshes,
+    the CPU tests' lights (``cases``) and ``--parent``. Returns the -fast and
     -pointlight runs' launches and, for the result line, each instance's
     largest error, its and its plain version's ms and its bound at the 64^3
     frame's inputs."""
@@ -3666,7 +3666,6 @@ def main(argv=None) -> int:
     p22b = phase22b(torch, app_main, kernels, card, dev, {
         "64": (vols[0], consts.local_space_light_pt),
         "256": (vols7[0], consts7.local_space_light_pt),
-        "pipes": {GRID: (cfg, mb, consts), GRID_HI: (cfg_hi, mb7, consts7)},
         "mesh6": (v6, t6), "mesh7": (v7, t7), "cases": cases,
         "parent": args.parent})
     for k, c in p22b["launches"].items():

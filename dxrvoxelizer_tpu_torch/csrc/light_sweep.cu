@@ -27,10 +27,9 @@
 //   (n + 0.5) / n), the same in y; each carry tap's attenuation takes its
 //   own crossing length ((2/n) sqrt((dx^2 + dy^2) + dz^2)) / |dz| from the
 //   tap's texel centre to l. The texel and slab centres (k + 0.5) / n are
-//   rounded as the plain version rounds them on the card (times the
-//   float32 reciprocal of n): with the light near the far face the map is
-//   ill-conditioned, and an ulp of z_k moves a tap by 1e-3 texels at
-//   160^3.
+//   rounded divisions, as in the plain version and the JAX package: with
+//   the light near the far face the map is ill-conditioned, and an ulp of
+//   z_k moves a tap by 1e-3 texels at 160^3.
 //
 // What bounds it on the card: bytes, by the count of chip_smoke.py and
 // benchmark/work.py: the density read once and the field written once,
@@ -379,13 +378,11 @@ __global__ void __launch_bounds__(256, 6) light_sweep_kernel(const Sweep p) {
 
 // ---- X.5: the point light ---------------------------------------------------
 
-// (k + 0.5) / n, texel or slab k's centre, as the plain version rounds it
-// on the card: PyTorch's CUDA division by a CPU scalar multiplies by the
-// float32 reciprocal (the CPU divides; the two agree where n is a power of
-// two)
+// (k + 0.5) / n, texel or slab k's centre, a rounded division (as the
+// plain version and the JAX package compute it)
 __device__ __forceinline__ float slab_z(int k, int n) {
-  return __fmul_rn(__fadd_rn(static_cast<float>(k), 0.5f),
-                   __frcp_rn(static_cast<float>(n)));
+  return __fdiv_rn(__fadd_rn(static_cast<float>(k), 0.5f),
+                   static_cast<float>(n));
 }
 
 // slab k's tap map, coordinate = a * (i + 0.5) + off, and the carry slab

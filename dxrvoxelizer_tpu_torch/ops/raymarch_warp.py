@@ -180,43 +180,21 @@ def _scratch(device: torch.device, stream: int) -> torch.Tensor:
     return torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=device)
 
 
-def _launch(kernel: _cuda.Kernel, density: torch.Tensor, n: int, axis: int,
-            flip: bool, d0: int, w: float, shift: tuple[float, float],
-            absl: float, box: tuple[int, ...]) -> torch.Tensor:
-    """One cooperative launch of ``csrc/light_sweep.cu`` -> [N,N,N]."""
+def _launch(kernel: _cuda.Kernel, entry: str, density: torch.Tensor, n: int,
+            *args) -> torch.Tensor:
+    """One cooperative launch of ``csrc/light_sweep.cu`` through its C entry
+    point ``entry`` (``args``: the entry's arguments between ``n`` and the
+    stream) -> [N,N,N]."""
     density = density.contiguous()
     _cuda.require(density, "density", torch.float32, (n, n, n))
     lib = _cuda.load()
     out = torch.empty((n, n, n), dtype=torch.float32, device=density.device)
     stream = _cuda.stream_ptr(density.device)
-    code = lib.dxv_light_sweep(
+    code = getattr(lib, entry)(
         density.data_ptr(), out.data_ptr(),
-        _scratch(density.device, stream).data_ptr(), n,
-        int(kernel is LIGHT_SWEEP_REF), axis, int(flip), d0, w, *shift, absl,
-        *box, stream)
+        _scratch(density.device, stream).data_ptr(), n, *args, stream)
     _cuda.check(code, kernel.name)
     kernel.launches += 1
-    return out
-
-
-def _launch_point(density: torch.Tensor, n: int, axis: int, flip: bool,
-                  light: tuple[float, float, float]) -> torch.Tensor:
-    """One cooperative launch of X.5 (``csrc/light_sweep.cu``) -> [N,N,N].
-    ``light``: :func:`_point_statics`, beyond the far slab."""
-    density = density.contiguous()
-    _cuda.require(density, "density", torch.float32, (n, n, n))
-    if not light[2] > float(np.float32(n + 0.5) / np.float32(n)):
-        raise ValueError(f"the light (slab-order z {light[2]}) must lie "
-                         "beyond the far slab")
-    lib = _cuda.load()
-    out = torch.empty((n, n, n), dtype=torch.float32, device=density.device)
-    stream = _cuda.stream_ptr(density.device)
-    code = lib.dxv_light_sweep_point(
-        density.data_ptr(), out.data_ptr(),
-        _scratch(density.device, stream).data_ptr(), n, axis, int(flip),
-        *light, ABSORPTION, stream)
-    _cuda.check(code, LIGHT_SWEEP_POINT.name)
-    LIGHT_SWEEP_POINT.launches += 1
     return out
 
 
@@ -264,8 +242,9 @@ def light_sweep(density: torch.Tensor, light_local: np.ndarray,
         return light_sweep_plain(density, light_local, n, axis, flip)
     shift_x, shift_y, absl = _dir_statics(_light_key(light_local), n, axis,
                                           flip)
-    return _launch(LIGHT_SWEEP, density, n, axis, flip, 1, 0.0,
-                   (shift_x, shift_y), absl, (0, n - 1, 0, n - 1, n - 1))
+    return _launch(LIGHT_SWEEP, "dxv_light_sweep", density, n, 0, axis,
+                   int(flip), 1, 0.0, shift_x, shift_y, absl,
+                   0, n - 1, 0, n - 1, n - 1)
 
 
 def light_sweep_point_plain(density: torch.Tensor, light_local: np.ndarray,
@@ -284,8 +263,13 @@ def light_sweep_point_plain(density: torch.Tensor, light_local: np.ndarray,
         l_t = l_t * _f32([1.0, 1.0, -1.0]) + _f32([0.0, 0.0, 1.0])
     lx, ly, lz = (v.to(device) for v in l_t)
 
+    # the divisor is a tensor on the density's device: PyTorch's CUDA
+    # division by a Python scalar multiplies by its rounded reciprocal, and
+    # near the far face the tap map is ill-conditioned (2.4e-4 apart at
+    # 160^3)
+    n_t = torch.tensor(float(n), dtype=torch.float32, device=device)
     k = torch.arange(n, dtype=torch.float32, device=device)
-    z_k = (k + 0.5) / n
+    z_k = (k + 0.5) / n_t
     # slab k reads the carry field at its light-ray crossing of slab k+1:
     # q = l + a_k (p - l), a_k = (z_{k+1}-lz)/(z_k-lz); the last slab's map
     # is arbitrary (the carry is all-ones there)
@@ -299,7 +283,7 @@ def light_sweep_point_plain(density: torch.Tensor, light_local: np.ndarray,
 
     # per-voxel crossing length in normalized-space units (the obliquity
     # ratio is scale-invariant, so tex-space components work directly)
-    x_t = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
+    x_t = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n_t
     dx2 = (x_t[:, None] - lx) ** 2  # [X, 1]
     dy2 = (x_t[None, :] - ly) ** 2  # [1, Y]
     dz = z_k - lz  # [K]
@@ -339,8 +323,10 @@ def light_sweep_point(density: torch.Tensor, light_local: np.ndarray,
     """
     if not use_kernel or density.device.type == "cpu":
         return light_sweep_point_plain(density, light_local, n, axis, flip)
-    return _launch_point(density, n, axis, flip,
-                         _point_statics(_light_key(light_local), axis, flip))
+    return _launch(LIGHT_SWEEP_POINT, "dxv_light_sweep_point", density, n,
+                   axis, int(flip),
+                   *_point_statics(_light_key(light_local), axis, flip),
+                   ABSORPTION)
 
 
 def point_light_statics(light_local: np.ndarray,
@@ -552,8 +538,8 @@ def light_sweep_ref(density: torch.Tensor, light_local: np.ndarray,
     if d0 < 1:
         raise ValueError("light step spans < 1 slab; use the exact field")
     st = ref_statics(_light_key(light_local), n, axis, flip, d0, n_light)
-    return _launch(LIGHT_SWEEP_REF, density, n, axis, flip, d0, st.w,
-                   st.shift, st.absl, st.box)
+    return _launch(LIGHT_SWEEP_REF, "dxv_light_sweep", density, n, 1, axis,
+                   int(flip), d0, st.w, *st.shift, st.absl, *st.box)
 
 
 def light_sweep_ref_host(density: torch.Tensor, light_local: np.ndarray,

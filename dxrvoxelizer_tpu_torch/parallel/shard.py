@@ -139,29 +139,26 @@ def _light_mode(light_local, n: int) -> tuple[int, bool, str]:
 
 def light_volume_from_statics(density, light, n: int, l_axis: int,
                               l_flip: bool, l_mode: str, n_light: int = 32,
-                              l_d0: int = 0,
-                              use_kernel: bool = True) -> torch.Tensor:
+                              l_d0: int = 0) -> torch.Tensor:
     """The light field by the host-derived mode (:func:`frame_statics`):
     "persp" (X.5) and "exact" (point light), "ref" (X.3) and "exact-dir"
     (``-hq``), or the per-slab directional recurrence ("dir", X.4); a CUDA
-    tensor launches the mode's kernel, ``use_kernel=False`` takes its plain
-    version."""
+    tensor launches the mode's kernel."""
     from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw
 
-    kw = {"use_kernel": use_kernel}
     if l_mode == "persp":
-        return rw.light_sweep_point(density, light, n, l_axis, l_flip, **kw)
+        return rw.light_sweep_point(density, light, n, l_axis, l_flip)
     if l_mode == "exact":
         return precompute_light_volume(density, light, n_light=n_light,
-                                       point_light=True, **kw)
+                                       point_light=True)
     if l_mode == "ref":
         return rw.light_sweep_ref(density, light, n, l_axis, l_flip, l_d0,
-                                  n_light=n_light, **kw)
+                                  n_light=n_light)
     if l_mode == "exact-dir":
         # -hq on a grid too small for the slab recurrence (d0 < 1):
         # light_sweep_ref_host's own fallback
-        return precompute_light_volume(density, light, n_light=n_light, **kw)
-    return rw.light_sweep(density, light, n, l_axis, l_flip, **kw)
+        return precompute_light_volume(density, light, n_light=n_light)
+    return rw.light_sweep(density, light, n, l_axis, l_flip)
 
 
 def frame_statics(consts, width: int, height: int, m_cap: int = 128,

@@ -960,7 +960,8 @@ def test_light_sweep_kernels_match_plain(dev, sweep, n):
     point light's perspective sweep) launch once per field and stay within
     1e-5 of their plain versions on the card, every axis, flip and window
     (X.5: every axis and side, the light far, near and off-axis; 160^3,
-    where the card's plain version rounds (k + 0.5) / n by a reciprocal);
+    n not a power of two, where the tap map is most sensitive to how the
+    texel centres (k + 0.5) / n round);
     ``use_kernel=False`` launches nothing."""
     from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw
 

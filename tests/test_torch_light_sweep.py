@@ -19,7 +19,8 @@ ranges are checked without a volume at 256^3 too, and the launch's block
 size (``sweep_threads``) by its choices. The plain versions are held
 against the JAX package by
 tests/test_torch_render.py::test_light_sweeps_match_jax and (X.5)
-tests/test_torch_render_variants.py on the same lights.
+tests/test_torch_render_variants.py on the same lights; X.5's mirror is
+held against JAX here too, at 160^3.
 """
 
 from __future__ import annotations
@@ -197,11 +198,9 @@ def _point_statics(light, n):
 
 
 def _slab_z(k, n):
-    """csrc/light_sweep.cu slab_z: (k + 0.5) / n as the plain version
-    rounds it on the card, (k + 0.5) times the float32 reciprocal of n (on
-    the CPU it divides: the same values at the powers of two tested
-    here)."""
-    return (np.asarray(k).astype(F32) + F32(0.5)) * (F32(1) / F32(n))
+    """csrc/light_sweep.cu slab_z: (k + 0.5) / n, a rounded float32
+    division."""
+    return (np.asarray(k).astype(F32) + F32(0.5)) / F32(n)
 
 
 def _point_slab(n, k, light):
@@ -263,31 +262,32 @@ def mirror_point(dens: np.ndarray, light) -> np.ndarray:
 def test_point_constants_round_as_the_plain_version():
     """X.5's kernel rounds 2 / n and (n + 0.5) / n in float32 where the
     plain version rounds Python's float64 quotients to float32: the same
-    values at every grid up to 4096; its texel and slab centres, (k + 0.5)
-    times the float32 reciprocal, are the CPU's quotients at the powers of
-    two."""
+    values at every grid up to 4096."""
     for n in range(1, 4097):
         assert np.float32(2.0 / n) == F32(2) / F32(n), n
         assert np.float32((n + 0.5) / n) == F32(n + 0.5) / F32(n), n
-    for n in (16, 32, 64, 128, 256):
-        k = np.arange(n + 1)
-        np.testing.assert_array_equal(_slab_z(k, n),
-                                      (k.astype(F32) + F32(0.5)) / F32(n))
 
 
-def test_point_mirror_follows_the_cards_division_at_160(monkeypatch):
-    """At 160^3 (n not a power of two) the plain version's (k + 0.5) / n
-    rounds as a float32 reciprocal multiply on the card (PyTorch's CUDA
-    division by a CPU scalar) and as a division on the CPU; with the light
-    near the far face the field moves by 2e-4 between them. The kernel's
-    arithmetic follows the card: its mirror is within 1e-6 of the plain
-    version run with the card's division (emulated here)."""
+def test_point_mirror_matches_jax_at_160(monkeypatch):
+    """At 160^3 (n not a power of two) with the light near the far face,
+    where an ulp of a slab centre moves a tap by 1e-3 texels: the kernel's
+    mirror is within 1e-6 of the plain version and within 1e-5 of JAX's
+    light_sweep_point run op by op, and the plain version does not depend
+    on how the device divides by a Python scalar (PyTorch's CUDA division
+    multiplies by the float32 reciprocal, emulated here; so does jitted
+    XLA for a division by the constant n; that rounding moves the field by
+    up to 3.3e-4)."""
+    import jax
+    import jax.numpy as jnp
+
+    from dxrvoxelizer_tpu.ops import raymarch_warp as jrw
+
     n = 160
     dens = _density(n)
     light = point_light(0, 1.0, "near", n)
     axis, flip, _ = _point_statics(light, n)
     args = (torch.from_numpy(dens), np.asarray(light, F32), n, axis, flip)
-    cpu = rw.light_sweep_point_plain(*args).numpy()
+    plain = rw.light_sweep_point_plain(*args).numpy()
     div = torch.Tensor.__truediv__
 
     def card_div(a, b):
@@ -298,9 +298,15 @@ def test_point_mirror_follows_the_cards_division_at_160(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "__truediv__", card_div)
     card = rw.light_sweep_point_plain(*args).numpy()
     monkeypatch.undo()
+    np.testing.assert_array_equal(card, plain)
     got = mirror_point(dens, light)
-    np.testing.assert_allclose(got, card, rtol=0, atol=TOL_MIRROR)
-    assert np.abs(cpu - card).max() > 1e-5
+    np.testing.assert_allclose(got, plain, rtol=0, atol=TOL_MIRROR)
+    with jax.disable_jit():
+        want = np.asarray(jrw.light_sweep_point(
+            jnp.asarray(dens), jnp.asarray(light, jnp.float32), n, axis,
+            flip))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (want < 0.5).any()
 
 
 # ---- the kernel's schedule (csrc/light_sweep.cu: blocks, producers) --------
@@ -798,29 +804,27 @@ def test_point_host_passes_use_kernel_to_both_branches(monkeypatch,
     assert seen == [("sweep", use_kernel), ("exact", use_kernel)]
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
-def test_sharded_light_modes_pass_use_kernel(monkeypatch, use_kernel):
+def test_sharded_light_modes_route_to_their_fields(monkeypatch):
     """The sharded frame's light field (``shard.light_volume_from_statics``)
-    reaches each mode's routed function with ``use_kernel``: "persp" X.5,
-    "ref" X.3, "dir" X.4, "exact" and "exact-dir" the exact field."""
+    reaches each mode's routed function with the kernel by default:
+    "persp" X.5, "ref" X.3, "dir" X.4, "exact" and "exact-dir" the exact
+    field."""
     from dxrvoxelizer_tpu_torch.parallel import shard
 
     seen = []
 
     def spy(name):
         def fn(*args, **kw):
-            seen.append((name, kw.get("use_kernel")))
+            seen.append((name, kw.get("use_kernel", True)))
             return torch.zeros(1)
         return fn
 
     for name in ("light_sweep_point", "light_sweep_ref", "light_sweep"):
         monkeypatch.setattr(rw, name, spy(name))
     monkeypatch.setattr(shard, "precompute_light_volume", spy("exact"))
-    modes = ("persp", "exact", "ref", "exact-dir", "dir")
-    for mode in modes:
+    for mode in ("persp", "exact", "ref", "exact-dir", "dir"):
         shard.light_volume_from_statics(torch.zeros(1), LIGHTS[0], 32, 2,
-                                        True, mode, l_d0=2,
-                                        use_kernel=use_kernel)
-    assert seen == [(name, use_kernel) for name in (
+                                        True, mode, l_d0=2)
+    assert seen == [(name, True) for name in (
         "light_sweep_point", "exact", "light_sweep_ref", "exact",
         "light_sweep")]
