@@ -21,7 +21,7 @@ flight holds one CUDA event per frame.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
 from dxrvoxelizer_tpu_torch.models.scene import FrameConstants
 from dxrvoxelizer_tpu_torch.ops import (
     binning,
+    grid_cuda,
     raystab_fast,
     raystab_refit,
     raystab_tiled,
@@ -70,10 +71,13 @@ RAYSTAB_ACCEL_IMPLS = ("auto", "fast", "queue", "pallas")
 class VoxelGrid:
     """One voxelization result: packed occupancy bits [N,N,N//32] int32 and,
     in ray-stab mode or with ``-normals``, the [N,N,N,4] float32 normal +
-    alpha grid (the reference's R10G10B10A2 texture analog)."""
+    alpha grid (the reference's R10G10B10A2 texture analog). ``dens``
+    (internal): the rgba's alpha as a contiguous [N,N,N] tensor, where the
+    kernel that wrote the rgba (X.6, ops/grid_cuda.py) wrote it too."""
 
     words: torch.Tensor
     rgba: torch.Tensor | None = None
+    dens: torch.Tensor | None = field(default=None, repr=False)
 
     @property
     def n(self) -> int:
@@ -82,11 +86,17 @@ class VoxelGrid:
     def occupancy(self) -> torch.Tensor:
         return unpack_bits_z(self.words, self.n)
 
-    def density(self) -> torch.Tensor:
-        """The alpha channel as float (the raymarcher's input)."""
+    def density(self, use_kernel: bool = True) -> torch.Tensor:
+        """The alpha channel as float (the raymarcher's input): X.6's
+        density where it wrote one, ``rgba[..., 3]`` otherwise; without
+        rgba the words unpacked (X.7 on a CUDA tensor).
+        ``use_kernel=False`` recomputes it by the plain versions."""
         if self.rgba is not None:
+            if use_kernel and self.dens is not None:
+                return self.dens
             return self.rgba[..., 3]
-        return self.occupancy().to(torch.float32)
+        return grid_cuda.unpack_density(self.words, self.n,
+                                        use_kernel=use_kernel)
 
 
 def _kernel_ok(n: int, device: torch.device) -> bool:
@@ -136,6 +146,10 @@ def voxelize(
     """
     if mode == "raystab":
         if impl in RAYSTAB_ACCEL_IMPLS:
+            stab_grid = _stab_grid(accel)
+            if stab_grid is not None:  # gen-6/7: untiled, rounded, packed by X.6
+                rgba, words, dens = stab_grid(accel, quantize=quantize)
+                return VoxelGrid(words=words, rgba=rgba, dens=dens)
             if accel is None:  # stateless: build the accel for this call
                 occ, rgba = raystab_fast.voxelize_raystab_fast(
                     mesh.positions_norm, mesh.normals, mesh.tris, n=n)
@@ -173,37 +187,44 @@ def voxelize(
         raise ValueError(f"unknown impl {impl!r}")
     if not with_normals:
         return VoxelGrid(words=words)
-    return VoxelGrid(words=words, rgba=_parity_rgba(mesh, words, n, accel=accel,
-                                                    quantize=quantize))
+    rgba, dens = _parity_rgba(mesh, words, n, accel=accel, quantize=quantize)
+    return VoxelGrid(words=words, rgba=rgba, dens=dens)
+
+
+def _stab_grid(accel):
+    """The grid function of a gen-6 or gen-7 accel (query, then X.6), None
+    for another accel."""
+    if isinstance(accel, raystab_tiled.RaystabAccel7):
+        return raystab_tiled.raystab_grid7
+    if isinstance(accel, raystab_fast.RaystabAccel2):
+        return raystab_fast.raystab_grid2
+    return None
 
 
 def _parity_rgba(mesh: MeshBuffers, words: torch.Tensor, n: int, accel=None,
-                 quantize: bool = True) -> torch.Tensor:
-    """Normal channel for a parity grid: the reference's grid always stores
+                 quantize: bool = True):
+    """Normal channel for a parity grid -> (rgba, its alpha as a contiguous
+    density or None): the reference's grid always stores
     float4(Normal, 1.0) (DXRVoxelizer.hlsl:83-84). The normal is the
     first-hit normal under rule "hit" (no back-face test), gated by the
-    parity occupancy bit: on a GPU the radial one from the gen-6 or gen-7
-    query (``accel``, or one built here as ``use_tiled_raystab`` routes), on
-    the CPU the Moller-Trumbore oracle's, as the JAX package does (``accel``
-    is then unused)."""
+    parity occupancy bit (X.6's words-gated form on a GPU): on a GPU the
+    radial one from the gen-6 or gen-7 query (``accel``, or one built here
+    as ``use_tiled_raystab`` routes), on the CPU the Moller-Trumbore
+    oracle's, as the JAX package does (``accel`` is then unused)."""
     if mesh.device.type == "cuda":
         if accel is None:
             build = (raystab_tiled.build_raystab_accel7
                      if raystab_tiled.use_tiled_raystab(n)
                      else raystab_fast.build_raystab_accel2)
             accel = build(mesh.positions_norm, mesh.tris, mesh.normals, n=n)
-        query = (raystab_tiled.raystab_query7
-                 if isinstance(accel, raystab_tiled.RaystabAccel7)
-                 else raystab_fast.raystab_query2)
-        _, rgba_hit = query(accel, rule="hit")
-    else:
-        _, rgba_hit = voxelize_ref.voxelize_raystab_ref(
-            mesh.positions_norm, mesh.normals, mesh.tris, n=n, rule="hit")
-    occ_f = unpack_bits_z(words, n).to(torch.float32)[..., None]
-    rgba = torch.cat([rgba_hit[..., :3] * occ_f, occ_f], dim=-1)
-    if quantize:
-        rgba = quantize_r10g10b10a2(rgba)
-    return rgba
+        rgba, _, dens = _stab_grid(accel)(accel, rule="hit", quantize=quantize,
+                                          gate=words)
+        return rgba, dens
+    _, rgba_hit = voxelize_ref.voxelize_raystab_ref(
+        mesh.positions_norm, mesh.normals, mesh.tris, n=n, rule="hit")
+    rgba, _, dens = grid_cuda.untile(rgba_hit.reshape(-1, 4), n, gate=words,
+                                     quantize=quantize)
+    return rgba, dens
 
 
 def _stab_accel_for(cfg: VoxelizerConfig, mesh: MeshBuffers):
@@ -242,7 +263,7 @@ def render(
     "gather") instead of the one computed here. ``use_kernels=False`` runs
     the plain versions of the kernels (the on-card reference).
     """
-    density = grid.density()
+    density = grid.density(use_kernel=use_kernels)
     if cfg.show_mip > 0:
         density = mip_level(density, cfg.show_mip,
                             quantize_alpha=not cfg.use_mutex)
@@ -388,11 +409,11 @@ class FramePipeline:
                                        self.mesh.tris, n)
                 self._static_vox_mesh = self.mesh
             words = self._static_vox()
-            rgba = None
+            rgba = dens = None
             if want_normals:
-                rgba = _parity_rgba(self.mesh, words, n, accel=accel,
-                                    quantize=quantize)
-            grid = VoxelGrid(words=words, rgba=rgba)
+                rgba, dens = _parity_rgba(self.mesh, words, n, accel=accel,
+                                          quantize=quantize)
+            grid = VoxelGrid(words=words, rgba=rgba, dens=dens)
         else:
             grid = voxelize(self.mesh, n, mode=self.cfg.inside_mode,
                             impl=self.vox_impl, quantize=quantize, accel=accel,

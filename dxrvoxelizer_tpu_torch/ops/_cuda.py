@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points (pointers and the stream as void*)
 _SIGNATURES = {
     # coef, spans, counts, words, n_tiles, k, n, stream
@@ -92,6 +93,13 @@ _SIGNATURES = {
     # density, out, scratch, n, axis, flip, light x, y, z, absorption,
     # stream
     "dxv_light_sweep_point": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
+    # src, slots, gate, rgba, density, words, n, quantize, stream
+    "dxv_grid_untile": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # words, density, n, stream
+    "dxv_grid_unpack": (_P, _P, _I, _P),
+    # density and its strides (slab x, y, marching axis), light and its
+    # strides, out, n, flip, stream
+    "dxv_grid_slabs": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _P),
 }
 
 
@@ -112,6 +120,7 @@ def all_kernels() -> list[Kernel]:
     """Every hand-written kernel of the port (imported here, on call: the
     modules that hold them import this one)."""
     from dxrvoxelizer_tpu_torch.ops import (
+        grid_cuda,
         march_cuda,
         raymarch_fast,
         raymarch_warp,
@@ -127,7 +136,8 @@ def all_kernels() -> list[Kernel]:
             raystab_cuda.FOLD_EXTRACT, raystab_cuda.FOLD,
             raystab_mt_cuda.KERNEL, raymarch_fast.GATHER_MARCH,
             raymarch_fast.LIGHT_VOLUME, raymarch_warp.LIGHT_SWEEP_REF,
-            raymarch_warp.LIGHT_SWEEP, raymarch_warp.LIGHT_SWEEP_POINT]
+            raymarch_warp.LIGHT_SWEEP, raymarch_warp.LIGHT_SWEEP_POINT,
+            grid_cuda.UNTILE, grid_cuda.UNPACK, grid_cuda.SLABS]
 
 
 def _sources() -> list[Path]:
@@ -222,13 +232,15 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
-            shape: tuple[int, ...] | None = None) -> None:
-    """Validate a kernel operand: CUDA, dtype, shape, contiguity."""
+            shape: tuple[int, ...] | None = None,
+            contiguous: bool = True) -> None:
+    """Validate a kernel operand: CUDA, dtype, shape, contiguity (unless the
+    kernel reads it through its strides)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,339 @@
+"""The frame's grid glue as hand-written kernels (``csrc/grid.cu``).
+
+Three XLA functions of the JAX package that XLA fuses under ``jit`` and
+that the port ran as chains of eager torch ops, each writing a full-grid
+intermediate:
+
+- X.6 :func:`untile`: the gen-7 query's untiling
+  (``dxrvoxelizer_tpu/ops/raystab_tiled.py:521-531``) with the
+  R10G10B10A2 rounding and the word packing of its output
+  (``ops/packing.py:40-70``, called at ``core/pipeline.py:128``) -> the
+  grid's rgba, words and density in one pass. Two more forms of the same
+  body: the input already in grid order (gen-6's merged streams), and the
+  words-gated normal channel of ``-normals`` (``_parity_rgba``).
+- X.7 :func:`unpack_density`: ``VoxelGrid.density`` of a parity grid
+  (``core/pipeline.py:57-64``).
+- X.8 :func:`slabs`: the march's ``[2, K, X, Y]`` slab stack
+  (``ops/raymarch_warp.py:461-465``).
+
+Each wrapper launches its kernel on a CUDA tensor (or raises: no fallback)
+and takes its plain version, today's torch chain kept as it was, on a CPU
+tensor or under ``use_kernel=False``. The ``*_mirror`` functions replay
+each kernel's index arithmetic and rounding in numpy, thread by thread, for
+the CPU tests.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dxrvoxelizer_tpu_torch.ops import _cuda
+from dxrvoxelizer_tpu_torch.ops.packing import (
+    pack_bits_z,
+    quantize_r10g10b10a2,
+    unpack_bits_z,
+)
+from dxrvoxelizer_tpu_torch.ops.warp import perm_for_axis
+
+_SRC = "dxrvoxelizer_tpu_torch/csrc/grid.cu"
+UNTILE = _cuda.Kernel(
+    name="grid_untile",
+    symbol="grid_untile_kernel",  # <tiled, gated, rounded>
+    source=_SRC,
+    replaces="dxrvoxelizer_tpu/ops/raystab_tiled.py:521",
+)
+UNPACK = _cuda.Kernel(
+    name="grid_unpack",
+    symbol="grid_unpack_kernel",
+    source=_SRC,
+    replaces="dxrvoxelizer_tpu/core/pipeline.py:57",
+)
+SLABS = _cuda.Kernel(
+    name="grid_slabs",
+    symbol="grid_slabs_kernel",
+    source=_SRC,
+    replaces="dxrvoxelizer_tpu/ops/raymarch_warp.py:461",
+)
+
+TILE = (8, 4, 4)  # the gen-7 voxel tile, x-major; lane lx * 16 + ly * 4 + lz
+SLAB_TILE, SLAB_ROWS = 32, 8  # X.8's (k, y) tile and its thread rows
+SLAB_X = 2  # X.8's slabs x a block
+# the float32 reciprocals PyTorch's CUDA division by a Python scalar
+# multiplies by (csrc/grid.cu rounds with them)
+INV_1023 = np.float32(1.0) / np.float32(1023.0)
+INV_3 = np.float32(1.0) / np.float32(3.0)
+
+
+def tile_slots(tids: torch.Tensor, n: int) -> torch.Tensor:
+    """Live tile ids [L] (ascending) -> the tile -> row map int32
+    [n^3 / 128] that X.6 reads: row l of the live tiles' channels for tile
+    ``tids[l]``, -1 for a dead tile. Built once per accel."""
+    slots = torch.full((n ** 3 // 128,), -1, dtype=torch.int32,
+                       device=tids.device)
+    slots[tids] = torch.arange(tids.shape[0], dtype=torch.int32,
+                               device=tids.device)
+    return slots
+
+
+# ---- X.6: untile, round, pack ---------------------------------------------
+
+def untile_tiles_plain(ns: torch.Tensor | None, tids: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """The live tiles' channels ``ns`` [L, 128, 4] (None: no live tile) ->
+    rgba [n,n,n,4] f32 in grid order: scattered into a zeroed tile buffer
+    (dead tiles stay zero) and untiled by one permute (a view)."""
+    tx, ty, tz = TILE
+    out = torch.zeros((n * n * n // 128, 128, 4), dtype=torch.float32,
+                      device=tids.device)
+    if ns is not None:
+        out.index_copy_(0, tids, ns)
+    return (out.reshape(n // tx, n // ty, n // tz, tx, ty, tz, 4)
+            .permute(0, 3, 1, 4, 2, 5, 6).reshape(n, n, n, 4))
+
+
+def untile_plain(src: torch.Tensor | None, n: int, tiles=None,
+                 gate: torch.Tensor | None = None, quantize: bool = True,
+                 words: bool = True):
+    """Plain version of :func:`untile`: the port's torch chain -> (rgba
+    [n,n,n,4], words [n,n,n/32] int32 or None, None: the grid's density is
+    ``rgba[..., 3]``)."""
+    if tiles is not None:
+        rgba = untile_tiles_plain(src, tiles[0], n)
+    else:
+        rgba = src.reshape(n, n, n, 4)
+    w = None
+    if gate is not None:
+        occ_f = unpack_bits_z(gate, n).to(torch.float32)[..., None]
+        rgba = torch.cat([rgba[..., :3] * occ_f, occ_f], dim=-1)
+    elif words:
+        w = pack_bits_z(rgba[..., 3] != 0.0)
+    if quantize:
+        rgba = quantize_r10g10b10a2(rgba)
+    return rgba, w, None
+
+
+def untile(src: torch.Tensor | None, n: int, tiles=None,
+           gate: torch.Tensor | None = None, quantize: bool = True,
+           words: bool = True, density: bool = True,
+           use_kernel: bool = True):
+    """Channels -> the grid: (rgba [n,n,n,4] f32, words [n,n,n/32] int32 or
+    None, density [n,n,n] f32 or None).
+
+    ``tiles`` = (tids, slots) of a gen-7 accel: ``src`` holds its live
+    tiles' channels [L, 128, 4] (None when no tile is live); else ``src`` is
+    [n^3, 4] in grid order. ``gate`` (words): the ``-normals`` form, rgb
+    times the occupancy bit and alpha the bit; no words come out. Otherwise
+    the words are the unrounded alpha != 0 (``words``; n % 32 == 0).
+    ``quantize`` rounds through R10G10B10A2. The kernel also writes the
+    rounded alpha as a contiguous density (``density``); the plain version
+    returns None there. One launch on a CUDA tensor; the plain version on a
+    CPU tensor or under ``use_kernel=False``."""
+    dev = tiles[1].device if tiles is not None else src.device
+    if not use_kernel or dev.type == "cpu":
+        return untile_plain(src, n, tiles, gate, quantize, words)
+    want_words = gate is None and words
+    if tiles is not None and n % 8:
+        raise ValueError(f"tiled grids need n % 8 == 0, got {n}")
+    if (gate is not None or want_words) and n % 32:
+        raise ValueError(f"packed grids need n % 32 == 0, got {n}")
+    if tiles is not None:
+        _cuda.require(tiles[1], "slots", torch.int32, (n ** 3 // 128,))
+        if src is not None:
+            _cuda.require(src, "src", torch.float32, (src.shape[0], 128, 4))
+    else:
+        _cuda.require(src, "src", torch.float32)
+        if src.numel() != n ** 3 * 4 or src.shape[-1] != 4:
+            raise ValueError(f"src: expected [n^3, 4] channels of a {n}^3 "
+                             f"grid, got {tuple(src.shape)}")
+    if gate is not None:
+        _cuda.require(gate, "gate", torch.int32, (n, n, n // 32))
+    rgba = torch.empty((n, n, n, 4), dtype=torch.float32, device=dev)
+    dens = (torch.empty((n, n, n), dtype=torch.float32, device=dev)
+            if density else None)
+    w = (torch.empty((n, n, n // 32), dtype=torch.int32, device=dev)
+         if want_words else None)
+    code = _cuda.load().dxv_grid_untile(
+        0 if src is None else src.data_ptr(),
+        0 if tiles is None else tiles[1].data_ptr(),
+        0 if gate is None else gate.data_ptr(), rgba.data_ptr(),
+        0 if dens is None else dens.data_ptr(),
+        0 if w is None else w.data_ptr(), n, int(quantize),
+        _cuda.stream_ptr(dev))
+    _cuda.check(code, UNTILE.name)
+    UNTILE.launches += 1
+    return rgba, w, dens
+
+
+# ---- X.7: words -> density --------------------------------------------------
+
+def unpack_density_plain(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of :func:`unpack_density`: ``unpack_bits_z`` and a
+    float cast."""
+    return unpack_bits_z(words, n).to(torch.float32)
+
+
+def unpack_density(words: torch.Tensor, n: int,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """Occupancy words [n,n,n/32] -> density [n,n,n] f32 (1 inside, 0
+    outside): one launch on a CUDA tensor, the plain version on a CPU
+    tensor or under ``use_kernel=False``."""
+    if not use_kernel or words.device.type == "cpu":
+        return unpack_density_plain(words, n)
+    if n % 32:
+        raise ValueError(f"packed grids need n % 32 == 0, got {n}")
+    _cuda.require(words, "words", torch.int32, (n, n, n // 32))
+    out = torch.empty((n, n, n), dtype=torch.float32, device=words.device)
+    code = _cuda.load().dxv_grid_unpack(words.data_ptr(), out.data_ptr(), n,
+                                        _cuda.stream_ptr(words.device))
+    _cuda.check(code, UNPACK.name)
+    UNPACK.launches += 1
+    return out
+
+
+# ---- X.8: the march's slab stack ---------------------------------------------
+
+def to_slab_order(vol: torch.Tensor, perm, flip: bool) -> torch.Tensor:
+    """[N,N,N] volume -> [K, X, Y] view with the marching axis first."""
+    v = vol.permute(*perm)  # [X, Y, K]
+    if flip:
+        v = v.flip(-1)
+    return v.movedim(-1, 0)
+
+
+def slabs_plain(density: torch.Tensor, light: torch.Tensor, axis: int,
+                flip: bool) -> torch.Tensor:
+    """Plain version of :func:`slabs`: one stack of the two slab-order
+    views (also the one PyTorch call that computes the function)."""
+    perm = perm_for_axis(axis)
+    return torch.stack(
+        [to_slab_order(density, perm, flip), to_slab_order(light, perm, flip)]
+    ).contiguous()  # [2, K, X, Y]
+
+
+def _slab_strides(vol: torch.Tensor, axis: int) -> tuple[int, int, int]:
+    """A volume's element strides along the slab's x, y and the marching
+    axis."""
+    a, b, k = perm_for_axis(axis)
+    return vol.stride(a), vol.stride(b), vol.stride(k)
+
+
+def slabs(density: torch.Tensor, light: torch.Tensor, axis: int, flip: bool,
+          use_kernel: bool = True) -> torch.Tensor:
+    """Density and light [N,N,N] -> the march's slabs [2, K, X, Y], the
+    marching ``axis`` first (reversed when ``flip``), the other two in grid
+    order. One launch on CUDA tensors (either may be strided: the kernel
+    reads them in place), the plain version on CPU tensors or under
+    ``use_kernel=False``."""
+    if not use_kernel or density.device.type == "cpu":
+        return slabs_plain(density, light, axis, flip)
+    n = int(density.shape[0])
+    for name, t in (("density", density), ("light", light)):
+        _cuda.require(t, name, torch.float32, (n, n, n), contiguous=False)
+    if light.device != density.device:
+        raise ValueError(f"light: expected {density.device}, got "
+                         f"{light.device}")
+    if axis not in (0, 1, 2):
+        raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
+    out = torch.empty((2, n, n, n), dtype=torch.float32, device=density.device)
+    code = _cuda.load().dxv_grid_slabs(
+        density.data_ptr(), *_slab_strides(density, axis), light.data_ptr(),
+        *_slab_strides(light, axis), out.data_ptr(), n, int(flip),
+        _cuda.stream_ptr(density.device))
+    _cuda.check(code, SLABS.name)
+    SLABS.launches += 1
+    return out
+
+
+# ---- the kernels' index arithmetic and rounding, replayed in numpy ----------
+
+def _unorm_card(v: np.ndarray, levels: float, inv: np.float32) -> np.ndarray:
+    """The card's R10G10B10A2 channel: clamp (NaN stays), times ``levels``,
+    round half to even, times the float32 reciprocal."""
+    c = np.clip(v, np.float32(0.0), np.float32(1.0))
+    return (np.rint(c * np.float32(levels)) * inv).astype(np.float32)
+
+
+def untile_mirror(src: np.ndarray | None, n: int, slots: np.ndarray | None,
+                  gate: np.ndarray | None = None, quantize: bool = True,
+                  words: bool = True):
+    """X.6 thread by thread (thread v = voxel v of grid order; the slot and
+    lane of its tile; the warp's ballot into word v >> 5, bit v & 31) ->
+    (rgba [n,n,n,4], words int32 or None, density [n,n,n])."""
+    voxels = n ** 3
+    v = np.arange(voxels, dtype=np.int64)
+    k = v % n
+    if slots is not None:
+        row = v // n
+        j, i = row % n, row // n
+        q = n >> 2
+        tile = ((i >> 3) * q + (j >> 2)) * q + (k >> 2)
+        lane = (i & 7) * 16 + (j & 3) * 4 + (k & 3)
+        s = slots[tile].astype(np.int64)
+        c = np.zeros((voxels, 4), np.float32)
+        live = s >= 0
+        if src is not None:
+            c[live] = src.reshape(-1, 4)[s[live] * 128 + lane[live]]
+    else:
+        c = src.reshape(-1, 4).astype(np.float32, copy=True)
+    w = None
+    if gate is not None:
+        bit = ((gate.reshape(-1).view(np.uint32)[v >> 5] >> (k & 31).astype(
+            np.uint32)) & np.uint32(1)).astype(np.float32)
+        with np.errstate(invalid="ignore"):
+            c[:, :3] = c[:, :3] * bit[:, None]
+        c[:, 3] = bit
+    elif words and n % 32 == 0:
+        bits = (c[:, 3] != 0.0).astype(np.uint64).reshape(-1, 32)
+        lanes = np.arange(32, dtype=np.uint64)
+        w = ((bits << lanes).sum(-1).astype(np.uint32).view(np.int32)
+             .reshape(n, n, n // 32))
+    if quantize:
+        c[:, :3] = _unorm_card(c[:, :3], 1023.0, INV_1023)
+        c[:, 3] = _unorm_card(c[:, 3], 3.0, INV_3)
+    return c.reshape(n, n, n, 4), w, c[:, 3].reshape(n, n, n).copy()
+
+
+def unpack_mirror(words: np.ndarray, n: int) -> np.ndarray:
+    """X.7 thread by thread: thread q writes voxels 4q..4q+3 from word
+    q >> 3, shifted by (q & 7) * 4."""
+    q = np.arange(n ** 3 // 4, dtype=np.int64)
+    w = words.reshape(-1).view(np.uint32)[q >> 3] >> ((q & 7) * 4).astype(
+        np.uint32)
+    out = np.stack([(w >> np.uint32(b)) & np.uint32(1) for b in range(4)], -1)
+    return out.astype(np.float32).reshape(n, n, n)
+
+
+def slabs_mirror(vols, n: int, axis: int, flip: bool) -> np.ndarray:
+    """X.8 block by block: ``vols`` = ((flat buffer, offset, (sx, sy, sk)))
+    for density and light, read through their strides; each block (the
+    tiles of SLAB_X slabs x of one channel) loads into its (k, y) tiles
+    along the input's minor axis, then stores along y -> out [2, n, n, n]
+    (NaN where no store landed)."""
+    t = -(-n // SLAB_TILE)
+    g = -(-n // SLAB_X)
+    bx, by, bz, xi, ty, tx, r = np.meshgrid(
+        np.arange(t), np.arange(t), np.arange(2 * g), np.arange(SLAB_X),
+        np.arange(SLAB_ROWS), np.arange(SLAB_TILE),
+        np.arange(0, SLAB_TILE, SLAB_ROWS), indexing="ij")
+    ch, x = bz & 1, (bz >> 1) * SLAB_X + xi
+    blk = ((bz * t + by) * t + bx) * SLAB_X + xi  # a block's tile of slab x
+    tile = np.full((2 * g * t * t * SLAB_X, SLAB_TILE, SLAB_TILE), np.nan,
+                   np.float32)
+    for c, (buf, off, (sx, sy, sk)) in enumerate(vols):
+        m = ch == c
+        along_k = sk < sy
+        yl = np.where(along_k, ty + r, tx)[m]
+        kl = np.where(along_k, tx, ty + r)[m]
+        y, k = bx[m] * SLAB_TILE + yl, by[m] * SLAB_TILE + kl
+        ok = (x[m] < n) & (y < n) & (k < n)
+        kk = np.where(flip, n - 1 - k, k)
+        src = off + x[m] * sx + y * sy + kk * sk
+        tile[blk[m][ok], kl[ok], yl[ok]] = buf[src[ok]]
+    kl, yl = ty + r, tx
+    y, k = bx * SLAB_TILE + yl, by * SLAB_TILE + kl
+    ok = (x < n) & (y < n) & (k < n)
+    out = np.full(2 * n ** 3, np.nan, np.float32)
+    dst = ((ch * n + k) * n + x) * n + y
+    out[dst[ok]] = tile[blk[ok], kl[ok], yl[ok]]
+    return out.reshape(2, n, n, n)

@@ -33,7 +33,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dxrvoxelizer_tpu_torch.ops import _cuda
+from dxrvoxelizer_tpu_torch.ops import _cuda, grid_cuda
+from dxrvoxelizer_tpu_torch.ops.grid_cuda import to_slab_order as _to_slab_order
 from dxrvoxelizer_tpu_torch.ops.march_cuda import (
     march,
     march_plain,
@@ -101,14 +102,6 @@ def _tex_params(consts_eye_local: np.ndarray, screen_to_local: np.ndarray,
     ddy = TEX_SCALE * (ray_dir(width * 0.5, height * 0.5 + 8) - ray_dir(width * 0.5, height * 0.5))
     swap = bool(abs(ddx[rest[0]]) > abs(ddy[rest[0]]))
     return axis, flip, swap
-
-
-def _to_slab_order(vol: torch.Tensor, perm, flip: bool) -> torch.Tensor:
-    """[N,N,N] volume -> [K, X, Y] view with the marching axis first."""
-    v = vol.permute(*perm)  # [X, Y, K]
-    if flip:
-        v = v.flip(-1)
-    return v.movedim(-1, 0)
 
 
 def _from_slab_order(vol: torch.Tensor, perm, flip: bool) -> torch.Tensor:
@@ -590,13 +583,14 @@ class MarchInputs:
 
 def march_inputs(density: torch.Tensor, light_vol: torch.Tensor,
                  eye_local: np.ndarray, n: int, m: int, axis: int, flip: bool,
-                 ss: int) -> MarchInputs:
-    """Slab stack, per-(sub-)slab warp parameters and step lengths."""
+                 ss: int, use_kernel: bool = True) -> MarchInputs:
+    """Slab stack (X.8, ops/grid_cuda.py: the kernel on CUDA tensors, its
+    plain version on CPU ones or with ``use_kernel=False``), per-(sub-)slab
+    warp parameters and step lengths."""
     device = density.device
     perm = perm_for_axis(axis)
-    slabs = torch.stack(
-        [_to_slab_order(density, perm, flip), _to_slab_order(light_vol, perm, flip)]
-    ).contiguous()  # [2, K, X, Y]
+    slabs = grid_cuda.slabs(density, light_vol, axis, flip,
+                            use_kernel=use_kernel)  # [2, K, X, Y]
 
     # ``ss``: z-supersampling factor; ss > 1 marches n*ss sub-slabs whose
     # planes are z-LERPed between adjacent voxel slabs (LINEAR_CLAMP), so
@@ -672,7 +666,8 @@ def _shearwarp_core(
     first screen row of a band of ``height`` rows (a rank's share of a
     sharded frame; the march is the whole intermediate on every rank, as in
     the JAX package)."""
-    mi = march_inputs(density, light_vol, eye_local, n, m, axis, flip, ss)
+    mi = march_inputs(density, light_vol, eye_local, n, m, axis, flip, ss,
+                      use_kernel=use_kernels)
     statics = (screen_to_local, eye_local, clear_color, width, height, axis,
                flip, swap, mi)
     if use_kernels:

@@ -56,7 +56,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dxrvoxelizer_tpu_torch.ops import intersect, raystab_cuda, raystab_mt_cuda
+from dxrvoxelizer_tpu_torch.ops import (
+    grid_cuda,
+    intersect,
+    raystab_cuda,
+    raystab_mt_cuda,
+)
 from dxrvoxelizer_tpu_torch.ops.packing import voxel_centers_norm
 from dxrvoxelizer_tpu_torch.ops.raystab_cuda import K_BLOCK, StripTables
 from dxrvoxelizer_tpu_torch.ops.raystab_mt_cuda import LANES, MTTables, slice_stream
@@ -989,6 +994,21 @@ def raystab_query2(accel: RaystabAccel2, threshold: float = INSIDE_THRESHOLD,
     n = accel.n
     rgba = _merge_winners2(accel, threshold, rule, use_kernels)
     return (rgba[:, 3] != 0.0).reshape(n, n, n), rgba.reshape(n, n, n, 4)
+
+
+def raystab_grid2(accel: RaystabAccel2, threshold: float = INSIDE_THRESHOLD,
+                  rule: str = "backface", quantize: bool = True,
+                  gate: torch.Tensor | None = None, use_kernels: bool = True):
+    """The query as the frame's grid -> (rgba [n,n,n,4], words [n,n,n/32]
+    int32 or None, density [n,n,n] or None): the streams' fold + extraction
+    and merge (torch ops), then X.6's grid-order form rounds
+    (``quantize``) and packs the merged channels in one launch (``gate``:
+    the ``-normals`` form, gated by those words; no words come out). The
+    plain versions on a CPU tensor or with ``use_kernels=False``
+    (``grid_cuda.untile_plain``: the density is then ``rgba[..., 3]``)."""
+    rgba = _merge_winners2(accel, threshold, rule, use_kernels)
+    return grid_cuda.untile(rgba, accel.n, gate=gate, quantize=quantize,
+                            use_kernel=use_kernels)
 
 
 # ---- gen-1: one cubemap level, Moller-Trumbore closest hit ----------------

@@ -24,8 +24,11 @@ never reach the kernel and stay zero.
   not carried over. :func:`assemble_raystab_accel7` lays the live tiles out
   as one :class:`~raystab_cuda.StripTables` stream, so the query is one
   launch of the fold + extraction kernel (ops/raystab_cuda.py), and
-  :func:`raystab_query7` untiles its outputs with one scatter and one
-  permute.
+  :func:`raystab_query7` untiles its outputs: on the card by the
+  hand-written kernel X.6 (ops/grid_cuda.py, through the accel's tile ->
+  row map ``slots``), which :func:`raystab_grid7` also has round and pack
+  them into the frame's grid; elsewhere by one scatter and one permute
+  (:func:`untile7`).
 
 Every tile ray's candidate set is a superset of the triangles it can hit
 (the cone binning is conservative per ray, the union only adds other lanes'
@@ -44,7 +47,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dxrvoxelizer_tpu_torch.ops import intersect, raystab_cuda
+from dxrvoxelizer_tpu_torch.ops import grid_cuda, intersect, raystab_cuda
 from dxrvoxelizer_tpu_torch.ops.packing import voxel_centers_norm
 from dxrvoxelizer_tpu_torch.ops.raystab_cuda import K_BLOCK, StripTables
 from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
@@ -65,7 +68,7 @@ from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
 )
 from dxrvoxelizer_tpu_torch.ops.raystab_refit import RaystabRefitter
 
-TILE = (8, 4, 4)  # x-major voxel tile; its 128 voxels are one strip (n % 8 == 0)
+TILE = grid_cuda.TILE  # x-major voxel tile; its 128 voxels are one strip (n % 8 == 0)
 _ID_BITS = 24  # triangle ids < 2^24 (the f32 id channel)
 
 
@@ -109,14 +112,16 @@ class RaystabCompact7:
 @dataclass
 class RaystabAccel7:
     """The gen-7 accel on the device: ``main`` the live tiles as one strip
-    stream (None when no tile is live), ``tids`` [L] int64 their tile ids.
-    ``t_count``: the mesh's triangle count."""
+    stream (None when no tile is live), ``tids`` [L] int64 their tile ids,
+    ``slots`` [n^3 / 128] int32 each tile's live row (-1: dead; X.6 reads
+    it). ``t_count``: the mesh's triangle count."""
 
     n: int
     t_count: int
     device: torch.device
     main: StripTables | None
     tids: torch.Tensor
+    slots: torch.Tensor
     stats: Raystab7Stats
 
 
@@ -346,7 +351,9 @@ def assemble_raystab_accel7(compact: RaystabCompact7, verts_norm, tris,
                           stream_ids7(compact, dev)["main"], by_id),
         )
     return RaystabAccel7(n=n, t_count=int(tris.shape[0]), device=dev,
-                         main=main, tids=tids, stats=compact.stats)
+                         main=main, tids=tids,
+                         slots=grid_cuda.tile_slots(tids, n),
+                         stats=compact.stats)
 
 
 def build_raystab_accel7(verts_norm, tris, normals, n: int = 64,
@@ -361,29 +368,50 @@ def build_raystab_accel7(verts_norm, tris, normals, n: int = 64,
 def untile7(accel: RaystabAccel7, ns: torch.Tensor | None):
     """The live tiles' channels ``ns`` [L, 128, 4] (None: no live tile) ->
     (occupancy [n,n,n] bool, rgba [n,n,n,4] f32): scattered into a zeroed
-    tile buffer (dead tiles stay zero) and untiled by one permute."""
-    n, (tx, ty, tz) = accel.n, TILE
-    out = torch.zeros((n * n * n // 128, 128, 4), dtype=torch.float32,
-                      device=accel.device)
-    if ns is not None:
-        out.index_copy_(0, accel.tids, ns)
-    rgba = (out.reshape(n // tx, n // ty, n // tz, tx, ty, tz, 4)
-            .permute(0, 3, 1, 4, 2, 5, 6).reshape(n, n, n, 4))
+    tile buffer (dead tiles stay zero) and untiled by one permute (the
+    plain version of X.6's untiling; the sharded frames' merge)."""
+    rgba = grid_cuda.untile_tiles_plain(ns, accel.tids, accel.n)
     return rgba[..., 3] != 0.0, rgba
+
+
+def _fold7(accel: RaystabAccel7, threshold: float, rule: str,
+           use_kernels: bool):
+    """The fold + extraction over the live tiles -> their channels
+    [L, 128, 4] (None when no tile is live)."""
+    if accel.main is None:
+        return None
+    fold = (raystab_cuda.fold_extract if use_kernels
+            else raystab_cuda.fold_extract_plain)
+    return fold(accel.main, accel.t_count, threshold, rule)[2]
 
 
 def raystab_query7(accel: RaystabAccel7, threshold: float = INSIDE_THRESHOLD,
                    rule: str = "backface", use_kernels: bool = True):
     """Per-frame trace -> (occupancy [n,n,n] bool, rgba [n,n,n,4] f32): one
-    fold + extraction over the live tiles (the kernel on a CUDA tensor, its
-    plain version on a CPU one, or with ``use_kernels=False``), untiled by
-    :func:`untile7`. Ground truth is the radial oracle."""
-    ns = None
-    if accel.main is not None:
-        fold = (raystab_cuda.fold_extract if use_kernels
-                else raystab_cuda.fold_extract_plain)
-        _, _, ns = fold(accel.main, accel.t_count, threshold, rule)
-    return untile7(accel, ns)
+    fold + extraction over the live tiles and the untiling X.6 with the
+    rounding off (the kernels on a CUDA tensor, their plain versions on a
+    CPU one, or with ``use_kernels=False``: the chain of :func:`untile7`).
+    Ground truth is the radial oracle."""
+    ns = _fold7(accel, threshold, rule, use_kernels)
+    rgba = grid_cuda.untile(ns, accel.n, tiles=(accel.tids, accel.slots),
+                            quantize=False, words=False, density=False,
+                            use_kernel=use_kernels)[0]
+    return rgba[..., 3] != 0.0, rgba
+
+
+def raystab_grid7(accel: RaystabAccel7, threshold: float = INSIDE_THRESHOLD,
+                  rule: str = "backface", quantize: bool = True,
+                  gate: torch.Tensor | None = None, use_kernels: bool = True):
+    """The query as the frame's grid -> (rgba [n,n,n,4], words [n,n,n/32]
+    int32 or None, density [n,n,n] or None): the fold + extraction, then X.6
+    untiles, rounds (``quantize``) and packs its output in one launch
+    (``gate``: the ``-normals`` form, gated by those words; no words come
+    out). The plain versions on a CPU tensor or with ``use_kernels=False``
+    (``grid_cuda.untile_plain``: the density is then ``rgba[..., 3]``)."""
+    ns = _fold7(accel, threshold, rule, use_kernels)
+    return grid_cuda.untile(ns, accel.n, tiles=(accel.tids, accel.slots),
+                            gate=gate, quantize=quantize,
+                            use_kernel=use_kernels)
 
 
 class RaystabTiledRefitter(RaystabRefitter):

@@ -988,3 +988,77 @@ def test_light_sweep_kernels_match_plain(dev, sweep, n):
         assert err <= TOL_SWEEP, (light, err)
         assert bool((want < 0.5).any()), light
         assert sweep != "ref" or bool((want == 1.0).any()), light
+
+
+# ---- the grid glue (csrc/grid.cu: X.6, X.7, X.8) ---------------------------
+
+def _held_equal(got, want):
+    """Every output == its plain version's, NaN at the same places, and bit
+    for bit (the sign of a zero included)."""
+    for g_, w_ in zip(got, want):
+        if g_ is None and w_ is None:
+            continue
+        assert g_.shape == w_.shape and g_.dtype == w_.dtype
+        if g_.dtype.is_floating_point:
+            assert torch.equal(g_.view(torch.int32), w_.view(torch.int32))
+        else:
+            assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("n,form", [
+    (n, f) for n in (16, 32, 64, 256)
+    for f in ("tiled", "grid", "gated_tiled", "gated_grid")
+    if n % 32 == 0 or f == "tiled"])  # words need n % 32 == 0
+def test_grid_untile_bit_identical_to_plain(dev, n, form):
+    """X.6 in each form, rounded and not, against its plain chain on the
+    card (which multiplies by the float32 reciprocals, as the kernel does),
+    on channels drawn from the tie set; its density is the rounded alpha."""
+    from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
+    from torch_cases import grid_channels
+
+    tiled = form.endswith("tiled")
+    d = grid_channels(n, n, tiles=tiled)
+    gate = (torch.from_numpy(d["gate"]).to(dev) if form.startswith("gated")
+            else None)
+    if tiled:
+        tids = torch.from_numpy(d["tids"]).to(dev)
+        src, tiles = torch.from_numpy(d["ns"]).to(dev), (tids, gc.tile_slots(tids, n))
+    else:
+        src, tiles = torch.from_numpy(d["src"]).to(dev), None
+    for q in (True, False):
+        kw = dict(tiles=tiles, gate=gate, quantize=q, words=n % 32 == 0)
+        before = gc.UNTILE.launches
+        got = gc.untile(src, n, **kw)
+        assert gc.UNTILE.launches == before + 1
+        want = gc.untile(src, n, use_kernel=False, **kw)
+        _held_equal(got, (want[0], want[1], want[0][..., 3]))
+
+
+@pytest.mark.parametrize("n", [32, 64, 256])
+def test_grid_unpack_bit_identical_to_plain(dev, n):
+    from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
+    from torch_cases import grid_channels
+
+    w = torch.from_numpy(grid_channels(n, n, tiles=False)["gate"]).to(dev)
+    before = gc.UNPACK.launches
+    got = gc.unpack_density(w, n)
+    assert gc.UNPACK.launches == before + 1
+    _held_equal((got,), (gc.unpack_density_plain(w, n),))
+
+
+@pytest.mark.parametrize("n", [8, 13, 40, 64, 256])
+def test_grid_slabs_bit_identical_to_plain(dev, n):
+    """X.8 in all six (axis, flip) pairs on contiguous volumes and on a
+    strided density (an rgba grid's alpha)."""
+    from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    rgba = torch.rand((n, n, n, 4), generator=gen, device=dev)
+    light = torch.rand((n, n, n), generator=gen, device=dev)
+    for dens in (rgba[..., 3].contiguous(), rgba[..., 3]):
+        for axis in range(3):
+            for flip in (False, True):
+                before = gc.SLABS.launches
+                got = gc.slabs(dens, light, axis, flip)
+                assert gc.SLABS.launches == before + 1
+                _held_equal((got,), (gc.slabs_plain(dens, light, axis, flip),))

@@ -1,0 +1,527 @@
+"""The frame's grid glue (ops/grid_cuda.py, csrc/grid.cu) on the CPU: X.6
+(the gen-7 grid's untiling, R10G10B10A2 rounding and packing; its grid-order
+and words-gated forms), X.7 (the words' unpacking to density) and X.8 (the
+march's slab stack).
+
+The kernels run only on the card (chip_smoke.py holds each against its
+plain version there with ==). Here:
+
+- the plain versions against the JAX package's functions on seeded numpy
+  inputs, bit for bit: channels that are negative, above 1, signed zeros,
+  infinities, NaN and products that land on exact .5 ties
+  (``tests/torch_cases.quantize_cases``, found by a float32 search);
+- each kernel's numpy mirror (its thread -> voxel, voxel -> tile row and
+  lane, ballot and slab index arithmetic, and its rounding) against the
+  plain version, bit for bit, at 16-128^3 and in all six (axis, flip)
+  pairs. The rounding is the card's: PyTorch's CUDA division by a Python
+  scalar multiplies by the float32 reciprocal, which the plain version is
+  run with here (emulated); the CPU's IEEE quotient differs from it at 24
+  of the 1,024 levels of a 10-bit channel, as JAX op by op differs from
+  jitted JAX;
+- the routing: a CPU tensor and ``use_kernel(s)=False`` take the plain
+  versions, the frame's entry points pass the flag down, and a tensor that
+  is not on the CPU goes to the kernel or raises, with no fallback.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dxrvoxelizer_tpu.core.pipeline import VoxelGrid as JaxVoxelGrid
+from dxrvoxelizer_tpu.ops import packing as jpack
+from dxrvoxelizer_tpu.ops.raymarch_warp import _perm_for_axis as jax_perm
+from dxrvoxelizer_tpu_torch.core import pipeline
+from dxrvoxelizer_tpu_torch.core.pipeline import VoxelGrid
+from dxrvoxelizer_tpu_torch.ops import _cuda, grid_cuda as gc
+from dxrvoxelizer_tpu_torch.ops import raystab_fast as rf
+from dxrvoxelizer_tpu_torch.ops import raystab_tiled as rt
+from dxrvoxelizer_tpu_torch.ops.packing import (
+    pack_bits_z,
+    quantize_r10g10b10a2,
+    unpack_bits_z,
+)
+from tests.meshes import icosphere_mesh
+from tests.torch_cases import _ties, grid_channels, quantize_cases
+
+torch.set_num_threads(2)
+
+F32 = np.float32
+AXIS_FLIP = [(a, f) for a in range(3) for f in (False, True)]
+# the 10-bit levels k at which k * fl(1/1023) and fl(k / 1023) differ
+RECIP_LEVELS = 24
+
+
+def _bits(a) -> np.ndarray:
+    """float32 values as their bit patterns (NaN, -0.0 compared exactly)."""
+    return np.ascontiguousarray(np.asarray(a, F32)).view(np.int32)
+
+
+def _same(a, b) -> bool:
+    """Equal as the benchmark's hold compares (==, so -0.0 == 0.0), with
+    NaN at the same places: torch.clamp keeps a -0.0 that jnp.clip turns
+    into 0.0."""
+    a, b = np.asarray(a), np.asarray(b)
+    na, nb = np.isnan(a), np.isnan(b)
+    return (a.shape == b.shape and np.array_equal(na, nb)
+            and np.array_equal(a[~na], b[~nb]))
+
+
+def _ftz(a: np.ndarray) -> np.ndarray:
+    """Subnormals flushed to zero, as XLA:CPU computes (the port keeps them,
+    on the CPU and the card)."""
+    return np.where(np.abs(a) < np.finfo(F32).tiny, F32(0), a)
+
+
+def _card_division(monkeypatch):
+    """Run the plain versions with PyTorch's CUDA division by a Python
+    scalar: the product by the scalar's float32 reciprocal."""
+    div = torch.Tensor.__truediv__
+
+    def card_div(a, b):
+        if isinstance(b, (int, float)) and a.dtype == torch.float32:
+            return a * torch.tensor(F32(1) / F32(b))
+        return div(a, b)
+
+    monkeypatch.setattr(torch.Tensor, "__truediv__", card_div)
+
+
+def _channels(seed=0) -> np.ndarray:
+    """[C, 4] channels: every case in every channel, shuffled per channel."""
+    c = quantize_cases()
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.permutation(c) for _ in range(4)], -1)
+
+
+# ---- against the JAX package -------------------------------------------------
+
+def test_tie_search_finds_exact_halves():
+    """Every level of both widths has a float32 whose product lands on
+    m + 0.5 exactly, and rounding takes it to the even neighbour."""
+    for levels in (1023, 3):
+        t = _ties(levels)
+        assert t.shape == (levels,)
+        prod = (t * F32(levels)).astype(F32)
+        assert np.array_equal(prod, np.arange(levels, dtype=F32) + F32(0.5))
+        assert np.array_equal(np.rint(prod) % 2, np.zeros(levels))
+
+
+def test_quantize_matches_jax_on_the_tie_set(monkeypatch):
+    """R10G10B10A2 on the tie set, bit for bit: the plain version on the
+    CPU against JAX op by op (IEEE quotients), and with the card's
+    division (the kernel's rounding, and its mirror's) against jitted JAX,
+    which multiplies by the reciprocal too. The two roundings differ
+    exactly at the 24 levels where the reciprocal's product is an ulp off."""
+    ch = _channels()
+    eager = np.asarray(jpack.quantize_r10g10b10a2(jnp.asarray(ch)))
+    jitted = np.asarray(jax.jit(jpack.quantize_r10g10b10a2)(jnp.asarray(ch)))
+    got = quantize_r10g10b10a2(torch.from_numpy(ch)).numpy()
+    assert _same(got, eager)
+    _card_division(monkeypatch)
+    card = quantize_r10g10b10a2(torch.from_numpy(ch)).numpy()
+    assert _same(card, jitted)
+    k = np.arange(1024, dtype=F32)[:, None].repeat(4, 1) / F32(1023)
+    k[:, 3] = 0.0
+    a = quantize_r10g10b10a2(torch.from_numpy(k)).numpy()
+    monkeypatch.undo()
+    b = quantize_r10g10b10a2(torch.from_numpy(k)).numpy()
+    assert int((a[:, 0] != b[:, 0]).sum()) == RECIP_LEVELS
+    assert np.array_equal(a[:, 3], b[:, 3])
+
+
+def test_pack_and_unpack_match_jax():
+    """The words (bit 31 the int32 sign) and their unpacking, bit for bit."""
+    rng = np.random.default_rng(3)
+    for n in (32, 64):
+        occ = rng.random((n, n, n)) < 0.5
+        occ[0, 0, 31] = occ[-1, -1, -1] = True
+        w = pack_bits_z(torch.from_numpy(occ)).numpy()
+        assert np.array_equal(w, np.asarray(jpack.pack_bits_z(jnp.asarray(occ))))
+        assert (w < 0).any()
+        back = unpack_bits_z(torch.from_numpy(w), n).numpy()
+        assert np.array_equal(back, np.asarray(jpack.unpack_bits_z(
+            jnp.asarray(w), n)))
+        assert np.array_equal(back, occ)
+
+
+def _jax_untile(ns: np.ndarray, tids: np.ndarray, n: int) -> np.ndarray:
+    """dxrvoxelizer_tpu/ops/raystab_tiled.py:521-531 on the live tiles'
+    channels: the scatter into [nt + 1, 4, 128] and the untiling."""
+    tx, ty, tz = (8, 4, 4)
+    nt = n ** 3 // 128
+    out = jnp.zeros((nt + 1, 4, 128), jnp.float32)
+    out = out.at[jnp.asarray(tids)].set(jnp.asarray(ns).transpose(0, 2, 1))
+    rgba = (out[:nt].reshape(n // tx, n // ty, n // tz, 4, tx, ty, tz)
+            .transpose(0, 4, 1, 5, 2, 6, 3).reshape(n, n, n, 4))
+    return np.asarray(rgba)
+
+
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_untile_and_grid_match_jax(n):
+    """X.6's plain version against JAX: the untiling (dead tiles zero), then
+    the frame's grid, ``quantize_r10g10b10a2`` of it and ``pack_bits_z`` of
+    its unrounded alpha != 0 (core/pipeline.py:128), bit for bit."""
+    d = grid_channels(n, n)
+    tids = torch.from_numpy(d["tids"])
+    want = _jax_untile(d["ns"], d["tids"], n)
+    got = gc.untile_tiles_plain(torch.from_numpy(d["ns"]), tids, n).numpy()
+    assert np.array_equal(_bits(got), _bits(want))
+    tiles = (tids, gc.tile_slots(tids, n))
+    if n % 32:
+        rgba, w, dens = gc.untile(torch.from_numpy(d["ns"]), n, tiles=tiles,
+                                  words=False)
+        assert w is None
+    else:
+        rgba, w, dens = gc.untile(torch.from_numpy(d["ns"]), n, tiles=tiles)
+        assert np.array_equal(w.numpy(), np.asarray(jpack.pack_bits_z(
+            jnp.asarray(want[..., 3] != 0.0))))
+    assert dens is None
+    q = np.asarray(jpack.quantize_r10g10b10a2(jnp.asarray(want)))
+    assert _same(rgba.numpy(), q)
+
+
+@pytest.mark.parametrize("n", [32, 64])
+def test_gated_form_matches_jax(n):
+    """X.6's words-gated form (``-normals``): rgb times the occupancy bit,
+    alpha the bit (JAX's _parity_rgba, dxrvoxelizer_tpu/core/pipeline.py:
+    207-213), then the rounding, bit for bit: a negative normal times 0 is
+    -0.0, NaN and infinity times 0 NaN; a subnormal channel stays (XLA:CPU
+    flushes it to zero)."""
+    d = grid_channels(n, 7 + n, tiles=False)
+    src, gate = d["src"], d["gate"]
+    occ_f = jpack.unpack_bits_z(jnp.asarray(gate), n).astype(jnp.float32)[..., None]
+    hit = jnp.asarray(src.reshape(n, n, n, 4))
+    want = jnp.concatenate([hit[..., :3] * occ_f, occ_f], axis=-1)
+    for q in (False, True):
+        w_q = np.asarray(jpack.quantize_r10g10b10a2(want) if q else want)
+        rgba, w, dens = gc.untile(torch.from_numpy(src), n,
+                                  gate=torch.from_numpy(gate), quantize=q)
+        assert w is None and dens is None
+        if q:
+            assert _same(rgba.numpy(), w_q)
+        else:  # XLA:CPU flushes subnormal products to zero; torch keeps them
+            assert _same(_ftz(rgba.numpy()), w_q)
+    assert (_bits(np.asarray(want)[..., :3]) == _bits(F32(-0.0))).any()
+
+
+def test_unpack_density_matches_jax():
+    """X.7's plain version against JAX's ``VoxelGrid.density`` of a parity
+    grid (dxrvoxelizer_tpu/core/pipeline.py:57-64)."""
+    for n in (32, 64):
+        w = grid_channels(n, n, tiles=False)["gate"]
+        want = np.asarray(JaxVoxelGrid(words=jnp.asarray(w)).density())
+        got = gc.unpack_density(torch.from_numpy(w), n)
+        assert np.array_equal(got.numpy(), want)
+        assert np.array_equal(VoxelGrid(words=torch.from_numpy(w)).density()
+                              .numpy(), want)
+
+
+def _jax_slabs(density, light, axis, flip) -> np.ndarray:
+    """dxrvoxelizer_tpu/ops/raymarch_warp.py:461-465."""
+    perm = jax_perm(axis)
+    vol2 = jnp.stack([jnp.asarray(density), jnp.asarray(light)], axis=0)
+    vol2 = jnp.transpose(vol2, (0, *[p + 1 for p in perm]))
+    if flip:
+        vol2 = vol2[..., ::-1]
+    return np.asarray(jnp.moveaxis(vol2, -1, 1))
+
+
+@pytest.mark.parametrize("axis,flip", AXIS_FLIP)
+def test_slabs_match_jax(axis, flip):
+    """X.8's plain version against JAX's slab stack, every (axis, flip)."""
+    rng = np.random.default_rng(axis * 2 + flip)
+    for n in (16, 32, 48):
+        d = rng.random((n, n, n), dtype=F32)
+        lt = rng.random((n, n, n), dtype=F32)
+        got = gc.slabs(torch.from_numpy(d), torch.from_numpy(lt), axis, flip)
+        assert np.array_equal(got.numpy(), _jax_slabs(d, lt, axis, flip))
+
+
+# ---- the kernels' mirrors against the plain versions -----------------------
+
+# (n, form): every form at the packed sizes; the tiled form alone at 16^3
+# (n % 8 == 0 without words)
+UNTILE_CASES = [(n, form) for n in (16, 32, 64, 128)
+                for form in ("tiled", "grid", "gated_tiled", "gated_grid")
+                if n % 32 == 0 or form == "tiled"]
+
+
+@pytest.mark.parametrize("n,form", UNTILE_CASES)
+def test_untile_mirror_matches_plain(monkeypatch, n, form):
+    """X.6's mirror (a thread a voxel; tile ((i>>3) (n/4) + (j>>2)) (n/4) +
+    (k>>2), lane (i&7) 16 + (j&3) 4 + (k&3) through the slot map, dead tiles
+    zero; the warp's ballot as word v >> 5) against the plain chain with
+    the card's division, rounding on and off, bit for bit; its density is
+    the rounded alpha."""
+    tiled = form.endswith("tiled")
+    _card_division(monkeypatch)
+    d = grid_channels(n, 100 + n, tiles=tiled)
+    gate = d.get("gate") if form.startswith("gated") else None
+    if tiled:
+        tids = torch.from_numpy(d["tids"])
+        slots = gc.tile_slots(tids, n)
+        src, tiles = d["ns"], (tids, slots)
+        assert np.array_equal(np.sort(slots.numpy()[slots.numpy() >= 0]),
+                              np.arange(len(d["tids"])))
+    else:
+        src, tiles, slots = d["src"], None, None
+    words = n % 32 == 0
+    for q in (False, True):
+        rgba, w, _ = gc.untile(torch.from_numpy(src), n, tiles=tiles,
+                               gate=None if gate is None else torch.from_numpy(gate),
+                               quantize=q, words=words)
+        m_rgba, m_w, m_dens = gc.untile_mirror(
+            src, n, None if slots is None else slots.numpy(), gate, q, words)
+        # rounded, a -0.0 compares by == (np.clip and the CPU's torch.clamp
+        # give it different signs; on the card the kernel's is the plain
+        # version's, bit for bit); unrounded, every bit
+        same = _same if q else (lambda a, b: np.array_equal(_bits(a), _bits(b)))
+        assert same(m_rgba, rgba.numpy())
+        assert same(m_dens, rgba.numpy()[..., 3])
+        assert (m_w is None) == (w is None)
+        if w is not None:
+            assert np.array_equal(m_w, w.numpy())
+
+
+def test_untile_mirror_on_the_tie_set(monkeypatch):
+    """Every tie-set value in every channel through the grid-order form:
+    the mirror's rounding equals the plain chain with the card's division
+    and jitted JAX, bit for bit; the words are the unrounded alpha != 0 (a
+    NaN alpha sets its bit, an alpha below 1/6 keeps it though it rounds
+    to 0)."""
+    ch = _channels(1)
+    n = 32
+    src = np.zeros((n ** 3, 4), F32)
+    src[: len(ch)] = ch
+    _card_division(monkeypatch)
+    rgba, w, _ = gc.untile(torch.from_numpy(src), n)
+    m_rgba, m_w, _ = gc.untile_mirror(src, n, None)
+    assert _same(m_rgba, rgba.numpy())
+    assert np.array_equal(m_w, w.numpy())
+    jitted = np.asarray(jax.jit(jpack.quantize_r10g10b10a2)(jnp.asarray(src)))
+    assert _same(m_rgba.reshape(-1, 4), jitted)
+    occ = unpack_bits_z(w, n).numpy().reshape(-1)
+    assert np.array_equal(occ, src[:, 3] != 0)
+    assert (occ & (m_rgba.reshape(-1, 4)[:, 3] == 0)).any()
+
+
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_unpack_mirror_matches_plain(n):
+    """X.7's mirror (a thread four voxels: word q >> 3, shift (q & 7) 4)
+    against the plain version."""
+    w = grid_channels(n, n + 1, tiles=False)["gate"]
+    got = gc.unpack_mirror(w, n)
+    assert np.array_equal(got, gc.unpack_density_plain(torch.from_numpy(w),
+                                                       n).numpy())
+
+
+@pytest.mark.parametrize("axis,flip", AXIS_FLIP)
+def test_slabs_mirror_matches_plain_and_jax(axis, flip):
+    """X.8's mirror (blocks of (32, 8) threads over the 32x32 (k, y) tiles
+    of two slabs x, loads along the input's minor axis, stores along y,
+    masked edges)
+    against the plain stack and JAX's, bit for bit: contiguous volumes at
+    8-128^3 (mip sizes below a tile, an odd size that leaves a block one
+    slab) and a strided density (the alpha of an rgba grid, read in
+    place)."""
+    rng = np.random.default_rng(10 + axis * 2 + flip)
+    for n in (8, 13, 16, 40, 64, 128):
+        d = torch.from_numpy(rng.random((n, n, n), dtype=F32))
+        lt = torch.from_numpy(rng.random((n, n, n), dtype=F32))
+        vols = [(t.reshape(-1).numpy(), 0, gc._slab_strides(t, axis))
+                for t in (d, lt)]
+        got = gc.slabs_mirror(vols, n, axis, flip)
+        want = gc.slabs_plain(d, lt, axis, flip).numpy()
+        assert np.array_equal(got, want)
+        if n <= 64:
+            assert np.array_equal(got, _jax_slabs(d.numpy(), lt.numpy(), axis,
+                                                  flip))
+    n = 40
+    rgba = torch.from_numpy(rng.random((n, n, n, 4), dtype=F32))
+    dens, lt = rgba[..., 3], torch.from_numpy(rng.random((n, n, n), dtype=F32))
+    vols = [(rgba.reshape(-1).numpy(), 3, gc._slab_strides(dens, axis)),
+            (lt.reshape(-1).numpy(), 0, gc._slab_strides(lt, axis))]
+    assert np.array_equal(gc.slabs_mirror(vols, n, axis, flip),
+                          gc.slabs_plain(dens, lt, axis, flip).numpy())
+
+
+# ---- routing ---------------------------------------------------------------
+
+def _launches():
+    return [k.launches for k in (gc.UNTILE, gc.UNPACK, gc.SLABS)]
+
+
+def test_cpu_and_use_kernel_false_take_the_plain_versions():
+    """A CPU tensor takes each plain version; ``use_kernel=False`` does on a
+    tensor that is not on the CPU (here a meta tensor), while with the kernel
+    asked for the same tensor goes to the kernel and raises: no fallback."""
+    before = _launches()
+    n = 32
+    d = grid_channels(n, 2)
+    tids = torch.from_numpy(d["tids"])
+    tiles = (tids, gc.tile_slots(tids, n))
+    gc.untile(torch.from_numpy(d["ns"]), n, tiles=tiles)
+    gc.unpack_density(torch.from_numpy(d["gate"]), n)
+    vol = torch.zeros((n, n, n))
+    gc.slabs(vol, vol, 2, True)
+    assert _launches() == before
+    meta = {"ns": torch.empty((len(d["tids"]), 128, 4), device="meta"),
+            "tids": torch.empty(len(d["tids"]), dtype=torch.int64, device="meta"),
+            "slots": torch.empty(n ** 3 // 128, dtype=torch.int32, device="meta"),
+            "words": torch.empty((n, n, n // 32), dtype=torch.int32, device="meta"),
+            "vol": torch.empty((n, n, n), device="meta")}
+    mt = (meta["tids"], meta["slots"])
+    calls = [
+        lambda **k: gc.untile(meta["ns"], n, tiles=mt, **k),
+        lambda **k: gc.untile(meta["vol"].reshape(-1, 1).expand(-1, 4), n, **k),
+        lambda **k: gc.untile(meta["ns"], n, tiles=mt, gate=meta["words"], **k),
+        lambda **k: gc.unpack_density(meta["words"], n, **k),
+        lambda **k: gc.slabs(meta["vol"], meta["vol"], 0, False, **k),
+    ]
+    for call in calls:
+        out = call(use_kernel=False)
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.device.type == "meta"
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            call()
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+def test_a_kernel_that_fails_raises(monkeypatch, failure):
+    """With the checks of a CUDA tensor passed, a library that fails to build
+    or an entry point that returns a CUDA error raises; nothing falls back
+    and no launch is counted."""
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: 700  # cudaErrorIllegalAddress
+
+    def load():
+        if failure == "build":
+            raise RuntimeError("nvcc not found: the CUDA toolkit is required")
+        return Lib()
+
+    monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
+    monkeypatch.setattr(_cuda, "load", load)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    n = 32
+    meta_w = torch.empty((n, n, n // 32), dtype=torch.int32, device="meta")
+    vol = torch.empty((n, n, n), device="meta")
+    slots = torch.empty(n ** 3 // 128, dtype=torch.int32, device="meta")
+    before = _launches()
+    for call in (lambda: gc.untile(None, n, tiles=(slots, slots)),
+                 lambda: gc.unpack_density(meta_w, n),
+                 lambda: gc.slabs(vol, vol, 1, True)):
+        with pytest.raises(RuntimeError, match="nvcc|CUDA error 700"):
+            call()
+    assert _launches() == before
+
+
+def test_grid_sizes_the_kernels_refuse():
+    """Words need n % 32 == 0 and tiles n % 8 == 0: the wrappers raise
+    before a launch."""
+    meta = torch.empty(1, device="meta")
+    with pytest.raises(ValueError, match="n % 32"):
+        gc.unpack_density(torch.empty((48, 48, 1), dtype=torch.int32,
+                                      device="meta"), 48)
+    with pytest.raises(ValueError, match="n % 8"):
+        gc.untile(None, 20, tiles=(meta, meta))
+    with pytest.raises(ValueError, match="n % 32"):
+        gc.untile(None, 16, tiles=(meta, torch.empty(32, dtype=torch.int32,
+                                                    device="meta")))
+
+
+def test_voxel_grid_density_routes():
+    """``VoxelGrid.density``: the kernel's density where X.6 wrote one (and
+    ``use_kernel=False`` ignores it: rgba[..., 3]), ``rgba[..., 3]``
+    otherwise, and without rgba the words through X.7's wrapper with the
+    flag."""
+    n = 32
+    w = torch.from_numpy(grid_channels(n, 4, tiles=False)["gate"])
+    rgba = torch.rand((n, n, n, 4))
+    dens = torch.rand((n, n, n))
+    g = VoxelGrid(words=w, rgba=rgba, dens=dens)
+    assert g.density() is dens
+    assert torch.equal(g.density(use_kernel=False), rgba[..., 3])
+    assert torch.equal(VoxelGrid(words=w, rgba=rgba).density(), rgba[..., 3])
+    assert torch.equal(VoxelGrid(words=w).density(),
+                       unpack_bits_z(w, n).to(torch.float32))
+
+
+def test_render_and_march_inputs_pass_use_kernels(monkeypatch):
+    """``render(..., use_kernels=False)`` (the benchmark's plain image)
+    recomputes the density and the slabs by the plain versions: the flag
+    reaches ``VoxelGrid.density`` and X.8's wrapper; by default both are
+    asked for the kernels."""
+    from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
+    from dxrvoxelizer_tpu_torch.models.scene import Scene
+    from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+    from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
+
+    seen = []
+    slabs0, unpack0 = gc.slabs, gc.unpack_density
+
+    def slabs(*a, **kw):
+        seen.append(("slabs", kw.get("use_kernel", True)))
+        return slabs0(*a, **kw)
+
+    def unpack(*a, **kw):
+        seen.append(("unpack", kw.get("use_kernel", True)))
+        return unpack0(*a, **kw)
+
+    monkeypatch.setattr(gc, "slabs", slabs)
+    monkeypatch.setattr(gc, "unpack_density", unpack)
+    v, nr, t = icosphere_mesh(2)
+    mesh = ObjMesh(positions=v, normals=nr, indices=t.reshape(-1),
+                   aabb_min=v.min(0), aabb_max=v.max(0))
+    cfg = VoxelizerConfig(grid_size=32, width=48, height=32)
+    scene = Scene(mesh, "cpu")
+    cam = OrbitCamera(cfg.width, cfg.height)
+    fc = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
+    grid = pipeline.voxelize(scene.buffers, 32)
+    imgs = {}
+    for use in (True, False):
+        seen.clear()
+        imgs[use] = pipeline.render(grid, fc, cfg, use_kernels=use)
+        assert seen == [("unpack", use), ("slabs", use)]
+    assert torch.equal(imgs[True], imgs[False])
+
+
+@pytest.mark.parametrize("gen", [6, 7])
+def test_voxelize_through_x6_equals_the_old_chain(gen):
+    """``voxelize(mode="raystab", accel=gen-6 or gen-7)`` goes through X.6's
+    wrapper (its plain version here) and gives what the query, then
+    ``quantize_r10g10b10a2`` and ``pack_bits_z`` gave, rounded or not; the
+    ``-normals`` grid (X.6's gated form) what the gating chain gave."""
+    from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
+
+    v, nr, t = icosphere_mesh(2)
+    vt, nt_, tt = (torch.from_numpy(np.asarray(v, F32)),
+                   torch.from_numpy(np.asarray(nr, F32)),
+                   torch.from_numpy(np.asarray(t, np.int64)))
+    mesh = MeshBuffers(positions=vt, normals=nt_, tris=tt, positions_norm=vt)
+    n = 32
+    build = rt.build_raystab_accel7 if gen == 7 else rf.build_raystab_accel2
+    accel = build(vt, tt, nt_, n=n)
+    query = rt.raystab_query7 if gen == 7 else rf.raystab_query2
+    grid_fn = rt.raystab_grid7 if gen == 7 else rf.raystab_grid2
+    for q in (False, True):
+        occ, rgba = query(accel)
+        want = quantize_r10g10b10a2(rgba) if q else rgba
+        got_rgba, got_w, dens = grid_fn(accel, quantize=q)
+        assert dens is None
+        assert torch.equal(got_w, pack_bits_z(occ))
+        assert np.array_equal(_bits(got_rgba.numpy()), _bits(want.numpy()))
+        g = pipeline.voxelize(mesh, n, mode="raystab", accel=accel, quantize=q)
+        assert torch.equal(g.words, got_w) and torch.equal(g.rgba, got_rgba)
+        words = pack_bits_z(occ)
+        _, hit = query(accel, rule="hit")
+        occ_f = unpack_bits_z(words, n).to(torch.float32)[..., None]
+        gated = torch.cat([hit[..., :3] * occ_f, occ_f], dim=-1)
+        gated = quantize_r10g10b10a2(gated) if q else gated
+        got = grid_fn(accel, rule="hit", quantize=q, gate=words)
+        assert got[1] is None
+        assert np.array_equal(_bits(got[0].numpy()), _bits(gated.numpy()))

@@ -492,3 +492,75 @@ def point_lights(n: int, kinds=POINT_KINDS) -> list:
     """Point lights of every major tex axis and side, of each kind."""
     return [point_light(a, sg, kind, n) for kind in kinds for a in range(3)
             for sg in (1.0, -1.0)]
+
+
+# ---- the grid glue (csrc/grid.cu): channels that stress the rounding -------
+
+def _ties(levels: int) -> np.ndarray:
+    """float32 values c in (0, 1) whose product c * levels is exactly
+    m + 0.5 for each m < levels (the round-half-to-even ties), found by a
+    search over the float32 neighbours of (m + 0.5) / levels."""
+    f = np.float32
+    out = []
+    for m in range(levels):
+        target = f(m) + f(0.5)
+        c = f((m + 0.5) / levels)
+        for step in range(64):
+            for s in (c, np.nextafter(c, f(2)), np.nextafter(c, f(-1))):
+                if f(s * f(levels)) == target:
+                    out.append(s)
+                    break
+            else:
+                c = np.nextafter(c, f(2) if f(c * f(levels)) < target else f(-1))
+                continue
+            break
+    return np.asarray(out, np.float32)
+
+
+def quantize_cases() -> np.ndarray:
+    """Channel values for R10G10B10A2 [C] float32: the exact .5 ties of both
+    widths, every level k / 1023 and k / 3 (as a true quotient and as the
+    product by the float32 reciprocal), their float32 neighbours,
+    negatives, values above 1, signed zeros, infinities and NaN."""
+    f = np.float32
+    k = np.arange(1024, dtype=f)
+    lv = np.concatenate([k / f(1023), k * (f(1) / f(1023)),
+                         k[:4] / f(3), k[:4] * (f(1) / f(3))])
+    base = np.concatenate([_ties(1023), _ties(3), lv])
+    near = np.concatenate([np.nextafter(base, f(2)), np.nextafter(base, f(-1))])
+    odd = np.array([-0.0, 0.0, -1e-30, -0.25, -1.0, 1.0 + 2 ** -23, 1.5, 7.0,
+                    np.inf, -np.inf, np.nan, 2 ** -149, -(2 ** -149)], f)
+    return np.concatenate([base, near, odd, -base[:200]]).astype(f)
+
+
+def grid_channels(n: int, seed: int, live: float = 0.7,
+                  tiles: bool = True) -> dict:
+    """Channels for X.6 at n^3 (seeded): the live tiles' ``ns`` [L, 128, 4]
+    and their ``tids`` (a ``live`` share of the tiles, ascending) when
+    ``tiles``, else a grid-order ``src`` [n^3, 4]; rgb drawn from
+    :func:`quantize_cases` and normals in [-1.2, 1.2], alpha from
+    {0, 1, the cases}; ``gate`` words [n, n, n/32] int32 with bit 31 set in
+    some (None when n % 32)."""
+    rng = np.random.default_rng(seed)
+    cases = quantize_cases()
+    count, rows = n ** 3 // 128, n ** 3
+    rgb = np.where(rng.random((rows, 3)) < 0.5,
+                   rng.choice(cases, (rows, 3)),
+                   rng.uniform(-1.2, 1.2, (rows, 3))).astype(np.float32)
+    pick = rng.random(rows)
+    alpha = np.where(pick < 0.4, 0.0, np.where(pick < 0.8, 1.0,
+                                               rng.choice(cases, rows)))
+    ch = np.concatenate([rgb, alpha[:, None].astype(np.float32)], -1)
+    out = {}
+    if tiles:
+        tids = np.nonzero(rng.random(count) < live)[0].astype(np.int64)
+        out["tids"] = tids
+        out["ns"] = ch.reshape(count, 128, 4)[: len(tids)].copy()
+    else:
+        out["src"] = ch
+    if n % 32 == 0:
+        g = rng.integers(0, 2 ** 32, (n, n, n // 32), dtype=np.uint64)
+        g[0, 0, 0] = 0xFFFFFFFF
+        g[-1, -1, -1] = 0x80000000
+        out["gate"] = g.astype(np.uint32).view(np.int32)
+    return out
