@@ -176,9 +176,10 @@ the CUDA toolkit. Phases, one line each:
     ``raymarch_ref`` at 64^3, 1280x720 (mean, p99, max).
 21. the multi-device frames, batch datagen and the native tier: a NCCL
     group of one rank runs ``ShardedFramePipeline`` at 1280x720 (64^3
-    ``-hq``, 256^3 parity, 256^3 gen-7 ray-stab, 64^3 gather, 64^3
-    ``-pointlight``), each image bit-identical to ``FramePipeline``'s,
-    with frame ms, device busy, ops
+    ``-hq``, 256^3 parity, 256^3 gen-7 ray-stab, 64^3 gen-6 ray-stab, 64^3
+    gather, 64^3 ``-pointlight``), the merges on their kernels (gen-7 X.6,
+    gen-6 X.10, the parity frames' words X.7), each image bit-identical to
+    ``FramePipeline``'s, with frame ms, device busy, ops
     per frame and the all_gather's bytes and ms; the rank bodies of world 2
     and 4 in one process, every tile group of the work-queue kernel, band
     of the resolve and strip slice of the fold against its plain version
@@ -214,18 +215,24 @@ the CUDA toolkit. Phases, one line each:
     launch once per frame and X.3 and X.4 never, and those frames' device
     ops, busy ms and ms through ``FramePipeline`` with the kernel and with
     the point sweep's plain version;
-22c. the grid glue's kernels (``csrc/grid.cu``): X.6 (the ray-stab grid's
-    untiling, R10G10B10A2 rounding and packing), X.7 (the words' unpacking
-    to density) and X.8 (the march's slab stack). Each cell's frames,
-    driven as ``benchmark/run.py`` drives them, with the launch counts set
-    to 0 before and read after (B: X.6 and X.8 once a frame; A and C: X.7
-    and X.8); each kernel against its plain version with == (NaN at the
-    same places) and bit for bit on those frames' grids, accels, densities
-    and lights, on the tie set of ``tests/torch_cases.quantize_cases``, in
-    the gen-6 64^3 grid-order and ``-normals`` gated forms, with the
-    rounding off, and X.8 in all six (axis, flip) pairs and on a strided
-    density; at each cell's inputs each kernel's ms, device us, bound,
-    plain ms and launches a frame, and for X.8 the time of
+22c. the glue kernels (``csrc/grid.cu``, ``csrc/refit_rows.cu``): X.6
+    (the ray-stab grid's untiling, R10G10B10A2 rounding and packing), X.7
+    (the words' unpacking to density), X.8 (the march's slab stack), X.9
+    (the refit's per-triangle rows) and X.10 (gen-6's stream merge with
+    X.6's rounding and packing). Each cell's frames, driven as
+    ``benchmark/run.py`` drives them, and the app's 64^3 ``-inside
+    raystab`` frame, with the launch counts set to 0 before and read after
+    (B: X.6, X.8 and X.9 once a frame; A and C: X.7 and X.8; the 64^3
+    ray-stab frame X.10 and X.8); each kernel against its plain version
+    with == (NaN at the same places) and bit for bit on those frames'
+    grids, accels, densities and lights, on the tie set of
+    ``tests/torch_cases.quantize_cases``, with the rounding off, X.8 in all
+    six (axis, flip) pairs and on a strided density, X.9 at B's refit
+    (int64 and int32 triangles) and on the 64^3 icosphere, X.10 on the
+    64^3 icosphere's gen-6 accel and on it with the near-origin soup (both
+    streams), gated, on the sharded frames' packed pieces and without the
+    near-origin stream; at each path's inputs each kernel's ms, device us,
+    bound, plain ms and launches a frame, and for X.8 the time of
     ``torch.stack(...).contiguous()``;
 23. the benchmark's cells (``BENCHMARK.json``), each as a subprocess,
     ``python3 benchmark/run.py --workload <cell> --seed 0 --frames 20``:
@@ -247,7 +254,8 @@ belongs to (the 64^3 frame for the binned kernel, the march, the resolve,
 the render variants' and the light recurrences' kernels; the 256^3 frame for the work-queue
 kernel; the 64^3 ray-stab frame's tables for the gen-6 ray-stab kernels;
 the gen-1 accel's slices for the Moller-Trumbore kernel; cell B's frame
-for X.6, cell C's for X.7 and X.8), its time, its
+for X.6 and X.9, cell C's for X.7 and X.8, the 64^3 ray-stab frame's for
+X.10), its time, its
 plain version's time, its bound and, where one PyTorch call computes the
 same function (or the gathers alone, ``grid_sample``), that call's time.
 The line before it gives the whole run's seconds. Any failure raises and
@@ -1259,8 +1267,10 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
 
     a. A NCCL group of world size 1 runs ShardedFramePipeline at full
        width: 64^3 -hq on the 81,920-triangle icosphere, 256^3 parity and
-       gen-7 ray-stab on the 327,680-triangle one, the 64^3 gather frame
-       and the 64^3 -pointlight frame (X.5); each image against the
+       gen-7 ray-stab on the 327,680-triangle one, the 64^3 gen-6 ray-stab
+       frame, the 64^3 gather frame and the 64^3 -pointlight frame (X.5);
+       the merges and densities on their kernels (gen-7 X.6, gen-6 X.10,
+       the parity frames' words X.7); each image against the
        single-device FramePipeline's, bit for bit; frame ms (CUDA events,
        median of 5 runs of 10 frames), device ops per frame (profiler),
        the all_gather's bytes and ms. The counts
@@ -1313,6 +1323,7 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
         "256 parity": (cfg_hi, mb7, consts7),
         "256 raystab gen-7": (cfg_hi.replace(inside_mode="raystab"), mb7,
                               consts7),
+        "64 raystab gen-6": (cfg.replace(inside_mode="raystab"), mb, consts),
         "64 gather": (cfg, mb, consts),
         "64 -pointlight": (cfg.replace(point_light=True), mb, consts),
     }
@@ -1327,8 +1338,9 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
              for name, (c_, m_, _) in frames.items()}
     singles = {name: FramePipeline(c_, m_, render_impl=impl.get(name, "warp"))
                for name, (c_, m_, _) in frames.items()}
-    check(type(pipes["256 raystab gen-7"].accel).__name__ == "RaystabAccel7",
-          "phase 21a: the 256^3 sharded ray-stab frame is not gen-7")
+    check(type(pipes["256 raystab gen-7"].accel).__name__ == "RaystabAccel7"
+          and type(pipes["64 raystab gen-6"].accel).__name__ == "RaystabAccel2",
+          "phase 21a: the sharded ray-stab frames are not gen-7 and gen-6")
     for name in frames:  # first frames (statics, accels from the cache)
         pipes[name].frame(frames[name][2])
     torch.cuda.synchronize()
@@ -1339,9 +1351,15 @@ def phase21(torch, app_main, kernels, card, dev, state) -> dict:
         p.sync()
     launches = {k.name: k.launches for k in kernels}
     for k in ("parity_queue", "march", "resolve", "raystab_fold_extract",
-              "gather_march", "light_volume", "light_sweep_point"):
+              "gather_march", "light_volume", "light_sweep_point",
+              "grid_untile", "grid_merge", "grid_unpack"):
         check(launches[k] > 0, f"phase 21a: kernel {k} never launched on the "
               "sharded frames")
+    # the merges and the parity frames' densities on their kernels: gen-7
+    # through X.6, gen-6 through X.10, the words through X.7 (its frames)
+    check(launches["grid_untile"] == 1 and launches["grid_merge"] == 1
+          and launches["grid_unpack"] == 4,
+          f"phase 21a: glue launches {launches}")
     check(launches["parity_voxelize"] == 0 and launches["raystab_mt"] == 0,
           f"phase 21a: the sharded frames took another route: {launches}")
     for name, (c_, m_, k_) in frames.items():
@@ -2026,37 +2044,72 @@ def untile_bound(n: int, src_bytes: int, quantize: bool, gated: bool,
     return bound(b, ops)
 
 
+def refit_rows_bound(verts, tris, normals) -> tuple[float, str]:
+    """X.9's least time: the rows [T+1, 24] written once, the triangles'
+    indices, the vertices and the normals read once."""
+    t = int(tris.shape[0])
+    return bound((t + 1) * 96 + tris.numel() * tris.element_size()
+                 + verts.numel() * 4 + normals.numel() * 4, 0)
+
+
+def merge_bound(accel, outs: dict, quantize: bool, gated: bool, words: bool,
+                density: bool) -> tuple[float, str]:
+    """X.10's least time: the ray -> slot map and each stream's outputs read
+    once (the main stream's channels for the slots a ray maps to, padding
+    slots unread, and their t and id only when the near-origin stream is
+    merged; that stream's t, id and channels for its first n^3 lanes), then
+    what X.6 writes."""
+    v = accel.n ** 3
+    b = 0
+    if "main" in outs:
+        read = int((accel.ray_slot >= 0).sum())
+        b += v * 4 + read * (24 if "ov" in outs else 16)
+    if "ov" in outs:
+        b += v * 24
+    return untile_bound(accel.n, b, quantize, gated, words, density)
+
+
 def phase22c(torch, kernels, card, dev, state) -> dict:
-    """Phase 22c: the grid glue's kernels (``csrc/grid.cu``): X.6 the grid's
-    untiling, rounding and packing, X.7 the words' unpacking to density, X.8
-    the march's slab stack.
+    """Phase 22c: the grid glue's kernels (``csrc/grid.cu``,
+    ``csrc/refit_rows.cu``): X.6 the grid's untiling, rounding and packing,
+    X.7 the words' unpacking to density, X.8 the march's slab stack, X.9
+    the refit's per-triangle rows, X.10 gen-6's stream merge with X.6's
+    rounding and packing.
 
     a. Each cell of ``BENCHMARK.json`` (its Runner, as ``benchmark/run.py``
-       drives it): GLUE_FRAMES frames with every launch count set to 0 just
-       before and read just after (B must launch X.6 and X.8 once a frame,
-       A and C X.7 and X.8, and no other glue kernel); then the last
-       frame's grid and accel (``captured``).
+       drives it), and the app's 64^3 ``-inside raystab`` frame (gen-6,
+       ``FramePipeline``): GLUE_FRAMES frames with every launch count set
+       to 0 just before and read just after (B must launch X.6, X.8 and
+       X.9 once a frame, A and C X.7 and X.8, the 64^3 ray-stab frame X.10
+       and X.8, and no other glue kernel); then the last frame's grid and
+       accel (``captured``) and B's refit inputs.
     b. Each kernel against its plain version with == (NaN at the same
        places) and bit for bit: X.6 on B's refitted accel (rounded and not;
        the words-gated ``-normals`` form on B's words under rule "hit"; the
-       query's own untiling with the rounding off) and on the 64^3
-       icosphere's gen-6 accel (the grid-order form, rounded and not, and
-       gated by the 64^3 parity words), and the tie set
-       (``tests/torch_cases.quantize_cases``) in the grid-order and tiled
-       forms; X.7 on A's and C's words; X.8 on every cell's density and
+       query's own untiling with the rounding off) and the tie set
+       (``tests/torch_cases.quantize_cases``) in the tiled form; X.7 on A's and C's words; X.8 on every cell's density and
        light in all six (axis, flip) pairs, the frame's own pair among
-       them, and on a strided density (an rgba grid's alpha).
-    c. At each cell's inputs: CUDA-event ms (INNER calls, median of REPS),
-       device us per call (profiler), bound, plain ms and device us, and
-       for X.8 the one PyTorch call that computes it
-       (``torch.stack(...).contiguous()`` of the slab-order views).
+       them, and on a strided density (an rgba grid's alpha); X.9 at B's
+       refit (the 100,000-triangle torus, int64 and int32 triangles) and on
+       the 64^3 icosphere; X.10 on the 64^3 icosphere's gen-6 accel and on
+       it with the near-origin soup (both streams), rounded and not, gated
+       by the 64^3 parity words, on strided views of the sharded frames'
+       packed pieces and without the near-origin stream, and the tie set in
+       the grid-order form (an identity ray -> slot map).
+    c. At each cell's inputs (X.10: the 64^3 ray-stab frame's): CUDA-event
+       ms (INNER calls, median of REPS), device us per call (profiler),
+       bound, plain ms and device us, launches a frame, and for X.8 the one
+       PyTorch call that computes it (``torch.stack(...).contiguous()`` of
+       the slab-order views).
 
-    ``state``: the 64^3 icosphere's buffers and the test cases. Returns the
-    cells' launches (main paths), and for the result line each kernel's
-    largest error, ms and plain ms, bound and library ms: X.6 at B's
-    frame, X.7 and X.8 at C's."""
+    ``state``: the 64^3 icosphere's configuration, buffers and constants,
+    the near-origin soup and the test cases. Returns the cells' and the
+    64^3 frame's launches (main paths), and for the result line each
+    kernel's largest error, ms and plain ms, bound and library ms: X.6 and
+    X.9 at B's frame, X.7 and X.8 at C's, X.10 at the 64^3 ray-stab
+    frame's."""
     from benchmark.run import Runner, cell_from_spec, load_spec
-    from dxrvoxelizer_tpu_torch.core.pipeline import voxelize
+    from dxrvoxelizer_tpu_torch.core.pipeline import FramePipeline, voxelize
     from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
     from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw
     from dxrvoxelizer_tpu_torch.ops import raystab_cuda as rsc
@@ -2068,7 +2121,8 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
     )
 
     t_start = time.perf_counter()
-    glue = {k.name: k for k in (gc.UNTILE, gc.UNPACK, gc.SLABS)}
+    glue = {k.name: k for k in (gc.UNTILE, gc.UNPACK, gc.SLABS, gc.MERGE,
+                                rsf.REFIT_ROWS)}
     errs = {k: 0.0 for k in glue}
     held_cases = {k: [] for k in glue}
     bit_diffs = {k: 0 for k in glue}
@@ -2101,6 +2155,32 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
     tmp = Path(tempfile.mkdtemp(prefix="dxv_glue_cells_"))
     atexit.register(shutil.rmtree, tmp, True)
     cells, launches = {}, {k.name: 0 for k in kernels}
+    counts, sizes, rows_in = {}, {}, {}  # frames' launches, grids, X.9 inputs
+
+    def glue_frames(c, step, inside, n, deform):
+        """GLUE_FRAMES frames of ``step`` with the counts from 0 -> their
+        launches, checked against the glue kernels the path must launch."""
+        for k in kernels:
+            k.launches = 0
+        for _ in range(GLUE_FRAMES):
+            out = step()
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in kernels}
+        for k, v in got.items():
+            launches[k] += v
+        stab = inside == "raystab"
+        gen6 = stab and not rst.use_tiled_raystab(n)
+        want = {"grid_slabs": GLUE_FRAMES,
+                "grid_untile": GLUE_FRAMES if stab and not gen6 else 0,
+                "grid_merge": GLUE_FRAMES if gen6 else 0,
+                "grid_unpack": 0 if stab else GLUE_FRAMES,
+                "refit_rows": GLUE_FRAMES if stab and deform else 0}
+        check(all(got[k] == v for k, v in want.items()),
+              f"phase 22c: {c}'s {GLUE_FRAMES} frames launched "
+              f"{ {k: got[k] for k in glue} }, expected {want}")
+        counts[c], sizes[c] = got, n
+        return out
+
     for w in spec["workloads"]:
         c = w["name"]
         (tmp / c).mkdir()
@@ -2108,22 +2188,22 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
         pipe = r.pipeline()
         r.step(pipe)
         r.present()
-        for k in kernels:
-            k.launches = 0
-        for _ in range(GLUE_FRAMES):
-            _, k_, consts = r.step(pipe)
+        _, k_, consts = glue_frames(c, lambda r=r, pipe=pipe: r.step(pipe),
+                                    r.cfg.inside_mode, r.cfg.grid_size,
+                                    r.cell.deform)
         r.present()
-        got = {k.name: k.launches for k in kernels}
         _, seen = r.rerun(pipe, k_, consts)
-        for k, v in got.items():
-            launches[k] += v
-        want = {"grid_slabs": GLUE_FRAMES,
-                "grid_untile": GLUE_FRAMES if r.cfg.inside_mode == "raystab" else 0,
-                "grid_unpack": 0 if r.cfg.inside_mode == "raystab" else GLUE_FRAMES}
-        check(all(got[k] == v for k, v in want.items()),
-              f"phase 22c: {c}'s {GLUE_FRAMES} frames launched "
-              f"{ {k: got[k] for k in glue} }, expected {want}")
-        cells[c] = (r, consts, seen["grid"], seen.get("accel"), got)
+        if pipe._refitter is not None:  # the refit's inputs of that frame
+            m = r.mesh_at(k_)
+            rows_in[c] = (m.positions_norm, pipe._refitter.tris, m.normals)
+        cells[c] = (r, consts, seen["grid"], seen.get("accel"), counts[c])
+    # the app's 64^3 -inside raystab frame (gen-6: X.10)
+    cfg64, mb, consts64 = state["64"]
+    stab6 = "gen-6 64^3 -inside raystab frame"
+    pipe6 = FramePipeline(cfg64.replace(inside_mode="raystab"), mb)
+    pipe6.frame(consts64)
+    glue_frames(stab6, lambda: pipe6.frame(consts64), "raystab", GRID, False)
+    pipe6.sync()
 
     # ---- 22c-b. the kernels against their plain versions ----------------
     timing = {}
@@ -2199,22 +2279,64 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
                 lambda w=grid.words, n=n: gc.unpack_density_plain(w, n), None,
                 bound(n ** 3 // 8 + 4 * n ** 3, 0))
 
-    # the 64^3 icosphere's gen-6 accel: the grid-order and gated forms
-    mb = state["mb"]
+    # X.9 at B's refit and on the 64^3 icosphere (int64 and int32 triangles)
+    for c, (v_, t_, n_) in [*rows_in.items(), (f"{GRID}^3 icosphere", (
+            mb.positions_norm, mb.tris, mb.normals))]:
+        want = rsf._fused_coef_matrix(v_, t_, n_)
+        for tt in (t_, t_.to(torch.int32)):
+            held("refit_rows", f"{c} {str(tt.dtype)[6:]} triangles",
+                 rsf.fused_coef_matrix(v_, tt, n_), want)
+        if c in cells:
+            timing[("refit_rows", c)] = (
+                lambda a=(v_, t_, n_): rsf.fused_coef_matrix(*a),
+                lambda a=(v_, t_, n_): rsf._fused_coef_matrix(*a), None,
+                refit_rows_bound(v_, t_, n_))
+    # X.10 on the 64^3 icosphere's gen-6 accel (the frame's), and with the
+    # near-origin soup (both streams): grid order and gated, the sharded
+    # frames' packed pieces (strided views) and the main stream alone
     accel2 = rsf.build_raystab_accel2(mb.positions_norm, mb.tris, mb.normals,
                                       n=GRID)
+    nv_, nn_, nt_ = (torch.from_numpy(np.asarray(a)).to(dev)
+                     for a in state["near"])
+    mbo = dataclasses.replace(
+        mb, positions=torch.cat([mb.positions, nv_]),
+        normals=torch.cat([mb.normals, nn_]),
+        tris=torch.cat([mb.tris, nt_.long() + mb.positions.shape[0]]),
+        positions_norm=torch.cat([mb.positions_norm, nv_]))
+    accel2o = rsf.build_raystab_accel2(mbo.positions_norm, mbo.tris,
+                                       mbo.normals, n=GRID)
+    check(accel2o.main is not None and accel2o.ov is not None,
+          "phase 22c: the icosphere + near-origin soup has not both streams")
     words64 = voxelize(mb, GRID).words
-    for q in (True, False):
+
+    for label, acc in ((f"gen-6 {GRID}^3", accel2),
+                       (f"gen-6 {GRID}^3 + near-origin soup", accel2o)):
+        for rule in ("backface", "hit"):
+            outs = rsf._stream_outs2(acc, rsf.INSIDE_THRESHOLD, rule)
+            forms = {"": outs, " packed": state["cases"].packed_outs(outs)}
+            if len(outs) == 2:
+                forms[" main stream alone"] = {"main": outs["main"]}
+            for form, o in forms.items():
+                for q in (True, False):
+                    for g in (None, words64) if rule == "hit" else (None,):
+                        k_ = gc.merge(acc, o, gate=g, quantize=q)
+                        p_ = gc.merge_plain(acc, o, gate=g, quantize=q)
+                        held("grid_merge", f"{label} {rule}{form}"
+                             f"{' gated' if g is not None else ''}"
+                             f"{'' if q else ' unrounded'}",
+                             k_, (p_[0], p_[1], p_[0][..., 3]))
+    for q in (True, False):  # the grid's entry point, both routes
         k_ = rsf.raystab_grid2(accel2, quantize=q)
         p_ = rsf.raystab_grid2(accel2, quantize=q, use_kernels=False)
-        held("grid_untile", f"gen-6 {GRID}^3 grid order{'' if q else ' unrounded'}",
-             k_, (p_[0], p_[1], p_[0][..., 3]))
-        k_ = rsf.raystab_grid2(accel2, rule="hit", quantize=q, gate=words64)
-        p_ = rsf.raystab_grid2(accel2, rule="hit", quantize=q, gate=words64,
-                               use_kernels=False)
-        held("grid_untile", f"gen-6 {GRID}^3 -normals gated{'' if q else ' unrounded'}",
-             k_, (p_[0], p_[1], p_[0][..., 3]))
-    # the tie set, in every channel, in the grid-order and tiled forms
+        held("grid_merge", f"gen-6 {GRID}^3 raystab_grid2"
+             f"{'' if q else ' unrounded'}", k_, (p_[0], p_[1], p_[0][..., 3]))
+    outs6 = rsf._stream_outs2(accel2, rsf.INSIDE_THRESHOLD, "backface")
+    timing[("grid_merge", stab6)] = (
+        lambda: gc.merge(accel2, outs6), lambda: gc.merge_plain(accel2, outs6),
+        None, merge_bound(accel2, outs6, True, False, True, True))
+    del mbo, accel2o
+    # the tie set, in every channel, in the tiled form (X.6) and the
+    # grid-order form (X.10 through an identity ray -> slot map)
     cases = state["cases"]
     vals = torch.from_numpy(cases.quantize_cases())
     n_t = 32
@@ -2228,16 +2350,20 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
     tids = torch.arange(n_t ** 3 // 128, device=dev)[::2].contiguous()
     tiles = (tids, gc.tile_slots(tids, n_t))
     ns_t = ch.reshape(-1, 128, 4)[: tids.numel()].contiguous()
+    ident, ident_outs = cases.grid_order_streams(ch, n_t)
     for q in (True, False):
-        for form, src, tl in (("grid order", ch, None), ("tiled", ns_t, tiles)):
-            for g in (None, gate):
-                k_ = gc.untile(src, n_t, tiles=tl, gate=g, quantize=q)
-                p_ = gc.untile(src, n_t, tiles=tl, gate=g, quantize=q,
-                               use_kernel=False)
-                held("grid_untile", f"tie set {form}"
-                     f"{' gated' if g is not None else ''}"
-                     f"{'' if q else ' unrounded'}",
-                     k_, (p_[0], p_[1], p_[0][..., 3]))
+        for g in (None, gate):
+            label = (f"{' gated' if g is not None else ''}"
+                     f"{'' if q else ' unrounded'}")
+            k_ = gc.untile(ns_t, n_t, tiles=tiles, gate=g, quantize=q)
+            p_ = gc.untile(ns_t, n_t, tiles=tiles, gate=g, quantize=q,
+                           use_kernel=False)
+            held("grid_untile", f"tie set tiled{label}", k_,
+                 (p_[0], p_[1], p_[0][..., 3]))
+            k_ = gc.merge(ident, ident_outs, gate=g, quantize=q)
+            p_ = gc.untile(ch, n_t, gate=g, quantize=q, use_kernel=False)
+            held("grid_merge", f"tie set grid order{label}", k_,
+                 (p_[0], p_[1], p_[0][..., 3]))
     print(f"phase 22c the glue kernels against their plain versions (== with "
           f"NaN at the same places; max|err| {errs}, bits that differ "
           f"{bit_diffs}): " + "; ".join(
@@ -2248,7 +2374,9 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
     out_ms, out_bound, out_lib = {}, {}, {}
     pick_cell = {"grid_untile": "dragon256_raystab_wobble",
                  "grid_unpack": "dragon256_hq1080_orbit",
-                 "grid_slabs": "dragon256_hq1080_orbit"}
+                 "grid_slabs": "dragon256_hq1080_orbit",
+                 "refit_rows": "dragon256_raystab_wobble",
+                 "grid_merge": stab6}
     for (name, c), (fn, plain, lib, bnd) in timing.items():
         ms = cuda_ms(fn)
         us = device_us(fn) or device_us(fn)
@@ -2256,13 +2384,13 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
         plain_us = device_us(plain) or device_us(plain)
         lib_ms = cuda_ms(lib) if lib is not None else None
         lib_us = (device_us(lib) or device_us(lib)) if lib is not None else None
-        per_frame = cells[c][4][name] / GLUE_FRAMES
+        per_frame = counts[c][name] / GLUE_FRAMES
         dev_text = (f"{us:.2f} us device per call, share {bnd[0] / (us / 1e3):.4f}"
                     if us else "device us not measured")
         lib_text = ("" if lib is None else
                     f"; library torch.stack(...).contiguous() {lib_ms:.4f} ms, "
                     f"{lib_us:.2f} us device")
-        print(f"phase 22c {name} at {c}'s frame ({cells[c][0].cfg.grid_size}^3): "
+        print(f"phase 22c {name} at {c}'s frame ({sizes[c]}^3): "
               f"{ms:.4f} ms (CUDA events, {INNER} calls, median of {REPS}), "
               f"{dev_text}; bound {bnd[0]:.6f} ms ({bnd[1]}); plain "
               f"{plain_ms:.4f} ms, {plain_us:.2f} us device{lib_text}; "
@@ -2272,8 +2400,8 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
             out_bound[name] = bnd
             out_lib[name] = lib_ms
     print(f"phase 22c took {time.perf_counter() - t_start:.1f} s")
-    extra = {c: sorted(glue[k].symbol for k in glue if v[4][k])
-             for c, v in cells.items()}
+    extra = {c: sorted(glue[k].symbol for k in glue if counts[c][k])
+             for c in cells}
     return {"launches": launches, "errs": errs, "ms": out_ms,
             "bounds": out_bound, "library": out_lib, "glue_by_cell": extra}
 
@@ -2420,9 +2548,9 @@ def main(argv=None) -> int:
                "grid_slabs", "march", "resolve"),
         "256": ("parity_queue", "grid_unpack", "light_sweep_ref", "grid_slabs",
                 "march", "resolve"),
-        "raystab": ("raystab_fold_extract", "grid_untile", "grid_slabs",
+        "raystab": ("raystab_fold_extract", "grid_merge", "grid_slabs",
                     "march", "resolve"),
-        "normals": ("parity_voxelize", "raystab_fold_extract", "grid_untile",
+        "normals": ("parity_voxelize", "raystab_fold_extract", "grid_merge",
                     "grid_slabs", "march", "resolve"),
         "gen1": ("raystab_mt", "grid_slabs", "march", "resolve"),
     }
@@ -2594,13 +2722,20 @@ def main(argv=None) -> int:
                  *extra], Path(td) / f"{name.replace(' ', '_')}.png", name)
             secs = time.perf_counter() - t0
             parity = name.startswith("normals")
-            want = {"raystab_fold_extract": FRAMES, "grid_untile": FRAMES,
+            gen6 = grid == GRID  # X.10 merges gen-6's streams, X.6 gen-7's
+            want = {"raystab_fold_extract": FRAMES,
+                    "grid_untile": 0 if gen6 else FRAMES,
+                    "grid_merge": FRAMES if gen6 else 0,
                     "grid_slabs": FRAMES, "grid_unpack": 0,
                     "parity_queue": FRAMES if parity and grid == GRID_HI else 0,
                     "parity_voxelize": FRAMES if parity and grid == GRID else 0}
             for k, c in want.items():
                 check(launches[k] == c, f"{name}: {k} launched {launches[k]} "
                       f"times in {FRAMES} frames, expected {c}")
+            if "-deform" in extra:  # the refit's rows (X.9) every frame
+                check(launches["refit_rows"] >= FRAMES, f"{name}: refit_rows "
+                      f"launched {launches['refit_rows']} times in {FRAMES} "
+                      "frames")
             once_per_frame(launches, name)
             for k, c in launches.items():
                 main_launches[k] += c
@@ -3935,7 +4070,8 @@ def main(argv=None) -> int:
     ms.update(p22b["ms"])
 
     # ---- 22c. the grid glue's kernels -----------------------------------
-    p22c = phase22c(torch, kernels, card, dev, {"mb": mb, "cases": cases})
+    p22c = phase22c(torch, kernels, card, dev, {
+        "64": (cfg, mb, consts), "near": near, "cases": cases})
     for k, c in p22c["launches"].items():
         main_launches[k] += c
     errs.update(p22c["errs"])

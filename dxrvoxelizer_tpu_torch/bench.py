@@ -53,7 +53,7 @@ hole, so a z-column crosses it 0, 2 or 4 times.
 
 The timing helpers (:func:`cuda_times`, :func:`cuda_ms`,
 :func:`device_us`, :func:`profile_frames`) are shared with ``chip_smoke.py``
-and ``scripts/gather_frames.py``. This module imports only the standard
+and ``scripts/frames.py``. This module imports only the standard
 library, numpy and torch at import time, so a script can load it by path.
 """
 

@@ -1,6 +1,7 @@
 // The frame's grid glue between the kernels (Hopper): the ray-stab grid's
 // untiling, R10G10B10A2 rounding and packing (X.6), the occupancy words'
-// unpacking to density (X.7) and the march's slab stack (X.8).
+// unpacking to density (X.7), the march's slab stack (X.8) and gen-6's
+// stream merge fused with X.6's rounding and packing (X.10).
 //
 // Replaces XLA code, not Pallas kernels; the JAX package fuses each under
 // jit, and the port ran each as a chain of eager torch ops, every one a
@@ -13,16 +14,25 @@
 //   (i & 7) * 16 + (j & 3) * 4 + (k & 3) of tile
 //   ((i >> 3) * (n / 4) + (j >> 2)) * (n / 4) + (k >> 2) (TILE = (8, 4, 4),
 //   x-major); `slots` maps a tile to its row of the live tiles' channels
-//   (-1: a dead tile, which reads as zeros). Two more forms of the same
-//   body: the input already in grid order ([n^3, 4]: gen-6's merged
-//   streams), and a words-gated form for -normals (core/pipeline.py
-//   ::_parity_rgba): rgb times the occupancy bit of the given words, alpha
-//   the bit, and no words written.
+//   (-1: a dead tile, which reads as zeros). A second form of the same
+//   body, words-gated, for -normals (core/pipeline.py::_parity_rgba): rgb
+//   times the occupancy bit of the given words, alpha the bit, and no
+//   words written. The input already in grid order (gen-6's merged
+//   streams) has no form here: X.10 reads gen-6's streams themselves.
 // - X.7 grid_unpack_kernel: core/pipeline.py::VoxelGrid.density of a parity
 //   grid (ops/packing.py::unpack_bits_z, then a float cast).
 // - X.8 grid_slabs_kernel: ops/raymarch_warp.py::_shearwarp_core's slab
 //   stack: density and light as [2, K, X, Y], the marching axis first
 //   (flipped when the view looks down it) and the other two in grid order.
+// - X.10 grid_merge_kernel: ops/raystab_fast.py::_merge_winners2 (the
+//   port's _merge_streams2: the gen-6 main stream's slot outputs scattered
+//   to ray order through a zeroed [V+1, 4] buffer, and the near-origin
+//   stream merged by (t, lowest id) through two more filled buffers and a
+//   where), then X.6's tail in grid order. Ray v reads its slot through the
+//   accel's ray -> slot map (-1: no strip covers it, zeros), then the
+//   near-origin stream's lane v, which wins when its t is smaller, or equal
+//   with a lower id (the plain version's comparisons); then X.6's rounding,
+//   packing and gated form.
 //
 // Arithmetic (each output equals the plain torch chain on the card, which
 // chip_smoke.py checks with ==):
@@ -44,12 +54,15 @@
 //   product; a -0.0 then rounds to a zero whose sign is fmaxf's, as the
 //   card's torch.clamp gives it.
 //
-// What bounds it on the card: bytes, all three (a few integer operations a
+// What bounds it on the card: bytes, all four (a few integer operations a
 // voxel). X.6 reads the live tiles' channels and the 0.5 MiB slot map and
 // writes the rgba, the words and the density: 16 + 0.125 + 4 bytes a voxel
 // written, 0.18 ms at 256^3 with every tile live at 3.35 TB/s. X.7 reads
 // n^3 / 8 bytes and writes 4 a voxel (0.021 ms at 256^3). X.8 reads 8 bytes
-// a voxel and writes 8 (0.080 ms at 256^3).
+// a voxel and writes 8 (0.080 ms at 256^3). X.10 reads the ray -> slot map
+// (4 bytes a voxel) and each stream's outputs once (16 bytes a slot without
+// the near-origin stream; t, id and the channels, 24, with it) and writes
+// what X.6 writes.
 //
 // Design:
 // - X.6: a thread a voxel in grid order, 256 a block. A warp's 32 voxels
@@ -57,8 +70,13 @@
 //   its lanes' bits, stored by lane 0: no atomics, no second pass. Each
 //   thread loads its voxel's 16 bytes; four neighbours along z are one
 //   tile's 64 contiguous bytes, so every sector a warp loads is used, and
-//   its stores (16, 4 bytes a lane) are contiguous. Forms and the rounding
-//   are template arguments.
+//   its stores (16, 4 bytes a lane) are contiguous. The gated form and the
+//   rounding are template arguments.
+// - X.10: X.6's body with another input: a thread a voxel in grid order
+//   (ray v is voxel v), its slot's 16 bytes (one load when the channels
+//   are contiguous float4s; four when they are a strided view of the
+//   sharded frames' gathered pieces, read in place), then its near-origin
+//   lane's; the same ballot, rounding and stores.
 // - X.7: a thread writes four voxels as one 16-byte store; eight threads
 //   share a word.
 // - X.8: the stack is a transpose when the marching axis is z (the layout's
@@ -87,6 +105,7 @@ constexpr int kSlabX = 2;  // X.8's slabs x a block
 // The reciprocals PyTorch's CUDA division by a Python scalar multiplies by.
 constexpr float kInv1023 = 1.0f / 1023.0f;
 constexpr float kInv3 = 1.0f / 3.0f;
+constexpr int kBigId = 1 << 30;  // a miss's id (intersect.BIG_ID)
 
 __device__ __forceinline__ float clamp01(float v) {
   // torch.clamp(v, 0, 1) on the card: NaN propagates
@@ -97,33 +116,14 @@ __device__ __forceinline__ float unorm(float v, float levels, float inv) {
   return __fmul_rn(rintf(__fmul_rn(clamp01(v), levels)), inv);
 }
 
-template <bool kTiled, bool kGated, bool kQuant>
-__global__ void __launch_bounds__(kThreads)
-grid_untile_kernel(const float4* __restrict__ src,
-                   const int* __restrict__ slots,
-                   const unsigned* __restrict__ gate,
-                   float4* __restrict__ rgba, float* __restrict__ density,
-                   unsigned* __restrict__ words, int n, long long voxels) {
-  const long long v = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  const bool live = v < voxels;
-  const int k = static_cast<int>(v % n);
-  float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (live) {
-    if (kTiled) {
-      const long long row = v / n;
-      const int j = static_cast<int>(row % n);
-      const int i = static_cast<int>(row / n);
-      const int q = n >> 2;  // tiles along y and z
-      const long long tile =
-          (static_cast<long long>(i >> 3) * q + (j >> 2)) * q + (k >> 2);
-      const int lane = (i & 7) * 16 + (j & 3) * 4 + (k & 3);
-      const int s = __ldg(slots + tile);
-      if (s >= 0) c = __ldg(src + static_cast<long long>(s) * 128 + lane);
-    } else {
-      c = __ldg(src + v);
-    }
-  }
+// X.6's tail, shared with X.10: voxel v's channels `c` (zeros past the
+// grid) -> the gate, or the warp's word ballot, then the rounding and the
+// stores. Every thread of the block calls it (the ballot is the warp's).
+template <bool kGated, bool kQuant>
+__device__ __forceinline__ void finish_voxel(
+    float4 c, long long v, int k, bool live, const unsigned* __restrict__ gate,
+    float4* __restrict__ rgba, float* __restrict__ density,
+    unsigned* __restrict__ words) {
   if (kGated) {
     if (live) {
       const float b =
@@ -147,6 +147,83 @@ grid_untile_kernel(const float4* __restrict__ src,
   }
   rgba[v] = c;
   if (density != nullptr) density[v] = c.w;
+}
+
+template <bool kGated, bool kQuant>
+__global__ void __launch_bounds__(kThreads)
+grid_untile_kernel(const float4* __restrict__ src,
+                   const int* __restrict__ slots,
+                   const unsigned* __restrict__ gate,
+                   float4* __restrict__ rgba, float* __restrict__ density,
+                   unsigned* __restrict__ words, int n, long long voxels) {
+  const long long v = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const bool live = v < voxels;
+  const int k = static_cast<int>(v % n);
+  float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (live) {
+    const long long row = v / n;
+    const int j = static_cast<int>(row % n);
+    const int i = static_cast<int>(row / n);
+    const int q = n >> 2;  // tiles along y and z
+    const long long tile =
+        (static_cast<long long>(i >> 3) * q + (j >> 2)) * q + (k >> 2);
+    const int lane = (i & 7) * 16 + (j & 3) * 4 + (k & 3);
+    const int s = __ldg(slots + tile);
+    if (s >= 0) c = __ldg(src + static_cast<long long>(s) * 128 + lane);
+  }
+  finish_voxel<kGated, kQuant>(c, v, k, live, gate, rgba, density, words);
+}
+
+// One strip stream's outputs as X.10 reads them: element e's t and id at
+// e * ts, its four channels at e * nss (`vec`: contiguous float4s).
+struct StreamOut {
+  const float* t;
+  const int* id;
+  const float* ns;
+  long long ts, nss;
+  bool vec;
+};
+
+__device__ __forceinline__ float4 load_channels(const StreamOut& s,
+                                                long long e) {
+  if (s.vec) return __ldg(reinterpret_cast<const float4*>(s.ns) + e);
+  const float* p = s.ns + e * s.nss;
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+// X.10: ray v (= voxel v) of the gen-6 streams -> its merged channels, then
+// X.6's tail. `slot` null: no main stream. kOv: merge the near-origin
+// stream (lane v), which wins on a smaller t or an equal t with a lower id.
+template <bool kOv, bool kGated, bool kQuant>
+__global__ void __launch_bounds__(kThreads)
+grid_merge_kernel(const int* __restrict__ slot, const StreamOut m,
+                  const StreamOut o, const unsigned* __restrict__ gate,
+                  float4* __restrict__ rgba, float* __restrict__ density,
+                  unsigned* __restrict__ words, int n, long long voxels) {
+  const long long v = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const bool live = v < voxels;
+  const int k = static_cast<int>(v % n);
+  float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (live) {
+    float t = __int_as_float(0x7f800000);  // +inf: no main winner
+    int id = kBigId;
+    const int s = slot != nullptr ? __ldg(slot + v) : -1;
+    if (s >= 0) {
+      c = load_channels(m, s);
+      if (kOv) {
+        t = __ldg(m.t + s * m.ts);
+        id = __ldg(m.id + s * m.ts);
+      }
+    }
+    if (kOv) {
+      const float to = __ldg(o.t + v * o.ts);
+      const int io = __ldg(o.id + v * o.ts);
+      if (to < t || (to == t && io < id)) c = load_channels(o, v);
+    }
+  }
+  finish_voxel<kGated, kQuant>(c, v, k, live, gate, rgba, density, words);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -224,7 +301,7 @@ grid_slabs_kernel(const SlabSrc dens, const SlabSrc light,
   }
 }
 
-template <bool kTiled, bool kGated>
+template <bool kGated>
 cudaError_t launch_untile(bool quant, const float4* src, const int* slots,
                           const unsigned* gate, float4* rgba, float* density,
                           unsigned* words, int n, long long voxels,
@@ -232,18 +309,43 @@ cudaError_t launch_untile(bool quant, const float4* src, const int* slots,
   const unsigned blocks =
       static_cast<unsigned>((voxels + kThreads - 1) / kThreads);
   if (quant) {
-    grid_untile_kernel<kTiled, kGated, true><<<blocks, kThreads, 0, stream>>>(
+    grid_untile_kernel<kGated, true><<<blocks, kThreads, 0, stream>>>(
         src, slots, gate, rgba, density, words, n, voxels);
   } else {
-    grid_untile_kernel<kTiled, kGated, false><<<blocks, kThreads, 0, stream>>>(
+    grid_untile_kernel<kGated, false><<<blocks, kThreads, 0, stream>>>(
         src, slots, gate, rgba, density, words, n, voxels);
   }
   return cudaGetLastError();
 }
 
+template <bool kOv, bool kGated>
+cudaError_t launch_merge(bool quant, const int* slot, const StreamOut& m,
+                         const StreamOut& o, const unsigned* gate,
+                         float4* rgba, float* density, unsigned* words, int n,
+                         long long voxels, cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((voxels + kThreads - 1) / kThreads);
+  if (quant) {
+    grid_merge_kernel<kOv, kGated, true><<<blocks, kThreads, 0, stream>>>(
+        slot, m, o, gate, rgba, density, words, n, voxels);
+  } else {
+    grid_merge_kernel<kOv, kGated, false><<<blocks, kThreads, 0, stream>>>(
+        slot, m, o, gate, rgba, density, words, n, voxels);
+  }
+  return cudaGetLastError();
+}
+
+StreamOut stream_out(const void* t, const void* id, const void* ns,
+                     long long ts, long long nss) {
+  const bool vec = nss == 4 &&
+                   reinterpret_cast<uintptr_t>(ns) % sizeof(float4) == 0;
+  return {static_cast<const float*>(t), static_cast<const int*>(id),
+          static_cast<const float*>(ns), ts, nss, vec};
+}
+
 }  // namespace
 
-// X.6. `slots` null: `src` is [n^3, 4] in grid order, else the live tiles'
+// X.6. `slots` the tile -> row map [n^3 / 128], `src` the live tiles'
 // channels [L, 128, 4] (may be null when no tile is live). `gate` non-null:
 // the words-gated form (`words` must be null). `density` and `words` may be
 // null (not written).
@@ -252,10 +354,9 @@ extern "C" int dxv_grid_untile(const void* src, const void* slots,
                                void* words, int n, int quant, void* stream) {
   if (n <= 0) return 0;
   const long long voxels = static_cast<long long>(n) * n * n;
-  if ((slots != nullptr && n % 8 != 0) ||
+  if (slots == nullptr || n % 8 != 0 ||
       ((gate != nullptr || words != nullptr) && n % 32 != 0) ||
       (gate != nullptr && words != nullptr) ||
-      (slots == nullptr && src == nullptr) ||
       (voxels + kThreads - 1) / kThreads > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -267,17 +368,10 @@ extern "C" int dxv_grid_untile(const void* src, const void* slots,
   auto* w = static_cast<unsigned*>(words);
   auto st = static_cast<cudaStream_t>(stream);
   const bool q = quant != 0;
-  cudaError_t err;
-  if (sl != nullptr) {
-    err = g != nullptr
-              ? launch_untile<true, true>(q, s, sl, g, out, d, w, n, voxels, st)
-              : launch_untile<true, false>(q, s, sl, g, out, d, w, n, voxels, st);
-  } else {
-    err = g != nullptr
-              ? launch_untile<false, true>(q, s, sl, g, out, d, w, n, voxels, st)
-              : launch_untile<false, false>(q, s, sl, g, out, d, w, n, voxels,
-                                            st);
-  }
+  const cudaError_t err =
+      g != nullptr
+          ? launch_untile<true>(q, s, sl, g, out, d, w, n, voxels, st)
+          : launch_untile<false>(q, s, sl, g, out, d, w, n, voxels, st);
   return static_cast<int>(err);
 }
 
@@ -313,4 +407,53 @@ extern "C" int dxv_grid_slabs(const void* dens, long long d_sx, long long d_sy,
                       static_cast<cudaStream_t>(stream)>>>(
       d, l, static_cast<float*>(out), n, flip);
   return static_cast<int>(cudaGetLastError());
+}
+
+// X.10: gen-6's streams -> the grid. `slot` [n^3] int32 (the ray -> slot
+// map; null: no main stream) and the main stream's outputs (slot e's t and
+// id at e * m_ts, its channels at e * m_nss); the near-origin stream's
+// (lane v's; `o_ns` null: no such stream). `gate`, `density` and `words`
+// as for X.6.
+extern "C" int dxv_grid_merge(const void* slot, const void* m_t,
+                              const void* m_id, const void* m_ns,
+                              long long m_ts, long long m_nss,
+                              const void* o_t, const void* o_id,
+                              const void* o_ns, long long o_ts,
+                              long long o_nss, const void* gate, void* rgba,
+                              void* density, void* words, int n, int quant,
+                              void* stream) {
+  if (n <= 0) return 0;
+  const long long voxels = static_cast<long long>(n) * n * n;
+  const bool ov = o_ns != nullptr;
+  if (((gate != nullptr || words != nullptr) && n % 32 != 0) ||
+      (gate != nullptr && words != nullptr) ||
+      (slot != nullptr && m_ns == nullptr) ||
+      (ov && (o_t == nullptr || o_id == nullptr)) ||
+      (ov && slot != nullptr && (m_t == nullptr || m_id == nullptr)) ||
+      (voxels + kThreads - 1) / kThreads > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const StreamOut m = stream_out(m_t, m_id, m_ns, m_ts, m_nss);
+  const StreamOut o = stream_out(o_t, o_id, o_ns, o_ts, o_nss);
+  auto* sl = static_cast<const int*>(slot);
+  auto* g = static_cast<const unsigned*>(gate);
+  auto* out = static_cast<float4*>(rgba);
+  auto* d = static_cast<float*>(density);
+  auto* w = static_cast<unsigned*>(words);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool q = quant != 0;
+  cudaError_t err;
+  if (ov) {
+    err = g != nullptr
+              ? launch_merge<true, true>(q, sl, m, o, g, out, d, w, n, voxels, st)
+              : launch_merge<true, false>(q, sl, m, o, g, out, d, w, n, voxels,
+                                          st);
+  } else {
+    err = g != nullptr
+              ? launch_merge<false, true>(q, sl, m, o, g, out, d, w, n, voxels,
+                                          st)
+              : launch_merge<false, false>(q, sl, m, o, g, out, d, w, n,
+                                           voxels, st);
+  }
+  return static_cast<int>(err);
 }

@@ -100,6 +100,12 @@ _SIGNATURES = {
     # density and its strides (slab x, y, marching axis), light and its
     # strides, out, n, flip, stream
     "dxv_grid_slabs": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _P),
+    # ray_slot, main t, id, ns, t/id stride, ns stride, the near-origin
+    # stream's the same, gate, rgba, density, words, n, quantize, stream
+    "dxv_grid_merge": (_P, _P, _P, _P, _L, _L, _P, _P, _P, _L, _L, _P, _P,
+                       _P, _P, _I, _I, _P),
+    # verts, tris, normals, out, t_count, n_verts, n_normals, tris64, stream
+    "dxv_refit_rows": (_P, _P, _P, _P, _I, _L, _L, _I, _P),
 }
 
 
@@ -125,6 +131,7 @@ def all_kernels() -> list[Kernel]:
         raymarch_fast,
         raymarch_warp,
         raystab_cuda,
+        raystab_fast,
         raystab_mt_cuda,
         screen_warp_cuda,
         voxelize_cuda,
@@ -137,7 +144,8 @@ def all_kernels() -> list[Kernel]:
             raystab_mt_cuda.KERNEL, raymarch_fast.GATHER_MARCH,
             raymarch_fast.LIGHT_VOLUME, raymarch_warp.LIGHT_SWEEP_REF,
             raymarch_warp.LIGHT_SWEEP, raymarch_warp.LIGHT_SWEEP_POINT,
-            grid_cuda.UNTILE, grid_cuda.UNPACK, grid_cuda.SLABS]
+            grid_cuda.UNTILE, grid_cuda.UNPACK, grid_cuda.SLABS,
+            raystab_fast.REFIT_ROWS, grid_cuda.MERGE]
 
 
 def _sources() -> list[Path]:

@@ -8,13 +8,21 @@ intermediate:
   (``dxrvoxelizer_tpu/ops/raystab_tiled.py:521-531``) with the
   R10G10B10A2 rounding and the word packing of its output
   (``ops/packing.py:40-70``, called at ``core/pipeline.py:128``) -> the
-  grid's rgba, words and density in one pass. Two more forms of the same
-  body: the input already in grid order (gen-6's merged streams), and the
-  words-gated normal channel of ``-normals`` (``_parity_rgba``).
+  grid's rgba, words and density in one pass, and in a second form of the
+  same body the words-gated normal channel of ``-normals``
+  (``_parity_rgba``). Its input already in grid order (gen-6's merged
+  streams, the JAX CPU frame's oracle) takes the plain version only: on
+  the card X.10 reads gen-6's streams themselves.
 - X.7 :func:`unpack_density`: ``VoxelGrid.density`` of a parity grid
   (``core/pipeline.py:57-64``).
 - X.8 :func:`slabs`: the march's ``[2, K, X, Y]`` slab stack
   (``ops/raymarch_warp.py:461-465``).
+- X.10 :func:`merge`: gen-6's stream merge
+  (``dxrvoxelizer_tpu/ops/raystab_fast.py:1956 _merge_winners2``; the
+  port's ``raystab_fast._merge_streams2``: the main stream's slots
+  scattered to ray order, the near-origin stream merged by (t, lowest id))
+  fused with X.6's tail in grid order, through the accel's ray -> slot map
+  (:func:`ray_slots`).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises: no fallback)
 and takes its plain version, today's torch chain kept as it was, on a CPU
@@ -39,7 +47,7 @@ from dxrvoxelizer_tpu_torch.ops.warp import perm_for_axis
 _SRC = "dxrvoxelizer_tpu_torch/csrc/grid.cu"
 UNTILE = _cuda.Kernel(
     name="grid_untile",
-    symbol="grid_untile_kernel",  # <tiled, gated, rounded>
+    symbol="grid_untile_kernel",  # <gated, rounded>
     source=_SRC,
     replaces="dxrvoxelizer_tpu/ops/raystab_tiled.py:521",
 )
@@ -54,6 +62,12 @@ SLABS = _cuda.Kernel(
     symbol="grid_slabs_kernel",
     source=_SRC,
     replaces="dxrvoxelizer_tpu/ops/raymarch_warp.py:461",
+)
+MERGE = _cuda.Kernel(
+    name="grid_merge",
+    symbol="grid_merge_kernel",  # <near-origin, gated, rounded>
+    source=_SRC,
+    replaces="dxrvoxelizer_tpu/ops/raystab_fast.py:1956",
 )
 
 TILE = (8, 4, 4)  # the gen-7 voxel tile, x-major; lane lx * 16 + ly * 4 + lz
@@ -74,6 +88,17 @@ def tile_slots(tids: torch.Tensor, n: int) -> torch.Tensor:
     slots[tids] = torch.arange(tids.shape[0], dtype=torch.int32,
                                device=tids.device)
     return slots
+
+
+def ray_slots(slot_ray: torch.Tensor, v: int) -> torch.Tensor:
+    """A gen-6 accel's slot -> ray index [S*128] (``v`` for a padding
+    slot) -> the ray -> slot map int32 [v] that X.10 reads: the slot of ray
+    r, -1 where no strip covers it. Built once per accel (the strips
+    partition the rays: each ray has at most one slot)."""
+    slots = torch.full((v + 1,), -1, dtype=torch.int32, device=slot_ray.device)
+    slots[slot_ray] = torch.arange(slot_ray.shape[0], dtype=torch.int32,
+                                   device=slot_ray.device)
+    return slots[:v]  # the padding slots' dump row dropped
 
 
 # ---- X.6: untile, round, pack ---------------------------------------------
@@ -121,10 +146,12 @@ def untile(src: torch.Tensor | None, n: int, tiles=None,
     None, density [n,n,n] f32 or None).
 
     ``tiles`` = (tids, slots) of a gen-7 accel: ``src`` holds its live
-    tiles' channels [L, 128, 4] (None when no tile is live); else ``src`` is
-    [n^3, 4] in grid order. ``gate`` (words): the ``-normals`` form, rgb
-    times the occupancy bit and alpha the bit; no words come out. Otherwise
-    the words are the unrounded alpha != 0 (``words``; n % 32 == 0).
+    tiles' channels [L, 128, 4] (None when no tile is live). Without
+    ``tiles``, ``src`` is [n^3, 4] in grid order: the plain version only
+    (a tensor off the CPU raises; :func:`merge` is the card's grid-order
+    route). ``gate`` (words): the ``-normals`` form, rgb times the
+    occupancy bit and alpha the bit; no words come out. Otherwise the words
+    are the unrounded alpha != 0 (``words``; n % 32 == 0).
     ``quantize`` rounds through R10G10B10A2. The kernel also writes the
     rounded alpha as a contiguous density (``density``); the plain version
     returns None there. One launch on a CUDA tensor; the plain version on a
@@ -132,20 +159,18 @@ def untile(src: torch.Tensor | None, n: int, tiles=None,
     dev = tiles[1].device if tiles is not None else src.device
     if not use_kernel or dev.type == "cpu":
         return untile_plain(src, n, tiles, gate, quantize, words)
+    if tiles is None:
+        raise ValueError(f"src on {dev}: the grid-order form has no kernel "
+                         "(gen-6's streams go through merge); pass tiles or "
+                         "use_kernel=False")
     want_words = gate is None and words
-    if tiles is not None and n % 8:
+    if n % 8:
         raise ValueError(f"tiled grids need n % 8 == 0, got {n}")
     if (gate is not None or want_words) and n % 32:
         raise ValueError(f"packed grids need n % 32 == 0, got {n}")
-    if tiles is not None:
-        _cuda.require(tiles[1], "slots", torch.int32, (n ** 3 // 128,))
-        if src is not None:
-            _cuda.require(src, "src", torch.float32, (src.shape[0], 128, 4))
-    else:
-        _cuda.require(src, "src", torch.float32)
-        if src.numel() != n ** 3 * 4 or src.shape[-1] != 4:
-            raise ValueError(f"src: expected [n^3, 4] channels of a {n}^3 "
-                             f"grid, got {tuple(src.shape)}")
+    _cuda.require(tiles[1], "slots", torch.int32, (n ** 3 // 128,))
+    if src is not None:
+        _cuda.require(src, "src", torch.float32, (src.shape[0], 128, 4))
     if gate is not None:
         _cuda.require(gate, "gate", torch.int32, (n, n, n // 32))
     rgba = torch.empty((n, n, n, 4), dtype=torch.float32, device=dev)
@@ -154,14 +179,115 @@ def untile(src: torch.Tensor | None, n: int, tiles=None,
     w = (torch.empty((n, n, n // 32), dtype=torch.int32, device=dev)
          if want_words else None)
     code = _cuda.load().dxv_grid_untile(
-        0 if src is None else src.data_ptr(),
-        0 if tiles is None else tiles[1].data_ptr(),
+        0 if src is None else src.data_ptr(), tiles[1].data_ptr(),
         0 if gate is None else gate.data_ptr(), rgba.data_ptr(),
         0 if dens is None else dens.data_ptr(),
         0 if w is None else w.data_ptr(), n, int(quantize),
         _cuda.stream_ptr(dev))
     _cuda.check(code, UNTILE.name)
     UNTILE.launches += 1
+    return rgba, w, dens
+
+
+# ---- X.10: gen-6's stream merge, round, pack --------------------------------
+
+def merge_plain(accel, outs: dict, gate: torch.Tensor | None = None,
+                quantize: bool = True, words: bool = True):
+    """Plain version of :func:`merge`: ``raystab_fast._merge_streams2``,
+    then :func:`untile_plain`'s grid-order form."""
+    from dxrvoxelizer_tpu_torch.ops.raystab_fast import _merge_streams2
+
+    return untile_plain(_merge_streams2(accel, outs), accel.n, gate=gate,
+                        quantize=quantize, words=words)
+
+
+def _flat_stride(x: torch.Tensor, inner: int, name: str) -> int:
+    """The stride, in elements, between consecutive entries of ``x``
+    flattened over all but its last ``inner`` dims (which must be
+    contiguous): how X.10 reads a stream's outputs in place, a strided view
+    of the sharded frames' gathered pieces included. Raises when ``x`` is
+    laid out otherwise."""
+    lead = x.dim() - inner
+    dims = list(zip(x.shape, x.stride()))
+    es = next((st for size, st in reversed(dims[:lead]) if size > 1), 1)
+    for part, first in ((dims[lead:], 1), (dims[:lead], es)):
+        want = first
+        for size, st in reversed(part):
+            if size > 1 and st != want:
+                raise ValueError(f"{name}: its entries are not one stride "
+                                 f"apart (shape {tuple(x.shape)}, strides "
+                                 f"{x.stride()})")
+            want *= size
+    return es
+
+
+def _stream_args(name: str, out, count: int, dev) -> tuple:
+    """One stream's (t, id, ns) -> X.10's pointers and strides (t and id
+    share one): each entry read in place."""
+    t, i, ns = out
+    _cuda.require(t, f"{name} t", torch.float32, contiguous=False)
+    if (i.dtype != torch.int32 or ns.dtype != torch.float32
+            or i.shape != t.shape or ns.shape[:-1] != t.shape
+            or ns.shape[-1] != 4 or i.device != dev or ns.device != dev
+            or t.device != dev or t.numel() < count):
+        raise ValueError(
+            f"{name}: expected t f32, id int32 and ns f32 [..., 4] of at "
+            f"least {count} entries on {dev}, got {t.dtype} "
+            f"{tuple(t.shape)}, {i.dtype} {tuple(i.shape)}, {ns.dtype} "
+            f"{tuple(ns.shape)} on {t.device}")
+    if t.is_contiguous() and i.is_contiguous() and ns.is_contiguous():
+        ts, nss = 1, 4  # the fold's own outputs
+    else:
+        ts = _flat_stride(t, 0, f"{name} t")
+        if _flat_stride(i, 0, f"{name} id") != ts:
+            raise ValueError(f"{name}: t and id must share one stride")
+        nss = _flat_stride(ns, 1, f"{name} ns")
+    return t.data_ptr(), i.data_ptr(), ns.data_ptr(), ts, nss
+
+
+def merge(accel, outs: dict, gate: torch.Tensor | None = None,
+          quantize: bool = True, words: bool = True, density: bool = True,
+          use_kernel: bool = True):
+    """A gen-6 accel's stream outputs (``outs[name] = (t, id, ns)`` for
+    "main" and "ov", those it has; strided views are read in place) ->
+    (rgba [n,n,n,4] f32, words [n,n,n/32] int32 or None, density [n,n,n]
+    f32 or None), as :func:`untile_plain`'s grid-order form gives from the
+    merged channels: ray r takes its main slot's channels (``accel.ray_slot``;
+    zeros where no strip covers it), or the near-origin stream's lane r
+    where that is closer (equal t: the lower id). ``gate``, ``quantize``,
+    ``words`` and ``density`` as for :func:`untile`. One launch on a CUDA
+    tensor; the plain version (:func:`merge_plain`) on a CPU tensor or
+    under ``use_kernel=False``."""
+    dev = accel.device
+    if not use_kernel or dev.type == "cpu":
+        return merge_plain(accel, outs, gate, quantize, words)
+    n = accel.n
+    v = n ** 3
+    want_words = gate is None and words
+    if (gate is not None or want_words) and n % 32:
+        raise ValueError(f"packed grids need n % 32 == 0, got {n}")
+    slot = 0
+    m_args = o_args = (0, 0, 0, 0, 0)
+    if "main" in outs:
+        _cuda.require(accel.ray_slot, "ray_slot", torch.int32, (v,))
+        slot = accel.ray_slot.data_ptr()
+        m_args = _stream_args("main", outs["main"], accel.slot_ray.numel(), dev)
+    if "ov" in outs:
+        o_args = _stream_args("ov", outs["ov"], v, dev)
+    if gate is not None:
+        _cuda.require(gate, "gate", torch.int32, (n, n, n // 32))
+    rgba = torch.empty((n, n, n, 4), dtype=torch.float32, device=dev)
+    dens = (torch.empty((n, n, n), dtype=torch.float32, device=dev)
+            if density else None)
+    w = (torch.empty((n, n, n // 32), dtype=torch.int32, device=dev)
+         if want_words else None)
+    code = _cuda.load().dxv_grid_merge(
+        slot, *m_args, *o_args, 0 if gate is None else gate.data_ptr(),
+        rgba.data_ptr(), 0 if dens is None else dens.data_ptr(),
+        0 if w is None else w.data_ptr(), n, int(quantize),
+        _cuda.stream_ptr(dev))
+    _cuda.check(code, MERGE.name)
+    MERGE.launches += 1
     return rgba, w, dens
 
 
@@ -254,7 +380,7 @@ def _unorm_card(v: np.ndarray, levels: float, inv: np.float32) -> np.ndarray:
     return (np.rint(c * np.float32(levels)) * inv).astype(np.float32)
 
 
-def untile_mirror(src: np.ndarray | None, n: int, slots: np.ndarray | None,
+def untile_mirror(src: np.ndarray | None, n: int, slots: np.ndarray,
                   gate: np.ndarray | None = None, quantize: bool = True,
                   words: bool = True):
     """X.6 thread by thread (thread v = voxel v of grid order; the slot and
@@ -263,19 +389,25 @@ def untile_mirror(src: np.ndarray | None, n: int, slots: np.ndarray | None,
     voxels = n ** 3
     v = np.arange(voxels, dtype=np.int64)
     k = v % n
-    if slots is not None:
-        row = v // n
-        j, i = row % n, row // n
-        q = n >> 2
-        tile = ((i >> 3) * q + (j >> 2)) * q + (k >> 2)
-        lane = (i & 7) * 16 + (j & 3) * 4 + (k & 3)
-        s = slots[tile].astype(np.int64)
-        c = np.zeros((voxels, 4), np.float32)
-        live = s >= 0
-        if src is not None:
-            c[live] = src.reshape(-1, 4)[s[live] * 128 + lane[live]]
-    else:
-        c = src.reshape(-1, 4).astype(np.float32, copy=True)
+    row = v // n
+    j, i = row % n, row // n
+    q = n >> 2
+    tile = ((i >> 3) * q + (j >> 2)) * q + (k >> 2)
+    lane = (i & 7) * 16 + (j & 3) * 4 + (k & 3)
+    s = slots[tile].astype(np.int64)
+    c = np.zeros((voxels, 4), np.float32)
+    live = s >= 0
+    if src is not None:
+        c[live] = src.reshape(-1, 4)[s[live] * 128 + lane[live]]
+    return _finish_mirror(c, n, gate, quantize, words)
+
+
+def _finish_mirror(c: np.ndarray, n: int, gate: np.ndarray | None,
+                   quantize: bool, words: bool):
+    """X.6's tail (shared with X.10), thread by thread: voxel v's
+    channels ``c[v]`` [n^3, 4] -> (rgba, words or None, density)."""
+    v = np.arange(n ** 3, dtype=np.int64)
+    k = v % n
     w = None
     if gate is not None:
         bit = ((gate.reshape(-1).view(np.uint32)[v >> 5] >> (k & 31).astype(
@@ -292,6 +424,32 @@ def untile_mirror(src: np.ndarray | None, n: int, slots: np.ndarray | None,
         c[:, :3] = _unorm_card(c[:, :3], 1023.0, INV_1023)
         c[:, 3] = _unorm_card(c[:, 3], 3.0, INV_3)
     return c.reshape(n, n, n, 4), w, c[:, 3].reshape(n, n, n).copy()
+
+
+def merge_mirror(n: int, ray_slot: np.ndarray | None, main, ov,
+                 gate: np.ndarray | None = None, quantize: bool = True,
+                 words: bool = True):
+    """X.10 thread by thread: ray v's slot ``ray_slot[v]`` (-1: zeros,
+    t = +inf, id = 2^30) in ``main`` = (t, id, ns) flattened over the
+    slots, then lane v of ``ov`` (or None) where its t is smaller or equal
+    with a lower id; then X.6's tail -> (rgba, words or None, density)."""
+    voxels = n ** 3
+    c = np.zeros((voxels, 4), np.float32)
+    t = np.full(voxels, np.inf, np.float32)
+    i = np.full(voxels, 1 << 30, np.int32)
+    if ray_slot is not None:
+        s = ray_slot.astype(np.int64)
+        hit = s >= 0
+        m_t, m_i, m_ns = (np.asarray(a).reshape(-1, *a.shape[2:])
+                          for a in main)
+        c[hit] = m_ns[s[hit]]
+        t[hit], i[hit] = m_t[s[hit]], m_i[s[hit]]
+    if ov is not None:
+        o_t, o_i, o_ns = (np.asarray(a).reshape(-1, *a.shape[2:])[:voxels]
+                          for a in ov)
+        closer = (o_t < t) | ((o_t == t) & (o_i < i))
+        c[closer] = o_ns[closer]
+    return _finish_mirror(c, n, gate, quantize, words)
 
 
 def unpack_mirror(words: np.ndarray, n: int) -> np.ndarray:

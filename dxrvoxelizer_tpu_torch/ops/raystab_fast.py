@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from dxrvoxelizer_tpu_torch.ops import (
+    _cuda,
     grid_cuda,
     intersect,
     raystab_cuda,
@@ -815,13 +816,93 @@ def _fused_coef_matrix(verts_norm, tris, normals):
                       _normal_rows_matrix(normals, tris)], dim=-1)
 
 
+REFIT_ROWS = _cuda.Kernel(
+    name="refit_rows",
+    symbol="refit_rows_kernel",
+    source="dxrvoxelizer_tpu_torch/csrc/refit_rows.cu",
+    replaces="dxrvoxelizer_tpu/ops/raystab_fast.py:1297",
+)
+
+
+def fused_coef_matrix(verts_norm, tris, normals, use_kernel: bool = True):
+    """The per-triangle rows [T+1, 24] of :func:`_fused_coef_matrix` (its
+    plain version, taken on a CPU tensor or under ``use_kernel=False``): on
+    a CUDA tensor one launch of X.9 (``csrc/refit_rows.cu``), bit for bit
+    the plain chain. ``verts_norm`` and ``normals`` [V,3] float32
+    (another dtype raises: nothing is cast), ``tris`` [T,3] int64 or int32,
+    all contiguous."""
+    dev = verts_norm.device
+    if not use_kernel or dev.type == "cpu":
+        return _fused_coef_matrix(verts_norm, tris, normals)
+    t_count = int(tris.shape[0])
+    if t_count >= 2**24:
+        raise ValueError(f"{t_count} triangles exceed the 2^24 id range of "
+                         "the f32 id channel")
+    if tris.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"tris: expected int64 or int32, got {tris.dtype}")
+    _cuda.require(verts_norm, "verts_norm", torch.float32,
+                  (verts_norm.shape[0], 3))
+    _cuda.require(normals, "normals", torch.float32, (normals.shape[0], 3))
+    _cuda.require(tris, "tris", tris.dtype, (t_count, 3))
+    if normals.device != dev or tris.device != dev:
+        raise ValueError(f"normals and tris: expected {dev}, got "
+                         f"{normals.device} and {tris.device}")
+    out = torch.empty((t_count + 1, raystab_cuda.NROW), dtype=torch.float32,
+                      device=dev)
+    code = _cuda.load().dxv_refit_rows(
+        verts_norm.data_ptr(), tris.data_ptr(), normals.data_ptr(),
+        out.data_ptr(), t_count, int(verts_norm.shape[0]),
+        int(normals.shape[0]), int(tris.dtype == torch.int64),
+        _cuda.stream_ptr(dev))
+    _cuda.check(code, REFIT_ROWS.name)
+    REFIT_ROWS.launches += 1
+    return out
+
+
+def fused_rows_mirror(verts: np.ndarray, tris: np.ndarray,
+                      normals: np.ndarray) -> np.ndarray:
+    """X.9 thread by thread in numpy: row t's three gathers, each cross
+    component ``ay * bz - az * by`` and ``c = (g0x v0x + g0y v0y) + g0z
+    v0z`` one float32 rounding at a time in the kernel's order, its six
+    16-byte stores; the padding row last -> [T+1, 24]."""
+    f = np.float32
+    t_count = tris.shape[0]
+    idx = tris.astype(np.int64)
+    v0, v1, v2 = (verts.astype(f)[idx[:, k]] for k in range(3))
+
+    def cross(a, b):
+        return np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                         a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                         a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], -1)
+
+    g0, g1, g2 = cross(v1, v2), cross(v2, v0), cross(v0, v1)
+    c = (g0[:, 0] * v0[:, 0] + g0[:, 1] * v0[:, 1]) + g0[:, 2] * v0[:, 2]
+    nr = [normals.astype(f)[idx[:, k]] for k in range(3)]
+    zero = np.zeros(t_count, f)
+    stores = [  # row[0..5], as the kernel's float4 stores
+        (g0[:, 0], g0[:, 1], g0[:, 2], g1[:, 0]),
+        (g1[:, 1], g1[:, 2], g2[:, 0], g2[:, 1]),
+        (g2[:, 2], c, np.arange(t_count).astype(f), zero),
+        (nr[0][:, 0], nr[0][:, 1], nr[0][:, 2], nr[1][:, 0]),
+        (nr[1][:, 1], nr[1][:, 2], nr[2][:, 0], nr[2][:, 1]),
+        (nr[2][:, 2], zero, zero, zero),
+    ]
+    out = np.zeros((t_count + 1, 6, 4), f)
+    for j, st in enumerate(stores):
+        out[:t_count, j] = np.stack(st, -1)
+    out[t_count, 2, 2] = f(intersect.BIG_ID)  # the padding row's id
+    return out.reshape(t_count + 1, 24)
+
+
 @dataclass
 class RaystabAccel2:
     """The gen-6 accel on the device (the TLAS analog).
 
     ``main``: every class's strips as one :class:`StripTables` stream, or
     None when no triangle was binned; ``slot_ray`` [S*128] int64: the ray of
-    each of its output slots (V for padding slots, a dump row). ``ov``: the
+    each of its output slots (V for padding slots, a dump row), and
+    ``ray_slot`` [V] int32 its inverse, the slot of each ray (-1: no strip
+    covers it; ``grid_cuda.ray_slots``, what X.10 reads). ``ov``: the
     near-origin stream (every ray in natural order, strips of 128 against the
     shared near-origin rows), or None. ``device``: where the tables live.
     ``t_count``: the mesh's triangle count (ids at or above it are misses)."""
@@ -833,6 +914,7 @@ class RaystabAccel2:
     slot_ray: torch.Tensor | None
     ov: StripTables | None
     stats: Raystab2Stats
+    ray_slot: torch.Tensor | None = None
 
 
 def _strip_rays(rt128: torch.Tensor, dirs_p: torch.Tensor,
@@ -880,13 +962,13 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
     dev = verts_norm.device
     n = compact.n
     v = n * n * n
-    fused = _fused_coef_matrix(verts_norm, tris, normals)
+    fused = fused_coef_matrix(verts_norm, tris, normals)
     dirs, s0 = _ray_params(n, dev)
     dirs_p = torch.cat([dirs, torch.zeros((1, 3), dtype=dirs.dtype, device=dev)])
     s0_p = torch.cat([s0, torch.zeros((1,), dtype=s0.dtype, device=dev)])
 
     ids = stream_ids2(compact, dev)
-    main = slot_ray = None
+    main = slot_ray = ray_slot = None
     if compact.classes:
         rt = np.concatenate([c[0] for c in compact.classes])
         counts = np.concatenate([(c[1] >= 0).sum(axis=1) for c in compact.classes])
@@ -913,6 +995,7 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
             **stream_rows(fused, ids["main"], by_id),
         )
         slot_ray = torch.where(rt_d >= 0, rt_d, v).reshape(-1)
+        ray_slot = grid_cuda.ray_slots(slot_ray, v)
 
     ov = None
     if compact.ov_ids is not None:
@@ -928,7 +1011,7 @@ def assemble_raystab_accel2(compact: RaystabCompact2, verts_norm, tris,
         )
     return RaystabAccel2(n=n, t_count=int(tris.shape[0]), device=dev,
                          main=main, slot_ray=slot_ray, ov=ov,
-                         stats=compact.stats)
+                         stats=compact.stats, ray_slot=ray_slot)
 
 
 def build_raystab_accel2(verts_norm, tris, normals, n: int = 64,
@@ -973,42 +1056,45 @@ def _merge_streams2(accel: RaystabAccel2, outs: dict) -> torch.Tensor:
     return torch.where(closer[:, None], ns_o, ns[:v])
 
 
-def _merge_winners2(accel: RaystabAccel2, threshold: float, rule: str,
-                    use_kernels: bool = True):
-    """Stream kernel(s) -> per-ray finished (nx, ny, nz, a) channels [V, 4]
-    (:func:`_merge_streams2` of each stream's fold + extraction)."""
+def _stream_outs2(accel: RaystabAccel2, threshold: float, rule: str,
+                  use_kernels: bool = True) -> dict:
+    """Each strip stream's fold + extraction -> ``{name: (t, id, ns)}``."""
     fold = (raystab_cuda.fold_extract if use_kernels
             else raystab_cuda.fold_extract_plain)
-    return _merge_streams2(accel, {
-        k: fold(tb, accel.t_count, threshold, rule)
-        for k, tb in strip_streams2(accel).items()})
+    return {k: fold(tb, accel.t_count, threshold, rule)
+            for k, tb in strip_streams2(accel).items()}
 
 
 def raystab_query2(accel: RaystabAccel2, threshold: float = INSIDE_THRESHOLD,
                    rule: str = "backface", use_kernels: bool = True):
-    """Per-frame trace -> (occupancy [n,n,n] bool, rgba [n,n,n,4] f32).
+    """Per-frame trace -> (occupancy [n,n,n] bool, rgba [n,n,n,4] f32): the
+    streams' fold + extraction, then X.10 merges them with the rounding
+    off (the kernels on a CUDA tensor; their plain versions on a CPU one
+    or with ``use_kernels=False``, the merge :func:`_merge_streams2`).
 
-    The geometry is baked into the accel's rows. ``use_kernels=False`` runs
-    the kernel's plain version (the on-card reference). Ground truth is the
+    The geometry is baked into the accel's rows. Ground truth is the
     radial oracle (ops/voxelize_ref.voxelize_raystab_radial_ref)."""
-    n = accel.n
-    rgba = _merge_winners2(accel, threshold, rule, use_kernels)
-    return (rgba[:, 3] != 0.0).reshape(n, n, n), rgba.reshape(n, n, n, 4)
+    rgba = grid_cuda.merge(accel, _stream_outs2(accel, threshold, rule,
+                                                use_kernels),
+                           quantize=False, words=False, density=False,
+                           use_kernel=use_kernels)[0]
+    return rgba[..., 3] != 0.0, rgba
 
 
 def raystab_grid2(accel: RaystabAccel2, threshold: float = INSIDE_THRESHOLD,
                   rule: str = "backface", quantize: bool = True,
                   gate: torch.Tensor | None = None, use_kernels: bool = True):
     """The query as the frame's grid -> (rgba [n,n,n,4], words [n,n,n/32]
-    int32 or None, density [n,n,n] or None): the streams' fold + extraction
-    and merge (torch ops), then X.6's grid-order form rounds
-    (``quantize``) and packs the merged channels in one launch (``gate``:
-    the ``-normals`` form, gated by those words; no words come out). The
-    plain versions on a CPU tensor or with ``use_kernels=False``
-    (``grid_cuda.untile_plain``: the density is then ``rgba[..., 3]``)."""
-    rgba = _merge_winners2(accel, threshold, rule, use_kernels)
-    return grid_cuda.untile(rgba, accel.n, gate=gate, quantize=quantize,
-                            use_kernel=use_kernels)
+    int32 or None, density [n,n,n] or None): the streams' fold +
+    extraction, then X.10 merges them, rounds (``quantize``) and packs the
+    merged channels in one launch (``gate``: the ``-normals`` form, gated
+    by those words; no words come out). The plain versions on a CPU tensor
+    or with ``use_kernels=False`` (``grid_cuda.merge_plain``: the density
+    is then None, ``rgba[..., 3]``)."""
+    return grid_cuda.merge(accel, _stream_outs2(accel, threshold, rule,
+                                                use_kernels),
+                           gate=gate, quantize=quantize,
+                           use_kernel=use_kernels)
 
 
 # ---- gen-1: one cubemap level, Moller-Trumbore closest hit ----------------

@@ -16,7 +16,9 @@ splits an accel into
   are never gathered: a refitted stream holds ``fused`` and the rest
   build's int32 ids (``StripTables.row_ids``), and the fold kernel reads
   each candidate's row through its id. A refit computes ``fused`` alone
-  (no gather, no host sync).
+  (no gather, no host sync): one launch of X.9 (``csrc/refit_rows.cu``,
+  ``raystab_fast.fused_coef_matrix``) on the card, a fresh matrix every
+  frame (a frame still queued reads its own).
 
 A refitted accel equals a fresh build of the deformed mesh in every row it
 stands for; its candidate sets are a superset, which the exact intersection
@@ -32,9 +34,9 @@ import dataclasses
 import torch
 
 from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
-    _fused_coef_matrix,
     assemble_raystab_accel2,
     build_raystab_compact2,
+    fused_coef_matrix,
 )
 
 
@@ -95,7 +97,7 @@ class RaystabRefitter:
         if check:
             check_deform_contract(verts_norm, self._verts_rest, self.pad,
                                   self._pad_dirs)
-        fused = _fused_coef_matrix(
+        fused = fused_coef_matrix(
             verts_norm, self.tris,
             self._normals_rest if normals is None else normals)
         streams = {f: dataclasses.replace(getattr(self.rest_accel, f), rows=fused)

@@ -57,13 +57,13 @@ from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
     _cone_keys_np,
     _dir_cells_host,
     _fold_levels_csr,
-    _fused_coef_matrix,
     _host,
     _host_f32,
     _ray_params,
     _strip_rays,
     _tri_minr,
     default_gs,
+    fused_coef_matrix,
     stream_rows,
 )
 from dxrvoxelizer_tpu_torch.ops.raystab_refit import RaystabRefitter
@@ -347,7 +347,7 @@ def assemble_raystab_accel7(compact: RaystabCompact7, verts_norm, tris,
             cand_off=offs[:-1].to(torch.int32),
             cand_cnt=(offs[1:] - offs[:-1]).to(torch.int32),
             bounds=None if compact.bounds is None else compact.bounds.to(dev),
-            **stream_rows(_fused_coef_matrix(verts_norm, tris, normals),
+            **stream_rows(fused_coef_matrix(verts_norm, tris, normals),
                           stream_ids7(compact, dev)["main"], by_id),
         )
     return RaystabAccel7(n=n, t_count=int(tris.shape[0]), device=dev,
@@ -369,7 +369,8 @@ def untile7(accel: RaystabAccel7, ns: torch.Tensor | None):
     """The live tiles' channels ``ns`` [L, 128, 4] (None: no live tile) ->
     (occupancy [n,n,n] bool, rgba [n,n,n,4] f32): scattered into a zeroed
     tile buffer (dead tiles stay zero) and untiled by one permute (the
-    plain version of X.6's untiling; the sharded frames' merge)."""
+    plain version of X.6's untiling; the sharded frames' merge until they
+    called X.6, kept as the chain the tests hold that route against)."""
     rgba = grid_cuda.untile_tiles_plain(ns, accel.tids, accel.n)
     return rgba[..., 3] != 0.0, rgba
 

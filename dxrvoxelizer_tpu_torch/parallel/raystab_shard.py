@@ -5,9 +5,11 @@ independent rows of the fold + extraction kernel (2.5/2.6,
 ``csrc/raystab_fold.cu``), so each rank folds a contiguous slice of every
 strip stream of the accel (gen-6: the main stream and the near-origin
 stream; gen-7: the live tiles), ONE all_gather brings every rank's channels
-together, and the merge (gen-6's scatter to ray order and (t, id) merge of
-the near-origin winners; gen-7's scatter and untile) runs on the gathered
-channels on every rank. The slices may differ by one strip: the JAX
+together, and the merge runs on the gathered channels on every rank: gen-7's
+untiling X.6 and gen-6's stream merge X.10 (ops/grid_cuda.py, the kernels
+reading the gathered pieces in place; their plain versions on CPU tensors),
+which for a frame also round the grid and write its density. The slices
+may differ by one strip: the JAX
 package's padding of each class to a multiple of the TPU's strips per grid
 step is not carried over. A strip's outputs do not depend on the other
 strips, so the sharded query is bit-identical to the single-device one.
@@ -21,15 +23,14 @@ from __future__ import annotations
 
 import torch
 
-from dxrvoxelizer_tpu_torch.ops import raystab_cuda
+from dxrvoxelizer_tpu_torch.ops import grid_cuda, raystab_cuda
 from dxrvoxelizer_tpu_torch.ops.packing import quantize_r10g10b10a2
 from dxrvoxelizer_tpu_torch.ops.raystab_fast import (
     INSIDE_THRESHOLD,
     RaystabAccel2,
-    _merge_streams2,
     strip_streams2,
 )
-from dxrvoxelizer_tpu_torch.ops.raystab_tiled import RaystabAccel7, untile7
+from dxrvoxelizer_tpu_torch.ops.raystab_tiled import RaystabAccel7
 from dxrvoxelizer_tpu_torch.parallel.mesh import DeviceGroup
 from dxrvoxelizer_tpu_torch.parallel.shard import (
     ShardedFrame,
@@ -80,39 +81,55 @@ def stream_sizes(accel, world: int) -> list[int]:
     return [sum(p[r] for p in per) for r in range(world)]
 
 
-def merge_pieces(accel, gathered: torch.Tensor, world: int):
+def merge_pieces(accel, gathered: torch.Tensor, world: int,
+                 grid: bool = False):
     """The gathered pieces (rank order; each rank's streams in turn) ->
-    (occupancy [n,n,n] bool, rgba [n,n,n,4] f32): the single-device query's
-    merge on the streams' outputs."""
+    the single-device query's (occupancy [n,n,n] bool, rgba [n,n,n,4] f32),
+    or with ``grid`` the frame's grid (rgba rounded through R10G10B10A2,
+    None for the words, density [n,n,n] or None): gen-7's untiling X.6 or
+    gen-6's merge X.10 (``grid_cuda.untile`` / ``grid_cuda.merge``; the
+    plain versions on CPU tensors, where the density is None)."""
     streams = _streams(accel)
-    parts = {k: [] for k in streams}
-    row = 0
-    for r in range(world):
-        for k, tb in streams.items():
-            lo, hi = split(tb.strips, world, r)
-            parts[k].append(gathered[row:row + hi - lo])
-            row += hi - lo
-    outs = {k: torch.cat(v) for k, v in parts.items()}
+    if len(streams) == 1:  # the ranks' slices of one stream, in order
+        outs = dict.fromkeys(streams, gathered)
+    else:
+        parts = {k: [] for k in streams}
+        row = 0
+        for r in range(world):
+            for k, tb in streams.items():
+                lo, hi = split(tb.strips, world, r)
+                parts[k].append(gathered[row:row + hi - lo])
+                row += hi - lo
+        outs = {k: v[0] if len(v) == 1 else torch.cat(v)
+                for k, v in parts.items()}
+    kw = (dict(words=False) if grid
+          else dict(quantize=False, words=False, density=False))
     if isinstance(accel, RaystabAccel7):
-        return untile7(accel, outs.get("main"))
-    n = accel.n
-    rgba = _merge_streams2(accel, {
-        k: (g[..., 0], g[..., 1].contiguous().view(torch.int32), g[..., 2:])
-        for k, g in outs.items()})
-    return (rgba[:, 3] != 0.0).reshape(n, n, n), rgba.reshape(n, n, n, 4)
+        out = grid_cuda.untile(outs.get("main"), accel.n,
+                               tiles=(accel.tids, accel.slots), **kw)
+    else:
+        # t, the id's bits and the channels, read in place
+        out = grid_cuda.merge(accel, {
+            k: (g[..., 0], g[..., 1].view(torch.int32), g[..., 2:])
+            for k, g in outs.items()}, **kw)
+    if grid:
+        return out
+    return out[0][..., 3] != 0.0, out[0]
 
 
 def _query_frame(group: DeviceGroup, accel_of, threshold: float, rule: str,
                  band=None, prepare=None) -> ShardedFrame:
     """A :class:`ShardedFrame` over the accel ``accel_of(ctx)``: pieces by
-    :func:`stream_piece`, assembled by :func:`merge_pieces`."""
+    :func:`stream_piece`, assembled by :func:`merge_pieces` (into the
+    frame's grid when there is a ``band``)."""
     world = group.world
     return ShardedFrame(
         group,
         lambda rank, ctx: stream_piece(accel_of(ctx), world, rank, threshold,
                                        rule),
         lambda ctx: stream_sizes(accel_of(ctx), world),
-        lambda gathered, ctx: merge_pieces(accel_of(ctx), gathered, world),
+        lambda gathered, ctx: merge_pieces(accel_of(ctx), gathered, world,
+                                           grid=band is not None),
         band=band, prepare=prepare)
 
 
@@ -181,9 +198,18 @@ def _make_band_renderer(world: int, n: int, width: int, height: int,
 
 
 def _stab_density(rgba: torch.Tensor) -> torch.Tensor:
-    """The frame's density: the winner rgba R10G10B10A2-quantized (the
-    reference grid format), its alpha."""
+    """The frame's density from the unrounded winner rgba: quantized
+    through R10G10B10A2 (the reference grid format), its alpha. The plain
+    chain that :func:`_grid_density` replaces (the tests hold the frames
+    against it)."""
     return quantize_r10g10b10a2(rgba)[..., 3].contiguous()
+
+
+def _grid_density(grid) -> torch.Tensor:
+    """The frame's density from :func:`merge_pieces`' grid: the rounded
+    alpha the kernel wrote, or the plain version's ``rgba[..., 3]``."""
+    rgba, _, dens = grid
+    return rgba[..., 3].contiguous() if dens is None else dens
 
 
 def sharded_frame_raystab(
@@ -216,7 +242,7 @@ def sharded_frame_raystab(
                                  render_impl, n_samples, n_light, point_light)
     return _query_frame(
         group, lambda ctx: accel, threshold, "backface",
-        band=lambda rank, grid, ctx: render(rank, _stab_density(grid[1]),
+        band=lambda rank, grid, ctx: render(rank, _grid_density(grid),
                                             *ctx[2:]))
 
 
@@ -251,6 +277,6 @@ def sharded_frame_raystab_deforming(
 
     return _query_frame(
         group, lambda ctx: ctx[0], threshold, "backface",
-        band=lambda rank, grid, ctx: render(rank, _stab_density(grid[1]),
+        band=lambda rank, grid, ctx: render(rank, _grid_density(grid),
                                             *ctx[2:]),
         prepare=prepare)

@@ -27,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z, unpack_bits_z
+from dxrvoxelizer_tpu_torch.ops import grid_cuda
+from dxrvoxelizer_tpu_torch.ops.packing import pack_bits_z
 from dxrvoxelizer_tpu_torch.ops.raymarch_fast import (
     precompute_light_volume,
     raymarch_fast,
@@ -117,7 +118,7 @@ def sharded_frame(group: DeviceGroup, n: int, width: int, height: int,
 
     def render(rank, words, ctx):
         s2l, eye, light, clear = ctx[2:]
-        density = unpack_bits_z(words, n).to(torch.float32)
+        density = grid_cuda.unpack_density(words, n)  # X.7
         lv = precompute_light_volume(density, light, n_light=n_light)
         return raymarch_fast(density, lv, s2l, eye, clear, width, band,
                              n_samples=n_samples, y_offset=float(rank * band))
@@ -280,7 +281,7 @@ def sharded_frame_fast(
                                  rank)
 
     def assemble(tiles_all, ctx):
-        return unpack_bits_z(_tiles_to_words(tiles_all, n), n).to(torch.float32)
+        return grid_cuda.unpack_density(_tiles_to_words(tiles_all, n), n)
 
     return ShardedFrame(
         group, piece, lambda ctx: split_sizes(_n_tiles(n), world), assemble,

@@ -58,6 +58,7 @@ from torch_cases import (
     gather_cameras,
     mt_stress,
     needle_soup,
+    packed_outs,
     point_lights,
     stab_stress,
 )
@@ -1012,9 +1013,11 @@ def _held_equal(got, want):
 def test_grid_untile_bit_identical_to_plain(dev, n, form):
     """X.6 in each form, rounded and not, against its plain chain on the
     card (which multiplies by the float32 reciprocals, as the kernel does),
-    on channels drawn from the tie set; its density is the rounded alpha."""
+    on channels drawn from the tie set; its density is the rounded alpha.
+    The grid-order forms have no X.6 kernel: there X.10 with an identity
+    ray -> slot map is held against X.6's grid-order plain chain."""
     from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
-    from torch_cases import grid_channels
+    from torch_cases import grid_channels, grid_order_streams
 
     tiled = form.endswith("tiled")
     d = grid_channels(n, n, tiles=tiled)
@@ -1027,9 +1030,15 @@ def test_grid_untile_bit_identical_to_plain(dev, n, form):
         src, tiles = torch.from_numpy(d["src"]).to(dev), None
     for q in (True, False):
         kw = dict(tiles=tiles, gate=gate, quantize=q, words=n % 32 == 0)
-        before = gc.UNTILE.launches
-        got = gc.untile(src, n, **kw)
-        assert gc.UNTILE.launches == before + 1
+        kernel = gc.UNTILE if tiled else gc.MERGE
+        before = kernel.launches
+        if tiled:
+            got = gc.untile(src, n, **kw)
+        else:
+            accel, outs = grid_order_streams(src, n)
+            got = gc.merge(accel, outs, gate=gate, quantize=q,
+                           words=n % 32 == 0)
+        assert kernel.launches == before + 1
         want = gc.untile(src, n, use_kernel=False, **kw)
         _held_equal(got, (want[0], want[1], want[0][..., 3]))
 
@@ -1062,3 +1071,161 @@ def test_grid_slabs_bit_identical_to_plain(dev, n):
                 got = gc.slabs(dens, light, axis, flip)
                 assert gc.SLABS.launches == before + 1
                 _held_equal((got,), (gc.slabs_plain(dens, light, axis, flip),))
+
+
+# ---- the refit's rows (csrc/refit_rows.cu: X.9) and gen-6's merge (X.10) ---
+
+def _rows_mesh(name, dev):
+    """The CPU tests' meshes for X.9: the ray-stab meshes, the cells'
+    torus and the needle soups (seeded normals)."""
+    if name == "torus":
+        from dxrvoxelizer_tpu_torch.bench import torus_mesh
+
+        v, t = torus_mesh()
+        nr = v / np.linalg.norm(v, axis=-1, keepdims=True)
+        return (torch.from_numpy(v).to(dev),
+                torch.from_numpy(nr.astype(np.float32)).to(dev),
+                torch.from_numpy(t).to(dev))
+    if name.startswith("soup"):
+        rng = np.random.default_rng(int(name[4:]))
+        v, t = needle_soup(rng, 64, SOUP_TRIS)
+        nr = rng.standard_normal(v.shape).astype(np.float32)
+        return (torch.from_numpy(v).to(dev), torch.from_numpy(nr).to(dev),
+                torch.from_numpy(t.astype(np.int64)).to(dev))
+    return _raystab_mesh(name, 64, dev)
+
+
+@pytest.mark.parametrize("mesh", ["icosphere", "box", "near_origin", "torus",
+                                  "soup287", "soup289"])
+def test_refit_rows_bit_identical_to_plain(dev, mesh):
+    """X.9 (int64 and int32 triangles) equals ``_fused_coef_matrix`` run on
+    the card bit for bit, the padding row included; float64 vertices and
+    normals raise."""
+    v, nr, t = _rows_mesh(mesh, dev)
+    want = raystab_fast._fused_coef_matrix(v, t, nr)
+    for tris in (t, t.to(torch.int32)):
+        before = raystab_fast.REFIT_ROWS.launches
+        got = raystab_fast.fused_coef_matrix(v, tris, nr)
+        assert raystab_fast.REFIT_ROWS.launches == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for bad in ((v.double(), t, nr), (v, t, nr.double())):
+        with pytest.raises(ValueError, match="float32"):
+            raystab_fast.fused_coef_matrix(*bad)
+
+
+@pytest.mark.parametrize("mesh", ["icosphere", "box", "near_origin"])
+def test_grid_merge_bit_identical_to_plain(dev, mesh):
+    """X.10 on a 64^3 gen-6 accel (the near-origin soup: both streams),
+    rounded and not, gated by the parity words and not, on the fold's
+    outputs and on strided views of the sharded frames' packed pieces,
+    against ``_merge_streams2`` + ``untile_plain`` run on the card, bit for
+    bit; without its near-origin stream too."""
+    from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
+
+    v, nr, t = _raystab_mesh(mesh, 64, dev)
+    accel = raystab_fast.build_raystab_accel2(v, t, nr, n=64)
+    words = voxelize_parity_binned(v, t, 64)
+    for rule in ("backface", "hit"):
+        outs = raystab_fast._stream_outs2(accel, 0.12, rule)
+        cases = [outs, packed_outs(outs)]
+        if len(outs) == 2:
+            cases.append({"main": outs["main"]})
+        for o in cases:
+            for q in (True, False):
+                for gate in (None, words if rule == "hit" else None):
+                    before = (gc.MERGE.launches, gc.UNTILE.launches)
+                    got = gc.merge(accel, o, gate=gate, quantize=q)
+                    assert (gc.MERGE.launches, gc.UNTILE.launches) == (
+                        before[0] + 1, before[1])
+                    want = gc.merge_plain(accel, o, gate=gate, quantize=q)
+                    _held_equal(got, (want[0], want[1], want[0][..., 3]))
+
+
+def test_refit_and_gen6_query_launch_x9_and_x10(dev):
+    """A gen-6 refit launches X.9 once and its query X.10 once (not X.6),
+    and both equal their plain versions; so does a gen-7 refit's X.9."""
+    from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
+
+    v, nr, t = _raystab_mesh("icosphere", 64, dev)
+    for cls, n in ((raystab_refit.RaystabRefitter, 64),
+                   (raystab_tiled.RaystabTiledRefitter, 128)):
+        rf = cls(v, t, nr, n=n, pad=0.02)
+        vd = v * 1.01
+        before = raystab_fast.REFIT_ROWS.launches
+        acc = rf.refit(vd, nr)
+        assert raystab_fast.REFIT_ROWS.launches == before + 1
+        rows = next(tb.rows for tb in (acc.main, getattr(acc, "ov", None))
+                    if tb is not None)
+        want = raystab_fast._fused_coef_matrix(vd, t, nr)
+        assert torch.equal(rows.view(torch.int32), want.view(torch.int32))
+        if n == 64:
+            assert torch.equal(acc.ray_slot, rf.rest_accel.ray_slot)
+            before = (gc.MERGE.launches, gc.UNTILE.launches)
+            got = raystab_fast.raystab_grid2(acc)
+            assert (gc.MERGE.launches, gc.UNTILE.launches) == (before[0] + 1,
+                                                               before[1])
+            want = raystab_fast.raystab_grid2(acc, use_kernels=False)
+            _held_equal(got, (want[0], want[1], want[0][..., 3]))
+
+
+@pytest.mark.parametrize("kind", ["gen6", "gen7", "gen6_deform",
+                                  "gen7_deform", "parity"])
+def test_sharded_frames_launch_the_glue_kernels(dev, kind, tmp_path,
+                                                monkeypatch):
+    """The sharded frames' merges on the card, world 1 and 2 (a local
+    group): gen-7 through X.6 and gen-6 through X.10, a deforming frame's
+    refit through X.9, the parity frame's words through X.7; each ray-stab
+    image equal to the one the band renderer makes from the old chains'
+    density (``untile7`` or ``_merge_streams2``, then ``_stab_density``),
+    bit for bit."""
+    from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
+    from dxrvoxelizer_tpu_torch.parallel import (
+        ShardedFramePipeline,
+        make_local_group,
+    )
+    from dxrvoxelizer_tpu_torch.parallel import raystab_shard as rs
+
+    monkeypatch.setenv("DXRVOX_ACCEL_CACHE", str(tmp_path))
+    v, nrm, t = icosphere_mesh(4)
+    v = np.asarray(v, np.float32) * 2.0 + np.array([0, 4, 0], np.float32)
+    scene = Scene(ObjMesh(positions=v, normals=np.asarray(nrm, np.float32),
+                          indices=t.astype(np.int32).reshape(-1),
+                          aabb_min=v.min(0), aabb_max=v.max(0)), dev)
+    n = 128 if kind.startswith("gen7") else 64
+    cfg = VoxelizerConfig(grid_size=n, width=320, height=180,
+                          inside_mode="parity" if kind == "parity" else "raystab")
+    cam = OrbitCamera(cfg.width, cfg.height)
+    consts = scene.update_frame(cam.eye, cam.view_proj, cfg.width, cfg.height)
+    want_k = {"parity": gc.UNPACK, "gen6": gc.MERGE, "gen7": gc.UNTILE}[
+        kind.split("_")[0]]
+    deform = kind.endswith("deform")
+    for world in (1, 2):
+        p = ShardedFramePipeline(cfg, scene.buffers, world, deforming=deform,
+                                 group=make_local_group(world, dev))
+        counts = [k.launches for k in (want_k, raystab_fast.REFIT_ROWS)]
+        got = p.frame(consts)
+        assert want_k.launches > counts[0]
+        assert (raystab_fast.REFIT_ROWS.launches > counts[1]) == deform
+        if kind == "parity":
+            continue
+        # the old chains' density, rendered by the frame's band renderer
+        fn = next(iter(p._frames.values()))
+        second = scene.buffers.normals if deform else scene.buffers.tris
+        args = (scene.buffers.positions_norm, second,
+                np.asarray(consts.screen_to_local, np.float32),
+                np.asarray(consts.local_space_eye_pt, np.float32),
+                np.asarray(consts.local_space_light_pt, np.float32),
+                np.array(cfg.clear_color, np.float32))
+        accel = p.refitter.refit(*args[:2]) if deform else p.accel
+        if kind.startswith("gen7"):
+            _, rgba = raystab_tiled.untile7(
+                accel, raystab_cuda.fold_extract(accel.main, accel.t_count,
+                                                 0.12)[2])
+        else:
+            rgba = raystab_fast._merge_streams2(
+                accel, raystab_fast._stream_outs2(accel, 0.12, "backface"))
+            rgba = rgba.reshape(n, n, n, 4)
+        old = rs._stab_density(rgba)
+        want = torch.cat([fn.band(r, (None, None, old), args)
+                          for r in range(world)])
+        assert torch.equal(got, want), world

@@ -1,7 +1,9 @@
 """The frame's grid glue (ops/grid_cuda.py, csrc/grid.cu) on the CPU: X.6
-(the gen-7 grid's untiling, R10G10B10A2 rounding and packing; its grid-order
-and words-gated forms), X.7 (the words' unpacking to density) and X.8 (the
-march's slab stack).
+(the gen-7 grid's untiling, R10G10B10A2 rounding and packing; its
+words-gated form, and its grid-order plain version), X.7 (the words'
+unpacking to density), X.8 (the march's slab stack) and X.10 (gen-6's
+stream merge fused with X.6's tail, through the accel's ray -> slot map;
+with an identity map, the card's grid-order form).
 
 The kernels run only on the card (chip_smoke.py holds each against its
 plain version there with ==). Here:
@@ -20,7 +22,12 @@ plain version there with ==). Here:
   jitted JAX;
 - the routing: a CPU tensor and ``use_kernel(s)=False`` take the plain
   versions, the frame's entry points pass the flag down, and a tensor that
-  is not on the CPU goes to the kernel or raises, with no fallback.
+  is not on the CPU goes to the kernel or raises, with no fallback; the
+  card's routes (rehearsed here: the kernels' plain versions on CPU
+  tensors) reach the old torch chains (``_fused_coef_matrix``,
+  ``_merge_streams2``, ``untile7``, ``_stab_density``, ``unpack_bits_z``)
+  only through a kernel's wrapper, and the sharded frames' new route gives
+  the old chain's grid bit for bit.
 """
 
 from __future__ import annotations
@@ -45,7 +52,13 @@ from dxrvoxelizer_tpu_torch.ops.packing import (
     unpack_bits_z,
 )
 from tests.meshes import icosphere_mesh
-from tests.torch_cases import _ties, grid_channels, quantize_cases
+from tests.torch_cases import (
+    _ties,
+    grid_channels,
+    grid_order_streams,
+    packed_outs,
+    quantize_cases,
+)
 
 torch.set_num_threads(2)
 
@@ -255,7 +268,9 @@ def test_untile_mirror_matches_plain(monkeypatch, n, form):
     (k>>2), lane (i&7) 16 + (j&3) 4 + (k&3) through the slot map, dead tiles
     zero; the warp's ballot as word v >> 5) against the plain chain with
     the card's division, rounding on and off, bit for bit; its density is
-    the rounded alpha."""
+    the rounded alpha. The grid-order forms have no X.6 kernel: there X.10's
+    mirror with an identity ray -> slot map is held against X.6's
+    grid-order plain version."""
     tiled = form.endswith("tiled")
     _card_division(monkeypatch)
     d = grid_channels(n, 100 + n, tiles=tiled)
@@ -267,14 +282,17 @@ def test_untile_mirror_matches_plain(monkeypatch, n, form):
         assert np.array_equal(np.sort(slots.numpy()[slots.numpy() >= 0]),
                               np.arange(len(d["tids"])))
     else:
-        src, tiles, slots = d["src"], None, None
+        src, tiles = d["src"], None
     words = n % 32 == 0
     for q in (False, True):
         rgba, w, _ = gc.untile(torch.from_numpy(src), n, tiles=tiles,
                                gate=None if gate is None else torch.from_numpy(gate),
                                quantize=q, words=words)
-        m_rgba, m_w, m_dens = gc.untile_mirror(
-            src, n, None if slots is None else slots.numpy(), gate, q, words)
+        if tiled:
+            m_rgba, m_w, m_dens = gc.untile_mirror(src, n, slots.numpy(),
+                                                   gate, q, words)
+        else:
+            m_rgba, m_w, m_dens = _grid_order_mirror(src, n, gate, q, words)
         # rounded, a -0.0 compares by == (np.clip and the CPU's torch.clamp
         # give it different signs; on the card the kernel's is the plain
         # version's, bit for bit); unrounded, every bit
@@ -286,19 +304,33 @@ def test_untile_mirror_matches_plain(monkeypatch, n, form):
             assert np.array_equal(m_w, w.numpy())
 
 
+def _grid_order_mirror(src: np.ndarray, n: int, gate=None, quantize=True,
+                       words=True):
+    """The card's grid-order form: X.10's mirror on the channels as one main
+    stream read through an identity ray -> slot map."""
+    accel, outs = grid_order_streams(torch.from_numpy(src), n)
+    return gc.merge_mirror(n, accel.ray_slot.numpy(),
+                           tuple(a.numpy() for a in outs["main"]), None,
+                           gate, quantize, words)
+
+
 def test_untile_mirror_on_the_tie_set(monkeypatch):
-    """Every tie-set value in every channel through the grid-order form:
-    the mirror's rounding equals the plain chain with the card's division
-    and jitted JAX, bit for bit; the words are the unrounded alpha != 0 (a
-    NaN alpha sets its bit, an alpha below 1/6 keeps it though it rounds
-    to 0)."""
+    """Every tie-set value in every channel through the grid-order form (on
+    the card, X.10 with an identity ray -> slot map): the mirror's rounding
+    equals the plain chain with the card's division and jitted JAX, bit for
+    bit; the words are the unrounded alpha != 0 (a NaN alpha sets its bit,
+    an alpha below 1/6 keeps it though it rounds to 0)."""
     ch = _channels(1)
     n = 32
     src = np.zeros((n ** 3, 4), F32)
     src[: len(ch)] = ch
     _card_division(monkeypatch)
     rgba, w, _ = gc.untile(torch.from_numpy(src), n)
-    m_rgba, m_w, _ = gc.untile_mirror(src, n, None)
+    m_rgba, m_w, _ = _grid_order_mirror(src, n)
+    accel, outs = grid_order_streams(torch.from_numpy(src), n)
+    g_rgba, g_w, _ = gc.merge(accel, outs)  # X.10's plain version
+    assert _same(g_rgba.numpy(), rgba.numpy())
+    assert np.array_equal(g_w.numpy(), w.numpy())
     assert _same(m_rgba, rgba.numpy())
     assert np.array_equal(m_w, w.numpy())
     jitted = np.asarray(jax.jit(jpack.quantize_r10g10b10a2)(jnp.asarray(src)))
@@ -374,9 +406,9 @@ def test_cpu_and_use_kernel_false_take_the_plain_versions():
             "words": torch.empty((n, n, n // 32), dtype=torch.int32, device="meta"),
             "vol": torch.empty((n, n, n), device="meta")}
     mt = (meta["tids"], meta["slots"])
+    grid_order = meta["vol"].reshape(-1, 1).expand(-1, 4)
     calls = [
         lambda **k: gc.untile(meta["ns"], n, tiles=mt, **k),
-        lambda **k: gc.untile(meta["vol"].reshape(-1, 1).expand(-1, 4), n, **k),
         lambda **k: gc.untile(meta["ns"], n, tiles=mt, gate=meta["words"], **k),
         lambda **k: gc.unpack_density(meta["words"], n, **k),
         lambda **k: gc.slabs(meta["vol"], meta["vol"], 0, False, **k),
@@ -387,6 +419,11 @@ def test_cpu_and_use_kernel_false_take_the_plain_versions():
         assert first.device.type == "meta"
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
+    # the grid-order form has no kernel: its plain version under the flag,
+    # and a tensor off the CPU raises (the card's route is X.10)
+    assert gc.untile(grid_order, n, use_kernel=False)[0].device.type == "meta"
+    with pytest.raises(ValueError, match="grid-order form has no kernel"):
+        gc.untile(grid_order, n)
     assert _launches() == before
 
 
@@ -525,3 +562,300 @@ def test_voxelize_through_x6_equals_the_old_chain(gen):
         got = grid_fn(accel, rule="hit", quantize=q, gate=words)
         assert got[1] is None
         assert np.array_equal(_bits(got[0].numpy()), _bits(gated.numpy()))
+
+
+# ---- X.10: gen-6's stream merge ----------------------------------------------
+
+@pytest.fixture(scope="module")
+def gen6():
+    """A 64^3 gen-6 accel with both streams (a 320-triangle icosphere and 40
+    near-origin triangles) and its streams' fold outputs."""
+    v, nr, t = icosphere_mesh(2)
+    rng = np.random.default_rng(11)
+    soup = (rng.standard_normal((40, 1, 3)) * 0.02
+            + rng.standard_normal((40, 3, 3)) * 0.3).astype(F32)
+    v = np.concatenate([v, soup.reshape(-1, 3)])
+    nr = np.concatenate([nr, rng.standard_normal((120, 3)).astype(F32)])
+    t = np.concatenate([t, np.arange(120).reshape(-1, 3) + len(v) - 120])
+    accel = rf.build_raystab_accel2(torch.from_numpy(v),
+                                    torch.from_numpy(t.astype(np.int64)),
+                                    torch.from_numpy(nr), n=64)
+    assert accel.main is not None and accel.ov is not None
+    return accel, rf._stream_outs2(accel, rf.INSIDE_THRESHOLD, "hit")
+
+
+def _tie_outs(outs, seed=3):
+    """Stream outputs shaped as ``outs`` whose t come from {0.5, 1, +inf}
+    and ids from 0..4, so that the near-origin stream ties the main one in
+    t under lower, equal and higher ids; channels from the tie set."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, (t, i, ns) in outs.items():
+        tt = rng.choice(np.array([0.5, 1.0, np.inf], F32), t.shape)
+        ii = rng.integers(0, 5, i.shape).astype(np.int32)
+        ch = rng.choice(quantize_cases(), ns.shape).astype(F32)
+        out[k] = tuple(torch.from_numpy(a) for a in (tt, ii, ch))
+    return out
+
+
+def test_ray_slot_map_is_the_inverse_of_slot_ray(gen6):
+    """``ray_slot[r]`` is the slot whose ray is r, -1 for a ray no strip
+    covers; a refit carries the rest build's map."""
+    accel, _ = gen6
+    v = accel.n ** 3
+    sr = accel.slot_ray.numpy()
+    want = np.full(v, -1, np.int64)
+    real = sr < v
+    want[sr[real]] = np.nonzero(real)[0]
+    assert accel.ray_slot.dtype == torch.int32
+    assert np.array_equal(accel.ray_slot.numpy(), want)
+    assert np.unique(sr[real]).size == real.sum()  # a ray in one slot at most
+
+
+@pytest.mark.parametrize("case", ["fold", "ties", "main only", "packed"])
+def test_merge_mirror_matches_plain(monkeypatch, gen6, case):
+    """X.10's mirror (ray v's slot through the map, then the near-origin
+    lane v where its t is smaller or equal with a lower id; X.6's tail)
+    against ``_merge_streams2`` + ``untile_plain`` with the card's
+    division, rounded and not, gated and not, bit for bit: on the fold's
+    outputs, on outputs full of t ties, without the near-origin stream and
+    on the sharded frames' packed pieces (strided views)."""
+    _card_division(monkeypatch)
+    accel, outs = gen6
+    n = accel.n
+    outs = {"fold": outs, "ties": _tie_outs(outs),
+            "main only": {"main": outs["main"]},
+            "packed": packed_outs(outs)}[case]
+    gate = grid_channels(n, 7, tiles=False)["gate"]
+    np_outs = {k: tuple(a.numpy() for a in o) for k, o in outs.items()}
+    for q in (False, True):
+        for g in (None, gate):
+            got = gc.merge(accel, outs, gate=None if g is None else
+                           torch.from_numpy(g), quantize=q)
+            assert got[2] is None
+            m = gc.merge_mirror(n, accel.ray_slot.numpy(), np_outs["main"],
+                                np_outs.get("ov"), g, q)
+            same = _same if q else (lambda a, b: np.array_equal(_bits(a),
+                                                                _bits(b)))
+            assert same(m[0], got[0].numpy())
+            assert same(m[2], got[0].numpy()[..., 3])
+            assert (m[1] is None) == (got[1] is None) == (g is not None)
+            if m[1] is not None:
+                assert np.array_equal(m[1], got[1].numpy())
+
+
+def _merge_launches():
+    return [k.launches for k in (gc.MERGE, gc.UNTILE)]
+
+
+def test_merge_routes_and_raises(gen6):
+    """A CPU tensor and ``use_kernel=False`` take the plain version (no
+    launch); the same outputs on a device that is not the CPU go to the
+    kernel, which refuses them: no fallback."""
+    import types
+
+    accel, outs = gen6
+    before = _merge_launches()
+    gc.merge(accel, outs)
+    assert _merge_launches() == before
+    meta = types.SimpleNamespace(
+        n=64, device=torch.device("meta"),
+        ray_slot=torch.empty(64 ** 3, dtype=torch.int32, device="meta"),
+        slot_ray=accel.slot_ray.to("meta"))
+    mouts = {k: tuple(a.to("meta") for a in o) for k, o in outs.items()}
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        gc.merge(meta, mouts)
+    with pytest.raises(ValueError, match="n % 32"):
+        gc.merge(types.SimpleNamespace(n=48, device=torch.device("meta")), {})
+    assert _merge_launches() == before
+
+
+@pytest.mark.parametrize("failure", ["build", "launch", "stride"])
+def test_a_merge_that_fails_raises(monkeypatch, gen6, failure):
+    """A library that fails to build, an entry point that returns a CUDA
+    error, or outputs whose entries are not one stride apart raise; no
+    launch is counted."""
+    import types
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: 700  # cudaErrorIllegalAddress
+
+    def load():
+        if failure == "build":
+            raise RuntimeError("nvcc not found: the CUDA toolkit is required")
+        return Lib()
+
+    accel, outs = gen6
+    outs = {k: tuple(a.to("meta") for a in o) for k, o in outs.items()}
+    if failure == "stride":  # every other strip: not one stride apart
+        outs = {k: tuple(a[::2] for a in o) for k, o in outs.items()}
+    monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
+    monkeypatch.setattr(_cuda, "load", load)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    card = types.SimpleNamespace(n=accel.n, device=torch.device("meta"),
+                                 ray_slot=accel.ray_slot.to("meta"),
+                                 slot_ray=accel.slot_ray[::2])
+    before = _merge_launches()
+    err = (ValueError, "stride") if failure == "stride" else (
+        RuntimeError, "nvcc|CUDA error 700")
+    with pytest.raises(err[0], match=err[1]):
+        gc.merge(card, outs)
+    assert _merge_launches() == before
+
+
+def test_card_routes_reach_no_plain_chain(monkeypatch):
+    """The card's routes rehearsed on CPU tensors (``MeshBuffers.device``
+    reports "cuda" in FramePipeline's frames, as the benchmark's tests
+    rehearse it): the refits, the gen-6 and gen-7 queries and grids, the
+    ``-inside raystab`` and ``-normals`` frames, and every sharded frame,
+    query and merge (world 2: gen-6 and gen-7, static and deforming, the
+    parity frames) call the wrappers of X.9, X.10, X.6 and X.7, and reach
+    ``_fused_coef_matrix``, ``_merge_streams2``, ``untile7``,
+    ``_stab_density`` and ``unpack_bits_z`` only inside a wrapper (its plain
+    version, which a CUDA tensor never takes)."""
+    import dataclasses
+
+    from dxrvoxelizer_tpu_torch.app.main import wobbled
+    from dxrvoxelizer_tpu_torch.models.camera import OrbitCamera
+    from dxrvoxelizer_tpu_torch.models.mesh import MeshBuffers
+    from dxrvoxelizer_tpu_torch.models.scene import Scene
+    from dxrvoxelizer_tpu_torch.ops import raystab_refit
+    from dxrvoxelizer_tpu_torch.parallel import (
+        ShardedFramePipeline,
+        make_local_group,
+        sharded_frame,
+    )
+    from dxrvoxelizer_tpu_torch.parallel import raystab_shard as rs
+    from dxrvoxelizer_tpu_torch.parallel import shard
+    from dxrvoxelizer_tpu_torch.utils.config import VoxelizerConfig
+    from dxrvoxelizer_tpu_torch.utils.objloader import ObjMesh
+
+    depth, called = [0], set()
+
+    def wrapper(mod, name):
+        fn = getattr(mod, name)
+
+        def spy(*a, **k):
+            called.add(name)
+            depth[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+        return spy
+
+    def guarded(fn, name):
+        def f(*a, **k):
+            assert depth[0] > 0, f"{name} reached outside a kernel's wrapper"
+            return fn(*a, **k)
+        return f
+
+    fused = wrapper(rf, "fused_coef_matrix")
+    for mod in (rf, raystab_refit, rt):
+        monkeypatch.setattr(mod, "fused_coef_matrix", fused)
+    for name in ("merge", "untile", "unpack_density"):
+        monkeypatch.setattr(gc, name, wrapper(gc, name))
+    for mod, name in ((rf, "_fused_coef_matrix"), (rf, "_merge_streams2"),
+                      (rt, "untile7"), (rs, "_stab_density"),
+                      (gc, "unpack_bits_z"), (shard, "unpack_bits_z"),
+                      (rs, "unpack_bits_z")):
+        if hasattr(mod, name):
+            monkeypatch.setattr(mod, name, guarded(getattr(mod, name), name))
+    inside = [0]
+    real = MeshBuffers.device
+    monkeypatch.setattr(MeshBuffers, "device", property(
+        lambda self: torch.device("cuda") if inside[0] else real.fget(self)))
+    frame0 = pipeline.FramePipeline.frame
+
+    def frame(self, consts):
+        inside[0] += 1
+        try:
+            return frame0(self, consts)
+        finally:
+            inside[0] -= 1
+
+    class Event:
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+    monkeypatch.setattr(pipeline.FramePipeline, "frame", frame)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+
+    v, nrm, t = icosphere_mesh(2, radius=0.6)
+    v = np.asarray(v, F32) * 2.0 + np.array([0, 4, 0], F32)
+    scene = Scene(ObjMesh(positions=v, normals=np.asarray(nrm, F32),
+                          indices=np.asarray(t, np.int32).reshape(-1),
+                          aabb_min=v.min(0), aabb_max=v.max(0)), "cpu")
+    mb = scene.buffers
+    moved = wobbled(mb, mb.positions_norm[:, :1].numpy(), 3)
+    kw = dict(grid_size=32, width=48, height=32, accel_cache=False)
+    cam = OrbitCamera(48, 32)
+    consts = scene.update_frame(cam.eye, cam.view_proj, 48, 32)
+    args = (np.asarray(consts.screen_to_local, F32),
+            np.asarray(consts.local_space_eye_pt, F32),
+            np.asarray(consts.local_space_light_pt, F32),
+            np.zeros(3, F32))
+    # the single-device frames: -inside raystab (gen-6 on a card), -normals
+    for cfg_kw in (dict(inside_mode="raystab"), dict(parity_normals=True)):
+        pipeline.FramePipeline(VoxelizerConfig(**kw, **cfg_kw), mb).frame(consts)
+    assert {"merge", "fused_coef_matrix"} <= called
+    for gen in ("6", "7"):
+        monkeypatch.setenv("DXRV_RAYSTAB_GEN", gen)
+        cfg = VoxelizerConfig(**kw, inside_mode="raystab")
+        for deforming in (False, True):
+            p = ShardedFramePipeline(cfg, mb, 2, deforming=deforming,
+                                     group=make_local_group(2, "cpu"))
+            if deforming:
+                p.mesh = moved
+            p.frame(consts)
+            accel = p.refitter.refit(moved.positions_norm, moved.normals) \
+                if deforming else p.accel
+            query = (rs.raystab_query7_sharded if gen == "7"
+                     else rs.raystab_query2_sharded)
+            query(None, None, None, accel, make_local_group(2, "cpu"))
+            grid = (rt.raystab_grid7 if gen == "7" else rf.raystab_grid2)
+            grid(accel)
+            (rt.raystab_query7 if gen == "7" else rf.raystab_query2)(accel)
+    monkeypatch.delenv("DXRV_RAYSTAB_GEN")
+    ShardedFramePipeline(VoxelizerConfig(**kw), mb, 2,
+                         group=make_local_group(2, "cpu")).frame(consts)
+    sharded_frame(make_local_group(2, "cpu"), 32, 48, 32)(
+        mb.positions_norm, mb.tris, *args)
+    assert called == {"fused_coef_matrix", "merge", "untile", "unpack_density"}
+
+
+@pytest.mark.parametrize("gen", [6, 7])
+def test_sharded_merge_equals_the_old_chain(gen):
+    """``merge_pieces`` on the gathered pieces of world 1 and 2, on CPU
+    tensors: the query form equals the old chain (``untile7`` or
+    ``_merge_streams2``) and the frame's grid its rounding, its density
+    ``_stab_density`` of the old chain's rgba, bit for bit."""
+    from dxrvoxelizer_tpu_torch.parallel import raystab_shard as rs
+
+    v, nr, t = (torch.from_numpy(np.asarray(a)) for a in icosphere_mesh(2))
+    t = t.long()
+    n = 32
+    build = rt.build_raystab_accel7 if gen == 7 else rf.build_raystab_accel2
+    accel = build(v, t, nr, n=n)
+    if gen == 7:
+        _, old = rt.untile7(accel, rt._fold7(accel, rf.INSIDE_THRESHOLD,
+                                             "backface", True))
+    else:
+        old = rf._merge_streams2(accel, rf._stream_outs2(
+            accel, rf.INSIDE_THRESHOLD, "backface")).reshape(n, n, n, 4)
+    for world in (1, 2):
+        gathered = torch.cat([rs.stream_piece(accel, world, r,
+                                              rf.INSIDE_THRESHOLD, "backface")
+                              for r in range(world)])
+        occ, rgba = rs.merge_pieces(accel, gathered, world)
+        assert np.array_equal(_bits(rgba.numpy()), _bits(old.numpy()))
+        assert torch.equal(occ, old[..., 3] != 0.0)
+        grid = rs.merge_pieces(accel, gathered, world, grid=True)
+        assert grid[1] is None
+        assert np.array_equal(_bits(grid[0].numpy()),
+                              _bits(quantize_r10g10b10a2(old).numpy()))
+        assert torch.equal(rs._grid_density(grid), rs._stab_density(old))

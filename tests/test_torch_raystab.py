@@ -287,13 +287,15 @@ def test_compact_build_matches_jax_python_path(monkeypatch, name):
 @pytest.mark.parametrize("name", ["icosphere2_32", "near_origin32"])
 def test_candidate_rows_match_jax_fused_matrix(name):
     """The assembled rows are gathers of the port's fused matrix, which is
-    JAX's ``_fused_coef_matrix`` run op by op, bit for bit."""
+    JAX's ``_fused_coef_matrix`` run op by op, bit for bit, and so is X.9's
+    mirror (its kernel's order of roundings)."""
     v, nr, t = _port(name)
     n = CASES[name][1]
     jv, jn, jt = _jax(name)
     with jax.disable_jit():
         want = np.asarray(jrf._fused_coef_matrix(jv, jt, jn))
     assert _same(rf._fused_coef_matrix(v, t, nr).numpy(), want)
+    assert _same(rf.fused_rows_mirror(v.numpy(), t.numpy(), nr.numpy()), want)
     compact = rf.build_raystab_compact2(v, t, n)
     accel = rf.assemble_raystab_accel2(compact, v, t, nr)
     if accel.main is not None:

@@ -17,6 +17,7 @@ import dataclasses
 import importlib.util
 from dataclasses import dataclass
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -564,3 +565,28 @@ def grid_channels(n: int, seed: int, live: float = 0.7,
         g[-1, -1, -1] = 0x80000000
         out["gate"] = g.astype(np.uint32).view(np.int32)
     return out
+
+
+def packed_outs(outs: dict) -> dict:
+    """Each strip stream's (t, id, ns) as the sharded frames gather them:
+    one [S, 128, 6] tensor (t, the id's bits, ns), handed back as the
+    strided views X.10 reads in place."""
+    g = {k: torch.cat([t[..., None], i.view(torch.float32)[..., None], ns], -1)
+         for k, (t, i, ns) in outs.items()}
+    return {k: (x[..., 0], x[..., 1].view(torch.int32), x[..., 2:])
+            for k, x in g.items()}
+
+
+def grid_order_streams(src: torch.Tensor, n: int):
+    """Channels [n^3, 4] in grid order as X.10's input -> (accel, outs): a
+    stand-in gen-6 accel whose ray -> slot map is the identity and a main
+    stream [n^3 / 128, 128] of those channels (t 0, id 0), so that X.10
+    gives what X.6's grid-order plain version gives from ``src``."""
+    dev, v = src.device, n ** 3
+    ray = torch.arange(v, device=dev)
+    accel = SimpleNamespace(n=n, device=dev, ray_slot=ray.to(torch.int32),
+                            slot_ray=ray)
+    rows = (v // 128, 128)
+    return accel, {"main": (torch.zeros(rows, device=dev),
+                            torch.zeros(rows, dtype=torch.int32, device=dev),
+                            src.reshape(*rows, 4))}
