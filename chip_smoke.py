@@ -227,13 +227,18 @@ the CUDA toolkit. Phases, one line each:
     with == (NaN at the same places) and bit for bit on those frames'
     grids, accels, densities and lights, on the tie set of
     ``tests/torch_cases.quantize_cases``, with the rounding off, X.8 in all
-    six (axis, flip) pairs and on a strided density, X.9 at B's refit
-    (int64 and int32 triangles) and on the 64^3 icosphere, X.10 on the
+    six (axis, flip) pairs and on a strided density, and again at sizes
+    8, 13, 40, 64 and 256 on a contiguous density, the strided alpha and a
+    density one float off a 16-byte boundary (each of its paths), X.9 at
+    B's refit (int64 and int32 triangles) and on the 64^3 and 256^3
+    icospheres, X.10 on the
     64^3 icosphere's gen-6 accel and on it with the near-origin soup (both
     streams), gated, on the sharded frames' packed pieces and without the
     near-origin stream; at each path's inputs each kernel's ms, device us,
     bound, plain ms and launches a frame, and for X.8 the time of
-    ``torch.stack(...).contiguous()``;
+    ``torch.stack(...).contiguous()``; X.8 by marching axis at 64^3 and
+    256^3 (device us, bound, share, the stack call's device us), X.9 at
+    B's refit and on the 256^3 icosphere by index width;
 23. the benchmark's cells (``BENCHMARK.json``), each as a subprocess,
     ``python3 benchmark/run.py --workload <cell> --seed 0 --frames 20``:
     each must exit 0 with ``correct`` true, every metric the file lists for
@@ -2028,6 +2033,8 @@ GLUE_FRAMES = 3
 # products of rgb by the bit. X.7 and X.8 do none (shifts and copies)
 UNTILE_ROUND_OPS = 12
 UNTILE_GATE_OPS = 3
+# X.8 held at the mip sizes, sizes off its tiles and the frames' sizes
+SLAB_SIZES = (8, 13, 40, GRID, 132, GRID_HI)
 
 
 def untile_bound(n: int, src_bytes: int, quantize: bool, gated: bool,
@@ -2091,7 +2098,10 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
        light in all six (axis, flip) pairs, the frame's own pair among
        them, and on a strided density (an rgba grid's alpha); X.9 at B's
        refit (the 100,000-triangle torus, int64 and int32 triangles) and on
-       the 64^3 icosphere; X.10 on the 64^3 icosphere's gen-6 accel and on
+       the 64^3 and 256^3 icosphere; X.8 again at sizes 8, 13, 40, 64 and
+       256 in all six (axis, flip) on a contiguous density, the strided
+       alpha of an rgba grid and a density one float off a 16-byte boundary
+       (each path of the kernel); X.10 on the 64^3 icosphere's gen-6 accel and on
        it with the near-origin soup (both streams), rounded and not, gated
        by the 64^3 parity words, on strided views of the sharded frames'
        packed pieces and without the near-origin stream, and the tie set in
@@ -2101,8 +2111,14 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
        bound, plain ms and device us, launches a frame, and for X.8 the one
        PyTorch call that computes it (``torch.stack(...).contiguous()`` of
        the slab-order views).
+    d. X.8 by marching axis at 64^3 and 256^3 (seeded volumes, no flip):
+       device us, bound and share, and the stack call's device us; X.9 at
+       B's refit and on the 256^3 icosphere (327,680 triangles), int64 and
+       int32 triangles (the refitters hand it their int32 copy): device us,
+       bound and share.
 
-    ``state``: the 64^3 icosphere's configuration, buffers and constants,
+    ``state``: the 64^3 and 256^3 icospheres' configurations, buffers and
+    constants,
     the near-origin soup and the test cases. Returns the cells' and the
     64^3 frame's launches (main paths), and for the result line each
     kernel's largest error, ms and plain ms, bound and library ms: X.6 and
@@ -2195,7 +2211,8 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
         _, seen = r.rerun(pipe, k_, consts)
         if pipe._refitter is not None:  # the refit's inputs of that frame
             m = r.mesh_at(k_)
-            rows_in[c] = (m.positions_norm, pipe._refitter.tris, m.normals)
+            # the refitter's own int32 copy, as every deforming frame
+            rows_in[c] = (m.positions_norm, pipe._refitter._tris32, m.normals)
         cells[c] = (r, consts, seen["grid"], seen.get("accel"), counts[c])
     # the app's 64^3 -inside raystab frame (gen-6: X.10)
     cfg64, mb, consts64 = state["64"]
@@ -2280,10 +2297,13 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
                 bound(n ** 3 // 8 + 4 * n ** 3, 0))
 
     # X.9 at B's refit and on the 64^3 icosphere (int64 and int32 triangles)
+    mb7 = state["256"][1]
+    rows_in[f"{GRID_HI}^3 icosphere"] = (mb7.positions_norm, mb7.tris,
+                                         mb7.normals)
     for c, (v_, t_, n_) in [*rows_in.items(), (f"{GRID}^3 icosphere", (
             mb.positions_norm, mb.tris, mb.normals))]:
-        want = rsf._fused_coef_matrix(v_, t_, n_)
-        for tt in (t_, t_.to(torch.int32)):
+        want = rsf._fused_coef_matrix(v_, t_.to(torch.int64), n_)
+        for tt in (t_.to(torch.int64), t_.to(torch.int32)):
             held("refit_rows", f"{c} {str(tt.dtype)[6:]} triangles",
                  rsf.fused_coef_matrix(v_, tt, n_), want)
         if c in cells:
@@ -2364,6 +2384,22 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
             p_ = gc.untile(ch, n_t, gate=g, quantize=q, use_kernel=False)
             held("grid_merge", f"tie set grid order{label}", k_,
                  (p_[0], p_[1], p_[0][..., 3]))
+    # X.8 at every size of SLAB_SIZES on each of its paths' inputs
+    for n in SLAB_SIZES:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        rgba = torch.rand((n, n, n, 4), generator=gen, device=dev)
+        light = torch.rand((n, n, n), generator=gen, device=dev)
+        shifted = torch.rand(n ** 3 + 1, generator=gen, device=dev)[1:].view(
+            n, n, n)
+        for form, dens in (("contiguous", rgba[..., 3].contiguous()),
+                           ("strided alpha", rgba[..., 3]),
+                           ("off by a float", shifted)):
+            for a in range(3):
+                for f in (False, True):
+                    held("grid_slabs", f"{n}^3 {form} ({a}, {int(f)})",
+                         gc.slabs(dens, light, a, f),
+                         gc.slabs_plain(dens, light, a, f))
+        del rgba, light, shifted
     print(f"phase 22c the glue kernels against their plain versions (== with "
           f"NaN at the same places; max|err| {errs}, bits that differ "
           f"{bit_diffs}): " + "; ".join(
@@ -2399,6 +2435,40 @@ def phase22c(torch, kernels, card, dev, state) -> dict:
             out_ms[name] = (ms, plain_ms)
             out_bound[name] = bnd
             out_lib[name] = lib_ms
+
+    # ---- 22c-d. X.8 by axis at 64^3 and 256^3; X.9 by mesh and width -----
+    for n in (GRID, GRID_HI):
+        gen = torch.Generator(device=dev).manual_seed(21 + n)
+        dens = torch.rand((n, n, n), generator=gen, device=dev)
+        light = torch.rand((n, n, n), generator=gen, device=dev)
+        bnd = bound(16 * n ** 3, 0)
+        for a in range(3):
+            views = [rw._to_slab_order(v, rw.perm_for_axis(a), False)
+                     for v in (dens, light)]
+            fn = lambda d=dens, lt=light, a=a: gc.slabs(d, lt, a, False)  # noqa: E731
+            lib = lambda v=views: torch.stack(v).contiguous()  # noqa: E731
+            us = device_us(fn) or device_us(fn)
+            lib_us = device_us(lib) or device_us(lib)
+            path = gc.slab_path(0, gc._slab_strides(dens, a), n)
+            dev_text = (f"{us:.2f} us device, share {bnd[0] / (us / 1e3):.4f}"
+                        if us else "device us not measured")
+            print(f"phase 22c X.8 {n}^3 axis {a} (path {path}): "
+                  f"{cuda_ms(fn):.4f} ms, {dev_text}; bound {bnd[0]:.6f} ms "
+                  f"({bnd[1]}); library torch.stack(...).contiguous() "
+                  f"{cuda_ms(lib):.4f} ms, {lib_us:.2f} us device; {card}")
+        del dens, light
+    for c, (v_, t_, n_) in rows_in.items():
+        yard = refit_rows_bound(v_, t_.to(torch.int64), n_)
+        for tt in (t_.to(torch.int64), t_.to(torch.int32)):
+            fn = lambda a=(v_, tt, n_): rsf.fused_coef_matrix(*a)  # noqa: E731
+            us = device_us(fn) or device_us(fn)
+            bnd = refit_rows_bound(v_, tt, n_)
+            dev_text = (f"{us:.2f} us device, share {bnd[0] / (us / 1e3):.4f} "
+                        f"({yard[0] / (us / 1e3):.4f} of the int64 bound)"
+                        if us else "device us not measured")
+            print(f"phase 22c X.9 {c} ({int(t_.shape[0]):,} triangles), "
+                  f"{str(tt.dtype)[6:]} triangles: {cuda_ms(fn):.4f} ms, "
+                  f"{dev_text}; bound {bnd[0]:.6f} ms ({bnd[1]}); {card}")
     print(f"phase 22c took {time.perf_counter() - t_start:.1f} s")
     extra = {c: sorted(glue[k].symbol for k in glue if counts[c][k])
              for c in cells}
@@ -4071,7 +4141,8 @@ def main(argv=None) -> int:
 
     # ---- 22c. the grid glue's kernels -----------------------------------
     p22c = phase22c(torch, kernels, card, dev, {
-        "64": (cfg, mb, consts), "near": near, "cases": cases})
+        "64": (cfg, mb, consts), "256": (cfg_hi, mb7, consts7), "near": near,
+        "cases": cases})
     for k, c in p22c["launches"].items():
         main_launches[k] += c
     errs.update(p22c["errs"])

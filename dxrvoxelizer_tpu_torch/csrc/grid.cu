@@ -79,28 +79,55 @@
 //   lane's; the same ballot, rounding and stores.
 // - X.7: a thread writes four voxels as one 16-byte store; eight threads
 //   share a word.
-// - X.8: the stack is a transpose when the marching axis is z (the layout's
-//   minor axis becomes the slab index): 32x32 (k, y) tiles staged through
-//   shared memory (a padded row: no bank conflicts), loaded along whichever
-//   of k and y is the input's minor axis and stored along y, the output's
-//   minor axis, so both sides are coalesced for every axis. A block takes
-//   the tiles of two slabs x and issues all its loads (8 a thread, into
-//   registers, predicated) before its first store, so that each SM keeps
-//   enough bytes in flight: a block's life is one round trip to memory and
-//   a barrier. The inputs come with their strides: a strided density
-//   (rgba[..., 3] of a grid no kernel wrote) is read in place, without a
-//   copy. Edges of grids that are not a multiple of 32 (mip levels) are
-//   masked.
+// - X.8: with the layout [x, y, z] (z minor) the stack is a
+//   true transpose only when the marching axis is z. Along x and y, the
+//   slab's y is z, the minor axis of both sides, so the stack copies whole
+//   contiguous rows in a permuted (under `flip`, reversed) order. Each
+//   channel takes its own path, chosen on the host from its strides and
+//   alignment (a block's channel is blockIdx.y, so the choice is uniform in
+//   a block):
+//   - rows (the input's y stride below its marching stride): no shared
+//     memory and no barrier. A thread takes kSlabItems quads (4 voxels
+//     along y) of the output in order, consecutive lanes on consecutive 16
+//     bytes, issues all their 16-byte loads, then their 16-byte stores.
+//     A strided density (rgba[..., 3], read in place) or a grid whose n is
+//     not a multiple of 4 takes single voxels instead, consecutive lanes on
+//     consecutive y: the loads then read the rgba's whole sectors, which
+//     the strided view needs anyway, and the stores stay coalesced.
+//   - transpose (the marching stride below y's): 32x32 (k, y) tiles of
+//     kSlabTileX slabs x a block. Each thread loads one 16-byte quad along
+//     k a slab, all before the first shared store; the tile rows are
+//     padded to 33 floats, so neither the column writes nor the row reads
+//     conflict on a bank; after one barrier each thread stores one 16-byte
+//     quad along y a slab. A strided density, or n % 4 != 0, moves single
+//     voxels both ways, consecutive lanes on consecutive k, then y. A block keeps 16 bytes a thread a slab
+//     in flight, and the SM's other blocks load while it stores.
+//   The constants are a sweep's (scripts/glue_turns.py against copies of
+//   this source): one, four or eight quads a thread, 64x64 tiles (too few
+//   blocks at 64^3), one or four slabs a block, a tile in dynamic shared
+//   memory asked for only by transposed launches, and a persistent block
+//   that loads its next tile into registers before storing this one
+//   measured no faster, or slower. So did a transpose pipelined through
+//   cp.async: two or three stages of 32x32 tiles of four slabs (or 64 or
+//   128 y by 32 k), 16-byte units swizzled by y, a 4x4 quad block a thread
+//   transposed in registers, a block walking 2-8 stage tiles along x: 0.3-
+//   2 % slower at 256^3, 20 % at 64^3, and its registers, shared by the
+//   rows path in this one kernel, slowed the rows by 12-17 %.
+//   Edges of grids that are not a multiple of the tile (mip levels) are
+//   masked; a quad is wholly in or out (n % 4 == 0 on the 16-byte paths).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 32;  // X.8's (k, y) tile
-constexpr int kRows = 8;   // X.8's threads along the tile's rows
-constexpr int kSlabX = 2;  // X.8's slabs x a block
+constexpr int kSlabItems = 2;   // X.8 rows: quads (or voxels) a thread
+constexpr int kSlabTileK = 32;  // X.8 transpose: the tile's k rows
+constexpr int kSlabTileY = 32;  // X.8 transpose: the tile's y columns
+constexpr int kSlabTileX = 2;   // X.8 transpose: slabs x a block
 
 // The reciprocals PyTorch's CUDA division by a Python scalar multiplies by.
 constexpr float kInv1023 = 1.0f / 1023.0f;
@@ -246,58 +273,215 @@ struct SlabSrc {
   long long sx, sy, sk;
 };
 
-// Block (kTile, kRows); grid (y tiles, k tiles, 2 ceil(n / kSlabX)):
-// blockIdx.z = the x group * 2 + the channel (0 density, 1 light), a block
-// kSlabX slabs x0.. of one channel. out[c][k][x][y] = vol_c at slab x, y
-// and marching index k (n - 1 - k when flipped).
-__global__ void __launch_bounds__(kTile * kRows)
-grid_slabs_kernel(const SlabSrc dens, const SlabSrc light,
-                  float* __restrict__ out, int n, int flip) {
-  __shared__ float tile[kSlabX][kTile][kTile + 1];  // [x][k][y]
-  constexpr int kR = kTile / kRows;  // a thread's rows of a tile
-  const int ch = blockIdx.z & 1;
-  const long long x0 = static_cast<long long>(blockIdx.z >> 1) * kSlabX;
-  const SlabSrc s = ch ? light : dens;
-  const int y0 = blockIdx.x * kTile, k0 = blockIdx.y * kTile;
-  const bool along_k = s.sk < s.sy;  // load along the input's minor axis
-  // every load of the block's tiles in flight before the first store
-  float v[kSlabX][kR];
+// A channel's path (slab_path): rows or the transpose, each of 16-byte
+// quads or of single voxels.
+enum SlabPath : int {
+  kRowsQuad = 0,
+  kRowsVoxel = 1,
+  kTransQuad = 2,
+  kTransVoxel = 3,
+};
+
+// Rows: the channel's output [n, n, n] (k, x, y) as items in order (a quad
+// of 4 y, or one voxel), kSlabItems a thread, consecutive lanes on
+// consecutive items; item i is voxel row i / per_row (= k n + x) at y
+// (i % per_row) * width. The quotients are (i + 0.5) times the float64
+// reciprocal, truncated: exact for i < 2^32 and divisors below 2^11 (the
+// error, under 2^-20, stays below the 0.5 / d margin), and a few
+// instructions where an integer division by a variable takes some twenty.
+__device__ __forceinline__ unsigned slab_quot(unsigned i, double inv) {
+  return static_cast<unsigned>((static_cast<double>(i) + 0.5) * inv);
+}
+
+template <bool kQuad>
+__device__ __forceinline__ void slab_rows(const SlabSrc& s,
+                                          float* __restrict__ out, int n,
+                                          int flip, unsigned blk,
+                                          double inv_n) {
+  const unsigned un = n;
+  const unsigned per_row = kQuad ? un >> 2 : un;
+  const double inv_row = kQuad ? 4.0 * inv_n : inv_n;
+  const unsigned items = un * un * per_row;
+  const unsigned first = blk * (kThreads * kSlabItems) + threadIdx.x;
+  using V = typename std::conditional<kQuad, float4, float>::type;
+  V v[kSlabItems];
 #pragma unroll
-  for (int xi = 0; xi < kSlabX; ++xi) {
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int yl = along_k ? threadIdx.y + r * kRows : threadIdx.x;
-      const int kl = along_k ? threadIdx.x : threadIdx.y + r * kRows;
-      const int y = y0 + yl, k = k0 + kl;
-      const long long x = x0 + xi;
-      const long long kk = flip ? n - 1 - k : k;
-      v[xi][r] = (x < n && y < n && k < n)
-                     ? __ldg(s.p + x * s.sx + y * s.sy + kk * s.sk)
-                     : 0.0f;
+  for (int j = 0; j < kSlabItems; ++j) {
+    const unsigned i = first + j * kThreads;
+    if (i < items) {
+      const unsigned row = slab_quot(i, inv_row);
+      const unsigned y = (i - row * per_row) * (kQuad ? 4 : 1);
+      const unsigned k = slab_quot(row, inv_n);
+      const unsigned x = row - k * un;
+      const unsigned kk = flip ? un - 1 - k : k;
+      const float* src = s.p + x * s.sx + y * s.sy + kk * s.sk;
+      v[j] = __ldg(reinterpret_cast<const V*>(src));
     }
   }
 #pragma unroll
-  for (int xi = 0; xi < kSlabX; ++xi) {
+  for (int j = 0; j < kSlabItems; ++j) {
+    const unsigned i = first + j * kThreads;
+    if (i < items) reinterpret_cast<V*>(out)[i] = v[j];
+  }
+}
+
+// X.8's transpose tile: [x][k][y], rows padded by a float (32 x 32: no
+// bank conflict on the column writes or the row reads).
+using SlabTile = float[kSlabTileX][kSlabTileK][kSlabTileY + 1];
+
+// Transpose: block blk's (k, y) tile of kSlabTileX slabs x. The tile holds
+// input k rows kb.. (kb = k0, or n - k0 - kSlabTileK when flipped: output
+// row kl reads tile row kSlabTileK - 1 - kl).
+template <bool kQuad>
+__device__ __forceinline__ void slab_transpose(const SlabSrc& s,
+                                               float* __restrict__ out,
+                                               int n, int flip, unsigned blk,
+                                               SlabTile& tile) {
+  constexpr int TK = kSlabTileK, TY = kSlabTileY, TX = kSlabTileX;
+  const unsigned ty = (n + TY - 1) / TY, tk = (n + TK - 1) / TK;
+  const int y0 = static_cast<int>(blk % ty) * TY;
+  blk /= ty;
+  const int k0 = static_cast<int>(blk % tk) * TK;
+  const int x0 = static_cast<int>(blk / tk) * TX;
+  const int kb = flip ? n - k0 - TK : k0;
+  const int t = threadIdx.x;
+  if (kQuad) {  // lane: a quad of 4 k of a tile row y
+    constexpr int kLanes = TK / 4, kPass = kThreads / kLanes;
+    constexpr int kR = TY / kPass;
+    const int kl = (t % kLanes) * 4, k = kb + kl;
+    float4 v[TX][kR];
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int yl = along_k ? threadIdx.y + r * kRows : threadIdx.x;
-      const int kl = along_k ? threadIdx.x : threadIdx.y + r * kRows;
-      tile[xi][kl][yl] = v[xi][r];
+    for (int xi = 0; xi < TX; ++xi) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int x = x0 + xi, y = y0 + t / kLanes + kPass * r;
+        v[xi][r] = (x < n && y < n && k >= 0 && k < n)
+                       ? __ldg(reinterpret_cast<const float4*>(
+                             s.p + x * s.sx + y * s.sy + k))
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+#pragma unroll
+    for (int xi = 0; xi < TX; ++xi) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int yl = t / kLanes + kPass * r;
+        tile[xi][kl][yl] = v[xi][r].x;
+        tile[xi][kl + 1][yl] = v[xi][r].y;
+        tile[xi][kl + 2][yl] = v[xi][r].z;
+        tile[xi][kl + 3][yl] = v[xi][r].w;
+      }
+    }
+  } else {  // lane: a k of tile rows y
+    constexpr int kPass = kThreads / TK, kR = TY / kPass;
+    const int kl = t % TK, k = kb + kl;
+    float v[TX][kR];
+#pragma unroll
+    for (int xi = 0; xi < TX; ++xi) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int x = x0 + xi, y = y0 + t / TK + kPass * r;
+        v[xi][r] = (x < n && y < n && k >= 0 && k < n)
+                       ? __ldg(s.p + x * s.sx + y * s.sy + k * s.sk)
+                       : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int xi = 0; xi < TX; ++xi) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) tile[xi][kl][t / TK + kPass * r] = v[xi][r];
     }
   }
   __syncthreads();
+  if (kQuad) {  // lane: a quad of 4 y of an output row k
+    constexpr int kLanes = TY / 4, kPass = kThreads / kLanes;
+    constexpr int kR = TK / kPass;
+    const int yl = (t % kLanes) * 4, y = y0 + yl;
 #pragma unroll
-  for (int xi = 0; xi < kSlabX; ++xi) {
+    for (int xi = 0; xi < TX; ++xi) {
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int kl = threadIdx.y + r * kRows, yl = threadIdx.x;
-      const int y = y0 + yl, k = k0 + kl;
-      const long long x = x0 + xi;
-      if (x < n && y < n && k < n) {
-        out[((static_cast<long long>(ch) * n + k) * n + x) * n + y] =
-            tile[xi][kl][yl];
+      for (int r = 0; r < kR; ++r) {
+        const int kl = t / kLanes + kPass * r, k = k0 + kl, x = x0 + xi;
+        const int kt = flip ? TK - 1 - kl : kl;
+        if (x < n && y < n && k < n) {
+          const float* q = tile[xi][kt] + yl;
+          *reinterpret_cast<float4*>(
+              out + (static_cast<long long>(k) * n + x) * n + y) =
+              make_float4(q[0], q[1], q[2], q[3]);
+        }
       }
     }
+  } else {  // lane: a y of output rows k
+    constexpr int kPass = kThreads / TY, kR = TK / kPass;
+    const int yl = t % TY, y = y0 + yl;
+#pragma unroll
+    for (int xi = 0; xi < TX; ++xi) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int kl = t / TY + kPass * r, k = k0 + kl, x = x0 + xi;
+        const int kt = flip ? TK - 1 - kl : kl;
+        if (x < n && y < n && k < n) {
+          out[(static_cast<long long>(k) * n + x) * n + y] = tile[xi][kt][yl];
+        }
+      }
+    }
+  }
+}
+
+// Grid (blocks of the channel that needs most, 2): blockIdx.y the channel
+// (0 density, 1 light), each on its own path over its own blocks.
+// out[c][k][x][y] = vol_c at slab x, y and marching index k (n - 1 - k
+// when flipped).
+__global__ void __launch_bounds__(kThreads)
+grid_slabs_kernel(const SlabSrc dens, const SlabSrc light,
+                  float* __restrict__ out, int n, int flip, int path_d,
+                  int path_l, unsigned blocks_d, unsigned blocks_l,
+                  double inv_n) {
+  __shared__ SlabTile tile;  // the transpose paths'
+  const int ch = blockIdx.y;
+  const SlabSrc s = ch ? light : dens;
+  if (blockIdx.x >= (ch ? blocks_l : blocks_d)) return;
+  float* o = out + static_cast<long long>(ch) * n * n * n;
+  switch (ch ? path_l : path_d) {
+    case kRowsQuad:
+      slab_rows<true>(s, o, n, flip, blockIdx.x, inv_n);
+      break;
+    case kRowsVoxel:
+      slab_rows<false>(s, o, n, flip, blockIdx.x, inv_n);
+      break;
+    case kTransQuad:
+      slab_transpose<true>(s, o, n, flip, blockIdx.x, tile);
+      break;
+    default:
+      slab_transpose<false>(s, o, n, flip, blockIdx.x, tile);
+      break;
+  }
+}
+
+// A channel's path: rows when its y stride is below its marching stride,
+// else the transpose; 16-byte quads where n % 4 == 0 and the loaded quads
+// are contiguous (unit stride along the quad's axis) and 16-byte aligned.
+int slab_path(const SlabSrc& s, int n) {
+  const bool aligned = n % 4 == 0 && s.sx % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(s.p) % sizeof(float4) == 0;
+  if (!(s.sk < s.sy)) {
+    return aligned && s.sy == 1 && s.sk % 4 == 0 ? kRowsQuad : kRowsVoxel;
+  }
+  return aligned && s.sk == 1 && s.sy % 4 == 0 ? kTransQuad : kTransVoxel;
+}
+
+long long slab_blocks(int path, int n) {
+  switch (path) {
+    case kRowsQuad:
+    case kRowsVoxel: {
+      const long long items =
+          static_cast<long long>(n) * n * (path == kRowsQuad ? n / 4 : n);
+      return (items + kThreads * kSlabItems - 1) / (kThreads * kSlabItems);
+    }
+    default:
+      return ((n + kSlabTileY - 1) / kSlabTileY) *
+             static_cast<long long>((n + kSlabTileK - 1) / kSlabTileK) *
+             ((n + kSlabTileX - 1) / kSlabTileX);
   }
 }
 
@@ -397,15 +581,23 @@ extern "C" int dxv_grid_slabs(const void* dens, long long d_sx, long long d_sy,
                               long long l_sx, long long l_sy, long long l_sk,
                               void* out, int n, int flip, void* stream) {
   if (n <= 0) return 0;
-  const long long groups = 2LL * ((n + kSlabX - 1) / kSlabX);
-  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // 32-bit item and tile arithmetic, quotients through float64
+  // reciprocals of n and n / 4 (exact below 2^11)
+  if (n >= (1 << 11) || static_cast<long long>(n) * n * n >= (1LL << 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const SlabSrc d{static_cast<const float*>(dens), d_sx, d_sy, d_sk};
   const SlabSrc l{static_cast<const float*>(light), l_sx, l_sy, l_sk};
-  const unsigned t = static_cast<unsigned>((n + kTile - 1) / kTile);
-  grid_slabs_kernel<<<dim3(t, t, static_cast<unsigned>(groups)),
-                      dim3(kTile, kRows), 0,
+  const int path_d = slab_path(d, n), path_l = slab_path(l, n);
+  const long long blocks_d = slab_blocks(path_d, n);
+  const long long blocks_l = slab_blocks(path_l, n);
+  const long long blocks = blocks_d > blocks_l ? blocks_d : blocks_l;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  grid_slabs_kernel<<<dim3(static_cast<unsigned>(blocks), 2), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      d, l, static_cast<float*>(out), n, flip);
+      d, l, static_cast<float*>(out), n, flip, path_d, path_l,
+      static_cast<unsigned>(blocks_d), static_cast<unsigned>(blocks_l),
+      1.0 / n);
   return static_cast<int>(cudaGetLastError());
 }
 

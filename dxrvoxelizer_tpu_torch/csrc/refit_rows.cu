@@ -31,30 +31,42 @@
 // 3 indices (24 bytes as int64, 12 as int32); the vertices and normals are
 // gathered (each read once at best, 12 bytes a vertex each). The cells'
 // 100,000-triangle torus (50,000 vertices): 9.6 MB written, 2.4 MB of
-// indices, 1.2 MB of vertices and normals, 3.9 us at 3.35 TB/s.
+// indices (1.2 MB as int32), 1.2 MB of vertices and normals, 3.94 us at
+// 3.35 TB/s (3.58 us with int32 indices).
 //
-// Design: a thread a row, 256 a block. A row is 96 bytes, six 16-byte
-// stores (rows start 16-byte aligned); a warp's 32 rows are 3 KB of
-// contiguous output, whose sectors the L2 merges before they go to device
-// memory. The gathers hit the L2 (the torus' vertices and normals are 1.2
-// MB). An index outside [0, V) traps (a CUDA error, as a torch gather out
-// of range gives) before it is read through.
+// Design: for latency and store shape. At the cells' sizes a
+// launch is one wave, so its time is the chain of round trips a thread
+// waits on and the shape of its stores, not the bytes. A block of 128 rows:
+// 1. loads its rows' index triplets, one contiguous run, as 16-byte loads
+//    across the block (a 4-byte tail) into shared memory, then a barrier
+//    (`tris` must start 16-byte aligned, so every block's run does: 128
+//    triplets are 1.5 or 3 KB; staging 4-byte words throughout measured
+//    1.5-7.5 % slower on the H100, scripts/glue_turns.py);
+// 2. each thread checks its three indices (an index outside [0, V) traps,
+//    a CUDA error, as a torch gather out of range gives, before anything
+//    is read through it), then issues all 18 gathers of its vertices and
+//    normals before the first arithmetic: one round trip;
+// 3. writes its row (six float4s) into the block's 12 KB of rows in shared
+//    memory, then a barrier;
+// 4. the block writes its rows out as one contiguous run, consecutive lanes
+//    on consecutive 16 bytes: every warp store fills four 128-byte lines
+//    (a thread's own six stores at a 96-byte stride would leave each warp
+//    instruction 32 half-filled sectors over 3 KB).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // rows a block
+constexpr int kRow4 = 6;       // float4s a row (24 floats)
 constexpr float kBigId = 1073741824.0f;  // 2^30, intersect.BIG_ID
 
 struct V3 {
   float x, y, z;
 };
 
-__device__ __forceinline__ V3 load3(const float* __restrict__ p, long long i,
-                                    long long count) {
-  if (i < 0 || i >= count) __trap();
+__device__ __forceinline__ V3 load3(const float* __restrict__ p, long long i) {
   const float* q = p + 3 * i;
   return {__ldg(q), __ldg(q + 1), __ldg(q + 2)};
 }
@@ -73,10 +85,51 @@ refit_rows_kernel(const float* __restrict__ verts,
                   const float* __restrict__ normals,
                   float4* __restrict__ out, int t_count, long long n_verts,
                   long long n_normals) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t > t_count) return;
-  float4* row = out + static_cast<long long>(t) * 6;
-  if (t == t_count) {
+  __shared__ __align__(16) Index idx[kThreads * 3];
+  __shared__ float4 rows[kThreads * kRow4];
+  const int t0 = blockIdx.x * kThreads;
+  const int real = min(kThreads, t_count - t0);  // triangles of the block
+  // 1. the index triplets of the block's triangles, one contiguous run
+  if (real > 0) {
+    const int words = real * 3 * static_cast<int>(sizeof(Index)) / 4;
+    const unsigned* src = reinterpret_cast<const unsigned*>(tris + 3LL * t0);
+    unsigned* dst = reinterpret_cast<unsigned*>(idx);
+    const int units = words / 4;
+    for (int u = threadIdx.x; u < units; u += kThreads) {
+      reinterpret_cast<uint4*>(dst)[u] =
+          __ldg(reinterpret_cast<const uint4*>(src) + u);
+    }
+    for (int w = units * 4 + threadIdx.x; w < words; w += kThreads) {
+      dst[w] = __ldg(src + w);
+    }
+  }
+  __syncthreads();
+  // 2.-3. each thread's row into shared memory
+  const int r = threadIdx.x;
+  const int t = t0 + r;
+  float4* row = rows + r * kRow4;
+  if (r < real) {
+    const long long a = static_cast<long long>(idx[3 * r]);
+    const long long b = static_cast<long long>(idx[3 * r + 1]);
+    const long long c = static_cast<long long>(idx[3 * r + 2]);
+    const long long lo = min(a, min(b, c)), hi = max(a, max(b, c));
+    if (lo < 0 || hi >= n_verts || hi >= n_normals) __trap();
+    const V3 v0 = load3(verts, a), v1 = load3(verts, b), v2 = load3(verts, c);
+    const V3 n0 = load3(normals, a), n1 = load3(normals, b),
+             n2 = load3(normals, c);
+    const V3 g0 = cross(v1, v2);
+    const V3 g1 = cross(v2, v0);
+    const V3 g2 = cross(v0, v1);
+    const float cc = __fadd_rn(
+        __fadd_rn(__fmul_rn(g0.x, v0.x), __fmul_rn(g0.y, v0.y)),
+        __fmul_rn(g0.z, v0.z));
+    row[0] = make_float4(g0.x, g0.y, g0.z, g1.x);
+    row[1] = make_float4(g1.y, g1.z, g2.x, g2.y);
+    row[2] = make_float4(g2.z, cc, static_cast<float>(t), 0.0f);
+    row[3] = make_float4(n0.x, n0.y, n0.z, n1.x);
+    row[4] = make_float4(n1.y, n1.z, n2.x, n2.y);
+    row[5] = make_float4(n2.z, 0.0f, 0.0f, 0.0f);
+  } else if (t == t_count) {  // the padding row
     const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     row[0] = z;
     row[1] = z;
@@ -84,41 +137,25 @@ refit_rows_kernel(const float* __restrict__ verts,
     row[3] = z;
     row[4] = z;
     row[5] = z;
-    return;
   }
-  const Index* tri = tris + 3 * static_cast<long long>(t);
-  const long long a = static_cast<long long>(__ldg(tri));
-  const long long b = static_cast<long long>(__ldg(tri + 1));
-  const long long c = static_cast<long long>(__ldg(tri + 2));
-  const V3 v0 = load3(verts, a, n_verts);
-  const V3 v1 = load3(verts, b, n_verts);
-  const V3 v2 = load3(verts, c, n_verts);
-  const V3 g0 = cross(v1, v2);
-  const V3 g1 = cross(v2, v0);
-  const V3 g2 = cross(v0, v1);
-  const float cc = __fadd_rn(
-      __fadd_rn(__fmul_rn(g0.x, v0.x), __fmul_rn(g0.y, v0.y)),
-      __fmul_rn(g0.z, v0.z));
-  const V3 n0 = load3(normals, a, n_normals);
-  const V3 n1 = load3(normals, b, n_normals);
-  const V3 n2 = load3(normals, c, n_normals);
-  row[0] = make_float4(g0.x, g0.y, g0.z, g1.x);
-  row[1] = make_float4(g1.y, g1.z, g2.x, g2.y);
-  row[2] = make_float4(g2.z, cc, static_cast<float>(t), 0.0f);
-  row[3] = make_float4(n0.x, n0.y, n0.z, n1.x);
-  row[4] = make_float4(n1.y, n1.z, n2.x, n2.y);
-  row[5] = make_float4(n2.z, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  // 4. the block's rows out, one contiguous run in 16-byte units
+  const int units = min(kThreads, t_count + 1 - t0) * kRow4;
+  float4* dst = out + static_cast<long long>(t0) * kRow4;
+  for (int u = threadIdx.x; u < units; u += kThreads) dst[u] = rows[u];
 }
 
 }  // namespace
 
 // verts [n_verts, 3] f32, tris [t_count, 3] (int64 when tris64, else
-// int32), normals [n_normals, 3] f32 -> out [t_count + 1, 24] f32.
+// int32; 16-byte aligned), normals [n_normals, 3] f32 -> out [t_count + 1,
+// 24] f32.
 extern "C" int dxv_refit_rows(const void* verts, const void* tris,
                               const void* normals, void* out, int t_count,
                               long long n_verts, long long n_normals,
                               int tris64, void* stream) {
-  if (t_count < 0 || t_count >= (1 << 24)) {
+  if (t_count < 0 || t_count >= (1 << 24) ||
+      reinterpret_cast<uintptr_t>(tris) % sizeof(uint4) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned blocks =
@@ -128,11 +165,11 @@ extern "C" int dxv_refit_rows(const void* verts, const void* tris,
   auto* nr = static_cast<const float*>(normals);
   auto* o = static_cast<float4*>(out);
   if (tris64) {
-    refit_rows_kernel<long long><<<blocks, kThreads, 0, st>>>(
+    refit_rows_kernel<<<blocks, kThreads, 0, st>>>(
         v, static_cast<const long long*>(tris), nr, o, t_count, n_verts,
         n_normals);
   } else {
-    refit_rows_kernel<int><<<blocks, kThreads, 0, st>>>(
+    refit_rows_kernel<<<blocks, kThreads, 0, st>>>(
         v, static_cast<const int*>(tris), nr, o, t_count, n_verts, n_normals);
   }
   return static_cast<int>(cudaGetLastError());

@@ -71,8 +71,12 @@ MERGE = _cuda.Kernel(
 )
 
 TILE = (8, 4, 4)  # the gen-7 voxel tile, x-major; lane lx * 16 + ly * 4 + lz
-SLAB_TILE, SLAB_ROWS = 32, 8  # X.8's (k, y) tile and its thread rows
-SLAB_X = 2  # X.8's slabs x a block
+SLAB_THREADS = 256  # X.8's threads a block
+SLAB_ITEMS = 2  # X.8 rows: quads (or voxels) a thread
+SLAB_TILE_K, SLAB_TILE_Y, SLAB_TILE_X = 32, 32, 2  # X.8 transpose: tile, slabs x
+# X.8's paths (csrc/grid.cu SlabPath): rows or the transpose, each of
+# 16-byte quads or of single voxels
+ROWS_QUAD, ROWS_VOXEL, TRANS_QUAD, TRANS_VOXEL = range(4)
 # the float32 reciprocals PyTorch's CUDA division by a Python scalar
 # multiplies by (csrc/grid.cu rounds with them)
 INV_1023 = np.float32(1.0) / np.float32(1023.0)
@@ -462,36 +466,120 @@ def unpack_mirror(words: np.ndarray, n: int) -> np.ndarray:
     return out.astype(np.float32).reshape(n, n, n)
 
 
+def slab_path(offset: int, strides: tuple[int, int, int], n: int) -> int:
+    """X.8's path for one channel (``csrc/grid.cu`` ``slab_path``): rows
+    when its y stride is below its marching stride, else the transpose;
+    16-byte quads where n % 4 == 0 and the loaded quads are contiguous and
+    16-byte aligned (``offset``: the volume's first element, in floats from
+    a 16-byte boundary)."""
+    sx, sy, sk = strides
+    aligned = n % 4 == 0 and sx % 4 == 0 and offset % 4 == 0
+    if not sk < sy:
+        return ROWS_QUAD if aligned and sy == 1 and sk % 4 == 0 else ROWS_VOXEL
+    return TRANS_QUAD if aligned and sk == 1 and sy % 4 == 0 else TRANS_VOXEL
+
+
+def slab_blocks(path: int, n: int) -> int:
+    """Blocks X.8 gives one channel on ``path``."""
+    if path in (ROWS_QUAD, ROWS_VOXEL):
+        items = n * n * (n // 4 if path == ROWS_QUAD else n)
+        return -(-items // (SLAB_THREADS * SLAB_ITEMS))
+    return -(-n // SLAB_TILE_Y) * -(-n // SLAB_TILE_K) * -(-n // SLAB_TILE_X)
+
+
+def _slab_quot(i: np.ndarray, inv: float) -> np.ndarray:
+    """X.8's quotient: (i + 0.5) times the float64 reciprocal, truncated."""
+    return ((i.astype(np.float64) + 0.5) * inv).astype(np.int64)
+
+
+def _slab_rows_mirror(buf, off, strides, n, flip, quad, out):
+    """X.8's rows path, thread by thread: block b, item j, lane t -> item
+    i = (b * SLAB_ITEMS + j) * SLAB_THREADS + t of the output in order, its
+    row and voxel row through the float64 reciprocals of n / 4 (or n) and
+    n (each quotient asserted exact)."""
+    sx, sy, sk = strides
+    per_row = n // 4 if quad else n
+    inv_n = 1.0 / n
+    items = n * n * per_row
+    b, j, t = np.meshgrid(np.arange(slab_blocks(
+        ROWS_QUAD if quad else ROWS_VOXEL, n)), np.arange(SLAB_ITEMS),
+        np.arange(SLAB_THREADS), indexing="ij")
+    i = ((b * SLAB_ITEMS + j) * SLAB_THREADS + t).reshape(-1)
+    i = i[i < items]
+    row = _slab_quot(i, 4.0 * inv_n if quad else inv_n)
+    y = (i - row * per_row) * (4 if quad else 1)
+    k = _slab_quot(row, inv_n)
+    x = row - k * n
+    assert (row == i // per_row).all() and (k == row // n).all()
+    kk = n - 1 - k if flip else k
+    src = off + x * sx + y * sy + kk * sk
+    if quad:  # one 16-byte load and store: 4 contiguous, aligned floats
+        assert (src % 4 == 0).all() and sy == 1
+        for e in range(4):
+            out[4 * i + e] = buf[src + e]
+    else:
+        out[i] = buf[src]
+
+
+def _slab_transpose_mirror(buf, off, strides, n, flip, path, out):
+    """X.8's transpose path, thread by thread: block b's (k, y) tile of
+    SLAB_TILE_X slabs x, loaded into the shared tile (input k rows from kb),
+    then stored from it (output row kl from tile row kl, or SLAB_TILE_K - 1
+    - kl when flipped)."""
+    sx, sy, sk = strides
+    TK, TY, TX, NT = SLAB_TILE_K, SLAB_TILE_Y, SLAB_TILE_X, SLAB_THREADS
+    blocks = slab_blocks(path, n)
+    b, t, xi = np.meshgrid(np.arange(blocks), np.arange(NT), np.arange(TX),
+                           indexing="ij")
+    ty, tk = -(-n // TY), -(-n // TK)
+    y0, k0, x0 = (b % ty) * TY, ((b // ty) % tk) * TK, (b // ty // tk) * TX
+    kb = n - k0 - TK if flip else k0
+    x = x0 + xi
+    tile = np.full((blocks, TX, TK, TY + 1), np.nan, np.float32)
+    zero = np.float32(0.0)
+    quad = path == TRANS_QUAD  # 16-byte quads both ways, else voxels
+    lanes = TK // 4 if quad else TK  # lanes along k
+    passes = NT // lanes  # tile rows y a pass
+    kl = (t % lanes) * (4 if quad else 1)
+    k = kb + kl
+    for r in range(TY // passes):
+        yl = t // lanes + passes * r
+        y = y0 + yl
+        ok = (x < n) & (y < n) & (k >= 0) & (k < n)
+        src = off + x * sx + y * sy + k * (1 if quad else sk)
+        if quad:  # one 16-byte load of 4 k
+            assert (src[ok] % 4 == 0).all() and sk == 1
+        for e in range(4 if quad else 1):
+            tile[b, xi, kl + e, yl] = np.where(ok, buf[np.where(ok, src + e, 0)],
+                                               zero)
+    lanes = TY // 4 if quad else TY  # lanes along y
+    passes = NT // lanes  # output rows k a pass
+    yl = (t % lanes) * (4 if quad else 1)
+    y = y0 + yl
+    for r in range(TK // passes):
+        kl = t // lanes + passes * r
+        k = k0 + kl
+        kt = TK - 1 - kl if flip else kl
+        ok = (x < n) & (y < n) & (k < n)
+        dst = (k * n + x) * n + y
+        if quad:  # one 16-byte store of 4 y
+            assert (dst[ok] % 4 == 0).all()
+        for e in range(4 if quad else 1):
+            out[dst[ok] + e] = tile[b[ok], xi[ok], kt[ok], yl[ok] + e]
+
+
 def slabs_mirror(vols, n: int, axis: int, flip: bool) -> np.ndarray:
     """X.8 block by block: ``vols`` = ((flat buffer, offset, (sx, sy, sk)))
-    for density and light, read through their strides; each block (the
-    tiles of SLAB_X slabs x of one channel) loads into its (k, y) tiles
-    along the input's minor axis, then stores along y -> out [2, n, n, n]
-    (NaN where no store landed)."""
-    t = -(-n // SLAB_TILE)
-    g = -(-n // SLAB_X)
-    bx, by, bz, xi, ty, tx, r = np.meshgrid(
-        np.arange(t), np.arange(t), np.arange(2 * g), np.arange(SLAB_X),
-        np.arange(SLAB_ROWS), np.arange(SLAB_TILE),
-        np.arange(0, SLAB_TILE, SLAB_ROWS), indexing="ij")
-    ch, x = bz & 1, (bz >> 1) * SLAB_X + xi
-    blk = ((bz * t + by) * t + bx) * SLAB_X + xi  # a block's tile of slab x
-    tile = np.full((2 * g * t * t * SLAB_X, SLAB_TILE, SLAB_TILE), np.nan,
-                   np.float32)
-    for c, (buf, off, (sx, sy, sk)) in enumerate(vols):
-        m = ch == c
-        along_k = sk < sy
-        yl = np.where(along_k, ty + r, tx)[m]
-        kl = np.where(along_k, tx, ty + r)[m]
-        y, k = bx[m] * SLAB_TILE + yl, by[m] * SLAB_TILE + kl
-        ok = (x[m] < n) & (y < n) & (k < n)
-        kk = np.where(flip, n - 1 - k, k)
-        src = off + x[m] * sx + y * sy + kk * sk
-        tile[blk[m][ok], kl[ok], yl[ok]] = buf[src[ok]]
-    kl, yl = ty + r, tx
-    y, k = bx * SLAB_TILE + yl, by * SLAB_TILE + kl
-    ok = (x < n) & (y < n) & (k < n)
-    out = np.full(2 * n ** 3, np.nan, np.float32)
-    dst = ((ch * n + k) * n + x) * n + y
-    out[dst[ok]] = tile[blk[ok], kl[ok], yl[ok]]
+    for density and light, each read through its strides on its own path
+    (:func:`slab_path`; the buffer starts 16-byte aligned) -> out [2, n, n,
+    n] (NaN where no store landed). A 16-byte access asserts that its 4
+    floats are contiguous and aligned."""
+    out = np.full((2, n ** 3), np.nan, np.float32)
+    for c, (buf, off, strides) in enumerate(vols):
+        path = slab_path(off, strides, n)
+        if path in (ROWS_QUAD, ROWS_VOXEL):
+            _slab_rows_mirror(buf, off, strides, n, flip, path == ROWS_QUAD,
+                              out[c])
+        else:
+            _slab_transpose_mirror(buf, off, strides, n, flip, path, out[c])
     return out.reshape(2, n, n, n)

@@ -829,8 +829,9 @@ def fused_coef_matrix(verts_norm, tris, normals, use_kernel: bool = True):
     plain version, taken on a CPU tensor or under ``use_kernel=False``): on
     a CUDA tensor one launch of X.9 (``csrc/refit_rows.cu``), bit for bit
     the plain chain. ``verts_norm`` and ``normals`` [V,3] float32
-    (another dtype raises: nothing is cast), ``tris`` [T,3] int64 or int32,
-    all contiguous."""
+    (another dtype raises: nothing is cast), ``tris`` [T,3] int64 or int32
+    whose data starts 16-byte aligned (else it raises; a whole allocation
+    does), all contiguous."""
     dev = verts_norm.device
     if not use_kernel or dev.type == "cpu":
         return _fused_coef_matrix(verts_norm, tris, normals)
@@ -844,6 +845,9 @@ def fused_coef_matrix(verts_norm, tris, normals, use_kernel: bool = True):
                   (verts_norm.shape[0], 3))
     _cuda.require(normals, "normals", torch.float32, (normals.shape[0], 3))
     _cuda.require(tris, "tris", tris.dtype, (t_count, 3))
+    if tris.data_ptr() % 16 != 0:
+        raise ValueError("tris: expected a 16-byte aligned tensor (X.9 stages "
+                         "the index runs in 16-byte units)")
     if normals.device != dev or tris.device != dev:
         raise ValueError(f"normals and tris: expected {dev}, got "
                          f"{normals.device} and {tris.device}")
@@ -859,38 +863,74 @@ def fused_coef_matrix(verts_norm, tris, normals, use_kernel: bool = True):
     return out
 
 
+ROWS_BLOCK = 128  # X.9's rows a block (csrc/refit_rows.cu kThreads)
+
+
 def fused_rows_mirror(verts: np.ndarray, tris: np.ndarray,
                       normals: np.ndarray) -> np.ndarray:
-    """X.9 thread by thread in numpy: row t's three gathers, each cross
-    component ``ay * bz - az * by`` and ``c = (g0x v0x + g0y v0y) + g0z
-    v0z`` one float32 rounding at a time in the kernel's order, its six
-    16-byte stores; the padding row last -> [T+1, 24]."""
+    """X.9 block by block in numpy -> [T+1, 24] (NaN where no store landed).
+    Each block of ROWS_BLOCK rows copies its triangles' index run into
+    shared memory as 16-byte units and a 4-byte tail (``tris`` must start
+    16-byte aligned, as the wrapper requires: else ValueError), each thread
+    checks its three indices (IndexError where the kernel traps) and
+    computes its row, each cross component ``ay * bz - az * by`` and ``c = (g0x v0x + g0y v0y) + g0z v0z`` one float32 rounding
+    at a time in the kernel's order, into the block's rows (the padding row
+    in the block that holds row T), and the block stores its rows as one
+    run of 16-byte units."""
     f = np.float32
+    if tris.dtype not in (np.int32, np.int64):
+        tris = tris.astype(np.int64)
+    tris = np.ascontiguousarray(tris)
+    if tris.ctypes.data % 16 != 0:
+        raise ValueError("tris: expected a 16-byte aligned array")
     t_count = tris.shape[0]
-    idx = tris.astype(np.int64)
-    v0, v1, v2 = (verts.astype(f)[idx[:, k]] for k in range(3))
+    words_all = tris.reshape(-1).view(np.uint32)
+    verts, normals = verts.astype(f), normals.astype(f)
+    out = np.full(((t_count + 1) * 6, 4), np.nan, f)
+    for t0 in range(0, t_count + 1, ROWS_BLOCK):
+        real = min(ROWS_BLOCK, t_count - t0)
+        smem = np.zeros(ROWS_BLOCK * 3 * tris.itemsize // 4, np.uint32)
+        if real > 0:  # 1. the index run: 16-byte units, then the tail
+            words = real * 3 * tris.itemsize // 4
+            run = words_all[t0 * 3 * tris.itemsize // 4:][:words]
+            units = words // 4
+            smem[:units * 4] = run[:units * 4]
+            smem[units * 4:words] = run[units * 4:words]
+        rows = np.full((ROWS_BLOCK * 6, 4), np.nan, f)
+        r = np.arange(max(real, 0))
+        idx = smem.view(tris.dtype).astype(np.int64)
+        a, b, c = (idx[3 * r + k] for k in range(3))
+        lo = np.minimum(a, np.minimum(b, c))
+        hi = np.maximum(a, np.maximum(b, c))
+        if ((lo < 0) | (hi >= verts.shape[0]) | (hi >= normals.shape[0])).any():
+            raise IndexError("X.9 traps: a triangle index outside [0, V)")
+        v0, v1, v2 = verts[a], verts[b], verts[c]
+        n0, n1, n2 = normals[a], normals[b], normals[c]
 
-    def cross(a, b):
-        return np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
-                         a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
-                         a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], -1)
+        def cross(p, q):
+            return np.stack([p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1],
+                             p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2],
+                             p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]], -1)
 
-    g0, g1, g2 = cross(v1, v2), cross(v2, v0), cross(v0, v1)
-    c = (g0[:, 0] * v0[:, 0] + g0[:, 1] * v0[:, 1]) + g0[:, 2] * v0[:, 2]
-    nr = [normals.astype(f)[idx[:, k]] for k in range(3)]
-    zero = np.zeros(t_count, f)
-    stores = [  # row[0..5], as the kernel's float4 stores
-        (g0[:, 0], g0[:, 1], g0[:, 2], g1[:, 0]),
-        (g1[:, 1], g1[:, 2], g2[:, 0], g2[:, 1]),
-        (g2[:, 2], c, np.arange(t_count).astype(f), zero),
-        (nr[0][:, 0], nr[0][:, 1], nr[0][:, 2], nr[1][:, 0]),
-        (nr[1][:, 1], nr[1][:, 2], nr[2][:, 0], nr[2][:, 1]),
-        (nr[2][:, 2], zero, zero, zero),
-    ]
-    out = np.zeros((t_count + 1, 6, 4), f)
-    for j, st in enumerate(stores):
-        out[:t_count, j] = np.stack(st, -1)
-    out[t_count, 2, 2] = f(intersect.BIG_ID)  # the padding row's id
+        g0, g1, g2 = cross(v1, v2), cross(v2, v0), cross(v0, v1)
+        cc = (g0[:, 0] * v0[:, 0] + g0[:, 1] * v0[:, 1]) + g0[:, 2] * v0[:, 2]
+        zero = np.zeros(r.size, f)
+        stores = [  # row[0..5], as the thread's float4 writes
+            (g0[:, 0], g0[:, 1], g0[:, 2], g1[:, 0]),
+            (g1[:, 1], g1[:, 2], g2[:, 0], g2[:, 1]),
+            (g2[:, 2], cc, (t0 + r).astype(f), zero),
+            (n0[:, 0], n0[:, 1], n0[:, 2], n1[:, 0]),
+            (n1[:, 1], n1[:, 2], n2[:, 0], n2[:, 1]),
+            (n2[:, 2], zero, zero, zero),
+        ]
+        for j, st in enumerate(stores):
+            rows[r * 6 + j] = np.stack(st, -1)
+        if 0 <= t_count - t0 < ROWS_BLOCK:  # the padding row
+            pad = (t_count - t0) * 6
+            rows[pad:pad + 6] = 0.0
+            rows[pad + 2, 2] = f(intersect.BIG_ID)
+        units = min(ROWS_BLOCK, t_count + 1 - t0) * 6  # 4. the block's run
+        out[t0 * 6:t0 * 6 + units] = rows[:units]
     return out.reshape(t_count + 1, 24)
 
 

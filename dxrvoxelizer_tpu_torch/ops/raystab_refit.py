@@ -60,6 +60,10 @@ class RaystabRefitter:
         self.n = int(n)
         self.pad = float(pad)
         self.tris = tris
+        # the rows' triangles as int32, made once: X.9 reads half the index
+        # bytes every frame (the rows are the same for either width)
+        self._tris32 = (tris.to(torch.int32) if tris.dtype == torch.int64
+                        else tris)
         self._verts_rest = verts_rest
         self._normals_rest = normals_rest
         self._pad_dirs = (None if pad_dirs is None
@@ -98,7 +102,7 @@ class RaystabRefitter:
             check_deform_contract(verts_norm, self._verts_rest, self.pad,
                                   self._pad_dirs)
         fused = fused_coef_matrix(
-            verts_norm, self.tris,
+            verts_norm, self._tris32,
             self._normals_rest if normals is None else normals)
         streams = {f: dataclasses.replace(getattr(self.rest_accel, f), rows=fused)
                    for f in self._ids}

@@ -32,12 +32,13 @@ so two trees are timed alike. Needs a CUDA card; imports no JAX.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE / "scripts"))
+from turns_common import by_path  # noqa: E402
 
 # name -> the frames: (label, icosphere subdivision, VoxelizerConfig
 # keywords, FramePipeline keywords, the app's wobble every frame)
@@ -60,17 +61,6 @@ SETS = {
          False),
     ],
 }
-
-
-def _by_path(name: str, path: Path):
-    """A module by path: an installed package named ``tests`` would shadow
-    the repository's directory of that name. Registered in ``sys.modules``
-    before it runs (its dataclasses look their module up there)."""
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _gather_alone(rf, timing, scene, consts, cfg) -> str:
@@ -114,9 +104,9 @@ def main(argv: list[str]) -> int:
 
     import dxrvoxelizer_tpu_torch
 
-    timing = _by_path("dxv_bench_timing",
+    timing = by_path("dxv_bench_timing",
                       HERE / "dxrvoxelizer_tpu_torch" / "bench.py")
-    meshes = _by_path("dxv_test_meshes", HERE / "tests" / "meshes.py")
+    meshes = by_path("dxv_test_meshes", HERE / "tests" / "meshes.py")
     pkg = Path(dxrvoxelizer_tpu_torch.__file__).resolve().parents[1]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

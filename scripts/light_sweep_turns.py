@@ -10,7 +10,8 @@ Run from the repository root:
                                          [--pairs 10] [--out FILE]
 
 TREE's ``csrc/light_sweep.cu`` alone is built with nvcc
-(:func:`parent_sweep`). At each size (default 32, 64, 128, 160 and 256): a
+(:func:`parent_sweep`, ``turns_common.build_alone``). At each size
+(default 32, 64, 128, 160 and 256): a
 seeded random density (a fifth of the voxels filled, fractional alphas)
 and the cells' light (``tests/torch_cases.cell_light``: d0 = 3 at 64^3, 12
 at 256^3, marching along the layout's minor axis; X.5: the app's default
@@ -33,11 +34,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib.util
 import json
 import math
-import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -46,27 +44,17 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(HERE))
+sys.path[:0] = [str(HERE), str(HERE / "scripts")]
+import turns_common as tc  # noqa: E402
 
 from dxrvoxelizer_tpu_torch import bench  # noqa: E402
 from dxrvoxelizer_tpu_torch.ops import _cuda  # noqa: E402
 from dxrvoxelizer_tpu_torch.ops import raymarch_warp as rw  # noqa: E402
 
 TOL = 1e-5  # the port's bar against its plain versions (chip_smoke.py)
-HBM = 3.35e12  # bytes per second, the H100 SXM's published rate
 SIZES = (32, 64, 128, 160, 256)
 PAIRS = 10
 SEED = 16
-
-
-def _by_path(name: str, path: Path):
-    """A module by path: an installed package named ``tests`` would shadow
-    the repository's directory of that name."""
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def density(n: int, seed: int = SEED) -> torch.Tensor:
@@ -104,14 +92,7 @@ def parent_sweep(tree: Path, workdir: Path):
     without the scratch word, whichever TREE has); ``call.point(dens,
     light, n)`` launches TREE's X.5 (None where TREE has none)."""
     src = tree / "dxrvoxelizer_tpu_torch" / "csrc" / "light_sweep.cu"
-    lib_path = workdir / "libparent_light_sweep.so"
-    built = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared",
-                            "-o", str(lib_path), str(src)], check=True,
-                           capture_output=True, text=True)
-    print(f"the parent's kernel built: " + " ".join(
-        line.strip() for line in (built.stdout + built.stderr).splitlines()
-        if "registers" in line or "spill" in line), flush=True)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = tc.build_alone(tree, ("light_sweep",), workdir)["light_sweep"]
     with_scratch = "void* scratch" in src.read_text()
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dxv_light_sweep.argtypes = ([P, P] + ([P] if with_scratch else [])
@@ -161,58 +142,24 @@ def parent_sweep(tree: Path, workdir: Path):
     return run
 
 
-def timed(fn, bound_ms: float, n_steps: int) -> dict:
-    ms = bench.cuda_ms(fn)
-    us = bench.device_us(fn) or bench.device_us(fn)
-    return {"ms": ms, "dev_us": us, "us_per_step": us / n_steps if us else 0.0,
-            "share": bound_ms / (us / 1e3) if us else 0.0}
-
-
-def text(t: dict) -> str:
+def text(t: dict, bound_ms: float, n_steps: int) -> str:
     if not t["dev_us"]:
         return f"{t['ms']:.4f} ms; device us not measured"
     return (f"{t['ms']:.4f} ms, {t['dev_us']:.2f} us device, "
-            f"{t['us_per_step']:.3f} us a step, share {t['share']:.4f}")
+            f"{t['dev_us'] / n_steps:.3f} us a step, share "
+            f"{bound_ms / (t['dev_us'] / 1e3):.4f}")
 
 
 def pairs_in_turns(parent, change, bound_ms: float, n_steps: int,
                    pairs: int = PAIRS) -> dict:
-    """``pairs`` pairs of :func:`timed`, the parent first in even pairs and
-    the change first in odd ones -> each side's runs, the pairs the change
-    won (lower device us; a pair with a side not measured counts for
-    neither), and the summary line."""
-    runs = {"parent": [], "change": []}
-    wins = measured = 0
-    for i in range(pairs):
-        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
-        got = {}
-        for who in order:
-            got[who] = timed(parent if who == "parent" else change,
-                             bound_ms, n_steps)
-            runs[who].append(got[who])
-        if got["parent"]["dev_us"] and got["change"]["dev_us"]:
-            measured += 1
-            wins += got["change"]["dev_us"] < got["parent"]["dev_us"]
-
-    def side(who):
-        us = [t["dev_us"] for t in runs[who] if t["dev_us"]]
-        ms = [t["ms"] for t in runs[who]]
-        if not us:
-            return (f"{who} ms {min(ms):.4f}-{max(ms):.4f}; device us not "
-                    f"measured")
-        med = statistics.median(us)
-        q1, _, q3 = (statistics.quantiles(us, n=4) if len(us) > 1
-                     else (us[0], us[0], us[0]))
-        return (f"{who} ms {min(ms):.4f}-{max(ms):.4f}, device us "
-                f"{min(us):.2f}-{max(us):.2f} (median {med:.2f}, "
-                f"interquartile range {q3 - q1:.2f}, "
-                f"{med / n_steps:.3f} a step, share "
-                f"{bound_ms / (med / 1e3):.4f})")
-
-    line = (f"{pairs} pairs, the first side alternating: {side('parent')}; "
-            f"{side('change')}; the change faster in {wins} of {measured} "
-            f"pairs measured")
-    return {"runs": runs, "wins": wins, "measured": measured, "line": line}
+    """``pairs`` pairs of timings, the parent first in even pairs and the
+    change first in odd ones (``turns_common.rounds``) -> each side's runs,
+    the pairs the change won (lower device us; a pair with a side not
+    measured counts for neither), and the summary line."""
+    res = tc.rounds({"parent": parent, "change": change}, bound_ms, pairs,
+                    n_steps)
+    return {**res, "wins": res["wins"]["parent"],
+            "measured": res["measured"]["parent"]}
 
 
 def main(argv=None) -> int:
@@ -235,7 +182,8 @@ def main(argv=None) -> int:
     print("\n".join(" ".join(lines[i:i + 4]) for i, line in
                     enumerate(lines) if "Compiling entry" in line
                     and "light_sweep" in line), flush=True)
-    cases = _by_path("dxv_test_torch_cases", HERE / "tests" / "torch_cases.py")
+    cases = tc.by_path("dxv_test_torch_cases",
+                       HERE / "tests" / "torch_cases.py")
     light = cases.cell_light("dragon-64-hq")
     parent = parent_sweep(args.parent.resolve(),
                           Path(tempfile.mkdtemp(prefix="dxv_parent_")))
@@ -248,7 +196,7 @@ def main(argv=None) -> int:
                 continue
             axis, flip, d0 = statics(ref, light, n)
             n_steps = -(-n // d0) if ref else n
-            bound_ms = n ** 3 * 8 / HBM * 1e3
+            bound_ms = n ** 3 * 8 / tc.HBM * 1e3
             want = call(ref, dens, light, n, use_kernel=False)
             errs = {who: float((f() - want).abs().max()) for who, f in (
                 ("change", lambda: call(ref, dens, light, n)),
@@ -270,7 +218,7 @@ def main(argv=None) -> int:
             continue
         pl = cases.point_light(2, -1.0, "far", n)
         axis, flip, _ = rw.point_light_statics(np.asarray(pl, np.float32), n)
-        bound_ms = n ** 3 * 8 / HBM * 1e3
+        bound_ms = n ** 3 * 8 / tc.HBM * 1e3
         want = point_call(dens, pl, n, use_kernel=False)
         sides = {"change": lambda: point_call(dens, pl, n)}
         if parent.point is not None:
@@ -280,8 +228,8 @@ def main(argv=None) -> int:
         worst = max(worst, *errs.values())
         if parent.point is None:
             res = {"line": f"no parent kernel ({args.parent} has no X.5); "
-                           f"this tree's " + text(timed(sides["change"],
-                                                        bound_ms, n)),
+                           f"this tree's " + text(tc.timed(sides["change"]),
+                                                  bound_ms, n),
                    "wins": 0, "measured": 0, "runs": {}}
         else:
             res = pairs_in_turns(sides["parent"], sides["change"], bound_ms,

@@ -21,22 +21,13 @@ card; imports no JAX.
 
 from __future__ import annotations
 
-import importlib.util
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-
-
-def _by_path(name: str, path: Path):
-    """A module by path: an installed package named ``tests`` would shadow
-    the repository's directory of that name."""
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod  # dataclasses look their module up there
-    spec.loader.exec_module(mod)
-    return mod
+sys.path.insert(0, str(HERE / "scripts"))
+from turns_common import by_path  # noqa: E402
 
 
 def main(argv: list[str]) -> int:
@@ -44,9 +35,9 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(tree))
     import torch
 
-    timing = _by_path("dxv_bench_timing",
+    timing = by_path("dxv_bench_timing",
                       HERE / "dxrvoxelizer_tpu_torch" / "bench.py")
-    meshes = _by_path("dxv_test_meshes", HERE / "tests" / "meshes.py")
+    meshes = by_path("dxv_test_meshes", HERE / "tests" / "meshes.py")
     if not torch.cuda.is_available():
         print("static_fold_turns: needs a CUDA card", file=sys.stderr)
         return 1

@@ -1055,16 +1055,21 @@ def test_grid_unpack_bit_identical_to_plain(dev, n):
     _held_equal((got,), (gc.unpack_density_plain(w, n),))
 
 
-@pytest.mark.parametrize("n", [8, 13, 40, 64, 256])
+@pytest.mark.parametrize("n", [8, 13, 40, 64, 132, 256])
 def test_grid_slabs_bit_identical_to_plain(dev, n):
-    """X.8 in all six (axis, flip) pairs on contiguous volumes and on a
-    strided density (an rgba grid's alpha)."""
+    """X.8 in all six (axis, flip) pairs on contiguous volumes (rows of
+    16-byte quads for axes 0 and 1, the tile transpose for axis 2, its last
+    tiles cut at 132^3; single voxels where n % 4 != 0), on a strided
+    density (an rgba grid's alpha) and on a density one float past a
+    16-byte boundary (the voxel paths)."""
     from dxrvoxelizer_tpu_torch.ops import grid_cuda as gc
 
     gen = torch.Generator(device=dev).manual_seed(n)
     rgba = torch.rand((n, n, n, 4), generator=gen, device=dev)
     light = torch.rand((n, n, n), generator=gen, device=dev)
-    for dens in (rgba[..., 3].contiguous(), rgba[..., 3]):
+    shifted = torch.rand(n ** 3 + 1, generator=gen, device=dev)[1:].view(
+        n, n, n)
+    for dens in (rgba[..., 3].contiguous(), rgba[..., 3], shifted):
         for axis in range(3):
             for flip in (False, True):
                 before = gc.SLABS.launches
@@ -1111,6 +1116,34 @@ def test_refit_rows_bit_identical_to_plain(dev, mesh):
     for bad in ((v.double(), t, nr), (v, t, nr.double())):
         with pytest.raises(ValueError, match="float32"):
             raystab_fast.fused_coef_matrix(*bad)
+
+
+@pytest.mark.parametrize("t_count", [0, 1, 127, 255, 256, 257, 700])
+def test_refit_rows_blocks_and_tails(dev, t_count):
+    """X.9 where T + 1 rows fill the last block of 128 (127, 255) or leave a
+    remainder, and with no triangle (the padding row alone), on int64 and
+    int32 triangles that start 16-byte aligned (16-byte index units):
+    == ``_fused_coef_matrix`` on the card, every bit; triangles that do not
+    start 16-byte aligned raise before a launch."""
+    rng = np.random.default_rng(t_count)
+    v = torch.from_numpy(rng.standard_normal((97, 3)).astype(np.float32)).to(dev)
+    nr = torch.from_numpy(rng.standard_normal((97, 3)).astype(np.float32)).to(dev)
+    t = torch.from_numpy(rng.integers(0, 97, (t_count, 3))).to(dev)
+    want = raystab_fast._fused_coef_matrix(v, t, nr)
+    for dtype in (torch.int64, torch.int32):
+        flat = torch.zeros(3 * t_count + 4, dtype=dtype, device=dev)
+        for off in (0, 1):  # the allocation is 16-byte aligned; +1 is not
+            tris = flat[off:off + 3 * t_count].view(t_count, 3)
+            tris.copy_(t)
+            before = raystab_fast.REFIT_ROWS.launches
+            if off and t_count:
+                with pytest.raises(ValueError, match="16-byte aligned"):
+                    raystab_fast.fused_coef_matrix(v, tris, nr)
+                assert raystab_fast.REFIT_ROWS.launches == before
+                continue
+            got = raystab_fast.fused_coef_matrix(v, tris, nr)
+            assert raystab_fast.REFIT_ROWS.launches == before + 1
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("mesh", ["icosphere", "box", "near_origin"])

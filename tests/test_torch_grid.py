@@ -352,15 +352,16 @@ def test_unpack_mirror_matches_plain(n):
 
 @pytest.mark.parametrize("axis,flip", AXIS_FLIP)
 def test_slabs_mirror_matches_plain_and_jax(axis, flip):
-    """X.8's mirror (blocks of (32, 8) threads over the 32x32 (k, y) tiles
-    of two slabs x, loads along the input's minor axis, stores along y,
-    masked edges)
-    against the plain stack and JAX's, bit for bit: contiguous volumes at
-    8-128^3 (mip sizes below a tile, an odd size that leaves a block one
-    slab) and a strided density (the alpha of an rgba grid, read in
-    place)."""
+    """X.8's mirror (rows of 16-byte quads, or of voxels, kSlabItems a
+    thread, when the marching axis is x or y; the 32x32 (k, y) tile of two
+    slabs x through shared memory when it is z; masked edges) against the
+    plain stack and JAX's, bit for bit: contiguous volumes at 8-128^3 (mip
+    sizes below a tile, an odd size, grids that are not a multiple of the
+    tile, the two slabs of a block or a thread's items), for axis z also
+    132^3 (quads whose last tiles are cut at every edge), and a strided
+    density (the alpha of an rgba grid, read in place)."""
     rng = np.random.default_rng(10 + axis * 2 + flip)
-    for n in (8, 13, 16, 40, 64, 128):
+    for n in (8, 13, 16, 40, 64, 128) + ((132,) if axis == 2 else ()):
         d = torch.from_numpy(rng.random((n, n, n), dtype=F32))
         lt = torch.from_numpy(rng.random((n, n, n), dtype=F32))
         vols = [(t.reshape(-1).numpy(), 0, gc._slab_strides(t, axis))
@@ -378,6 +379,62 @@ def test_slabs_mirror_matches_plain_and_jax(axis, flip):
             (lt.reshape(-1).numpy(), 0, gc._slab_strides(lt, axis))]
     assert np.array_equal(gc.slabs_mirror(vols, n, axis, flip),
                           gc.slabs_plain(dens, lt, axis, flip).numpy())
+
+
+@pytest.mark.parametrize("axis,flip", AXIS_FLIP)
+@pytest.mark.parametrize("n", [8, 13, 33, 64])
+def test_slabs_mirror_strided_and_unaligned(axis, flip, n):
+    """X.8's mirror on the inputs its 16-byte paths refuse, against the
+    plain stack and JAX's, bit for bit: the strided alpha of an rgba grid
+    as density (element stride 4) beside a contiguous light, and two
+    volumes one float past a 16-byte boundary (each a voxel path)."""
+    rng = np.random.default_rng(100 + n * 6 + axis * 2 + flip)
+    rgba = torch.from_numpy(rng.random((n, n, n, 4), dtype=F32))
+    lt = torch.from_numpy(rng.random((n, n, n), dtype=F32))
+    dens = rgba[..., 3]
+    vols = [(rgba.reshape(-1).numpy(), 3, gc._slab_strides(dens, axis)),
+            (lt.reshape(-1).numpy(), 0, gc._slab_strides(lt, axis))]
+    want = gc.slabs_plain(dens, lt, axis, flip).numpy()
+    assert np.array_equal(gc.slabs_mirror(vols, n, axis, flip), want)
+    assert np.array_equal(want, _jax_slabs(dens.numpy(), lt.numpy(), axis,
+                                           flip))
+    flat = torch.from_numpy(rng.random(2 * n ** 3 + 2, dtype=F32))
+    d1 = flat[1:1 + n ** 3].view(n, n, n)
+    l1 = flat[n ** 3 + 2:].view(n, n, n)
+    vols = [(flat.numpy(), 1, gc._slab_strides(d1, axis)),
+            (flat.numpy(), n ** 3 + 2, gc._slab_strides(l1, axis))]
+    assert np.array_equal(gc.slabs_mirror(vols, n, axis, flip),
+                          gc.slabs_plain(d1, l1, axis, flip).numpy())
+
+
+def test_slab_paths():
+    """X.8's path by layout: the marching axis x or y copies rows, z
+    transposes; 16-byte quads where n % 4 == 0 and the quads are
+    contiguous and aligned, else single voxels (the strided alpha, an
+    offset view, n = 13); the blocks each path gives a channel."""
+    want = {  # (axis, layout) -> path at n = 64, and at n = 13
+        (0, "contiguous"): (gc.ROWS_QUAD, gc.ROWS_VOXEL),
+        (1, "contiguous"): (gc.ROWS_QUAD, gc.ROWS_VOXEL),
+        (2, "contiguous"): (gc.TRANS_QUAD, gc.TRANS_VOXEL),
+        (0, "alpha"): (gc.ROWS_VOXEL, gc.ROWS_VOXEL),
+        (1, "alpha"): (gc.ROWS_VOXEL, gc.ROWS_VOXEL),
+        (2, "alpha"): (gc.TRANS_VOXEL, gc.TRANS_VOXEL),
+        (0, "offset"): (gc.ROWS_VOXEL, gc.ROWS_VOXEL),
+        (2, "offset"): (gc.TRANS_VOXEL, gc.TRANS_VOXEL),
+    }
+    for (axis, layout), paths in want.items():
+        for n, path in zip((64, 13), paths):
+            vol = torch.zeros((n, n, n, 4))[..., 3] if layout == "alpha" else (
+                torch.zeros(n ** 3 + 1)[1:].view(n, n, n)
+                if layout == "offset" else torch.zeros((n, n, n)))
+            off = vol.storage_offset() % 4
+            assert gc.slab_path(off, gc._slab_strides(vol, axis), n) == path
+    per_block = gc.SLAB_THREADS * gc.SLAB_ITEMS
+    assert gc.slab_blocks(gc.ROWS_QUAD, 256) == 256 * 256 * 64 // per_block
+    assert gc.slab_blocks(gc.ROWS_VOXEL, 13) == -(-13 ** 3 // per_block)
+    assert gc.slab_blocks(gc.TRANS_QUAD, 256) == (256 // gc.SLAB_TILE_K) * (
+        256 // gc.SLAB_TILE_Y) * (256 // gc.SLAB_TILE_X)
+    assert gc.slab_blocks(gc.TRANS_VOXEL, 13) == -(-13 // gc.SLAB_TILE_X)
 
 
 # ---- routing ---------------------------------------------------------------

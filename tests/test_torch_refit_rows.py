@@ -5,9 +5,10 @@ The kernel runs only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` phase 22c hold it against its plain version there, bit
 for bit). Here:
 
-- its numpy mirror (``raystab_fast.fused_rows_mirror``: a thread a row, each
-  product, difference and sum one float32 rounding in the kernel's order,
-  six 16-byte stores a row) against the port's ``_fused_coef_matrix`` (the
+- its numpy mirror (``raystab_fast.fused_rows_mirror``: block by block, the
+  index run staged in 16-byte units, a thread a row, each product,
+  difference and sum one float32 rounding in the kernel's order, the
+  block's rows stored as one run) against the port's ``_fused_coef_matrix`` (the
   plain version) and the JAX package's, run op by op under
   ``jax.disable_jit()`` (jitted, XLA:CPU contracts the products and sums
   into FMAs), bit for bit: the box with faces on voxel centres, the
@@ -97,6 +98,56 @@ def test_padding_row_and_an_empty_mesh():
     assert np.array_equal(_bits(plain), _bits(pad[None]))
 
 
+def _placed(a: np.ndarray, aligned: bool) -> np.ndarray:
+    """A copy of ``a`` whose data starts 16-byte aligned, or not."""
+    flat = np.empty(a.size + 16, a.dtype)
+    for k in range(16):
+        if (flat[k:].ctypes.data % 16 == 0) == aligned:
+            out = flat[k:k + a.size].reshape(a.shape)
+            out[...] = a
+            return out
+    raise AssertionError("no such placement")
+
+
+@pytest.mark.parametrize("t_count", [1, 127, 255, 256, 257, 300, 511, 700])
+def test_mirror_blocks_tails_and_widths(t_count):
+    """X.9's mirror block by block, where T + 1 rows fill the last block of
+    ROWS_BLOCK (127, 255, 511) or leave it a remainder, on int64 and int32
+    triangles that start 16-byte aligned (16-byte index units and a 4-byte
+    tail): every row stored once, == the plain chain and JAX's op by op,
+    bit for bit; triangles that do not start 16-byte aligned are refused
+    (ValueError), as the wrapper refuses them."""
+    rng = np.random.default_rng(t_count)
+    v = rng.standard_normal((97, 3)).astype(np.float32)
+    nr = rng.standard_normal((97, 3)).astype(np.float32)
+    t = rng.integers(0, 97, (t_count, 3))
+    want = rf._fused_coef_matrix(torch.from_numpy(v), torch.from_numpy(t),
+                                 torch.from_numpy(nr)).numpy()
+    with jax.disable_jit():
+        jax_rows = np.asarray(jrf._fused_coef_matrix(
+            jnp.asarray(v), jnp.asarray(t.astype(np.int32)), jnp.asarray(nr)))
+    assert np.array_equal(_bits(want), _bits(jax_rows))
+    for dtype in (np.int64, np.int32):
+        got = rf.fused_rows_mirror(v, _placed(t.astype(dtype), True), nr)
+        assert not np.isnan(got).any()
+        assert np.array_equal(_bits(got), _bits(want))
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            rf.fused_rows_mirror(v, _placed(t.astype(dtype), False), nr)
+
+
+def test_mirror_traps_on_an_index_out_of_range():
+    """An index outside [0, V) of the vertices or of the normals: the
+    kernel traps before reading through it, the mirror raises."""
+    v, nr, t = _mesh("icosphere")
+    v, nr = np.asarray(v, np.float32), np.asarray(nr, np.float32)
+    for bad, verts, normals in ((-1, v, nr), (v.shape[0], v, nr),
+                                (v.shape[0] - 1, v, nr[:-1])):
+        tt = np.array(t, np.int64)
+        tt[-1, 1] = bad
+        with pytest.raises(IndexError):
+            rf.fused_rows_mirror(verts, tt, normals)
+
+
 def _meta(t_count=10, dtype=torch.float32, tris=torch.int64):
     return (torch.empty((t_count, 3), dtype=dtype, device="meta"),
             torch.empty((t_count, 3), dtype=tris, device="meta"),
@@ -118,11 +169,12 @@ def test_cpu_and_use_kernel_false_take_the_plain_version():
     assert rf.REFIT_ROWS.launches == before
 
 
-@pytest.mark.parametrize("bad", ["float64", "int16", "triangles"])
+@pytest.mark.parametrize("bad", ["float64", "int16", "triangles",
+                                 "unaligned"])
 def test_the_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, bad):
     """Vertices and normals must be float32 (nothing is cast), triangles
-    int64 or int32, fewer than 2^24 of them; the checks run before a
-    launch."""
+    int64 or int32, fewer than 2^24 of them, starting 16-byte aligned; the
+    checks run before a launch."""
     def require(t, name, dtype, shape=None, contiguous=True):
         if t.dtype != dtype:  # the meta tensors pass as the card's
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -133,6 +185,10 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, bad):
         args, match = _meta(dtype=torch.float64), "float32"
     elif bad == "int16":
         args, match = _meta(tris=torch.int16), "int64 or int32"
+    elif bad == "unaligned":  # a view one int32 into its allocation
+        v, _, nr = _meta()
+        tris = torch.empty(31, dtype=torch.int32, device="meta")[1:]
+        args, match = (v, tris.view(10, 3), nr), "16-byte aligned"
     else:
         args, match = _meta(t_count=2 ** 24), "2\\^24"
     with pytest.raises(ValueError, match=match):
@@ -170,7 +226,7 @@ def test_refits_and_builds_call_the_wrapper(monkeypatch, gen):
     wrapper = rf.fused_coef_matrix
 
     def spy(*a, **k):
-        calls.append(a[0].shape)
+        calls.append((a[0].shape, a[1].dtype))
         return wrapper(*a, **k)
 
     for mod in (rf, raystab_refit, raystab_tiled):
@@ -183,6 +239,8 @@ def test_refits_and_builds_call_the_wrapper(monkeypatch, gen):
     assert len(calls) == 1  # the rest build
     frames = [fitter.refit(v * s, nr) for s in (1.01, 0.99)]
     assert len(calls) == 3
+    # a refit reads the int32 copy of the triangles made at construction
+    assert [c[1] for c in calls[1:]] == [torch.int32, torch.int32]
     rows = [a.main.rows for a in frames]
     assert rows[0] is not rows[1]
     for s, r in zip((1.01, 0.99), rows):
